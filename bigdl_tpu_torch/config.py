@@ -1,8 +1,10 @@
 """Knobs of the PyTorch/CUDA port, read from ``BIGDL_TORCH_*``.
 
 Counterpart of the ``ServeConfig`` section of ``bigdl_tpu/config.py``
-(the serving defaults ``LMEngine`` reads).  Constructor arguments win;
-these are the process-wide fallbacks a deployment sets once.
+(the serving defaults ``LMEngine`` reads) and of its non-finite guard
+knobs (``TrainConfig``, read by ``LocalOptimizer``).  Constructor
+arguments win; these are the process-wide fallbacks a deployment sets
+once.
 """
 
 from __future__ import annotations
@@ -75,6 +77,27 @@ class ServeConfig:
         )
 
 
+@dataclasses.dataclass
+class TrainConfig:
+    """Training-loop defaults (``bigdl_tpu_torch/optim``), the JAX
+    package's ``nonfinite_guard``/``max_nonfinite_skips``."""
+
+    # skip (keep params, optimizer and BN state) a step whose loss or a
+    # gradient is NaN or inf [BIGDL_TORCH_NONFINITE_GUARD]
+    nonfinite_guard: bool = True
+    # consecutive skipped steps before NonFiniteStepError
+    # [BIGDL_TORCH_MAX_NONFINITE_SKIPS]
+    max_nonfinite_skips: int = 10
+
+    @classmethod
+    def from_env(cls) -> "TrainConfig":
+        return cls(
+            nonfinite_guard=_env_bool("BIGDL_TORCH_NONFINITE_GUARD", True),
+            max_nonfinite_skips=_env_int("BIGDL_TORCH_MAX_NONFINITE_SKIPS",
+                                         10),
+        )
+
+
 def build_dir() -> str:
     """Where the CUDA kernels are compiled to: ``build/bigdl_tpu_torch``
     beside the package's checkout, or ``BIGDL_TORCH_BUILD_DIR``."""
@@ -95,4 +118,4 @@ def nvcc_path() -> str:
     return cand if os.path.exists(cand) else "nvcc"
 
 
-__all__ = ["ServeConfig", "build_dir", "nvcc_path"]
+__all__ = ["ServeConfig", "TrainConfig", "build_dir", "nvcc_path"]

@@ -1,9 +1,13 @@
-"""Attention ops of the PyTorch/CUDA port and their CUDA kernels
-(counterpart of ``bigdl_tpu.ops``)."""
+"""Ops of the PyTorch/CUDA port and their CUDA kernels (counterpart of
+``bigdl_tpu.ops``): attention, paged decode, and the fused conv + BN
+statistics."""
 
 from bigdl_tpu_torch.ops.attention import (dot_product_attention,
                                            flash_attention)
+from bigdl_tpu_torch.ops.conv_bn import (conv1x1_bn_stats, conv_bn_stats,
+                                         kernel_path)
 from bigdl_tpu_torch.ops.decode_attention import paged_decode_attention
 
 __all__ = ["dot_product_attention", "flash_attention",
-           "paged_decode_attention"]
+           "paged_decode_attention", "conv_bn_stats", "conv1x1_bn_stats",
+           "kernel_path"]

@@ -11,8 +11,8 @@ edited source is never served from a stale build.
 Each launch function here checks the CUDA error state right after the
 launch (the C function returns ``cudaGetLastError()``) and raises if it
 is not 0, then adds one to its entry in ``launches``.  The callers in
-``ops.attention`` and ``ops.decode_attention`` check devices, dtypes,
-shapes and contiguity before they get here.
+``ops.attention``, ``ops.decode_attention`` and ``ops.conv_bn`` check
+devices, dtypes, shapes and contiguity before they get here.
 """
 
 from __future__ import annotations
@@ -31,12 +31,15 @@ from bigdl_tpu_torch import config
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
-SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_decode": "paged_decode.cu"}
+SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_decode": "paged_decode.cu",
+           "conv_bn_1x1": "conv_bn_1x1.cu", "conv_bn_kxk": "conv_bn_kxk.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 # dtype codes shared with the C interfaces
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# output pixels per CTA of the conv_bn kernels (BN in both sources)
+CONV_BN_TILE_P = 64
 
 # kernel launches since the last reset_launches(), by kernel name
 launches: Dict[str, int] = {name: 0 for name in SOURCES}
@@ -56,6 +59,13 @@ _SIGNATURES = {
     "paged_decode": ("bigdl_paged_decode",
                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                       _I, _P]),
+    # x, w, shift, y, part, s1, s2, n, c, hw, o, dtype, stream
+    "conv_bn_1x1": ("bigdl_conv_bn_1x1",
+                    [_P] * 7 + [_I] * 5 + [_P]),
+    # x, w, shift, y, part, s1, s2, n, c, h, w, o, k, stride, pad, ho,
+    # wo, dtype, stream
+    "conv_bn_kxk": ("bigdl_conv_bn_kxk",
+                    [_P] * 7 + [_I] * 11 + [_P]),
 }
 
 
@@ -164,5 +174,47 @@ def launch_paged_decode(q, kp, vp, tables, lengths, out, *, page_size: int,
     launches["paged_decode"] += 1
 
 
+def conv_bn_tiles(pixels: int) -> int:
+    """CTAs per sample along the output pixels of a conv_bn kernel:
+    the columns of the per-CTA statistics partials."""
+    return -(-pixels // CONV_BN_TILE_P)
+
+
+def launch_conv_bn_1x1(x, w, shift, y, part, s1, s2) -> None:
+    """x (N, C, H, W), w (O, C, 1, 1) of x's dtype, shift (O,) f32,
+    y (N, O, H, W), part (2, O, N·conv_bn_tiles(H·W)) f32 scratch,
+    s1/s2 (O,) f32; all contiguous on one card, checked by the
+    caller."""
+    lib = _lib("conv_bn_1x1")
+    n, c, h, wd = x.shape
+    with torch.cuda.device(x.device):
+        code = lib.bigdl_conv_bn_1x1(
+            x.data_ptr(), w.data_ptr(), shift.data_ptr(), y.data_ptr(),
+            part.data_ptr(), s1.data_ptr(), s2.data_ptr(), n, c, h * wd,
+            w.shape[0], DTYPE_CODES[x.dtype], _stream(x))
+    _check(lib, "conv_bn_1x1", code)
+    launches["conv_bn_1x1"] += 1
+
+
+def launch_conv_bn_kxk(x, w, shift, y, part, s1, s2, *, stride: int,
+                       pad: int) -> None:
+    """x (N, C, H, W), w (O, C, k, k) of x's dtype, shift (O,) f32,
+    y (N, O, Ho, Wo), part (2, O, N·conv_bn_tiles(Ho·Wo)) f32 scratch,
+    s1/s2 (O,) f32; all contiguous on one card, checked by the
+    caller."""
+    lib = _lib("conv_bn_kxk")
+    n, c, h, wd = x.shape
+    o, _, k, _ = w.shape
+    with torch.cuda.device(x.device):
+        code = lib.bigdl_conv_bn_kxk(
+            x.data_ptr(), w.data_ptr(), shift.data_ptr(), y.data_ptr(),
+            part.data_ptr(), s1.data_ptr(), s2.data_ptr(), n, c, h, wd, o,
+            k, int(stride), int(pad), y.shape[2], y.shape[3],
+            DTYPE_CODES[x.dtype], _stream(x))
+    _check(lib, "conv_bn_kxk", code)
+    launches["conv_bn_kxk"] += 1
+
+
 __all__ = ["build", "launches", "reset_launches", "launch_flash_fwd",
-           "launch_paged_decode", "SOURCES", "CSRC"]
+           "launch_paged_decode", "launch_conv_bn_1x1", "launch_conv_bn_kxk",
+           "conv_bn_tiles", "SOURCES", "CSRC"]

@@ -1,0 +1,159 @@
+"""Fused convolution + BatchNorm statistics (1x1 and kxk).
+
+Counterpart of ``bigdl_tpu/ops/conv_bn.py``.  ``conv_bn_stats(x, w,
+shift)`` returns the convolution ``y`` and the per-channel sums
+``s1 = Σ(y − shift)`` and ``s2 = Σ(y − shift)²`` over N·Ho·Wo, taken
+from the f32 accumulator before ``y`` is rounded to x's dtype.  The
+BN layer that follows (``nn/fused.py``) then never reads ``y`` again
+for its statistics.
+
+* ``conv_bn_stats_plain`` ports ``_reference`` (JAX :101-115): the
+  conv in f32, then the two sums.  A CPU tensor takes it, and
+  ``chip_smoke.py`` holds the kernels to it on the card.
+* On a CUDA tensor the wrapper launches a hand-written kernel, or
+  raises: ``csrc/conv_bn_1x1.cu`` (JAX ``_fwd_kernel_1x1``, :127) for
+  a 1x1 conv without padding, strided sites subsampled first as JAX
+  :451-454 does, and ``csrc/conv_bn_kxk.cu`` (JAX ``_fwd_kernel_kxk``,
+  :238) for every other shape, stride 1 and 2 directly.
+* The backward is ``_bwd_rule`` (JAX :465-490): with cotangents
+  (gy, gs1, gs2), ``gy_eff = gy + gs1 + 2(y − shift)·gs2`` in f32 cast
+  to x's dtype, then the gradients of the plain strided conv at
+  ``gy_eff`` (cuDNN on the card, as XLA's conv grads are in JAX), and
+  ``gshift = −n·gs1 − 2·s1·gs2``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from bigdl_tpu_torch.ops import _cuda
+
+
+def _acc(dtype):
+    """The accumulation dtype: f32, or f64 for f64 inputs."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def conv_bn_stats_plain(x, w, shift, stride: int = 1, pad: int = 0):
+    """x (N, C, H, W), w (O, C, k, k), shift (O,) f32 -> (y in x's
+    dtype, s1, s2 f32): the conv with f32 accumulation, then the sums
+    of the centred f32 output."""
+    acc = _acc(x.dtype)
+    y = F.conv2d(x.to(acc), w.to(acc), stride=stride, padding=pad)
+    yc = y - shift.to(acc)[None, :, None, None]
+    return y.to(x.dtype), yc.sum(dim=(0, 2, 3)), (yc * yc).sum(dim=(0, 2, 3))
+
+
+def _check_cuda_args(x, w, shift):
+    if x.dim() != 4 or w.dim() != 4 or w.shape[2] != w.shape[3]:
+        raise ValueError(f"conv_bn kernels want x (N,C,H,W) and square w "
+                         f"(O,C,k,k); got {tuple(x.shape)}, {tuple(w.shape)}")
+    if w.shape[1] != x.shape[1] or shift.shape != (w.shape[0],):
+        raise ValueError(f"conv_bn shapes disagree: x {tuple(x.shape)} "
+                         f"w {tuple(w.shape)} shift {tuple(shift.shape)}")
+    if not (x.device == w.device == shift.device):
+        raise ValueError("conv_bn: x, w and shift on different devices")
+    if x.dtype not in _cuda.DTYPE_CODES or w.dtype != x.dtype:
+        raise ValueError(f"conv_bn kernels take f32 or bf16 x and w of one "
+                         f"dtype, got {x.dtype} and {w.dtype}")
+
+
+def _conv_bn_cuda(x, w, shift, stride: int, pad: int):
+    """Launch the kernel for this shape: (y, s1, s2)."""
+    _check_cuda_args(x, w, shift)
+    k = w.shape[2]
+    one = k == 1 and pad == 0
+    if one and stride != 1:
+        x = x[:, :, ::stride, ::stride]      # the 1x1 kernel runs stride 1
+    x, w = x.contiguous(), w.contiguous()
+    shift = shift.float().contiguous()
+    n, _, h, wd = x.shape
+    o = w.shape[0]
+    s = 1 if one else stride
+    ho = (h + 2 * pad - k) // s + 1
+    wo = (wd + 2 * pad - k) // s + 1
+    if ho <= 0 or wo <= 0:
+        raise ValueError(f"conv_bn: empty output for x {tuple(x.shape)}, "
+                         f"k={k}, stride={stride}, pad={pad}")
+    y = torch.empty((n, o, ho, wo), dtype=x.dtype, device=x.device)
+    part = torch.empty((2, o, n * _cuda.conv_bn_tiles(ho * wo)),
+                       dtype=torch.float32, device=x.device)
+    s1, s2 = (torch.empty(o, dtype=torch.float32, device=x.device)
+              for _ in range(2))
+    if one:
+        _cuda.launch_conv_bn_1x1(x, w, shift, y, part, s1, s2)
+    else:
+        _cuda.launch_conv_bn_kxk(x, w, shift, y, part, s1, s2,
+                                 stride=stride, pad=pad)
+    return y, s1, s2
+
+
+def _forward(x, w, shift, stride: int, pad: int):
+    if x.device.type == "cpu":
+        return conv_bn_stats_plain(x, w, shift, stride, pad)
+    if x.device.type == "cuda":
+        return _conv_bn_cuda(x, w, shift, stride, pad)
+    raise ValueError(f"conv_bn_stats: unsupported device {x.device}")
+
+
+class _ConvBNStats(torch.autograd.Function):
+    """The custom VJP of JAX ``_conv_bn_stats_vjp`` (:444-493)."""
+
+    @staticmethod
+    def forward(ctx, x, w, shift, stride, pad):
+        y, s1, s2 = _forward(x, w, shift, stride, pad)
+        ctx.save_for_backward(x, w, y, shift, s1)
+        ctx.stride, ctx.pad = stride, pad
+        return y, s1, s2
+
+    @staticmethod
+    def backward(ctx, gy, gs1, gs2):
+        x, w, y, shift, s1 = ctx.saved_tensors
+        stride, pad = ctx.stride, ctx.pad
+        c = (None, slice(None), None, None)
+        acc = _acc(x.dtype)
+        yc = y.to(acc) - shift.to(acc)[c]
+        gy_eff = (gy.to(acc) + gs1[c] + 2.0 * yc * gs2[c]).to(x.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.nn.grad.conv2d_input(x.shape, w, gy_eff, stride, pad)
+        if ctx.needs_input_grad[1]:
+            dw = torch.nn.grad.conv2d_weight(x, w.shape, gy_eff, stride, pad)
+        n = y.shape[0] * y.shape[2] * y.shape[3]
+        gshift = (-float(n) * gs1 - 2.0 * s1 * gs2).to(shift.dtype)
+        return dx, dw, gshift, None, None
+
+
+def conv_bn_stats(x, w, shift, *, stride: int = 1, pad: int = 0):
+    """Fused conv + centred BN statistics (JAX ``conv_bn_stats``).
+
+    x (N, C, H, W); w (O, C, k, k) or (O, C) for 1x1; shift (O,) f32,
+    typically the BN running mean.  Returns (y, s1, s2): y in x's
+    dtype, s1/s2 (O,) f32.  Differentiable in x, w and shift.  A CUDA
+    tensor launches ``conv_bn_1x1`` or ``conv_bn_kxk`` (f32 or bf16,
+    any odd or even k, stride and pad) or raises; a CPU tensor runs
+    :func:`conv_bn_stats_plain`."""
+    if w.dim() == 2:
+        w = w[:, :, None, None]
+    return _ConvBNStats.apply(x, w, shift.to(_acc(x.dtype)), int(stride),
+                              int(pad))
+
+
+def conv1x1_bn_stats(x, w, shift, *, stride: int = 1):
+    """The 1x1 form with w (O, C)."""
+    return conv_bn_stats(x, w, shift, stride=stride, pad=0)
+
+
+def kernel_path(x_shape, w_shape, *, stride: int = 1, pad: int = 0,
+                itemsize: int = 2) -> str:
+    """Which kernel ``conv_bn_stats`` launches on the card for these
+    shapes: ``"cuda_1x1"`` or ``"cuda_kxk"``.  Every shape has one (no
+    fallback), whatever the dtype's ``itemsize``."""
+    w_shape = tuple(int(s) for s in w_shape)
+    k = 1 if len(w_shape) == 2 else w_shape[2]
+    return "cuda_1x1" if k == 1 and pad == 0 else "cuda_kxk"
+
+
+__all__ = ["conv_bn_stats", "conv_bn_stats_plain", "conv1x1_bn_stats",
+           "kernel_path"]

@@ -1,4 +1,4 @@
-"""Carry the JAX package's parameter tree into the port's modules.
+"""Carry the JAX package's parameter and state trees into the port.
 
 No JAX counterpart.  ``params_from_jax`` takes the nested dict that the
 JAX ``TransformerLM.params()`` returns, with its leaves already turned
@@ -6,7 +6,10 @@ into numpy arrays (``np.asarray`` of each leaf), and gives the same
 nesting with torch tensors: ``wte/wpe/h{i}/{ln1,attn,ln2,fc1,fc2}/
 ln_f/head``, where ``attn`` holds ``wq,wk,wv,wo,bq,bk,bv,bo`` and
 ``head`` has no bias.  ``load_jax_params`` copies such a tree into a
-port model, so that both packages compute with the same weights.
+port model, so that both packages compute with the same weights; a
+``Sequential`` (ResNet) nests by child index, ``"0"``, ``"1"``, ...,
+as the JAX ``Container.params()`` does.  ``load_jax_state`` does the
+same for the BN running statistics of ``model.state()``.
 """
 
 from __future__ import annotations
@@ -27,15 +30,39 @@ def params_from_jax(tree) -> Dict[str, Any]:
     return torch.from_numpy(np.array(tree, copy=True))
 
 
+def _missing(want, have, path="") -> list:
+    """Paths of ``want``'s leaves that ``have`` lacks."""
+    out = []
+    for k, v in want.items():
+        p = f"{path}/{k}" if path else k
+        if k not in have:
+            out.append(p)
+        elif isinstance(v, dict):
+            out.extend(_missing(v, have[k] if isinstance(have[k], dict)
+                                else {}, p))
+    return out
+
+
 def load_jax_params(model, tree) -> None:
     """Copy a JAX parameter tree (numpy leaves) into ``model`` in
-    place, onto the model's device and dtype.  Every module of the
-    model must find its parameters in the tree."""
+    place, onto the model's device and dtype.  Every parameter of the
+    model must find its leaf in the tree: the transformer's names, or a
+    ``Sequential``'s child indices (fused models too)."""
     params = params_from_jax(tree)
-    missing = sorted(set(model.params()) - set(params))
+    missing = _missing(model.params(), params)
     if missing:
         raise KeyError(f"JAX parameter tree lacks {missing}")
     model.set_params(params)
 
 
-__all__ = ["params_from_jax", "load_jax_params"]
+def load_jax_state(model, tree) -> None:
+    """Copy a JAX ``model.state()`` tree (BN running mean and variance,
+    numpy leaves) into the model's buffers, as ``load_jax_params``."""
+    state = params_from_jax(tree)
+    missing = _missing(model.state(), state)
+    if missing:
+        raise KeyError(f"JAX state tree lacks {missing}")
+    model.set_state(state)
+
+
+__all__ = ["params_from_jax", "load_jax_params", "load_jax_state"]

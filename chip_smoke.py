@@ -16,16 +16,36 @@ it runs; any failure exits non-zero:
    at the main path's shapes, with the max abs error, the kernel's
    time, the plain version's time, its bound, and a PyTorch library
    call's time where one computes the same function;
-4. main path: the flagship TransformerLM (vocab 8192, dim 512, 8 heads,
-   8 layers, max_len 512, random f32 weights from a seed) served by
-   ``LMEngine`` with the flash prefill kernel and the paged decode
+4. serving path: the flagship TransformerLM (vocab 8192, dim 512, 8
+   heads, 8 layers, max_len 512, random f32 weights from a seed) served
+   by ``LMEngine`` with the flash prefill kernel and the paged decode
    kernel: 12 requests, prompts of 100-400 tokens, 32 new tokens each,
    temperature 0.  Every generated token is checked against a full
    forward of the model over the same tokens;
 5. where the decode step's time goes: ``torch.profiler`` over ten
    steps of a full batch, device busy share and the top kernels;
-6. the kernels line: one JSON object listing each kernel with its
-   launches in phase 4 and its numbers from phase 3.
+6. conv_bn kernels: ``conv_bn_1x1`` and ``conv_bn_kxk`` against their
+   plain version at every distinct fused site of ResNet-50 (224x224,
+   batch 32, bf16; the sites are read from the model), three f32 cases
+   and the ``scripts/kxk_probe.py`` shape, with the errors, a
+   run-to-run bit-equality check of the statistics, and per shape the
+   kernel's time, the plain version's, ``F.conv2d`` alone (a conv
+   without statistics, the library yardstick) and the bound, each also
+   summed over one training step's 36 and 16 launches;
+7. training path: ResNet-50 (1000 classes, random weights from seed
+   0, the LogSoftMax tail dropped for ``CrossEntropyCriterion``)
+   trained by ``LocalOptimizer`` with ``SGD(learningrate=0.1)`` and
+   the bf16 compute policy on synthetic 224x224 data, batch 32: the
+   standard arm, then the fused arm (``fuse_conv_bn``), each from the
+   same weights and data.  Every loss must be finite, the two arms'
+   first-step losses must agree, and the fused arm must launch
+   ``conv_bn_1x1`` 36 and ``conv_bn_kxk`` 16 times per step (the
+   standard arm neither);
+8. where the fused training step's time goes: ``torch.profiler`` over
+   two steps, device busy share, the top kernels and the top host ops;
+9. the kernels line: one JSON object listing each kernel with its
+   launches on its own path (phase 4 or the fused arm of phase 7) and
+   its numbers from phase 3 or 6.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -51,6 +71,29 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
 FLASH_REPLACES = "bigdl_tpu/ops/attention.py:120"
 DECODE_REPLACES = "bigdl_tpu/ops/decode_attention.py:205"
+CONV1X1_REPLACES = "bigdl_tpu/ops/conv_bn.py:127"
+CONVKXK_REPLACES = "bigdl_tpu/ops/conv_bn.py:238"
+
+# conv_bn limits against the plain version (the same conv in f32 by
+# cuDNN, TF32 off): f32 y 1e-4 abs (the kernel and cuDNN sum the C·k²
+# products in other orders, up to 4608 of them, and cuDNN may pick a
+# Winograd or FFT algorithm); bf16 y within one bf16 ulp of the largest
+# |y| (both round an f32 sum that differs in the last bits: they agree
+# or straddle one rounding boundary, and near y = 0 the two f32 sums
+# differ by more than a bf16 ulp of the tiny value, so the ulp is taken
+# at the output's scale, as the flash check does); s1/s2 within 1e-3 of
+# the plain version's f32 sums, relative to the largest |sum| over the
+# channels (sums of up to 100352 terms in other orders)
+CONV_F32_TOL = 1e-4
+STATS_REL_TOL = 1e-3
+# ResNet-50 training: batch, image size, classes, timed steps after the
+# first, and the limit on |first-step loss, fused - standard| at a loss
+# near ln(1000) = 6.9 (bf16 convs, stats from the f32 accumulator in
+# the fused arm and from the bf16 y in the standard one)
+TRAIN_BATCH, TRAIN_IMG, TRAIN_CLASSES, TRAIN_STEPS = 32, 224, 1000, 5
+LOSS_TOL = 1e-2
+# the device of the conv_bn and training phases
+DEV = "cuda"
 
 
 def say(msg: str) -> None:
@@ -346,6 +389,290 @@ def phase_profile(model) -> None:
             f"{key[:90]}")
 
 
+def _resnet50_sites(model, batch: int, img: int) -> list:
+    """(x shape, w shape, stride, pad) of every fused site of ``model``
+    in call order, read by forward pre-hooks over one eval forward."""
+    from bigdl_tpu_torch.nn.fused import SpatialConvolutionBatchNorm
+
+    sites, hooks = [], []
+    for m in model.modules():
+        if isinstance(m, SpatialConvolutionBatchNorm):
+            k = m.kernel
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, inp, k=k: sites.append((
+                    tuple(inp[0].shape),
+                    (mod.n_output_plane, mod.n_input_plane, k, k),
+                    mod.stride, mod.pad))))
+    model.eval()
+    with torch.no_grad():
+        model(torch.zeros((batch, 3, img, img), device=DEV))
+    for h in hooks:
+        h.remove()
+    return sites
+
+
+def _bf16_ulp(mag: float) -> float:
+    """One bf16 ulp at magnitude ``mag`` (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(max(mag, 2.0 ** -126))) - 7)
+
+
+def _conv_case(x_shape, w_shape, stride, pad, dtype, gen):
+    """Check one shape: (max abs err, share of y elements that differ,
+    s1 rel, s2 rel, inputs).  Runs the kernel twice and demands
+    bit-equal statistics."""
+    from bigdl_tpu_torch.ops.conv_bn import (conv_bn_stats,
+                                             conv_bn_stats_plain)
+
+    o, c, k, _ = w_shape
+    x = torch.randn(x_shape, generator=gen, device=DEV).to(dtype)
+    w = (torch.randn(w_shape, generator=gen, device=DEV)
+         * (2.0 / (c * k * k)) ** 0.5).to(dtype)
+    shift = torch.randn(o, generator=gen, device=DEV) * 0.1
+    y, s1, s2 = conv_bn_stats(x, w, shift, stride=stride, pad=pad)
+    _, s1b, s2b = conv_bn_stats(x, w, shift, stride=stride, pad=pad)
+    torch.cuda.synchronize()
+    if not (torch.equal(s1, s1b) and torch.equal(s2, s2b)):
+        raise AssertionError(f"conv_bn {x_shape} {w_shape}: statistics "
+                             "differ between two runs on one input")
+    ry, r1, r2 = conv_bn_stats_plain(x, w, shift, stride, pad)
+    diff = (y.float() - ry.float()).abs()
+    err = diff.max().item()
+    differ = (diff > 0).float().mean().item()
+    rel = [((a - b).abs().max() / b.abs().max()).item()
+           for a, b in ((s1, r1), (s2, r2))]
+    name = f"conv_bn {x_shape} w {w_shape} s{stride} {str(dtype)[6:]}"
+    check(name, err, CONV_F32_TOL if dtype == torch.float32
+          else _bf16_ulp(ry.float().abs().max().item()))
+    for which, r in zip(("s1", "s2"), rel):
+        if not r <= STATS_REL_TOL:
+            raise AssertionError(f"{name}: {which} rel err {r:.3e} > "
+                                 f"{STATS_REL_TOL}")
+    return err, differ, rel[0], rel[1], (x, w, shift)
+
+
+def _conv_times(x, w, shift, stride, pad) -> dict:
+    from bigdl_tpu_torch.ops.conv_bn import (conv_bn_stats,
+                                             conv_bn_stats_plain)
+
+    n, c, h, wd = x.shape
+    o, _, k, _ = w.shape
+    ho = (h + 2 * pad - k) // stride + 1
+    wo = (wd + 2 * pad - k) // stride + 1
+    ms = time_ms(lambda: conv_bn_stats(x, w, shift, stride=stride, pad=pad))
+    plain = time_ms(lambda: conv_bn_stats_plain(x, w, shift, stride, pad))
+    lib = time_ms(lambda: torch.nn.functional.conv2d(x, w, stride=stride,
+                                                     padding=pad))
+    itemsize = x.element_size()
+    nbytes = (x.numel() + w.numel() + n * o * ho * wo) * itemsize \
+        + 3 * o * 4                                  # shift read, s1/s2
+    flops = 2 * n * o * c * k * k * ho * wo
+    b_ms, b_by = bound(nbytes, flops, x.dtype)
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def phase_conv_bn(gen) -> list:
+    """conv_bn kernels against their plain version at every distinct
+    fused ResNet-50 site (bf16), three f32 cases and the kxk probe
+    shape; times per shape and summed over one training step."""
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.models.resnet import build_resnet_imagenet
+    from bigdl_tpu_torch.nn.fused import fuse_conv_bn
+
+    RandomGenerator.RNG.set_seed(0)
+    model = fuse_conv_bn(build_resnet_imagenet(50, TRAIN_CLASSES,
+                                               device=DEV))
+    sites = _resnet50_sites(model, TRAIN_BATCH, TRAIN_IMG)
+    del model
+    torch.cuda.empty_cache()
+    distinct = list(dict.fromkeys(sites))
+    n1 = sum(1 for s in distinct if s[1][2] == 1)
+    say(f"phase 6 conv_bn: {len(sites)} fused sites, {len(distinct)} "
+        f"distinct shapes ({n1} 1x1, {len(distinct) - n1} kxk)")
+    if len(sites) != 52 or n1 != 15 or len(distinct) != 22:
+        raise AssertionError("ResNet-50 should have 52 fused sites of 15 "
+                             "1x1 and 7 kxk shapes")
+    # worst errors by (1x1?, dtype)
+    worst = {(k1, dt): 0.0 for k1 in (True, False)
+             for dt in (torch.float32, torch.bfloat16)}
+    worst_rel = 0.0
+    rows = {}
+    cases = [(s, torch.bfloat16) for s in distinct]
+    # f32: a 1x1, a strided 1x1 and a strided 3x3 site at full batch
+    cases += [(distinct[2], torch.float32), (distinct[7], torch.float32),
+              (distinct[5], torch.float32)]
+    probe = ((8, 64, 16, 16), (64, 64, 3, 3), 1, 1)   # scripts/kxk_probe.py
+    cases.append((probe, torch.bfloat16))
+    for (xs, ws, stride, pad), dt in cases:
+        err, differ, r1, r2, args = _conv_case(xs, ws, stride, pad, dt,
+                                               gen)
+        key = (ws[2] == 1, dt)
+        worst[key] = max(worst[key], err)
+        worst_rel = max(worst_rel, r1, r2)
+        t = _conv_times(*args, stride, pad)
+        rows[(xs, ws, stride, pad, dt)] = t
+        tag = "probe " if (xs, ws, stride, pad) == probe else ""
+        say(f"phase 6 conv_bn {tag}x {xs} w {ws} s{stride} "
+            f"{str(dt)[6:]}: max abs err {err:.3e} ({differ:.2e} of y "
+            f"differs), s1/s2 rel {r1:.2e}/{r2:.2e}; kernel {t['ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms, conv2d alone "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']})")
+    say(f"phase 6 conv_bn worst: bf16 max abs "
+        f"{max(worst[(k1, torch.bfloat16)] for k1 in (True, False)):.3e} "
+        f"(limit one bf16 ulp of max |y|), f32 max abs "
+        f"{max(worst[(k1, torch.float32)] for k1 in (True, False)):.3e} "
+        f"(limit {CONV_F32_TOL:g}), s1/s2 rel {worst_rel:.2e} (limit "
+        f"{STATS_REL_TOL:g}); statistics bit-equal run to run")
+    out = []
+    for name, k1, replaces in (("conv_bn_1x1", True, CONV1X1_REPLACES),
+                               ("conv_bn_kxk", False, CONVKXK_REPLACES)):
+        step = [rows[s + (torch.bfloat16,)] for s in sites
+                if (s[1][2] == 1) == k1]
+        tot = {key: sum(r[key] for r in step)
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        by_ops = sum(r["bound_ms"] for r in step
+                     if r["bound_by"] == "operations")
+        say(f"phase 6 {name} per training step ({len(step)} launches, "
+            f"batch {TRAIN_BATCH}, bf16): kernel {tot['ms']:.4f} ms, plain "
+            f"{tot['plain_ms']:.4f} ms, conv2d alone "
+            f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.5f} ms "
+            f"({by_ops / tot['bound_ms']:.2f} of it by operations)")
+        out.append(dict(
+            name=name, route="cuda",
+            source=f"bigdl_tpu_torch/csrc/{name}.cu", replaces=replaces,
+            max_abs_err=worst[(k1, torch.float32)],
+            max_abs_err_bf16=worst[(k1, torch.bfloat16)],
+            bound_by="operations" if by_ops >= tot["bound_ms"] / 2
+            else "bytes",
+            library="torch.nn.functional.conv2d alone (no statistics)",
+            shape=f"sum over the {len(step)} sites of one fused ResNet-50 "
+                  f"training step, batch {TRAIN_BATCH}, "
+                  f"{TRAIN_IMG}x{TRAIN_IMG}, bf16", **tot))
+    return out
+
+
+class _Losses:
+    """The train-summary hook: each step's loss."""
+
+    def __init__(self):
+        self.loss = {}
+
+    def add_scalar(self, tag, value, step):
+        if tag == "Loss":
+            self.loss[step] = value
+
+
+def _train_arm(fused: bool, x, y):
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.models.resnet import build_resnet_imagenet
+    from bigdl_tpu_torch.nn.criterion import CrossEntropyCriterion
+    from bigdl_tpu_torch.nn.fused import fuse_conv_bn
+    from bigdl_tpu_torch.ops import _cuda
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+
+    RandomGenerator.RNG.set_seed(0)
+    model = build_resnet_imagenet(50, TRAIN_CLASSES, device=DEV)
+    if fused:
+        fuse_conv_bn(model, kernels=(1, 3))
+    model.modules = model.modules[:-1]        # CrossEntropy takes logits
+    RandomGenerator.RNG.set_seed(1)           # one shuffle order, both arms
+    losses = _Losses()
+    opt = LocalOptimizer(model, (x, y), CrossEntropyCriterion(),
+                         batch_size=TRAIN_BATCH, device=DEV)
+    opt.set_optim_method(SGD(learningrate=0.1)).set_compute_dtype("bfloat16")
+    opt.set_train_summary(losses)
+    # step 1 carries the first launches and cuDNN's plan choices
+    opt.set_end_when(Trigger.max_iteration(1)).optimize()
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    opt.set_end_when(Trigger.max_iteration(1 + TRAIN_STEPS)).optimize()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    launches = dict(_cuda.launches)
+    arm = "fused" if fused else "standard"
+    loss = [losses.loss[n] for n in sorted(losses.loss)]
+    say(f"phase 7 {arm} arm: losses {['%.5f' % v for v in loss]}; step "
+        f"{step_ms:.3f} ms over steps 2-{1 + TRAIN_STEPS} "
+        f"({TRAIN_BATCH / step_ms * 1e3:.1f} images/s); conv_bn launches "
+        f"{launches['conv_bn_1x1']} 1x1, {launches['conv_bn_kxk']} kxk in "
+        f"{TRAIN_STEPS} steps")
+    if len(loss) != 1 + TRAIN_STEPS or not all(np.isfinite(loss)):
+        raise AssertionError(f"{arm} arm: missing or non-finite losses")
+    want = (36 * TRAIN_STEPS, 16 * TRAIN_STEPS) if fused else (0, 0)
+    if (launches["conv_bn_1x1"], launches["conv_bn_kxk"]) != want:
+        raise AssertionError(f"{arm} arm launched conv_bn "
+                             f"{launches['conv_bn_1x1']}/"
+                             f"{launches['conv_bn_kxk']}, want {want}")
+    return opt, loss, step_ms, launches
+
+
+def phase_training():
+    """ResNet-50 training, standard arm then fused arm; returns the
+    fused arm's optimizer and its launches."""
+    x = np.random.RandomState(0).randn(
+        TRAIN_BATCH, 3, TRAIN_IMG, TRAIN_IMG).astype(np.float32)
+    y = (np.random.RandomState(1).randint(0, TRAIN_CLASSES, TRAIN_BATCH)
+         + 1).astype(np.float32)
+    std, std_loss, std_ms, _ = _train_arm(False, x, y)
+    del std
+    torch.cuda.empty_cache()
+    fused, fused_loss, fused_ms, launches = _train_arm(True, x, y)
+    gap = abs(fused_loss[0] - std_loss[0])
+    say(f"phase 7 first-step loss: standard {std_loss[0]:.6f}, fused "
+        f"{fused_loss[0]:.6f}, |gap| {gap:.3e} (limit {LOSS_TOL:g}); step "
+        f"ms standard {std_ms:.3f}, fused {fused_ms:.3f}")
+    if not gap <= LOSS_TOL:
+        raise AssertionError(f"fused and standard first-step losses differ "
+                             f"by {gap}")
+    return fused, launches
+
+
+def phase_train_profile(opt) -> None:
+    """Device busy share and top kernels over two fused training steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch.optim import Trigger
+
+    steps = 2
+    n = opt.state["neval"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        opt.set_end_when(Trigger.max_iteration(n - 1 + steps)).optimize()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    # the host side: ops by self CPU time (the profiler's own cost
+    # inflates these; their order is what they show)
+    host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU), reverse=True)
+    say(f"phase 8 profile host: {sum(h[1] for h in host) // steps} host "
+        "ops per step; top by self CPU time:")
+    for ms, cnt, key in host[:8]:
+        say(f"phase 8 profile host: {ms / steps:8.3f} ms/step  "
+            f"x{cnt // steps:<5d} {key[:80]}")
+    if not rows:
+        say("phase 8 profile: the profiler shows no device time (device "
+            f"busy share not measured); wall {wall_ms / steps:.3f} ms per "
+            "step")
+        return
+    say(f"phase 8 profile: {wall_ms / steps:.3f} ms per fused training step "
+        f"(wall), device busy {busy_ms / steps:.3f} ms per step, busy share "
+        f"{busy_ms / wall_ms:.3f}")
+    for ms, cnt, key in rows[:10]:
+        say(f"phase 8 profile:   {ms / steps:8.4f} ms/step  "
+            f"x{cnt // steps:<4d} {key[:90]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -354,16 +681,23 @@ def main() -> int:
 
     smi = phase_device()
     phase_build()
-    gen = torch.Generator(device="cuda")
+    gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
     kernels = [phase_flash(gen), phase_decode(gen)]
     model, launches = phase_main_path()
     phase_profile(model)
+    del model
+    torch.cuda.empty_cache()
+    kernels += phase_conv_bn(gen)
+    opt, train_launches = phase_training()
+    phase_train_profile(opt)
+    launches.update({k: train_launches[k]
+                     for k in ("conv_bn_1x1", "conv_bn_kxk")})
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["launches"] <= 0:
-            raise AssertionError(f"{k['name']} never launched on the main path")
-    say("phase 6 kernels")
+            raise AssertionError(f"{k['name']} never launched on its path")
+    say("phase 9 kernels")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

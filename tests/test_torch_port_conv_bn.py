@@ -1,0 +1,157 @@
+"""bigdl_tpu_torch/ops/conv_bn.py against bigdl_tpu/ops/conv_bn.py.
+
+The plain version of the fused conv + BN-statistics op (what the port's
+wrapper runs on a CPU tensor, and what the CUDA kernels are held to on
+the card) must match the JAX package's Pallas kernels run in interpret
+mode, and the port's ``autograd.Function`` must give the gradients of
+JAX's ``custom_vjp``.  Limits, as ``tests/test_fused.py``: y atol 1e-5;
+s1/s2 rtol 1e-4, atol 1e-3 (sums over up to 2·15·15 f32 terms in
+another order); gradients rtol 1e-4, atol 1e-4 (dshift atol 1e-3: it
+carries n·gs1).  The kernels themselves are held to the plain version
+on the card by ``chip_smoke.py``."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from bigdl_tpu.ops import conv_bn as JC
+from bigdl_tpu_torch.ops import _cuda
+from bigdl_tpu_torch.ops import conv_bn as TC
+
+Y_ATOL = 1e-5
+S_RTOL, S_ATOL = 1e-4, 1e-3
+G_RTOL, G_ATOL = 1e-4, 1e-4
+
+# (n, c, h, w, o, k, stride, pad): ragged HW, O not a multiple of 8,
+# stride 1 and 2, 1x1 / 3x3 / 5x5
+CASES = [
+    (2, 8, 7, 9, 13, 1, 1, 0),
+    (2, 6, 10, 10, 16, 1, 2, 0),
+    (3, 5, 9, 7, 11, 3, 1, 1),
+    (2, 4, 9, 9, 10, 3, 2, 1),
+    (2, 3, 8, 8, 6, 5, 1, 2),
+]
+
+
+def _case_id(c):
+    return "n{}c{}_{}x{}_o{}_k{}s{}p{}".format(*c)
+
+
+def _inputs(n, c, h, w, o, k, seed):
+    rs = np.random.RandomState(seed)
+    x = rs.randn(n, c, h, w).astype(np.float32)
+    wt = (rs.randn(o, c, k, k) * np.sqrt(2.0 / (c * k * k))).astype(
+        np.float32)
+    shift = (rs.randn(o) * 0.5).astype(np.float32)    # a non-zero shift
+    return x, wt, shift
+
+
+def _jax(x, w, shift, stride, pad):
+    return JC.conv_bn_stats(jnp.asarray(x), jnp.asarray(w),
+                            jnp.asarray(shift), stride=stride, pad=pad,
+                            interpret=True, impl="pallas")
+
+
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
+def test_plain_matches_pallas_interpret(case):
+    n, c, h, w, o, k, stride, pad = case
+    x, wt, shift = _inputs(n, c, h, w, o, k, seed=sum(case))
+    jy, js1, js2 = _jax(x, wt, shift, stride, pad)
+    ty, ts1, ts2 = TC.conv_bn_stats(torch.from_numpy(x),
+                                    torch.from_numpy(wt),
+                                    torch.from_numpy(shift), stride=stride,
+                                    pad=pad)
+    assert ty.shape == jy.shape and ty.dtype == torch.float32
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=Y_ATOL)
+    np.testing.assert_allclose(ts1.numpy(), np.asarray(js1), rtol=S_RTOL,
+                               atol=S_ATOL)
+    np.testing.assert_allclose(ts2.numpy(), np.asarray(js2), rtol=S_RTOL,
+                               atol=S_ATOL)
+
+
+def test_1x1_weight_as_matrix():
+    x, wt, shift = _inputs(2, 8, 6, 5, 12, 1, seed=4)
+    full = TC.conv_bn_stats(torch.from_numpy(x), torch.from_numpy(wt),
+                            torch.from_numpy(shift), stride=2)
+    mat = TC.conv1x1_bn_stats(torch.from_numpy(x),
+                              torch.from_numpy(wt[:, :, 0, 0]),
+                              torch.from_numpy(shift), stride=2)
+    for a, b in zip(full, mat):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
+def test_backward_matches_jax_custom_vjp(case):
+    n, c, h, w, o, k, stride, pad = case
+    x, wt, shift = _inputs(n, c, h, w, o, k, seed=3 * sum(case))
+    (jy, js1, js2), vjp = jax.vjp(
+        lambda a, b, s: _jax(a, b, s, stride, pad), jnp.asarray(x),
+        jnp.asarray(wt), jnp.asarray(shift))
+    rs = np.random.RandomState(sum(case))
+    gy = rs.randn(*jy.shape).astype(np.float32)
+    gs1 = rs.randn(o).astype(np.float32)
+    gs2 = (rs.randn(o) * 0.1).astype(np.float32)
+    jdx, jdw, jds = vjp((jnp.asarray(gy), jnp.asarray(gs1),
+                         jnp.asarray(gs2)))
+
+    tx, tw, ts = (torch.from_numpy(a).requires_grad_(True)
+                  for a in (x, wt, shift))
+    out = TC.conv_bn_stats(tx, tw, ts, stride=stride, pad=pad)
+    dx, dw, ds = torch.autograd.grad(
+        out, (tx, tw, ts),
+        (torch.from_numpy(gy), torch.from_numpy(gs1), torch.from_numpy(gs2)))
+    np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), rtol=G_RTOL,
+                               atol=G_ATOL)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(jdw), rtol=G_RTOL,
+                               atol=G_ATOL)
+    np.testing.assert_allclose(ds.numpy(), np.asarray(jds), rtol=G_RTOL,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("k,stride,pad", [(1, 1, 0), (1, 2, 0), (3, 1, 1),
+                                          (3, 2, 1)])
+def test_gradcheck_float64(k, stride, pad):
+    rs = np.random.RandomState(k + stride)
+    x = torch.from_numpy(rs.randn(2, 3, 5, 5)).requires_grad_(True)
+    w = torch.from_numpy(rs.randn(4, 3, k, k)).requires_grad_(True)
+    shift = torch.from_numpy(rs.randn(4)).requires_grad_(True)
+    assert torch.autograd.gradcheck(
+        lambda a, b, s: TC.conv_bn_stats(a, b, s, stride=stride, pad=pad),
+        (x, w, shift), eps=1e-6, atol=1e-5)
+
+
+def test_cpu_tensor_runs_the_plain_version_and_launches_nothing():
+    before = dict(_cuda.launches)
+    x, wt, shift = _inputs(2, 4, 6, 6, 5, 3, seed=1)
+    TC.conv_bn_stats(torch.from_numpy(x), torch.from_numpy(wt),
+                     torch.from_numpy(shift), stride=1, pad=1)
+    TC.conv_bn_stats(torch.from_numpy(x), torch.from_numpy(wt[:, :, :1, :1]),
+                     torch.from_numpy(shift), stride=2)
+    assert _cuda.launches == before
+
+
+def test_cuda_wrapper_checks_before_any_launch():
+    before = dict(_cuda.launches)
+    x = torch.zeros(1, 4, 5, 5, dtype=torch.float64)
+    w = torch.zeros(3, 4, 3, 3, dtype=torch.float64)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        TC._conv_bn_cuda(x, w, torch.zeros(3), 1, 1)
+    with pytest.raises(ValueError, match="disagree"):
+        TC._conv_bn_cuda(x.float(), w[:, :2].float(), torch.zeros(3), 1, 1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        TC.conv_bn_stats(x.to("meta"), w.to("meta"), torch.zeros(3,
+                         device="meta"), stride=1, pad=1)
+    assert _cuda.launches == before
+
+
+def test_kernel_path_names_a_kernel_for_every_shape():
+    assert TC.kernel_path((2, 64, 56, 56), (256, 64)) == "cuda_1x1"
+    assert TC.kernel_path((2, 64, 56, 56), (256, 64, 1, 1), stride=2) \
+        == "cuda_1x1"
+    for k, s in ((3, 1), (3, 2), (5, 1), (7, 2)):
+        assert TC.kernel_path((2, 64, 56, 56), (64, 64, k, k), stride=s,
+                              pad=(k - 1) // 2) == "cuda_kxk"
+

@@ -14,6 +14,8 @@ from bigdl_tpu_torch.ops import _cuda
 STUB_C = """
 int bigdl_flash_fwd(void) { return 0; }
 int bigdl_paged_decode(void) { return 0; }
+int bigdl_conv_bn_1x1(void) { return 0; }
+int bigdl_conv_bn_kxk(void) { return 0; }
 const char* bigdl_error_string(int code) { return "stub error"; }
 """
 
@@ -49,16 +51,23 @@ def isolated(tmp_path, monkeypatch):
 def test_build_compiles_each_source_once_and_loads(isolated):
     assert _cuda.build() > 0.0
     calls = (isolated / "nvcc.log").read_text().splitlines()
-    assert len(calls) == 2
+    assert len(calls) == 4
     for call in calls:
         assert "arch=compute_90a,code=sm_90a" in call and "-O3" in call
+    assert sorted(c.split()[-1].rsplit("/", 1)[-1] for c in calls) == [
+        "conv_bn_1x1.cu", "conv_bn_kxk.cu", "flash_fwd.cu", "paged_decode.cu"]
     built = sorted(os.listdir(isolated / "build"))
-    assert [b.split("-")[0] for b in built] == ["flash_fwd", "paged_decode"]
+    assert [b.split("-")[0] for b in built] == [
+        "conv_bn_1x1", "conv_bn_kxk", "flash_fwd", "paged_decode"]
     assert all(b.endswith(".so") for b in built)
-    assert set(_cuda._libs) == {"flash_fwd", "paged_decode"}
-    # a second build finds both libraries and compiles nothing
+    assert set(_cuda._libs) == {"flash_fwd", "paged_decode", "conv_bn_1x1",
+                                "conv_bn_kxk"}
+    for name in ("conv_bn_1x1", "conv_bn_kxk"):
+        sym, argtypes = _cuda._SIGNATURES[name]
+        assert getattr(_cuda._libs[name], sym).argtypes == argtypes
+    # a second build finds every library and compiles nothing
     assert _cuda.build() == 0.0
-    assert len((isolated / "nvcc.log").read_text().splitlines()) == 2
+    assert len((isolated / "nvcc.log").read_text().splitlines()) == 4
 
 
 def test_edited_source_gets_a_new_library(isolated):
@@ -77,6 +86,25 @@ def test_launch_error_codes_raise_with_the_cuda_message(isolated):
     with pytest.raises(RuntimeError, match="flash_fwd kernel launch failed: "
                                            "stub error"):
         _cuda._check(lib, "flash_fwd", 9)
+
+
+def test_conv_bn_sources_build_alone_and_rebuild_when_edited(isolated):
+    _cuda.build(["conv_bn_1x1", "conv_bn_kxk"])
+    assert set(_cuda._libs) == {"conv_bn_1x1", "conv_bn_kxk"}
+    before = set(os.listdir(isolated / "build"))
+    with open(isolated / "csrc" / "conv_bn_kxk.cu", "a") as f:
+        f.write("\n// edited\n")
+    assert _cuda.build(["conv_bn_1x1", "conv_bn_kxk"]) > 0.0
+    new = set(os.listdir(isolated / "build")) - before
+    assert [n.split("-")[0] for n in new] == ["conv_bn_kxk"]
+
+
+def test_conv_bn_tiles_match_the_kernels_pixel_tile():
+    for src in ("conv_bn_1x1.cu", "conv_bn_kxk.cu"):
+        text = open(os.path.join(_cuda.CSRC, src)).read()
+        assert f"constexpr int BN = {_cuda.CONV_BN_TILE_P};" in text
+    assert [_cuda.conv_bn_tiles(p) for p in (49, 64, 65, 3136)] == \
+        [1, 1, 2, 49]
 
 
 def test_failed_compile_raises_with_the_compiler_output(isolated):

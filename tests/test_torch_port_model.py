@@ -1,6 +1,7 @@
 """The port's model stack against the JAX package: seeded init, the
 parameter converter, logits, and greedy ``generate``; plus the port's
-package rules (no JAX, no ``bigdl_tpu``, no silent CPU fallback)."""
+package rules (no JAX, no ``bigdl_tpu``, no silent CPU fallback, for
+the serving and the training entry points)."""
 
 import pathlib
 import re
@@ -18,7 +19,11 @@ from bigdl_tpu.common import RandomGenerator as JRandom
 from bigdl_tpu.models.transformer import build_transformer_lm as j_build
 from bigdl_tpu_torch.common import RandomGenerator as TRandom
 from bigdl_tpu_torch.common import resolve_device
+from bigdl_tpu_torch.models.resnet import (build_resnet_cifar,
+                                           build_resnet_imagenet)
 from bigdl_tpu_torch.models.transformer import build_transformer_lm as t_build
+from bigdl_tpu_torch.nn.criterion import CrossEntropyCriterion
+from bigdl_tpu_torch.optim import LocalOptimizer
 from bigdl_tpu_torch.utils.convert import load_jax_params, params_from_jax
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -125,6 +130,13 @@ def test_default_device_raises_without_cuda(monkeypatch):
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         t_build(48, **SMALL)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_resnet_imagenet(depth=50, class_num=10)
+    model = build_resnet_cifar(20, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LocalOptimizer(model, (np.zeros((4, 3, 32, 32), np.float32),
+                               np.ones(4, np.float32)),
+                       CrossEntropyCriterion(), batch_size=4)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -134,7 +146,11 @@ def test_import_loads_neither_jax_nor_bigdl_tpu():
         "import bigdl_tpu_torch, bigdl_tpu_torch.common, "
         "bigdl_tpu_torch.config, bigdl_tpu_torch.nn, bigdl_tpu_torch.ops, "
         "bigdl_tpu_torch.ops._cuda, bigdl_tpu_torch.models, "
-        "bigdl_tpu_torch.serving, bigdl_tpu_torch.utils.convert\n"
+        "bigdl_tpu_torch.serving, bigdl_tpu_torch.utils.convert, "
+        "bigdl_tpu_torch.optim, bigdl_tpu_torch.optim.optimizer, "
+        "bigdl_tpu_torch.dataset, bigdl_tpu_torch.models.resnet, "
+        "bigdl_tpu_torch.nn.fused, bigdl_tpu_torch.nn.criterion, "
+        "bigdl_tpu_torch.nn.table_ops, bigdl_tpu_torch.ops.conv_bn\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'bigdl_tpu' or m.startswith('bigdl_tpu.')]\n"
         "print(bad)\n"

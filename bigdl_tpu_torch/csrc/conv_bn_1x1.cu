@@ -24,35 +24,12 @@
 // thread, two 16-byte shared loads per 16 FMAs. mma.sync/wgmma on the
 // tensor cores come in a later version.
 //
-// The race the TPU never had: the TPU grid adds s1/s2 in order across its
-// (n, hw) steps. Here CTAs run in parallel, so each CTA writes its per-
-// channel partial sums to its own column of a scratch buffer (reduced over
-// the CTA in a fixed shuffle order), and a second, tiny kernel sums each
-// channel's columns in a fixed order. No float atomics: the sums are
-// bit-identical run to run.
+// The tiles, the FMA step, the statistics epilogue and its deterministic
+// second pass are shared with conv_bn_kxk.cu, in conv_bn_common.cuh.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "conv_bn_common.cuh"
 
 namespace {
-
-constexpr int BM = 64;        // output channels per CTA
-constexpr int BN = 64;        // output pixels per CTA (CONV_BN_TILE_P)
-constexpr int BK = 16;        // input channels per main-loop step
-constexpr int THREADS = 256;  // 16 x 16 threads, a 4x4 tile each
-constexpr int LDA = BM + 4;   // padded row of the weight tile
-constexpr int RED_THREADS = 256;
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // grid (ceil(HW/BN), ceil(O/BM), N); part is (2, O, ncols) with
 // ncols = N * gridDim.x, one column per CTA along (n, pixel tile).
@@ -69,8 +46,7 @@ conv1x1_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int ty = tid >> 4;  // channel group: rows ty*4 .. ty*4+3
   const int p0 = blockIdx.x * BN;
   const int o0 = blockIdx.y * BM;
-  const int n = blockIdx.z;
-  const T* xn = x + (size_t)n * c * hw;
+  const T* xn = x + (size_t)blockIdx.z * c * hw;
 
   // loaders: B element (kk, p) = X[n, k0+kk, p0+p], consecutive threads on
   // consecutive pixels; A element (kk, m) = W[o0+m, k0+kk], consecutive
@@ -98,73 +74,10 @@ conv1x1_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
                        ? to_f32(w[(size_t)(o0 + m) * c + ca]) : 0.f;
     }
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&bs[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
+    fma_tile(as, bs, ty, tx, acc);
     __syncthreads();
   }
-
-  // epilogue: store Y, then each row's centred sums over this CTA's
-  // valid pixels. The 16 threads of one channel group are the 16 lanes
-  // of a half-warp (tx = lane & 15), reduced with a fixed xor pattern.
-  T* yn = y + (size_t)n * o * hw;
-  const int col = n * gridDim.x + blockIdx.x;
-  const int ncols = gridDim.z * gridDim.x;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int oo = o0 + ty * 4 + i;
-    const bool row_in = oo < o;
-    const float sh = row_in ? shift[oo] : 0.f;
-    float p1 = 0.f, p2 = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int pp = p0 + tx * 4 + j;
-      if (row_in && pp < hw) {
-        store(yn + (size_t)oo * hw + pp, acc[i][j]);
-        const float d = acc[i][j] - sh;
-        p1 += d;
-        p2 = fmaf(d, d, p2);
-      }
-    }
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      p1 += __shfl_xor_sync(FULL, p1, off);
-      p2 += __shfl_xor_sync(FULL, p2, off);
-    }
-    if (tx == 0 && row_in) {
-      part[(size_t)oo * ncols + col] = p1;
-      part[((size_t)o + oo) * ncols + col] = p2;
-    }
-  }
-}
-
-// grid (O, 2): block (ch, which) sums row `which*O + ch` of part (ncols
-// values) in a fixed order: strided per-thread sums, then a shared-memory
-// tree.
-__global__ void __launch_bounds__(RED_THREADS)
-stats_reduce_kernel(const float* __restrict__ part, int o, int ncols,
-                    float* __restrict__ s1, float* __restrict__ s2) {
-  __shared__ float red[RED_THREADS];
-  const int ch = blockIdx.x;
-  const int which = blockIdx.y;
-  const float* row = part + ((size_t)which * o + ch) * ncols;
-  float acc = 0.f;
-  for (int i = threadIdx.x; i < ncols; i += RED_THREADS) acc += row[i];
-  red[threadIdx.x] = acc;
-  __syncthreads();
-  for (int s = RED_THREADS / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) (which ? s2 : s1)[ch] = red[0];
+  store_and_stats(acc, y, shift, part, o, hw, ty, tx);
 }
 
 template <typename T>
@@ -175,11 +88,7 @@ cudaError_t launch(const void* x, const void* w, const float* shift, void* y,
   conv1x1_stats_kernel<T><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), shift,
       static_cast<T*>(y), part, c, hw, o);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  stats_reduce_kernel<<<dim3(o, 2), RED_THREADS, 0, stream>>>(
-      part, o, (int)(grid.x * grid.z), s1, s2);
-  return cudaGetLastError();
+  return reduce_stats(grid, part, o, s1, s2, stream);
 }
 
 }  // namespace

@@ -5,8 +5,9 @@ each source under ``bigdl_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into its own shared library with a plain C
 interface, at first use, and loaded with ``ctypes``.  All sources that
 need building are compiled at once, one ``nvcc`` process each.  A
-library's file name carries a hash of its source and flags, so an
-edited source is never served from a stale build.
+library's file name carries a hash of its source, the headers it
+includes from ``csrc/`` and the flags, so an edited source or header is
+never served from a stale build.
 
 Each launch function here checks the CUDA error state right after the
 launch (the C function returns ``cudaGetLastError()``) and raises if it
@@ -20,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 import time
@@ -38,8 +40,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # dtype codes shared with the C interfaces
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# output pixels per CTA of the conv_bn kernels (BN in both sources)
+# output pixels per CTA of the conv_bn kernels (BN in conv_bn_common.cuh)
 CONV_BN_TILE_P = 64
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 # kernel launches since the last reset_launches(), by kernel name
 launches: Dict[str, int] = {name: 0 for name in SOURCES}
@@ -76,7 +79,11 @@ def reset_launches() -> None:
 
 def _lib_path(name: str) -> str:
     with open(os.path.join(CSRC, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read())
+        text = f.read()
+    digest = hashlib.sha256(text)
+    for header in _INCLUDE.findall(text):       # csrc/ headers, one level
+        with open(os.path.join(CSRC, header.decode()), "rb") as f:
+            digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(config.build_dir(),
                         f"{name}-{digest.hexdigest()[:16]}.so")

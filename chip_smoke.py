@@ -31,14 +31,16 @@ it runs; any failure exits non-zero:
    run-to-run bit-equality check of the statistics, and per shape the
    kernel's time, the plain version's, ``F.conv2d`` alone (a conv
    without statistics, the library yardstick) and the bound, each also
-   summed over one training step's 36 and 16 launches;
+   summed over one training step's 36 and 16 launches; on x = 0 the
+   statistics must come out exact;
 7. training path: ResNet-50 (1000 classes, random weights from seed
-   0, the LogSoftMax tail dropped for ``CrossEntropyCriterion``)
+   0, the zero gamma of each block's last BN drawn anew from seed 2,
+   the LogSoftMax tail dropped for ``CrossEntropyCriterion``)
    trained by ``LocalOptimizer`` with ``SGD(learningrate=0.1)`` and
    the bf16 compute policy on synthetic 224x224 data, batch 32: the
    standard arm, then the fused arm (``fuse_conv_bn``), each from the
    same weights and data.  Every loss must be finite, the two arms'
-   first-step losses must agree, and the fused arm must launch
+   losses must agree at every step, and the fused arm must launch
    ``conv_bn_1x1`` 36 and ``conv_bn_kxk`` 16 times per step (the
    standard arm neither);
 8. where the fused training step's time goes: ``torch.profiler`` over
@@ -81,17 +83,31 @@ CONVKXK_REPLACES = "bigdl_tpu/ops/conv_bn.py:238"
 # |y| (both round an f32 sum that differs in the last bits: they agree
 # or straddle one rounding boundary, and near y = 0 the two f32 sums
 # differ by more than a bf16 ulp of the tiny value, so the ulp is taken
-# at the output's scale, as the flash check does); s1/s2 within 1e-3 of
+# at the output's scale, as the flash check does); s1/s2 within 1e-5 of
 # the plain version's f32 sums, relative to the largest |sum| over the
-# channels (sums of up to 100352 terms in other orders)
+# channels (sums of up to 100352 terms in other orders: 3e-7 is the worst
+# seen on the H100, and a column of 64 partials dropped from a batch-32
+# sum would be some 6e-4). Besides, on x = 0 with power-of-two shifts
+# every partial sum is exact, so s1 = -N*Ho*Wo*shift and
+# s2 = N*Ho*Wo*shift^2 must hold bit for bit.
 CONV_F32_TOL = 1e-4
-STATS_REL_TOL = 1e-3
+STATS_REL_TOL = 1e-5
+ZERO_X_SHIFTS = (0.5, -0.25, 1.0, -2.0, 0.125, -1.0, 2.0, -0.5)
 # ResNet-50 training: batch, image size, classes, timed steps after the
-# first, and the limit on |first-step loss, fused - standard| at a loss
-# near ln(1000) = 6.9 (bf16 convs, stats from the f32 accumulator in
-# the fused arm and from the bf16 y in the standard one)
+# first, and the limits on |loss, fused - standard| at step 1 and at each
+# later step. The builder's zero gamma of each block's last BN would hide
+# the block's main branch from the first step's loss and gradient, so
+# both arms start from the same gamma drawn from U(0.25, 0.75) (seed 2):
+# every fused site then shapes the first loss, and its backward the later
+# ones. The arms differ in rounding only (bf16 convs; statistics from the
+# f32 accumulator in the fused arm, from the bf16 y in the standard one),
+# and both are deterministic run to run on the H100: step 1 differs by
+# 2.6e-3 there, a later step by at most 6.0e-2. A fused backward that
+# drops the gs2 term exceeds the later limit 2.9x or more at every later
+# step, one that drops gs1 and gs2 exceeds it from step 3 on (1.49x
+# there, 6.9x at step 6); chip_mutants.py checks both.
 TRAIN_BATCH, TRAIN_IMG, TRAIN_CLASSES, TRAIN_STEPS = 32, 224, 1000, 5
-LOSS_TOL = 1e-2
+LOSS_TOL, LATER_LOSS_TOL = 1e-2, 0.15
 # the device of the conv_bn and training phases
 DEV = "cuda"
 
@@ -447,7 +463,26 @@ def _conv_case(x_shape, w_shape, stride, pad, dtype, gen):
         if not r <= STATS_REL_TOL:
             raise AssertionError(f"{name}: {which} rel err {r:.3e} > "
                                  f"{STATS_REL_TOL}")
+    # x = 0: y is 0 and every valid output adds exactly -shift, shift^2
+    z_shift = torch.tensor(ZERO_X_SHIFTS, device=DEV).repeat(
+        -(-o // len(ZERO_X_SHIFTS)))[:o]
+    zy, z1, z2 = conv_bn_stats(torch.zeros_like(x), w, z_shift,
+                               stride=stride, pad=pad)
+    cnt = float(zy.shape[0] * zy.shape[2] * zy.shape[3])
+    if not (torch.equal(z1, -cnt * z_shift)
+            and torch.equal(z2, cnt * z_shift * z_shift)
+            and not zy.float().abs().max().item()):
+        raise AssertionError(f"{name}: statistics of x = 0 are not exactly "
+                             f"N*Ho*Wo = {cnt:.0f} shifts")
     return err, differ, rel[0], rel[1], (x, w, shift)
+
+
+def _taps(size: int, k: int, stride: int, pad: int, out: int) -> int:
+    """How many of ``size`` input rows (or columns) the ``out`` outputs
+    of a k-tap, strided, padded window read: a strided 1x1 conv reads
+    only every stride-th."""
+    return len({i * stride - pad + d for i in range(out) for d in range(k)}
+               & set(range(size)))
 
 
 def _conv_times(x, w, shift, stride, pad) -> dict:
@@ -463,7 +498,9 @@ def _conv_times(x, w, shift, stride, pad) -> dict:
     lib = time_ms(lambda: torch.nn.functional.conv2d(x, w, stride=stride,
                                                      padding=pad))
     itemsize = x.element_size()
-    nbytes = (x.numel() + w.numel() + n * o * ho * wo) * itemsize \
+    x_read = n * c * _taps(h, k, stride, pad, ho) * _taps(wd, k, stride, pad,
+                                                           wo)
+    nbytes = (x_read + w.numel() + n * o * ho * wo) * itemsize \
         + 3 * o * 4                                  # shift read, s1/s2
     flops = 2 * n * o * c * k * k * ho * wo
     b_ms, b_by = bound(nbytes, flops, x.dtype)
@@ -568,11 +605,19 @@ def _train_arm(fused: bool, x, y):
     from bigdl_tpu_torch.models.resnet import build_resnet_imagenet
     from bigdl_tpu_torch.nn.criterion import CrossEntropyCriterion
     from bigdl_tpu_torch.nn.fused import fuse_conv_bn
+    from bigdl_tpu_torch.nn.layers import SpatialBatchNormalization
     from bigdl_tpu_torch.ops import _cuda
     from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
 
     RandomGenerator.RNG.set_seed(0)
     model = build_resnet_imagenet(50, TRAIN_CLASSES, device=DEV)
+    rs = np.random.RandomState(2)
+    with torch.no_grad():
+        for m in model.modules():
+            if (isinstance(m, SpatialBatchNormalization)
+                    and not m.weight.abs().max().item()):
+                m.weight.copy_(torch.from_numpy(rs.uniform(
+                    0.25, 0.75, m.weight.shape).astype(np.float32)))
     if fused:
         fuse_conv_bn(model, kernels=(1, 3))
     model.modules = model.modules[:-1]        # CrossEntropy takes logits
@@ -608,9 +653,19 @@ def _train_arm(fused: bool, x, y):
     return opt, loss, step_ms, launches
 
 
-def phase_training():
-    """ResNet-50 training, standard arm then fused arm; returns the
-    fused arm's optimizer and its launches."""
+def loss_gaps(std_loss, fused_loss) -> tuple:
+    """|loss, fused - standard| by step, and the steps (1-based) where
+    it is over its limit."""
+    gaps = [abs(f - s) for f, s in zip(fused_loss, std_loss)]
+    over = [i + 1 for i, g in enumerate(gaps)
+            if not g <= (LOSS_TOL if i == 0 else LATER_LOSS_TOL)]
+    return gaps, over
+
+
+def train_both_arms():
+    """ResNet-50 training, standard arm then fused arm, from the same
+    weights and data: (fused optimizer, its launches, standard losses,
+    fused losses)."""
     x = np.random.RandomState(0).randn(
         TRAIN_BATCH, 3, TRAIN_IMG, TRAIN_IMG).astype(np.float32)
     y = (np.random.RandomState(1).randint(0, TRAIN_CLASSES, TRAIN_BATCH)
@@ -619,13 +674,21 @@ def phase_training():
     del std
     torch.cuda.empty_cache()
     fused, fused_loss, fused_ms, launches = _train_arm(True, x, y)
-    gap = abs(fused_loss[0] - std_loss[0])
+    say(f"phase 7 step ms standard {std_ms:.3f}, fused {fused_ms:.3f}")
+    return fused, launches, std_loss, fused_loss
+
+
+def phase_training():
+    """Both arms; returns the fused arm's optimizer and its launches."""
+    fused, launches, std_loss, fused_loss = train_both_arms()
+    gaps, over = loss_gaps(std_loss, fused_loss)
     say(f"phase 7 first-step loss: standard {std_loss[0]:.6f}, fused "
-        f"{fused_loss[0]:.6f}, |gap| {gap:.3e} (limit {LOSS_TOL:g}); step "
-        f"ms standard {std_ms:.3f}, fused {fused_ms:.3f}")
-    if not gap <= LOSS_TOL:
-        raise AssertionError(f"fused and standard first-step losses differ "
-                             f"by {gap}")
+        f"{fused_loss[0]:.6f}; |gap| by step "
+        f"{['%.3e' % g for g in gaps]} (limit {LOSS_TOL:g} at step 1, "
+        f"{LATER_LOSS_TOL:g} later)")
+    if over:
+        raise AssertionError(f"fused and standard losses differ by more "
+                             f"than their limit at steps {over}")
     return fused, launches
 
 

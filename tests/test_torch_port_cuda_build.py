@@ -99,10 +99,24 @@ def test_conv_bn_sources_build_alone_and_rebuild_when_edited(isolated):
     assert [n.split("-")[0] for n in new] == ["conv_bn_kxk"]
 
 
+def test_conv_bn_shared_header_edit_rebuilds_both_conv_bn_kernels(isolated):
+    _cuda.build()
+    before = set(os.listdir(isolated / "build"))
+    with open(isolated / "csrc" / "conv_bn_common.cuh", "a") as f:
+        f.write("\n// edited\n")
+    assert _cuda.build() > 0.0
+    new = set(os.listdir(isolated / "build")) - before
+    assert sorted(n.split("-")[0] for n in new) == ["conv_bn_1x1",
+                                                    "conv_bn_kxk"]
+
+
 def test_conv_bn_tiles_match_the_kernels_pixel_tile():
+    header = open(os.path.join(_cuda.CSRC, "conv_bn_common.cuh")).read()
+    assert f"constexpr int BN = {_cuda.CONV_BN_TILE_P};" in header
     for src in ("conv_bn_1x1.cu", "conv_bn_kxk.cu"):
         text = open(os.path.join(_cuda.CSRC, src)).read()
-        assert f"constexpr int BN = {_cuda.CONV_BN_TILE_P};" in text
+        assert '#include "conv_bn_common.cuh"' in text
+        assert "constexpr int BN" not in text
     assert [_cuda.conv_bn_tiles(p) for p in (49, 64, 65, 3136)] == \
         [1, 1, 2, 49]
 

@@ -164,7 +164,7 @@ def test_no_port_source_imports_jax_or_bigdl_tpu():
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|jaxlib|bigdl_tpu)(\s|\.|$|,)", re.M)
     files = sorted((REPO / "bigdl_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "chip_mutants.py"]
     assert len(files) > 10
     for f in files:
         hits = pattern.findall(f.read_text())

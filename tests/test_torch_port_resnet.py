@@ -353,6 +353,58 @@ def test_resnet50_loss_and_gradients_match_jax(resnet50_pair):
     _close_trees(tm.state(), r["state"], atol=2e-5, rtol=0)
 
 
+@pytest.mark.parametrize("fused", [False, True])
+def test_bottlenecks_with_live_main_branch_gradients_match_jax(fused):
+    """The builder's zero gamma of each block's last BN gives every main
+    branch of the whole-ResNet-50 test above a zero cotangent, so there
+    the 3x3 sites' backward (and the gs1/gs2 it carries) is compared as
+    0 with 0.  Two bottlenecks with gamma = 1 (a strided one, 5x5 from
+    10x10, then a stride-1 one) send a cotangent through every site.  A
+    ResNet-50 with live main branches is no test in f32: one ulp on its
+    input moves some of its parameters' gradients by over 20%.  Limits
+    as the whole-model test, but the loss (a sum of 1600 products, near
+    48) within the layers' rtol of 1e-5."""
+    def build(M):
+        return M.Sequential().add(
+            (JR if M is JN else TR).bottleneck(16, 8, 2, False)).add(
+            (JR if M is JN else TR).bottleneck(32, 8, 1, False))
+    JRandom.RNG.set_seed(6)
+    jm = build(JN)
+    TRandom.RNG.set_seed(6)
+    tm = build(TN)
+    if fused:
+        JF.fuse_conv_bn(jm)
+        TF.fuse_conv_bn(tm)
+        assert sorted(_count_fused(tm)) == [(1, 1)] * 4 + [(1, 2)] + \
+            [(3, 1), (3, 2)]
+    load_jax_params(tm, _np(jm.params()))
+    load_jax_state(tm, _np(jm.state()))
+    x = _x(2, 16, 10, 10, seed=8)
+    r = _x(2, 32, 5, 5, seed=9)
+
+    def loss_fn(p, xx):
+        out, st = jm.apply(p, jm.state(), xx, training=True)
+        return jnp.sum(out * jnp.asarray(r)), st
+
+    (loss, new_state), (gp, gx) = jax.value_and_grad(
+        loss_fn, argnums=(0, 1), has_aux=True)(jm.params(), jnp.asarray(x))
+    tm.train()
+    tx = torch.from_numpy(x).requires_grad_(True)
+    named = list(tm.named_parameters())
+    tloss = (tm(tx) * torch.from_numpy(r)).sum()
+    grads = torch.autograd.grad(tloss, [tx] + [p for _, p in named])
+    np.testing.assert_allclose(tloss.item(), float(loss), rtol=RTOL)
+    np.testing.assert_allclose(grads[0].numpy(), np.asarray(gx), atol=2e-5)
+    gp = _flat(_np(gp))
+    assert set(n for n, _ in named) == set(gp)
+    for (name, _), g in zip(named, grads[1:]):
+        want = gp[name]
+        assert np.abs(want).max() > 0, name      # every site gets a cotangent
+        err = np.abs(g.numpy() - want).max()
+        assert err <= 2e-4 * max(np.abs(want).max(), 1e-3), (name, err)
+    _close_trees(tm.state(), _np(new_state), atol=2e-5, rtol=0)
+
+
 def test_container_modules_is_a_list_and_torch_modules_still_works():
     seq = TN.Sequential().add(TN.ReLU()).add(TN.Identity()).add(
         TN.LogSoftMax())

@@ -1,4 +1,5 @@
-"""Common utilities: the seedable host RNG and device resolution.
+"""Common utilities: the seedable host RNG, seed folding and device
+resolution.
 
 Counterpart of ``bigdl_tpu/common.py``.  ``RandomGenerator`` is a copy
 of the JAX package's numpy host RNG, so that a model built here after
@@ -51,6 +52,19 @@ class RandomGenerator:
     RNG = _RNG()
 
 
+_MASK64 = (1 << 64) - 1
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A new 63-bit seed from ``seed`` and ``data``: the role of
+    ``jax.random.fold_in`` (a step's key from the base key, a block's
+    from the step's), not its numbers.  splitmix64 of the pair."""
+    x = (int(seed) * 0x9E3779B97F4A7C15 + int(data) + 1) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (x ^ (x >> 31)) >> 1
+
+
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on.  The default is the card; a
     caller that wants the CPU says ``device="cpu"``.  Asking for CUDA on
@@ -68,4 +82,4 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-__all__ = ["RandomGenerator", "resolve_device"]
+__all__ = ["RandomGenerator", "fold_in", "resolve_device"]

@@ -29,26 +29,14 @@
 // Fully masked rows keep a shift of 0 and the denominator is clamped at
 // 1e-30, as in the JAX reference. wgmma/TMA come in a later version.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
-constexpr int BQ = 64;        // q rows per CTA
-constexpr int BK = 64;        // key rows per tile
 constexpr int THREADS = 128;  // two threads per q row
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 template <int D, typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -94,17 +82,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile is consumed
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int r = i / D, c = i % D;
-      float kx = 0.f, vx = 0.f;
-      if (k0 + r < tk) {
-        const size_t off = kv_base + (size_t)(k0 + r) * D + c;
-        kx = to_f32(k[off]);
-        vx = to_f32(v[off]);
-      }
-      ks[r * LD + c] = kx;
-      vs[r * LD + c] = vx;
-    }
+    load_tile_pair<BK, D, THREADS>(k + kv_base, v + kv_base, ks, vs, k0, tk,
+                                   1.f);
     __syncthreads();
 
     // scores of this thread's columns 2j + half

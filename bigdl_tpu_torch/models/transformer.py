@@ -5,6 +5,12 @@ positional embeddings, N pre-LN ``TransformerBlock``s, a final
 LayerNorm and a bias-free vocab projection.  Tokens are 0-based.
 Parameters are drawn on the host from ``RandomGenerator.RNG`` in the
 JAX package's order, then moved to ``device``.
+
+Training options (JAX :63-108): ``dropout`` on each block's attention
+output, seeded per block from the step's seed as JAX folds the block
+index into its key (``fold_in(rng, i)``, :97-99); ``remat`` recomputes
+each block's forward in the backward (``jax.checkpoint``, :101-105)
+through ``torch.utils.checkpoint``.
 """
 
 from __future__ import annotations
@@ -13,8 +19,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from bigdl_tpu_torch.common import RandomGenerator, resolve_device
+from bigdl_tpu_torch.common import RandomGenerator, fold_in, resolve_device
 from bigdl_tpu_torch.nn.attention import (LayerNorm, PositionalEmbedding,
                                           TransformerBlock)
 from bigdl_tpu_torch.nn.layers import Linear
@@ -37,14 +44,23 @@ class TokenEmbedding(AbstractModule):
         return self.weight[tokens.long()]
 
 
+def _call_block(block, params, x, seed):
+    return torch.func.functional_call(block, params, (x, seed))
+
+
 class TransformerLM(Composite):
     """Decoder-only causal LM over (batch, seq) int tokens -> logits
     (batch, seq, vocab).  ``attn_impl`` is the prefill/forward
-    attention: "auto", "reference" or "kernel" (``ops.attention``)."""
+    attention: "auto", "reference" or "kernel" (``ops.attention``).
+    ``forward`` takes the step's dropout seed as ``rng_seed``
+    (``takes_rng_seed``: ``LocalOptimizer`` passes one each step)."""
+
+    takes_rng_seed = True
 
     def __init__(self, vocab_size: int, dim: int = 256, n_head: int = 4,
                  n_layer: int = 4, max_len: int = 1024, mlp_ratio: int = 4,
-                 attn_impl: str = "auto", device="cuda"):
+                 dropout: float = 0.0, attn_impl: str = "auto",
+                 remat: bool = False, device="cuda"):
         super().__init__()
         dev = resolve_device(device)
         self.vocab_size = vocab_size
@@ -52,12 +68,13 @@ class TransformerLM(Composite):
         self.n_head = n_head
         self.n_layer = n_layer
         self.max_len = max_len
+        self.remat = remat
         self._add_child("wte", TokenEmbedding(vocab_size, dim))
         self._add_child("wpe", PositionalEmbedding(max_len, dim))
         for i in range(n_layer):
             self._add_child(f"h{i}", TransformerBlock(
                 dim, n_head, mlp_ratio=mlp_ratio, causal=True,
-                attn_impl=attn_impl))
+                attn_impl=attn_impl, dropout=dropout))
         self._add_child("ln_f", LayerNorm(dim))
         self._add_child("head", Linear(dim, vocab_size, with_bias=False))
         self.to(dev)
@@ -69,10 +86,23 @@ class TransformerLM(Composite):
     def blocks(self):
         return [self.child(f"h{i}") for i in range(self.n_layer)]
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor,
+                rng_seed: Optional[int] = None) -> torch.Tensor:
         x = self.wpe(self.wte(tokens))
-        for block in self.blocks():
-            x = block(x)
+        for i, block in enumerate(self.blocks()):
+            seed = None if rng_seed is None else fold_in(rng_seed, i)
+            if self.remat and torch.is_grad_enabled():
+                # the block's parameters go in as arguments, as JAX hands
+                # them to jax.checkpoint: the recompute in the backward
+                # then uses the tensors this forward used (the bf16 casts
+                # of LocalOptimizer live only inside its functional_call).
+                # The dropout mask comes from the block's own seed, so no
+                # global RNG state needs restoring.
+                x = checkpoint(_call_block, block,
+                               dict(block.named_parameters()), x, seed,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = block(x, seed)
         return self.head(self.ln_f(x))
 
     def _sample(self, logits, temperature: float, generator):

@@ -5,11 +5,18 @@ Counterpart of ``bigdl_tpu/nn/attention.py``: ``LayerNorm`` (:39),
 ``prefill`` (:267) and ``decode_step`` (:282), and
 ``PositionalEmbedding`` (:316).  Parameters carry the JAX package's
 names and are drawn from the same host RNG in the same order.
+
+Training dropout (JAX :138-143) takes an explicit seed, the port's
+counterpart of the JAX ``rng`` key: ``forward(x, rng_seed)``.  The mask
+comes from a ``torch.Generator`` made from that seed inside the call,
+so a forward that ``torch.utils.checkpoint`` runs again draws the same
+mask; no global RNG state is read.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -19,6 +26,18 @@ from bigdl_tpu_torch.common import RandomGenerator
 from bigdl_tpu_torch.nn.layers import Linear, Xavier
 from bigdl_tpu_torch.nn.module import AbstractModule, Composite
 from bigdl_tpu_torch.ops.attention import dot_product_attention
+
+
+def dropout(x: torch.Tensor, p: float, seed: int) -> torch.Tensor:
+    """``where(mask, x / keep, 0)`` with keep = 1 − p and the mask drawn
+    with probability keep from a generator seeded with ``seed`` on x's
+    device (JAX ``bernoulli(rng, keep)``, :141-143; other bits than
+    JAX's)."""
+    keep = 1.0 - p
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(seed)
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class LayerNorm(AbstractModule):
@@ -45,12 +64,14 @@ class LayerNorm(AbstractModule):
 class MultiHeadAttention(AbstractModule):
     """Multi-head self attention, (batch, seq, dim) -> (batch, seq, dim).
     ``attn_impl`` picks the inner attention (``ops.attention``):
-    "auto", "reference" or "kernel"."""
+    "auto", "reference" or "kernel".  ``dropout`` acts on the merged
+    attention output in training mode, given a seed."""
 
     param_names = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo")
 
     def __init__(self, dim: int, n_head: int, causal: bool = False,
-                 with_bias: bool = True, attn_impl: str = "auto"):
+                 with_bias: bool = True, attn_impl: str = "auto",
+                 dropout: float = 0.0):
         super().__init__()
         if dim % n_head:
             raise ValueError(f"dim {dim} not divisible by n_head {n_head}")
@@ -60,6 +81,7 @@ class MultiHeadAttention(AbstractModule):
         self.causal = causal
         self.with_bias = with_bias
         self.attn_impl = attn_impl
+        self.dropout = dropout
         init = Xavier()
         for name in ("wq", "wk", "wv", "wo"):
             self._set_param(name, init.init((dim, dim), dim, dim))
@@ -93,11 +115,14 @@ class MultiHeadAttention(AbstractModule):
             y = y + self.bo
         return y
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rng_seed: Optional[int] = None
+                ) -> torch.Tensor:
         q, k, v = self.project_qkv(x)
-        o = self._inner_attention(self._split(q), self._split(k),
-                                  self._split(v))
-        return self.out_proj(self._merge(o))
+        o = self._merge(self._inner_attention(
+            self._split(q), self._split(k), self._split(v)))
+        if self.training and self.dropout > 0 and rng_seed is not None:
+            o = dropout(o, self.dropout, rng_seed)
+        return self.out_proj(o)
 
 
 class TransformerBlock(Composite):
@@ -105,12 +130,14 @@ class TransformerBlock(Composite):
     the tanh-approximated GELU that ``jax.nn.gelu`` defaults to."""
 
     def __init__(self, dim: int, n_head: int, mlp_ratio: int = 4,
-                 causal: bool = True, attn_impl: str = "auto"):
+                 causal: bool = True, attn_impl: str = "auto",
+                 dropout: float = 0.0):
         super().__init__()
         self.dim = dim
         self._add_child("ln1", LayerNorm(dim))
         self._add_child("attn", MultiHeadAttention(
-            dim, n_head, causal=causal, attn_impl=attn_impl))
+            dim, n_head, causal=causal, attn_impl=attn_impl,
+            dropout=dropout))
         self._add_child("ln2", LayerNorm(dim))
         self._add_child("fc1", Linear(dim, mlp_ratio * dim))
         self._add_child("fc2", Linear(mlp_ratio * dim, dim))
@@ -122,8 +149,9 @@ class TransformerBlock(Composite):
         h = F.gelu(h, approximate="tanh")
         return x + self.fc2(h)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.mlp(x + self.attn(self.ln1(x)))
+    def forward(self, x: torch.Tensor, rng_seed: Optional[int] = None
+                ) -> torch.Tensor:
+        return self.mlp(x + self.attn(self.ln1(x), rng_seed))
 
     def prefill(self, x):
         """Full-prefix block forward that also returns the per-head K/V
@@ -174,4 +202,4 @@ class PositionalEmbedding(AbstractModule):
 
 
 __all__ = ["LayerNorm", "MultiHeadAttention", "TransformerBlock",
-           "PositionalEmbedding"]
+           "PositionalEmbedding", "dropout"]

@@ -34,6 +34,9 @@ class AbstractModule(torch.nn.Module):
 
     param_names: tuple = ()
     state_names: tuple = ()
+    # a model whose forward takes ``rng_seed``, the seed of its dropout
+    # masks for one step (the JAX ``apply(..., rng=key)``), says so here
+    takes_rng_seed: bool = False
 
     def _set_param(self, name: str, value) -> None:
         """Register ``value`` (numpy array, tensor or None) as parameter

@@ -34,7 +34,9 @@ from bigdl_tpu_torch import config
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_decode": "paged_decode.cu",
-           "conv_bn_1x1": "conv_bn_1x1.cu", "conv_bn_kxk": "conv_bn_kxk.cu"}
+           "conv_bn_1x1": "conv_bn_1x1.cu", "conv_bn_kxk": "conv_bn_kxk.cu",
+           "flash_bwd_dq": "flash_bwd_dq.cu",
+           "flash_bwd_dkv": "flash_bwd_dkv.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -57,6 +59,14 @@ _SIGNATURES = {
     # q, k, v, o, lse, bh, tq, tk, d, causal, scale, dtype, stream
     "flash_fwd": ("bigdl_flash_fwd",
                   [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
+    # q, k, v, g, lse, delta, dq, bh, tq, tk, d, causal, scale, dtype,
+    # stream
+    "flash_bwd_dq": ("bigdl_flash_bwd_dq",
+                     [_P] * 7 + [_I] * 5 + [_F, _I, _P]),
+    # q, k, v, g, lse, delta, dk, dv, bh, tq, tk, d, causal, scale, dtype,
+    # stream
+    "flash_bwd_dkv": ("bigdl_flash_bwd_dkv",
+                      [_P] * 8 + [_I] * 5 + [_F, _I, _P]),
     # q, kp, vp, tables, lengths, out, b, h, d, page_size, maxp, scale,
     # q_dtype, kv_dtype, stream
     "paged_decode": ("bigdl_paged_decode",
@@ -164,6 +174,40 @@ def launch_flash_fwd(q, k, v, o, lse, *, causal: bool, scale: float) -> None:
     launches["flash_fwd"] += 1
 
 
+def launch_flash_bwd_dq(q, k, v, g, lse, delta, dq, *, causal: bool,
+                        scale: float) -> None:
+    """q/g/dq (BH, Tq, D), k/v (BH, Tk, D), lse/delta (BH, Tq) f32; all
+    contiguous on one card, q, k, v, g and dq of one dtype, checked by
+    the caller."""
+    lib = _lib("flash_bwd_dq")
+    bh, tq, d = q.shape
+    with torch.cuda.device(q.device):
+        code = lib.bigdl_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, tq,
+            k.shape[1], d, int(bool(causal)), float(scale),
+            DTYPE_CODES[q.dtype], _stream(q))
+    _check(lib, "flash_bwd_dq", code)
+    launches["flash_bwd_dq"] += 1
+
+
+def launch_flash_bwd_dkv(q, k, v, g, lse, delta, dk, dv, *, causal: bool,
+                         scale: float) -> None:
+    """q/g (BH, Tq, D), k/v/dk/dv (BH, Tk, D), lse/delta (BH, Tq) f32;
+    all contiguous on one card, the (BH, T, D) tensors of one dtype,
+    checked by the caller."""
+    lib = _lib("flash_bwd_dkv")
+    bh, tq, d = q.shape
+    with torch.cuda.device(q.device):
+        code = lib.bigdl_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            bh, tq, k.shape[1], d, int(bool(causal)), float(scale),
+            DTYPE_CODES[q.dtype], _stream(q))
+    _check(lib, "flash_bwd_dkv", code)
+    launches["flash_bwd_dkv"] += 1
+
+
 def launch_paged_decode(q, kp, vp, tables, lengths, out, *, page_size: int,
                         scale: float) -> None:
     """q/out (B, H, Dh), kp/vp (pages, H, P, Dh), tables (B, maxp) i32,
@@ -223,5 +267,6 @@ def launch_conv_bn_kxk(x, w, shift, y, part, s1, s2, *, stride: int,
 
 
 __all__ = ["build", "launches", "reset_launches", "launch_flash_fwd",
+           "launch_flash_bwd_dq", "launch_flash_bwd_dkv",
            "launch_paged_decode", "launch_conv_bn_1x1", "launch_conv_bn_kxk",
            "conv_bn_tiles", "SOURCES", "CSRC"]

@@ -1,4 +1,4 @@
-"""Scaled-dot-product attention: plain reference + the flash forward.
+"""Scaled-dot-product attention: plain reference + flash attention.
 
 Counterpart of ``bigdl_tpu/ops/attention.py``:
 
@@ -7,6 +7,13 @@ Counterpart of ``bigdl_tpu/ops/attention.py``:
   :120, launched at :356).  On a CUDA tensor it launches the
   hand-written kernel ``csrc/flash_fwd.cu``; on a CPU tensor it runs
   ``flash_attention_plain``, the same tiled online softmax in torch;
+* its gradient is the blockwise flash backward (JAX
+  ``_flash_attention_vjp``, :320-324, 519-623) in ``_FlashAttention``:
+  the forward saves (q, k, v, out, lse) and ``flash_backward`` rebuilds
+  the score tiles from lse.  On a CUDA tensor it launches
+  ``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu`` (JAX
+  ``_flash_bwd_dq_kernel`` :390 and ``_flash_bwd_dkv_kernel`` :445); on a
+  CPU tensor it runs ``flash_bwd_dq_plain`` and ``flash_bwd_dkv_plain``;
 * ``dot_product_attention`` (JAX :679) dispatches between them.
 
 ``impl="auto"`` keeps the JAX package's static policy for this card:
@@ -20,10 +27,13 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from bigdl_tpu_torch.ops import _cuda
 
-# the kernel's key tile, which the plain version folds in the same steps
+# the kernels' q and key tiles, which the plain versions fold in the
+# same steps
+BLOCK_Q = 64
 BLOCK_K = 64
 HEAD_DIMS = (32, 64, 128)
 
@@ -105,16 +115,166 @@ def _check_flash_args(q, k, v, seq_offset):
         raise ValueError("flash_attention: q, k and v differ in dtype")
 
 
+def flash_bwd_dq_plain(q, k, v, g, lse, delta, *, causal: bool,
+                       scale: float) -> torch.Tensor:
+    """dQ of the flash backward in plain torch (JAX
+    ``_flash_bwd_dq_kernel``, :390-442): q/g (BH, Tq, D), k/v
+    (BH, Tk, D), lse/delta (BH, Tq) f32.  Key tiles of ``BLOCK_K`` up to
+    the causal diagonal; per tile ``P = exp(scale·q·kᵀ − lse)``,
+    ``dP = g·vᵀ``, ``dS = P∘(dP − δ)``, ``dq += dS·k``; at the end
+    ``dq *= scale``.  f32 arithmetic, the result in q's dtype."""
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    qs = q.float() * scale
+    gf = g.float()
+    acc = torch.zeros((bh, tq, d), device=q.device)
+    qpos = torch.arange(tq, device=q.device)[:, None]
+    n_tiles = -(-tk // BLOCK_K)
+    if causal:
+        n_tiles = min(n_tiles, -(-tq // BLOCK_K))
+    for kt in range(n_tiles):
+        k0, k1 = kt * BLOCK_K, min((kt + 1) * BLOCK_K, tk)
+        ks = k[:, k0:k1].float()
+        vs = v[:, k0:k1].float()
+        s = torch.matmul(qs, ks.transpose(1, 2))            # (BH, Tq, bk)
+        if causal:
+            kpos = torch.arange(k0, k1, device=q.device)[None, :]
+            s = s.masked_fill(~(qpos >= kpos), float("-inf"))
+        p = torch.exp(s - lse[..., None])
+        dp = torch.matmul(gf, vs.transpose(1, 2))
+        ds = p * (dp - delta[..., None])
+        acc = acc + torch.matmul(ds, ks)
+    return (acc * scale).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, g, lse, delta, *, causal: bool,
+                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dK and dV of the flash backward in plain torch (JAX
+    ``_flash_bwd_dkv_kernel``, :445-516), shapes as
+    :func:`flash_bwd_dq_plain`.  For each key tile of ``BLOCK_K``, q
+    tiles of ``BLOCK_Q`` from the causal lower bound
+    ``q0 = ⌊k0 / BLOCK_Q⌋`` (:499-504 at seq_offset 0); per tile
+    ``dv += Pᵀ·g`` and ``dk += dSᵀ·(scale·q)``.  f32 arithmetic, the
+    results in k's and v's dtype."""
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    qs = q.float() * scale
+    gf = g.float()
+    dk = torch.zeros((bh, tk, d), device=q.device)
+    dv = torch.zeros((bh, tk, d), device=q.device)
+    for kt in range(-(-tk // BLOCK_K)):
+        k0, k1 = kt * BLOCK_K, min((kt + 1) * BLOCK_K, tk)
+        ks = k[:, k0:k1].float()
+        vs = v[:, k0:k1].float()
+        kpos = torch.arange(k0, k1, device=q.device)[None, :]
+        acc_dk = torch.zeros((bh, k1 - k0, d), device=q.device)
+        acc_dv = torch.zeros((bh, k1 - k0, d), device=q.device)
+        for qt in range(k0 // BLOCK_Q if causal else 0, -(-tq // BLOCK_Q)):
+            q0, q1 = qt * BLOCK_Q, min((qt + 1) * BLOCK_Q, tq)
+            s = torch.matmul(qs[:, q0:q1], ks.transpose(1, 2))  # (BH, bq, bk)
+            if causal:
+                qpos = torch.arange(q0, q1, device=q.device)[:, None]
+                s = s.masked_fill(~(qpos >= kpos), float("-inf"))
+            p = torch.exp(s - lse[:, q0:q1, None])
+            acc_dv = acc_dv + torch.matmul(p.transpose(1, 2), gf[:, q0:q1])
+            dp = torch.matmul(gf[:, q0:q1], vs.transpose(1, 2))
+            ds = p * (dp - delta[:, q0:q1, None])
+            acc_dk = acc_dk + torch.matmul(ds.transpose(1, 2), qs[:, q0:q1])
+        dk[:, k0:k1] = acc_dk
+        dv[:, k0:k1] = acc_dv
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_kernel_args(q):
+    d = q.shape[-1]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the flash kernels take D in {HEAD_DIMS}, got {d}")
+    if q.dtype not in _cuda.DTYPE_CODES:
+        raise ValueError(f"the flash kernels take f32 or bf16, got {q.dtype}")
+
+
+def _flash_forward(q, k, v, *, causal: bool, scale: float, with_lse: bool):
+    """The flash forward over flat (BH, T, D) tensors: (O, lse or None)."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check_kernel_args(q)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    lse = (torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    _cuda.launch_flash_fwd(q, k, v, out, lse, causal=causal, scale=scale)
+    return out, lse
+
+
+def flash_backward(q, k, v, out, lse, g, *, causal: bool, scale: float):
+    """The blockwise flash backward over flat (BH, T, D) tensors (JAX
+    ``_flash_backward``, :519-595): (dq, dk, dv) in the dtypes of q, k
+    and v.  ``δ = rowsum(g∘out)`` in f32 is plain torch, as JAX leaves it
+    to XLA (:538-541).  A CUDA tensor goes to the ``flash_bwd_dq`` and
+    ``flash_bwd_dkv`` kernels, and anything they do not take raises; a
+    CPU tensor goes to the plain versions."""
+    delta = (g.float() * out.float()).sum(dim=-1)
+    if q.device.type == "cpu":
+        dq = flash_bwd_dq_plain(q, k, v, g, lse, delta, causal=causal,
+                                scale=scale)
+        dk, dv = flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal=causal,
+                                     scale=scale)
+        return dq, dk, dv
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_backward: unsupported device {q.device}")
+    _check_kernel_args(q)
+    q, k, v, lse = q.contiguous(), k.contiguous(), v.contiguous(), \
+        lse.contiguous()
+    g = g.to(q.dtype).contiguous()
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _cuda.launch_flash_bwd_dq(q, k, v, g, lse, delta, dq, causal=causal,
+                              scale=scale)
+    _cuda.launch_flash_bwd_dkv(q, k, v, g, lse, delta, dk, dv,
+                               causal=causal, scale=scale)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention over flat (BH, T, D) q, k, v with the blockwise
+    backward (JAX ``_flash_attention_vjp``, :320-324, 598-623): the
+    forward saves (q, k, v, out, lse), the backward is
+    :func:`flash_backward`.  Returns (out, lse); lse takes no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = _flash_forward(q, k, v, causal=causal, scale=scale,
+                                  with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g, _g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, out, lse, g, causal=ctx.causal,
+                                    scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = False,
                     scale: Optional[float] = None, seq_offset: int = 0,
                     with_lse: bool = False):
-    """Flash forward over (B, H, Tq, D) q and (B, H, Tk, D) k/v; any Tq
+    """Flash attention over (B, H, Tq, D) q and (B, H, Tk, D) k/v; any Tq
     and Tk.  Returns O, or (O, lse) with lse (B·H, Tq) f32 when
     ``with_lse``.
 
     A CUDA tensor goes to the ``flash_fwd`` kernel (D in 32/64/128, f32
     or bf16), and anything that kernel does not take raises; a CPU
-    tensor goes to :func:`flash_attention_plain`."""
+    tensor goes to :func:`flash_attention_plain`.  Where grad is enabled
+    and an input requires it, the call goes through ``_FlashAttention``,
+    whose backward is :func:`flash_backward`: dq, dk and dv come back in
+    the dtypes of q, k and v."""
     _check_flash_args(q, k, v, seq_offset)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
@@ -123,22 +283,12 @@ def flash_attention(q, k, v, *, causal: bool = False,
     qr = q.reshape(b * h, tq, d)
     kr = k.reshape(b * h, tk, d)
     vr = v.reshape(b * h, tk, d)
-    if q.device.type == "cpu":
-        out, lse = flash_attention_plain(qr, kr, vr, causal=causal,
-                                         scale=scale)
-    elif q.device.type == "cuda":
-        if d not in HEAD_DIMS:
-            raise ValueError(f"flash_fwd kernel takes D in {HEAD_DIMS}, got {d}")
-        if q.dtype not in _cuda.DTYPE_CODES:
-            raise ValueError(f"flash_fwd kernel takes f32 or bf16, got {q.dtype}")
-        qr, kr, vr = qr.contiguous(), kr.contiguous(), vr.contiguous()
-        out = torch.empty_like(qr)
-        lse = (torch.empty((b * h, tq), dtype=torch.float32, device=q.device)
-               if with_lse else None)
-        _cuda.launch_flash_fwd(qr, kr, vr, out, lse, causal=causal,
-                               scale=scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out, lse = _FlashAttention.apply(qr, kr, vr, causal, scale)
     else:
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+        out, lse = _flash_forward(qr, kr, vr, causal=causal, scale=scale,
+                                  with_lse=with_lse)
     out = out.reshape(b, h, tq, d)
     return (out, lse) if with_lse else out
 
@@ -168,4 +318,5 @@ def dot_product_attention(q, k, v, *, causal: bool = False, mask=None,
 
 
 __all__ = ["dot_product_attention", "flash_attention",
-           "flash_attention_plain"]
+           "flash_attention_plain", "flash_backward", "flash_bwd_dq_plain",
+           "flash_bwd_dkv_plain"]

@@ -11,7 +11,9 @@ with f32 master parameters.  Under ``set_compute_dtype("bfloat16")``
 every floating parameter and the input are cast to bf16 *inside* the
 differentiated function (``torch.func.functional_call`` with cast
 copies, JAX ``_cast_for_compute`` :515), so the gradients land in f32;
-the loss is taken in f32 (JAX ``_loss_fn`` :532).
+the loss is taken in f32 (JAX ``_loss_fn`` :532).  A model with
+``takes_rng_seed`` gets step n's dropout seed ``fold_in(1234, n)``, as
+JAX derives ``fold_in(key(1234), n)`` (:717, :1034).
 
 The non-finite guard (on by default, ``BIGDL_TORCH_NONFINITE_GUARD``)
 keeps params, optimizer state and BN state as they were when the loss
@@ -37,13 +39,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.common import resolve_device
+from bigdl_tpu_torch.common import fold_in, resolve_device
 from bigdl_tpu_torch.config import TrainConfig
 from bigdl_tpu_torch.dataset import to_dataset
 from bigdl_tpu_torch.optim.optim_method import SGD
 from bigdl_tpu_torch.optim.triggers import Trigger
 
 log = logging.getLogger("bigdl_tpu_torch.optim")
+# the base of the per-step dropout seeds (JAX ``jax.random.key(1234)``)
+DROPOUT_BASE_SEED = 1234
+
 
 class NonFiniteStepError(RuntimeError):
     """Too many consecutive training steps with a non-finite loss or
@@ -147,25 +152,27 @@ class LocalOptimizer:
     setConstantGradientClipping = set_constant_gradient_clipping
 
     # ---- one step --------------------------------------------------------
-    def _loss(self, names, params, inp, tgt):
-        """The f32 loss of one batch, differentiable in ``params``."""
+    def _loss(self, names, params, inp, tgt, seed):
+        """The f32 loss of one batch, differentiable in ``params``;
+        ``seed`` is the step's dropout seed."""
         ct = self.compute_dtype
+        kw = {"rng_seed": seed} if self.model.takes_rng_seed else {}
         if ct is None:
-            out = self.model(inp)
+            out = self.model(inp, **kw)
         else:
             cast = {n: p.to(ct) if p.is_floating_point() else p
                     for n, p in zip(names, params)}
             out = torch.func.functional_call(
                 self.model, cast, (inp.to(ct) if inp.is_floating_point()
-                                   else inp,))
+                                   else inp,), kw)
         out = out.float() if out.is_floating_point() else out
         return self.criterion.loss(out, tgt)
 
-    def _train_step(self, names, params, opt_state, inp, tgt, guard):
+    def _train_step(self, names, params, opt_state, inp, tgt, guard, seed):
         """One step; returns (new opt_state, loss, ok), both device
         tensors, after writing params and BN state in place."""
         mstate = self.model.state()
-        loss = self._loss(names, params, inp, tgt)
+        loss = self._loss(names, params, inp, tgt, seed)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, params)]
@@ -238,7 +245,7 @@ class LocalOptimizer:
                 tgt_d = torch.as_tensor(np.asarray(tgt), device=self.device)
                 opt.state, loss, ok = self._train_step(
                     names, params, opt.state, inp_d, tgt_d,
-                    cfg.nonfinite_guard)
+                    cfg.nonfinite_guard, fold_in(DROPOUT_BASE_SEED, n))
                 # read the previous step's loss while this one runs
                 flush()
                 pending.append((n, loss, ok, int(inp_d.shape[0]), t0))

@@ -45,11 +45,35 @@ it runs; any failure exits non-zero:
    standard arm neither);
 8. where the fused training step's time goes: ``torch.profiler`` over
    two steps, device busy share, the top kernels and the top host ops;
-9. the kernels line: one JSON object listing each kernel with its
-   launches on its own path (phase 4 or the fused arm of phase 7) and
-   its numbers from phase 3 or 6.
+10. flash backward kernels: ``flash_bwd_dq`` and ``flash_bwd_dkv``
+    against their plain versions at the training shape (B=16, H=8,
+    T=512, D=64, causal; bf16 and f32), the long-context shape of
+    ``scripts/attn_ab.py`` (B=2, T=4096, bf16), a non-causal
+    cross-length case, a ragged causal case (T=131, D=32) and D=128,
+    each run twice and bit-equal; at the training shape the kernels'
+    times, the plain versions', their bounds and the backward of
+    ``scaled_dot_product_attention`` (dq, dk and dv together) beside
+    their sum plus δ;
+11. transformer training: the flagship TransformerLM (vocab 8192, dim
+    512, 8 heads, 8 layers, random weights from seed 0) at batch 16,
+    T=512 with ``CrossEntropyCriterion`` and ``SGD(learningrate=1e-3)``,
+    in a reference arm and a kernel arm (``attn_impl="kernel"``) from
+    the same weights and int32 tokens: (a) one step's f32 gradient of
+    every parameter, kernel arm within 1e-4 relative L2 of the
+    reference arm, ``wq/wk/wv`` nonzero; then two steps of the kernel
+    arm at B=2, T=4096 with ``remat=True`` (16/8/8 launches a step);
+    (b) 1 + 5 ``LocalOptimizer`` steps per arm under the bf16 policy,
+    every loss finite and the arms within 1e-2 at every step, the
+    kernel arm launching ``flash_fwd``, ``flash_bwd_dq`` and
+    ``flash_bwd_dkv`` 8 times each per step (the reference arm none);
+12. where the kernel arm's step goes: ``torch.profiler`` over two
+    steps, as phase 8;
+9. the kernels line, last: one JSON object listing each kernel with its
+   launches on its own path (phase 4, the fused arm of phase 7, or the
+   kernel arm of phase 11) and its numbers from phase 3, 6 or 10.
 
-The last line is ``{"ok": true, "device": {...}}``.
+The last line is ``{"ok": true, "device": {...}}``, after the card's
+name and power limit and the script's total seconds.
 """
 
 from __future__ import annotations
@@ -75,6 +99,8 @@ FLASH_REPLACES = "bigdl_tpu/ops/attention.py:120"
 DECODE_REPLACES = "bigdl_tpu/ops/decode_attention.py:205"
 CONV1X1_REPLACES = "bigdl_tpu/ops/conv_bn.py:127"
 CONVKXK_REPLACES = "bigdl_tpu/ops/conv_bn.py:238"
+DQ_REPLACES = "bigdl_tpu/ops/attention.py:390"
+DKV_REPLACES = "bigdl_tpu/ops/attention.py:445"
 
 # conv_bn limits against the plain version (the same conv in f32 by
 # cuDNN, TF32 off): f32 y 1e-4 abs (the kernel and cuDNN sum the C·k²
@@ -108,7 +134,31 @@ ZERO_X_SHIFTS = (0.5, -0.25, 1.0, -2.0, 0.125, -1.0, 2.0, -0.5)
 # there, 6.9x at step 6); chip_mutants.py checks both.
 TRAIN_BATCH, TRAIN_IMG, TRAIN_CLASSES, TRAIN_STEPS = 32, 224, 1000, 5
 LOSS_TOL, LATER_LOSS_TOL = 1e-2, 0.15
-# the device of the conv_bn and training phases
+# flash backward limits against the plain versions: f32 within 1e-5 of
+# the largest |gradient| of the case (the same f32 products summed in
+# other orders); bf16 within one bf16 ulp of it (both round an f32 sum
+# once, and agree or straddle one rounding boundary)
+BWD_F32_REL = 1e-5
+# phase 10 cases: (B, H, Tq, Tk, D, dtype, causal); the first two are
+# the training shape, timed
+FLASH_BWD_CASES = [
+    (16, 8, 512, 512, 64, torch.bfloat16, True),
+    (16, 8, 512, 512, 64, torch.float32, True),
+    (2, 8, 4096, 4096, 64, torch.bfloat16, True),
+    (2, 8, 200, 300, 64, torch.float32, False),
+    (2, 8, 131, 131, 32, torch.float32, True),
+    (2, 8, 200, 200, 128, torch.float32, True),
+    (2, 8, 256, 256, 128, torch.bfloat16, False),
+]
+# transformer training (phase 11): the flagship of bench.py:440-441;
+# batch, T and timed steps after the first; the long-context point; the
+# limits on the f32 gradients (relative L2 per tensor, kernel arm against
+# reference arm) and on |loss, kernel - reference| under bf16
+LM = dict(dim=512, n_head=8, n_layer=8)
+LM_VOCAB, LM_BATCH, LM_T, LM_STEPS = 8192, 16, 512, 5
+LONG_BATCH, LONG_T = 2, 4096
+LM_GRAD_REL_TOL, LM_LOSS_TOL = 1e-4, 1e-2
+# the device of the conv_bn, flash backward and training phases
 DEV = "cuda"
 
 
@@ -692,8 +742,10 @@ def phase_training():
     return fused, launches
 
 
-def phase_train_profile(opt) -> None:
-    """Device busy share and top kernels over two fused training steps."""
+def phase_train_profile(opt, phase: int = 8,
+                        what: str = "fused training step") -> None:
+    """Device busy share and top kernels over two training steps of
+    ``opt``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -718,22 +770,296 @@ def phase_train_profile(opt) -> None:
     host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CPU), reverse=True)
-    say(f"phase 8 profile host: {sum(h[1] for h in host) // steps} host "
+    say(f"phase {phase} profile host: {sum(h[1] for h in host) // steps} host "
         "ops per step; top by self CPU time:")
     for ms, cnt, key in host[:8]:
-        say(f"phase 8 profile host: {ms / steps:8.3f} ms/step  "
+        say(f"phase {phase} profile host: {ms / steps:8.3f} ms/step  "
             f"x{cnt // steps:<5d} {key[:80]}")
     if not rows:
-        say("phase 8 profile: the profiler shows no device time (device "
+        say(f"phase {phase} profile: the profiler shows no device time (device "
             f"busy share not measured); wall {wall_ms / steps:.3f} ms per "
             "step")
         return
-    say(f"phase 8 profile: {wall_ms / steps:.3f} ms per fused training step "
+    say(f"phase {phase} profile: {wall_ms / steps:.3f} ms per {what} "
         f"(wall), device busy {busy_ms / steps:.3f} ms per step, busy share "
         f"{busy_ms / wall_ms:.3f}")
     for ms, cnt, key in rows[:10]:
-        say(f"phase 8 profile:   {ms / steps:8.4f} ms/step  "
+        say(f"phase {phase} profile:   {ms / steps:8.4f} ms/step  "
             f"x{cnt // steps:<4d} {key[:90]}")
+
+
+def _bwd_limit(ref: torch.Tensor) -> float:
+    mag = ref.float().abs().max().item()
+    return (BWD_F32_REL * mag if ref.dtype == torch.float32
+            else _bf16_ulp(mag))
+
+
+def _flash_bwd_inputs(case, gen):
+    """Flat q, k, v, g of one case, its forward's out and lse, and δ."""
+    from bigdl_tpu_torch.ops.attention import _flash_forward
+
+    b, h, tq, tk, d, dt, causal = case
+    q, g = (torch.randn((b * h, tq, d), generator=gen, device=DEV).to(dt)
+            for _ in range(2))
+    k, v = (torch.randn((b * h, tk, d), generator=gen, device=DEV).to(dt)
+            for _ in range(2))
+    out, lse = _flash_forward(q, k, v, causal=causal, scale=d ** -0.5,
+                              with_lse=True)
+    delta = (g.float() * out.float()).sum(dim=-1)
+    return q, k, v, g, out, lse, delta
+
+
+def _flash_bwd_case(case, gen):
+    """Both kernels (through ``flash_backward``, twice: bit-equal)
+    against the plain versions: the max abs errors of dq, dk, dv."""
+    from bigdl_tpu_torch.ops.attention import (flash_backward,
+                                               flash_bwd_dkv_plain,
+                                               flash_bwd_dq_plain)
+
+    b, h, tq, tk, d, dt, causal = case
+    scale = d ** -0.5
+    q, k, v, g, out, lse, delta = _flash_bwd_inputs(case, gen)
+    got = flash_backward(q, k, v, out, lse, g, causal=causal, scale=scale)
+    again = flash_backward(q, k, v, out, lse, g, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    name = (f"flash backward B={b} H={h} Tq={tq} Tk={tk} D={d} "
+            f"{str(dt)[6:]} causal={causal}")
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"{name}: two runs on one input differ")
+    want = (flash_bwd_dq_plain(q, k, v, g, lse, delta, causal=causal,
+                               scale=scale),
+            *flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal=causal,
+                                 scale=scale))
+    errs = []
+    for which, x, w in zip(("dq", "dk", "dv"), got, want):
+        if x.dtype != dt:
+            raise AssertionError(f"{name}: {which} is {x.dtype}")
+        err = (x.float() - w.float()).abs().max().item()
+        check(f"{name} {which}", err, _bwd_limit(w))
+        errs.append(err)
+    say(f"phase 10 {name}: max abs err dq {errs[0]:.3e}, dk {errs[1]:.3e}, "
+        f"dv {errs[2]:.3e}; bit-equal run to run")
+    return errs
+
+
+def _flash_bwd_times(case, gen) -> dict:
+    """Times at one shape: each kernel, its plain version, its bound,
+    δ, and the backward of scaled_dot_product_attention."""
+    from bigdl_tpu_torch.ops import _cuda
+    from bigdl_tpu_torch.ops.attention import (flash_bwd_dkv_plain,
+                                               flash_bwd_dq_plain)
+
+    b, h, tq, tk, d, dt, causal = case
+    scale = d ** -0.5
+    q, k, v, g, out, lse, delta = _flash_bwd_inputs(case, gen)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    kw = dict(causal=causal, scale=scale)
+    t = dict(
+        dq=time_ms(lambda: _cuda.launch_flash_bwd_dq(q, k, v, g, lse, delta,
+                                                     dq, **kw)),
+        dkv=time_ms(lambda: _cuda.launch_flash_bwd_dkv(
+            q, k, v, g, lse, delta, dk, dv, **kw)),
+        delta=time_ms(lambda: (g.float() * out.float()).sum(dim=-1)),
+        dq_plain=time_ms(lambda: flash_bwd_dq_plain(q, k, v, g, lse, delta,
+                                                    **kw)),
+        dkv_plain=time_ms(lambda: flash_bwd_dkv_plain(q, k, v, g, lse,
+                                                      delta, **kw)))
+    q4, k4, v4 = (x.reshape(b, h, -1, d).detach().requires_grad_()
+                  for x in (q, k, v))
+    o4 = torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=causal)
+    g4 = g.reshape(b, h, tq, d)
+    t["sdpa_bwd"] = time_ms(lambda: torch.autograd.grad(
+        o4, (q4, k4, v4), g4, retain_graph=True))
+    bh, item = b * h, q.element_size()
+    # the (q, k) pairs the causal mask keeps (timed shapes have Tq = Tk)
+    pairs = bh * (tq * (tq + 1) / 2 if causal else tq * tk)
+    rows = 2 * bh * tq * 4                       # lse and δ read
+    # dq: q, g, k, v read, dq written; dkv: q, g, k, v read, dk, dv written
+    t["dq_bound"] = bound((3 * bh * tq * d + 2 * bh * tk * d) * item + rows,
+                          6 * d * pairs, dt)
+    t["dkv_bound"] = bound((2 * bh * tq * d + 4 * bh * tk * d) * item + rows,
+                           8 * d * pairs, dt)
+    say(f"phase 10 time B={b} H={h} T={tq} D={d} {str(dt)[6:]}: dq kernel "
+        f"{t['dq']:.4f} ms (plain {t['dq_plain']:.4f}, bound "
+        f"{t['dq_bound'][0]:.5f} by {t['dq_bound'][1]}); dkv kernel "
+        f"{t['dkv']:.4f} ms (plain {t['dkv_plain']:.4f}, bound "
+        f"{t['dkv_bound'][0]:.5f} by {t['dkv_bound'][1]}); delta "
+        f"{t['delta']:.4f} ms; dq + dkv + delta "
+        f"{t['dq'] + t['dkv'] + t['delta']:.4f} ms against the SDPA backward "
+        f"{t['sdpa_bwd']:.4f} ms")
+    return t
+
+
+def phase_flash_bwd(gen) -> list:
+    """Phase 10: both backward kernels at every case, times at the
+    training shape; returns their two kernels-line rows."""
+    worst = {torch.float32: [0.0] * 3, torch.bfloat16: [0.0] * 3}
+    for case in FLASH_BWD_CASES:
+        errs = _flash_bwd_case(case, gen)
+        worst[case[5]] = [max(a, e) for a, e in zip(worst[case[5]], errs)]
+    times = {case[5]: _flash_bwd_times(case, gen)
+             for case in FLASH_BWD_CASES[:2]}
+    main = times[torch.bfloat16]
+    shape = "B=16 H=8 T=512 D=64 bf16 causal"
+    sdpa = ("scaled_dot_product_attention backward (dq, dk, dv together), "
+            "against the sum of both kernels plus delta: "
+            f"{main['dq'] + main['dkv'] + main['delta']:.4f} ms")
+    rows = []
+    for name, src, replaces, err, err16 in (
+            ("flash_bwd_dq", "flash_bwd_dq.cu", DQ_REPLACES,
+             worst[torch.float32][0], worst[torch.bfloat16][0]),
+            ("flash_bwd_dkv", "flash_bwd_dkv.cu", DKV_REPLACES,
+             max(worst[torch.float32][1:]), max(worst[torch.bfloat16][1:]))):
+        key = name[len("flash_bwd_"):]
+        f32 = times[torch.float32]
+        rows.append(dict(
+            name=name, route="cuda", source=f"bigdl_tpu_torch/csrc/{src}",
+            replaces=replaces, max_abs_err=err, max_abs_err_bf16=err16,
+            ms=main[key], plain_ms=main[f"{key}_plain"],
+            bound_ms=main[f"{key}_bound"][0],
+            bound_by=main[f"{key}_bound"][1], library_ms=main["sdpa_bwd"],
+            library=sdpa, shape=shape, f32_ms=f32[key],
+            f32_plain_ms=f32[f"{key}_plain"],
+            f32_bound_ms=f32[f"{key}_bound"][0],
+            f32_library_ms=f32["sdpa_bwd"]))
+    return rows
+
+
+def _lm(impl: str, max_len: int, remat: bool = False):
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.models.transformer import build_transformer_lm
+
+    RandomGenerator.RNG.set_seed(0)
+    return build_transformer_lm(LM_VOCAB, max_len=max_len, attn_impl=impl,
+                                remat=remat, device=DEV, **LM)
+
+
+def _lm_data(batch: int, t: int):
+    """int32 token ids as bench.py:442-445 draws them, and 1-based
+    targets for CrossEntropyCriterion."""
+    rs = np.random.RandomState(0)
+    return (rs.randint(0, LM_VOCAB, (batch, t)).astype(np.int32),
+            (rs.randint(0, LM_VOCAB, (batch, t)) + 1).astype(np.int32))
+
+
+def _lm_grads(impl: str, x, y):
+    """One step's f32 gradient of every parameter, by name."""
+    from bigdl_tpu_torch.nn.criterion import CrossEntropyCriterion
+
+    model = _lm(impl, LM_T)
+    model.train()
+    named = list(model.named_parameters())
+    loss = CrossEntropyCriterion().loss(
+        model(torch.as_tensor(x, device=DEV)).float(),
+        torch.as_tensor(y, device=DEV))
+    grads = torch.autograd.grad(loss, [p for _, p in named])
+    return loss.item(), {n: gr for (n, _), gr in zip(named, grads)}
+
+
+def _lm_train_arm(impl: str, x, y, steps: int, max_len: int = LM_T,
+                  remat: bool = False):
+    """``LocalOptimizer`` under the bf16 policy: step 1, then ``steps``
+    timed steps.  Returns (optimizer, losses, step ms, launches of the
+    timed steps)."""
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.nn.criterion import CrossEntropyCriterion
+    from bigdl_tpu_torch.ops import _cuda
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+
+    model = _lm(impl, max_len, remat)
+    RandomGenerator.RNG.set_seed(1)           # one shuffle order, both arms
+    losses = _Losses()
+    opt = LocalOptimizer(model, (x, y), CrossEntropyCriterion(),
+                         batch_size=x.shape[0], device=DEV)
+    opt.set_optim_method(SGD(learningrate=1e-3)).set_compute_dtype("bfloat16")
+    opt.set_train_summary(losses)
+    opt.set_end_when(Trigger.max_iteration(1)).optimize()
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    opt.set_end_when(Trigger.max_iteration(1 + steps)).optimize()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    launches = {k: _cuda.launches[k]
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    loss = [losses.loss[n] for n in sorted(losses.loss)]
+    if len(loss) != 1 + steps or not all(np.isfinite(loss)):
+        raise AssertionError(f"{impl} arm: missing or non-finite losses "
+                             f"{loss}")
+    return opt, loss, step_ms, launches
+
+
+def phase_lm_training():
+    """Phase 11: the f32 gradient check, the long-context point, then
+    the transformer's two arms.  Returns the kernel arm's optimizer and
+    its launches."""
+    x, y = _lm_data(LM_BATCH, LM_T)
+    ref_loss, ref = _lm_grads("reference", x, y)
+    torch.cuda.empty_cache()
+    ker_loss, ker = _lm_grads("kernel", x, y)
+    # relative L2 per tensor; a key bias's exact gradient is 0 (each
+    # query's softmax is unchanged by a shift common to all its keys), so
+    # its rounding noise is measured against the same layer's query-bias
+    # gradient instead
+    rel = {n: ((ker[n] - ref[n]).norm()
+               / ref[n[:-2] + "bq" if n.endswith(".bk") else n].norm()).item()
+           for n in ref}
+    worst = max(rel, key=rel.get)
+    dead = [n for n in ker if n.split(".")[-1] in ("wq", "wk", "wv")
+            and not ker[n].abs().max().item()]
+    say(f"phase 11 (a) f32 gradients of {len(rel)} tensors: loss reference "
+        f"{ref_loss:.6f}, kernel {ker_loss:.6f}; worst relative L2 "
+        f"{rel[worst]:.3e} at {worst} (limit {LM_GRAD_REL_TOL:g}); "
+        f"zero wq/wk/wv gradients: {len(dead)}")
+    if not rel[worst] <= LM_GRAD_REL_TOL or dead:
+        raise AssertionError(f"kernel-arm gradients off: {worst} "
+                             f"{rel[worst]:.3e}, zero {dead}")
+    del ref, ker
+    torch.cuda.empty_cache()
+
+    # the long-context point before the arms, so that the kernel arm's
+    # optimizer goes to phase 12's profile with its allocator cache warm
+    lx, ly = _lm_data(LONG_BATCH, LONG_T)
+    torch.cuda.reset_peak_memory_stats()
+    long_opt, loss, ms, long_launches = _lm_train_arm(
+        "kernel", lx, ly, 1, max_len=LONG_T, remat=True)
+    say(f"phase 11 long context B={LONG_BATCH} T={LONG_T} remat, bf16: "
+        f"losses {['%.5f' % v for v in loss]}; step 2 {ms:.3f} ms "
+        f"({LONG_BATCH * LONG_T / ms * 1e3:.1f} tokens/s); launches "
+        f"{long_launches} in step 2; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    if tuple(long_launches.values()) != (16, 8, 8):
+        raise AssertionError(f"long-context step launched {long_launches}, "
+                             "want (16, 8, 8) (fwd, dq, dkv)")
+    del long_opt
+    torch.cuda.empty_cache()
+
+    arms = {}
+    for impl in ("reference", "kernel"):
+        opt, loss, ms, launches = _lm_train_arm(impl, x, y, LM_STEPS)
+        tokens = LM_BATCH * LM_T / ms * 1e3
+        say(f"phase 11 (b) {impl} arm, bf16: losses "
+            f"{['%.5f' % v for v in loss]}; step {ms:.3f} ms over steps "
+            f"2-{1 + LM_STEPS} ({tokens:.1f} tokens/s); launches {launches} "
+            f"in {LM_STEPS} steps")
+        want = (8 * LM_STEPS if impl == "kernel" else 0,) * 3
+        if tuple(launches.values()) != want:
+            raise AssertionError(f"{impl} arm launched {launches}, want "
+                                 f"{want} (fwd, dq, dkv)")
+        arms[impl] = (loss, launches)
+        if impl == "reference":
+            del opt
+            torch.cuda.empty_cache()
+    gaps = [abs(a - b) for a, b in zip(arms["kernel"][0],
+                                       arms["reference"][0])]
+    say(f"phase 11 (b) |loss, kernel - reference| by step "
+        f"{['%.3e' % g for g in gaps]} (limit {LM_LOSS_TOL:g})")
+    if not all(gp <= LM_LOSS_TOL for gp in gaps):
+        raise AssertionError("the arms' bf16 losses differ by more than "
+                             f"{LM_LOSS_TOL}")
+    launches = arms["kernel"][1]
+    return opt, launches
 
 
 def main() -> int:
@@ -741,6 +1067,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     import bigdl_tpu_torch  # noqa: F401  (fails where the checkout is missing)
+
+    t_start = time.perf_counter()
 
     smi = phase_device()
     phase_build()
@@ -756,12 +1084,20 @@ def main() -> int:
     phase_train_profile(opt)
     launches.update({k: train_launches[k]
                      for k in ("conv_bn_1x1", "conv_bn_kxk")})
+    del opt
+    torch.cuda.empty_cache()
+    kernels += phase_flash_bwd(gen)
+    opt, lm_launches = phase_lm_training()
+    phase_train_profile(opt, 12, "kernel-arm transformer training step")
+    launches.update({k: lm_launches[k]
+                     for k in ("flash_bwd_dq", "flash_bwd_dkv")})
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on its path")
     say("phase 9 kernels")
     print(json.dumps({"kernels": kernels}), flush=True)
+    say(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

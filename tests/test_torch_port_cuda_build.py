@@ -10,12 +10,15 @@ import stat
 import pytest
 
 from bigdl_tpu_torch.ops import _cuda
+from bigdl_tpu_torch.ops import attention as TA
 
 STUB_C = """
 int bigdl_flash_fwd(void) { return 0; }
 int bigdl_paged_decode(void) { return 0; }
 int bigdl_conv_bn_1x1(void) { return 0; }
 int bigdl_conv_bn_kxk(void) { return 0; }
+int bigdl_flash_bwd_dq(void) { return 0; }
+int bigdl_flash_bwd_dkv(void) { return 0; }
 const char* bigdl_error_string(int code) { return "stub error"; }
 """
 
@@ -51,23 +54,27 @@ def isolated(tmp_path, monkeypatch):
 def test_build_compiles_each_source_once_and_loads(isolated):
     assert _cuda.build() > 0.0
     calls = (isolated / "nvcc.log").read_text().splitlines()
-    assert len(calls) == 4
+    assert len(calls) == 6
     for call in calls:
         assert "arch=compute_90a,code=sm_90a" in call and "-O3" in call
     assert sorted(c.split()[-1].rsplit("/", 1)[-1] for c in calls) == [
-        "conv_bn_1x1.cu", "conv_bn_kxk.cu", "flash_fwd.cu", "paged_decode.cu"]
+        "conv_bn_1x1.cu", "conv_bn_kxk.cu", "flash_bwd_dkv.cu",
+        "flash_bwd_dq.cu", "flash_fwd.cu", "paged_decode.cu"]
     built = sorted(os.listdir(isolated / "build"))
     assert [b.split("-")[0] for b in built] == [
-        "conv_bn_1x1", "conv_bn_kxk", "flash_fwd", "paged_decode"]
+        "conv_bn_1x1", "conv_bn_kxk", "flash_bwd_dkv", "flash_bwd_dq",
+        "flash_fwd", "paged_decode"]
     assert all(b.endswith(".so") for b in built)
     assert set(_cuda._libs) == {"flash_fwd", "paged_decode", "conv_bn_1x1",
-                                "conv_bn_kxk"}
-    for name in ("conv_bn_1x1", "conv_bn_kxk"):
+                                "conv_bn_kxk", "flash_bwd_dq",
+                                "flash_bwd_dkv"}
+    for name in ("conv_bn_1x1", "conv_bn_kxk", "flash_bwd_dq",
+                 "flash_bwd_dkv"):
         sym, argtypes = _cuda._SIGNATURES[name]
         assert getattr(_cuda._libs[name], sym).argtypes == argtypes
     # a second build finds every library and compiles nothing
     assert _cuda.build() == 0.0
-    assert len((isolated / "nvcc.log").read_text().splitlines()) == 4
+    assert len((isolated / "nvcc.log").read_text().splitlines()) == 6
 
 
 def test_edited_source_gets_a_new_library(isolated):
@@ -108,6 +115,41 @@ def test_conv_bn_shared_header_edit_rebuilds_both_conv_bn_kernels(isolated):
     new = set(os.listdir(isolated / "build")) - before
     assert sorted(n.split("-")[0] for n in new) == ["conv_bn_1x1",
                                                     "conv_bn_kxk"]
+
+
+def test_flash_bwd_sources_build_once_and_rebuild_when_edited(isolated):
+    names = ["flash_bwd_dq", "flash_bwd_dkv"]
+    assert _cuda.build(names) > 0.0
+    assert set(_cuda._libs) == set(names)
+    assert _cuda.build(names) == 0.0
+    assert len((isolated / "nvcc.log").read_text().splitlines()) == 2
+    before = set(os.listdir(isolated / "build"))
+    with open(isolated / "csrc" / "flash_bwd_dkv.cu", "a") as f:
+        f.write("\n// edited\n")
+    assert _cuda.build(names) > 0.0
+    new = set(os.listdir(isolated / "build")) - before
+    assert [n.split("-")[0] for n in new] == ["flash_bwd_dkv"]
+
+
+def test_flash_shared_header_edit_rebuilds_every_flash_kernel(isolated):
+    _cuda.build()
+    before = set(os.listdir(isolated / "build"))
+    with open(isolated / "csrc" / "flash_common.cuh", "a") as f:
+        f.write("\n// edited\n")
+    assert _cuda.build() > 0.0
+    new = set(os.listdir(isolated / "build")) - before
+    assert sorted(n.split("-")[0] for n in new) == [
+        "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd"]
+
+
+def test_flash_tiles_match_the_plain_versions():
+    header = open(os.path.join(_cuda.CSRC, "flash_common.cuh")).read()
+    assert f"constexpr int BQ = {TA.BLOCK_Q};" in header
+    assert f"constexpr int BK = {TA.BLOCK_K};" in header
+    for src in ("flash_fwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu"):
+        text = open(os.path.join(_cuda.CSRC, src)).read()
+        assert '#include "flash_common.cuh"' in text
+        assert "constexpr int BQ" not in text and "to_f32(float" not in text
 
 
 def test_conv_bn_tiles_match_the_kernels_pixel_tile():

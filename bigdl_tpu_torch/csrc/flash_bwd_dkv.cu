@@ -9,47 +9,71 @@
 // so no (Tq, Tk) array is ever stored.
 //
 // Shapes: q/g (BH, Tq, D), k/v/dk/dv (BH, Tk, D), lse/delta (BH, Tq) f32;
-// all contiguous. Any Tq and Tk, D in {32, 64, 128}, f32 or bf16 inputs,
-// dk/dv in that dtype, f32 accumulation. Causal keeps kpos <= qpos (query
-// offset 0).
+// all contiguous, and for bf16 q, k, v and g 16-byte aligned. Any Tq and
+// Tk, D in {32, 64, 128}, f32 or bf16 inputs, dk/dv in that dtype, f32
+// accumulation. Causal keeps kpos <= qpos (query offset 0). One CTA per
+// (bh, 64-row key tile); the TPU grid's sequential q axis becomes a loop
+// over 64-row Q/dO tiles inside the CTA, from the first tile whose rows
+// reach the key tile (q0 = floor(k0 / BQ) when causal). A q row at or
+// past Tq, or a key at or past Tk, contributes exactly 0 (masked, never
+// exp of an unloaded lse). No atomics: dQ is another kernel
+// (flash_bwd_dq.cu, JAX's two-kernel split), and every sum here runs in a
+// fixed order, so dK and dV are bit-equal run to run.
 //
 // What bounds it on the H100: each CTA reads its K/V tile once and the
-// Q/dO tiles from the causal diagonal on; the work is 8*D FLOPs per
-// (q, k) pair, so the algorithm is bound by operations. This first
-// version does them on the CUDA cores in f32 (67 TFLOP/s peak), one
-// shared-memory load per FMA in the score loops.
+// Q/dO tiles from the causal diagonal on; the function's work is 8*D
+// FLOPs per (q, k) pair. In bf16 on the tensor cores that is less time
+// than moving its bytes once at the training shape (B=16, H=8, T=512,
+// D=64), so the function is bound by bytes; what holds a kernel back is
+// getting the products onto the tensor cores at all, then feeding them
+// from shared memory and keeping two f32 accumulators in registers.
 //
-// Design: one CTA per (bh, 64-row key tile); the TPU grid's sequential q
-// axis becomes a loop over 64-row Q/dO tiles inside the CTA, from the
-// first tile whose rows reach the key tile (q0 = floor(k0 / BQ) when
-// causal). K, V, Q (pre-scaled) and dO sit in shared memory as f32 with
-// rows padded to D+1 floats, lse and delta of the q tile beside them.
-// TPR threads share a key row (BwdLayout): each computes P and dS for its
-// interleaved q columns, and the values reach the row's other threads by
-// shuffles for the P^T dO and dS^T Q products over each thread's
-// interleaved head dims. The dK and dV accumulators (2 x D / TPR floats a
-// thread) stay in registers; four threads a row at D = 128 keep them
-// under the register cap. A q row at or past Tq, or a key at or past Tk,
-// contributes exactly 0 (masked, never exp of an unloaded lse). No
-// atomics: dQ is another kernel (flash_bwd_dq.cu, JAX's two-kernel
-// split), and every sum here runs in a fixed order, so dK and dV are
-// bit-equal run to run. wgmma/TMA come in a later version.
+// bf16 (flash_bwd_dkv_bf16_kernel): one warpgroup per CTA, warp w owning
+// keys 16w..16w+15 of the key tile. The tiles stay bf16 in shared memory,
+// rows padded by 16 bytes so ldmatrix reads are free of bank conflicts.
+// K and V are loaded once (their A fragments held in registers at
+// D <= 64); Q/dO tiles with their lse and delta slices are
+// double-buffered, the next one's cp.async copies in flight while the
+// current one's products run (16-byte copies for the tiles, 4-byte ones
+// for lse and delta, whose rows need not be 16-byte aligned). S^T = K Q^T
+// and dP^T = V dO^T are m16n8k16 mma.sync products with Q and dO as B
+// fragments (ldmatrix), lse and delta taken by column; P^T and dS^T go to
+// A fragments in registers, and dV += P^T dO, dK += dS^T Q take dO and Q
+// by ldmatrix.trans. The JAX kernel carries P and dS in f32, so each
+// enters its product as a bf16 hi + lo pair (two MMAs into one f32
+// accumulator): one rounding to bf16 would compute another function. dK
+// is scaled by `scale` at the store (JAX pre-scales q: the same value up
+// to f32 rounding) and both are rounded to bf16 once. At D = 128 the two
+// accumulators take 128 registers a thread, so K and V stay in shared
+// memory and the q tile's scores are formed 32 columns at a time: no
+// spills at any D.
+//
+// f32 (flash_bwd_dkv_f32_kernel): the CUDA cores. K, V, Q (pre-scaled)
+// and dO sit in shared memory as f32 with rows padded to D+1 floats, lse
+// and delta of the q tile beside them. TPR threads share a key row
+// (BwdLayout): each computes P and dS for its interleaved q columns, and
+// the values reach the row's other threads by shuffles for the P^T dO
+// and dS^T Q products over each thread's interleaved head dims. The dK
+// and dV accumulators (2 x D / TPR floats a thread) stay in registers;
+// four threads a row at D = 128 keep them under the register cap. One
+// shared-memory load per FMA bounds it.
 
 #include <math.h>
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
 template <int D, typename T>
 __global__ void __launch_bounds__(BwdLayout<D>::THREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ g,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int tq, int tk, int causal,
-                     float scale) {
+flash_bwd_dkv_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ g,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, T* __restrict__ dk,
+                         T* __restrict__ dv, int tq, int tk, int causal,
+                         float scale) {
   using L = BwdLayout<D>;
   constexpr int LD = L::LD, TPR = L::TPR, SC = L::SC, DH = L::DH;
   constexpr int NT = L::THREADS;
@@ -148,36 +172,223 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int D, typename T>
+constexpr int MMA_THREADS = 128;  // one warpgroup: 4 warps of 16 keys
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ g,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          int tq, int tk, int causal, float scale) {
+  using M = MmaTile<D>;
+  constexpr int NT = MMA_THREADS;
+  constexpr int KD = D / 16;             // k-steps of K Q^T and V dO^T
+  constexpr bool HOLD = D <= 64;         // K and V A fragments in registers
+  constexpr int NC = D <= 64 ? BQ : 32;  // q columns a score pass forms
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = ks + M::ELEMS;
+  bf16* qs = vs + M::ELEMS;      // two buffers
+  bf16* gs = qs + 2 * M::ELEMS;  // two buffers
+  float* lse_s = reinterpret_cast<float*>(gs + 2 * M::ELEMS);  // two
+  float* dl_s = lse_s + 2 * BQ;                                // two
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tc = lane & 3;  // fragment row, column pair
+  const int m0 = 16 * warp;                 // the warp's first key row
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * BK;  // the low key tiles, heaviest, first
+  const size_t q_base = (size_t)bh * tq * D;
+  const size_t kv_base = (size_t)bh * tk * D;
+  const int n_qt = (tq + BQ - 1) / BQ;
+  const int qt_lo = causal ? k0 / BQ : 0;
+
+  // Q/dO tile qt and its lse and delta into buffer buf (threads 0-63
+  // copy lse, 64-127 delta); the caller commits
+  auto load_q = [&](int qt, int buf) {
+    const int q0 = qt * BQ;
+    cp_async_tile<D, NT>(qs + buf * M::ELEMS, q + q_base, q0, tq);
+    cp_async_tile<D, NT>(gs + buf * M::ELEMS, g + q_base, q0, tq);
+    const int i = threadIdx.x & (BQ - 1);
+    const bool ok = q0 + i < tq;
+    const float* src = threadIdx.x < BQ ? lse : delta;
+    cp_async4((threadIdx.x < BQ ? lse_s : dl_s) + buf * BQ + i,
+              src + (size_t)bh * tq + (ok ? q0 + i : 0), ok);
+  };
+
+  cp_async_tile<D, NT>(ks, k + kv_base, k0, tk);
+  cp_async_tile<D, NT>(vs, v + kv_base, k0, tk);
+  cp_async_commit();
+  if (qt_lo < n_qt) load_q(qt_lo, 0);
+  cp_async_commit();
+
+  int kpos[2];  // the thread's two keys, m0 + gr and m0 + gr + 8
+#pragma unroll
+  for (int r = 0; r < 2; ++r) kpos[r] = k0 + m0 + gr + 8 * r;
+  const float sl2 = scale * LOG2E;
+
+  uint32_t kf[HOLD ? KD : 1][4], vf[HOLD ? KD : 1][4];
+  if constexpr (HOLD) {
+    cp_async_wait<1>();  // K and V are in
+    __syncthreads();
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      ldsm_a<D>(kf[kd], ks, m0, 16 * kd, lane);
+      ldsm_a<D>(vf[kd], vs, m0, 16 * kd, lane);
+    }
+  }
+
+  // dK and dV of keys m0 + gr (+ 8), columns 8 j + 2 tc (+ 1)
+  float acc_dk[D / 8][4], acc_dv[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_dk[j][e] = acc_dv[j][e] = 0.f;
+
+  for (int qt = qt_lo; qt < n_qt; ++qt) {
+    const int buf = (qt - qt_lo) & 1;
+    const int q0 = qt * BQ;
+    if (qt + 1 < n_qt) load_q(qt + 1, buf ^ 1);  // the buffer last left
+    cp_async_commit();  // empty on the last tile, so the count stays even
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* qb = qs + buf * M::ELEMS;
+    const bf16* gb = gs + buf * M::ELEMS;
+    const float* lb = lse_s + buf * BQ;
+    const float* db = dl_s + buf * BQ;
+    // a warp whose 16 keys see all 64 q rows unmasked skips the tests
+    const bool full = k0 + m0 + 16 <= tk && q0 + BQ <= tq &&
+                      (!causal || k0 + m0 + 15 <= q0);
+
+#pragma unroll 1
+    for (int c0 = 0; c0 < BQ; c0 += NC) {
+      // S^T = K Q^T and dP^T = V dO^T: the warp's 16 keys by NC q rows
+      float st[NC / 8][4], dpt[NC / 8][4];
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        uint32_t ak[4], av[4];
+        if constexpr (HOLD) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) ak[i] = kf[kd][i], av[i] = vf[kd][i];
+        } else {
+          ldsm_a<D>(ak, ks, m0, 16 * kd, lane);
+          ldsm_a<D>(av, vs, m0, 16 * kd, lane);
+        }
+#pragma unroll
+        for (int n = 0; n < NC / 16; ++n) {
+          uint32_t b[4];
+          ldsm_b<D>(b, qb, c0 + 16 * n, 16 * kd, lane);
+          mma_bf16(st[2 * n], ak, b[0], b[1]);
+          mma_bf16(st[2 * n + 1], ak, b[2], b[3]);
+          ldsm_b<D>(b, gb, c0 + 16 * n, 16 * kd, lane);
+          mma_bf16(dpt[2 * n], av, b[0], b[1]);
+          mma_bf16(dpt[2 * n + 1], av, b[2], b[3]);
+        }
+      }
+
+      // st becomes P^T and dpt dS^T = P^T * (dP^T - delta), exactly 0
+      // where masked; lse and delta by column
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j) {
+        const int col = c0 + 8 * j + 2 * tc;
+        const float2 l2 = *reinterpret_cast<const float2*>(lb + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(db + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, qpos = q0 + col + (e & 1);
+          const bool keep = full || (qpos < tq && kpos[r] < tk &&
+                                     (!causal || kpos[r] <= qpos));
+          const float lc = (e & 1) ? l2.y : l2.x;
+          const float dc = (e & 1) ? d2.y : d2.x;
+          const float p = exp2f(fmaf(st[j][e], sl2, -lc * LOG2E));
+          dpt[j][e] = keep ? p * (dpt[j][e] - dc) : 0.f;
+          st[j][e] = keep ? p : 0.f;
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T Q over the pass's q rows, 16 at a
+      // time, P^T and dS^T as hi + lo
+#pragma unroll
+      for (int kk = 0; kk < NC / 16; ++kk) {
+        uint32_t ph[4], pl[4], sh[4], sl[4];
+        to_a_split(st[2 * kk], st[2 * kk + 1], ph, pl);
+        to_a_split(dpt[2 * kk], dpt[2 * kk + 1], sh, sl);
+#pragma unroll
+        for (int n = 0; n < D / 16; ++n) {
+          uint32_t b[4];
+          ldsm_bt<D>(b, gb, c0 + 16 * kk, 16 * n, lane);
+          mma_bf16(acc_dv[2 * n], ph, b[0], b[1]);
+          mma_bf16(acc_dv[2 * n], pl, b[0], b[1]);
+          mma_bf16(acc_dv[2 * n + 1], ph, b[2], b[3]);
+          mma_bf16(acc_dv[2 * n + 1], pl, b[2], b[3]);
+          ldsm_bt<D>(b, qb, c0 + 16 * kk, 16 * n, lane);
+          mma_bf16(acc_dk[2 * n], sh, b[0], b[1]);
+          mma_bf16(acc_dk[2 * n], sl, b[0], b[1]);
+          mma_bf16(acc_dk[2 * n + 1], sh, b[2], b[3]);
+          mma_bf16(acc_dk[2 * n + 1], sl, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (kpos[r] >= tk) continue;
+    const size_t off = kv_base + (size_t)kpos[r] * D + 2 * tc;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      store2(dk + off + 8 * j, acc_dk[j][2 * r] * scale,
+             acc_dk[j][2 * r + 1] * scale);
+      store2(dv + off + 8 * j, acc_dv[j][2 * r], acc_dv[j][2 * r + 1]);
+    }
+  }
+}
+
+// dtype 0: f32 inputs, the CUDA-core kernel; 1: bf16, the tensor cores.
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* g, const float* lse, const float* delta,
                    void* dk, void* dv, int bh, int tq, int tk, int causal,
-                   float scale, cudaStream_t stream) {
-  const int smem =
-      (2 * (BQ + BK) * (D + 1) + 2 * BQ) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D, T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
+                   float scale, int dtype, cudaStream_t stream) {
   const dim3 grid((tk + BK - 1) / BK, bh);
-  flash_bwd_dkv_kernel<D, T><<<grid, BwdLayout<D>::THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(g), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), tq, tk, causal, scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v,
-                       const void* g, const float* lse, const float* delta,
-                       void* dk, void* dv, int bh, int tq, int tk, int d,
-                       int causal, float scale, cudaStream_t stream) {
-  switch (d) {
-    case 32: return launch<32, T>(q, k, v, g, lse, delta, dk, dv, bh, tq, tk, causal, scale, stream);
-    case 64: return launch<64, T>(q, k, v, g, lse, delta, dk, dv, bh, tq, tk, causal, scale, stream);
-    case 128: return launch<128, T>(q, k, v, g, lse, delta, dk, dv, bh, tq, tk, causal, scale, stream);
-    default: return cudaErrorInvalidValue;
+  cudaError_t err;
+  if (dtype == 0) {
+    const int smem =
+        (2 * (BQ + BK) * (D + 1) + 2 * BQ) * (int)sizeof(float);
+    err = cudaFuncSetAttribute(flash_bwd_dkv_f32_kernel<D, float>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkv_f32_kernel<D, float>
+        <<<grid, BwdLayout<D>::THREADS, smem, stream>>>(
+            static_cast<const float*>(q), static_cast<const float*>(k),
+            static_cast<const float*>(v), static_cast<const float*>(g), lse,
+            delta, static_cast<float*>(dk), static_cast<float*>(dv), tq, tk,
+            causal, scale);
+  } else {
+    // K, V; Q, dO twice; lse, delta twice
+    const int smem = 6 * MmaTile<D>::BYTES + 4 * BQ * (int)sizeof(float);
+    err = cudaFuncSetAttribute(flash_bwd_dkv_bf16_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkv_bf16_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(g), lse, delta,
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), tq, tk, causal,
+        scale);
   }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -190,14 +401,16 @@ extern "C" int bigdl_flash_bwd_dkv(const void* q, const void* k,
                                    void* dk, void* dv, int bh, int tq,
                                    int tk, int d, int causal, float scale,
                                    int dtype, void* stream) {
-  if (bh <= 0 || bh > 65535 || tq <= 0 || tk <= 0)
+  if (bh <= 0 || bh > 65535 || tq <= 0 || tk <= 0 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  switch (dtype) {
-    case 0: return (int)dispatch_d<float>(q, k, v, g, l, dl, dk, dv, bh, tq, tk, d, causal, scale, s);
-    case 1: return (int)dispatch_d<__nv_bfloat16>(q, k, v, g, l, dl, dk, dv, bh, tq, tk, d, causal, scale, s);
+  switch (d) {
+    case 32: return (int)launch<32>(q, k, v, g, l, dl, dk, dv, bh, tq, tk, causal, scale, dtype, s);
+    case 64: return (int)launch<64>(q, k, v, g, l, dl, dk, dv, bh, tq, tk, causal, scale, dtype, s);
+    case 128: return (int)launch<128>(q, k, v, g, l, dl, dk, dv, bh, tq, tk, causal, scale, dtype, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

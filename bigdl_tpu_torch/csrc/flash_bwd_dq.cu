@@ -9,44 +9,62 @@
 // so no (Tq, Tk) array is ever stored.
 //
 // Shapes: q/g/dq (BH, Tq, D), k/v (BH, Tk, D), lse/delta (BH, Tq) f32; all
-// contiguous. Any Tq and Tk, D in {32, 64, 128}, f32 or bf16 inputs and
-// dq (the dtype of q), f32 accumulation. Causal keeps kpos <= qpos (query
-// offset 0).
+// contiguous, and for bf16 q, k, v and g 16-byte aligned. Any Tq and Tk,
+// D in {32, 64, 128}, f32 or bf16 inputs and dq (the dtype of q), f32
+// accumulation. Causal keeps kpos <= qpos (query offset 0). One CTA per
+// (bh, 64-row q tile); the TPU grid's sequential kv axis becomes a loop
+// over 64-row K/V tiles inside the CTA, up to the causal diagonal only
+// (_diag_kblocks). A q row at or past Tq or a key at or past Tk
+// contributes exactly 0 (masked, never exp of an unloaded lse). No
+// atomics: every sum runs in a fixed order, so dQ is bit-equal run to run.
 //
 // What bounds it on the H100: each CTA reads its Q and dO tiles once and
-// the K/V tiles up to the causal diagonal; the work is 6*D FLOPs per
-// (q, k) pair, so the algorithm is bound by operations. This first
-// version does them on the CUDA cores in f32 (67 TFLOP/s peak), one
-// shared-memory load per FMA in the score loops.
+// the K/V tiles up to the causal diagonal; the function's work is 6*D
+// FLOPs per (q, k) pair. In bf16 on the tensor cores that is less time
+// than moving its bytes once at the training shape (B=16, H=8, T=512,
+// D=64), so the function is bound by bytes; what holds a kernel back is
+// getting the products onto the tensor cores at all, then feeding them
+// from shared memory.
 //
-// Design: one CTA per (bh, 64-row q tile); the TPU grid's sequential kv
-// axis becomes a loop over 64-row K/V tiles inside the CTA, up to the
-// causal diagonal only (_diag_kblocks). Q (pre-scaled), dO, K and V sit in
-// shared memory as f32 with rows padded to D+1 floats (no bank conflicts
-// on row or column reads); lse and delta of the thread's row and its dQ
-// accumulator stay in registers. TPR threads share a q row (BwdLayout):
-// each computes the scores and dP of its interleaved key columns, and the
-// dS values reach the row's other threads by shuffles for the dS K
-// product over each thread's interleaved head dims (TPR * i + sub, so the
-// row's threads read neighbouring banks). A q row at or past Tq or
-// a key at or past Tk contributes exactly 0 (masked, never exp of an
-// unloaded lse). No atomics: every sum runs in a fixed order, so dQ is
-// bit-equal run to run. wgmma/TMA come in a later version.
+// bf16 (flash_bwd_dq_bf16_kernel): one warpgroup per CTA, warp w owning
+// rows 16w..16w+15 of the q tile. The tiles stay bf16 in shared memory,
+// rows padded by 16 bytes so ldmatrix reads are free of bank conflicts.
+// Q and dO are loaded once (their A fragments held in registers at
+// D <= 64); K/V tiles are double-buffered, the next one's 16-byte
+// cp.async copies in flight while the current one's products run. S =
+// Q K^T and dP = dO V^T are m16n8k16 mma.sync products with K and V as B
+// fragments (ldmatrix); P and dS are formed in the accumulators (exp2f,
+// log2 e folded into scale and lse); dS goes to A fragments in registers
+// and dQ += dS K takes K by ldmatrix.trans. The JAX kernel carries dS in
+// f32, so dS enters that product as a bf16 hi + lo pair (two MMAs into
+// one f32 accumulator): one rounding of dS to bf16 would compute another
+// function. dQ * scale is rounded to bf16 once, at the store. The causal
+// tiles run heaviest first (the last q tile walks the most K/V tiles).
+//
+// f32 (flash_bwd_dq_f32_kernel): the CUDA cores. Q (pre-scaled), dO, K
+// and V sit in shared memory as f32 with rows padded to D+1 floats; lse
+// and delta of the thread's row and its dQ accumulator stay in
+// registers. TPR threads share a q row (BwdLayout): each computes the
+// scores and dP of its interleaved key columns, and the dS values reach
+// the row's other threads by shuffles for the dS K product over each
+// thread's interleaved head dims (TPR * i + sub, so the row's threads
+// read neighbouring banks). One shared-memory load per FMA bounds it.
 
 #include <math.h>
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
 template <int D, typename T>
 __global__ void __launch_bounds__(BwdLayout<D>::THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ g,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int tq, int tk, int causal, float scale) {
+flash_bwd_dq_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ g,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dq,
+                        int tq, int tk, int causal, float scale) {
   using L = BwdLayout<D>;
   constexpr int LD = L::LD, TPR = L::TPR, SC = L::SC, DH = L::DH;
   constexpr int NT = L::THREADS;
@@ -130,35 +148,197 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int D, typename T>
+constexpr int MMA_THREADS = 128;  // one warpgroup: 4 warps of 16 q rows
+
+// three CTAs an SM at D <= 64 (at most 168 registers, no spills); at
+// D = 128 that cap would spill, so the compiler takes what it needs
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS, D <= 64 ? 3 : 1)
+flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ g,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int tq, int tk, int causal,
+                         float scale) {
+  using M = MmaTile<D>;
+  constexpr int NT = MMA_THREADS;
+  constexpr int KD = D / 16;      // k-steps of Q K^T and dO V^T
+  constexpr bool HOLD = D <= 64;  // Q and dO A fragments in registers
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* gs = qs + M::ELEMS;
+  bf16* ks = gs + M::ELEMS;      // two buffers
+  bf16* vs = ks + 2 * M::ELEMS;  // two buffers
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tc = lane & 3;  // fragment row, column pair
+  const int m0 = 16 * warp;                 // the warp's first tile row
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest first
+  const size_t q_base = (size_t)bh * tq * D;
+  const size_t kv_base = (size_t)bh * tk * D;
+
+  int n_tiles = (tk + BK - 1) / BK;
+  if (causal) n_tiles = min(n_tiles, (min(q0 + BQ, tq) - 1) / BK + 1);
+
+  cp_async_tile<D, NT>(qs, q + q_base, q0, tq);
+  cp_async_tile<D, NT>(gs, g + q_base, q0, tq);
+  cp_async_commit();
+  cp_async_tile<D, NT>(ks, k + kv_base, 0, tk);
+  cp_async_tile<D, NT>(vs, v + kv_base, 0, tk);
+  cp_async_commit();
+
+  // the thread's two q rows, m0 + gr and m0 + gr + 8: lse in log2 units
+  int qpos[2];
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qpos[r] = q0 + m0 + gr + 8 * r;
+    const bool ok = qpos[r] < tq;
+    lse2[r] = ok ? lse[(size_t)bh * tq + qpos[r]] * LOG2E : 0.f;
+    dl[r] = ok ? delta[(size_t)bh * tq + qpos[r]] : 0.f;
+  }
+  const float sl2 = scale * LOG2E;
+
+  uint32_t qf[HOLD ? KD : 1][4], gf[HOLD ? KD : 1][4];
+  if constexpr (HOLD) {
+    cp_async_wait<1>();  // Q and dO are in
+    __syncthreads();
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      ldsm_a<D>(qf[kd], qs, m0, 16 * kd, lane);
+      ldsm_a<D>(gf[kd], gs, m0, 16 * kd, lane);
+    }
+  }
+
+  // dQ of rows m0 + gr (+ 8), columns 8 j + 2 tc (+ 1)
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * BK;
+    const bf16* kb = ks + (kt & 1) * M::ELEMS;
+    const bf16* vb = vs + (kt & 1) * M::ELEMS;
+    if (kt + 1 < n_tiles) {  // into the buffer the last tile left
+      cp_async_tile<D, NT>(ks + ((kt + 1) & 1) * M::ELEMS, k + kv_base,
+                           k0 + BK, tk);
+      cp_async_tile<D, NT>(vs + ((kt + 1) & 1) * M::ELEMS, v + kv_base,
+                           k0 + BK, tk);
+    }
+    cp_async_commit();  // empty on the last tile, so the count stays even
+    cp_async_wait<1>();
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T: the warp's 16 rows by the tile's 64 keys
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      uint32_t aq[4], ag[4];
+      if constexpr (HOLD) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) aq[i] = qf[kd][i], ag[i] = gf[kd][i];
+      } else {
+        ldsm_a<D>(aq, qs, m0, 16 * kd, lane);
+        ldsm_a<D>(ag, gs, m0, 16 * kd, lane);
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        uint32_t b[4];
+        ldsm_b<D>(b, kb, 16 * n, 16 * kd, lane);
+        mma_bf16(s[2 * n], aq, b[0], b[1]);
+        mma_bf16(s[2 * n + 1], aq, b[2], b[3]);
+        ldsm_b<D>(b, vb, 16 * n, 16 * kd, lane);
+        mma_bf16(dp[2 * n], ag, b[0], b[1]);
+        mma_bf16(dp[2 * n + 1], ag, b[2], b[3]);
+      }
+    }
+
+    // s becomes dS = P * (dP - delta), exactly 0 where masked; a warp
+    // whose 16 rows see all 64 keys unmasked skips the tests
+    const bool full = q0 + m0 + 16 <= tq && k0 + BK <= tk &&
+                      (!causal || k0 + BK - 1 <= q0 + m0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int kpos = k0 + 8 * j + 2 * tc + (e & 1);
+        const bool keep = full || (qpos[r] < tq && kpos < tk &&
+                                   (!causal || kpos <= qpos[r]));
+        const float p = exp2f(fmaf(s[j][e], sl2, -lse2[r]));
+        s[j][e] = keep ? p * (dp[j][e] - dl[r]) : 0.f;
+      }
+    }
+
+    // dQ += dS K over the tile's keys, 16 at a time, dS as hi + lo
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t hi[4], lo[4];
+      to_a_split(s[2 * kk], s[2 * kk + 1], hi, lo);
+#pragma unroll
+      for (int n = 0; n < D / 16; ++n) {
+        uint32_t b[4];
+        ldsm_bt<D>(b, kb, 16 * kk, 16 * n, lane);
+        mma_bf16(acc[2 * n], hi, b[0], b[1]);
+        mma_bf16(acc[2 * n], lo, b[0], b[1]);
+        mma_bf16(acc[2 * n + 1], hi, b[2], b[3]);
+        mma_bf16(acc[2 * n + 1], lo, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qpos[r] >= tq) continue;
+    bf16* out = dq + q_base + (size_t)qpos[r] * D + 2 * tc;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store2(out + 8 * j, acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
+  }
+}
+
+// dtype 0: f32 inputs, the CUDA-core kernel; 1: bf16, the tensor cores.
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* g, const float* lse, const float* delta,
                    void* dq, int bh, int tq, int tk, int causal, float scale,
-                   cudaStream_t stream) {
-  const int smem = 2 * (BQ + BK) * (D + 1) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
+                   int dtype, cudaStream_t stream) {
   const dim3 grid((tq + BQ - 1) / BQ, bh);
-  flash_bwd_dq_kernel<D, T><<<grid, BwdLayout<D>::THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(g), lse, delta,
-      static_cast<T*>(dq), tq, tk, causal, scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v,
-                       const void* g, const float* lse, const float* delta,
-                       void* dq, int bh, int tq, int tk, int d, int causal,
-                       float scale, cudaStream_t stream) {
-  switch (d) {
-    case 32: return launch<32, T>(q, k, v, g, lse, delta, dq, bh, tq, tk, causal, scale, stream);
-    case 64: return launch<64, T>(q, k, v, g, lse, delta, dq, bh, tq, tk, causal, scale, stream);
-    case 128: return launch<128, T>(q, k, v, g, lse, delta, dq, bh, tq, tk, causal, scale, stream);
-    default: return cudaErrorInvalidValue;
+  cudaError_t err;
+  if (dtype == 0) {
+    const int smem = 2 * (BQ + BK) * (D + 1) * (int)sizeof(float);
+    err = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel<D, float>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_f32_kernel<D, float>
+        <<<grid, BwdLayout<D>::THREADS, smem, stream>>>(
+            static_cast<const float*>(q), static_cast<const float*>(k),
+            static_cast<const float*>(v), static_cast<const float*>(g), lse,
+            delta, static_cast<float*>(dq), tq, tk, causal, scale);
+  } else {
+    const int smem = 6 * MmaTile<D>::BYTES;  // Q, dO; K, V twice
+    err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_bf16_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(g), lse, delta,
+        static_cast<bf16*>(dq), tq, tk, causal, scale);
   }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -171,14 +351,16 @@ extern "C" int bigdl_flash_bwd_dq(const void* q, const void* k,
                                   void* dq, int bh, int tq, int tk, int d,
                                   int causal, float scale, int dtype,
                                   void* stream) {
-  if (bh <= 0 || bh > 65535 || tq <= 0 || tk <= 0)
+  if (bh <= 0 || bh > 65535 || tq <= 0 || tk <= 0 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  switch (dtype) {
-    case 0: return (int)dispatch_d<float>(q, k, v, g, l, dl, dq, bh, tq, tk, d, causal, scale, s);
-    case 1: return (int)dispatch_d<__nv_bfloat16>(q, k, v, g, l, dl, dq, bh, tq, tk, d, causal, scale, s);
+  switch (d) {
+    case 32: return (int)launch<32>(q, k, v, g, l, dl, dq, bh, tq, tk, causal, scale, dtype, s);
+    case 64: return (int)launch<64>(q, k, v, g, l, dl, dq, bh, tq, tk, causal, scale, dtype, s);
+    case 128: return (int)launch<128>(q, k, v, g, l, dl, dq, bh, tq, tk, causal, scale, dtype, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

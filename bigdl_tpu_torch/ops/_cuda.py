@@ -5,9 +5,12 @@ each source under ``bigdl_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into its own shared library with a plain C
 interface, at first use, and loaded with ``ctypes``.  All sources that
 need building are compiled at once, one ``nvcc`` process each.  A
-library's file name carries a hash of its source, the headers it
-includes from ``csrc/`` and the flags, so an edited source or header is
-never served from a stale build.
+library's file name carries a hash of its source, every header it
+reaches from ``csrc/`` (followed through headers that include others)
+and the flags, so an edited source or header is never served from a
+stale build.  ``ptxas`` reports each kernel's registers and spills
+(``-Xptxas=-v``); the compiler's output of the last build of each
+source is kept in ``build_logs``.
 
 Each launch function here checks the CUDA error state right after the
 launch (the C function returns ``cudaGetLastError()``) and raises if it
@@ -38,7 +41,7 @@ SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_decode": "paged_decode.cu",
            "flash_bwd_dq": "flash_bwd_dq.cu",
            "flash_bwd_dkv": "flash_bwd_dkv.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # dtype codes shared with the C interfaces
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -50,6 +53,9 @@ _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 launches: Dict[str, int] = {name: 0 for name in SOURCES}
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# nvcc's output (with ptxas's resource report) by kernel name, for the
+# sources compiled in this process
+build_logs: Dict[str, str] = {}
 _lock = threading.Lock()
 
 _P = ctypes.c_void_p
@@ -87,12 +93,26 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+def _headers(text: bytes) -> list:
+    """The ``csrc/`` headers that ``text`` reaches through its quoted
+    includes, transitively, each once, in the order first met."""
+    seen, todo = [], list(_INCLUDE.findall(text))
+    while todo:
+        header = todo.pop(0).decode()
+        if header in seen:
+            continue
+        seen.append(header)
+        with open(os.path.join(CSRC, header), "rb") as f:
+            todo += _INCLUDE.findall(f.read())
+    return seen
+
+
 def _lib_path(name: str) -> str:
     with open(os.path.join(CSRC, SOURCES[name]), "rb") as f:
         text = f.read()
     digest = hashlib.sha256(text)
-    for header in _INCLUDE.findall(text):       # csrc/ headers, one level
-        with open(os.path.join(CSRC, header.decode()), "rb") as f:
+    for header in _headers(text):
+        with open(os.path.join(CSRC, header), "rb") as f:
             digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(config.build_dir(),
@@ -122,6 +142,7 @@ def build(names: Optional[Iterable[str]] = None) -> float:
         failed = []
         for name, (proc, tmp, path) in procs.items():
             out, _ = proc.communicate()
+            build_logs[name] = out
             if proc.returncode != 0:
                 failed.append(f"{name}: nvcc exit {proc.returncode}\n{out}")
                 continue
@@ -266,7 +287,8 @@ def launch_conv_bn_kxk(x, w, shift, y, part, s1, s2, *, stride: int,
     launches["conv_bn_kxk"] += 1
 
 
-__all__ = ["build", "launches", "reset_launches", "launch_flash_fwd",
+__all__ = ["build", "build_logs", "launches", "reset_launches",
+           "launch_flash_fwd",
            "launch_flash_bwd_dq", "launch_flash_bwd_dkv",
            "launch_paged_decode", "launch_conv_bn_1x1", "launch_conv_bn_kxk",
            "conv_bn_tiles", "SOURCES", "CSRC"]

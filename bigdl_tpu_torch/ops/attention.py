@@ -193,6 +193,18 @@ def _check_kernel_args(q):
         raise ValueError(f"the flash kernels take f32 or bf16, got {q.dtype}")
 
 
+def _check_cp_async_aligned(**tensors) -> None:
+    """The bf16 backward kernels copy q, k, v and g into shared memory in
+    16-byte pieces (``cp.async``): each must start on a 16-byte
+    boundary.  Raises rather than copying."""
+    for name, x in tensors.items():
+        if x.data_ptr() % 16:
+            raise ValueError(
+                f"flash_backward: bf16 {name} must start on a 16-byte "
+                f"boundary for the kernels' 16-byte copies, got address "
+                f"{x.data_ptr():#x}")
+
+
 def _flash_forward(q, k, v, *, causal: bool, scale: float, with_lse: bool):
     """The flash forward over flat (BH, T, D) tensors: (O, lse or None)."""
     if q.device.type == "cpu":
@@ -214,7 +226,9 @@ def flash_backward(q, k, v, out, lse, g, *, causal: bool, scale: float):
     and v.  ``δ = rowsum(g∘out)`` in f32 is plain torch, as JAX leaves it
     to XLA (:538-541).  A CUDA tensor goes to the ``flash_bwd_dq`` and
     ``flash_bwd_dkv`` kernels, and anything they do not take raises; a
-    CPU tensor goes to the plain versions."""
+    CPU tensor goes to the plain versions.  In bf16 the kernels run on
+    the tensor cores and want q, k, v and g 16-byte aligned (checked
+    here, after ``contiguous``); in f32 they run on the CUDA cores."""
     delta = (g.float() * out.float()).sum(dim=-1)
     if q.device.type == "cpu":
         dq = flash_bwd_dq_plain(q, k, v, g, lse, delta, causal=causal,
@@ -228,6 +242,8 @@ def flash_backward(q, k, v, out, lse, g, *, causal: bool, scale: float):
     q, k, v, lse = q.contiguous(), k.contiguous(), v.contiguous(), \
         lse.contiguous()
     g = g.to(q.dtype).contiguous()
+    if q.dtype == torch.bfloat16:
+        _check_cp_async_aligned(q=q, k=k, v=v, g=g)
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _cuda.launch_flash_bwd_dq(q, k, v, g, lse, delta, dq, causal=causal,

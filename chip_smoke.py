@@ -11,7 +11,10 @@ it runs; any failure exits non-zero:
 1. device: the card's name and power limit (``nvidia-smi``); f32
    matmuls are set to full f32 (no TF32);
 2. build: ``nvcc`` compiles every kernel under ``bigdl_tpu_torch/csrc``
-   for sm_90a, all sources at once;
+   for sm_90a, all sources at once; ``cuobjdump -sass`` must find bf16
+   ``HMMA`` (tensor-core) instructions in every bf16 instantiation of the
+   flash backward kernels and none in the f32 ones, and ``ptxas`` must
+   report no spills for the bf16 ones (registers printed by D);
 3. kernels: each kernel against its plain PyTorch version on the card
    at the main path's shapes, with the max abs error, the kernel's
    time, the plain version's time, its bound, and a PyTorch library
@@ -50,10 +53,12 @@ it runs; any failure exits non-zero:
     T=512, D=64, causal; bf16 and f32), the long-context shape of
     ``scripts/attn_ab.py`` (B=2, T=4096, bf16), a non-causal
     cross-length case, a ragged causal case (T=131, D=32) and D=128,
-    each run twice and bit-equal; at the training shape the kernels'
-    times, the plain versions', their bounds and the backward of
+    each in f32 and bf16, each run twice and bit-equal; at the training shape (bf16 and f32)
+    and at the long-context shape (bf16) the kernels' times, achieved
+    TFLOP/s (6·D and 8·D FLOPs per causal pair) and share of their
+    bounds, the bounds, and the backward of
     ``scaled_dot_product_attention`` (dq, dk and dv together) beside
-    their sum plus δ;
+    their sum plus δ; the plain versions' times at the training shape;
 11. transformer training: the flagship TransformerLM (vocab 8192, dim
     512, 8 heads, 8 layers, random weights from seed 0) at batch 16,
     T=512 with ``CrossEntropyCriterion`` and ``SGD(learningrate=1e-3)``,
@@ -79,6 +84,8 @@ name and power limit and the script's total seconds.
 from __future__ import annotations
 
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -101,6 +108,9 @@ CONV1X1_REPLACES = "bigdl_tpu/ops/conv_bn.py:127"
 CONVKXK_REPLACES = "bigdl_tpu/ops/conv_bn.py:238"
 DQ_REPLACES = "bigdl_tpu/ops/attention.py:390"
 DKV_REPLACES = "bigdl_tpu/ops/attention.py:445"
+# a profiler key of one of csrc/'s kernels (all in anonymous namespaces)
+PORT_KERNEL = re.compile(r"void \(anonymous namespace\)::"
+                         r"(flash|paged_decode|conv|stats_reduce)\w*_kernel\b")
 
 # conv_bn limits against the plain version (the same conv in f32 by
 # cuDNN, TF32 off): f32 y 1e-4 abs (the kernel and cuDNN sum the C·k²
@@ -137,10 +147,14 @@ LOSS_TOL, LATER_LOSS_TOL = 1e-2, 0.15
 # flash backward limits against the plain versions: f32 within 1e-5 of
 # the largest |gradient| of the case (the same f32 products summed in
 # other orders); bf16 within one bf16 ulp of it (both round an f32 sum
-# once, and agree or straddle one rounding boundary)
+# once, and agree or straddle one rounding boundary: the bf16 kernels
+# carry P and dS as bf16 hi + lo pairs, so their f32 sums differ from
+# the plain versions' by about 2^-16 relative, far less than an ulp)
 BWD_F32_REL = 1e-5
 # phase 10 cases: (B, H, Tq, Tk, D, dtype, causal); the first two are
-# the training shape, timed
+# the training shape, timed, the third the long-context shape, timed;
+# the last three take the bf16 kernels through ragged tiles, a
+# cross-length grid and D = 32 and 128
 FLASH_BWD_CASES = [
     (16, 8, 512, 512, 64, torch.bfloat16, True),
     (16, 8, 512, 512, 64, torch.float32, True),
@@ -149,6 +163,9 @@ FLASH_BWD_CASES = [
     (2, 8, 131, 131, 32, torch.float32, True),
     (2, 8, 200, 200, 128, torch.float32, True),
     (2, 8, 256, 256, 128, torch.bfloat16, False),
+    (2, 8, 131, 131, 32, torch.bfloat16, True),
+    (2, 8, 200, 300, 64, torch.bfloat16, False),
+    (2, 8, 200, 200, 128, torch.bfloat16, True),
 ]
 # transformer training (phase 11): the flagship of bench.py:440-441;
 # batch, T and timed steps after the first; the long-context point; the
@@ -209,6 +226,53 @@ def phase_device() -> str:
     return smi
 
 
+def _kernel_key(mangled: str):
+    """(kernel, D) of a flash backward kernel's mangled name, or None."""
+    m = re.search(r"(flash_bwd_(?:dq|dkv)_(?:bf16|f32)_kernel)ILi(\d+)E",
+                  mangled)
+    return (m.group(1), int(m.group(2))) if m else None
+
+
+def _ptxas_usage(log: str) -> dict:
+    """{(kernel, D): [registers, spill bytes]} from ``-Xptxas=-v``."""
+    usage, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            key = _kernel_key(m.group(1))
+            if key:
+                usage[key] = [None, 0]
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage[key][1] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[key][0] = int(m.group(1))
+    return usage
+
+
+def _hmma_counts(lib_path: str) -> dict:
+    """{(kernel, D): bf16 HMMA instructions} in a library's SASS."""
+    from bigdl_tpu_torch import config
+
+    tool = os.path.join(os.path.dirname(config.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, key = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            key = _kernel_key(line)
+            if key:
+                counts[key] = 0
+        elif key and "HMMA" in line and "BF16" in line:
+            counts[key] += 1
+    return counts
+
+
 def phase_build() -> None:
     from bigdl_tpu_torch.ops import _cuda
 
@@ -217,6 +281,27 @@ def phase_build() -> None:
     say(f"phase 2 build: nvcc {compile_s:.1f} s for "
         f"{', '.join(_cuda.SOURCES.values())} (in parallel), "
         f"{time.perf_counter() - t0:.1f} s with loading")
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        hmma = _hmma_counts(_cuda._lib_path(name))
+        usage = _ptxas_usage(_cuda.build_logs.get(name, ""))
+        for d in (32, 64, 128):
+            for kind in ("bf16", "f32"):
+                key = (f"{name}_{kind}_kernel", d)
+                n = hmma.get(key)
+                if n is None or (n > 0) != (kind == "bf16"):
+                    raise AssertionError(f"{key}: {n} bf16 HMMA instructions "
+                                         "in its SASS")
+            regs, spill = usage.get((f"{name}_bf16_kernel", d), (None, None))
+            if not usage:                       # a build of an earlier run
+                regs = spill = "not reported"
+            elif regs is None or spill:
+                raise AssertionError(f"{name} bf16 D={d}: ptxas reports "
+                                     f"{regs} registers, {spill} bytes of "
+                                     "spills")
+            say(f"phase 2 {name} bf16 D={d}: "
+                f"{hmma[(f'{name}_bf16_kernel', d)]} bf16 HMMA in its SASS "
+                f"(f32 kernel: 0); ptxas: {regs} registers, {spill} bytes "
+                "spilled")
 
 
 def _flash_case(t, d, dtype, causal, gen):
@@ -783,7 +868,9 @@ def phase_train_profile(opt, phase: int = 8,
     say(f"phase {phase} profile: {wall_ms / steps:.3f} ms per {what} "
         f"(wall), device busy {busy_ms / steps:.3f} ms per step, busy share "
         f"{busy_ms / wall_ms:.3f}")
-    for ms, cnt, key in rows[:10]:
+    # the ten largest, then the port's own kernels (csrc/) below them
+    ours = [r for r in rows[10:] if PORT_KERNEL.match(r[2])]
+    for ms, cnt, key in rows[:10] + ours:
         say(f"phase {phase} profile:   {ms / steps:8.4f} ms/step  "
             f"x{cnt // steps:<4d} {key[:90]}")
 
@@ -842,9 +929,10 @@ def _flash_bwd_case(case, gen):
     return errs
 
 
-def _flash_bwd_times(case, gen) -> dict:
-    """Times at one shape: each kernel, its plain version, its bound,
-    δ, and the backward of scaled_dot_product_attention."""
+def _flash_bwd_times(case, gen, plain: bool = True) -> dict:
+    """Times at one shape: each kernel, its bound, achieved TFLOP/s and
+    share of the bound, δ, the backward of scaled_dot_product_attention
+    and, if ``plain``, the plain versions."""
     from bigdl_tpu_torch.ops import _cuda
     from bigdl_tpu_torch.ops.attention import (flash_bwd_dkv_plain,
                                                flash_bwd_dq_plain)
@@ -859,11 +947,12 @@ def _flash_bwd_times(case, gen) -> dict:
                                                      dq, **kw)),
         dkv=time_ms(lambda: _cuda.launch_flash_bwd_dkv(
             q, k, v, g, lse, delta, dk, dv, **kw)),
-        delta=time_ms(lambda: (g.float() * out.float()).sum(dim=-1)),
-        dq_plain=time_ms(lambda: flash_bwd_dq_plain(q, k, v, g, lse, delta,
-                                                    **kw)),
-        dkv_plain=time_ms(lambda: flash_bwd_dkv_plain(q, k, v, g, lse,
-                                                      delta, **kw)))
+        delta=time_ms(lambda: (g.float() * out.float()).sum(dim=-1)))
+    if plain:
+        t["dq_plain"] = time_ms(lambda: flash_bwd_dq_plain(
+            q, k, v, g, lse, delta, **kw))
+        t["dkv_plain"] = time_ms(lambda: flash_bwd_dkv_plain(
+            q, k, v, g, lse, delta, **kw))
     q4, k4, v4 = (x.reshape(b, h, -1, d).detach().requires_grad_()
                   for x in (q, k, v))
     o4 = torch.nn.functional.scaled_dot_product_attention(
@@ -880,12 +969,20 @@ def _flash_bwd_times(case, gen) -> dict:
                           6 * d * pairs, dt)
     t["dkv_bound"] = bound((2 * bh * tq * d + 4 * bh * tk * d) * item + rows,
                            8 * d * pairs, dt)
-    say(f"phase 10 time B={b} H={h} T={tq} D={d} {str(dt)[6:]}: dq kernel "
-        f"{t['dq']:.4f} ms (plain {t['dq_plain']:.4f}, bound "
-        f"{t['dq_bound'][0]:.5f} by {t['dq_bound'][1]}); dkv kernel "
-        f"{t['dkv']:.4f} ms (plain {t['dkv_plain']:.4f}, bound "
-        f"{t['dkv_bound'][0]:.5f} by {t['dkv_bound'][1]}); delta "
-        f"{t['delta']:.4f} ms; dq + dkv + delta "
+    parts = []
+    for key, per_pair in (("dq", 6), ("dkv", 8)):
+        # the algorithm's FLOPs, not the hi/lo split's extra products
+        t[f"{key}_tflops"] = per_pair * d * pairs / (t[key] * 1e-3) / 1e12
+        t[f"{key}_of_bound"] = t[f"{key}_bound"][0] / t[key]
+        plain_ms = (f"plain {t[key + '_plain']:.4f}, " if plain
+                    else "plain not timed, ")
+        parts.append(
+            f"{key} kernel {t[key]:.4f} ms ({plain_ms}bound "
+            f"{t[key + '_bound'][0]:.5f} by {t[key + '_bound'][1]}, "
+            f"{t[key + '_tflops']:.1f} TFLOP/s, "
+            f"{t[key + '_of_bound']:.3f} of the bound)")
+    say(f"phase 10 time B={b} H={h} T={tq} D={d} {str(dt)[6:]}: "
+        f"{'; '.join(parts)}; delta {t['delta']:.4f} ms; dq + dkv + delta "
         f"{t['dq'] + t['dkv'] + t['delta']:.4f} ms against the SDPA backward "
         f"{t['sdpa_bwd']:.4f} ms")
     return t
@@ -900,6 +997,7 @@ def phase_flash_bwd(gen) -> list:
         worst[case[5]] = [max(a, e) for a, e in zip(worst[case[5]], errs)]
     times = {case[5]: _flash_bwd_times(case, gen)
              for case in FLASH_BWD_CASES[:2]}
+    long = _flash_bwd_times(FLASH_BWD_CASES[2], gen, plain=False)
     main = times[torch.bfloat16]
     shape = "B=16 H=8 T=512 D=64 bf16 causal"
     sdpa = ("scaled_dot_product_attention backward (dq, dk, dv together), "
@@ -919,10 +1017,14 @@ def phase_flash_bwd(gen) -> list:
             ms=main[key], plain_ms=main[f"{key}_plain"],
             bound_ms=main[f"{key}_bound"][0],
             bound_by=main[f"{key}_bound"][1], library_ms=main["sdpa_bwd"],
-            library=sdpa, shape=shape, f32_ms=f32[key],
-            f32_plain_ms=f32[f"{key}_plain"],
+            library=sdpa, shape=shape, tflops=main[f"{key}_tflops"],
+            f32_ms=f32[key], f32_plain_ms=f32[f"{key}_plain"],
             f32_bound_ms=f32[f"{key}_bound"][0],
-            f32_library_ms=f32["sdpa_bwd"]))
+            f32_library_ms=f32["sdpa_bwd"],
+            long_shape="B=2 H=8 T=4096 D=64 bf16 causal", long_ms=long[key],
+            long_bound_ms=long[f"{key}_bound"][0],
+            long_tflops=long[f"{key}_tflops"],
+            long_library_ms=long["sdpa_bwd"]))
     return rows
 
 

@@ -140,6 +140,43 @@ def test_flash_shared_header_edit_rebuilds_every_flash_kernel(isolated):
     new = set(os.listdir(isolated / "build")) - before
     assert sorted(n.split("-")[0] for n in new) == [
         "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd"]
+    # the tensor-core header: exactly the two kernels that include it
+    before = set(os.listdir(isolated / "build"))
+    with open(isolated / "csrc" / "flash_mma.cuh", "a") as f:
+        f.write("\n// edited\n")
+    assert _cuda.build() > 0.0
+    new = set(os.listdir(isolated / "build")) - before
+    assert sorted(n.split("-")[0] for n in new) == [
+        "flash_bwd_dkv", "flash_bwd_dq"]
+
+
+def test_header_reached_only_through_a_header_rebuilds_its_dependents(
+        isolated):
+    csrc = isolated / "csrc"
+    (csrc / "inner.cuh").write_text("// inner\n")
+    with open(csrc / "flash_mma.cuh", "a") as f:
+        f.write('\n#include "inner.cuh"\n')
+    _cuda.build()
+    before = set(os.listdir(isolated / "build"))
+    with open(csrc / "inner.cuh", "a") as f:
+        f.write("// edited\n")
+    assert _cuda.build() > 0.0
+    new = set(os.listdir(isolated / "build")) - before
+    assert sorted(n.split("-")[0] for n in new) == [
+        "flash_bwd_dkv", "flash_bwd_dq"]
+
+
+def test_header_include_cycles_are_followed_once(isolated):
+    csrc = isolated / "csrc"
+    (csrc / "inner.cuh").write_text('#include "flash_mma.cuh"\n')
+    with open(csrc / "flash_mma.cuh", "a") as f:
+        f.write('\n#include "inner.cuh"\n')
+    text = (csrc / "flash_bwd_dq.cu").read_bytes()
+    assert _cuda._headers(text) == ["flash_common.cuh", "flash_mma.cuh",
+                                    "inner.cuh"]
+    path = _cuda._lib_path("flash_bwd_dq")
+    (csrc / "inner.cuh").write_text('#include "flash_mma.cuh"\n// edited\n')
+    assert _cuda._lib_path("flash_bwd_dq") != path
 
 
 def test_flash_tiles_match_the_plain_versions():
@@ -150,6 +187,21 @@ def test_flash_tiles_match_the_plain_versions():
         text = open(os.path.join(_cuda.CSRC, src)).read()
         assert '#include "flash_common.cuh"' in text
         assert "constexpr int BQ" not in text and "to_f32(float" not in text
+
+
+def test_flash_bwd_sources_share_the_tensor_core_header():
+    """Both backward sources take their ldmatrix, mma.sync, cp.async and
+    hi/lo helpers from ``flash_mma.cuh``, and keep an f32 and a bf16
+    kernel each."""
+    header = open(os.path.join(_cuda.CSRC, "flash_mma.cuh")).read()
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in header
+    assert "ldmatrix.sync.aligned.m8n8.x4.trans" in header
+    assert "cp.async.cg.shared.global" in header
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        text = open(os.path.join(_cuda.CSRC, f"{name}.cu")).read()
+        assert '#include "flash_mma.cuh"' in text
+        assert f"{name}_f32_kernel" in text and f"{name}_bf16_kernel" in text
+        assert "asm" not in text and "wgmma/TMA come" not in text
 
 
 def test_conv_bn_tiles_match_the_kernels_pixel_tile():

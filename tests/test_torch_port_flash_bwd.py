@@ -135,6 +135,85 @@ def test_bf16_backward_is_the_f32_backward_rounded(causal):
         assert err <= 1e-2 * w.abs().max().item()
 
 
+def _bf16_parts(x, split):
+    """``x`` as the bf16 operands the tensor-core kernels feed their
+    second products: hi = bf16(x) and lo = bf16(x − hi), or hi alone."""
+    hi = x.bfloat16().float()
+    return (hi, (x - hi).bfloat16().float()) if split else (hi,)
+
+
+def _bf16_kernel_model(q, k, v, g, lse, delta, causal, scale, split):
+    """dq, dk, dv in f32 as the bf16 kernels form them: S and dP from
+    the bf16 operands summed in f32; P and dS enter dS·K, Pᵀ·dO and
+    dSᵀ·Q as bf16 parts whose f32 products are summed.  Untiled: the
+    order of the sums is not the point here."""
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    s = torch.matmul(qf, kf.transpose(1, 2)) * scale
+    keep = torch.ones(s.shape[1:], dtype=torch.bool)
+    if causal:
+        keep = (torch.arange(s.shape[1])[:, None]
+                >= torch.arange(s.shape[2])[None, :])
+    p = torch.where(keep, torch.exp(s - lse[..., None]), torch.zeros(()))
+    ds = p * (torch.matmul(gf, vf.transpose(1, 2)) - delta[..., None])
+    dq = sum(torch.matmul(x, kf) for x in _bf16_parts(ds, split)) * scale
+    dk = sum(torch.matmul(x.transpose(1, 2), qf)
+             for x in _bf16_parts(ds, split)) * scale
+    dv = sum(torch.matmul(x.transpose(1, 2), gf)
+             for x in _bf16_parts(p, split))
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("bh,tq,tk,d,causal", [(4, 128, 128, 64, True),
+                                               (4, 70, 131, 32, False)])
+def test_bf16_kernels_hi_lo_split_holds_the_f32_backward(bh, tq, tk, d,
+                                                         causal):
+    """Why the bf16 kernels carry P and dS as a bf16 hi + lo pair: the
+    JAX kernels and the plain versions keep them in f32.  With the split
+    the f32 sums stay within 2^-16 of the largest |gradient| and the
+    bf16 result within one bf16 ulp of it (chip_smoke.py phase 10's
+    limit); one rounding of P and dS to bf16 errs some 500 times more in
+    f32, already as large as that ulp at these small shapes."""
+    rs = np.random.RandomState(tq + tk + d)
+    q, g = (torch.from_numpy(rs.randn(bh, tq, d).astype(np.float32))
+            .bfloat16() for _ in range(2))
+    k, v = (torch.from_numpy(rs.randn(bh, tk, d).astype(np.float32))
+            .bfloat16() for _ in range(2))
+    scale = d ** -0.5
+    out, lse = TA.flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    delta = (g.float() * out.float()).sum(dim=-1)
+
+    def plain(*xs):
+        return (TA.flash_bwd_dq_plain(*xs, lse, delta, causal=causal,
+                                      scale=scale),
+                *TA.flash_bwd_dkv_plain(*xs, lse, delta, causal=causal,
+                                        scale=scale))
+
+    want16 = plain(q, k, v, g)
+    want32 = plain(q.float(), k.float(), v.float(), g.float())
+    split = _bf16_kernel_model(q, k, v, g, lse, delta, causal, scale, True)
+    single = _bf16_kernel_model(q, k, v, g, lse, delta, causal, scale, False)
+    for name, a, b, w32, w16 in zip("qkv", split, single, want32, want16):
+        mag = w32.abs().max().item()
+        err = (a - w32).abs().max().item()
+        assert err <= 2.0 ** -16 * mag, f"d{name}: {err / mag:.2e}"
+        assert 50 * err < (b - w32).abs().max().item(), f"d{name}"
+        ulp = 2.0 ** (np.floor(np.log2(mag)) - 7)
+        err16 = (a.bfloat16().float() - w16.float()).abs().max().item()
+        assert err16 <= ulp, f"d{name}: {err16:.3e} > one ulp {ulp:.3e}"
+
+
+def test_bf16_kernel_inputs_must_be_16_byte_aligned():
+    """The bf16 kernels copy q, k, v and g in 16-byte pieces: a tensor
+    that starts off a 16-byte boundary raises, naming it, and is never
+    copied."""
+    buf = torch.zeros(4 * 64 + 8, dtype=torch.bfloat16)
+    assert buf.data_ptr() % 16 == 0
+    TA._check_cp_async_aligned(q=buf[:64], k=buf[8:72])
+    with pytest.raises(ValueError, match="bf16 k must start on a 16-byte "
+                                         "boundary"):
+        TA._check_cp_async_aligned(q=buf[:64], k=buf[1:65])
+
+
 def test_cpu_autograd_runs_the_function_and_the_plain_backward(monkeypatch):
     """The routing the CUDA zero-gradient fault slipped through: the CPU
     path must differentiate through ``_FlashAttention`` and the plain

@@ -3,35 +3,60 @@
 //
 // Replaces the TPU kernel bigdl_tpu/ops/conv_bn.py::_fwd_kernel_kxk
 // (launched by _fwd_kxk), and with it the probe scripts/kxk_probe.py (a
-// 3x3 stride-1 conv without statistics). It computes the NCHW conv
-// y[n, o, ho, wo] = sum_{c, dy, dx} w[o, c, dy, dx] *
+// 3x3 stride-1 conv without statistics). It computes the conv
+// y[n, o, ho, wo] = sum_{dy, dx, c} w[o, c, dy, dx] *
 //                   x[n, c, ho*s - pad + dy, wo*s - pad + dx]
 // with zero (torch-style symmetric) padding and f32 accumulation, writes y
-// in x's dtype, and sums (acc - shift[o]) and (acc - shift[o])^2 per
-// channel over the N*Ho*Wo valid outputs, from the f32 accumulator, as
-// _reference does. Any k, stride and pad with a non-empty output, stride 2
-// directly: the TPU kernel's space-to-depth rewrite (_s2d_rewrite) and its
-// flattened, lane-shifted padded image were Mosaic workarounds and have no
-// counterpart here.
+// (N, O, Ho, Wo) in x's dtype, and sums (acc - shift[o]) and
+// (acc - shift[o])^2 per channel over the N*Ho*Wo valid outputs, from the
+// f32 accumulator, as _reference does. Any k, stride and pad with a
+// non-empty output, stride 2 directly: the TPU kernel's space-to-depth
+// rewrite (_s2d_rewrite) and its flattened, lane-shifted padded image
+// were Mosaic workarounds and have no counterpart here.
 //
-// Shapes: x (N, C, H, W), w (O, C, k, k), shift (O,) f32, y (N, O, Ho, Wo);
-// all contiguous; f32 or bf16 x and w.
+// What bounds it on the H100: an implicit GEMM of M = O by N = N*Ho*Wo
+// over K = k*k*C. For ResNet-50's 3x3 sites in bf16 at batch 32 that is
+// 9x a 1x1's FLOPs on the same bytes, some 260-940 FLOPs per byte, at or
+// above the tensor cores' ridge of ~295: bound by operations.
 //
-// What bounds it on the H100: an implicit GEMM of (O, C*k*k) by
-// (C*k*k, Ho*Wo) per sample. For ResNet-50's 3x3 sites in bf16 at batch
-// 32 that is 9x a 1x1's FLOPs on the same bytes, some 260-940 FLOPs per
-// byte, at or above the tensor cores' ridge of ~295: bound by operations.
-// This first version does them on the CUDA cores in f32 (67 TFLOP/s
-// peak): 64x64 output tiles, the im2col column tile gathered straight
-// from x into shared memory (out-of-image taps read as 0, never
-// materialised), a 4x4 register tile per thread. Each thread decodes its
-// pixel once; a k-step decodes (c, dy, dx) per loaded element.
-// mma.sync/wgmma come later.
+// bf16 (conv_bn_kxk_bf16_kernel): the tensor cores. A layout pass first
+// (to_nhwc_kernel, the same call) writes x as NHWC (N, H, W, Cp) and w as
+// (O, k, k, Cp) into scratch the caller allocates, Cp = C rounded up to a
+// multiple of 8 and the extra channels zero (zeros add nothing): a tiled
+// transpose through shared memory, the same layout JAX's pad-and-flatten
+// builds outside its kernel (ops.conv_bn.kxk_operands states it in
+// PyTorch). So K runs tap-major as JAX's im2col does
+// (t * C + c, t = dy * k + dx) and every A row (one output channel) and B
+// row (one output pixel at one tap) is contiguous in K. A CTA of four
+// warps owns a 64-channel by 128-pixel output tile, the pixels flattened
+// across samples so that the small late-stage images (7x7) fill whole
+// tiles. Each k-step takes 64 channels of one tap: 16-byte cp.async
+// copies into rows padded by 16 bytes (no ldmatrix bank conflicts), three
+// stages in flight; an out-of-image tap, a channel past C or a pixel past
+// the end is zero-filled by src-size 0, never gathered. Warp (wm, wn)
+// multiplies its 64 x 32 sub-tile by m16n8k16 mma.sync, A and B by
+// ldmatrix, each run of 8 MMAs into a fresh fragment that ordinary f32
+// adds take into the running sum (the tensor cores' own accumulation
+// does not round to nearest). The epilogue rounds y to bf16 once, stages
+// it through shared memory and stores it as NCHW rows of consecutive
+// pixels; the statistics come from the f32 accumulators: each row's
+// centred sums over the thread's columns, across its quad by two fixed
+// shuffles, then across the four warps that share the row in fixed order
+// through shared memory, into the CTA's partial column. No split of K: y
+// and the sums are bit-equal run to run.
 //
-// The tiles, the FMA step, the statistics epilogue and its deterministic
-// second pass are shared with conv_bn_1x1.cu, in conv_bn_common.cuh.
+// f32 (conv_bn_kxk_f32_kernel): the CUDA cores, on NCHW x and (O, C, k, k)
+// w: 64x64 output tiles per sample, the im2col column tile gathered
+// straight from x into shared memory as f32, a 4x4 register tile per
+// thread (conv_bn_common.cuh's fma_tile and store_and_stats). Each thread
+// decodes its pixel once; a k-step decodes (c, dy, dx) per loaded
+// element.
+//
+// Both write per-CTA statistics partials that conv_bn_common.cuh's
+// fixed-order second pass sums.
 
 #include "conv_bn_common.cuh"
+#include "mma_common.cuh"
 
 namespace {
 
@@ -39,10 +64,10 @@ namespace {
 // ncols = N * gridDim.x, one column per CTA along (n, pixel tile).
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-convkxk_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                     const float* __restrict__ shift, T* __restrict__ y,
-                     float* __restrict__ part, int c, int h, int wd, int o,
-                     int k, int stride, int pad, int ho, int wo) {
+conv_bn_kxk_f32_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                       const float* __restrict__ shift, T* __restrict__ y,
+                       float* __restrict__ part, int c, int h, int wd, int o,
+                       int k, int stride, int pad, int ho, int wo) {
   __shared__ __align__(16) float as[BK][LDA];
   __shared__ __align__(16) float bs[BK][BN];
 
@@ -100,15 +125,312 @@ convkxk_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
   store_and_stats(acc, y, shift, part, o, npix, ty, tx);
 }
 
+// x (N, C, HW) -> xh (N, HW, cp), channels C..cp-1 zero: x as NHWC with
+// its channels padded, or w (O, C, k, k) as (O, k, k, cp). A CTA moves a
+// 64-channel by 32-pixel tile of one image through shared memory: reads
+// run along the pixels of a channel, writes along the channels of a
+// pixel, two channels (4 bytes) a thread. grid (ceil(HW/32),
+// ceil(cp/64), N), block (32, 8).
+__global__ void __launch_bounds__(256)
+to_nhwc_kernel(const bf16* __restrict__ x, bf16* __restrict__ xh, int c,
+               int cp, int hw) {
+  __shared__ bf16 tile[64][32 + 2];  // [channel][pixel], padded rows
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int p0 = blockIdx.x * 32, c0 = blockIdx.y * 64;
+  const size_t n = blockIdx.z;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int ch = c0 + ty + 8 * i, p = p0 + tx;
+    tile[ty + 8 * i][tx] = ch < c && p < hw
+                               ? x[(n * c + ch) * hw + p]
+                               : __float2bfloat16(0.f);
+  }
+  __syncthreads();
+  const int ch = c0 + 2 * tx;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int pl = ty + 8 * i, p = p0 + pl;
+    if (p < hw && ch < cp) {
+      __nv_bfloat162 v;
+      v.x = tile[2 * tx][pl];
+      v.y = tile[2 * tx + 1][pl];
+      *reinterpret_cast<__nv_bfloat162*>(xh + (n * hw + p) * cp + ch) = v;
+    }
+  }
+}
+
+inline void to_nhwc(const bf16* x, bf16* xh, int n, int c, int cp, int hw,
+                    cudaStream_t stream) {
+  const dim3 grid((hw + 31) / 32, (cp + 63) / 64, n);
+  to_nhwc_kernel<<<grid, dim3(32, 8), 0, stream>>>(x, xh, c, cp, hw);
+}
+
+// The bf16 kernel's tiles (TN is CONV_KXK_TILE_P in ops/_cuda.py)
+constexpr int TM = 64;   // output channels per CTA
+constexpr int TN = 128;  // flattened output pixels per CTA
+constexpr int TK = 64;   // channels of one tap per k-step
+constexpr int WM = 64;   // output channels per warp
+constexpr int WN = 32;   // pixels per warp
+constexpr int STAGES = 3;
+// k-steps whose MMAs accumulate into a fresh fragment before it is added
+// into the running f32 sum (see the note at the main loop)
+constexpr int CHAIN = 2;
+constexpr int WARPS_N = TN / WN;
+constexpr int MMA_THREADS = 32 * (TM / WM) * WARPS_N;
+constexpr int MI = WM / 16;  // m16 tiles per warp
+constexpr int NI = WN / 8;   // n8 tiles per warp
+constexpr int PIECES = TK / 8;     // 16-byte pieces per row and k-step
+constexpr int LDS = TK + 8;        // padded shared row, bf16
+constexpr int LDY = TN + 8;        // padded row of the staged y tile, bf16
+constexpr int A_COPIES = TM * PIECES / MMA_THREADS;  // per thread
+constexpr int B_COPIES = TN * PIECES / MMA_THREADS;
+constexpr int STAGE_ELEMS = (TM + TN) * LDS;
+constexpr int SMEM_BYTES = STAGES * STAGE_ELEMS * 2;
+static_assert(TM * PIECES % MMA_THREADS == 0 &&
+                  TN * PIECES % MMA_THREADS == 0 && A_COPIES >= 1,
+              "whole rounds of copies");
+static_assert(MMA_THREADS >= 2 * TM && MMA_THREADS % TN == 0,
+              "the epilogue's thread roles");
+static_assert(TM * LDY * 2 + WARPS_N * TM * 2 * 4 <= SMEM_BYTES,
+              "the epilogue reuses the pipeline's shared memory");
+// an image row so far out of range that no tap brings it back in: the
+// mark of a pixel past the end
+constexpr int OUT_OF_IMAGE = -(1 << 28);
+
+// grid (ceil(N*Ho*Wo / TN), ceil(O / TM)); part is (2, O, gridDim.x), one
+// column per pixel tile. x (N, H, W, c) and w (O, k, k, c) with c a
+// multiple of 8, both 16-byte aligned (to_nhwc's output).
+__global__ void __launch_bounds__(MMA_THREADS)
+conv_bn_kxk_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                        const float* __restrict__ shift, bf16* __restrict__ y,
+                        float* __restrict__ part, int n_img, int c, int h,
+                        int wd, int o, int k, int stride, int pad, int ho,
+                        int wo) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, tc = lane & 3;  // fragment row, column pair
+  // the warp's rows WM * wm.., columns WN * wn..
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int hw = ho * wo;
+  const int npix = n_img * hw;
+  const int p0 = blockIdx.x * TN;
+  const int o0 = blockIdx.y * TM;
+  const int kk2 = k * k;
+  const int nchunk = (c + TK - 1) / TK;
+  const int nsteps = kk2 * nchunk;
+
+  // copy roles: the thread moves 16-byte piece q (channels 8q..8q+7 of
+  // the k-step) of A rows ar + RA i and of B rows ar + RA i
+  constexpr int RA = MMA_THREADS / PIECES;  // rows a round of copies covers
+  const int q = tid % PIECES, ar = tid / PIECES;
+  bool a_ok[A_COPIES];
+  const bf16* a_row[A_COPIES];
+#pragma unroll
+  for (int i = 0; i < A_COPIES; ++i) {
+    const int oo = o0 + ar + RA * i;
+    a_ok[i] = oo < o;
+    a_row[i] = w + (size_t)(a_ok[i] ? oo : 0) * kk2 * c;
+  }
+  // each B row's window origin, decoded once: (n * H, top row, left col)
+  int b_nh[B_COPIES], b_hi[B_COPIES], b_wi[B_COPIES];
+#pragma unroll
+  for (int i = 0; i < B_COPIES; ++i) {
+    const int p = p0 + ar + RA * i;
+    const int n = p / hw, r = p - n * hw;
+    const int oy = r / wo;
+    b_nh[i] = n * h;
+    b_hi[i] = p < npix ? oy * stride - pad : OUT_OF_IMAGE;
+    b_wi[i] = (r - oy * wo) * stride - pad;
+  }
+
+  // k-step s: tap t = s / nchunk, channels TK (s % nchunk) + 8 q ..
+  auto load = [&](int stage, int s) {
+    bf16* as = smem + stage * STAGE_ELEMS;
+    bf16* bs = as + TM * LDS;
+    const int t = s / nchunk;
+    const int cc = (s - t * nchunk) * TK + 8 * q;
+    const int dy = t / k, dx = t - dy * k;
+    const bool c_ok = cc < c;
+#pragma unroll
+    for (int i = 0; i < A_COPIES; ++i) {
+      const bool ok = a_ok[i] && c_ok;
+      cp_async16(as + (ar + RA * i) * LDS + 8 * q,
+                 ok ? a_row[i] + (size_t)t * c + cc : w, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < B_COPIES; ++i) {
+      const int hi = b_hi[i] + dy, wi = b_wi[i] + dx;
+      const bool ok = c_ok && (unsigned)hi < (unsigned)h &&
+                      (unsigned)wi < (unsigned)wd;
+      cp_async16(bs + (ar + RA * i) * LDS + 8 * q,
+                 ok ? x + ((size_t)(b_nh[i] + hi) * wd + wi) * c + cc : x,
+                 ok);
+    }
+  };
+
+  // The tensor cores do not round their f32 accumulation to nearest: a
+  // long chain of MMAs into one fragment drifts toward zero, some 1e-5
+  // relative over ResNet-50's K = 4608, a bias the statistics' sums of
+  // squares keep. So the MMAs of CHAIN k-steps accumulate into `chain`
+  // from zero, and it is added into `acc` by ordinary f32 adds.
+  float acc[MI][NI][4], chain[MI][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = chain[mi][j][e] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nsteps) load(st, st);
+    cp_async_commit();
+  }
+  for (int ks = 0; ks < nsteps; ++ks) {
+    cp_async_wait<STAGES - 2>();  // step ks has landed
+    __syncthreads();              // ... for every thread; ks - 1 is consumed
+    if (ks + STAGES - 1 < nsteps)
+      load((ks + STAGES - 1) % STAGES, ks + STAGES - 1);
+    cp_async_commit();
+
+    const bf16* as = smem + (ks % STAGES) * STAGE_ELEMS;
+    const bf16* bs = as + TM * LDS;
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk) {
+      uint32_t a[MI][4];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+        ldsm_x4(a[mi], as + (WM * wm + 16 * mi + (lane & 15)) * LDS +
+                           16 * kk + (lane >> 4) * 8);
+#pragma unroll
+      for (int nj = 0; nj < NI / 2; ++nj) {
+        // two n8 tiles of the warp's pixels, stored n by k
+        uint32_t b[4];
+        ldsm_x4(b, bs + (WN * wn + 16 * nj + (lane & 7) + (lane >> 4) * 8) *
+                            LDS +
+                       16 * kk + ((lane >> 3) & 1) * 8);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          mma_bf16(chain[mi][2 * nj], a[mi], b[0], b[1]);
+          mma_bf16(chain[mi][2 * nj + 1], a[mi], b[2], b[3]);
+        }
+      }
+    }
+    if (ks % CHAIN == CHAIN - 1 || ks + 1 == nsteps) {
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[mi][j][e] += chain[mi][j][e];
+            chain[mi][j][e] = 0.f;
+          }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the pipeline's shared memory is free
+
+  // epilogue: y rounded once into a staged tile, and each row's centred
+  // sums over this thread's valid columns
+  bf16* ys = smem;                                         // (TM, LDY)
+  float* red = reinterpret_cast<float*>(smem + TM * LDY);  // (WARPS_N, TM, 2)
+  const bool full = p0 + TN <= npix;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = WM * wm + 16 * mi + gr + 8 * r;
+      const int oo = o0 + row;
+      const float sh = oo < o ? shift[oo] : 0.f;
+      float p1 = 0.f, p2 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        const int col = WN * wn + 8 * j + 2 * tc;
+        const float v0 = acc[mi][j][2 * r], v1 = acc[mi][j][2 * r + 1];
+        store2(ys + row * LDY + col, v0, v1);
+        if (full || p0 + col < npix) {
+          const float d = v0 - sh;
+          p1 += d;
+          p2 = fmaf(d, d, p2);
+        }
+        if (full || p0 + col + 1 < npix) {
+          const float d = v1 - sh;
+          p1 += d;
+          p2 = fmaf(d, d, p2);
+        }
+      }
+      p1 += __shfl_xor_sync(FULL, p1, 1);
+      p2 += __shfl_xor_sync(FULL, p2, 1);
+      p1 += __shfl_xor_sync(FULL, p1, 2);
+      p2 += __shfl_xor_sync(FULL, p2, 2);
+      if (tc == 0) {
+        red[(wn * TM + row) * 2] = p1;
+        red[(wn * TM + row) * 2 + 1] = p2;
+      }
+    }
+  }
+  __syncthreads();
+
+  // the CTA's partial column: the warps' column slices in fixed order
+  const int ncols = gridDim.x;
+  if (tid < 2 * TM && o0 + (tid >> 1) < o) {
+    const int row = tid >> 1, which = tid & 1;  // which: s1 or s2
+    float sum = red[row * 2 + which];
+#pragma unroll
+    for (int qn = 1; qn < WARPS_N; ++qn)
+      sum += red[(qn * TM + row) * 2 + which];
+    part[((size_t)which * o + o0 + row) * ncols + blockIdx.x] = sum;
+  }
+  // y as NCHW: thread tid stores pixel p0 + tid % TN of rows tid / TN,
+  // tid / TN + MMA_THREADS / TN, ..
+  const int col = tid % TN;
+  const int p = p0 + col;
+  if (p < npix) {
+    const int n = p / hw, r = p - n * hw;
+    bf16* yp = y + ((size_t)n * o + o0) * hw + r;
+    const int rows = min(TM, o - o0);
+    for (int row = tid / TN; row < rows; row += MMA_THREADS / TN)
+      yp[(size_t)row * hw] = ys[row * LDY + col];
+  }
+}
+
 template <typename T>
-cudaError_t launch(const void* x, const void* w, const float* shift, void* y,
-                   float* part, float* s1, float* s2, int n, int c, int h,
-                   int wd, int o, int k, int stride, int pad, int ho, int wo,
-                   cudaStream_t stream) {
+cudaError_t launch_f32(const void* x, const void* w, const float* shift,
+                       void* y, float* part, float* s1, float* s2, int n,
+                       int c, int h, int wd, int o, int k, int stride,
+                       int pad, int ho, int wo, cudaStream_t stream) {
   const dim3 grid((ho * wo + BN - 1) / BN, (o + BM - 1) / BM, n);
-  convkxk_stats_kernel<T><<<grid, THREADS, 0, stream>>>(
+  conv_bn_kxk_f32_kernel<T><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), shift,
       static_cast<T*>(y), part, c, h, wd, o, k, stride, pad, ho, wo);
+  return reduce_stats(grid, part, o, s1, s2, stream);
+}
+
+cudaError_t launch_bf16(const void* x, const void* w, const float* shift,
+                        void* y, float* part, float* s1, float* s2, void* xh,
+                        void* wh, int n, int c, int h, int wd, int o, int k,
+                        int stride, int pad, int ho, int wo,
+                        cudaStream_t stream) {
+  const long long npix = (long long)n * ho * wo;  // int pixel indices
+  if (npix > (1LL << 30) || n > 65535 || o > 65535)
+    return cudaErrorInvalidValue;
+  const int cp = (c + 7) / 8 * 8;
+  auto xt = static_cast<bf16*>(xh);
+  auto wt = static_cast<bf16*>(wh);
+  to_nhwc(static_cast<const bf16*>(x), xt, n, c, cp, h * wd, stream);
+  to_nhwc(static_cast<const bf16*>(w), wt, o, c, cp, k * k, stream);
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_bn_kxk_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((npix + TN - 1) / TN), (o + TM - 1) / TM);
+  conv_bn_kxk_bf16_kernel<<<grid, MMA_THREADS, SMEM_BYTES, stream>>>(
+      xt, wt, shift, static_cast<bf16*>(y), part, n, cp, h, wd, o, k, stride,
+      pad, ho, wo);
   return reduce_stats(grid, part, o, s1, s2, stream);
 }
 
@@ -116,11 +438,16 @@ cudaError_t launch(const void* x, const void* w, const float* shift, void* y,
 
 extern "C" {
 
-// dtype: 0 = f32, 1 = bf16. Returns a cudaError_t (0 on success).
+// x (N, C, H, W) and w (O, C, k, k) of one dtype. dtype 0: f32, the
+// CUDA-core kernel, xh and wh unused; dtype 1: bf16, the tensor cores,
+// with scratch xh (N, H, W, Cp) and wh (O, k, k, Cp) bf16, Cp = C rounded
+// up to a multiple of 8, each 16-byte aligned. Returns a cudaError_t (0 on
+// success).
 int bigdl_conv_bn_kxk(const void* x, const void* w, const void* shift,
-                      void* y, void* part, void* s1, void* s2, int n, int c,
-                      int h, int wd, int o, int k, int stride, int pad,
-                      int ho, int wo, int dtype, void* stream) {
+                      void* y, void* part, void* s1, void* s2, void* xh,
+                      void* wh, int n, int c, int h, int wd, int o, int k,
+                      int stride, int pad, int ho, int wo, int dtype,
+                      void* stream) {
   if (n <= 0 || c <= 0 || o <= 0 || k <= 0 || stride <= 0 || pad < 0 ||
       ho <= 0 || wo <= 0)
     return (int)cudaErrorInvalidValue;
@@ -130,11 +457,11 @@ int bigdl_conv_bn_kxk(const void* x, const void* w, const void* shift,
   auto a = static_cast<float*>(s1);
   auto b = static_cast<float*>(s2);
   if (dtype == 0)
-    return (int)launch<float>(x, w, sh, y, pt, a, b, n, c, h, wd, o, k,
-                              stride, pad, ho, wo, st);
+    return (int)launch_f32<float>(x, w, sh, y, pt, a, b, n, c, h, wd, o, k,
+                                  stride, pad, ho, wo, st);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(x, w, sh, y, pt, a, b, n, c, h, wd, o,
-                                      k, stride, pad, ho, wo, st);
+    return (int)launch_bf16(x, w, sh, y, pt, a, b, xh, wh, n, c, h, wd, o, k,
+                            stride, pad, ho, wo, st);
   return (int)cudaErrorInvalidValue;
 }
 

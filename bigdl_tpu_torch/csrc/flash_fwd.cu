@@ -6,33 +6,49 @@
 // scaled-score units for a later blockwise backward.
 //
 // Shapes: q (BH, Tq, D), k/v (BH, Tk, D), o like q, lse (BH, Tq) f32;
-// all contiguous. Any Tq and Tk (ragged tiles are masked), D in
-// {32, 64, 128}, f32 or bf16 inputs, f32 accumulation. Causal masking
-// keeps kpos <= qpos (query offset 0).
+// all contiguous, and for bf16 q, k and v 16-byte aligned. Any Tq and Tk
+// (ragged tiles are masked), D in {32, 64, 128}, f32 or bf16 inputs, f32
+// accumulation. Causal masking keeps kpos <= qpos (query offset 0). One
+// CTA per (bh, 64-row q tile); the TPU grid's sequential kv axis becomes
+// a loop inside the CTA over 64-row K/V tiles, up to the causal diagonal
+// only. Fully masked rows keep a shift of 0 and the denominator is
+// clamped at 1e-30, as in the JAX reference.
 //
-// What bounds it on the H100: at the prefill shapes (T <= 512, D = 64)
-// each CTA reads its Q tile once and the K/V tiles up to the causal
-// diagonal; the work is 4*D FLOPs per (q, k) pair against 2*D*itemsize
-// bytes per key, so the algorithm is bound by operations. This first
-// version does those operations on the CUDA cores in f32 (67 TFLOP/s
-// peak) rather than on the tensor cores, and is limited further by
-// shared-memory loads (one load per FMA in the score loop).
+// What bounds it on the H100: each CTA reads its Q tile once and the K/V
+// tiles up to the causal diagonal; the work is 4*D FLOPs per (q, k) pair
+// against 2*D*itemsize bytes per key. At the training shape (B=16, H=8,
+// T=512, D=64, bf16) the bytes take longer than the tensor cores' share
+// of the operations, so the function is bound by bytes; at T=4096 by
+// operations. What holds a kernel back is getting the products onto the
+// tensor cores at all, then the softmax's exponentials between them.
 //
-// Design: one CTA of 128 threads per (bh, 64-row q tile). The TPU grid's
-// sequential kv axis becomes a loop inside the CTA over 64-row K/V tiles,
-// up to the causal diagonal only. Q (pre-scaled), K and V tiles sit in
-// shared memory as f32 with rows padded to D+1 floats, so neither the
-// row-per-thread reads nor the column reads conflict on banks. Two
-// threads share a q row: each computes 32 interleaved score columns and
-// accumulates half of the head dims; the row max and row sum are
-// combined with one shuffle. The (m, l, acc) state stays in registers.
-// Fully masked rows keep a shift of 0 and the denominator is clamped at
-// 1e-30, as in the JAX reference. wgmma/TMA come in a later version.
+// bf16 (flash_fwd_bf16_kernel): one warpgroup per CTA, warp w owning q
+// rows 16w..16w+15. Q is loaded once by 16-byte cp.async and its A
+// fragments are held in registers; K/V tiles are double-buffered, the
+// next one's copies in flight while the current one's products run. S =
+// Q K^T is an m16n8k16 mma.sync product with K as the B operand
+// (ldmatrix); scale and log2 e multiply the f32 scores, and the online
+// softmax runs on the accumulator fragments (row max and sum across each
+// quad by two shuffles, exp2f). The JAX kernel multiplies P in f32 by V
+// in f32, so P enters P V as a bf16 hi + lo pair (two MMAs into one f32
+// accumulator, V by ldmatrix.trans): one rounding of P to bf16 would
+// compute another function. O / l is rounded to bf16 once, at the store;
+// lse = m + log(l) goes back to natural units. The causal tiles run
+// heaviest first.
+//
+// f32 (flash_fwd_f32_kernel): the CUDA cores. Q (pre-scaled), K and V
+// tiles sit in shared memory as f32 with rows padded to D+1 floats, so
+// neither the row-per-thread reads nor the column reads conflict on
+// banks. Two threads share a q row: each computes 32 interleaved score
+// columns and accumulates half of the head dims; the row max and row sum
+// are combined with one shuffle. The (m, l, acc) state stays in
+// registers. One shared-memory load per FMA bounds it.
 
 #include <math.h>
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -40,10 +56,10 @@ constexpr int THREADS = 128;  // two threads per q row
 
 template <int D, typename T>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int tq, int tk, int causal,
-                 float scale) {
+flash_fwd_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int tq, int tk, int causal,
+                     float scale) {
   constexpr int LD = D + 1;  // padded row stride of the shared tiles
   constexpr int HALF = D / 2;
   constexpr int SC = BK / 2;  // score columns per thread
@@ -148,33 +164,206 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int D, typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int bh, int tq, int tk, int causal,
-                   float scale, cudaStream_t stream) {
-  const int smem = 3 * BQ * (D + 1) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((tq + BQ - 1) / BQ, bh);
-  flash_fwd_kernel<D, T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, tq, tk, causal,
-      scale);
-  return cudaGetLastError();
+constexpr int MMA_THREADS = 128;  // one warpgroup: 4 warps of 16 q rows
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o,
+                      float* __restrict__ lse, int tq, int tk, int causal,
+                      float scale) {
+  using M = MmaTile<D>;
+  constexpr int NT = MMA_THREADS;
+  constexpr int KD = D / 16;  // k-steps of Q K^T
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = qs + M::ELEMS;      // two buffers
+  bf16* vs = ks + 2 * M::ELEMS;  // two buffers
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tc = lane & 3;  // fragment row, column pair
+  const int m0 = 16 * warp;                 // the warp's first tile row
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest first
+  const size_t q_base = (size_t)bh * tq * D;
+  const size_t kv_base = (size_t)bh * tk * D;
+
+  int n_tiles = (tk + BK - 1) / BK;
+  if (causal) n_tiles = min(n_tiles, (min(q0 + BQ, tq) - 1) / BK + 1);
+
+  cp_async_tile<D, NT>(qs, q + q_base, q0, tq);
+  cp_async_commit();
+  cp_async_tile<D, NT>(ks, k + kv_base, 0, tk);
+  cp_async_tile<D, NT>(vs, v + kv_base, 0, tk);
+  cp_async_commit();
+
+  // the thread's two q rows, m0 + gr and m0 + gr + 8; (m, l) of each in
+  // log2 units of the scaled scores
+  int qpos[2];
+  float m[2], l[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qpos[r] = q0 + m0 + gr + 8 * r;
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+  }
+  const float sl2 = scale * LOG2E;
+
+  uint32_t qf[KD][4];
+  cp_async_wait<1>();  // Q is in
+  __syncthreads();
+#pragma unroll
+  for (int kd = 0; kd < KD; ++kd) ldsm_a<D>(qf[kd], qs, m0, 16 * kd, lane);
+
+  // O of rows m0 + gr (+ 8), columns 8 j + 2 tc (+ 1)
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * BK;
+    const bf16* kb = ks + (kt & 1) * M::ELEMS;
+    const bf16* vb = vs + (kt & 1) * M::ELEMS;
+    if (kt + 1 < n_tiles) {  // into the buffer the last tile left
+      cp_async_tile<D, NT>(ks + ((kt + 1) & 1) * M::ELEMS, k + kv_base,
+                           k0 + BK, tk);
+      cp_async_tile<D, NT>(vs + ((kt + 1) & 1) * M::ELEMS, v + kv_base,
+                           k0 + BK, tk);
+    }
+    cp_async_commit();  // empty on the last tile, so the count stays even
+    cp_async_wait<1>();
+    __syncthreads();
+
+    // S = Q K^T: the warp's 16 rows by the tile's 64 keys
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        uint32_t b[4];
+        ldsm_b<D>(b, kb, 16 * n, 16 * kd, lane);
+        mma_bf16(s[2 * n], qf[kd], b[0], b[1]);
+        mma_bf16(s[2 * n + 1], qf[kd], b[2], b[3]);
+      }
+    }
+
+    // scaled scores in log2 units, -inf where masked; a warp whose 16
+    // rows see all 64 keys unmasked skips the tests
+    const bool full = k0 + BK <= tk && (!causal || k0 + BK - 1 <= q0 + m0);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int kpos = k0 + 8 * j + 2 * tc + (e & 1);
+        const bool keep =
+            full || (kpos < tk && (!causal || kpos <= qpos[r]));
+        s[j][e] = keep ? s[j][e] * sl2 : -INFINITY;
+        mx[r] = fmaxf(mx[r], s[j][e]);
+      }
+    }
+    float shift[2], alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      // a row with nothing unmasked yet keeps m = -inf: shift by 0
+      shift[r] = (m_new == -INFINITY) ? 0.f : m_new;
+      alpha[r] = (m[r] == -INFINITY) ? 0.f : exp2f(m[r] - shift[r]);
+      m[r] = m_new;
+    }
+    float rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(s[j][e] - shift[e >> 1]);
+        rsum[e >> 1] += s[j][e];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rsum[r] += __shfl_xor_sync(FULL, rsum[r], 1);
+      rsum[r] += __shfl_xor_sync(FULL, rsum[r], 2);
+      l[r] = l[r] * alpha[r] + rsum[r];
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+
+    // O += P V over the tile's keys, 16 at a time, P as hi + lo
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t hi[4], lo[4];
+      to_a_split(s[2 * kk], s[2 * kk + 1], hi, lo);
+#pragma unroll
+      for (int n = 0; n < D / 16; ++n) {
+        uint32_t b[4];
+        ldsm_bt<D>(b, vb, 16 * kk, 16 * n, lane);
+        mma_bf16(acc[2 * n], hi, b[0], b[1]);
+        mma_bf16(acc[2 * n], lo, b[0], b[1]);
+        mma_bf16(acc[2 * n + 1], hi, b[2], b[3]);
+        mma_bf16(acc[2 * n + 1], lo, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qpos[r] >= tq) continue;
+    const float lc = fmaxf(l[r], 1e-30f);
+    bf16* out = o + q_base + (size_t)qpos[r] * D + 2 * tc;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store2(out + 8 * j, acc[j][2 * r] / lc, acc[j][2 * r + 1] / lc);
+    if (lse != nullptr && tc == 0)
+      lse[(size_t)bh * tq + qpos[r]] = m[r] / LOG2E + logf(lc);
+  }
 }
 
-template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int bh, int tq, int tk, int d, int causal,
-                       float scale, cudaStream_t stream) {
-  switch (d) {
-    case 32: return launch<32, T>(q, k, v, o, lse, bh, tq, tk, causal, scale, stream);
-    case 64: return launch<64, T>(q, k, v, o, lse, bh, tq, tk, causal, scale, stream);
-    case 128: return launch<128, T>(q, k, v, o, lse, bh, tq, tk, causal, scale, stream);
-    default: return cudaErrorInvalidValue;
+// dtype 0: f32 inputs, the CUDA-core kernel; 1: bf16, the tensor cores.
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int bh, int tq, int tk, int causal,
+                   float scale, int dtype, cudaStream_t stream) {
+  const dim3 grid((tq + BQ - 1) / BQ, bh);
+  cudaError_t err;
+  if (dtype == 0) {
+    const int smem = 3 * BQ * (D + 1) * (int)sizeof(float);
+    err = cudaFuncSetAttribute(flash_fwd_f32_kernel<D, float>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    flash_fwd_f32_kernel<D, float><<<grid, THREADS, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), lse, tq, tk,
+        causal, scale);
+  } else {
+    const int smem = 5 * MmaTile<D>::BYTES;  // Q; K, V twice
+    err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    flash_fwd_bf16_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, tq, tk,
+        causal, scale);
   }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -185,13 +374,15 @@ extern "C" int bigdl_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, void* lse, int bh, int tq, int tk,
                                int d, int causal, float scale, int dtype,
                                void* stream) {
-  if (bh <= 0 || bh > 65535 || tq <= 0 || tk <= 0)
+  if (bh <= 0 || bh > 65535 || tq <= 0 || tk <= 0 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* lse_f = static_cast<float*>(lse);
-  switch (dtype) {
-    case 0: return (int)dispatch_d<float>(q, k, v, o, lse_f, bh, tq, tk, d, causal, scale, s);
-    case 1: return (int)dispatch_d<__nv_bfloat16>(q, k, v, o, lse_f, bh, tq, tk, d, causal, scale, s);
+  float* l = static_cast<float*>(lse);
+  switch (d) {
+    case 32: return (int)launch<32>(q, k, v, o, l, bh, tq, tk, causal, scale, dtype, s);
+    case 64: return (int)launch<64>(q, k, v, o, l, bh, tq, tk, causal, scale, dtype, s);
+    case 128: return (int)launch<128>(q, k, v, o, l, bh, tq, tk, causal, scale, dtype, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -45,8 +45,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # dtype codes shared with the C interfaces
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# output pixels per CTA of the conv_bn kernels (BN in conv_bn_common.cuh)
+# output pixels per CTA of the conv_bn_1x1 and f32 conv_bn_kxk kernels (BN
+# in conv_bn_common.cuh), per sample
 CONV_BN_TILE_P = 64
+# flattened output pixels (across samples) per CTA of the bf16 conv_bn_kxk
+# kernel (TN in conv_bn_kxk.cu)
+CONV_KXK_TILE_P = 128
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 # kernel launches since the last reset_launches(), by kernel name
@@ -81,10 +85,10 @@ _SIGNATURES = {
     # x, w, shift, y, part, s1, s2, n, c, hw, o, dtype, stream
     "conv_bn_1x1": ("bigdl_conv_bn_1x1",
                     [_P] * 7 + [_I] * 5 + [_P]),
-    # x, w, shift, y, part, s1, s2, n, c, h, w, o, k, stride, pad, ho,
-    # wo, dtype, stream
+    # x, w, shift, y, part, s1, s2, xh, wh, n, c, h, w, o, k, stride, pad,
+    # ho, wo, dtype, stream
     "conv_bn_kxk": ("bigdl_conv_bn_kxk",
-                    [_P] * 7 + [_I] * 11 + [_P]),
+                    [_P] * 9 + [_I] * 11 + [_P]),
 }
 
 
@@ -247,9 +251,17 @@ def launch_paged_decode(q, kp, vp, tables, lengths, out, *, page_size: int,
 
 
 def conv_bn_tiles(pixels: int) -> int:
-    """CTAs per sample along the output pixels of a conv_bn kernel:
-    the columns of the per-CTA statistics partials."""
+    """CTAs per sample along the output pixels of the conv_bn_1x1 and
+    f32 conv_bn_kxk kernels: per sample, the columns of the per-CTA
+    statistics partials."""
     return -(-pixels // CONV_BN_TILE_P)
+
+
+def conv_kxk_tiles(pixels: int) -> int:
+    """CTAs along the ``pixels = N·Ho·Wo`` output pixels of the bf16
+    conv_bn_kxk kernel, flattened across samples: the columns of its
+    statistics partials."""
+    return -(-pixels // CONV_KXK_TILE_P)
 
 
 def launch_conv_bn_1x1(x, w, shift, y, part, s1, s2) -> None:
@@ -269,19 +281,24 @@ def launch_conv_bn_1x1(x, w, shift, y, part, s1, s2) -> None:
 
 
 def launch_conv_bn_kxk(x, w, shift, y, part, s1, s2, *, stride: int,
-                       pad: int) -> None:
+                       pad: int, scratch=None) -> None:
     """x (N, C, H, W), w (O, C, k, k) of x's dtype, shift (O,) f32,
-    y (N, O, Ho, Wo), part (2, O, N·conv_bn_tiles(Ho·Wo)) f32 scratch,
-    s1/s2 (O,) f32; all contiguous on one card, checked by the
-    caller."""
+    y (N, O, Ho, Wo), s1/s2 (O,) f32; all contiguous on one card,
+    checked by the caller.  f32: part (2, O, N·conv_bn_tiles(Ho·Wo)),
+    no scratch.  bf16: part (2, O, conv_kxk_tiles(N·Ho·Wo)) and
+    ``scratch`` = (xh (N, H, W, Cp), wh (O, k, k, Cp)) bf16, Cp = C
+    rounded up to a multiple of 8, 16-byte aligned: the kernel's layout
+    pass writes x and w there as ``ops.conv_bn.kxk_operands`` does."""
     lib = _lib("conv_bn_kxk")
     n, c, h, wd = x.shape
     o, _, k, _ = w.shape
+    xh, wh = (None, None) if scratch is None else (
+        t.data_ptr() for t in scratch)
     with torch.cuda.device(x.device):
         code = lib.bigdl_conv_bn_kxk(
             x.data_ptr(), w.data_ptr(), shift.data_ptr(), y.data_ptr(),
-            part.data_ptr(), s1.data_ptr(), s2.data_ptr(), n, c, h, wd, o,
-            k, int(stride), int(pad), y.shape[2], y.shape[3],
+            part.data_ptr(), s1.data_ptr(), s2.data_ptr(), xh, wh, n, c, h,
+            wd, o, k, int(stride), int(pad), y.shape[2], y.shape[3],
             DTYPE_CODES[x.dtype], _stream(x))
     _check(lib, "conv_bn_kxk", code)
     launches["conv_bn_kxk"] += 1
@@ -291,4 +308,4 @@ __all__ = ["build", "build_logs", "launches", "reset_launches",
            "launch_flash_fwd",
            "launch_flash_bwd_dq", "launch_flash_bwd_dkv",
            "launch_paged_decode", "launch_conv_bn_1x1", "launch_conv_bn_kxk",
-           "conv_bn_tiles", "SOURCES", "CSRC"]
+           "conv_bn_tiles", "conv_kxk_tiles", "SOURCES", "CSRC"]

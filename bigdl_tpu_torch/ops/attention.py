@@ -5,8 +5,10 @@ Counterpart of ``bigdl_tpu/ops/attention.py``:
 * ``_reference_attention`` (JAX :52) is plain torch, the default path;
 * ``flash_attention`` is the flash forward (JAX ``_flash_fwd_kernel``,
   :120, launched at :356).  On a CUDA tensor it launches the
-  hand-written kernel ``csrc/flash_fwd.cu``; on a CPU tensor it runs
-  ``flash_attention_plain``, the same tiled online softmax in torch;
+  hand-written kernel ``csrc/flash_fwd.cu`` (in bf16 on the tensor
+  cores, P carried as a bf16 hi + lo pair; in f32 on the CUDA cores);
+  on a CPU tensor it runs ``flash_attention_plain``, the same tiled
+  online softmax in torch;
 * its gradient is the blockwise flash backward (JAX
   ``_flash_attention_vjp``, :320-324, 519-623) in ``_FlashAttention``:
   the forward saves (q, k, v, out, lse) and ``flash_backward`` rebuilds
@@ -193,26 +195,40 @@ def _check_kernel_args(q):
         raise ValueError(f"the flash kernels take f32 or bf16, got {q.dtype}")
 
 
-def _check_cp_async_aligned(**tensors) -> None:
-    """The bf16 backward kernels copy q, k, v and g into shared memory in
-    16-byte pieces (``cp.async``): each must start on a 16-byte
-    boundary.  Raises rather than copying."""
+def _check_cp_async_aligned(who: str = "flash_backward", **tensors) -> None:
+    """The bf16 kernels copy their (BH, T, D) inputs into shared memory
+    in 16-byte pieces (``cp.async``): each must start on a 16-byte
+    boundary.  Raises, naming ``who`` and the tensor, rather than
+    copying."""
     for name, x in tensors.items():
         if x.data_ptr() % 16:
             raise ValueError(
-                f"flash_backward: bf16 {name} must start on a 16-byte "
+                f"{who}: bf16 {name} must start on a 16-byte "
                 f"boundary for the kernels' 16-byte copies, got address "
                 f"{x.data_ptr():#x}")
 
 
+def _flash_fwd_operands(q, k, v):
+    """q, k and v as the ``flash_fwd`` kernel takes them: checked,
+    contiguous and, in bf16 (the tensor-core kernel), 16-byte aligned,
+    or a ValueError."""
+    _check_kernel_args(q)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.dtype == torch.bfloat16:
+        _check_cp_async_aligned("flash_attention", q=q, k=k, v=v)
+    return q, k, v
+
+
 def _flash_forward(q, k, v, *, causal: bool, scale: float, with_lse: bool):
-    """The flash forward over flat (BH, T, D) tensors: (O, lse or None)."""
+    """The flash forward over flat (BH, T, D) tensors: (O, lse or None).
+    In bf16 the kernel runs on the tensor cores and wants q, k and v
+    16-byte aligned (checked after ``contiguous``); in f32 it runs on
+    the CUDA cores."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    _check_kernel_args(q)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _flash_fwd_operands(q, k, v)
     out = torch.empty_like(q)
     lse = (torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
            if with_lse else None)
@@ -286,7 +302,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
     ``with_lse``.
 
     A CUDA tensor goes to the ``flash_fwd`` kernel (D in 32/64/128, f32
-    or bf16), and anything that kernel does not take raises; a CPU
+    or bf16; bf16 q, k and v 16-byte aligned after ``contiguous``), and
+    anything that kernel does not take raises; a CPU
     tensor goes to :func:`flash_attention_plain`.  Where grad is enabled
     and an input requires it, the call goes through ``_FlashAttention``,
     whose backward is :func:`flash_backward`: dq, dk and dv come back in

@@ -14,7 +14,12 @@ for its statistics.
   raises: ``csrc/conv_bn_1x1.cu`` (JAX ``_fwd_kernel_1x1``, :127) for
   a 1x1 conv without padding, strided sites subsampled first as JAX
   :451-454 does, and ``csrc/conv_bn_kxk.cu`` (JAX ``_fwd_kernel_kxk``,
-  :238) for every other shape, stride 1 and 2 directly.
+  :238) for every other shape, stride 1 and 2 directly.  In bf16 the kxk
+  kernel is an implicit GEMM on the tensor cores over the layout that
+  :func:`kxk_operands` states (x as NHWC, w as (O, k, k, C), tap-major
+  as JAX's im2col, C zero-padded to a multiple of 8), which its own
+  transpose pass writes into scratch the wrapper allocates; in f32 it
+  runs on the CUDA cores over NCHW x.
 * The backward is ``_bwd_rule`` (JAX :465-490): with cotangents
   (gy, gs1, gs2), ``gy_eff = gy + gs1 + 2(y − shift)·gs2`` in f32 cast
   to x's dtype, then the gradients of the plain strided conv at
@@ -59,6 +64,23 @@ def _check_cuda_args(x, w, shift):
                          f"dtype, got {x.dtype} and {w.dtype}")
 
 
+def kxk_operands(x, w):
+    """The operands of the bf16 kxk GEMM, in plain PyTorch: x (N, C, H, W)
+    as NHWC (N, H, W, Cp) and w (O, C, k, k) as (O, k, k, Cp), with C
+    zero-padded to Cp, the next multiple of 8.  Each pixel's channels at
+    one tap and each output channel's weights are then contiguous in
+    JAX's tap-major K order (``_fwd_kxk``'s ``(dy, dx, c)``, :404) and
+    start on a 16-byte boundary, as the kernel's 16-byte copies need;
+    the padded channels are zero in both, so they add nothing to the
+    sums.  The kernel's own layout pass (``to_nhwc_kernel``) writes the
+    same into its scratch; the CPU tests model the GEMM on this."""
+    pad_c = -x.shape[1] % 8
+    xh, wt = x.permute(0, 2, 3, 1), w.permute(0, 2, 3, 1)
+    if pad_c:
+        xh, wt = F.pad(xh, (0, pad_c)), F.pad(wt, (0, pad_c))
+    return xh.contiguous(), wt.contiguous()
+
+
 def _conv_bn_cuda(x, w, shift, stride: int, pad: int):
     """Launch the kernel for this shape: (y, s1, s2)."""
     _check_cuda_args(x, w, shift)
@@ -77,15 +99,22 @@ def _conv_bn_cuda(x, w, shift, stride: int, pad: int):
         raise ValueError(f"conv_bn: empty output for x {tuple(x.shape)}, "
                          f"k={k}, stride={stride}, pad={pad}")
     y = torch.empty((n, o, ho, wo), dtype=x.dtype, device=x.device)
-    part = torch.empty((2, o, n * _cuda.conv_bn_tiles(ho * wo)),
-                       dtype=torch.float32, device=x.device)
+    gemm = not one and x.dtype == torch.bfloat16
+    cols = (_cuda.conv_kxk_tiles(n * ho * wo) if gemm
+            else n * _cuda.conv_bn_tiles(ho * wo))
+    part = torch.empty((2, o, cols), dtype=torch.float32, device=x.device)
     s1, s2 = (torch.empty(o, dtype=torch.float32, device=x.device)
               for _ in range(2))
     if one:
         _cuda.launch_conv_bn_1x1(x, w, shift, y, part, s1, s2)
     else:
+        scratch = None
+        if gemm:        # the kernel's NHWC operands, channels padded to 8
+            cp = -(-x.shape[1] // 8) * 8
+            scratch = (x.new_empty((n, h, wd, cp)),
+                       w.new_empty((o, k, k, cp)))
         _cuda.launch_conv_bn_kxk(x, w, shift, y, part, s1, s2,
-                                 stride=stride, pad=pad)
+                                 stride=stride, pad=pad, scratch=scratch)
     return y, s1, s2
 
 
@@ -156,4 +185,4 @@ def kernel_path(x_shape, w_shape, *, stride: int = 1, pad: int = 0,
 
 
 __all__ = ["conv_bn_stats", "conv_bn_stats_plain", "conv1x1_bn_stats",
-           "kernel_path"]
+           "kernel_path", "kxk_operands"]

@@ -13,12 +13,17 @@ it runs; any failure exits non-zero:
 2. build: ``nvcc`` compiles every kernel under ``bigdl_tpu_torch/csrc``
    for sm_90a, all sources at once; ``cuobjdump -sass`` must find bf16
    ``HMMA`` (tensor-core) instructions in every bf16 instantiation of the
-   flash backward kernels and none in the f32 ones, and ``ptxas`` must
-   report no spills for the bf16 ones (registers printed by D);
+   flash forward and backward kernels and of the kxk conv, and none in
+   the f32 ones, and ``ptxas`` must report no spills for the bf16 ones
+   (registers printed by D);
 3. kernels: each kernel against its plain PyTorch version on the card
    at the main path's shapes, with the max abs error, the kernel's
    time, the plain version's time, its bound, and a PyTorch library
-   call's time where one computes the same function;
+   call's time where one computes the same function; the flash forward
+   also in bf16 at the training shape (B=16, H=8, T=512, D=64, causal)
+   and at B=2, T=4096, timed there beside the forward of
+   ``scaled_dot_product_attention`` with TFLOP/s and share of the
+   bound, every case run twice and bit-equal;
 4. serving path: the flagship TransformerLM (vocab 8192, dim 512, 8
    heads, 8 layers, max_len 512, random f32 weights from a seed) served
    by ``LMEngine`` with the flash prefill kernel and the paged decode
@@ -29,13 +34,15 @@ it runs; any failure exits non-zero:
    steps of a full batch, device busy share and the top kernels;
 6. conv_bn kernels: ``conv_bn_1x1`` and ``conv_bn_kxk`` against their
    plain version at every distinct fused site of ResNet-50 (224x224,
-   batch 32, bf16; the sites are read from the model), three f32 cases
-   and the ``scripts/kxk_probe.py`` shape, with the errors, a
+   batch 32, bf16; the sites are read from the model), three f32 cases,
+   two bf16 kxk cases whose C is not a multiple of 8 and the
+   ``scripts/kxk_probe.py`` shape, with the errors, a
    run-to-run bit-equality check of the statistics, and per shape the
-   kernel's time, the plain version's, ``F.conv2d`` alone (a conv
-   without statistics, the library yardstick) and the bound, each also
-   summed over one training step's 36 and 16 launches; on x = 0 the
-   statistics must come out exact;
+   kernel's time (a call, and on the device alone), the plain
+   version's, ``F.conv2d`` alone (a conv without statistics, the
+   library yardstick) and the bound, each also summed over one training
+   step's 36 and 16 launches; on x = 0 the statistics must come out
+   exact;
 7. training path: ResNet-50 (1000 classes, random weights from seed
    0, the zero gamma of each block's last BN drawn anew from seed 2,
    the LogSoftMax tail dropped for ``CrossEntropyCriterion``)
@@ -66,7 +73,8 @@ it runs; any failure exits non-zero:
     the same weights and int32 tokens: (a) one step's f32 gradient of
     every parameter, kernel arm within 1e-4 relative L2 of the
     reference arm, ``wq/wk/wv`` nonzero; then two steps of the kernel
-    arm at B=2, T=4096 with ``remat=True`` (16/8/8 launches a step);
+    arm at B=2, T=4096 with ``remat=True`` (16/8/8 launches a step),
+    and two more of it under ``torch.profiler`` (device busy, kernels);
     (b) 1 + 5 ``LocalOptimizer`` steps per arm under the bf16 policy,
     every loss finite and the arms within 1e-2 at every step, the
     kernel arm launching ``flash_fwd``, ``flash_bwd_dq`` and
@@ -94,7 +102,11 @@ import numpy as np
 import torch
 
 # max abs error limits against the plain versions (f32: 1e-5 holds
-# with a 20x margin on the card; bf16: one bf16 ulp of |o| < 4)
+# with a 20x margin on the card; bf16 decode: one bf16 ulp of |o| < 4;
+# the bf16 flash forward: one bf16 ulp of the case's largest |o|, as the
+# backward's limit: the tensor-core kernel carries P as a bf16 hi + lo
+# pair, so its f32 sums differ from the plain version's by about 2^-16
+# relative, and the two round them to bf16 once each)
 F32_TOL = 1e-5
 BF16_TOL = 2e-2
 # published H100 SXM peaks (dense): HBM bytes/s; f32 on the CUDA cores
@@ -108,8 +120,16 @@ CONV1X1_REPLACES = "bigdl_tpu/ops/conv_bn.py:127"
 CONVKXK_REPLACES = "bigdl_tpu/ops/conv_bn.py:238"
 DQ_REPLACES = "bigdl_tpu/ops/attention.py:390"
 DKV_REPLACES = "bigdl_tpu/ops/attention.py:445"
-# a profiler key of one of csrc/'s kernels (all in anonymous namespaces)
-PORT_KERNEL = re.compile(r"void \(anonymous namespace\)::"
+# the kernels phase 2 reads in the SASS, by source, with the head dims
+# they are instantiated at (None: not templated on D); each has a bf16
+# kernel on the tensor cores and an f32 one on the CUDA cores
+TENSOR_CORE_KERNELS = {"flash_fwd": (32, 64, 128),
+                       "flash_bwd_dq": (32, 64, 128),
+                       "flash_bwd_dkv": (32, 64, 128),
+                       "conv_bn_kxk": (None,)}
+# a profiler key of one of csrc/'s kernels (all in anonymous namespaces;
+# a template's key starts with its return type, a plain function's not)
+PORT_KERNEL = re.compile(r"(?:void )?\(anonymous namespace\)::"
                          r"(flash|paged_decode|conv|stats_reduce)\w*_kernel\b")
 
 # conv_bn limits against the plain version (the same conv in f32 by
@@ -177,14 +197,26 @@ LONG_BATCH, LONG_T = 2, 4096
 LM_GRAD_REL_TOL, LM_LOSS_TOL = 1e-4, 1e-2
 # the device of the conv_bn, flash backward and training phases
 DEV = "cuda"
+# clock cycles of the busy wait before a device-only timing (some 2 ms at
+# the H100's 1.98 GHz boost clock): longer than the host takes to queue
+# any call timed that way
+SLEEP_CYCLES = 4_000_000
 
 
 def say(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
 
 
-def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median device time of ``fn`` over ``reps`` runs (CUDA events)."""
+def time_ms(fn, reps: int = 25, warmup: int = 3,
+            device_only: bool = False) -> float:
+    """Median time of ``fn`` over ``reps`` runs between two CUDA events.
+
+    By default the card may wait between the call's kernels for the host
+    to launch them, so a call of several small kernels reads at least
+    the host's time to issue them.  With ``device_only`` the card is
+    first held busy (``torch.cuda._sleep``, some 2 ms) while the host
+    queues the call, so the events see the call's kernels back to back:
+    its device time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -192,10 +224,14 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
         events.append((start, end))
+        if device_only:
+            torch.cuda.synchronize()
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in events]))
 
@@ -227,10 +263,13 @@ def phase_device() -> str:
 
 
 def _kernel_key(mangled: str):
-    """(kernel, D) of a flash backward kernel's mangled name, or None."""
-    m = re.search(r"(flash_bwd_(?:dq|dkv)_(?:bf16|f32)_kernel)ILi(\d+)E",
-                  mangled)
-    return (m.group(1), int(m.group(2))) if m else None
+    """(kernel, D or None) of a mangled kernel name of
+    ``TENSOR_CORE_KERNELS``, or None."""
+    m = re.search(r"((?:flash_(?:fwd|bwd_dq|bwd_dkv)|conv_bn_kxk)_"
+                  r"(?:bf16|f32)_kernel)(?:ILi(\d+)E)?", mangled)
+    if not m:
+        return None
+    return m.group(1), int(m.group(2)) if m.group(2) else None
 
 
 def _ptxas_usage(log: str) -> dict:
@@ -281,10 +320,10 @@ def phase_build() -> None:
     say(f"phase 2 build: nvcc {compile_s:.1f} s for "
         f"{', '.join(_cuda.SOURCES.values())} (in parallel), "
         f"{time.perf_counter() - t0:.1f} s with loading")
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+    for name, dims in TENSOR_CORE_KERNELS.items():
         hmma = _hmma_counts(_cuda._lib_path(name))
         usage = _ptxas_usage(_cuda.build_logs.get(name, ""))
-        for d in (32, 64, 128):
+        for d in dims:
             for kind in ("bf16", "f32"):
                 key = (f"{name}_{kind}_kernel", d)
                 n = hmma.get(key)
@@ -298,76 +337,119 @@ def phase_build() -> None:
                 raise AssertionError(f"{name} bf16 D={d}: ptxas reports "
                                      f"{regs} registers, {spill} bytes of "
                                      "spills")
-            say(f"phase 2 {name} bf16 D={d}: "
+            at = "" if d is None else f" D={d}"
+            say(f"phase 2 {name} bf16{at}: "
                 f"{hmma[(f'{name}_bf16_kernel', d)]} bf16 HMMA in its SASS "
                 f"(f32 kernel: 0); ptxas: {regs} registers, {spill} bytes "
                 "spilled")
 
 
-def _flash_case(t, d, dtype, causal, gen):
+def _flash_case(b, h, t, d, dtype, causal, gen):
+    """One forward case, run twice (bit-equal) against the plain
+    version: (max abs err, its limit, lse max abs err)."""
     from bigdl_tpu_torch.ops.attention import (flash_attention,
                                                flash_attention_plain)
 
-    q, k, v = (torch.randn((1, 8, t, d), generator=gen, device="cuda")
+    q, k, v = (torch.randn((b, h, t, d), generator=gen, device="cuda")
                .to(dtype) for _ in range(3))
     out, lse = flash_attention(q, k, v, causal=causal, with_lse=True)
+    out2, lse2 = flash_attention(q, k, v, causal=causal, with_lse=True)
     torch.cuda.synchronize()
-    scale = d ** -0.5
+    name = f"flash_fwd B={b} H={h} T={t} D={d} {str(dtype)[6:]} causal={causal}"
+    if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+        raise AssertionError(f"{name}: two runs on one input differ")
+    flat = (b * h, t, d)
     ref, ref_lse = flash_attention_plain(
-        q.reshape(8, t, d), k.reshape(8, t, d), v.reshape(8, t, d),
-        causal=causal, scale=scale)
-    err = (out.reshape(8, t, d).float() - ref.float()).abs().max().item()
+        q.reshape(flat), k.reshape(flat), v.reshape(flat), causal=causal,
+        scale=d ** -0.5)
+    err = (out.reshape(flat).float() - ref.float()).abs().max().item()
+    tol = (F32_TOL if dtype == torch.float32
+           else _bf16_ulp(ref.float().abs().max().item()))
     lse_err = (lse - ref_lse).abs().max().item()
-    return err, lse_err
+    return name, err, tol, lse_err
+
+
+def _flash_fwd_times(b, h, t, d, dt, gen, plain: bool = True) -> dict:
+    """The forward at one causal shape: the kernel (through
+    ``flash_attention``), the plain version, the forward of
+    scaled_dot_product_attention, the bound, TFLOP/s and share of the
+    bound (4·D FLOPs per causal pair)."""
+    from bigdl_tpu_torch.ops.attention import (flash_attention,
+                                               flash_attention_plain)
+
+    q, k, v = (torch.randn((b, h, t, d), generator=gen, device="cuda")
+               .to(dt) for _ in range(3))
+    flat = [x.reshape(b * h, t, d) for x in (q, k, v)]
+    def kernel():
+        flash_attention(q, k, v, causal=True)
+
+    def sdpa():
+        torch.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                         is_causal=True)
+
+    row = dict(ms=time_ms(kernel), device_ms=time_ms(kernel,
+                                                     device_only=True))
+    row["plain_ms"] = (time_ms(lambda: flash_attention_plain(
+        *flat, causal=True, scale=d ** -0.5)) if plain else None)
+    row["library_ms"] = time_ms(sdpa)
+    row["library_device_ms"] = time_ms(sdpa, device_only=True)
+    nbytes = 4 * b * h * t * d * q.element_size()  # q, k, v read; o written
+    flops = 4 * b * h * d * t * (t + 1) / 2        # causal pairs only
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dt)
+    row["tflops"] = flops / (row["device_ms"] * 1e-3) / 1e12
+    row["of_bound"] = row["bound_ms"] / row["device_ms"]
+    plain_s = (f"plain {row['plain_ms']:.4f} ms, " if plain
+               else "plain not timed, ")
+    say(f"phase 3 flash_fwd time B={b} H={h} T={t} D={d} {str(dt)[6:]}: "
+        f"kernel {row['ms']:.4f} ms a call, {row['device_ms']:.4f} ms on the "
+        f"device ({row['tflops']:.1f} TFLOP/s, {row['of_bound']:.3f} of the "
+        f"bound), {plain_s}sdpa {row['library_ms']:.4f} ms a call, "
+        f"{row['library_device_ms']:.4f} ms on the device, bound "
+        f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+    return row
 
 
 def phase_flash(gen) -> dict:
-    from bigdl_tpu_torch.ops.attention import (flash_attention,
-                                               flash_attention_plain)
-
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    # the prefill shapes (B=1, H=8, D=64, causal) plus ragged and other
-    # head widths the kernel takes
-    cases = [(t, 64, dt, True) for dt in (torch.float32, torch.bfloat16)
+    # the prefill shapes (B=1, H=8, D=64, causal), ragged and other head
+    # widths the kernel takes, and in bf16 the transformer's training
+    # shape and the long-context shape: (B, H, T, D, dtype, causal)
+    cases = [(1, 8, t, 64, dt, True) for dt in (torch.float32, torch.bfloat16)
              for t in (128, 256, 512)]
-    cases += [(200, 64, torch.float32, False), (131, 32, torch.float32, True),
-              (96, 128, torch.bfloat16, False)]
-    for t, d, dt, causal in cases:
-        err, lse_err = _flash_case(t, d, dt, causal, gen)
-        tol = F32_TOL if dt == torch.float32 else BF16_TOL
-        check(f"flash_fwd T={t} D={d} {dt} causal={causal}", err, tol)
-        check(f"flash_fwd lse T={t} D={d} {dt}", lse_err, F32_TOL)
-        worst[dt] = max(worst[dt], err)
-        say(f"phase 3 flash_fwd T={t} D={d} {str(dt)[6:]} causal={causal}: "
-            f"max abs err {err:.3e} (lse {lse_err:.3e})")
-    rows = {}
-    for dt in (torch.float32, torch.bfloat16):
-        for t in (128, 256, 512):
-            q, k, v = (torch.randn((1, 8, t, 64), generator=gen,
-                                   device="cuda").to(dt) for _ in range(3))
-            qr, kr, vr = (x.reshape(8, t, 64) for x in (q, k, v))
-            ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
-            plain = time_ms(lambda: flash_attention_plain(
-                qr, kr, vr, causal=True, scale=0.125))
-            lib = time_ms(lambda: torch.nn.functional
-                          .scaled_dot_product_attention(q, k, v,
-                                                        is_causal=True))
-            itemsize = q.element_size()
-            nbytes = 4 * 8 * t * 64 * itemsize        # q, k, v read; o written
-            flops = 4 * 8 * 64 * t * (t + 1) / 2     # causal pairs only
-            b_ms, b_by = bound(nbytes, flops, dt)
-            say(f"phase 3 flash_fwd time T={t} {str(dt)[6:]}: kernel "
-                f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
-                f"bound {b_ms:.5f} ms ({b_by})")
-            rows[(dt, t)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                 bound_ms=b_ms, bound_by=b_by)
-    main = rows[(torch.float32, 512)]
+    cases += [(1, 8, 200, 64, torch.float32, False),
+              (1, 8, 131, 32, torch.float32, True),
+              (1, 8, 96, 128, torch.bfloat16, False),
+              (1, 8, 131, 32, torch.bfloat16, True),
+              (LM_BATCH, 8, LM_T, 64, torch.bfloat16, True),
+              (LONG_BATCH, 8, LONG_T, 64, torch.bfloat16, True)]
+    for case in cases:
+        name, err, tol, lse_err = _flash_case(*case, gen)
+        check(name, err, tol)
+        check(f"{name} lse", lse_err, F32_TOL)
+        worst[case[4]] = max(worst[case[4]], err)
+        say(f"phase 3 {name}: max abs err {err:.3e} (limit {tol:.3e}), lse "
+            f"{lse_err:.3e}; bit-equal run to run")
+    rows = {(dt, t): _flash_fwd_times(1, 8, t, 64, dt, gen)
+            for dt in (torch.float32, torch.bfloat16) for t in (128, 256, 512)}
+    train = _flash_fwd_times(LM_BATCH, 8, LM_T, 64, torch.bfloat16, gen)
+    long = _flash_fwd_times(LONG_BATCH, 8, LONG_T, 64, torch.bfloat16, gen,
+                            plain=False)
+    main = {k: v for k, v in rows[(torch.float32, 512)].items()
+            if k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
     return dict(name="flash_fwd", route="cuda",
                 source="bigdl_tpu_torch/csrc/flash_fwd.cu",
                 replaces=FLASH_REPLACES,
                 max_abs_err=worst[torch.float32],
                 max_abs_err_bf16=worst[torch.bfloat16],
-                shape="B=1 H=8 T=512 D=64 f32 causal", **main)
+                shape="B=1 H=8 T=512 D=64 f32 causal", **main,
+                train_shape=f"B={LM_BATCH} H=8 T={LM_T} D=64 bf16 causal",
+                **{f"train_{k}": train[k] for k in
+                   ("ms", "device_ms", "plain_ms", "library_ms",
+                    "library_device_ms", "bound_ms", "tflops")},
+                long_shape=f"B={LONG_BATCH} H=8 T={LONG_T} D=64 bf16 causal",
+                **{f"long_{k}": long[k] for k in
+                   ("ms", "device_ms", "library_ms", "library_device_ms",
+                    "bound_ms", "tflops")})
 
 
 def _decode_state(gen, q_dtype, kv_dtype, b=8, h=8, d=64, p=16, maxp=32):
@@ -628,10 +710,15 @@ def _conv_times(x, w, shift, stride, pad) -> dict:
     o, _, k, _ = w.shape
     ho = (h + 2 * pad - k) // stride + 1
     wo = (wd + 2 * pad - k) // stride + 1
-    ms = time_ms(lambda: conv_bn_stats(x, w, shift, stride=stride, pad=pad))
+    def kernel():
+        conv_bn_stats(x, w, shift, stride=stride, pad=pad)
+
+    def conv2d():
+        torch.nn.functional.conv2d(x, w, stride=stride, padding=pad)
+
+    ms = time_ms(kernel)
     plain = time_ms(lambda: conv_bn_stats_plain(x, w, shift, stride, pad))
-    lib = time_ms(lambda: torch.nn.functional.conv2d(x, w, stride=stride,
-                                                     padding=pad))
+    lib = time_ms(conv2d)
     itemsize = x.element_size()
     x_read = n * c * _taps(h, k, stride, pad, ho) * _taps(wd, k, stride, pad,
                                                            wo)
@@ -640,7 +727,9 @@ def _conv_times(x, w, shift, stride, pad) -> dict:
     flops = 2 * n * o * c * k * k * ho * wo
     b_ms, b_by = bound(nbytes, flops, x.dtype)
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                bound_by=b_by)
+                bound_by=b_by, flops=flops,
+                device_ms=time_ms(kernel, device_only=True),
+                library_device_ms=time_ms(conv2d, device_only=True))
 
 
 def phase_conv_bn(gen) -> list:
@@ -673,6 +762,10 @@ def phase_conv_bn(gen) -> list:
     # f32: a 1x1, a strided 1x1 and a strided 3x3 site at full batch
     cases += [(distinct[2], torch.float32), (distinct[7], torch.float32),
               (distinct[5], torch.float32)]
+    # bf16 kxk with C not a multiple of 8 (zero-padded in the layout pass):
+    # a strided one with O off the channel tile, and a C = 3 one
+    cases += [(((8, 20, 28, 28), (40, 20, 3, 3), 2, 1), torch.bfloat16),
+              (((4, 3, 32, 32), (16, 3, 3, 3), 1, 1), torch.bfloat16)]
     probe = ((8, 64, 16, 16), (64, 64, 3, 3), 1, 1)   # scripts/kxk_probe.py
     cases.append((probe, torch.bfloat16))
     for (xs, ws, stride, pad), dt in cases:
@@ -686,10 +779,11 @@ def phase_conv_bn(gen) -> list:
         tag = "probe " if (xs, ws, stride, pad) == probe else ""
         say(f"phase 6 conv_bn {tag}x {xs} w {ws} s{stride} "
             f"{str(dt)[6:]}: max abs err {err:.3e} ({differ:.2e} of y "
-            f"differs), s1/s2 rel {r1:.2e}/{r2:.2e}; kernel {t['ms']:.4f} ms, "
-            f"plain {t['plain_ms']:.4f} ms, conv2d alone "
-            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
-            f"({t['bound_by']})")
+            f"differs), s1/s2 rel {r1:.2e}/{r2:.2e}; kernel {t['ms']:.4f} ms "
+            f"a call, {t['device_ms']:.4f} ms on the device, plain "
+            f"{t['plain_ms']:.4f} ms, conv2d alone {t['library_ms']:.4f} ms "
+            f"a call, {t['library_device_ms']:.4f} ms on the device, bound "
+            f"{t['bound_ms']:.5f} ms ({t['bound_by']})")
     say(f"phase 6 conv_bn worst: bf16 max abs "
         f"{max(worst[(k1, torch.bfloat16)] for k1 in (True, False)):.3e} "
         f"(limit one bf16 ulp of max |y|), f32 max abs "
@@ -702,14 +796,21 @@ def phase_conv_bn(gen) -> list:
         step = [rows[s + (torch.bfloat16,)] for s in sites
                 if (s[1][2] == 1) == k1]
         tot = {key: sum(r[key] for r in step)
-               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+               for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                           "library_device_ms", "bound_ms")}
         by_ops = sum(r["bound_ms"] for r in step
                      if r["bound_by"] == "operations")
+        tflops = (sum(r["flops"] for r in step)
+                  / (tot["device_ms"] * 1e-3) / 1e12)
         say(f"phase 6 {name} per training step ({len(step)} launches, "
-            f"batch {TRAIN_BATCH}, bf16): kernel {tot['ms']:.4f} ms, plain "
-            f"{tot['plain_ms']:.4f} ms, conv2d alone "
-            f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.5f} ms "
-            f"({by_ops / tot['bound_ms']:.2f} of it by operations)")
+            f"batch {TRAIN_BATCH}, bf16): kernel {tot['ms']:.4f} ms in "
+            f"calls, {tot['device_ms']:.4f} ms on the device ({tflops:.1f} "
+            f"TFLOP/s, {tot['bound_ms'] / tot['device_ms']:.3f} of the "
+            f"bound), plain {tot['plain_ms']:.4f} ms, conv2d alone "
+            f"{tot['library_ms']:.4f} ms in calls, "
+            f"{tot['library_device_ms']:.4f} ms on the device, bound "
+            f"{tot['bound_ms']:.5f} ms ({by_ops / tot['bound_ms']:.2f} of it "
+            "by operations)")
         out.append(dict(
             name=name, route="cuda",
             source=f"bigdl_tpu_torch/csrc/{name}.cu", replaces=replaces,
@@ -720,7 +821,7 @@ def phase_conv_bn(gen) -> list:
             library="torch.nn.functional.conv2d alone (no statistics)",
             shape=f"sum over the {len(step)} sites of one fused ResNet-50 "
                   f"training step, batch {TRAIN_BATCH}, "
-                  f"{TRAIN_IMG}x{TRAIN_IMG}, bf16", **tot))
+                  f"{TRAIN_IMG}x{TRAIN_IMG}, bf16", tflops=tflops, **tot))
     return out
 
 
@@ -1092,6 +1193,27 @@ def _lm_train_arm(impl: str, x, y, steps: int, max_len: int = LM_T,
     return opt, loss, step_ms, launches
 
 
+def phase_long_context() -> None:
+    """Phase 11's long-context point: the kernel arm at B=2, T=4096 with
+    remat, step 2 timed (16/8/8 launches), then two steps under the
+    profiler for the step's device time."""
+    lx, ly = _lm_data(LONG_BATCH, LONG_T)
+    torch.cuda.reset_peak_memory_stats()
+    long_opt, loss, ms, long_launches = _lm_train_arm(
+        "kernel", lx, ly, 1, max_len=LONG_T, remat=True)
+    say(f"phase 11 long context B={LONG_BATCH} T={LONG_T} remat, bf16: "
+        f"losses {['%.5f' % v for v in loss]}; step 2 {ms:.3f} ms "
+        f"({LONG_BATCH * LONG_T / ms * 1e3:.1f} tokens/s); launches "
+        f"{long_launches} in step 2; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    if tuple(long_launches.values()) != (16, 8, 8):
+        raise AssertionError(f"long-context step launched {long_launches}, "
+                             "want (16, 8, 8) (fwd, dq, dkv)")
+    phase_train_profile(long_opt, 11, "long-context step")
+    del long_opt
+    torch.cuda.empty_cache()
+
+
 def phase_lm_training():
     """Phase 11: the f32 gradient check, the long-context point, then
     the transformer's two arms.  Returns the kernel arm's optimizer and
@@ -1122,20 +1244,7 @@ def phase_lm_training():
 
     # the long-context point before the arms, so that the kernel arm's
     # optimizer goes to phase 12's profile with its allocator cache warm
-    lx, ly = _lm_data(LONG_BATCH, LONG_T)
-    torch.cuda.reset_peak_memory_stats()
-    long_opt, loss, ms, long_launches = _lm_train_arm(
-        "kernel", lx, ly, 1, max_len=LONG_T, remat=True)
-    say(f"phase 11 long context B={LONG_BATCH} T={LONG_T} remat, bf16: "
-        f"losses {['%.5f' % v for v in loss]}; step 2 {ms:.3f} ms "
-        f"({LONG_BATCH * LONG_T / ms * 1e3:.1f} tokens/s); launches "
-        f"{long_launches} in step 2; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    if tuple(long_launches.values()) != (16, 8, 8):
-        raise AssertionError(f"long-context step launched {long_launches}, "
-                             "want (16, 8, 8) (fwd, dq, dkv)")
-    del long_opt
-    torch.cuda.empty_cache()
+    phase_long_context()
 
     arms = {}
     for impl in ("reference", "kernel"):

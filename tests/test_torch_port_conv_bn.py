@@ -8,7 +8,11 @@ JAX's ``custom_vjp``.  Limits, as ``tests/test_fused.py``: y atol 1e-5;
 s1/s2 rtol 1e-4, atol 1e-3 (sums over up to 2·15·15 f32 terms in
 another order); gradients rtol 1e-4, atol 1e-4 (dshift atol 1e-3: it
 carries n·gs1).  The kernels themselves are held to the plain version
-on the card by ``chip_smoke.py``."""
+on the card by ``chip_smoke.py``.  The bf16 kxk kernel's arithmetic (an
+implicit GEMM over the NHWC, tap-major operands that ``kxk_operands``
+builds, statistics over pixel tiles flattened across samples) is
+modelled in numpy and held to the same Pallas kernel and to the lax
+reference at those limits."""
 
 import numpy as np
 import pytest
@@ -145,6 +149,106 @@ def test_cuda_wrapper_checks_before_any_launch():
         TC.conv_bn_stats(x.to("meta"), w.to("meta"), torch.zeros(3,
                          device="meta"), stride=1, pad=1)
     assert _cuda.launches == before
+
+
+# the bf16 kxk kernel's GEMM: (n, c, h, w, o, k, stride, pad): 3x3
+# stride 1 and 2, C = 3 (zero-padded to 8), and a 7x7 image at N = 3,
+# whose 147 output pixels make two flattened tiles, the first crossing
+# from sample 0 through sample 2
+KXK_GEMM_CASES = [
+    (2, 16, 9, 9, 12, 3, 1, 1),
+    (2, 16, 10, 10, 12, 3, 2, 1),
+    (2, 3, 8, 8, 8, 3, 1, 1),
+    (3, 8, 7, 7, 16, 3, 1, 1),
+]
+
+
+def _kxk_gemm_model(x, w, shift, stride, pad):
+    """y, s1, s2 (numpy f32) as the bf16 kxk kernel forms them from the
+    operands its layout pass writes (``kxk_operands``): M = O by
+    N = N·Ho·Wo pixels
+    flattened across samples, K tap-major over the padded channels,
+    products summed in f32; each row's centred sums over a pixel tile of
+    ``CONV_KXK_TILE_P`` taken as its four quarters of 32 (the four warps
+    of a row) added in order, then the tiles' partial columns added in
+    order (the fixed second pass)."""
+    xh, wt = (t.numpy() for t in TC.kxk_operands(torch.from_numpy(x),
+                                                 torch.from_numpy(w)))
+    n, h, wd, cp = xh.shape
+    o, k = wt.shape[:2]
+    ho = (h + 2 * pad - k) // stride + 1
+    wo = (wd + 2 * pad - k) // stride + 1
+    xp = np.pad(xh, ((0, 0), (pad, pad), (pad, pad), (0, 0)))
+    # one B row per output pixel: its k·k taps' channel slices, in order
+    taps = [xp[:, dy:dy + stride * (ho - 1) + 1:stride,
+               dx:dx + stride * (wo - 1) + 1:stride, :]
+            for dy in range(k) for dx in range(k)]
+    b = np.stack(taps, axis=3).reshape(n * ho * wo, k * k * cp)
+    acc = wt.reshape(o, k * k * cp) @ b.T                   # (O, N·Ho·Wo)
+    y = acc.reshape(o, n, ho, wo).transpose(1, 0, 2, 3)
+    tile = _cuda.CONV_KXK_TILE_P
+    ncols = _cuda.conv_kxk_tiles(n * ho * wo)
+    d = acc - shift[:, None]
+    part = np.zeros((2, o, ncols), np.float32)
+    for j in range(ncols):
+        seg = d[:, j * tile:(j + 1) * tile]
+        for qn in range(4):
+            quarter = seg[:, qn * tile // 4:(qn + 1) * tile // 4]
+            part[0, :, j] += quarter.sum(1, dtype=np.float32)
+            part[1, :, j] += (quarter * quarter).sum(1, dtype=np.float32)
+    s1, s2 = np.zeros(o, np.float32), np.zeros(o, np.float32)
+    for j in range(ncols):
+        s1 += part[0, :, j]
+        s2 += part[1, :, j]
+    return y, s1, s2
+
+
+def test_kxk_operands_are_tap_major_nhwc_with_zero_padded_channels():
+    x, wt, _ = _inputs(2, 3, 5, 6, 4, 3, seed=8)
+    xh, wh = TC.kxk_operands(torch.from_numpy(x), torch.from_numpy(wt))
+    assert xh.shape == (2, 5, 6, 8) and wh.shape == (4, 3, 3, 8)
+    assert xh.is_contiguous() and wh.is_contiguous()
+    assert xh.data_ptr() % 16 == 0 and wh.data_ptr() % 16 == 0
+    np.testing.assert_array_equal(xh[..., :3].numpy(),
+                                  x.transpose(0, 2, 3, 1))
+    assert not xh[..., 3:].abs().max() and not wh[..., 3:].abs().max()
+    # the rows of the (O, k·k·Cp) GEMM operand in JAX's im2col order:
+    # column t·Cp + c holds w[o, c, dy, dx] with t = dy·k + dx (_fwd_kxk)
+    flat = wh.reshape(4, 9 * 8).numpy()
+    for t in range(9):
+        np.testing.assert_array_equal(flat[:, t * 8:t * 8 + 3],
+                                      wt[:, :, t // 3, t % 3])
+    # channels already a multiple of 8 are not padded
+    x8, w8, _ = _inputs(1, 8, 4, 4, 2, 3, seed=9)
+    assert TC.kxk_operands(torch.from_numpy(x8),
+                           torch.from_numpy(w8))[0].shape == (1, 4, 4, 8)
+
+
+@pytest.mark.parametrize("case", KXK_GEMM_CASES, ids=_case_id)
+def test_kxk_gemm_model_matches_pallas_interpret_and_reference(case):
+    """The bf16 kxk kernel's arithmetic, modelled on its operands, is
+    JAX's function: the Pallas kernel in interpret mode and the lax
+    ``_reference``.  Inputs hold bf16 values, so the products are exact
+    in f32 and only the order of the f32 sums differs: y within 1e-5,
+    s1/s2 within the module's limits."""
+    n, c, h, w, o, k, stride, pad = case
+    x, wt, shift = _inputs(n, c, h, w, o, k, seed=5 * sum(case))
+    x, wt = (torch.from_numpy(a).bfloat16().float().numpy() for a in (x, wt))
+    my, ms1, ms2 = _kxk_gemm_model(x, wt, shift, stride, pad)
+    args = (jnp.asarray(x), jnp.asarray(wt), jnp.asarray(shift))
+    for jy, js1, js2 in (_jax(x, wt, shift, stride, pad),
+                         JC._reference(*args, stride, pad)):
+        assert my.shape == jy.shape
+        np.testing.assert_allclose(my, np.asarray(jy), atol=Y_ATOL)
+        np.testing.assert_allclose(ms1, np.asarray(js1), rtol=S_RTOL,
+                                   atol=S_ATOL)
+        np.testing.assert_allclose(ms2, np.asarray(js2), rtol=S_RTOL,
+                                   atol=S_ATOL)
+    # and the port's plain version, which the kernel is held to on the card
+    _, ts1, ts2 = TC.conv_bn_stats_plain(*(torch.from_numpy(a) for a in
+                                           (x, wt, shift)), stride, pad)
+    np.testing.assert_allclose(ms1, ts1.numpy(), rtol=S_RTOL, atol=S_ATOL)
+    np.testing.assert_allclose(ms2, ts2.numpy(), rtol=S_RTOL, atol=S_ATOL)
 
 
 def test_kernel_path_names_a_kernel_for_every_shape():

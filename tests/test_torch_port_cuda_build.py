@@ -140,14 +140,30 @@ def test_flash_shared_header_edit_rebuilds_every_flash_kernel(isolated):
     new = set(os.listdir(isolated / "build")) - before
     assert sorted(n.split("-")[0] for n in new) == [
         "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd"]
-    # the tensor-core header: exactly the two kernels that include it
+    # the flash tensor-core header: exactly the three kernels that
+    # include it (the forward too, since its bf16 kernel went onto the
+    # tensor cores)
     before = set(os.listdir(isolated / "build"))
     with open(isolated / "csrc" / "flash_mma.cuh", "a") as f:
         f.write("\n// edited\n")
     assert _cuda.build() > 0.0
     new = set(os.listdir(isolated / "build")) - before
     assert sorted(n.split("-")[0] for n in new) == [
-        "flash_bwd_dkv", "flash_bwd_dq"]
+        "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd"]
+
+
+def test_mma_header_edit_rebuilds_every_tensor_core_kernel(isolated):
+    """``mma_common.cuh`` (cp.async, ldmatrix, mma.sync) reaches the
+    three flash kernels through ``flash_mma.cuh`` and the kxk conv
+    directly; the 1x1 conv and the decode kernel do not include it."""
+    _cuda.build()
+    before = set(os.listdir(isolated / "build"))
+    with open(isolated / "csrc" / "mma_common.cuh", "a") as f:
+        f.write("\n// edited\n")
+    assert _cuda.build() > 0.0
+    new = set(os.listdir(isolated / "build")) - before
+    assert sorted(n.split("-")[0] for n in new) == [
+        "conv_bn_kxk", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd"]
 
 
 def test_header_reached_only_through_a_header_rebuilds_its_dependents(
@@ -163,7 +179,7 @@ def test_header_reached_only_through_a_header_rebuilds_its_dependents(
     assert _cuda.build() > 0.0
     new = set(os.listdir(isolated / "build")) - before
     assert sorted(n.split("-")[0] for n in new) == [
-        "flash_bwd_dkv", "flash_bwd_dq"]
+        "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd"]
 
 
 def test_header_include_cycles_are_followed_once(isolated):
@@ -173,7 +189,7 @@ def test_header_include_cycles_are_followed_once(isolated):
         f.write('\n#include "inner.cuh"\n')
     text = (csrc / "flash_bwd_dq.cu").read_bytes()
     assert _cuda._headers(text) == ["flash_common.cuh", "flash_mma.cuh",
-                                    "inner.cuh"]
+                                    "mma_common.cuh", "inner.cuh"]
     path = _cuda._lib_path("flash_bwd_dq")
     (csrc / "inner.cuh").write_text('#include "flash_mma.cuh"\n// edited\n')
     assert _cuda._lib_path("flash_bwd_dq") != path
@@ -191,17 +207,37 @@ def test_flash_tiles_match_the_plain_versions():
 
 def test_flash_bwd_sources_share_the_tensor_core_header():
     """Both backward sources take their ldmatrix, mma.sync, cp.async and
-    hi/lo helpers from ``flash_mma.cuh``, and keep an f32 and a bf16
-    kernel each."""
+    hi/lo helpers from ``flash_mma.cuh`` (the generic ones through it
+    from ``mma_common.cuh``), and keep an f32 and a bf16 kernel each."""
     header = open(os.path.join(_cuda.CSRC, "flash_mma.cuh")).read()
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in header
-    assert "ldmatrix.sync.aligned.m8n8.x4.trans" in header
-    assert "cp.async.cg.shared.global" in header
+    assert '#include "mma_common.cuh"' in header
+    assert "to_a_split" in header and "asm" not in header
+    common = open(os.path.join(_cuda.CSRC, "mma_common.cuh")).read()
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in common
+    assert "ldmatrix.sync.aligned.m8n8.x4.trans" in common
+    assert "cp.async.cg.shared.global" in common
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         text = open(os.path.join(_cuda.CSRC, f"{name}.cu")).read()
         assert '#include "flash_mma.cuh"' in text
         assert f"{name}_f32_kernel" in text and f"{name}_bf16_kernel" in text
         assert "asm" not in text and "wgmma/TMA come" not in text
+
+
+@pytest.mark.parametrize("name", ["flash_fwd", "conv_bn_kxk"])
+def test_bf16_forward_kernels_share_the_mma_helpers(name):
+    """The tensor-core forward kernels reach ``mma_common.cuh`` (the
+    flash forward through ``flash_mma.cuh``), carry no PTX of their own,
+    and keep their f32 kernel beside the bf16 one.  The shared header
+    defines no dtype conversions and includes neither of the two
+    headers that do, so the kxk source can include it beside
+    ``conv_bn_common.cuh``."""
+    text = open(os.path.join(_cuda.CSRC, f"{name}.cu")).read()
+    assert "mma_common.cuh" in _cuda._headers(text.encode())
+    assert f"{name}_f32_kernel" in text and f"{name}_bf16_kernel" in text
+    assert "asm" not in text
+    common = open(os.path.join(_cuda.CSRC, "mma_common.cuh")).read()
+    assert "#include \"" not in common
+    assert "float to_f32(" not in common and "constexpr int" not in common
 
 
 def test_conv_bn_tiles_match_the_kernels_pixel_tile():
@@ -213,6 +249,11 @@ def test_conv_bn_tiles_match_the_kernels_pixel_tile():
         assert "constexpr int BN" not in text
     assert [_cuda.conv_bn_tiles(p) for p in (49, 64, 65, 3136)] == \
         [1, 1, 2, 49]
+    # the bf16 kxk kernel tiles the pixels flattened across samples
+    kxk = open(os.path.join(_cuda.CSRC, "conv_bn_kxk.cu")).read()
+    assert f"constexpr int TN = {_cuda.CONV_KXK_TILE_P};" in kxk
+    assert [_cuda.conv_kxk_tiles(p) for p in (3 * 49, 32 * 49, 32 * 3136)] \
+        == [2, 13, 784]
 
 
 def test_failed_compile_raises_with_the_compiler_output(isolated):

@@ -56,7 +56,7 @@
 // fixed-order second pass sums.
 
 #include "conv_bn_common.cuh"
-#include "mma_common.cuh"
+#include "conv_bn_mma.cuh"
 
 namespace {
 
@@ -165,33 +165,12 @@ inline void to_nhwc(const bf16* x, bf16* xh, int n, int c, int cp, int hw,
   to_nhwc_kernel<<<grid, dim3(32, 8), 0, stream>>>(x, xh, c, cp, hw);
 }
 
-// The bf16 kernel's tiles (TN is CONV_KXK_TILE_P in ops/_cuda.py)
-constexpr int TM = 64;   // output channels per CTA
-constexpr int TN = 128;  // flattened output pixels per CTA
-constexpr int TK = 64;   // channels of one tap per k-step
-constexpr int WM = 64;   // output channels per warp
-constexpr int WN = 32;   // pixels per warp
-constexpr int STAGES = 3;
-// k-steps whose MMAs accumulate into a fresh fragment before it is added
-// into the running f32 sum (see the note at the main loop)
-constexpr int CHAIN = 2;
-constexpr int WARPS_N = TN / WN;
-constexpr int MMA_THREADS = 32 * (TM / WM) * WARPS_N;
-constexpr int MI = WM / 16;  // m16 tiles per warp
-constexpr int NI = WN / 8;   // n8 tiles per warp
-constexpr int PIECES = TK / 8;     // 16-byte pieces per row and k-step
-constexpr int LDS = TK + 8;        // padded shared row, bf16
-constexpr int LDY = TN + 8;        // padded row of the staged y tile, bf16
-constexpr int A_COPIES = TM * PIECES / MMA_THREADS;  // per thread
-constexpr int B_COPIES = TN * PIECES / MMA_THREADS;
+// The bf16 kernel's B stage: TN pixel rows of TK channels of one tap
+constexpr int B_COPIES = TN * PIECES / MMA_THREADS;  // per thread
 constexpr int STAGE_ELEMS = (TM + TN) * LDS;
 constexpr int SMEM_BYTES = STAGES * STAGE_ELEMS * 2;
-static_assert(TM * PIECES % MMA_THREADS == 0 &&
-                  TN * PIECES % MMA_THREADS == 0 && A_COPIES >= 1,
-              "whole rounds of copies");
-static_assert(MMA_THREADS >= 2 * TM && MMA_THREADS % TN == 0,
-              "the epilogue's thread roles");
-static_assert(TM * LDY * 2 + WARPS_N * TM * 2 * 4 <= SMEM_BYTES,
+static_assert(TN * PIECES % MMA_THREADS == 0, "whole rounds of copies");
+static_assert(EPILOGUE_BYTES <= SMEM_BYTES,
               "the epilogue reuses the pipeline's shared memory");
 // an image row so far out of range that no tap brings it back in: the
 // mark of a pixel past the end
@@ -211,7 +190,6 @@ conv_bn_kxk_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int gr = lane >> 2, tc = lane & 3;  // fragment row, column pair
   // the warp's rows WM * wm.., columns WN * wn..
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
   const int hw = ho * wo;
@@ -226,14 +204,7 @@ conv_bn_kxk_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   // the k-step) of A rows ar + RA i and of B rows ar + RA i
   constexpr int RA = MMA_THREADS / PIECES;  // rows a round of copies covers
   const int q = tid % PIECES, ar = tid / PIECES;
-  bool a_ok[A_COPIES];
-  const bf16* a_row[A_COPIES];
-#pragma unroll
-  for (int i = 0; i < A_COPIES; ++i) {
-    const int oo = o0 + ar + RA * i;
-    a_ok[i] = oo < o;
-    a_row[i] = w + (size_t)(a_ok[i] ? oo : 0) * kk2 * c;
-  }
+  const ARows a_row = a_rows(w, o0, o, kk2 * c, ar);
   // each B row's window origin, decoded once: (n * H, top row, left col)
   int b_nh[B_COPIES], b_hi[B_COPIES], b_wi[B_COPIES];
 #pragma unroll
@@ -254,12 +225,7 @@ conv_bn_kxk_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     const int cc = (s - t * nchunk) * TK + 8 * q;
     const int dy = t / k, dx = t - dy * k;
     const bool c_ok = cc < c;
-#pragma unroll
-    for (int i = 0; i < A_COPIES; ++i) {
-      const bool ok = a_ok[i] && c_ok;
-      cp_async16(as + (ar + RA * i) * LDS + 8 * q,
-                 ok ? a_row[i] + (size_t)t * c + cc : w, ok);
-    }
+    load_a(as, a_row, w, ar, q, t * c + cc, c_ok);
 #pragma unroll
     for (int i = 0; i < B_COPIES; ++i) {
       const int hi = b_hi[i] + dy, wi = b_wi[i] + dx;
@@ -271,18 +237,11 @@ conv_bn_kxk_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     }
   };
 
-  // The tensor cores do not round their f32 accumulation to nearest: a
-  // long chain of MMAs into one fragment drifts toward zero, some 1e-5
-  // relative over ResNet-50's K = 4608, a bias the statistics' sums of
-  // squares keep. So the MMAs of CHAIN k-steps accumulate into `chain`
-  // from zero, and it is added into `acc` by ordinary f32 adds.
+  // the MMAs of CHAIN k-steps accumulate into `chain` from zero, and it is
+  // added into `acc` by ordinary f32 adds (conv_bn_mma.cuh)
   float acc[MI][NI][4], chain[MI][NI][4];
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int j = 0; j < NI; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][j][e] = chain[mi][j][e] = 0.f;
+  zero(acc);
+  zero(chain);
 
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {
@@ -297,105 +256,12 @@ conv_bn_kxk_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     cp_async_commit();
 
     const bf16* as = smem + (ks % STAGES) * STAGE_ELEMS;
-    const bf16* bs = as + TM * LDS;
-#pragma unroll
-    for (int kk = 0; kk < TK / 16; ++kk) {
-      uint32_t a[MI][4];
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-        ldsm_x4(a[mi], as + (WM * wm + 16 * mi + (lane & 15)) * LDS +
-                           16 * kk + (lane >> 4) * 8);
-#pragma unroll
-      for (int nj = 0; nj < NI / 2; ++nj) {
-        // two n8 tiles of the warp's pixels, stored n by k
-        uint32_t b[4];
-        ldsm_x4(b, bs + (WN * wn + 16 * nj + (lane & 7) + (lane >> 4) * 8) *
-                            LDS +
-                       16 * kk + ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi) {
-          mma_bf16(chain[mi][2 * nj], a[mi], b[0], b[1]);
-          mma_bf16(chain[mi][2 * nj + 1], a[mi], b[2], b[3]);
-        }
-      }
-    }
-    if (ks % CHAIN == CHAIN - 1 || ks + 1 == nsteps) {
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-        for (int j = 0; j < NI; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            acc[mi][j][e] += chain[mi][j][e];
-            chain[mi][j][e] = 0.f;
-          }
-    }
+    mma_stage<false>(as, as + TM * LDS, wm, wn, lane, chain);
+    if (ks % CHAIN == CHAIN - 1 || ks + 1 == nsteps) fold_chain(acc, chain);
   }
   cp_async_wait<0>();
   __syncthreads();  // the pipeline's shared memory is free
-
-  // epilogue: y rounded once into a staged tile, and each row's centred
-  // sums over this thread's valid columns
-  bf16* ys = smem;                                         // (TM, LDY)
-  float* red = reinterpret_cast<float*>(smem + TM * LDY);  // (WARPS_N, TM, 2)
-  const bool full = p0 + TN <= npix;
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = WM * wm + 16 * mi + gr + 8 * r;
-      const int oo = o0 + row;
-      const float sh = oo < o ? shift[oo] : 0.f;
-      float p1 = 0.f, p2 = 0.f;
-#pragma unroll
-      for (int j = 0; j < NI; ++j) {
-        const int col = WN * wn + 8 * j + 2 * tc;
-        const float v0 = acc[mi][j][2 * r], v1 = acc[mi][j][2 * r + 1];
-        store2(ys + row * LDY + col, v0, v1);
-        if (full || p0 + col < npix) {
-          const float d = v0 - sh;
-          p1 += d;
-          p2 = fmaf(d, d, p2);
-        }
-        if (full || p0 + col + 1 < npix) {
-          const float d = v1 - sh;
-          p1 += d;
-          p2 = fmaf(d, d, p2);
-        }
-      }
-      p1 += __shfl_xor_sync(FULL, p1, 1);
-      p2 += __shfl_xor_sync(FULL, p2, 1);
-      p1 += __shfl_xor_sync(FULL, p1, 2);
-      p2 += __shfl_xor_sync(FULL, p2, 2);
-      if (tc == 0) {
-        red[(wn * TM + row) * 2] = p1;
-        red[(wn * TM + row) * 2 + 1] = p2;
-      }
-    }
-  }
-  __syncthreads();
-
-  // the CTA's partial column: the warps' column slices in fixed order
-  const int ncols = gridDim.x;
-  if (tid < 2 * TM && o0 + (tid >> 1) < o) {
-    const int row = tid >> 1, which = tid & 1;  // which: s1 or s2
-    float sum = red[row * 2 + which];
-#pragma unroll
-    for (int qn = 1; qn < WARPS_N; ++qn)
-      sum += red[(qn * TM + row) * 2 + which];
-    part[((size_t)which * o + o0 + row) * ncols + blockIdx.x] = sum;
-  }
-  // y as NCHW: thread tid stores pixel p0 + tid % TN of rows tid / TN,
-  // tid / TN + MMA_THREADS / TN, ..
-  const int col = tid % TN;
-  const int p = p0 + col;
-  if (p < npix) {
-    const int n = p / hw, r = p - n * hw;
-    bf16* yp = y + ((size_t)n * o + o0) * hw + r;
-    const int rows = min(TM, o - o0);
-    for (int row = tid / TN; row < rows; row += MMA_THREADS / TN)
-      yp[(size_t)row * hw] = ys[row * LDY + col];
-  }
+  store_y_and_stats(acc, smem_raw, shift, y, part, o, npix, hw);
 }
 
 template <typename T>

@@ -1,8 +1,9 @@
 // Tensor-core and async-copy building blocks shared by the bf16 kernels
 // (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu through flash_mma.cuh,
-// and conv_bn_kxk.cu): 16-byte and 4-byte cp.async copies into shared
-// memory, ldmatrix fragment loads, the m16n8k16 bf16 mma.sync, and the
-// split of f32 values into a bf16 hi + lo pair.
+// conv_bn_1x1.cu and conv_bn_kxk.cu through conv_bn_mma.cuh): 16-, 8- and
+// 4-byte cp.async copies into shared memory, ldmatrix fragment loads, the
+// m16n8k16 bf16 mma.sync, and the split of f32 values into a bf16 hi + lo
+// pair.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16), lane = 4 g + t:
 //   A (16 x 16, row-major): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 8+2t..),
@@ -44,6 +45,16 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// 8 bytes global -> shared, zero when !valid (the 1x1 conv's rows of 4
+// pixels, 8-byte aligned where a sample's pixel count is a multiple of 4)
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 8 : 0)
                : "memory");
 }
 

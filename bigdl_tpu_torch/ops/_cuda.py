@@ -45,12 +45,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # dtype codes shared with the C interfaces
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# output pixels per CTA of the conv_bn_1x1 and f32 conv_bn_kxk kernels (BN
-# in conv_bn_common.cuh), per sample
+# output pixels per CTA of the f32 conv_bn kernels, 1x1 and kxk (BN in
+# conv_bn_common.cuh), per sample
 CONV_BN_TILE_P = 64
-# flattened output pixels (across samples) per CTA of the bf16 conv_bn_kxk
-# kernel (TN in conv_bn_kxk.cu)
-CONV_KXK_TILE_P = 128
+# flattened output pixels (across samples) per CTA of the bf16 conv_bn
+# kernels on the tensor cores, 1x1 and kxk (TN in conv_bn_mma.cuh)
+CONV_MMA_TILE_P = 128
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 # kernel launches since the last reset_launches(), by kernel name
@@ -77,14 +77,13 @@ _SIGNATURES = {
     # stream
     "flash_bwd_dkv": ("bigdl_flash_bwd_dkv",
                       [_P] * 8 + [_I] * 5 + [_F, _I, _P]),
-    # q, kp, vp, tables, lengths, out, b, h, d, page_size, maxp, scale,
-    # q_dtype, kv_dtype, stream
+    # q, kp, vp, tables, lengths, out, part, b, h, d, page_size, maxp,
+    # splits, scale, q_dtype, kv_dtype, stream
     "paged_decode": ("bigdl_paged_decode",
-                     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-                      _I, _P]),
-    # x, w, shift, y, part, s1, s2, n, c, hw, o, dtype, stream
+                     [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P]),
+    # x, w, shift, y, part, s1, s2, n, c, h, w, o, stride, dtype, stream
     "conv_bn_1x1": ("bigdl_conv_bn_1x1",
-                    [_P] * 7 + [_I] * 5 + [_P]),
+                    [_P] * 7 + [_I] * 7 + [_P]),
     # x, w, shift, y, part, s1, s2, xh, wh, n, c, h, w, o, k, stride, pad,
     # ho, wo, dtype, stream
     "conv_bn_kxk": ("bigdl_conv_bn_kxk",
@@ -233,49 +232,54 @@ def launch_flash_bwd_dkv(q, k, v, g, lse, delta, dk, dv, *, causal: bool,
     launches["flash_bwd_dkv"] += 1
 
 
-def launch_paged_decode(q, kp, vp, tables, lengths, out, *, page_size: int,
-                        scale: float) -> None:
-    """q/out (B, H, Dh), kp/vp (pages, H, P, Dh), tables (B, maxp) i32,
-    lengths (B,) i32; all contiguous on one card, checked by the
-    caller."""
+def launch_paged_decode(q, kp, vp, tables, lengths, out, part, *,
+                        page_size: int, scale: float) -> None:
+    """q/out (B, H, Dh), kp/vp (pages, H, P, Dh) 16-byte aligned, tables
+    (B, maxp) i32, lengths (B,) i32, part (B, H, S, Dh + 2) f32 scratch
+    for the S splits of each slot's KV (None when S is 1); all
+    contiguous on one card, checked by the caller."""
     lib = _lib("paged_decode")
     b, h, d = q.shape
+    splits = 1 if part is None else part.shape[2]
     with torch.cuda.device(q.device):
         code = lib.bigdl_paged_decode(
             q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tables.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), b, h, d, int(page_size),
-            tables.shape[1], float(scale), DTYPE_CODES[q.dtype],
-            DTYPE_CODES[kp.dtype], _stream(q))
+            lengths.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(), b, h, d,
+            int(page_size), tables.shape[1], splits, float(scale),
+            DTYPE_CODES[q.dtype], DTYPE_CODES[kp.dtype], _stream(q))
     _check(lib, "paged_decode", code)
     launches["paged_decode"] += 1
 
 
 def conv_bn_tiles(pixels: int) -> int:
-    """CTAs per sample along the output pixels of the conv_bn_1x1 and
-    f32 conv_bn_kxk kernels: per sample, the columns of the per-CTA
+    """CTAs per sample along the output pixels of the f32 conv_bn
+    kernels (1x1 and kxk): per sample, the columns of the per-CTA
     statistics partials."""
     return -(-pixels // CONV_BN_TILE_P)
 
 
-def conv_kxk_tiles(pixels: int) -> int:
+def conv_mma_tiles(pixels: int) -> int:
     """CTAs along the ``pixels = N·Ho·Wo`` output pixels of the bf16
-    conv_bn_kxk kernel, flattened across samples: the columns of its
-    statistics partials."""
-    return -(-pixels // CONV_KXK_TILE_P)
+    conv_bn kernels (1x1 and kxk), flattened across samples: the columns
+    of their statistics partials."""
+    return -(-pixels // CONV_MMA_TILE_P)
 
 
-def launch_conv_bn_1x1(x, w, shift, y, part, s1, s2) -> None:
+def launch_conv_bn_1x1(x, w, shift, y, part, s1, s2, *,
+                       stride: int) -> None:
     """x (N, C, H, W), w (O, C, 1, 1) of x's dtype, shift (O,) f32,
-    y (N, O, H, W), part (2, O, N·conv_bn_tiles(H·W)) f32 scratch,
-    s1/s2 (O,) f32; all contiguous on one card, checked by the
-    caller."""
+    y (N, O, Ho, Wo) with Ho = (H − 1) // stride + 1, s1/s2 (O,) f32;
+    all contiguous on one card, checked by the caller.  f32: part
+    (2, O, N·conv_bn_tiles(Ho·Wo)).  bf16: C a multiple of 8, w 16-byte
+    aligned, part (2, O, conv_mma_tiles(N·Ho·Wo))."""
     lib = _lib("conv_bn_1x1")
     n, c, h, wd = x.shape
     with torch.cuda.device(x.device):
         code = lib.bigdl_conv_bn_1x1(
             x.data_ptr(), w.data_ptr(), shift.data_ptr(), y.data_ptr(),
-            part.data_ptr(), s1.data_ptr(), s2.data_ptr(), n, c, h * wd,
-            w.shape[0], DTYPE_CODES[x.dtype], _stream(x))
+            part.data_ptr(), s1.data_ptr(), s2.data_ptr(), n, c, h, wd,
+            w.shape[0], int(stride), DTYPE_CODES[x.dtype], _stream(x))
     _check(lib, "conv_bn_1x1", code)
     launches["conv_bn_1x1"] += 1
 
@@ -285,7 +289,7 @@ def launch_conv_bn_kxk(x, w, shift, y, part, s1, s2, *, stride: int,
     """x (N, C, H, W), w (O, C, k, k) of x's dtype, shift (O,) f32,
     y (N, O, Ho, Wo), s1/s2 (O,) f32; all contiguous on one card,
     checked by the caller.  f32: part (2, O, N·conv_bn_tiles(Ho·Wo)),
-    no scratch.  bf16: part (2, O, conv_kxk_tiles(N·Ho·Wo)) and
+    no scratch.  bf16: part (2, O, conv_mma_tiles(N·Ho·Wo)) and
     ``scratch`` = (xh (N, H, W, Cp), wh (O, k, k, Cp)) bf16, Cp = C
     rounded up to a multiple of 8, 16-byte aligned: the kernel's layout
     pass writes x and w there as ``ops.conv_bn.kxk_operands`` does."""
@@ -308,4 +312,4 @@ __all__ = ["build", "build_logs", "launches", "reset_launches",
            "launch_flash_fwd",
            "launch_flash_bwd_dq", "launch_flash_bwd_dkv",
            "launch_paged_decode", "launch_conv_bn_1x1", "launch_conv_bn_kxk",
-           "conv_bn_tiles", "conv_kxk_tiles", "SOURCES", "CSRC"]
+           "conv_bn_tiles", "conv_mma_tiles", "SOURCES", "CSRC"]

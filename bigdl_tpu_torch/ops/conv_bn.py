@@ -11,15 +11,18 @@ for its statistics.
   conv in f32, then the two sums.  A CPU tensor takes it, and
   ``chip_smoke.py`` holds the kernels to it on the card.
 * On a CUDA tensor the wrapper launches a hand-written kernel, or
-  raises: ``csrc/conv_bn_1x1.cu`` (JAX ``_fwd_kernel_1x1``, :127) for
-  a 1x1 conv without padding, strided sites subsampled first as JAX
-  :451-454 does, and ``csrc/conv_bn_kxk.cu`` (JAX ``_fwd_kernel_kxk``,
-  :238) for every other shape, stride 1 and 2 directly.  In bf16 the kxk
-  kernel is an implicit GEMM on the tensor cores over the layout that
-  :func:`kxk_operands` states (x as NHWC, w as (O, k, k, C), tap-major
-  as JAX's im2col, C zero-padded to a multiple of 8), which its own
-  transpose pass writes into scratch the wrapper allocates; in f32 it
-  runs on the CUDA cores over NCHW x.
+  raises (:func:`kernel_path` names which): ``csrc/conv_bn_1x1.cu``
+  (JAX ``_fwd_kernel_1x1``, :127) for a 1x1 conv without padding, a
+  strided site read in place (JAX subsamples first, :451-454), and
+  ``csrc/conv_bn_kxk.cu`` (JAX ``_fwd_kernel_kxk``, :238) for every
+  other shape, stride 1 and 2 directly.  In bf16 both are GEMMs on the
+  tensor cores with the output pixels flattened across samples: the 1x1
+  reads NCHW x as it lies (C a multiple of 8; a bf16 1x1 with other C
+  goes to the kxk kernel), the kxk an implicit GEMM over the layout
+  that :func:`kxk_operands` states (x as NHWC, w as (O, k, k, C),
+  tap-major as JAX's im2col, C zero-padded to a multiple of 8), which
+  its own transpose pass writes into scratch the wrapper allocates; in
+  f32 both run on the CUDA cores over NCHW x.
 * The backward is ``_bwd_rule`` (JAX :465-490): with cotangents
   (gy, gs1, gs2), ``gy_eff = gy + gs1 + 2(y − shift)·gs2`` in f32 cast
   to x's dtype, then the gradients of the plain strided conv at
@@ -84,33 +87,33 @@ def kxk_operands(x, w):
 def _conv_bn_cuda(x, w, shift, stride: int, pad: int):
     """Launch the kernel for this shape: (y, s1, s2)."""
     _check_cuda_args(x, w, shift)
-    k = w.shape[2]
-    one = k == 1 and pad == 0
-    if one and stride != 1:
-        x = x[:, :, ::stride, ::stride]      # the 1x1 kernel runs stride 1
+    one = kernel_path(x.shape, w.shape, stride=stride, pad=pad,
+                      itemsize=x.element_size()) == "cuda_1x1"
     x, w = x.contiguous(), w.contiguous()
     shift = shift.float().contiguous()
-    n, _, h, wd = x.shape
-    o = w.shape[0]
-    s = 1 if one else stride
-    ho = (h + 2 * pad - k) // s + 1
-    wo = (wd + 2 * pad - k) // s + 1
+    n, c, h, wd = x.shape
+    o, _, k, _ = w.shape
+    ho = (h + 2 * pad - k) // stride + 1
+    wo = (wd + 2 * pad - k) // stride + 1
     if ho <= 0 or wo <= 0:
         raise ValueError(f"conv_bn: empty output for x {tuple(x.shape)}, "
                          f"k={k}, stride={stride}, pad={pad}")
     y = torch.empty((n, o, ho, wo), dtype=x.dtype, device=x.device)
-    gemm = not one and x.dtype == torch.bfloat16
-    cols = (_cuda.conv_kxk_tiles(n * ho * wo) if gemm
+    mma = x.dtype == torch.bfloat16          # the tensor-core kernels
+    cols = (_cuda.conv_mma_tiles(n * ho * wo) if mma
             else n * _cuda.conv_bn_tiles(ho * wo))
     part = torch.empty((2, o, cols), dtype=torch.float32, device=x.device)
     s1, s2 = (torch.empty(o, dtype=torch.float32, device=x.device)
               for _ in range(2))
     if one:
-        _cuda.launch_conv_bn_1x1(x, w, shift, y, part, s1, s2)
+        if mma and w.data_ptr() % 16:        # its 16-byte weight copies
+            w = w.clone()
+        _cuda.launch_conv_bn_1x1(x, w, shift, y, part, s1, s2,
+                                 stride=stride)
     else:
         scratch = None
-        if gemm:        # the kernel's NHWC operands, channels padded to 8
-            cp = -(-x.shape[1] // 8) * 8
+        if mma:         # the kernel's NHWC operands, channels padded to 8
+            cp = -(-c // 8) * 8
             scratch = (x.new_empty((n, h, wd, cp)),
                        w.new_empty((o, k, k, cp)))
         _cuda.launch_conv_bn_kxk(x, w, shift, y, part, s1, s2,
@@ -177,11 +180,16 @@ def conv1x1_bn_stats(x, w, shift, *, stride: int = 1):
 def kernel_path(x_shape, w_shape, *, stride: int = 1, pad: int = 0,
                 itemsize: int = 2) -> str:
     """Which kernel ``conv_bn_stats`` launches on the card for these
-    shapes: ``"cuda_1x1"`` or ``"cuda_kxk"``.  Every shape has one (no
-    fallback), whatever the dtype's ``itemsize``."""
+    shapes and the dtype's ``itemsize``: ``"cuda_1x1"`` for a 1x1 conv
+    without padding, any stride (in bf16 only where C is a multiple of 8,
+    the 16-byte rows of its weight copies), else ``"cuda_kxk"`` (a bf16
+    1x1 with other C too: its layout pass pads C).  Every shape has one
+    (no fallback)."""
     w_shape = tuple(int(s) for s in w_shape)
     k = 1 if len(w_shape) == 2 else w_shape[2]
-    return "cuda_1x1" if k == 1 and pad == 0 else "cuda_kxk"
+    if k == 1 and pad == 0 and (itemsize != 2 or int(x_shape[1]) % 8 == 0):
+        return "cuda_1x1"
+    return "cuda_kxk"
 
 
 __all__ = ["conv_bn_stats", "conv_bn_stats_plain", "conv1x1_bn_stats",

@@ -7,7 +7,9 @@ Counterpart of ``bigdl_tpu/ops/decode_attention.py``:
   the path whose op sequence mirrors ``TransformerLM.generate``;
 * ``impl="kernel"``: the paged flash-decode (JAX ``_decode_kernel``,
   :205, launched at :288).  On a CUDA tensor it launches the
-  hand-written kernel ``csrc/paged_decode.cu``; on a CPU tensor it runs
+  hand-written kernel ``csrc/paged_decode.cu``, which splits each
+  slot's pages over several CTAs and merges their partial softmax
+  states in a fixed order (flash-decoding); on a CPU tensor it runs
   ``paged_decode_plain``, the same page-by-page online softmax in
   torch.
 
@@ -27,6 +29,8 @@ import torch
 from bigdl_tpu_torch.ops import _cuda
 
 HEAD_DIMS = (32, 64, 128)
+# streaming multiprocessors of an H100 SXM: the KV split's default target
+H100_SMS = 132
 
 
 def used_page_bucket(max_length: int, page_size: int,
@@ -43,17 +47,29 @@ def used_page_bucket(max_length: int, page_size: int,
     return min(b, max(1, int(max_pages)))
 
 
+def decode_splits(b: int, h: int, maxp: int, sms: int = H100_SMS) -> int:
+    """How many CTAs the ``paged_decode`` kernel splits each (slot,
+    head)'s KV over: enough for about two CTAs on each of the card's
+    ``sms`` multiprocessors, at most one per table column."""
+    return max(1, min(int(maxp), -(-2 * int(sms) // max(1, b * h))))
+
+
 def decode_hbm_bytes(impl: str, b: int, h: int, d: int, page_size: int,
                      maxp: int, kv_itemsize: int = 4) -> float:
     """Analytic device-memory traffic of ONE layer's decode attention
     over ``maxp`` table columns: every impl reads the K/V pages the
     tables name; the dense path also writes and re-reads the gathered
-    copy and the f32 score plane."""
+    copy and the f32 score plane; the kernel also writes and re-reads
+    its splits' f32 partials (acc, m, l) when it splits the KV."""
     k = maxp * page_size
     pages = 2.0 * b * maxp * page_size * h * d * kv_itemsize  # K + V
     qio = 2.0 * b * h * d * 4                                 # q + out
     if impl == "dense":
         return pages * 3 + 2.0 * b * h * k * 4 + qio
+    if impl == "kernel":
+        splits = decode_splits(b, h, maxp)
+        if splits > 1:
+            qio += 2.0 * b * h * splits * (d + 2) * 4
     return pages + qio
 
 
@@ -136,8 +152,9 @@ def paged_decode(q, kp, vp, tables, lengths, *, page_size: int,
     """Paged flash-decode: one query per slot against its pages.
 
     A CUDA tensor goes to the ``paged_decode`` kernel (Dh in 32/64/128;
-    q and the cache each f32 or bf16; int32 tables and lengths), and
-    anything that kernel does not take raises; a CPU tensor goes to
+    q and the cache each f32 or bf16; int32 tables and lengths), which
+    splits each slot's KV over :func:`decode_splits` CTAs, and anything
+    that kernel does not take raises; a CPU tensor goes to
     :func:`paged_decode_plain`."""
     _check_decode_args(q, kp, vp, tables, lengths, page_size)
     if scale is None:
@@ -164,7 +181,13 @@ def paged_decode(q, kp, vp, tables, lengths, *, page_size: int,
     tables = tables.contiguous()
     lengths = lengths.contiguous()
     out = torch.empty_like(q)
-    _cuda.launch_paged_decode(q, kp, vp, tables, lengths, out,
+    b, h, d = q.shape
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    splits = decode_splits(b, h, tables.shape[1], sms)
+    part = (None if splits == 1 else
+            torch.empty((b, h, splits, d + 2), dtype=torch.float32,
+                        device=q.device))
+    _cuda.launch_paged_decode(q, kp, vp, tables, lengths, out, part,
                               page_size=page_size, scale=scale)
     return out
 
@@ -196,4 +219,5 @@ def paged_decode_attention(q, kp, vp, tables, lengths, *,
 
 
 __all__ = ["paged_decode_attention", "paged_decode", "paged_decode_plain",
-           "static_decode_dispatch", "used_page_bucket", "decode_hbm_bytes"]
+           "static_decode_dispatch", "used_page_bucket", "decode_hbm_bytes",
+           "decode_splits"]

@@ -13,9 +13,9 @@ it runs; any failure exits non-zero:
 2. build: ``nvcc`` compiles every kernel under ``bigdl_tpu_torch/csrc``
    for sm_90a, all sources at once; ``cuobjdump -sass`` must find bf16
    ``HMMA`` (tensor-core) instructions in every bf16 instantiation of the
-   flash forward and backward kernels and of the kxk conv, and none in
-   the f32 ones, and ``ptxas`` must report no spills for the bf16 ones
-   (registers printed by D);
+   flash forward and backward kernels and of the kxk and 1x1 convs, and
+   none in the f32 ones, and ``ptxas`` must report no spills for the
+   bf16 ones (registers printed by D or by the 1x1's VEC);
 3. kernels: each kernel against its plain PyTorch version on the card
    at the main path's shapes, with the max abs error, the kernel's
    time, the plain version's time, its bound, and a PyTorch library
@@ -23,7 +23,10 @@ it runs; any failure exits non-zero:
    also in bf16 at the training shape (B=16, H=8, T=512, D=64, causal)
    and at B=2, T=4096, timed there beside the forward of
    ``scaled_dot_product_attention`` with TFLOP/s and share of the
-   bound, every case run twice and bit-equal;
+   bound; the paged decode also with one slot at length 511 and the
+   others at 0, with a bucket of width 1 and with a bf16 cache at
+   Dh=128, and timed a call and on the device; every case run twice and
+   bit-equal;
 4. serving path: the flagship TransformerLM (vocab 8192, dim 512, 8
    heads, 8 layers, max_len 512, random f32 weights from a seed) served
    by ``LMEngine`` with the flash prefill kernel and the paged decode
@@ -31,18 +34,21 @@ it runs; any failure exits non-zero:
    temperature 0.  Every generated token is checked against a full
    forward of the model over the same tokens;
 5. where the decode step's time goes: ``torch.profiler`` over ten
-   steps of a full batch, device busy share and the top kernels;
+   steps of a full batch, device busy share, the top kernels and the
+   port's own below them;
 6. conv_bn kernels: ``conv_bn_1x1`` and ``conv_bn_kxk`` against their
    plain version at every distinct fused site of ResNet-50 (224x224,
    batch 32, bf16; the sites are read from the model), three f32 cases,
-   two bf16 kxk cases whose C is not a multiple of 8 and the
-   ``scripts/kxk_probe.py`` shape, with the errors, a
-   run-to-run bit-equality check of the statistics, and per shape the
-   kernel's time (a call, and on the device alone), the plain
+   two bf16 kxk cases whose C is not a multiple of 8, the
+   ``scripts/kxk_probe.py`` shape and three bf16 1x1 cases (HW = 49 at
+   C = 64, HW = 30, and C = 20, which goes to the kxk kernel), with the
+   errors, a run-to-run bit-equality check of the statistics, and per
+   shape the kernel's time (a call, and on the device alone), the plain
    version's, ``F.conv2d`` alone (a conv without statistics, the
-   library yardstick) and the bound, each also summed over one training
-   step's 36 and 16 launches; on x = 0 the statistics must come out
-   exact;
+   library yardstick) and the bound, and at each bf16 1x1 the bf16 kxk
+   kernel at k = 1 on the device (the 1x1's yardstick), each also
+   summed over one training step's 36 and 16 launches; on x = 0 the
+   statistics must come out exact;
 7. training path: ResNet-50 (1000 classes, random weights from seed
    0, the zero gamma of each block's last BN drawn anew from seed 2,
    the LogSoftMax tail dropped for ``CrossEntropyCriterion``)
@@ -120,13 +126,16 @@ CONV1X1_REPLACES = "bigdl_tpu/ops/conv_bn.py:127"
 CONVKXK_REPLACES = "bigdl_tpu/ops/conv_bn.py:238"
 DQ_REPLACES = "bigdl_tpu/ops/attention.py:390"
 DKV_REPLACES = "bigdl_tpu/ops/attention.py:445"
-# the kernels phase 2 reads in the SASS, by source, with the head dims
-# they are instantiated at (None: not templated on D); each has a bf16
-# kernel on the tensor cores and an f32 one on the CUDA cores
-TENSOR_CORE_KERNELS = {"flash_fwd": (32, 64, 128),
-                       "flash_bwd_dq": (32, 64, 128),
-                       "flash_bwd_dkv": (32, 64, 128),
-                       "conv_bn_kxk": (None,)}
+# the kernels phase 2 reads in the SASS, by source: each has a bf16
+# kernel on the tensor cores and an f32 one on the CUDA cores, with the
+# integer template arguments each is instantiated at (the flash kernels'
+# head dim D, the 1x1 conv's pixels per B copy VEC; None: not templated
+# on an integer)
+TENSOR_CORE_KERNELS = {"flash_fwd": ("D", (32, 64, 128), (32, 64, 128)),
+                       "flash_bwd_dq": ("D", (32, 64, 128), (32, 64, 128)),
+                       "flash_bwd_dkv": ("D", (32, 64, 128), (32, 64, 128)),
+                       "conv_bn_kxk": ("", (None,), (None,)),
+                       "conv_bn_1x1": ("VEC", (8, 4, 2, 1), (None,))}
 # a profiler key of one of csrc/'s kernels (all in anonymous namespaces;
 # a template's key starts with its return type, a plain function's not)
 PORT_KERNEL = re.compile(r"(?:void )?\(anonymous namespace\)::"
@@ -263,10 +272,10 @@ def phase_device() -> str:
 
 
 def _kernel_key(mangled: str):
-    """(kernel, D or None) of a mangled kernel name of
-    ``TENSOR_CORE_KERNELS``, or None."""
-    m = re.search(r"((?:flash_(?:fwd|bwd_dq|bwd_dkv)|conv_bn_kxk)_"
-                  r"(?:bf16|f32)_kernel)(?:ILi(\d+)E)?", mangled)
+    """(kernel, its integer template argument or None) of a mangled
+    kernel name of ``TENSOR_CORE_KERNELS``, or None."""
+    m = re.search(r"((?:flash_(?:fwd|bwd_dq|bwd_dkv)|conv_bn_kxk|conv_bn_1x1)"
+                  r"_(?:bf16|f32)_kernel)(?:ILi(\d+)E)?", mangled)
     if not m:
         return None
     return m.group(1), int(m.group(2)) if m.group(2) else None
@@ -320,24 +329,25 @@ def phase_build() -> None:
     say(f"phase 2 build: nvcc {compile_s:.1f} s for "
         f"{', '.join(_cuda.SOURCES.values())} (in parallel), "
         f"{time.perf_counter() - t0:.1f} s with loading")
-    for name, dims in TENSOR_CORE_KERNELS.items():
+    for name, (arg, dims, f32_dims) in TENSOR_CORE_KERNELS.items():
         hmma = _hmma_counts(_cuda._lib_path(name))
         usage = _ptxas_usage(_cuda.build_logs.get(name, ""))
+        keys = ([(f"{name}_bf16_kernel", d) for d in dims]
+                + [(f"{name}_f32_kernel", d) for d in f32_dims])
+        for key in keys:
+            n = hmma.get(key)
+            if n is None or (n > 0) != ("bf16" in key[0]):
+                raise AssertionError(f"{key}: {n} bf16 HMMA instructions "
+                                     "in its SASS")
         for d in dims:
-            for kind in ("bf16", "f32"):
-                key = (f"{name}_{kind}_kernel", d)
-                n = hmma.get(key)
-                if n is None or (n > 0) != (kind == "bf16"):
-                    raise AssertionError(f"{key}: {n} bf16 HMMA instructions "
-                                         "in its SASS")
             regs, spill = usage.get((f"{name}_bf16_kernel", d), (None, None))
             if not usage:                       # a build of an earlier run
                 regs = spill = "not reported"
             elif regs is None or spill:
-                raise AssertionError(f"{name} bf16 D={d}: ptxas reports "
+                raise AssertionError(f"{name} bf16 {arg}={d}: ptxas reports "
                                      f"{regs} registers, {spill} bytes of "
                                      "spills")
-            at = "" if d is None else f" D={d}"
+            at = "" if d is None else f" {arg}={d}"
             say(f"phase 2 {name} bf16{at}: "
                 f"{hmma[(f'{name}_bf16_kernel', d)]} bf16 HMMA in its SASS "
                 f"(f32 kernel: 0); ptxas: {regs} registers, {spill} bytes "
@@ -452,51 +462,78 @@ def phase_flash(gen) -> dict:
                     "bound_ms", "tflops")})
 
 
-def _decode_state(gen, q_dtype, kv_dtype, b=8, h=8, d=64, p=16, maxp=32):
-    lengths = [511, 17, 255, 16, 15, 300, 1, 128][:b]
+DECODE_LENGTHS = [511, 17, 255, 16, 15, 300, 1, 128]
+
+
+def _decode_state(gen, q_dtype, kv_dtype, b=8, h=8, d=64, p=16, maxp=32,
+                  lengths=None):
+    lengths = (DECODE_LENGTHS if lengths is None else lengths)[:b]
     pool = 1 + b * maxp
-    kp = torch.randn((pool, h, p, d), generator=gen, device="cuda")
-    vp = torch.randn((pool, h, p, d), generator=gen, device="cuda")
+    kp = torch.randn((pool, h, p, d), generator=gen, device=DEV)
+    vp = torch.randn((pool, h, p, d), generator=gen, device=DEV)
     kp[0] = 1e30                                 # the trash page
     vp[0] = 1e30
     rs = np.random.RandomState(0)
     free = list(rs.permutation(np.arange(1, pool)))
     tables = np.zeros((b, maxp), np.int32)
     for i, ln in enumerate(lengths):
-        for j in range(ln // p + 1):
+        for j in range(min(ln // p + 1, maxp)):
             tables[i, j] = free.pop()
-    q = torch.randn((b, h, d), generator=gen, device="cuda").to(q_dtype)
+    q = torch.randn((b, h, d), generator=gen, device=DEV).to(q_dtype)
     return (q, kp.to(kv_dtype), vp.to(kv_dtype),
-            torch.from_numpy(tables).cuda(),
-            torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+            torch.from_numpy(tables).to(DEV),
+            torch.tensor(lengths, dtype=torch.int32, device=DEV))
 
 
 def phase_decode(gen) -> dict:
-    from bigdl_tpu_torch.ops.decode_attention import (paged_decode,
+    from bigdl_tpu_torch.ops.decode_attention import (decode_splits,
+                                                      paged_decode,
                                                       paged_decode_plain)
 
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for qd, kvd in ((torch.float32, torch.float32),
-                    (torch.float32, torch.bfloat16),
-                    (torch.bfloat16, torch.bfloat16)):
-        q, kp, vp, tables, lengths = _decode_state(gen, qd, kvd)
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (name, q dtype, cache dtype, state arguments): the serving state in
+    # each dtype pair; one slot at 511 with the others at length 0 (its
+    # KV over every split, theirs in split 0 and the rest empty); a
+    # bucket of width 1 (one split: no merge); a bf16 cache at Dh = 128
+    cases = [("", qd, kvd, {}) for qd, kvd in ((f32, f32), (f32, bf16),
+                                               (bf16, bf16))]
+    cases += [("one slot at 511", f32, f32, dict(lengths=[511] + [0] * 7)),
+              ("bucket 1", f32, f32,
+               dict(maxp=1, lengths=[15, 0, 7, 3, 15, 1, 9, 12])),
+              ("Dh=128", bf16, bf16, dict(d=128))]
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    for name, qd, kvd, kw in cases:
+        q, kp, vp, tables, lengths = _decode_state(gen, qd, kvd, **kw)
         out = paged_decode(q, kp, vp, tables, lengths, page_size=16)
+        again = paged_decode(q, kp, vp, tables, lengths, page_size=16)
         torch.cuda.synchronize()
+        b, h, d = q.shape
+        label = (f"paged_decode {name + ' ' if name else ''}q "
+                 f"{str(qd)[6:]} cache {str(kvd)[6:]} Dh={d} bucket "
+                 f"{tables.shape[1]} ({decode_splits(b, h, tables.shape[1], sms)}"
+                 " splits)")
+        if not torch.equal(out, again):
+            raise AssertionError(f"{label}: two runs on one input differ")
         ref = paged_decode_plain(q, kp, vp, tables, lengths, page_size=16,
-                                 scale=0.125)
+                                 scale=d ** -0.5)
         err = (out.float() - ref.float()).abs().max().item()
         tol = F32_TOL if qd == torch.float32 else BF16_TOL
-        check(f"paged_decode q {qd} cache {kvd}", err, tol)
+        check(label, err, tol)
         worst[qd] = max(worst[qd], err)
-        say(f"phase 3 paged_decode q {str(qd)[6:]} cache {str(kvd)[6:]}: "
-            f"max abs err {err:.3e}")
+        say(f"phase 3 {label}: max abs err {err:.3e}; bit-equal run to run")
     q, kp, vp, tables, lengths = _decode_state(gen, torch.float32,
                                                torch.float32)
-    ms = time_ms(lambda: paged_decode(q, kp, vp, tables, lengths,
-                                      page_size=16))
+
+    def kernel():
+        paged_decode(q, kp, vp, tables, lengths, page_size=16)
+
+    ms = time_ms(kernel)
+    device_ms = time_ms(kernel, device_only=True)
     plain = time_ms(lambda: paged_decode_plain(q, kp, vp, tables, lengths,
                                                page_size=16, scale=0.125))
     b, h, d = q.shape
+    splits = decode_splits(b, h, tables.shape[1], sms)
     positions = int((lengths + 1).sum())
     pages = int((lengths // 16 + 1).sum())
     nbytes = (2 * b * h * d * 4                  # q read, out written
@@ -504,15 +541,17 @@ def phase_decode(gen) -> dict:
               + pages * 4 + b * 4)               # live table entries, lengths
     flops = 4 * h * d * positions
     b_ms, b_by = bound(nbytes, flops, torch.float32)
-    say(f"phase 3 paged_decode time B=8 H=8 Dh=64 P=16 f32: kernel "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    say(f"phase 3 paged_decode time B=8 H=8 Dh=64 P=16 f32, {splits} "
+        f"splits: kernel {ms:.4f} ms a call, {device_ms:.4f} ms on the "
+        f"device, plain {plain:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
     return dict(name="paged_decode", route="cuda",
                 source="bigdl_tpu_torch/csrc/paged_decode.cu",
                 replaces=DECODE_REPLACES, max_abs_err=worst[torch.float32],
                 max_abs_err_bf16=worst[torch.bfloat16], ms=ms,
-                plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None,
-                shape="B=8 H=8 Dh=64 P=16 f32, lengths up to 511")
+                device_ms=device_ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None,
+                shape=f"B=8 H=8 Dh=64 P=16 f32, lengths up to 511, "
+                      f"{splits} splits")
 
 
 def phase_main_path() -> dict:
@@ -617,7 +656,9 @@ def phase_profile(model) -> None:
     say(f"phase 5 profile: {wall_ms / 10:.3f} ms per decode step (wall), "
         f"device busy {busy_ms / 10:.3f} ms per step, busy share "
         f"{busy_ms / wall_ms:.3f}")
-    for ms, n, key in rows[:8]:
+    # the eight largest, then the port's own kernels (csrc/) below them
+    ours = [r for r in rows[8:] if PORT_KERNEL.match(r[2])]
+    for ms, n, key in rows[:8] + ours:
         say(f"phase 5 profile:   {ms / 10:8.4f} ms/step  x{n // 10:<4d} "
             f"{key[:90]}")
 
@@ -702,6 +743,27 @@ def _taps(size: int, k: int, stride: int, pad: int, out: int) -> int:
                & set(range(size)))
 
 
+def _kxk_k1_ms(x, w, shift, stride) -> float:
+    """The yardstick of a bf16 1x1 site: the bf16 ``conv_bn_kxk`` kernel
+    at k = 1 (its NHWC layout pass included) through
+    ``_cuda.launch_conv_bn_kxk`` directly, on the device alone."""
+    from bigdl_tpu_torch.ops import _cuda
+
+    n, c, h, wd = x.shape
+    o = w.shape[0]
+    ho, wo = (h - 1) // stride + 1, (wd - 1) // stride + 1
+    cp = -(-c // 8) * 8
+    y = x.new_empty((n, o, ho, wo))
+    part = torch.empty((2, o, _cuda.conv_mma_tiles(n * ho * wo)),
+                       dtype=torch.float32, device=x.device)
+    s1, s2 = (torch.empty(o, dtype=torch.float32, device=x.device)
+              for _ in range(2))
+    scratch = (x.new_empty((n, h, wd, cp)), w.new_empty((o, 1, 1, cp)))
+    return time_ms(lambda: _cuda.launch_conv_bn_kxk(
+        x, w, shift, y, part, s1, s2, stride=stride, pad=0,
+        scratch=scratch), device_only=True)
+
+
 def _conv_times(x, w, shift, stride, pad) -> dict:
     from bigdl_tpu_torch.ops.conv_bn import (conv_bn_stats,
                                              conv_bn_stats_plain)
@@ -766,6 +828,12 @@ def phase_conv_bn(gen) -> list:
     # a strided one with O off the channel tile, and a C = 3 one
     cases += [(((8, 20, 28, 28), (40, 20, 3, 3), 2, 1), torch.bfloat16),
               (((4, 3, 32, 32), (16, 3, 3, 3), 1, 1), torch.bfloat16)]
+    # bf16 1x1 off ResNet-50's shapes: odd HW at C = 64 (the gather), HW
+    # even but not a multiple of 4 (4-byte copies), and C = 20, which goes
+    # to the kxk kernel at k = 1 (strided)
+    cases += [(((3, 64, 7, 7), (64, 64, 1, 1), 1, 0), torch.bfloat16),
+              (((2, 32, 5, 6), (48, 32, 1, 1), 1, 0), torch.bfloat16),
+              (((4, 20, 7, 7), (16, 20, 1, 1), 2, 0), torch.bfloat16)]
     probe = ((8, 64, 16, 16), (64, 64, 3, 3), 1, 1)   # scripts/kxk_probe.py
     cases.append((probe, torch.bfloat16))
     for (xs, ws, stride, pad), dt in cases:
@@ -775,12 +843,16 @@ def phase_conv_bn(gen) -> list:
         worst[key] = max(worst[key], err)
         worst_rel = max(worst_rel, r1, r2)
         t = _conv_times(*args, stride, pad)
+        yard = ""
+        if ws[2] == 1 and dt == torch.bfloat16:
+            t["kxk_k1_device_ms"] = _kxk_k1_ms(*args, stride)
+            yard = f", kxk at k=1 {t['kxk_k1_device_ms']:.4f} ms on the device"
         rows[(xs, ws, stride, pad, dt)] = t
         tag = "probe " if (xs, ws, stride, pad) == probe else ""
         say(f"phase 6 conv_bn {tag}x {xs} w {ws} s{stride} "
             f"{str(dt)[6:]}: max abs err {err:.3e} ({differ:.2e} of y "
             f"differs), s1/s2 rel {r1:.2e}/{r2:.2e}; kernel {t['ms']:.4f} ms "
-            f"a call, {t['device_ms']:.4f} ms on the device, plain "
+            f"a call, {t['device_ms']:.4f} ms on the device{yard}, plain "
             f"{t['plain_ms']:.4f} ms, conv2d alone {t['library_ms']:.4f} ms "
             f"a call, {t['library_device_ms']:.4f} ms on the device, bound "
             f"{t['bound_ms']:.5f} ms ({t['bound_by']})")
@@ -795,9 +867,12 @@ def phase_conv_bn(gen) -> list:
                                ("conv_bn_kxk", False, CONVKXK_REPLACES)):
         step = [rows[s + (torch.bfloat16,)] for s in sites
                 if (s[1][2] == 1) == k1]
-        tot = {key: sum(r[key] for r in step)
-               for key in ("ms", "device_ms", "plain_ms", "library_ms",
-                           "library_device_ms", "bound_ms")}
+        keys = ["ms", "device_ms", "plain_ms", "library_ms",
+                "library_device_ms", "bound_ms"]
+        keys += ["kxk_k1_device_ms"] if k1 else []
+        tot = {key: sum(r[key] for r in step) for key in keys}
+        yard = (f", the kxk kernel at k = 1 {tot['kxk_k1_device_ms']:.4f} ms "
+                "on the device" if k1 else "")
         by_ops = sum(r["bound_ms"] for r in step
                      if r["bound_by"] == "operations")
         tflops = (sum(r["flops"] for r in step)
@@ -806,7 +881,7 @@ def phase_conv_bn(gen) -> list:
             f"batch {TRAIN_BATCH}, bf16): kernel {tot['ms']:.4f} ms in "
             f"calls, {tot['device_ms']:.4f} ms on the device ({tflops:.1f} "
             f"TFLOP/s, {tot['bound_ms'] / tot['device_ms']:.3f} of the "
-            f"bound), plain {tot['plain_ms']:.4f} ms, conv2d alone "
+            f"bound){yard}, plain {tot['plain_ms']:.4f} ms, conv2d alone "
             f"{tot['library_ms']:.4f} ms in calls, "
             f"{tot['library_device_ms']:.4f} ms on the device, bound "
             f"{tot['bound_ms']:.5f} ms ({by_ops / tot['bound_ms']:.2f} of it "

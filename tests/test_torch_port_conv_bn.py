@@ -8,10 +8,11 @@ JAX's ``custom_vjp``.  Limits, as ``tests/test_fused.py``: y atol 1e-5;
 s1/s2 rtol 1e-4, atol 1e-3 (sums over up to 2·15·15 f32 terms in
 another order); gradients rtol 1e-4, atol 1e-4 (dshift atol 1e-3: it
 carries n·gs1).  The kernels themselves are held to the plain version
-on the card by ``chip_smoke.py``.  The bf16 kxk kernel's arithmetic (an
-implicit GEMM over the NHWC, tap-major operands that ``kxk_operands``
-builds, statistics over pixel tiles flattened across samples) is
-modelled in numpy and held to the same Pallas kernel and to the lax
+on the card by ``chip_smoke.py``.  The bf16 kernels' arithmetic (the
+kxk kernel's implicit GEMM over the NHWC, tap-major operands that
+``kxk_operands`` builds; the 1x1 kernel's GEMM over NCHW x read in
+place; both with statistics over pixel tiles flattened across samples)
+is modelled in numpy and held to the same Pallas kernels and to the lax
 reference at those limits."""
 
 import numpy as np
@@ -169,7 +170,7 @@ def _kxk_gemm_model(x, w, shift, stride, pad):
     N = N·Ho·Wo pixels
     flattened across samples, K tap-major over the padded channels,
     products summed in f32; each row's centred sums over a pixel tile of
-    ``CONV_KXK_TILE_P`` taken as its four quarters of 32 (the four warps
+    ``CONV_MMA_TILE_P`` taken as its four quarters of 32 (the four warps
     of a row) added in order, then the tiles' partial columns added in
     order (the fixed second pass)."""
     xh, wt = (t.numpy() for t in TC.kxk_operands(torch.from_numpy(x),
@@ -186,8 +187,18 @@ def _kxk_gemm_model(x, w, shift, stride, pad):
     b = np.stack(taps, axis=3).reshape(n * ho * wo, k * k * cp)
     acc = wt.reshape(o, k * k * cp) @ b.T                   # (O, N·Ho·Wo)
     y = acc.reshape(o, n, ho, wo).transpose(1, 0, 2, 3)
-    tile = _cuda.CONV_KXK_TILE_P
-    ncols = _cuda.conv_kxk_tiles(n * ho * wo)
+    s1, s2 = _tile_stats(acc, shift)
+    return y, s1, s2
+
+
+def _tile_stats(acc, shift):
+    """s1, s2 from the f32 accumulator (O, N·Ho·Wo) as the bf16 kernels'
+    epilogue takes them: each row's centred sums over a pixel tile of
+    ``CONV_MMA_TILE_P`` as its four quarters of 32 (the four warps of a
+    row) added in order, then the tiles' partial columns in order."""
+    o = acc.shape[0]
+    tile = _cuda.CONV_MMA_TILE_P
+    ncols = _cuda.conv_mma_tiles(acc.shape[1])
     d = acc - shift[:, None]
     part = np.zeros((2, o, ncols), np.float32)
     for j in range(ncols):
@@ -200,7 +211,7 @@ def _kxk_gemm_model(x, w, shift, stride, pad):
     for j in range(ncols):
         s1 += part[0, :, j]
         s2 += part[1, :, j]
-    return y, s1, s2
+    return s1, s2
 
 
 def test_kxk_operands_are_tap_major_nhwc_with_zero_padded_channels():
@@ -258,4 +269,80 @@ def test_kernel_path_names_a_kernel_for_every_shape():
     for k, s in ((3, 1), (3, 2), (5, 1), (7, 2)):
         assert TC.kernel_path((2, 64, 56, 56), (64, 64, k, k), stride=s,
                               pad=(k - 1) // 2) == "cuda_kxk"
+    # a bf16 1x1 whose C is not a multiple of 8 (the 1x1 kernel's 16-byte
+    # weight rows) goes to the kxk kernel, whose layout pass pads C; in
+    # f32 the 1x1 kernel takes any C
+    assert TC.kernel_path((2, 20, 7, 7), (16, 20, 1, 1)) == "cuda_kxk"
+    assert TC.kernel_path((2, 20, 7, 7), (16, 20, 1, 1), stride=2) \
+        == "cuda_kxk"
+    assert TC.kernel_path((2, 20, 7, 7), (16, 20), itemsize=4) == "cuda_1x1"
+    assert TC.kernel_path((2, 24, 7, 7), (16, 24)) == "cuda_1x1"
+
+
+def _mma_constant(name):
+    """A tile constant of the bf16 conv_bn kernels (conv_bn_mma.cuh)."""
+    import os
+    import re
+
+    text = open(os.path.join(_cuda.CSRC, "conv_bn_mma.cuh")).read()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+# the bf16 1x1 kernel's GEMM: (n, c, h, w, o, k, stride, pad): HW = 49 at
+# N = 3 (147 flattened pixels: a tile that crosses from sample 0 into
+# sample 2), HW = 196 with C = 136 (three k-steps: a run of CHAIN and a
+# short one, the last k-step's channels past C zero) and O off the tile,
+# and a strided site (14x14 -> 7x7)
+GEMM_1X1_CASES = [
+    (3, 16, 7, 7, 24, 1, 1, 0),
+    (2, 136, 14, 14, 12, 1, 1, 0),
+    (2, 24, 14, 14, 40, 1, 2, 0),
+]
+
+
+def _1x1_gemm_model(x, w, shift, stride):
+    """y, s1, s2 (numpy f32) as the bf16 1x1 kernel forms them from NCHW
+    x read in place: M = O by N = N·Ho·Wo output pixels flattened across
+    samples (x[n, c, s·oy, s·ox]), K = C in k-steps of TK channels, the
+    products of each run of CHAIN k-steps summed into a fresh f32 sum
+    that is then added into the running one, statistics as the
+    epilogue's tiles take them."""
+    xs = x[:, :, ::stride, ::stride]
+    n, c, ho, wo = xs.shape
+    o = w.shape[0]
+    b = xs.transpose(1, 0, 2, 3).reshape(c, n * ho * wo)     # (K, pixels)
+    wt = w.reshape(o, c)
+    run = _mma_constant("TK") * _mma_constant("CHAIN")
+    acc = np.zeros((o, n * ho * wo), np.float32)
+    for k0 in range(0, c, run):
+        acc += wt[:, k0:k0 + run] @ b[k0:k0 + run]
+    y = acc.reshape(o, n, ho, wo).transpose(1, 0, 2, 3)
+    s1, s2 = _tile_stats(acc, shift)
+    return y, s1, s2
+
+
+@pytest.mark.parametrize("case", GEMM_1X1_CASES, ids=_case_id)
+def test_1x1_gemm_model_matches_pallas_interpret_and_reference(case):
+    """The bf16 1x1 kernel's arithmetic, modelled on NCHW x, is JAX's
+    function: ``_fwd_kernel_1x1`` in interpret mode and the lax
+    ``_reference``, at the module's limits (bf16 inputs: the products
+    are exact in f32, only the order of the f32 sums differs)."""
+    n, c, h, w, o, k, stride, pad = case
+    assert c % 8 == 0 and TC.kernel_path((n, c, h, w), (o, c)) == "cuda_1x1"
+    x, wt, shift = _inputs(n, c, h, w, o, k, seed=7 * sum(case))
+    x, wt = (torch.from_numpy(a).bfloat16().float().numpy() for a in (x, wt))
+    my, ms1, ms2 = _1x1_gemm_model(x, wt, shift, stride)
+    args = (jnp.asarray(x), jnp.asarray(wt), jnp.asarray(shift))
+    for jy, js1, js2 in (_jax(x, wt, shift, stride, pad),
+                         JC._reference(*args, stride, pad)):
+        assert my.shape == jy.shape
+        np.testing.assert_allclose(my, np.asarray(jy), atol=Y_ATOL)
+        np.testing.assert_allclose(ms1, np.asarray(js1), rtol=S_RTOL,
+                                   atol=S_ATOL)
+        np.testing.assert_allclose(ms2, np.asarray(js2), rtol=S_RTOL,
+                                   atol=S_ATOL)
+    _, ts1, ts2 = TC.conv_bn_stats_plain(*(torch.from_numpy(a) for a in
+                                           (x, wt, shift)), stride, pad)
+    np.testing.assert_allclose(ms1, ts1.numpy(), rtol=S_RTOL, atol=S_ATOL)
+    np.testing.assert_allclose(ms2, ts2.numpy(), rtol=S_RTOL, atol=S_ATOL)
 

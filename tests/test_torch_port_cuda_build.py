@@ -115,6 +115,14 @@ def test_conv_bn_shared_header_edit_rebuilds_both_conv_bn_kernels(isolated):
     new = set(os.listdir(isolated / "build")) - before
     assert sorted(n.split("-")[0] for n in new) == ["conv_bn_1x1",
                                                     "conv_bn_kxk"]
+    # the bf16 kernels' shared GEMM and epilogue reach exactly these two
+    before = set(os.listdir(isolated / "build"))
+    with open(isolated / "csrc" / "conv_bn_mma.cuh", "a") as f:
+        f.write("\n// edited\n")
+    assert _cuda.build() > 0.0
+    new = set(os.listdir(isolated / "build")) - before
+    assert sorted(n.split("-")[0] for n in new) == ["conv_bn_1x1",
+                                                    "conv_bn_kxk"]
 
 
 def test_flash_bwd_sources_build_once_and_rebuild_when_edited(isolated):
@@ -154,8 +162,9 @@ def test_flash_shared_header_edit_rebuilds_every_flash_kernel(isolated):
 
 def test_mma_header_edit_rebuilds_every_tensor_core_kernel(isolated):
     """``mma_common.cuh`` (cp.async, ldmatrix, mma.sync) reaches the
-    three flash kernels through ``flash_mma.cuh`` and the kxk conv
-    directly; the 1x1 conv and the decode kernel do not include it."""
+    three flash kernels through ``flash_mma.cuh`` and both conv kernels
+    through ``conv_bn_mma.cuh``; the decode kernel does not include
+    it."""
     _cuda.build()
     before = set(os.listdir(isolated / "build"))
     with open(isolated / "csrc" / "mma_common.cuh", "a") as f:
@@ -163,7 +172,8 @@ def test_mma_header_edit_rebuilds_every_tensor_core_kernel(isolated):
     assert _cuda.build() > 0.0
     new = set(os.listdir(isolated / "build")) - before
     assert sorted(n.split("-")[0] for n in new) == [
-        "conv_bn_kxk", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd"]
+        "conv_bn_1x1", "conv_bn_kxk", "flash_bwd_dkv", "flash_bwd_dq",
+        "flash_fwd"]
 
 
 def test_header_reached_only_through_a_header_rebuilds_its_dependents(
@@ -223,14 +233,17 @@ def test_flash_bwd_sources_share_the_tensor_core_header():
         assert "asm" not in text and "wgmma/TMA come" not in text
 
 
-@pytest.mark.parametrize("name", ["flash_fwd", "conv_bn_kxk"])
+@pytest.mark.parametrize("name", ["flash_fwd", "conv_bn_kxk",
+                                  "conv_bn_1x1"])
 def test_bf16_forward_kernels_share_the_mma_helpers(name):
     """The tensor-core forward kernels reach ``mma_common.cuh`` (the
-    flash forward through ``flash_mma.cuh``), carry no PTX of their own,
-    and keep their f32 kernel beside the bf16 one.  The shared header
-    defines no dtype conversions and includes neither of the two
-    headers that do, so the kxk source can include it beside
-    ``conv_bn_common.cuh``."""
+    flash forward through ``flash_mma.cuh``, both convs through
+    ``conv_bn_mma.cuh``), carry no PTX of their own, and keep their f32
+    kernel beside the bf16 one.  The shared header defines no dtype
+    conversions and includes neither of the two headers that do, so the
+    conv sources can include it beside ``conv_bn_common.cuh``; the two
+    bf16 convs take their GEMM step and epilogue from ``conv_bn_mma.cuh``
+    and keep no copy of them."""
     text = open(os.path.join(_cuda.CSRC, f"{name}.cu")).read()
     assert "mma_common.cuh" in _cuda._headers(text.encode())
     assert f"{name}_f32_kernel" in text and f"{name}_bf16_kernel" in text
@@ -238,6 +251,11 @@ def test_bf16_forward_kernels_share_the_mma_helpers(name):
     common = open(os.path.join(_cuda.CSRC, "mma_common.cuh")).read()
     assert "#include \"" not in common
     assert "float to_f32(" not in common and "constexpr int" not in common
+    if name.startswith("conv_bn"):
+        assert '#include "conv_bn_mma.cuh"' in text
+        assert "mma_stage<" in text and "store_y_and_stats(" in text
+        assert "mma_bf16(" not in text and "ldsm_x4" not in text
+        assert "__shfl_xor_sync" not in text
 
 
 def test_conv_bn_tiles_match_the_kernels_pixel_tile():
@@ -249,10 +267,15 @@ def test_conv_bn_tiles_match_the_kernels_pixel_tile():
         assert "constexpr int BN" not in text
     assert [_cuda.conv_bn_tiles(p) for p in (49, 64, 65, 3136)] == \
         [1, 1, 2, 49]
-    # the bf16 kxk kernel tiles the pixels flattened across samples
-    kxk = open(os.path.join(_cuda.CSRC, "conv_bn_kxk.cu")).read()
-    assert f"constexpr int TN = {_cuda.CONV_KXK_TILE_P};" in kxk
-    assert [_cuda.conv_kxk_tiles(p) for p in (3 * 49, 32 * 49, 32 * 3136)] \
+    # the bf16 kernels (kxk and 1x1) tile the pixels flattened across
+    # samples, with the one pixel tile of their shared header
+    mma = open(os.path.join(_cuda.CSRC, "conv_bn_mma.cuh")).read()
+    assert f"constexpr int TN = {_cuda.CONV_MMA_TILE_P};" in mma
+    for src in ("conv_bn_1x1.cu", "conv_bn_kxk.cu"):
+        text = open(os.path.join(_cuda.CSRC, src)).read()
+        assert '#include "conv_bn_mma.cuh"' in text
+        assert "constexpr int TN" not in text
+    assert [_cuda.conv_mma_tiles(p) for p in (3 * 49, 32 * 49, 32 * 3136)] \
         == [2, 13, 784]
 
 

@@ -138,3 +138,125 @@ def test_dispatch_and_validation():
     _cuda.reset_launches()
     TD.paged_decode(q, kp, vp, tbl, lens, page_size=8)
     assert _cuda.launches["paged_decode"] == 0  # a CPU tensor: plain version
+
+
+# the split-KV kernel's work units: up to ROWS key rows of one page; a
+# CTA's warps take the units of its split in turn
+ROWS, WARPS = 16, 4
+
+
+def _fold(state, s, v):
+    """Fold scores s (n,) and value rows v (n, Dh) into (m, l, acc) as a
+    warp does, in f32."""
+    m, l, acc = state
+    m_new = max(m, float(s.max()))
+    shift = np.float32(m_new if np.isfinite(m_new) else 0.0)
+    alpha = np.float32(np.exp(np.float32(m) - shift)) if np.isfinite(m) \
+        else np.float32(0.0)
+    p = np.exp(s - shift).astype(np.float32)
+    return (m_new, np.float32(l * alpha + p.sum(dtype=np.float32)),
+            (acc * alpha + p @ v).astype(np.float32))
+
+
+def _merge(states):
+    """Merge (m, l, acc) states in the given order: the CTA's warps, then
+    the merge kernel's splits."""
+    mx = max(st[0] for st in states)
+    shift = np.float32(mx if np.isfinite(mx) else 0.0)
+    l = np.float32(0.0)
+    acc = np.zeros_like(states[0][2])
+    for m, lw, a in states:
+        sc = np.float32(np.exp(np.float32(m) - shift)) if np.isfinite(m) \
+            else np.float32(0.0)
+        l = np.float32(l + lw * sc)
+        acc = (acc + a * sc).astype(np.float32)
+    return mx, l, acc
+
+
+def _split_decode_model(q, kp, vp, tbl, lens, p, splits):
+    """The paged_decode kernel's arithmetic in numpy f32: split s of a
+    slot takes its live columns [s·cps, (s+1)·cps) with cps =
+    ceil(live / S), each split's warps fold their units of up to ROWS
+    rows, the warps' states merge in order, then the S splits' partials
+    merge in order into acc / max(l, 1e-30)."""
+    b, h, d = q.shape
+    maxp = tbl.shape[1]
+    qs = q.astype(np.float32) * np.float32(d ** -0.5)
+    out = np.zeros((b, h, d), np.float32)
+    empty = (-np.inf, np.float32(0.0), np.zeros(d, np.float32))
+    for i in range(b):
+        npos = max(0, min(int(lens[i]) + 1, maxp * p))
+        live = -(-npos // p)
+        cps = -(-live // splits)
+        for hh in range(h):
+            parts = []
+            for s in range(splits):
+                c0 = min(s * cps, live)
+                c1 = min(c0 + cps, live)
+                units = [(col, r0) for col in range(c0, c1)
+                         for r0 in range(0, p, ROWS) if col * p + r0 < npos]
+                warps = [empty] * WARPS
+                for u, (col, r0) in enumerate(units):
+                    n = min(ROWS, p - r0, npos - col * p - r0)
+                    rows = slice(r0, r0 + n)
+                    ks = kp[tbl[i, col], hh, rows].astype(np.float32)
+                    vs = vp[tbl[i, col], hh, rows].astype(np.float32)
+                    warps[u % WARPS] = _fold(warps[u % WARPS],
+                                             ks @ qs[i, hh], vs)
+                parts.append(_merge(warps))
+            _, l, acc = _merge(parts)
+            out[i, hh] = acc / max(l, np.float32(1e-30))
+    return out
+
+
+# (lengths, page size, table width, splits): empty splits (a slot shorter
+# than its S), S that does not divide the bucket, a single live page,
+# lengths at a page boundary (P - 1, P, 2P - 1), S = 1, and pages of 32
+# rows (two units each)
+SPLIT_CASES = [
+    ([5, 0, 30, 1], 8, 4, 3),
+    ([31, 16, 7, 8], 8, 5, 2),
+    ([3, 3, 3, 3], 8, 2, 4),
+    ([7, 8, 15, 23], 8, 3, 2),
+    ([20, 9, 0, 12], 8, 4, 1),
+    ([40, 63, 31, 32], 32, 2, 2),
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES,
+                         ids=lambda c: f"len{c[0]}_P{c[1]}_maxp{c[2]}_S{c[3]}")
+def test_split_kv_model_matches_pallas_interpret(case):
+    """The split-KV kernel's arithmetic (splits of the live pages,
+    warps' units of up to 16 rows, partials merged in fixed order) is
+    JAX's ``_decode_kernel`` run in interpret mode, within 1e-5 in f32;
+    trash page 0 holds 1e30 and is never read for a live slot."""
+    lens, p, maxp, splits = case
+    b = len(lens)
+    pool = 1 + b * maxp
+    q, kp, vp, tbl, lengths = _state(b=b, h=2, d=32, p=p, maxp=maxp,
+                                     pool=pool, seed=sum(lens),
+                                     lengths=lens)
+    kp[0] = 1e30
+    vp[0] = 1e30
+    want = _jax((q, kp, vp, tbl, lengths), p, "pallas_interpret")
+    got = _split_decode_model(q, kp, vp, tbl, lengths, p, splits)
+    live = lengths > 0
+    np.testing.assert_allclose(got[live], want[live], atol=ATOL)
+    np.testing.assert_allclose(got[live], _torch((q, kp, vp, tbl, lengths),
+                                                 p, "kernel")[live],
+                               atol=ATOL)
+
+
+def test_decode_splits_fill_the_card_and_count_in_the_bytes():
+    """Two CTAs an SM at the serving batch, at most one split a table
+    column, at least one; the kernel's bytes add its partials'."""
+    assert TD.decode_splits(8, 8, 32) == 5           # 320 CTAs on 132 SMs
+    assert TD.decode_splits(8, 8, 2) == 2
+    assert TD.decode_splits(1, 8, 64) == 33
+    assert TD.decode_splits(64, 8, 32) == 1
+    assert TD.decode_splits(8, 8, 32, sms=16) == 1
+    split = 2.0 * 8 * 8 * 5 * (64 + 2) * 4
+    assert TD.decode_hbm_bytes("kernel", 8, 8, 64, 16, 32) == \
+        TD.decode_hbm_bytes("fused", 8, 8, 64, 16, 32) + split
+    assert TD.decode_hbm_bytes("kernel", 64, 8, 64, 16, 32) == \
+        TD.decode_hbm_bytes("fused", 64, 8, 64, 16, 32)

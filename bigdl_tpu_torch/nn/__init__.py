@@ -4,18 +4,24 @@ from bigdl_tpu_torch.nn.module import (AbstractModule, Composite, Container,
                                        Identity, Sequential)
 from bigdl_tpu_torch.nn.layers import (BatchNormalization,
                                        InitializationMethod, Linear,
-                                       LogSoftMax, MsraFiller, ReLU, Reshape,
+                                       LogSoftMax, LookupTable, MsraFiller,
+                                       ReLU, Reshape, Sigmoid,
                                        SpatialAveragePooling,
                                        SpatialBatchNormalization,
                                        SpatialConvolution, SpatialMaxPooling,
-                                       View, Xavier, Zeros)
+                                       Tanh, View, Xavier, Zeros)
 from bigdl_tpu_torch.nn.table_ops import CAddTable, ConcatTable
 from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion,
-                                          CrossEntropyCriterion)
+                                          CrossEntropyCriterion,
+                                          TimeDistributedCriterion)
 from bigdl_tpu_torch.nn.fused import SpatialConvolutionBatchNorm, fuse_conv_bn
 from bigdl_tpu_torch.nn.attention import (LayerNorm, MultiHeadAttention,
                                           PositionalEmbedding,
                                           TransformerBlock)
+from bigdl_tpu_torch.nn.recurrent import (GRU, LSTM, BiRecurrent, Cell,
+                                          LSTMPeephole, MultiRNNCell,
+                                          Recurrent, RnnCell, Select,
+                                          TimeDistributed)
 
 __all__ = ["AbstractModule", "Composite", "Container", "Identity",
            "Sequential", "BatchNormalization", "InitializationMethod",
@@ -25,4 +31,7 @@ __all__ = ["AbstractModule", "Composite", "Container", "Identity",
            "Zeros", "CAddTable", "ConcatTable", "ClassNLLCriterion",
            "CrossEntropyCriterion", "SpatialConvolutionBatchNorm",
            "fuse_conv_bn", "LayerNorm", "MultiHeadAttention",
-           "PositionalEmbedding", "TransformerBlock"]
+           "PositionalEmbedding", "TransformerBlock", "LookupTable", "Tanh",
+           "Sigmoid", "TimeDistributedCriterion", "Cell", "RnnCell", "LSTM",
+           "LSTMPeephole", "GRU", "Recurrent", "BiRecurrent",
+           "TimeDistributed", "Select", "MultiRNNCell"]

@@ -1,7 +1,9 @@
-"""Criterions: negative log-likelihood and cross-entropy.
+"""Criterions: negative log-likelihood, cross-entropy and the per-step
+wrapper of sequence models.
 
 Counterpart of ``bigdl_tpu/nn/criterion.py``: ``ClassNLLCriterion``
-(:61) and ``CrossEntropyCriterion`` (:100).  Class targets are
+(:61), ``CrossEntropyCriterion`` (:100) and ``TimeDistributedCriterion``
+(:347).  Class targets are
 **1-based**; ``size_average`` divides by the summed target weights;
 targets equal to ``padding_value`` weigh zero.  ``loss(input, target)``
 is the pure scalar loss; gradients come from autograd.
@@ -74,4 +76,33 @@ class CrossEntropyCriterion(AbstractCriterion):
         return self._nll.loss(torch.log_softmax(input, dim=-1), target)
 
 
-__all__ = ["AbstractCriterion", "ClassNLLCriterion", "CrossEntropyCriterion"]
+class TimeDistributedCriterion(AbstractCriterion):
+    """The inner criterion over every timestep: the time dim (1-based
+    ``dimension``, default 2, i.e. (batch, time, ...)) is folded into
+    the batch, the per-step losses are summed, and ``size_average``
+    divides by the number of steps.  An averaging inner criterion
+    already gives (1/T)·Σ_t, so it is scaled back by T when
+    ``size_average`` is off (JAX :347-370)."""
+
+    def __init__(self, critrn, size_average: bool = False,
+                 dimension: int = 2):
+        super().__init__()
+        self.criterion = critrn
+        self.size_average = size_average
+        self.dimension = dimension
+
+    def loss(self, input, target):
+        d = self.dimension - 1
+        nstep = input.shape[d]
+        target = torch.as_tensor(target, device=input.device)
+        if d == 1:
+            input = input.reshape((-1,) + tuple(input.shape[2:]))
+            target = target.reshape((-1,) + tuple(target.shape[2:]))
+        inner = self.criterion.loss(input, target)
+        if getattr(self.criterion, "size_average", False):
+            return inner if self.size_average else inner * nstep
+        return inner / nstep if self.size_average else inner
+
+
+__all__ = ["AbstractCriterion", "ClassNLLCriterion", "CrossEntropyCriterion",
+           "TimeDistributedCriterion"]

@@ -2,8 +2,9 @@
 
 Counterpart of ``bigdl_tpu/nn/layers.py``: ``Zeros`` (:49),
 ``Xavier`` (:93), ``MsraFiller`` (:104), ``Linear`` (:126),
-``SpatialConvolution`` (:261), ``SpatialMaxPooling`` (:606),
-``SpatialAveragePooling`` (:654), ``ReLU`` (:739), ``LogSoftMax``
+``LookupTable`` (:187), ``SpatialConvolution`` (:261),
+``SpatialMaxPooling`` (:606), ``SpatialAveragePooling`` (:654),
+``ReLU`` (:739), ``Tanh`` (:757), ``Sigmoid`` (:764), ``LogSoftMax``
 (:773), ``BatchNormalization``/``SpatialBatchNormalization`` (:1190,
 :1369), ``Reshape`` (:1462) and ``View`` (:1493).  Initial weights are
 drawn on the host from the shared numpy ``RandomGenerator.RNG``, in the
@@ -82,6 +83,47 @@ class Linear(AbstractModule):
 
     def extra_repr(self):
         return f"{self.input_size} -> {self.output_size}"
+
+
+class LookupTable(AbstractModule):
+    """Embedding lookup (JAX :187).  Indices are 1-based (float ids are
+    cast to integers first); with ``padding_value`` > 0 that row starts
+    at zero; a finite ``max_norm`` rescales each looked-up row to at
+    most that ``norm_type`` norm as a function of the weight (the weight
+    itself is not rewritten, unlike ``F.embedding(max_norm=...)``)."""
+
+    param_names = ("weight",)
+
+    def __init__(self, n_index: int, n_output: int,
+                 padding_value: float = 0.0, max_norm: float = float("inf"),
+                 norm_type: float = 2.0):
+        super().__init__()
+        self.n_index = n_index
+        self.n_output = n_output
+        self.padding_value = padding_value
+        self.max_norm = max_norm
+        self.norm_type = norm_type
+        self.reset()
+
+    def reset(self):
+        w = RandomGenerator.RNG.normal(
+            0.0, 1.0, size=(self.n_index, self.n_output)).astype(np.float32)
+        if self.padding_value > 0:
+            w[int(self.padding_value) - 1] = 0.0
+        self._set_param("weight", w)
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        idx = x.long() - 1
+        w = self.weight
+        if self.max_norm != float("inf"):
+            norms = torch.linalg.vector_norm(w, ord=self.norm_type, dim=1,
+                                             keepdim=True)
+            w = w * torch.clamp_max(self.max_norm / (norms + 1e-7), 1.0)
+        return F.embedding(idx, w)
+
+    def extra_repr(self):
+        return f"{self.n_index}, {self.n_output}"
 
 
 def _auto_batch(x, full_ndim):
@@ -236,6 +278,20 @@ class ReLU(AbstractModule):
 
     def forward(self, x):
         return torch.maximum(x, x.new_zeros(()))
+
+
+class Tanh(AbstractModule):
+    """JAX :757."""
+
+    def forward(self, x):
+        return torch.tanh(x)
+
+
+class Sigmoid(AbstractModule):
+    """JAX :764."""
+
+    def forward(self, x):
+        return torch.sigmoid(x)
 
 
 class LogSoftMax(AbstractModule):
@@ -400,7 +456,8 @@ class View(AbstractModule):
 
 
 __all__ = ["InitializationMethod", "Zeros", "Xavier", "MsraFiller", "Linear",
-           "SpatialConvolution", "SpatialMaxPooling", "SpatialAveragePooling",
-           "ReLU", "LogSoftMax", "BatchNormalization",
+           "LookupTable", "SpatialConvolution", "SpatialMaxPooling",
+           "SpatialAveragePooling",
+           "ReLU", "Tanh", "Sigmoid", "LogSoftMax", "BatchNormalization",
            "SpatialBatchNormalization", "Reshape", "View", "fold_bn",
            "normalize", "running_update"]

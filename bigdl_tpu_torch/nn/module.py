@@ -15,10 +15,12 @@ cannot be a method here), and ``evaluate()`` is ``eval()``.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from bigdl_tpu_torch.common import fold_in
 
 
 def _as_tensor(value) -> torch.Tensor:
@@ -158,11 +160,21 @@ class Container(Composite):
 
 
 class Sequential(Container):
-    """Feed-forward chain (JAX ``Sequential``, module.py:579)."""
+    """Feed-forward chain (JAX ``Sequential``, module.py:579).  Child i
+    that takes a dropout seed gets ``fold_in(rng_seed, i)``, as the JAX
+    chain hands child i ``fold_in(rng, i)``."""
 
-    def forward(self, x):
-        for m in self._modules.values():
-            x = m(x)
+    @property
+    def takes_rng_seed(self) -> bool:
+        return any(m.takes_rng_seed for m in self._modules.values())
+
+    def forward(self, x, rng_seed: Optional[int] = None):
+        for i, m in enumerate(self._modules.values()):
+            if m.takes_rng_seed:
+                x = m(x, rng_seed=None if rng_seed is None
+                      else fold_in(rng_seed, i))
+            else:
+                x = m(x)
         return x
 
 

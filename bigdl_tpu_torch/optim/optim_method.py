@@ -2,8 +2,8 @@
 
 Counterpart of ``bigdl_tpu/optim/optim_method.py``: ``OptimMethod``
 (:241, ``init_state``), ``SGD`` (:438) and the schedules ``Default``
-(:59), ``MultiStep`` (:92), ``Warmup`` (:143) and
-``SequentialSchedule`` (:155).
+(:59), ``MultiStep`` (:92), ``Warmup`` (:143), ``SequentialSchedule``
+(:155) and ``Plateau`` (:184).
 
 ``step(grads, params, state) -> (new_params, new_state)`` is pure, as
 in the JAX package, over lists of tensors (the model's parameters in
@@ -80,6 +80,48 @@ class SequentialSchedule(LearningRateSchedule):
             rate = r if rate is None else torch.where(n >= offset, r, rate)
             offset += dur
         return rate if rate is not None else lr0
+
+
+class Plateau(LearningRateSchedule):
+    """Lower the rate by ``factor`` when the monitored validation score
+    has not improved by ``epsilon`` for ``patience`` validations.  The
+    decision is the host's (it follows validation results): the trainer
+    calls ``on_score`` after each validation and writes the scale into
+    the state's ``lr_scale``, which the step reads on the device."""
+
+    def __init__(self, monitor: str = "score", factor: float = 0.1,
+                 patience: int = 10, mode: str = "min",
+                 epsilon: float = 1e-4, cooldown: int = 0,
+                 min_lr: float = 0.0):
+        self.monitor, self.factor, self.patience = monitor, factor, patience
+        self.mode, self.epsilon = mode, epsilon
+        self.cooldown, self.min_lr = cooldown, min_lr
+        self._best = None
+        self._wait = 0
+        self._cooldown_left = 0
+        self.scale = 1.0
+
+    def on_score(self, value: float, lr0: float) -> float:
+        improved = (
+            self._best is None
+            or (self.mode == "min" and value < self._best - self.epsilon)
+            or (self.mode == "max" and value > self._best + self.epsilon))
+        if improved:
+            self._best = value
+            self._wait = 0
+        elif self._cooldown_left > 0:
+            self._cooldown_left -= 1
+        else:
+            self._wait += 1
+            if self._wait >= self.patience:
+                self.scale = max(self.scale * self.factor,
+                                 self.min_lr / max(lr0, 1e-12))
+                self._wait = 0
+                self._cooldown_left = self.cooldown
+        return self.scale
+
+    def rate(self, lr0, state):
+        return lr0 * state["lr_scale"]
 
 
 def _scalar(value, device) -> torch.Tensor:
@@ -159,4 +201,4 @@ class SGD(OptimMethod):
 
 
 __all__ = ["LearningRateSchedule", "Default", "MultiStep", "Warmup",
-           "SequentialSchedule", "OptimMethod", "SGD"]
+           "SequentialSchedule", "Plateau", "OptimMethod", "SGD"]

@@ -1,8 +1,9 @@
-"""LocalOptimizer: the single-device training loop.
+"""LocalOptimizer: the single-device training loop, with validation.
 
 Counterpart of ``bigdl_tpu/optim/optimizer.py``: ``_GradClipper``
-(:38), the fluent setters of ``BaseOptimizer`` (:139-211) and
-``LocalOptimizer`` (:491).  One step is
+(:38), the fluent setters of ``BaseOptimizer`` (:139-211),
+``_run_validation`` (:454), ``LocalOptimizer`` (:491) and the
+``Optimizer`` factory (:1173), local only.  One step is
 
     loss, grads = autograd of criterion(model(x), y)
     grads -> clipper -> optim_method.step -> non-finite guard
@@ -20,14 +21,26 @@ keeps params, optimizer state and BN state as they were when the loss
 or a gradient is NaN or inf, on the device without a host round trip,
 and the loop counts the skip; ``max_nonfinite_skips`` consecutive
 skips raise ``NonFiniteStepError``.  The loss is read back one step
-behind, so the host queues the next step before it waits.
+behind, so the host queues the next step before it waits, unless a
+trigger reads ``state["loss"]`` (``needs_loss``; a trigger that does
+not say is taken to read it): then each step's loss is read before the
+triggers are asked, as JAX's ``sync_per_step`` does.
+
+Validation (``set_validation``) runs when its trigger fires after a
+step and again at the end of an epoch (JAX :1079-1090, :1121-1129),
+after the pending losses are read: ``evaluate_dataset`` over the live
+parameters on the trainer's device, the first method's value into
+``state["score"]``, and a ``Plateau`` schedule told the score (its
+scale goes into the optimizer state's ``lr_scale``); then the model
+goes back to training mode.
 
 The port updates the model's parameters in place (the JAX step returns
 new arrays and writes them back at the end): the model holds the
-trained weights after every step.  Checkpoints, validation, the summary
-writers, observability and the input prefetcher are not ported yet; a
-train summary here is any object with ``add_scalar(tag, value, step)``,
-given the "Loss" and "Throughput" scalars of each step.
+trained weights after every step.  Checkpoints, the summary writers,
+observability and the input prefetcher are not ported yet; a train
+summary here is any object with ``add_scalar(tag, value, step)``, given
+the "Loss" and "Throughput" scalars of each step, and a validation
+summary gets each method's value at the ``neval`` of its validation.
 """
 
 from __future__ import annotations
@@ -42,7 +55,8 @@ import torch
 from bigdl_tpu_torch.common import fold_in, resolve_device
 from bigdl_tpu_torch.config import TrainConfig
 from bigdl_tpu_torch.dataset import to_dataset
-from bigdl_tpu_torch.optim.optim_method import SGD
+from bigdl_tpu_torch.optim.evaluator import evaluate_dataset
+from bigdl_tpu_torch.optim.optim_method import SGD, Plateau
 from bigdl_tpu_torch.optim.triggers import Trigger
 
 log = logging.getLogger("bigdl_tpu_torch.optim")
@@ -102,11 +116,15 @@ class LocalOptimizer:
         self.optim_method = SGD()
         self.end_when = Trigger.max_epoch(1)
         self.train_summary = None
+        self.val_summary = None
+        self.validation_trigger = None
+        self.validation_dataset = None
+        self.validation_methods = None
         self.compute_dtype = None
         self._clipper = _GradClipper()
         self._nonfinite_consec = 0
         # the reference's state table; neval is the next iteration
-        self.state = {"epoch": 1, "neval": 1, "loss": None,
+        self.state = {"epoch": 1, "neval": 1, "loss": None, "score": None,
                       "epoch_finished": 0, "nonfinite_skips": 0}
 
     # ---- fluent setters (reference spellings below) ---------------------
@@ -118,8 +136,23 @@ class LocalOptimizer:
         self.end_when = trigger
         return self
 
+    def set_validation(self, trigger=None, dataset=None, methods=None,
+                       batch_size=None):
+        """Validate with ``methods`` over ``dataset`` (a ``DataSet`` or
+        an ``(x, y)`` tuple, batched by ``batch_size`` or the training
+        batch size) whenever ``trigger`` fires."""
+        self.validation_trigger = trigger
+        self.validation_dataset = to_dataset(dataset,
+                                             batch_size or self.batch_size)
+        self.validation_methods = methods
+        return self
+
     def set_train_summary(self, summary):
         self.train_summary = summary
+        return self
+
+    def set_val_summary(self, summary):
+        self.val_summary = summary
         return self
 
     def set_gradient_clipping_by_l2_norm(self, clip_norm: float):
@@ -147,7 +180,9 @@ class LocalOptimizer:
 
     setOptimMethod = set_optim_method
     setEndWhen = set_end_when
+    setValidation = set_validation
     setTrainSummary = set_train_summary
+    setValSummary = set_val_summary
     setGradientClippingByL2Norm = set_gradient_clipping_by_l2_norm
     setConstantGradientClipping = set_constant_gradient_clipping
 
@@ -192,6 +227,29 @@ class LocalOptimizer:
                 p.copy_(q)
         return new_opt, loss.detach(), ok
 
+    def _run_validation(self):
+        """Validate on the live parameters; returns the results."""
+        if self.validation_dataset is None or not self.validation_methods:
+            return None
+        results = evaluate_dataset(self.model, self.validation_dataset,
+                                   self.validation_methods, self.device)
+        for method, res in zip(self.validation_methods, results):
+            value, _ = res.result()
+            log.info("validation %s: %.6f", method.name, value)
+            if self.val_summary is not None:
+                self.val_summary.add_scalar(method.name, value,
+                                            self.state["neval"])
+        # the first method's value is the score Trigger.max_score reads
+        self.state["score"] = results[0].result()[0]
+        opt = self.optim_method
+        sched = getattr(opt, "learningrate_schedule", None)
+        if isinstance(sched, Plateau):
+            scale = sched.on_score(self.state["score"], opt.learningrate)
+            if opt.state is not None:
+                opt.state["lr_scale"] = torch.tensor(
+                    scale, dtype=torch.float32, device=self.device)
+        return results
+
     # ---- the loop ----------------------------------------------------------
     def optimize(self):
         cfg = TrainConfig.from_env()
@@ -206,6 +264,10 @@ class LocalOptimizer:
             opt.state = opt.init_state([p.detach() for p in params])
         self._nonfinite_consec = 0
         pending = []        # (n, loss, ok, batch size, dispatch time)
+        val_trigger = self.validation_trigger
+        sync_per_step = any(getattr(t, "needs_loss", True)
+                            for t in (self.end_when, val_trigger)
+                            if t is not None)
 
         def resolve(n, loss_dev, ok_dev, bs, t0):
             loss_val = float(loss_dev)
@@ -249,7 +311,13 @@ class LocalOptimizer:
                 # read the previous step's loss while this one runs
                 flush()
                 pending.append((n, loss, ok, int(inp_d.shape[0]), t0))
+                if sync_per_step:
+                    flush()
                 self.state["neval"] = n + 1
+                if val_trigger is not None and val_trigger(self.state):
+                    flush()
+                    self._run_validation()
+                    model.train()
                 if self.end_when(self.state):
                     stop, finished = True, False
                     break
@@ -260,10 +328,36 @@ class LocalOptimizer:
                 opt.state["epoch"] = opt.state["epoch"] + 1.0
                 log.info("Epoch %d done in %.1fs", epoch,
                          time.time() - t_epoch)
+                if val_trigger is not None and val_trigger(self.state):
+                    self._run_validation()
+                    model.train()
                 if self.end_when(self.state):
                     stop = True
         model.evaluate()
         return model
 
 
-__all__ = ["LocalOptimizer", "NonFiniteStepError"]
+def Optimizer(model=None, training_set=None, criterion=None,
+              batch_size: int = 32, training_rdd=None, x=None, y=None,
+              end_trigger=None, optim_method=None, distributed=None,
+              device="cuda"):
+    """Factory (JAX :1173): a ``LocalOptimizer`` over ``training_set``
+    (or ``training_rdd``, or ``(x, y)``).  ``distributed=True`` raises:
+    ``DistriOptimizer`` is not ported yet."""
+    if distributed:
+        raise NotImplementedError(
+            "DistriOptimizer is not ported yet (ROADMAP.md queue 1 item 6); "
+            "pass distributed=False")
+    data = training_set if training_set is not None else training_rdd
+    if data is None and x is not None:
+        data = (x, y)
+    opt = LocalOptimizer(model, to_dataset(data, batch_size), criterion,
+                         batch_size, device=device)
+    if optim_method is not None:
+        opt.set_optim_method(optim_method)
+    if end_trigger is not None:
+        opt.set_end_when(end_trigger)
+    return opt
+
+
+__all__ = ["LocalOptimizer", "NonFiniteStepError", "Optimizer"]

@@ -87,6 +87,24 @@ it runs; any failure exits non-zero:
     ``flash_bwd_dkv`` 8 times each per step (the reference arm none);
 12. where the kernel arm's step goes: ``torch.profiler`` over two
     steps, as phase 8;
+13. the PTB language model (``bench.py:414-426``: vocab 10000, embed
+    128, one LSTM of 256, random weights from seed 0) trained one epoch
+    in f32 by ``LocalOptimizer`` with ``SGD(learningrate=0.1)`` and the
+    L2 clip of 5.0, over ``synthetic_ptb_stream``'s 20000 tokens in
+    BPTT windows of 20 over 64 streams (15 steps): every loss finite
+    and within 1e-4 relative of the same run on the CPU (same weights,
+    same shuffle), the perplexity lower after the epoch than before, no
+    kernel of ``csrc/`` launched; a ``Recurrent(GRU(128, 256))`` forward
+    and its input gradient within 1e-4 relative L2 of the CPU's; the
+    steady step's ms and tokens/s, then two steps under
+    ``torch.profiler`` (device busy share, host ops), as phase 8;
+14. LeNet-5 with validation: ``train_lenet``'s recipe through the
+    ``Optimizer`` factory on synthetic MNIST (2048 train, 2048 test,
+    batch 128, lr 0.1, 2 epochs, ``Top1Accuracy`` and ``Loss`` every
+    epoch): the last validation's Top1 at least 0.99, the first 3 losses
+    within 1e-4 relative of a CPU run's, and ``evaluate_dataset`` on the
+    card and on the CPU from the final weights giving equal Top1 counts
+    and Loss values within 1e-5; the steady step's ms and images/s;
 9. the kernels line, last: one JSON object listing each kernel with its
    launches on its own path (phase 4, the fused arm of phase 7, or the
    kernel arm of phase 11) and its numbers from phase 3, 6 or 10.
@@ -204,6 +222,20 @@ LM = dict(dim=512, n_head=8, n_layer=8)
 LM_VOCAB, LM_BATCH, LM_T, LM_STEPS = 8192, 16, 512, 5
 LONG_BATCH, LONG_T = 2, 4096
 LM_GRAD_REL_TOL, LM_LOSS_TOL = 1e-4, 1e-2
+# the PTB LM (phase 13): bench.py:414-426's model on synthetic_ptb_stream's
+# tokens in BPTT windows (15 windows of 64 x 20: one epoch is 15 steps);
+# the limits on each card loss against the CPU run's (relative) and on
+# the GRU's output and input gradient against the CPU's (relative L2):
+# f32 sums of the same products in other orders, TF32 off
+PTB_VOCAB, PTB_EMBED, PTB_HIDDEN = 10000, 128, 256
+PTB_BATCH, PTB_T, PTB_TOKENS = 64, 20, 20000
+PTB_LOSS_REL_TOL, GRU_REL_TOL = 1e-4, 1e-4
+# LeNet-5 (phase 14): train_lenet's recipe (bigdl_tpu/models/lenet.py:39)
+# at lr 0.1 on synthetic MNIST; the verify skill's Top1 bar for this
+# task; the first losses against the CPU run's (relative) and the eval
+# Loss against the CPU's (absolute)
+LENET_N, LENET_BATCH, LENET_EPOCHS, LENET_LR = 2048, 128, 2, 0.1
+LENET_TOP1_MIN, LENET_LOSS_REL_TOL, LENET_EVAL_LOSS_TOL = 0.99, 1e-4, 1e-5
 # the device of the conv_bn, flash backward and training phases
 DEV = "cuda"
 # clock cycles of the busy wait before a device-only timing (some 2 ms at
@@ -964,6 +996,30 @@ def _train_arm(fused: bool, x, y):
     return opt, loss, step_ms, launches
 
 
+class _TimedLosses(_Losses):
+    """Each step's loss and the host clock when the trainer read it."""
+
+    def __init__(self):
+        super().__init__()
+        self.at = {}
+
+    def add_scalar(self, tag, value, step):
+        super().add_scalar(tag, value, step)
+        if tag == "Loss":
+            self.at[step] = time.perf_counter()
+
+
+def steady_step_ms(at: dict, per_epoch: int) -> float:
+    """The median gap between two successive loss reads from step 2 on.
+    The trainer reads step n's loss after it has queued step n + 1, so
+    a gap is one loop period when steps n + 1 and n + 2 are in one
+    epoch (an epoch's last read waits on no next step, and validation
+    runs after it)."""
+    gaps = [at[n + 1] - at[n] for n in sorted(at)
+            if n >= 2 and n + 1 in at and (n - 1) % per_epoch <= per_epoch - 3]
+    return float(np.median(gaps)) * 1e3
+
+
 def loss_gaps(std_loss, fused_loss) -> tuple:
     """|loss, fused - standard| by step, and the steps (1-based) where
     it is over its limit."""
@@ -1348,6 +1404,209 @@ def phase_lm_training():
     return opt, launches
 
 
+def _ptb_data():
+    """The BPTT windows of bench.py's PTB config: (x, y) of (15·64, 20)
+    1-based float ids."""
+    from bigdl_tpu_torch.dataset.text import (ptb_bptt_batches,
+                                              synthetic_ptb_stream)
+
+    stream = synthetic_ptb_stream(n_tokens=PTB_TOKENS, vocab_size=PTB_VOCAB)
+    xs, ys = ptb_bptt_batches(stream, PTB_BATCH, PTB_T)
+    return xs.reshape(-1, PTB_T), ys.reshape(-1, PTB_T)
+
+
+def _ptb_run(device, x, y):
+    """One epoch of the PTB LM on ``device`` from the seed-0 weights and
+    the seed-1 shuffle: (optimizer, losses, perplexity before, after;
+    the perplexities on the card only)."""
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.models.rnn import (PTB_CLIP_NORM, build_ptb_lm,
+                                            perplexity)
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+
+    RandomGenerator.RNG.set_seed(0)
+    model = build_ptb_lm(PTB_VOCAB, embed_size=PTB_EMBED,
+                         hidden_size=PTB_HIDDEN, device=device)
+    on_card = device == DEV
+    before = perplexity(model, x, y, PTB_BATCH, device) if on_card else None
+    RandomGenerator.RNG.set_seed(1)
+    losses = _TimedLosses()
+    opt = LocalOptimizer(model, (x, y), TimeDistributedCriterion(
+        ClassNLLCriterion(), size_average=True), batch_size=PTB_BATCH,
+        device=device)
+    opt.set_optim_method(SGD(learningrate=0.1))
+    opt.set_end_when(Trigger.max_epoch(1)).set_train_summary(losses)
+    opt.set_gradient_clipping_by_l2_norm(PTB_CLIP_NORM)
+    opt.optimize()
+    after = perplexity(model, x, y, PTB_BATCH, device) if on_card else None
+    return opt, losses, before, after
+
+
+def _gru_gap() -> list:
+    """A ``Recurrent(GRU(128, 256))`` forward and its input gradient on
+    the card against the CPU: relative L2 of each."""
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.nn import GRU, Recurrent
+
+    RandomGenerator.RNG.set_seed(3)
+    layer = Recurrent().add(GRU(PTB_EMBED, PTB_HIDDEN))
+    x = np.random.RandomState(4).randn(PTB_BATCH, PTB_T, PTB_EMBED).astype(
+        np.float32)
+    r = np.random.RandomState(5).randn(PTB_BATCH, PTB_T, PTB_HIDDEN).astype(
+        np.float32)
+    res = {}
+    for dev in (DEV, "cpu"):
+        layer.to(dev)
+        xt = torch.tensor(x, device=dev, requires_grad=True)
+        out = layer(xt)
+        (gx,) = torch.autograd.grad(
+            (out * torch.as_tensor(r, device=dev)).sum(), [xt])
+        res[dev] = (out.detach().cpu(), gx.cpu())
+    return [((a - b).norm() / b.norm()).item()
+            for a, b in zip(res[DEV], res["cpu"])]
+
+
+def phase_ptb() -> None:
+    """Phase 13: the PTB LM's epoch on the card and on the CPU, the GRU
+    check, then two profiled steps."""
+    from bigdl_tpu_torch.ops import _cuda
+
+    t_phase = time.perf_counter()
+    x, y = _ptb_data()
+    kernels_before = dict(_cuda.launches)
+    torch.cuda.synchronize()
+    opt, losses, ppl0, ppl1 = _ptb_run(DEV, x, y)
+    torch.cuda.synchronize()
+    steps = x.shape[0] // PTB_BATCH
+    loss = [losses.loss[n] for n in sorted(losses.loss)]
+    step_ms = steady_step_ms(losses.at, steps)
+    t0 = time.perf_counter()
+    _, cpu_losses, _, _ = _ptb_run("cpu", x, y)
+    cpu_s = time.perf_counter() - t0
+    cpu = [cpu_losses.loss[n] for n in sorted(cpu_losses.loss)]
+    rel = [abs(a - b) / abs(b) for a, b in zip(loss, cpu)]
+    say(f"phase 13 PTB LM vocab {PTB_VOCAB}, embed {PTB_EMBED}, LSTM "
+        f"{PTB_HIDDEN}, batch {PTB_BATCH}, T {PTB_T}, f32: {len(loss)} "
+        f"steps, losses {['%.5f' % v for v in loss]}; perplexity "
+        f"{ppl0:.3f} -> {ppl1:.3f}")
+    say(f"phase 13 step {step_ms:.3f} ms (median, wall), "
+        f"{PTB_BATCH * PTB_T / step_ms * 1e3:.1f} tokens/s; card "
+        f"against CPU ({cpu_s:.1f} s) worst relative loss gap "
+        f"{max(rel):.3e} at step {int(np.argmax(rel)) + 1} (limit "
+        f"{PTB_LOSS_REL_TOL:g})")
+    if len(loss) != steps or len(cpu) != steps or not all(np.isfinite(loss)):
+        raise AssertionError(f"PTB LM: missing or non-finite losses {loss}")
+    if not max(rel) <= PTB_LOSS_REL_TOL:
+        raise AssertionError(f"PTB LM losses off the CPU run's: {rel}")
+    if not ppl1 < ppl0:
+        raise AssertionError(f"perplexity did not fall: {ppl0} -> {ppl1}")
+    if dict(_cuda.launches) != kernels_before:
+        raise AssertionError("the PTB LM launched a kernel of csrc/")
+    gru = _gru_gap()
+    say(f"phase 13 Recurrent(GRU({PTB_EMBED}, {PTB_HIDDEN})) card against "
+        f"CPU: relative L2 output {gru[0]:.3e}, input gradient {gru[1]:.3e} "
+        f"(limit {GRU_REL_TOL:g})")
+    if not max(gru) <= GRU_REL_TOL:
+        raise AssertionError(f"GRU off the CPU's: {gru}")
+    phase_train_profile(opt, 13, "PTB LM step")
+    say(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
+
+
+class _Scalars:
+    """The validation summary: (tag, neval, value) rows."""
+
+    def __init__(self):
+        self.rows = []
+
+    def add_scalar(self, tag, value, step):
+        self.rows.append((tag, step, value))
+
+
+def _lenet_run(device, steps=None):
+    """``train_lenet``'s recipe through the ``Optimizer`` factory:
+    ``LENET_EPOCHS`` epochs with validation every epoch, or ``steps``
+    steps without it.  Returns (model, test set, losses, validations)."""
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.dataset import ArrayDataSet
+    from bigdl_tpu_torch.dataset.mnist import load_mnist, normalize
+    from bigdl_tpu_torch.models.lenet import build_lenet5
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import (SGD, Loss, Optimizer, Top1Accuracy,
+                                       Trigger)
+
+    RandomGenerator.RNG.set_seed(0)
+    model = build_lenet5(device=device)
+    x, y = load_mnist(None, "train", synthetic_n=LENET_N)
+    tx, ty = load_mnist(None, "test", synthetic_n=LENET_N)
+    test_ds = ArrayDataSet(normalize(tx), ty, LENET_BATCH)
+    opt = Optimizer(model=model, training_set=ArrayDataSet(
+        normalize(x), y, LENET_BATCH), criterion=ClassNLLCriterion(),
+        batch_size=LENET_BATCH, device=device)
+    losses, vals = _TimedLosses(), _Scalars()
+    opt.set_optim_method(SGD(learningrate=LENET_LR))
+    opt.set_train_summary(losses).set_val_summary(vals)
+    if steps:
+        opt.set_end_when(Trigger.max_iteration(steps))
+    else:
+        opt.set_end_when(Trigger.max_epoch(LENET_EPOCHS)).set_validation(
+            Trigger.every_epoch(), test_ds, [Top1Accuracy(), Loss()])
+    RandomGenerator.RNG.set_seed(1)
+    opt.optimize()
+    return model, test_ds, losses, vals
+
+
+def phase_lenet() -> None:
+    """Phase 14: LeNet-5 with validation on the card, its first losses
+    and its evaluation against the CPU's."""
+    from bigdl_tpu_torch.models.lenet import build_lenet5
+    from bigdl_tpu_torch.optim import Loss, Top1Accuracy, evaluate_dataset
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    model, test_ds, losses, vals = _lenet_run(DEV)
+    torch.cuda.synchronize()
+    per_epoch = LENET_N // LENET_BATCH
+    loss = [losses.loss[n] for n in sorted(losses.loss)]
+    step_ms = steady_step_ms(losses.at, per_epoch)
+    top1 = [v for t, _, v in vals.rows if t == "Top1Accuracy"]
+    val_loss = [v for t, _, v in vals.rows if t == "Loss"]
+    _, _, cpu_losses, _ = _lenet_run("cpu", steps=3)
+    cpu = [cpu_losses.loss[n] for n in sorted(cpu_losses.loss)]
+    rel = [abs(a - b) / abs(b) for a, b in zip(loss, cpu)]
+    cpu_model = build_lenet5(device="cpu")
+    cpu_model.set_params(model.params())
+    t0 = time.perf_counter()
+    card_eval = evaluate_dataset(model, test_ds, [Top1Accuracy(), Loss()],
+                                 DEV)
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    cpu_eval = evaluate_dataset(cpu_model, test_ds, [Top1Accuracy(), Loss()],
+                                "cpu")
+    loss_gap = abs(card_eval[1].result()[0] - cpu_eval[1].result()[0])
+    say(f"phase 14 LeNet-5, {LENET_N} train / {LENET_N} test, batch "
+        f"{LENET_BATCH}, lr {LENET_LR}: {len(loss)} steps, validation Top1 "
+        f"by epoch {['%.4f' % v for v in top1]}, Loss "
+        f"{['%.5f' % v for v in val_loss]}; step {step_ms:.3f} ms (median, "
+        f"wall), {LENET_BATCH / step_ms * 1e3:.1f} images/s")
+    say(f"phase 14 first losses card {['%.6f' % v for v in loss[:3]]}, CPU "
+        f"{['%.6f' % v for v in cpu]}, worst relative gap {max(rel):.3e} "
+        f"(limit {LENET_LOSS_REL_TOL:g}); evaluate_dataset card "
+        f"({eval_ms:.1f} ms) against CPU: Top1 {card_eval[0].total:.0f} / "
+        f"{cpu_eval[0].total:.0f} of {card_eval[0].count}, Loss gap "
+        f"{loss_gap:.3e} (limit {LENET_EVAL_LOSS_TOL:g})")
+    if len(loss) != LENET_EPOCHS * per_epoch or not all(np.isfinite(loss)):
+        raise AssertionError(f"LeNet-5: missing or non-finite losses {loss}")
+    if len(top1) != LENET_EPOCHS or not top1[-1] >= LENET_TOP1_MIN:
+        raise AssertionError(f"LeNet-5 validation Top1 {top1}")
+    if len(cpu) != 3 or not max(rel) <= LENET_LOSS_REL_TOL:
+        raise AssertionError(f"LeNet-5 losses off the CPU run's: {rel}")
+    if card_eval[0].total != cpu_eval[0].total or not (
+            loss_gap <= LENET_EVAL_LOSS_TOL):
+        raise AssertionError("evaluate_dataset differs between the card and "
+                             "the CPU")
+    say(f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1377,6 +1636,10 @@ def main() -> int:
     phase_train_profile(opt, 12, "kernel-arm transformer training step")
     launches.update({k: lm_launches[k]
                      for k in ("flash_bwd_dq", "flash_bwd_dkv")})
+    del opt
+    torch.cuda.empty_cache()
+    phase_ptb()
+    phase_lenet()
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["launches"] <= 0:

@@ -150,7 +150,11 @@ def test_import_loads_neither_jax_nor_bigdl_tpu():
         "bigdl_tpu_torch.optim, bigdl_tpu_torch.optim.optimizer, "
         "bigdl_tpu_torch.dataset, bigdl_tpu_torch.models.resnet, "
         "bigdl_tpu_torch.nn.fused, bigdl_tpu_torch.nn.criterion, "
-        "bigdl_tpu_torch.nn.table_ops, bigdl_tpu_torch.ops.conv_bn\n"
+        "bigdl_tpu_torch.nn.table_ops, bigdl_tpu_torch.ops.conv_bn, "
+        "bigdl_tpu_torch.nn.recurrent, bigdl_tpu_torch.models.rnn, "
+        "bigdl_tpu_torch.models.lenet, bigdl_tpu_torch.optim.validation, "
+        "bigdl_tpu_torch.optim.evaluator, bigdl_tpu_torch.dataset.text, "
+        "bigdl_tpu_torch.dataset.mnist\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'bigdl_tpu' or m.startswith('bigdl_tpu.')]\n"
         "print(bad)\n"

@@ -1,8 +1,10 @@
 """Knobs of the PyTorch/CUDA port, read from ``BIGDL_TORCH_*``.
 
 Counterpart of the ``ServeConfig`` section of ``bigdl_tpu/config.py``
-(the serving defaults ``LMEngine`` reads) and of its non-finite guard
-knobs (``TrainConfig``, read by ``LocalOptimizer``).  Constructor
+(the serving defaults ``LMEngine`` reads) and of its training knobs
+(``TrainConfig``: the non-finite guard, the retry backoff, checkpoint
+retention, the gradient wire and the input feed, read by the
+trainers).  Constructor
 arguments win; these are the process-wide fallbacks a deployment sets
 once.
 """
@@ -80,7 +82,8 @@ class ServeConfig:
 @dataclasses.dataclass
 class TrainConfig:
     """Training-loop defaults (``bigdl_tpu_torch/optim``), the JAX
-    package's ``nonfinite_guard``/``max_nonfinite_skips``."""
+    package's ``nonfinite_guard``/``max_nonfinite_skips``, retry,
+    retention and wire knobs."""
 
     # skip (keep params, optimizer and BN state) a step whose loss or a
     # gradient is NaN or inf [BIGDL_TORCH_NONFINITE_GUARD]
@@ -88,6 +91,21 @@ class TrainConfig:
     # consecutive skipped steps before NonFiniteStepError
     # [BIGDL_TORCH_MAX_NONFINITE_SKIPS]
     max_nonfinite_skips: int = 10
+    # DistriOptimizer's retry backoff: base * 2^(attempt-1), capped
+    # [BIGDL_TORCH_RETRY_BACKOFF_BASE / BIGDL_TORCH_RETRY_BACKOFF_MAX]
+    retry_backoff_base: float = 0.5
+    retry_backoff_max: float = 30.0
+    # more than `budget` transient failures inside `window` seconds
+    # stops retrying [BIGDL_TORCH_RETRY_WINDOW_SECONDS /
+    # BIGDL_TORCH_RETRY_WINDOW_BUDGET]
+    retry_window_seconds: float = 600.0
+    retry_window_budget: int = 16
+    # keep the newest K checkpoint pairs, 0 = all
+    # [BIGDL_TORCH_CHECKPOINT_KEEP_LAST]
+    checkpoint_keep_last: int = 0
+    # DistriOptimizer's gradient wire: "bfloat16" (cast before the
+    # reduce-scatter), "float32" or "none" [BIGDL_TORCH_WIRE_DTYPE]
+    wire_dtype: str = "bfloat16"
 
     @classmethod
     def from_env(cls) -> "TrainConfig":
@@ -95,6 +113,17 @@ class TrainConfig:
             nonfinite_guard=_env_bool("BIGDL_TORCH_NONFINITE_GUARD", True),
             max_nonfinite_skips=_env_int("BIGDL_TORCH_MAX_NONFINITE_SKIPS",
                                          10),
+            retry_backoff_base=_env_float("BIGDL_TORCH_RETRY_BACKOFF_BASE",
+                                          0.5),
+            retry_backoff_max=_env_float("BIGDL_TORCH_RETRY_BACKOFF_MAX",
+                                         30.0),
+            retry_window_seconds=_env_float(
+                "BIGDL_TORCH_RETRY_WINDOW_SECONDS", 600.0),
+            retry_window_budget=_env_int("BIGDL_TORCH_RETRY_WINDOW_BUDGET",
+                                         16),
+            checkpoint_keep_last=_env_int("BIGDL_TORCH_CHECKPOINT_KEEP_LAST",
+                                          0),
+            wire_dtype=_env_str("BIGDL_TORCH_WIRE_DTYPE", "bfloat16"),
         )
 
 

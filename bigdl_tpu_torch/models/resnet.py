@@ -3,7 +3,11 @@
 Counterpart of ``bigdl_tpu/models/resnet.py`` (:36-160): basic blocks
 for CIFAR (depth 6n+2), bottlenecks for ImageNet (ResNet-50/101/152),
 shortcut type B (1x1 conv projection where the shape changes), MSRA
-init, and a zero γ on the last BN of each block.  Each block is
+init, and a zero γ on the last BN of each block; and ``main`` (:163),
+the CLI: ``python -m bigdl_tpu_torch.models.resnet -f DIR`` trains
+ResNet-50 on an image folder under ``DistriOptimizer`` with the
+reference recipe (``models/train_util.py``), validating Top1/Top5 and,
+with ``--checkpoint``, checkpointing every epoch.  Each block is
 ``Sequential(ConcatTable(main, shortcut), CAddTable, ReLU)``, as in the
 reference.  Parameters are drawn on the host from
 ``RandomGenerator.RNG`` in the JAX package's order, then the model moves
@@ -141,5 +145,71 @@ def imagenet_recipe_optim(batch_size: int, n_epochs: int = 90,
                weightdecay=1e-4, learningrate_schedule=sched)
 
 
+def main(argv=None):
+    """Console entry (JAX :163).  With ``-f/--data-dir`` (an
+    ImageNet-style tree, ``<dir>/train/<class>/*``) this is the
+    TrainImageNet path: ResNet (``--depth``, 50 when the depth is not an
+    ImageNet one) with the warmup/multistep recipe under
+    ``DistriOptimizer``.  Without it the CIFAR ResNet trains on a
+    synthetic task.  Returns the optimizer."""
+    import argparse
+    import logging
+
+    import numpy as np
+
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Top1Accuracy, Trigger
+
+    logging.basicConfig(level=logging.INFO)
+    ap = argparse.ArgumentParser()
+    ap.add_argument("-f", "--data-dir", default=None,
+                    help="ImageNet-style dir (train/<cls>/*); absent = "
+                         "synthetic CIFAR task")
+    ap.add_argument("--depth", type=int, default=20)
+    ap.add_argument("-b", "--batch-size", type=int, default=128)
+    ap.add_argument("-e", "--max-epoch", type=int, default=1)
+    ap.add_argument("--learning-rate", type=float, default=None,
+                    help="base LR (ImageNet default: linear-scaled "
+                         "0.1*batch/256; CIFAR default: 0.1)")
+    ap.add_argument("-n", "--num-samples", type=int, default=1024)
+    ap.add_argument("--image-size", type=int, default=224)
+    ap.add_argument("--checkpoint", default=None)
+    ap.add_argument("--distributed", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    if args.data_dir:
+        from bigdl_tpu_torch.models.train_util import train_imagenet_folder
+
+        depth = args.depth if args.depth in _IMAGENET_CFG else 50
+        return train_imagenet_folder(
+            lambda class_num, device: build_resnet_imagenet(
+                depth=depth, class_num=class_num, device=device),
+            lambda bs, ep, it: imagenet_recipe_optim(
+                bs, n_epochs=ep, iterations_per_epoch=it,
+                base_lr=args.learning_rate),
+            args.data_dir, args.batch_size, args.max_epoch,
+            image_size=args.image_size, checkpoint=args.checkpoint,
+            device=args.device)
+
+    model = build_resnet_cifar(depth=args.depth, device=args.device)
+    rs = np.random.RandomState(0)
+    x = rs.rand(args.num_samples, 3, 32, 32).astype(np.float32)
+    y = (rs.randint(0, 10, args.num_samples) + 1).astype(np.float32)
+    opt = Optimizer(model, (x, y), ClassNLLCriterion(),
+                    batch_size=args.batch_size,
+                    distributed=args.distributed or None, device=args.device)
+    opt.set_optim_method(SGD(learningrate=args.learning_rate or 0.1,
+                             momentum=0.9))
+    opt.set_end_when(Trigger.max_epoch(args.max_epoch))
+    opt.set_validation(Trigger.every_epoch(), (x, y), [Top1Accuracy()])
+    opt.optimize()
+    return opt
+
+
 __all__ = ["basic_block", "bottleneck", "build_resnet_cifar",
-           "build_resnet_imagenet", "imagenet_recipe_optim"]
+           "build_resnet_imagenet", "imagenet_recipe_optim", "main"]
+
+
+if __name__ == "__main__":
+    main()

@@ -40,6 +40,8 @@ class SpatialConvolutionBatchNorm(AbstractModule):
 
     param_names = ("weight", "bn_weight", "bn_bias")
     state_names = ("running_mean", "running_var")
+    config_names = ("n_input_plane", "n_output_plane", "stride", "eps",
+                    "momentum", "with_relu", "kernel")
 
     def __init__(self, n_input_plane: int, n_output_plane: int,
                  stride: int = 1, eps: float = 1e-5, momentum: float = 0.1,

@@ -60,6 +60,8 @@ class MsraFiller(InitializationMethod):
 class Linear(AbstractModule):
     """``y = x Wᵀ + b`` with the ``(out, in)`` weight of the JAX package."""
 
+    config_names = ("input_size", "output_size", "with_bias")
+
     param_names = ("weight", "bias")
 
     def __init__(self, input_size: int, output_size: int,
@@ -91,6 +93,8 @@ class LookupTable(AbstractModule):
     at zero; a finite ``max_norm`` rescales each looked-up row to at
     most that ``norm_type`` norm as a function of the weight (the weight
     itself is not rewritten, unlike ``F.embedding(max_norm=...)``)."""
+
+    config_names = ("n_index", "n_output", "padding_value")
 
     param_names = ("weight",)
 
@@ -137,6 +141,10 @@ class SpatialConvolution(AbstractModule):
     order as in the reference.  Symmetric zero padding; the TF-style
     ``pad == -1`` (SAME) is not ported yet.  Runs ``F.conv2d`` (cuDNN on
     the card): the JAX package leaves this conv to XLA."""
+
+    config_names = ("n_input_plane", "n_output_plane", "kernel_w",
+                    "kernel_h", "stride_w", "stride_h", "pad_w", "pad_h",
+                    "n_group", "with_bias")
 
     param_names = ("weight", "bias")
 
@@ -212,6 +220,8 @@ class SpatialMaxPooling(AbstractModule):
     """Max pooling over NCHW (JAX :606), width-first arguments, padded
     with -inf."""
 
+    config_names = ("kw", "kh", "dw", "dh", "pad_w", "pad_h", "ceil_mode")
+
     def __init__(self, kw, kh, dw=None, dh=None, pad_w=0, pad_h=0,
                  ceil_mode=False):
         super().__init__()
@@ -234,6 +244,10 @@ class SpatialAveragePooling(AbstractModule):
     """Average pooling over NCHW (JAX :654); the divisor counts padded
     cells unless ``count_include_pad=False``; ``global_pooling`` pools
     the whole plane."""
+
+    config_names = ("kw", "kh", "dw", "dh", "pad_w", "pad_h",
+                    "global_pooling", "ceil_mode", "count_include_pad",
+                    "divide")
 
     def __init__(self, kw, kh, dw=1, dh=1, pad_w=0, pad_h=0,
                  global_pooling=False, ceil_mode=False,
@@ -345,6 +359,8 @@ class BatchNormalization(AbstractModule):
     graph keeps the values it saw, and a trainer can put the previous
     tensors back (``set_state``) when it skips a step."""
 
+    config_names = ("n_output", "eps", "momentum", "affine")
+
     param_names = ("weight", "bias")
     state_names = ("running_mean", "running_var")
     _feature_ndim = 2
@@ -414,6 +430,8 @@ class Reshape(AbstractModule):
     """Reshape (JAX :1462); ``batch_mode=None`` detects whether the
     first dim is a batch dim as the reference does."""
 
+    config_names = ("size", "batch_mode")
+
     def __init__(self, size: Sequence[int], batch_mode: Optional[bool] = None):
         super().__init__()
         self.size = tuple(int(s) for s in size)
@@ -435,6 +453,8 @@ class Reshape(AbstractModule):
 class View(AbstractModule):
     """Reshape with a -1 wildcard (JAX :1493); without one, the batch
     dim is kept when the sizes do not consume every element."""
+
+    config_names = ("sizes",)
 
     def __init__(self, *sizes, **kwargs):
         super().__init__()

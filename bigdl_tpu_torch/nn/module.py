@@ -15,6 +15,7 @@ cannot be a method here), and ``evaluate()`` is ``eval()``.
 
 from __future__ import annotations
 
+import inspect
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -39,6 +40,9 @@ class AbstractModule(torch.nn.Module):
     # a model whose forward takes ``rng_seed``, the seed of its dropout
     # masks for one step (the JAX ``apply(..., rng=key)``), says so here
     takes_rng_seed: bool = False
+    # the constructor arguments a serialized spec records, under the
+    # JAX package's names (its ``self._config``)
+    config_names: tuple = ()
 
     def _set_param(self, name: str, value) -> None:
         """Register ``value`` (numpy array, tensor or None) as parameter
@@ -95,6 +99,32 @@ class AbstractModule(torch.nn.Module):
         """Eval mode (the JAX package's ``evaluate()``); returns self."""
         self.eval()
         return self
+
+    def set_name(self, name: str):
+        """Name the layer (kept in its serialized spec); returns self."""
+        self._name = name
+        return self
+
+    def get_config(self) -> Dict[str, Any]:
+        """The constructor arguments ``cls(**config)`` rebuilds this
+        module from (JAX ``get_config``).  A class whose constructor
+        needs an argument it does not record raises: its spec could not
+        be rebuilt."""
+        sig = inspect.signature(type(self).__init__)
+        missing = [n for n, p in sig.parameters.items()
+                   if n != "self" and p.default is inspect.Parameter.empty
+                   and p.kind in (p.POSITIONAL_OR_KEYWORD, p.KEYWORD_ONLY)
+                   and n not in self.config_names]
+        if missing:
+            raise NotImplementedError(
+                f"{type(self).__name__} cannot be serialized: its "
+                f"constructor arguments {missing} are not recorded "
+                "(ROADMAP.md queue 1)")
+        out = {}
+        for n in self.config_names:
+            v = getattr(self, n)
+            out[n] = list(v) if isinstance(v, tuple) else v
+        return out
 
 
 class _Children(list):

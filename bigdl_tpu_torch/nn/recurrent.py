@@ -105,6 +105,7 @@ class RnnCell(Cell):
     """``h' = act(x w + b + h u)`` (JAX :126)."""
 
     param_names = ("w", "u", "b")
+    config_names = ("input_size", "hidden_size")
 
     def __init__(self, input_size: int, hidden_size: int, activation=None):
         super().__init__()
@@ -139,6 +140,7 @@ class LSTM(Cell):
     nonlinearity (Tanh), ``inner_activation`` the gates' (Sigmoid)."""
 
     param_names = ("w", "u", "b")
+    config_names = ("input_size", "hidden_size", "p")
     n_gates = 4
 
     def __init__(self, input_size: int, hidden_size: int, p: float = 0.0,
@@ -186,6 +188,7 @@ class LSTMPeephole(Cell):
     and o gates (JAX :228)."""
 
     param_names = ("w", "u", "b", "p_i", "p_f", "p_o")
+    config_names = ("input_size", "hidden_size", "p")
     n_gates = 4
 
     def __init__(self, input_size: int, hidden_size: int, p: float = 0.0):
@@ -223,6 +226,7 @@ class GRU(Cell):
     :278); ``p`` is the per-gate input dropout over its three inputs."""
 
     param_names = ("w_rz", "u_rz", "b_rz", "w_h", "u_h", "b_h")
+    config_names = ("input_size", "hidden_size", "p")
 
     def __init__(self, input_size: int, hidden_size: int, p: float = 0.0,
                  activation=None, inner_activation=None):
@@ -350,6 +354,8 @@ class Select(AbstractModule):
     """One 1-based ``index`` along the 1-based ``dim``; negative values
     count from the end (``Select(2, -1)``: the last timestep) (JAX
     :440)."""
+
+    config_names = ("dim", "index")
 
     def __init__(self, dim: int, index: int):
         super().__init__()

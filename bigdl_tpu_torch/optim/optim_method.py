@@ -7,17 +7,30 @@ Counterpart of ``bigdl_tpu/optim/optim_method.py``: ``OptimMethod``
 
 ``step(grads, params, state) -> (new_params, new_state)`` is pure, as
 in the JAX package, over lists of tensors (the model's parameters in
-``named_parameters`` order).  The counters in the state (``neval``,
-``epoch``) are 0-d f32 tensors on the parameters' device, so the rate
-of a schedule is computed on the device and a step never waits for
-the host.
+the JAX package's leaf order, ``utils/tree.py``).  The counters in the
+state (``neval``, ``epoch``) are 0-d f32 tensors on the parameters'
+device, so the rate of a schedule is computed on the device and a step
+never waits for the host.
+
+Checkpoint support (JAX :292-400): ``get_state_arrays`` flattens the
+state to the JAX package's ``/``-joined npz keys, a per-parameter list
+through ``param_tree`` (the trainer's parameter tree, each leaf the
+list position of that parameter), so ``velocity/0/bias`` names the
+same array in both packages; ``load_state_arrays`` gives the nested
+dict back, which a trainer turns into its list when it starts;
+``save``/``load`` write and rebuild a whole method.
 """
 
 from __future__ import annotations
 
+import json
+import pickle
 from typing import List, Optional
 
+import numpy as np
 import torch
+
+from bigdl_tpu_torch.utils import tree as T
 
 
 class LearningRateSchedule:
@@ -128,12 +141,20 @@ def _scalar(value, device) -> torch.Tensor:
     return torch.tensor(value, dtype=torch.float32, device=device)
 
 
+def _host(v) -> np.ndarray:
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
+        else np.asarray(v)
+
+
 class OptimMethod:
     """Base class: a pure ``step`` over lists of tensors, and the state
     table it carries between steps."""
 
     def __init__(self):
         self.state = None
+        # the parameter tree whose leaves are positions in a per-
+        # parameter state list (set by the trainer that built the list)
+        self.param_tree = None
 
     def init_state(self, params: List[torch.Tensor]) -> dict:
         dev = params[0].device if params else torch.device("cpu")
@@ -155,6 +176,116 @@ class OptimMethod:
 
     def step(self, grads, params, state):
         raise NotImplementedError
+
+    # ---- checkpoint support (JAX :292-400) ---------------------------------
+    def get_state_arrays(self) -> dict:
+        """The state as host arrays under ``/``-joined keys; an empty
+        layer slot of a per-parameter tree is kept as
+        ``<path>/__emptydict__``."""
+        if self.state is None:
+            return {}
+        out = {}
+
+        def walk(prefix, v):
+            if isinstance(v, dict):
+                if not v and prefix:
+                    out[f"{prefix}/__emptydict__"] = np.zeros(0)
+                for k, sub in v.items():
+                    walk(f"{prefix}/{k}" if prefix else k, sub)
+            elif isinstance(v, (list, tuple)):
+                if self.param_tree is None:
+                    raise ValueError(
+                        f"state entry {prefix!r} is a list but the method "
+                        "has no param_tree to name its entries")
+                for path, i in T.leaves_with_paths(self.param_tree):
+                    out["/".join((prefix,) + path)] = _host(v[i])
+                for path in T.empty_paths(self.param_tree):
+                    out["/".join((prefix,) + path + ("__emptydict__",))] = \
+                        np.zeros(0)
+            else:
+                out[prefix] = _host(v)
+
+        walk("", self.state)
+        return out
+
+    @staticmethod
+    def _unflatten_state(arrays: dict) -> dict:
+        state: dict = {}
+        for key, v in arrays.items():
+            parts = key.split("/")
+            d = state
+            for p in parts[:-1]:
+                d = d.setdefault(p, {})
+            if parts[-1] == "__emptydict__":
+                continue
+            d[parts[-1]] = torch.from_numpy(np.array(v, copy=True))
+        return state
+
+    def load_state_arrays(self, arrays: dict) -> None:
+        """State from ``get_state_arrays``' keys (either package's):
+        CPU tensors, per-parameter entries as nested dicts."""
+        self.state = self._unflatten_state(arrays)
+
+    _CONTAINER_KEYS = ("__class__", "__hyper__", "__hyper_skipped__",
+                       "__meta__")
+
+    def save(self, path: str) -> None:
+        """The method's hyperparameters (pickled; ones that cannot be
+        are listed and skipped) and its state table, in one npz."""
+        hyper, skipped = {}, []
+        for k, v in vars(self).items():
+            if k == "state":
+                continue
+            try:
+                pickle.dumps(v)
+                hyper[k] = v
+            except Exception:  # noqa: BLE001 - any unpicklable attribute
+                skipped.append(k)
+        np.savez(path, __class__=type(self).__name__,
+                 __hyper__=np.frombuffer(pickle.dumps(hyper),
+                                         dtype=np.uint8).copy(),
+                 __hyper_skipped__=np.asarray(skipped, dtype=object),
+                 **self.get_state_arrays())
+
+    @staticmethod
+    def load(path: str) -> "OptimMethod":
+        """Rebuild a method written by ``save``.  A checkpoint's
+        ``.optim.npz`` holds no hyperparameters and raises, as does a
+        file whose hyperparameters could not be pickled."""
+        if not path.endswith(".npz"):
+            path = path + ".npz"
+        data = np.load(path, allow_pickle=True)
+        if "__class__" not in data.files:
+            if "__meta__" in data.files:
+                name = json.loads(bytes(data["__meta__"]).decode())["class"]
+                raise ValueError(
+                    f"{path} is a checkpoint's optimizer state (class "
+                    f"{name}, no hyperparameters): build the method and "
+                    "use load_checkpoint or load_state_arrays")
+            raise ValueError(f"{path} is not an OptimMethod.save file")
+        skipped = [str(s) for s in data["__hyper_skipped__"].tolist()]
+        if skipped:
+            raise ValueError(f"{path}: hyperparameters {skipped} could not "
+                             "be pickled at save time")
+
+        def subclasses(cls):
+            out = {}
+            for sub in cls.__subclasses__():
+                out[sub.__name__] = sub
+                out.update(subclasses(sub))
+            return out
+
+        name = str(data["__class__"])
+        klass = subclasses(OptimMethod).get(name)
+        if klass is None:
+            raise ValueError(f"unknown OptimMethod class {name!r}")
+        obj = klass.__new__(klass)
+        vars(obj).update(pickle.loads(data["__hyper__"].tobytes()))
+        state = OptimMethod._unflatten_state(
+            {k: data[k] for k in data.files
+             if k not in OptimMethod._CONTAINER_KEYS})
+        obj.state = state or None
+        return obj
 
 
 class SGD(OptimMethod):

@@ -105,6 +105,31 @@ it runs; any failure exits non-zero:
     within 1e-4 relative of a CPU run's, and ``evaluate_dataset`` on the
     card and on the CPU from the final weights giving equal Top1 counts
     and Loss values within 1e-5; the steady step's ms and images/s;
+15. ResNet-50 from an image folder through ``DistriOptimizer``: a
+    folder of BMPs written from seed 0 (8 classes, 32 train and 8 val
+    images each, 240x300 to 300x240 pixels, a class pattern plus
+    noise); (a) the entry point, ``bigdl_tpu_torch.models.resnet.main
+    (["-f", DIR, "--depth", "50", "-b", "32", "-e", "2",
+    "--checkpoint", CK])``: ResNet-50 at full width, 224x224, f32, the
+    reference recipe, world 1 on NCCL, 8 steps an epoch; every loss
+    finite, Top1 and Top5 logged each epoch, neval 17, two checkpoints
+    that pass ``verify_checkpoint``, the last loading into a CPU model
+    bit-equal to the trained one; (b) the retry: 64 synthetic 224x224
+    images, no shuffle, batch 32, 3 epochs, a RuntimeError at the first
+    step of epoch 2 through ``_put_batch``: one reload, neval 7, weights
+    and BN state bit-equal to an uninterrupted run; (c) phase 7's
+    ResNet-50 for 3 steps by ``DistriOptimizer`` at world 1 and by
+    ``LocalOptimizer``: f32 with the f32 wire, losses and params within
+    1e-5 relative; fused in bf16 with the bf16 wire, losses within
+    1e-2, ``conv_bn_1x1`` and ``conv_bn_kxk`` launched 36 and 16 times a
+    step; (b) and (c) with cuDNN deterministic; (d) timing lines, no
+    limits: the entry point's median step ms and images/s, the host
+    decode ms a batch, how often the step waited on the prefetch queue,
+    the f32 comparison of (c) again on cuDNN's default algorithms, and
+    the same 8 steps with the batches copied from pageable and from
+    pinned memory (pinned, pageable, pageable, pinned), each with the
+    card's name and power limit; the process group is destroyed at the
+    end;
 9. the kernels line, last: one JSON object listing each kernel with its
    launches on its own path (phase 4, the fused arm of phase 7, or the
    kernel arm of phase 11) and its numbers from phase 3, 6 or 10.
@@ -236,6 +261,17 @@ PTB_LOSS_REL_TOL, GRU_REL_TOL = 1e-4, 1e-4
 # Loss against the CPU's (absolute)
 LENET_N, LENET_BATCH, LENET_EPOCHS, LENET_LR = 2048, 128, 2, 0.1
 LENET_TOP1_MIN, LENET_LOSS_REL_TOL, LENET_EVAL_LOSS_TOL = 0.99, 1e-4, 1e-5
+# ResNet-50 from an image folder (phase 15): classes, train and val
+# images a class, global batch and epochs of the entry point; the retry's
+# synthetic images and epochs; DistriOptimizer's steps against
+# LocalOptimizer and its f32 limit (relative, losses and params' L2: at
+# world 1 the same f32 products, the gradient scaled by the batch and
+# back by a power of two); the steps of each run of the copy A/B
+IMG_CLASSES, IMG_TRAIN, IMG_VAL, IMG_BATCH, IMG_EPOCHS = 8, 32, 8, 32, 2
+IMG_SIZE = 224
+RETRY_N, RETRY_EPOCHS = 64, 3
+DISTRI_STEPS, DISTRI_F32_TOL = 3, 1e-5
+AB_BATCHES = 8
 # the device of the conv_bn, flash backward and training phases
 DEV = "cuda"
 # clock cycles of the busy wait before a device-only timing (some 2 ms at
@@ -943,14 +979,14 @@ class _Losses:
             self.loss[step] = value
 
 
-def _train_arm(fused: bool, x, y):
+def _training_resnet50(fused: bool):
+    """Phase 7's ResNet-50: random weights from seed 0, each block's
+    zero gamma drawn from U(0.25, 0.75) (seed 2), fused or not, the
+    LogSoftMax tail dropped for ``CrossEntropyCriterion``."""
     from bigdl_tpu_torch.common import RandomGenerator
     from bigdl_tpu_torch.models.resnet import build_resnet_imagenet
-    from bigdl_tpu_torch.nn.criterion import CrossEntropyCriterion
     from bigdl_tpu_torch.nn.fused import fuse_conv_bn
     from bigdl_tpu_torch.nn.layers import SpatialBatchNormalization
-    from bigdl_tpu_torch.ops import _cuda
-    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
 
     RandomGenerator.RNG.set_seed(0)
     model = build_resnet_imagenet(50, TRAIN_CLASSES, device=DEV)
@@ -964,6 +1000,16 @@ def _train_arm(fused: bool, x, y):
     if fused:
         fuse_conv_bn(model, kernels=(1, 3))
     model.modules = model.modules[:-1]        # CrossEntropy takes logits
+    return model
+
+
+def _train_arm(fused: bool, x, y):
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.nn.criterion import CrossEntropyCriterion
+    from bigdl_tpu_torch.ops import _cuda
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+
+    model = _training_resnet50(fused)
     RandomGenerator.RNG.set_seed(1)           # one shuffle order, both arms
     losses = _Losses()
     opt = LocalOptimizer(model, (x, y), CrossEntropyCriterion(),
@@ -1607,6 +1653,421 @@ def phase_lenet() -> None:
     say(f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---- phase 15: ResNet-50 from an image folder through DistriOptimizer ----
+def _write_image_folder(root: str) -> int:
+    """``root/{train,val}/n{class}/*.bmp`` from seed 0: a class pattern
+    plus noise, 240x300 to 300x240 pixels; returns the bytes written."""
+    from bigdl_tpu_torch.transform.vision import write_bmp
+
+    rs = np.random.RandomState(0)
+    total = 0
+    for split, per_class in (("train", IMG_TRAIN), ("val", IMG_VAL)):
+        for c in range(IMG_CLASSES):
+            d = os.path.join(root, split, f"n{c:08d}")
+            os.makedirs(d)
+            for i in range(per_class):
+                h = int(rs.randint(240, 301))
+                w = 540 - h
+                yy, xx = np.mgrid[0:h, 0:w]
+                base = np.stack([(xx * (c + 1)) % 256, (yy * (c + 2)) % 256,
+                                 ((xx + yy) * (c + 3)) % 256], axis=-1)
+                img = np.clip(base + rs.randint(-40, 41, (h, w, 3)), 0, 255)
+                path = os.path.join(d, f"img{i:03d}.bmp")
+                write_bmp(path, img.astype(np.uint8))
+                total += os.path.getsize(path)
+    return total
+
+
+class _Recorder(_TimedLosses):
+    """Each step's loss (and when it was read) and each validation."""
+
+    def __init__(self):
+        super().__init__()
+        self.val = []
+
+    def add_scalar(self, tag, value, step):
+        super().add_scalar(tag, value, step)
+        if tag not in ("Loss", "Throughput"):
+            self.val.append((tag, step, value))
+
+
+def _imagenet_entry_point(root: str, ck: str):
+    """(a): ``resnet.main -f`` on the card, its optimizer recording into
+    a ``_Recorder``; returns (optimizer, recorder, validation log lines,
+    seconds)."""
+    import logging
+
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.models import resnet
+    from bigdl_tpu_torch.optim import distri_optimizer as D
+
+    rec = _Recorder()
+    base = D.DistriOptimizer
+
+    class Recording(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.set_train_summary(rec).set_val_summary(rec)
+
+    lines = []
+
+    class Lines(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    handler = Lines(level=logging.INFO)
+    logger = logging.getLogger("bigdl_tpu_torch.optim")
+    logger.addHandler(handler)
+    old_level = logger.level
+    logger.setLevel(logging.INFO)
+    D.DistriOptimizer = Recording
+    try:
+        RandomGenerator.RNG.set_seed(0)
+        t0 = time.perf_counter()
+        opt = resnet.main(["-f", root, "--depth", "50", "-b",
+                           str(IMG_BATCH), "-e", str(IMG_EPOCHS),
+                           "--image-size", str(IMG_SIZE), "--checkpoint", ck,
+                           "--device", DEV])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        D.DistriOptimizer = base
+        logger.removeHandler(handler)
+        logger.setLevel(old_level)
+    return opt, rec, [m for m in lines if m.startswith("validation ")], secs
+
+
+def _check_entry_point(opt, rec, val_lines, ck: str) -> None:
+    from bigdl_tpu_torch.models.resnet import build_resnet_imagenet
+    from bigdl_tpu_torch.utils import serializer as S
+    from bigdl_tpu_torch.utils import tree as T
+
+    per_epoch = IMG_CLASSES * IMG_TRAIN // IMG_BATCH
+    loss = [rec.loss[n] for n in sorted(rec.loss)]
+    if len(loss) != IMG_EPOCHS * per_epoch or not all(np.isfinite(loss)):
+        raise AssertionError(f"entry point: missing or non-finite losses "
+                             f"{loss}")
+    for name in ("Top1Accuracy", "Top5Accuracy"):
+        got = [v for t, _, v in rec.val if t == name]
+        printed = [m for m in val_lines if m.startswith(f"validation {name}")]
+        if len(got) != IMG_EPOCHS or len(printed) != IMG_EPOCHS:
+            raise AssertionError(f"{name}: {len(got)} validations, "
+                                 f"{len(printed)} printed")
+    if opt.state["neval"] != IMG_EPOCHS * per_epoch + 1:
+        raise AssertionError(f"neval {opt.state['neval']}")
+    prefixes = S.checkpoint_prefixes(ck)
+    if len(prefixes) != IMG_EPOCHS:
+        raise AssertionError(f"checkpoints {prefixes}")
+    for p in prefixes:
+        ok, reason = S.verify_checkpoint(os.path.join(ck, p))
+        if not ok:
+            raise AssertionError(f"{p}: {reason}")
+    last = os.path.join(ck, f"checkpoint_{IMG_EPOCHS + 1}_"
+                            f"{IMG_EPOCHS * per_epoch + 1}")
+    cpu = build_resnet_imagenet(50, IMG_CLASSES, device="cpu")
+    S.load_checkpoint(last, cpu)
+    unequal = [i for i, (a, b) in enumerate(zip(
+        T.leaves(cpu.params()), T.leaves(opt.model.params())))
+        if not torch.equal(a, b.detach().cpu())]
+    unequal += [f"s{i}" for i, (a, b) in enumerate(zip(
+        T.leaves(cpu.state()), T.leaves(opt.model.state())))
+        if not torch.equal(a, b.detach().cpu())]
+    if unequal or S.read_checkpoint_topology(last)["step"] != \
+            opt.state["neval"]:
+        raise AssertionError(f"epoch-{IMG_EPOCHS} checkpoint differs from "
+                             f"the trained model at leaves {unequal[:8]}")
+
+
+def _retry_runs(ck: str):
+    """(b): ResNet-50 on 64 synthetic images, shuffle off, 3 epochs,
+    uninterrupted and with a RuntimeError at the first step of epoch 2
+    (checkpoints into ``ck``).  Returns (reference, retried)
+    optimizers."""
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.dataset import ArrayDataSet
+    from bigdl_tpu_torch.models.resnet import build_resnet_imagenet
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, DistriOptimizer, Trigger
+
+    rs = np.random.RandomState(3)
+    x = rs.randn(RETRY_N, 3, IMG_SIZE, IMG_SIZE).astype(np.float32)
+    y = (rs.randint(0, IMG_CLASSES, RETRY_N) + 1).astype(np.float32)
+    per_epoch = RETRY_N // IMG_BATCH
+    fail_at = per_epoch + 1
+    runs = []
+    for inject in (False, True):
+        RandomGenerator.RNG.set_seed(0)
+        model = build_resnet_imagenet(50, IMG_CLASSES, device=DEV)
+        opt = DistriOptimizer(model, ArrayDataSet(x, y, IMG_BATCH,
+                                                  shuffle=False),
+                              ClassNLLCriterion(), IMG_BATCH, device=DEV)
+        opt.set_optim_method(SGD(learningrate=0.05, momentum=0.9))
+        opt.set_end_when(Trigger.max_epoch(RETRY_EPOCHS))
+        if inject:
+            opt.set_checkpoint(ck, Trigger.every_epoch())
+            armed = {"on": True}
+            put = opt._put_batch
+
+            def poisoned(inp, tgt, mask, opt=opt, put=put, armed=armed):
+                if armed["on"] and opt.state["neval"] == fail_at:
+                    armed["on"] = False
+                    raise RuntimeError("injected failure")
+                return put(inp, tgt, mask)
+
+            opt._put_batch = poisoned
+        opt.optimize()
+        runs.append(opt)
+    return runs
+
+
+def _check_retry(ref, opt) -> None:
+    from bigdl_tpu_torch.utils import tree as T
+
+    want = RETRY_EPOCHS * (RETRY_N // IMG_BATCH) + 1
+    if opt.retries != 1 or opt.state["neval"] != want:
+        raise AssertionError(f"retry: {opt.retries} reloads, neval "
+                             f"{opt.state['neval']} (want 1, {want})")
+    pairs = list(zip(T.leaves(opt.model.params()),
+                     T.leaves(ref.model.params())))
+    pairs += list(zip(T.leaves(opt.model.state()),
+                      T.leaves(ref.model.state())))
+    unequal = [i for i, (a, b) in enumerate(pairs) if not torch.equal(a, b)]
+    if unequal:
+        raise AssertionError(f"retried run differs from the uninterrupted "
+                             f"one at {len(unequal)} leaves")
+
+
+def _trainer_arm(cls, fused: bool, x, y):
+    """(c): ``DISTRI_STEPS`` steps of phase 7's ResNet-50 by ``cls``
+    (``LocalOptimizer`` or ``DistriOptimizer`` at world 1); the fused
+    arm in bf16 with the bf16 wire, the standard one in f32 with the
+    f32 wire.  Returns (losses, params, launches)."""
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.nn.criterion import CrossEntropyCriterion
+    from bigdl_tpu_torch.ops import _cuda
+    from bigdl_tpu_torch.optim import DistriOptimizer, SGD, Trigger
+    from bigdl_tpu_torch.utils import tree as T
+
+    model = _training_resnet50(fused)
+    RandomGenerator.RNG.set_seed(1)
+    kw = dict(wire_dtype="bfloat16" if fused else "float32") \
+        if cls is DistriOptimizer else {}
+    opt = cls(model, (x, y), CrossEntropyCriterion(), TRAIN_BATCH,
+              device=DEV, **kw)
+    opt.set_optim_method(SGD(learningrate=0.1))
+    if fused:
+        opt.set_compute_dtype("bfloat16")
+    losses = _Losses()
+    opt.set_train_summary(losses)
+    opt.set_end_when(Trigger.max_iteration(DISTRI_STEPS))
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    opt.optimize()
+    torch.cuda.synchronize()
+    out = ([losses.loss[n] for n in sorted(losses.loss)],
+           [p.detach().float() for p in T.leaves(model.params())],
+           dict(_cuda.launches))
+    del opt, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _gaps(run, ref):
+    """(worst relative loss gap, params relative L2) of two
+    ``_trainer_arm`` results."""
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(run[0], ref[0]))
+    num = sum(float(torch.sum((a - b) ** 2)) for a, b in zip(run[1], ref[1]))
+    den = sum(float(torch.sum(b ** 2)) for b in ref[1])
+    return loss_rel, (num / den) ** 0.5
+
+
+def _distri_vs_local(fused: bool, x, y):
+    """(c): the same steps by ``LocalOptimizer`` and by
+    ``DistriOptimizer``.  Returns (local losses, distri losses, the
+    relative L2 gap of the params, the distri run's launches)."""
+    from bigdl_tpu_torch.optim import DistriOptimizer, LocalOptimizer
+
+    local = _trainer_arm(LocalOptimizer, fused, x, y)
+    distri = _trainer_arm(DistriOptimizer, fused, x, y)
+    return local[0], distri[0], _gaps(distri, local)[1], distri[2]
+
+
+class _PageableFeed:
+    """(d): a trainer mixin whose feed hands over pageable batches, so
+    the step copies them blocking; the same steps otherwise."""
+
+    def _host_batches(self, pin):
+        return super()._host_batches(False)
+
+
+def _copy_ab(x, y) -> dict:
+    """(d): the same DistriOptimizer steps with the batches copied from
+    pageable memory and from pinned memory, in the order pinned,
+    pageable, pageable, pinned; median step ms of each run."""
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.dataset import ArrayDataSet
+    from bigdl_tpu_torch.models.resnet import build_resnet_imagenet
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, DistriOptimizer, Trigger
+
+    class PageableDistri(_PageableFeed, DistriOptimizer):
+        pass
+
+    RandomGenerator.RNG.set_seed(0)
+    model = build_resnet_imagenet(50, IMG_CLASSES, device=DEV)
+    per_epoch = x.shape[0] // IMG_BATCH
+    times = {"pinned": [], "pageable": []}
+    for arm in ("pinned", "pageable", "pageable", "pinned"):
+        cls = DistriOptimizer if arm == "pinned" else PageableDistri
+        opt = cls(model, ArrayDataSet(x, y, IMG_BATCH), ClassNLLCriterion(),
+                  IMG_BATCH, device=DEV)
+        opt.set_optim_method(SGD(learningrate=0.01))
+        rec = _TimedLosses()
+        opt.set_train_summary(rec).set_end_when(Trigger.max_epoch(1))
+        opt.optimize()
+        times[arm].append(steady_step_ms(rec.at, per_epoch))
+    return times
+
+
+def phase_imagenet(smi: str) -> None:
+    """Phase 15: the TrainImageNet path (``resnet.main -f``) on the card
+    from a folder of BMPs, the retry, DistriOptimizer against
+    LocalOptimizer at world 1, and the input feed's timing."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.dataset.imagenet import ImageFolderDataSet
+    from bigdl_tpu_torch.engine import Engine
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase15_")
+    try:
+        root = os.path.join(tmp, "data")
+        nbytes = _write_image_folder(root)
+        say(f"phase 15 image folder: {IMG_CLASSES} classes x {IMG_TRAIN} "
+            f"train + {IMG_VAL} val BMPs, {nbytes / 2**20:.1f} MiB, written "
+            f"in {time.perf_counter() - t_phase:.1f} s")
+        ck = os.path.join(tmp, "ck")
+        opt, rec, val_lines, secs = _imagenet_entry_point(root, ck)
+        _check_entry_point(opt, rec, val_lines, ck)
+        per_epoch = IMG_CLASSES * IMG_TRAIN // IMG_BATCH
+        loss = [rec.loss[n] for n in sorted(rec.loss)]
+        step_ms = steady_step_ms(rec.at, per_epoch)
+        waits, wait_s, items = opt.feed_stats
+        say(f"phase 15 (a) resnet.main -f DIR --depth 50 -b {IMG_BATCH} -e "
+            f"{IMG_EPOCHS} --checkpoint CK: DistriOptimizer world "
+            f"{opt.n_shards} on {Engine._state.backend}, wire "
+            f"{opt.wire_dtype}; {len(loss)} losses "
+            f"{['%.4f' % v for v in loss]}; neval {opt.state['neval']}; "
+            f"validation {[(t, '%.4f' % v) for t, _, v in rec.val]}; "
+            f"{len(val_lines)} validation lines logged; 2 checkpoints "
+            f"verified, the last loads bit-equal into a CPU model; "
+            f"{secs:.1f} s in all")
+        train_ds = ImageFolderDataSet(root, batch_size=IMG_BATCH,
+                                      image_size=IMG_SIZE)
+        idx = np.arange(IMG_BATCH)
+        decode_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            train_ds._batch(idx, True)
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+        say(f"phase 15 (d) entry point: step {step_ms:.3f} ms (median wall "
+            f"gap), {IMG_BATCH / step_ms * 1e3:.1f} images/s; host decode "
+            f"{float(np.median(decode_ms)):.1f} ms a batch of {IMG_BATCH} "
+            f"({'Pillow' if _has_pillow() else 'numpy'} resize); the last "
+            f"epoch's step waited on the prefetch queue for {waits} of "
+            f"{items} batches, {wait_s * 1e3:.1f} ms in all [{smi}]")
+        del opt
+        torch.cuda.empty_cache()
+
+        # (b) and (c) compare runs to the bit or to 1e-5: cuDNN's
+        # backward convs are not bit-reproducible by default, and this
+        # ResNet's first steps grow a last-bit difference into 1e-3 of
+        # the loss by step 3 (f32, on an H100)
+        det = (torch.backends.cudnn.deterministic,
+               torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        try:
+            ref, retried = _retry_runs(os.path.join(tmp, "retry_ck"))
+            _check_retry(ref, retried)
+            say(f"phase 15 (b) retry: RuntimeError injected at neval "
+                f"{RETRY_N // IMG_BATCH + 1}; {retried.retries} reload, "
+                f"neval {retried.state['neval']}, weights and BN state "
+                f"bit-equal to the uninterrupted run (cuDNN deterministic)")
+            del ref, retried
+            torch.cuda.empty_cache()
+            x = np.random.RandomState(0).randn(
+                TRAIN_BATCH, 3, TRAIN_IMG, TRAIN_IMG).astype(np.float32)
+            y = (np.random.RandomState(1).randint(0, TRAIN_CLASSES,
+                                                  TRAIN_BATCH)
+                 + 1).astype(np.float32)
+            l_loss, d_loss, rel, _ = _distri_vs_local(False, x, y)
+            f_loss, fd_loss, _, launches = _distri_vs_local(True, x, y)
+        finally:
+            torch.backends.cudnn.deterministic, \
+                torch.backends.cudnn.benchmark = det
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(d_loss, l_loss))
+        bf16_gap = max(abs(a - b) for a, b in zip(fd_loss, f_loss))
+        want = (36 * DISTRI_STEPS, 16 * DISTRI_STEPS)
+        got = (launches["conv_bn_1x1"], launches["conv_bn_kxk"])
+        say(f"phase 15 (c) DistriOptimizer vs LocalOptimizer, {DISTRI_STEPS} "
+            f"steps, cuDNN deterministic: f32 (f32 wire) losses {['%.6f' % v for v in d_loss]} vs "
+            f"{['%.6f' % v for v in l_loss]}, worst relative gap "
+            f"{loss_rel:.3e} (limit {DISTRI_F32_TOL:g}), params relative L2 "
+            f"{rel:.3e} (limit {DISTRI_F32_TOL:g}); fused bf16 (bf16 wire) "
+            f"losses {['%.5f' % v for v in fd_loss]} vs "
+            f"{['%.5f' % v for v in f_loss]}, worst gap {bf16_gap:.3e} "
+            f"(limit {LOSS_TOL:g}); conv_bn launches {got[0]} 1x1, {got[1]} "
+            f"kxk (want {want[0]}, {want[1]})")
+        if len(d_loss) != DISTRI_STEPS or not loss_rel <= DISTRI_F32_TOL \
+                or not rel <= DISTRI_F32_TOL:
+            raise AssertionError("f32 DistriOptimizer off LocalOptimizer")
+        if len(fd_loss) != DISTRI_STEPS or not bf16_gap <= LOSS_TOL:
+            raise AssertionError("bf16 DistriOptimizer off LocalOptimizer")
+        if got != want:
+            raise AssertionError(f"fused DistriOptimizer launched conv_bn "
+                                 f"{got}, want {want}")
+        # why (b) and (c) run deterministic: the f32 comparison again on
+        # cuDNN's default algorithms, beside LocalOptimizer against a
+        # second LocalOptimizer run on the same inputs (lines, no limit)
+        from bigdl_tpu_torch.optim import DistriOptimizer, LocalOptimizer
+
+        n_local = _trainer_arm(LocalOptimizer, False, x, y)
+        n_local2 = _trainer_arm(LocalOptimizer, False, x, y)
+        n_distri = _trainer_arm(DistriOptimizer, False, x, y)
+        gd, gl = _gaps(n_distri, n_local), _gaps(n_local2, n_local)
+        say(f"phase 15 (c) the f32 comparison on cuDNN's default "
+            f"algorithms (no limit): Distri vs Local worst relative loss "
+            f"gap {gd[0]:.3e}, params relative L2 {gd[1]:.3e}; Local vs a "
+            f"second Local run {gl[0]:.3e}, {gl[1]:.3e}")
+        del n_local, n_local2, n_distri
+
+        rs = np.random.RandomState(4)
+        ax = rs.randn(AB_BATCHES * IMG_BATCH, 3, IMG_SIZE,
+                      IMG_SIZE).astype(np.float32)
+        ay = (rs.randint(0, IMG_CLASSES, ax.shape[0]) + 1).astype(np.float32)
+        times = _copy_ab(ax, ay)
+        say(f"phase 15 (d) input copy A/B, ResNet-50 f32 DistriOptimizer, "
+            f"{AB_BATCHES} steps a run, median step ms: pinned "
+            f"{['%.3f' % v for v in times['pinned']]}, pageable "
+            f"{['%.3f' % v for v in times['pageable']]} (order pinned, "
+            f"pageable, pageable, pinned) [{smi}]")
+    finally:
+        Engine.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    say(f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def _has_pillow() -> bool:
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1640,6 +2101,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_ptb()
     phase_lenet()
+    phase_imagenet(smi)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["launches"] <= 0:

@@ -2,15 +2,24 @@
 
 from bigdl_tpu_torch.nn.module import (AbstractModule, Composite, Container,
                                        Identity, Sequential)
-from bigdl_tpu_torch.nn.layers import (BatchNormalization,
-                                       InitializationMethod, Linear,
-                                       LogSoftMax, LookupTable, MsraFiller,
-                                       ReLU, Reshape, Sigmoid,
+from bigdl_tpu_torch.nn.layers import (ELU, Abs, BatchNormalization,
+                                       Dropout, Exp, InitializationMethod,
+                                       LeakyReLU, Linear, Log, LogSoftMax,
+                                       LookupTable, MsraFiller, Power, PReLU,
+                                       ReLU, Reshape, Scale, Sigmoid,
+                                       SoftMax, SoftPlus,
                                        SpatialAveragePooling,
                                        SpatialBatchNormalization,
-                                       SpatialConvolution, SpatialMaxPooling,
-                                       Tanh, View, Xavier, Zeros)
-from bigdl_tpu_torch.nn.table_ops import CAddTable, ConcatTable
+                                       SpatialConvolution,
+                                       SpatialCrossMapLRN,
+                                       SpatialDilatedConvolution,
+                                       SpatialFullConvolution,
+                                       SpatialMaxPooling, Tanh, View, Xavier,
+                                       Zeros)
+from bigdl_tpu_torch.nn.table_ops import (CAddTable, CMaxTable, CMulTable,
+                                          Concat, ConcatTable, JoinTable)
+from bigdl_tpu_torch.nn.graph import (DynamicGraph, Graph, Input, Model,
+                                      Node)
 from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion,
                                           CrossEntropyCriterion,
                                           TimeDistributedCriterion)
@@ -34,4 +43,8 @@ __all__ = ["AbstractModule", "Composite", "Container", "Identity",
            "PositionalEmbedding", "TransformerBlock", "LookupTable", "Tanh",
            "Sigmoid", "TimeDistributedCriterion", "Cell", "RnnCell", "LSTM",
            "LSTMPeephole", "GRU", "Recurrent", "BiRecurrent",
-           "TimeDistributed", "Select", "MultiRNNCell"]
+           "TimeDistributed", "Select", "MultiRNNCell", "Dropout", "SoftMax",
+           "SoftPlus", "ELU", "LeakyReLU", "PReLU", "Abs", "Power", "Log",
+           "Exp", "Scale", "SpatialCrossMapLRN", "SpatialDilatedConvolution",
+           "SpatialFullConvolution", "CMulTable", "CMaxTable", "JoinTable",
+           "Concat", "Node", "Input", "Graph", "DynamicGraph", "Model"]

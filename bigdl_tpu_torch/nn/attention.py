@@ -23,21 +23,9 @@ import torch
 import torch.nn.functional as F
 
 from bigdl_tpu_torch.common import RandomGenerator
-from bigdl_tpu_torch.nn.layers import Linear, Xavier
+from bigdl_tpu_torch.nn.layers import Linear, Xavier, dropout
 from bigdl_tpu_torch.nn.module import AbstractModule, Composite
 from bigdl_tpu_torch.ops.attention import dot_product_attention
-
-
-def dropout(x: torch.Tensor, p: float, seed: int) -> torch.Tensor:
-    """``where(mask, x / keep, 0)`` with keep = 1 − p and the mask drawn
-    with probability keep from a generator seeded with ``seed`` on x's
-    device (JAX ``bernoulli(rng, keep)``, :141-143; other bits than
-    JAX's)."""
-    keep = 1.0 - p
-    gen = torch.Generator(device=x.device)
-    gen.manual_seed(seed)
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class LayerNorm(AbstractModule):

@@ -6,7 +6,13 @@ Counterpart of ``bigdl_tpu/nn/layers.py``: ``Zeros`` (:49),
 ``SpatialMaxPooling`` (:606), ``SpatialAveragePooling`` (:654),
 ``ReLU`` (:739), ``Tanh`` (:757), ``Sigmoid`` (:764), ``LogSoftMax``
 (:773), ``BatchNormalization``/``SpatialBatchNormalization`` (:1190,
-:1369), ``Reshape`` (:1462) and ``View`` (:1493).  Initial weights are
+:1369), ``Reshape`` (:1462) and ``View`` (:1493); and the layers of
+Inception, VGG and the Caffe loader: ``SpatialDilatedConvolution``
+(:368), ``SpatialFullConvolution`` (:416), ``SoftMax`` (:782),
+``SoftPlus`` (:800), ``ELU`` (:821), ``LeakyReLU`` (:834), ``PReLU``
+(:884), ``Abs`` (:932), ``Power`` (:953), ``Log`` (:964), ``Exp``
+(:971), ``Scale`` (:1169), ``SpatialCrossMapLRN`` (:1394) and
+``Dropout`` (:1425).  Initial weights are
 drawn on the host from the shared numpy ``RandomGenerator.RNG``, in the
 same order and shapes as the JAX package, so seeded models start equal.
 Layouts are the JAX package's: NCHW activations, OIHW conv weights.
@@ -136,6 +142,21 @@ def _auto_batch(x, full_ndim):
     return x, False
 
 
+def dropout(x: torch.Tensor, p: float, seed: int,
+            scale: bool = True) -> torch.Tensor:
+    """``where(mask, x / keep, 0)`` with keep = 1 − p (no ``/ keep``
+    without ``scale``) and the mask drawn with probability keep from a
+    generator seeded with ``seed`` on x's device (JAX ``bernoulli(rng,
+    keep)``; other bits than JAX's).  The generator is made inside the
+    call, so a forward that ``torch.utils.checkpoint`` runs again draws
+    the same mask, and no global RNG state is read."""
+    keep = 1.0 - p
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(seed)
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep if scale else x, torch.zeros_like(x))
+
+
 class SpatialConvolution(AbstractModule):
     """2-D convolution over NCHW input (JAX :261), width-first argument
     order as in the reference.  Symmetric zero padding; the TF-style
@@ -186,6 +207,93 @@ class SpatialConvolution(AbstractModule):
                 f"{self.stride_h}, {self.pad_w},{self.pad_h}")
 
 
+class SpatialDilatedConvolution(SpatialConvolution):
+    """Atrous 2-D convolution (JAX :368): the kernel's taps
+    ``dilation`` apart."""
+
+    config_names = SpatialConvolution.config_names + ("dilation_w",
+                                                      "dilation_h")
+
+    def __init__(self, n_input_plane, n_output_plane, kernel_w, kernel_h,
+                 stride_w=1, stride_h=1, pad_w=0, pad_h=0, dilation_w=1,
+                 dilation_h=1, **kw):
+        self.dilation_w, self.dilation_h = dilation_w, dilation_h
+        super().__init__(n_input_plane, n_output_plane, kernel_w, kernel_h,
+                         stride_w, stride_h, pad_w, pad_h, **kw)
+
+    def forward(self, x):
+        x, squeezed = _auto_batch(x, 4)
+        y = F.conv2d(x, self.weight, self.bias,
+                     stride=(self.stride_h, self.stride_w),
+                     padding=(self.pad_h, self.pad_w),
+                     dilation=(self.dilation_h, self.dilation_w),
+                     groups=self.n_group)
+        return y[0] if squeezed else y
+
+
+class SpatialFullConvolution(AbstractModule):
+    """Transposed convolution (JAX :416): out = (in − 1)·stride − 2·pad
+    + kernel + adj.  The weight is JAX's ``(out, in/group, kh, kw)``;
+    ``F.conv_transpose2d`` takes ``(in, out/group, kh, kw)``, and
+    ``_transposed_weight`` maps one onto the other: group g's block of
+    ``out/group`` rows, its (o, i) tap, becomes row ``g·in/group + i``,
+    column o.  JAX runs the same function as a conv over the input
+    dilated by the stride with the kernel flipped; both sum the same
+    products."""
+
+    config_names = ("n_input_plane", "n_output_plane", "kernel_w",
+                    "kernel_h", "stride_w", "stride_h", "pad_w", "pad_h",
+                    "adj_w", "adj_h", "n_group", "with_bias")
+
+    param_names = ("weight", "bias")
+
+    def __init__(self, n_input_plane, n_output_plane, kernel_w, kernel_h,
+                 stride_w=1, stride_h=1, pad_w=0, pad_h=0, adj_w=0, adj_h=0,
+                 n_group=1, with_bias=True,
+                 init_method: Optional[InitializationMethod] = None):
+        super().__init__()
+        self.n_input_plane = n_input_plane
+        self.n_output_plane = n_output_plane
+        self.kernel_w, self.kernel_h = kernel_w, kernel_h
+        self.stride_w, self.stride_h = stride_w, stride_h
+        self.pad_w, self.pad_h = pad_w, pad_h
+        self.adj_w, self.adj_h = adj_w, adj_h
+        self.n_group = n_group
+        self.with_bias = with_bias
+        init = init_method or MsraFiller(False)
+        self._set_param("weight", init.init(
+            (n_output_plane, n_input_plane // n_group, kernel_h, kernel_w),
+            n_input_plane * kernel_h * kernel_w,
+            n_output_plane * kernel_h * kernel_w))
+        self._set_param("bias", np.zeros(n_output_plane, np.float32)
+                        if with_bias else None)
+
+    def _transposed_weight(self):
+        g = self.n_group
+        o, i, kh, kw = self.weight.shape
+        return self.weight.reshape(g, o // g, i, kh, kw).transpose(
+            1, 2).reshape(g * i, o // g, kh, kw)
+
+    def forward(self, x):
+        x, squeezed = _auto_batch(x, 4)
+        w = self._transposed_weight()
+        stride = (self.stride_h, self.stride_w)
+        pad = (self.pad_h, self.pad_w)
+        adj = (self.adj_h, self.adj_w)
+        # torch's output padding must stay below the stride and JAX's
+        # adj need not: take the whole transposed conv, zero-extend it by
+        # what adj reaches past it, and crop ``pad`` off the front
+        full = F.conv_transpose2d(x, w, None, stride, 0, 0, self.n_group)
+        ho = (x.shape[2] - 1) * stride[0] - 2 * pad[0] + self.kernel_h + adj[0]
+        wo = (x.shape[3] - 1) * stride[1] - 2 * pad[1] + self.kernel_w + adj[1]
+        full = F.pad(full, (0, max(0, adj[1] - pad[1]),
+                            0, max(0, adj[0] - pad[0])))
+        y = full[:, :, pad[0]:pad[0] + ho, pad[1]:pad[1] + wo]
+        if self.bias is not None:
+            y = y + self.bias[None, :, None, None]
+        return y[0] if squeezed else y
+
+
 def _pool_pad(in_size, k, s, pad, ceil_mode):
     """Output size and (lo, hi) padding of one spatial dim, as the JAX
     package computes them (layers.py ``_pool_pad``)."""
@@ -231,6 +339,16 @@ class SpatialMaxPooling(AbstractModule):
         self.pad_w, self.pad_h = pad_w, pad_h
         self.ceil_mode = ceil_mode
 
+    def ceil(self):
+        """Round the output size up (Caffe's pooling); returns self."""
+        self.ceil_mode = True
+        return self
+
+    def floor(self):
+        """Round the output size down (the default); returns self."""
+        self.ceil_mode = False
+        return self
+
     def forward(self, x):
         x, squeezed = _auto_batch(x, 4)
         xp = _pad_for_pool(x, self.kh, self.kw, self.dh, self.dw,
@@ -259,6 +377,9 @@ class SpatialAveragePooling(AbstractModule):
         self.ceil_mode = ceil_mode
         self.count_include_pad = count_include_pad
         self.divide = divide
+
+    ceil = SpatialMaxPooling.ceil
+    floor = SpatialMaxPooling.floor
 
     def forward(self, x):
         x, squeezed = _auto_batch(x, 4)
@@ -313,6 +434,178 @@ class LogSoftMax(AbstractModule):
 
     def forward(self, x):
         return torch.log_softmax(x, dim=-1)
+
+
+class SoftMax(AbstractModule):
+    """Softmax over the last (class) dim (JAX :782)."""
+
+    def forward(self, x):
+        return torch.softmax(x, dim=-1)
+
+
+class SoftPlus(AbstractModule):
+    """``log(1 + exp(beta·x)) / beta`` (JAX :800)."""
+
+    config_names = ("beta",)
+
+    def __init__(self, beta: float = 1.0):
+        super().__init__()
+        self.beta = beta
+
+    def forward(self, x):
+        return torch.logaddexp(self.beta * x, x.new_zeros(())) / self.beta
+
+
+class ELU(AbstractModule):
+    """``x`` above 0, ``alpha·(exp(x) − 1)`` below (JAX :821)."""
+
+    config_names = ("alpha",)
+
+    def __init__(self, alpha: float = 1.0, inplace: bool = False):
+        super().__init__()
+        self.alpha = alpha
+
+    def forward(self, x):
+        return F.elu(x, alpha=self.alpha)
+
+
+class LeakyReLU(AbstractModule):
+    """``x`` at or above 0, ``negval·x`` below (JAX :834)."""
+
+    config_names = ("negval",)
+
+    def __init__(self, negval: float = 0.01, inplace: bool = False):
+        super().__init__()
+        self.negval = negval
+
+    def forward(self, x):
+        return torch.where(x >= 0, x, self.negval * x)
+
+
+class PReLU(AbstractModule):
+    """Leaky ReLU with a learned slope (JAX :884), one shared
+    (``n_output_plane`` 0) or one per channel (the dim 3 from the end,
+    NCHW's C), starting at 0.25."""
+
+    config_names = ("n_output_plane",)
+
+    param_names = ("weight",)
+
+    def __init__(self, n_output_plane: int = 0):
+        super().__init__()
+        self.n_output_plane = n_output_plane
+        self._set_param("weight", np.full(max(1, n_output_plane), 0.25,
+                                          dtype=np.float32))
+
+    def forward(self, x):
+        w = self.weight
+        if self.n_output_plane > 0 and x.dim() >= 3:
+            shape = [1] * x.dim()
+            shape[-3] = self.n_output_plane
+            w = w.reshape(shape)
+        return torch.where(x > 0, x, w * x)
+
+
+class Abs(AbstractModule):
+    """JAX :932."""
+
+    def forward(self, x):
+        return torch.abs(x)
+
+
+class Power(AbstractModule):
+    """``(shift + scale·x) ** power`` (JAX :953)."""
+
+    config_names = ("power", "scale", "shift")
+
+    def __init__(self, power, scale=1.0, shift=0.0):
+        super().__init__()
+        self.power, self.scale, self.shift = power, scale, shift
+
+    def forward(self, x):
+        return (self.shift + self.scale * x) ** self.power
+
+
+class Log(AbstractModule):
+    """JAX :964."""
+
+    def forward(self, x):
+        return torch.log(x)
+
+
+class Exp(AbstractModule):
+    """JAX :971."""
+
+    def forward(self, x):
+        return torch.exp(x)
+
+
+class Scale(AbstractModule):
+    """``x · weight + bias``, both of shape ``size`` broadcast against x
+    (JAX :1169; Caffe's Scale layer): weight ones, bias zeros."""
+
+    config_names = ("size",)
+
+    param_names = ("weight", "bias")
+
+    def __init__(self, size: Sequence[int]):
+        super().__init__()
+        self.size = tuple(int(s) for s in size)
+        self._set_param("weight", np.ones(self.size, np.float32))
+        self._set_param("bias", np.zeros(self.size, np.float32))
+
+    def forward(self, x):
+        return x * self.weight + self.bias
+
+
+class SpatialCrossMapLRN(AbstractModule):
+    """Local response normalization across channels (JAX :1394):
+    ``x · (k + alpha/size · Σ x²)^(−beta)``, the sum over a window of
+    ``size`` channels, ``(size − 1) // 2`` of them before the channel
+    (``F.local_response_norm`` puts ``size // 2`` before it, which
+    differs at an even size)."""
+
+    config_names = ("size", "alpha", "beta", "k")
+
+    def __init__(self, size=5, alpha=1.0, beta=0.75, k=1.0):
+        super().__init__()
+        self.size, self.alpha, self.beta, self.k = size, alpha, beta, k
+
+    def forward(self, x):
+        x, squeezed = _auto_batch(x, 4)
+        c = x.shape[1]
+        half = (self.size - 1) // 2
+        sq = F.pad(x * x, (0, 0, 0, 0, half, self.size - 1 - half))
+        summed = sq[:, 0:c]
+        for i in range(1, self.size):
+            summed = summed + sq[:, i:i + c]
+        y = x * (self.k + self.alpha / self.size * summed) ** (-self.beta)
+        return y[0] if squeezed else y
+
+
+class Dropout(AbstractModule):
+    """Inverted dropout (JAX :1425): in training, given a seed
+    (``forward(x, rng_seed)``, handed out by the containers as
+    ``fold_in(seed, child index)``), zero each element with probability
+    ``p`` and scale the rest by 1 / (1 − p) (unless ``scale=False``);
+    the identity in eval mode or without a seed.  The mask comes from
+    ``dropout``'s generator, so its bits differ from JAX's."""
+
+    config_names = ("init_p", "scale")
+
+    takes_rng_seed = True
+
+    def __init__(self, init_p: float = 0.5, inplace: bool = False,
+                 scale: bool = True):
+        super().__init__()
+        self.init_p = init_p
+        self.p = init_p
+        self.scale = scale
+
+    def forward(self, x, rng_seed: Optional[int] = None):
+        if not self.training or self.p <= 0.0 or rng_seed is None:
+            return x
+        return dropout(x, self.p, rng_seed, self.scale)
 
 
 def fold_bn(weight, bias, eps, mean, var, center):
@@ -476,8 +769,11 @@ class View(AbstractModule):
 
 
 __all__ = ["InitializationMethod", "Zeros", "Xavier", "MsraFiller", "Linear",
-           "LookupTable", "SpatialConvolution", "SpatialMaxPooling",
-           "SpatialAveragePooling",
-           "ReLU", "Tanh", "Sigmoid", "LogSoftMax", "BatchNormalization",
+           "LookupTable", "SpatialConvolution", "SpatialDilatedConvolution",
+           "SpatialFullConvolution", "SpatialMaxPooling",
+           "SpatialAveragePooling", "ReLU", "Tanh", "Sigmoid", "LogSoftMax",
+           "SoftMax", "SoftPlus", "ELU", "LeakyReLU", "PReLU", "Abs", "Power",
+           "Log", "Exp", "Scale", "SpatialCrossMapLRN", "Dropout", "dropout",
+           "BatchNormalization",
            "SpatialBatchNormalization", "Reshape", "View", "fold_bn",
            "normalize", "running_update"]

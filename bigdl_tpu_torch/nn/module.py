@@ -11,6 +11,11 @@ names, so the trees of one package load into the other
 Mode switches: torch's ``train()`` is the JAX package's ``training()``
 (torch keeps its mode flag in the ``training`` attribute, so the name
 cannot be a method here), and ``evaluate()`` is ``eval()``.
+
+Calling a module on graph nodes (``conv(input_node)``) wires it into a
+``Graph`` (``nn/graph.py``) and returns its ``Node``, as the JAX
+``AbstractModule.__call__`` does; a call on anything else is torch's
+forward call.
 """
 
 from __future__ import annotations
@@ -43,6 +48,21 @@ class AbstractModule(torch.nn.Module):
     # the constructor arguments a serialized spec records, under the
     # JAX package's names (its ``self._config``)
     config_names: tuple = ()
+    # the layer's name (``set_name``): kept in specs, and the layer's
+    # name in an exported Caffe net
+    _name: Optional[str] = None
+
+    def __call__(self, *args, **kwargs):
+        """Forward, or with graph nodes as the arguments (or none) a new
+        ``Node`` of this module wired to them."""
+        if kwargs or (args and isinstance(args[0], torch.Tensor)):
+            return super().__call__(*args, **kwargs)
+        from bigdl_tpu_torch.nn.graph import Node, _as_nodes
+
+        nodes = _as_nodes(args)
+        if not args or (nodes and all(isinstance(n, Node) for n in nodes)):
+            return Node(self, nodes)
+        return super().__call__(*args, **kwargs)
 
     def _set_param(self, name: str, value) -> None:
         """Register ``value`` (numpy array, tensor or None) as parameter
@@ -188,24 +208,64 @@ class Container(Composite):
         for m in mods:
             self.add(m)
 
-
-class Sequential(Container):
-    """Feed-forward chain (JAX ``Sequential``, module.py:579).  Child i
-    that takes a dropout seed gets ``fold_in(rng_seed, i)``, as the JAX
-    chain hands child i ``fold_in(rng, i)``."""
-
     @property
     def takes_rng_seed(self) -> bool:
         return any(m.takes_rng_seed for m in self._modules.values())
 
+    @staticmethod
+    def _call_child(i: int, m: AbstractModule, x, rng_seed: Optional[int]):
+        """Child ``m``'s output; a child that takes a dropout seed gets
+        ``fold_in(rng_seed, i)``, as the JAX containers hand child i
+        ``fold_in(rng, i)``."""
+        if not m.takes_rng_seed:
+            return m(x)
+        return m(x, rng_seed=None if rng_seed is None
+                 else fold_in(rng_seed, i))
+
+
+class Sequential(Container):
+    """Feed-forward chain (JAX ``Sequential``, module.py:579); child i
+    gets its dropout seed as ``Container._call_child`` hands it out."""
+
     def forward(self, x, rng_seed: Optional[int] = None):
         for i, m in enumerate(self._modules.values()):
-            if m.takes_rng_seed:
-                x = m(x, rng_seed=None if rng_seed is None
-                      else fold_in(rng_seed, i))
-            else:
-                x = m(x)
+            x = self._call_child(i, m, x, rng_seed)
         return x
+
+    def to_graph(self, input_node=None):
+        """This chain as a ``Graph`` of the same module objects (so the
+        weights stay live), nested ``Sequential``s inlined and each
+        ``Concat`` turned into its branches joined by a ``JoinTable`` of
+        its dimension and name (JAX module.py:597-636): the node
+        topology the Caffe exporter writes.  With ``input_node`` the
+        chain is wired after it and its last node returned."""
+        from bigdl_tpu_torch.nn.graph import Graph, Input
+        from bigdl_tpu_torch.nn.table_ops import Concat, JoinTable
+
+        root = input_node if input_node is not None else Input("data")
+
+        def chain(seq, node):
+            for m in seq.modules:
+                if isinstance(m, Sequential):
+                    node = chain(m, node)
+                elif isinstance(m, Concat):
+                    tails = [chain(b, node) if isinstance(b, Sequential)
+                             else b(node) for b in m.modules]
+                    join = JoinTable(m.dimension)
+                    if m._name:
+                        join.set_name(m._name)
+                    node = join(*tails)
+                else:
+                    node = m(node)
+            return node
+
+        out = chain(self, root)
+        if input_node is not None:
+            return out
+        g = Graph(root, out)
+        if self._name:
+            g.set_name(self._name)
+        return g
 
 
 class Identity(AbstractModule):

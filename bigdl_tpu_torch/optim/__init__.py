@@ -5,7 +5,7 @@ from bigdl_tpu_torch.optim.evaluator import (Evaluator, LocalValidator,
                                              evaluate_dataset, predict,
                                              predict_class)
 from bigdl_tpu_torch.optim.optim_method import (SGD, Default, MultiStep,
-                                                OptimMethod, Plateau,
+                                                OptimMethod, Plateau, Poly,
                                                 SequentialSchedule, Warmup)
 from bigdl_tpu_torch.optim.optimizer import (LocalOptimizer,
                                              NonFiniteStepError, Optimizer)
@@ -15,7 +15,7 @@ from bigdl_tpu_torch.optim.validation import (MAE, Loss, Top1Accuracy,
                                               Top5Accuracy, ValidationMethod,
                                               ValidationResult)
 
-__all__ = ["SGD", "Default", "MultiStep", "OptimMethod", "Plateau",
+__all__ = ["SGD", "Default", "MultiStep", "OptimMethod", "Plateau", "Poly",
            "SequentialSchedule", "Warmup", "LocalOptimizer",
            "DistriOptimizer",
            "NonFiniteStepError", "Optimizer", "Trigger", "Evaluator",

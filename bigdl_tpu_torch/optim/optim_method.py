@@ -2,8 +2,8 @@
 
 Counterpart of ``bigdl_tpu/optim/optim_method.py``: ``OptimMethod``
 (:241, ``init_state``), ``SGD`` (:438) and the schedules ``Default``
-(:59), ``MultiStep`` (:92), ``Warmup`` (:143), ``SequentialSchedule``
-(:155) and ``Plateau`` (:184).
+(:59), ``Poly`` (:69), ``MultiStep`` (:92), ``Warmup`` (:143),
+``SequentialSchedule`` (:155) and ``Plateau`` (:184).
 
 ``step(grads, params, state) -> (new_params, new_state)`` is pure, as
 in the JAX package, over lists of tensors (the model's parameters in
@@ -43,6 +43,18 @@ class Default(LearningRateSchedule):
 
     def rate(self, lr0, state):
         return lr0 / (1.0 + state["neval"] * state["lr_decay"])
+
+
+class Poly(LearningRateSchedule):
+    """lr0 · (1 − min(neval / max_iteration, 1)) ** power (JAX :69-78,
+    the Inception recipe's decay)."""
+
+    def __init__(self, power: float, max_iteration: int):
+        self.power, self.max_iteration = power, max_iteration
+
+    def rate(self, lr0, state):
+        frac = torch.clamp_max(state["neval"] / self.max_iteration, 1.0)
+        return lr0 * (1.0 - frac) ** self.power
 
 
 class MultiStep(LearningRateSchedule):
@@ -331,5 +343,5 @@ class SGD(OptimMethod):
         return new_params, new_state
 
 
-__all__ = ["LearningRateSchedule", "Default", "MultiStep", "Warmup",
+__all__ = ["LearningRateSchedule", "Default", "Poly", "MultiStep", "Warmup",
            "SequentialSchedule", "Plateau", "OptimMethod", "SGD"]

@@ -7,13 +7,14 @@ Counterpart of ``bigdl_tpu/utils/serializer.py``: ``module_to_spec``/
 ``load_checkpoint`` and ``load_latest_checkpoint`` (:593-668).
 
 A module is a JSON spec (class name, the constructor arguments under
-the JAX package's names, children) plus its parameter and state leaves
-as ``p{i}``/``s{i}`` in JAX's leaf order (``utils/tree.py``), so each
-package reads the other's files: a spec is rebuilt with
-``cls(**config)`` from either package's classes of that name.  A spec
-this package cannot rebuild raises; nothing is skipped.  The protobuf
-``.bigdl`` format, background writes, the observability spans and the
-fault-injection hook are not ported yet (ROADMAP.md queue 1).
+the JAX package's names, children, or a ``Graph``'s nodes) plus its
+parameter and state leaves as ``p{i}``/``s{i}`` in JAX's leaf order
+(``utils/tree.py``), so each package reads the other's files: a spec
+is rebuilt with ``cls(**config)`` from either package's classes of
+that name.  A spec this package cannot rebuild raises; nothing is
+skipped.  The protobuf ``.bigdl`` format, ``DynamicGraph`` specs,
+background writes, the observability spans and the fault-injection
+hook are not ported yet (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from bigdl_tpu_torch.nn.graph import Graph, Node
 from bigdl_tpu_torch.nn.module import AbstractModule, Container
 from bigdl_tpu_torch.utils import tree as T
 
@@ -67,21 +69,43 @@ def lookup_module_class(name: str) -> type:
 
 
 def module_to_spec(module: AbstractModule) -> dict:
+    """A module's JSON spec; a ``Graph``'s lists its nodes in
+    topological order, each with its module's spec and the indices of
+    its predecessors, and the indices of its inputs and outputs (JAX
+    serializer.py:95-143)."""
     spec = {"class": type(module).__name__, "config": module.get_config()}
-    name = getattr(module, "_name", None)
-    if name:
-        spec["name"] = name
-    if isinstance(module, Container):
+    if module._name:
+        spec["name"] = module._name
+    if isinstance(module, Graph):
+        topo = module.topo_order()
+        index = {n.id: i for i, n in enumerate(topo)}
+        spec["graph"] = {
+            "nodes": [{"module": module_to_spec(n.module),
+                       "prev": [index[p.id] for p in n.prev_nodes]}
+                      for n in topo],
+            "inputs": [index[n.id] for n in module.input_nodes],
+            "outputs": [index[n.id] for n in module.output_nodes]}
+    elif isinstance(module, Container):
         spec["children"] = [module_to_spec(m) for m in module.modules]
     return spec
 
 
 def spec_to_module(spec: dict) -> AbstractModule:
-    if "graph" in spec:
-        raise NotImplementedError(
-            "Graph modules are not ported yet (ROADMAP.md queue 1 item 12)")
     cls = lookup_module_class(spec["class"])
-    module = cls(**spec.get("config", {}))
+    if "graph" in spec:
+        g = spec["graph"]
+        if cls is not Graph:
+            raise NotImplementedError(
+                f"{spec['class']} specs are not ported yet (ROADMAP.md "
+                "queue 1 item 12)")
+        nodes = []
+        for nd in g["nodes"]:
+            nodes.append(Node(spec_to_module(nd["module"]),
+                              [nodes[i] for i in nd["prev"]]))
+        module = Graph([nodes[i] for i in g["inputs"]],
+                       [nodes[i] for i in g["outputs"]])
+    else:
+        module = cls(**spec.get("config", {}))
     if "children" in spec:
         if not isinstance(module, Container):
             raise TypeError(f"{spec['class']} is not a container but its "
@@ -116,7 +140,7 @@ def save_module(module: AbstractModule, path: str) -> str:
     if path.endswith(".bigdl"):
         raise NotImplementedError(
             "the .bigdl protobuf format is not ported yet (ROADMAP.md "
-            "queue 1 item 8)")
+            "queue 1 item 4)")
     arrays = _module_arrays(module_to_spec(module),
                             T.leaves(module.params()),
                             T.leaves(module.state()))
@@ -145,7 +169,7 @@ def load_module(path: str) -> AbstractModule:
     if magic != b"PK":
         raise NotImplementedError(
             f"{path} is not an npz container; the .bigdl protobuf format "
-            "is not ported yet (ROADMAP.md queue 1 item 8)")
+            "is not ported yet (ROADMAP.md queue 1 item 4)")
     with np.load(path) as data:
         spec = json.loads(bytes(data["__spec__"]).decode("utf-8"))
         module = spec_to_module(spec)

@@ -130,6 +130,30 @@ it runs; any failure exits non-zero:
     pinned memory (pinned, pageable, pageable, pinned), each with the
     card's name and power limit; the process group is destroyed at the
     end;
+16. BASELINE config 3, Inception and VGG through the Caffe files, no
+    kernel of ``csrc/`` launched: (a) ``python -m
+    bigdl_tpu_torch.models.inception -f DIR --version v1 -b 32 -e 1
+    --checkpoint CK`` in a child process over phase 15's folder: every
+    loss finite, Top1 and Top5 logged, one verified checkpoint, the
+    step ms and images/s; then ``--version v2 -n 64 -b 32`` on the
+    synthetic task, every loss finite; (b) ``build_inception_v1(1000,
+    has_dropout=False)`` and ``build_vgg16(1000)`` (random weights from
+    seed 0, the LogSoftMax dropped) through ``to_graph`` ->
+    ``CaffePersister`` -> ``CaffeLoader`` on the card: the loaded
+    forward at batch 8 within 1e-5 (relative to max |y|) of the
+    exported graph's and at batch 2 within 3e-5 of the card machine's
+    CPU's, the files' sizes and the save and load seconds, and the same
+    CPU comparison with TF32 on as a control; (c) each
+    loaded graph trained by ``DistriOptimizer`` at world 1, f32 on the
+    f32 wire, batch 32, 1 + 5 steps (the Inception recipe, or SGD 0.01
+    with momentum 0.9): losses finite, step ms, images/s, peak memory,
+    two profiled steps; Inception-v1's Sequential against its loaded
+    Graph (step ms, in turns); Inception-v1's first 3 losses at batch 4
+    within 2.5e-7 relative of ``LocalOptimizer`` on the CPU from the same
+    files, cuDNN deterministic, and the card's run again with TF32 on as
+    a control; (d) one more step of the loaded
+    Inception-v1 with a checkpoint, which ``load_latest_checkpoint``
+    and its spec reload on the CPU bit-equal;
 9. the kernels line, last: one JSON object listing each kernel with its
    launches on its own path (phase 4, the fused arm of phase 7, or the
    kernel arm of phase 11) and its numbers from phase 3, 6 or 10.
@@ -140,6 +164,7 @@ name and power limit and the script's total seconds.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -272,6 +297,22 @@ IMG_SIZE = 224
 RETRY_N, RETRY_EPOCHS = 64, 3
 DISTRI_STEPS, DISTRI_F32_TOL = 3, 1e-5
 AB_BATCHES = 8
+# BASELINE config 3 (phase 16): the entry point's batch and epochs (over
+# phase 15's folder) and the synthetic v2 run's samples; the Caffe round
+# trip's forward batch on the card and on the CPU, and its limits
+# (relative to the largest |y|: the loaded graph against the exported
+# one on the card, the same ops on the same weights; against the CPU,
+# f32 sums in other orders, TF32 off); the loaded graphs' training:
+# batch, timed steps after the warm-up one, and the CPU comparison's
+# batch, steps and relative loss limit.  The CPU limits lie between the
+# f32 readings and those of the same runs with TF32 on, the control
+# (H100: forward 4.9e-07 and 3.1e-06 against 6.4e-04 and 1.2e-03;
+# losses 6.9e-08, one f32 ulp of the loss, against 7.6e-07)
+INC_CLI_BATCH, INC_CLI_EPOCHS, INC_V2_N = 32, 1, 64
+CAFFE_IMG, CAFFE_FWD_BATCH, CAFFE_CPU_BATCH = 224, 8, 2
+CAFFE_CARD_TOL, CAFFE_CPU_TOL = 1e-5, 3e-5
+CAFFE_BATCH, CAFFE_STEPS = 32, 5
+INC_CPU_BATCH, INC_CPU_STEPS, INC_CPU_TOL = 4, 3, 2.5e-7
 # the device of the conv_bn, flash backward and training phases
 DEV = "cuda"
 # clock cycles of the busy wait before a device-only timing (some 2 ms at
@@ -2060,6 +2101,380 @@ def phase_imagenet(smi: str) -> None:
     say(f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---- phase 16: Inception-v1/v2 and VGG-16 through the Caffe files ----------
+_CLI_RUNNER = r"""
+import json, runpy, sys, time
+from bigdl_tpu_torch.optim import distri_optimizer as D, optimizer as O
+rec = {"loss": {}, "at": {}, "val": []}
+
+
+class Rec:
+    def add_scalar(self, tag, value, step):
+        if tag == "Loss":
+            rec["loss"][step] = value
+            rec["at"][step] = time.perf_counter()
+        elif tag != "Throughput":
+            rec["val"].append([tag, step, value])
+
+
+def recording(base):
+    class Recording(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.set_train_summary(Rec()).set_val_summary(Rec())
+    return Recording
+
+
+D.DistriOptimizer = recording(D.DistriOptimizer)
+O.LocalOptimizer = recording(O.LocalOptimizer)
+out = sys.argv.pop(1)
+sys.argv[0] = "bigdl_tpu_torch.models.inception"
+try:
+    runpy.run_module("bigdl_tpu_torch.models.inception", run_name="__main__",
+                     alter_sys=True)
+finally:
+    with open(out, "w") as f:
+        json.dump(rec, f)
+"""
+
+
+def _inception_cli(args, out: str):
+    """``python -m bigdl_tpu_torch.models.inception ARGS`` in a child
+    process whose trainers record each loss (and when it was read) and
+    each validation into ``out``.  Returns (record, stderr, seconds)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", _CLI_RUNNER, out] + args
+                         + ["--device", DEV], cwd=root, capture_output=True,
+                         text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"inception CLI {args} exited "
+                             f"{res.returncode}: {res.stderr[-3000:]}")
+    with open(out) as f:
+        rec = json.load(f)
+    rec["loss"] = {int(k): v for k, v in rec["loss"].items()}
+    rec["at"] = {int(k): v for k, v in rec["at"].items()}
+    return rec, res.stderr, secs
+
+
+@contextlib.contextmanager
+def _tf32():
+    """TF32 matmuls and convs, for the lower-precision control of the
+    CPU comparisons; full f32 again after."""
+    b = torch.backends
+    was = (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32)
+    b.cuda.matmul.allow_tf32 = b.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32 = was
+
+
+def _caffe_models():
+    """(name, the model with its LogSoftMax dropped, optimizer factory):
+    Caffe's idiom is logits into SoftmaxWithLoss.  Random weights from
+    seed 0."""
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.models.inception import (build_inception_v1,
+                                                  inception_recipe_optim)
+    from bigdl_tpu_torch.models.vgg import build_vgg16
+    from bigdl_tpu_torch.optim import SGD
+
+    steps = 1 + CAFFE_STEPS
+    for name, build, optim in (
+            ("Inception-v1", lambda: build_inception_v1(
+                1000, has_dropout=False, device=DEV),
+             lambda bs: inception_recipe_optim(bs, 1, steps)),
+            ("VGG-16", lambda: build_vgg16(1000, device=DEV),
+             lambda bs: SGD(learningrate=0.01, momentum=0.9))):
+        RandomGenerator.RNG.set_seed(0)
+        model = build()
+        model.modules = model.modules[:-1]
+        yield name, model, optim
+
+
+def _round_trip(name, model, tmp):
+    """(b): ``to_graph`` -> ``CaffePersister`` -> ``CaffeLoader`` on the
+    card, the loaded forward against the exported graph's and against
+    the CPU's.  Returns (loaded graph, prototxt, caffemodel)."""
+    from bigdl_tpu_torch.utils.caffe import CaffeLoader, CaffePersister
+
+    graph = model.to_graph().evaluate()
+    proto = os.path.join(tmp, name + ".prototxt")
+    cm = os.path.join(tmp, name + ".caffemodel")
+    t0 = time.perf_counter()
+    CaffePersister.save(graph, proto, cm,
+                        input_shape=(3, CAFFE_IMG, CAFFE_IMG))
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = CaffeLoader(proto, cm, device=DEV).load().evaluate()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    x = torch.randn(CAFFE_FWD_BATCH, 3, CAFFE_IMG, CAFFE_IMG,
+                    generator=torch.Generator().manual_seed(5)).to(DEV)
+    with torch.no_grad():
+        ref, y = graph(x), loaded(x)
+        card = float((y - ref).abs().max() / ref.abs().max())
+        cpu_graph = CaffeLoader(proto, cm, device="cpu").load().evaluate()
+        xc = x[:CAFFE_CPU_BATCH].cpu()
+        yc = cpu_graph(xc)
+        cpu = float((y[:CAFFE_CPU_BATCH].cpu() - yc).abs().max()
+                    / yc.abs().max())
+        with _tf32():
+            y_tf32 = loaded(x[:CAFFE_CPU_BATCH]).cpu()
+        tf32 = float((y_tf32 - yc).abs().max() / yc.abs().max())
+    say(f"phase 16 (b) {name}: to_graph {len(graph.topo_order())} nodes; "
+        f"CaffePersister {os.path.getsize(proto)} + {os.path.getsize(cm)} "
+        f"bytes in {save_s:.2f} s; CaffeLoader on the card {load_s:.2f} s "
+        f"({len(loaded.topo_order())} nodes); forward at batch "
+        f"{CAFFE_FWD_BATCH} against the exported graph's, relative "
+        f"{card:.3e} (limit {CAFFE_CARD_TOL:g}); against the CPU's at batch "
+        f"{CAFFE_CPU_BATCH} {cpu:.3e} (limit {CAFFE_CPU_TOL:g}); the same "
+        f"card forward with TF32 on (the control) {tf32:.3e}, "
+        f"{'over' if tf32 > CAFFE_CPU_TOL else 'within'} the limit")
+    if not card <= CAFFE_CARD_TOL or not cpu <= CAFFE_CPU_TOL:
+        raise AssertionError(f"{name}: loaded graph off the exported one")
+    if tuple(y.shape) != (CAFFE_FWD_BATCH, 1000) or \
+            not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"{name}: loaded forward {tuple(y.shape)}")
+    del cpu_graph, graph
+    return loaded, proto, cm
+
+
+def _caffe_train(model, optim, x, y):
+    """(c): one warm-up step, then ``CAFFE_STEPS`` timed steps of
+    ``model`` by ``DistriOptimizer`` at world 1, f32 on the f32 wire,
+    ``CrossEntropyCriterion``.  Returns (optimizer, losses, step ms,
+    peak bytes)."""
+    from bigdl_tpu_torch.dataset import ArrayDataSet
+    from bigdl_tpu_torch.nn.criterion import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import DistriOptimizer, Trigger
+
+    bs = CAFFE_BATCH
+    opt = DistriOptimizer(model, ArrayDataSet(x, y, bs, shuffle=False),
+                          CrossEntropyCriterion(), bs, wire_dtype="float32",
+                          device=DEV)
+    opt.set_optim_method(optim(bs))
+    losses = _Losses()
+    opt.set_train_summary(losses)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    opt.set_end_when(Trigger.max_iteration(1)).optimize()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt.set_end_when(Trigger.max_iteration(1 + CAFFE_STEPS)).optimize()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / CAFFE_STEPS * 1e3
+    loss = [losses.loss[n] for n in sorted(losses.loss)]
+    if len(loss) != 1 + CAFFE_STEPS or not all(np.isfinite(loss)):
+        raise AssertionError(f"missing or non-finite losses {loss}")
+    return opt, loss, step_ms, torch.cuda.max_memory_allocated()
+
+
+def _inception_cpu_gap(proto, cm):
+    """(c): the loaded Inception-v1's first losses on the card
+    (``DistriOptimizer``, f32 wire) against ``LocalOptimizer`` on the
+    card machine's CPU, from the same files and batches; dropout is off
+    in this model and cuDNN runs deterministic.  The card's run is made
+    again with TF32 on, the control.  Returns (card losses, CPU losses,
+    worst relative gap, the control's)."""
+    from bigdl_tpu_torch.dataset import ArrayDataSet
+    from bigdl_tpu_torch.models.inception import inception_recipe_optim
+    from bigdl_tpu_torch.nn.criterion import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import DistriOptimizer, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.utils.caffe import CaffeLoader
+
+    bs, n = INC_CPU_BATCH, INC_CPU_STEPS
+    rs = np.random.RandomState(7)
+    x = rs.randn(bs * n, 3, CAFFE_IMG, CAFFE_IMG).astype(np.float32)
+    y = (rs.randint(0, 1000, bs * n) + 1).astype(np.float32)
+    def run(cls, dev, **kw):
+        model = CaffeLoader(proto, cm, device=dev).load()
+        opt = cls(model, ArrayDataSet(x, y, bs, shuffle=False),
+                  CrossEntropyCriterion(), bs, device=dev, **kw)
+        opt.set_optim_method(inception_recipe_optim(bs, 1, n))
+        losses = _Losses()
+        opt.set_train_summary(losses).set_end_when(Trigger.max_iteration(n))
+        opt.optimize()
+        return [losses.loss[k] for k in sorted(losses.loss)]
+
+    card = run(DistriOptimizer, DEV, wire_dtype="float32")
+    cpu = run(LocalOptimizer, "cpu")
+    with _tf32():
+        tf32 = run(DistriOptimizer, DEV, wire_dtype="float32")
+    if not len(card) == len(cpu) == len(tf32) == n:
+        raise AssertionError(f"CPU comparison: losses {card} / {cpu}")
+
+    def gap(run):
+        return max(abs(a - b) / abs(b) for a, b in zip(run, cpu))
+
+    return card, cpu, gap(card), gap(tf32)
+
+
+def _check_graph_checkpoint(ck, proto, cm, snapshot) -> int:
+    """(d): the trainer's checkpoint of the loaded Inception-v1
+    graph, reloaded on the CPU through ``load_latest_checkpoint`` into
+    a graph loaded from the same files, and as the graph its spec
+    rebuilds, bit-equal to the weights it was written from.  Returns
+    the model file's bytes."""
+    from bigdl_tpu_torch.utils import serializer as S
+    from bigdl_tpu_torch.utils import tree as T
+    from bigdl_tpu_torch.utils.caffe import CaffeLoader
+
+    (prefix,) = S.checkpoint_prefixes(ck)
+    path = os.path.join(ck, prefix)
+    ok, reason = S.verify_checkpoint(path)
+    if not ok:
+        raise AssertionError(f"graph checkpoint: {reason}")
+    cpu = CaffeLoader(proto, cm, device="cpu").load()
+    S.load_latest_checkpoint(ck, cpu)
+    rebuilt = S.load_module(path + ".model")
+    for got in (T.leaves(cpu.params()), T.leaves(rebuilt.params())):
+        if len(got) != len(snapshot) or not all(
+                torch.equal(a, b) for a, b in zip(got, snapshot)):
+            raise AssertionError("graph checkpoint differs from the "
+                                 "trained graph")
+    return os.path.getsize(path + ".model.npz")
+
+
+def phase_caffe(smi: str) -> None:
+    """Phase 16: BASELINE config 3.  (a) the inception CLI from an image
+    folder and on the synthetic task; (b) Inception-v1 and VGG-16 at full
+    width through ``to_graph`` -> ``CaffePersister`` -> ``CaffeLoader``
+    on the card; (c) ``DistriOptimizer`` trains both loaded graphs, with
+    timings, peak memory, a profile, the Sequential/Graph A/B and the
+    CPU comparison; (d) the loaded graph's checkpoint."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.engine import Engine
+    from bigdl_tpu_torch.ops import _cuda
+    from bigdl_tpu_torch.optim import Trigger
+    from bigdl_tpu_torch.utils import serializer as S
+    from bigdl_tpu_torch.utils import tree as T
+
+    t_phase = time.perf_counter()
+    kernels_before = dict(_cuda.launches)
+    tmp = tempfile.mkdtemp(prefix="phase16_")
+    try:
+        # (a) the entry point, in a child process
+        root = os.path.join(tmp, "data")
+        _write_image_folder(root)
+        ck = os.path.join(tmp, "cli_ck")
+        rec, log, secs = _inception_cli(
+            ["-f", root, "--version", "v1", "-b", str(INC_CLI_BATCH), "-e",
+             str(INC_CLI_EPOCHS), "--checkpoint", ck],
+            os.path.join(tmp, "cli_v1.json"))
+        per_epoch = IMG_CLASSES * IMG_TRAIN // INC_CLI_BATCH
+        loss = [rec["loss"][n] for n in sorted(rec["loss"])]
+        vals = {t: v for t, _, v in rec["val"]}
+        printed = [t for t in ("Top1Accuracy", "Top5Accuracy")
+                   if f"validation {t}:" in log]
+        if len(loss) != INC_CLI_EPOCHS * per_epoch or \
+                not all(np.isfinite(loss)):
+            raise AssertionError(f"inception CLI: losses {loss}")
+        if len(printed) != 2 or not all(
+                np.isfinite(vals.get(t, np.nan)) for t in printed):
+            raise AssertionError(f"inception CLI: validation {rec['val']}")
+        prefixes = S.checkpoint_prefixes(ck)
+        if len(prefixes) != INC_CLI_EPOCHS or not all(
+                S.verify_checkpoint(os.path.join(ck, p))[0]
+                for p in prefixes):
+            raise AssertionError(f"inception CLI: checkpoints {prefixes}")
+        step_ms = steady_step_ms(rec["at"], per_epoch)
+        say(f"phase 16 (a) python -m bigdl_tpu_torch.models.inception -f "
+            f"DIR --version v1 -b {INC_CLI_BATCH} -e {INC_CLI_EPOCHS} "
+            f"--checkpoint CK: {len(loss)} losses "
+            f"{['%.4f' % v for v in loss]}; Top1 "
+            f"{vals['Top1Accuracy']:.4f}, Top5 {vals['Top5Accuracy']:.4f} "
+            f"logged; 1 checkpoint verified; step {step_ms:.3f} ms "
+            f"(median wall gap), {INC_CLI_BATCH / step_ms * 1e3:.1f} "
+            f"images/s; {secs:.1f} s in all [{smi}]")
+        rec, _, secs = _inception_cli(
+            ["--version", "v2", "-n", str(INC_V2_N), "-b",
+             str(INC_CLI_BATCH), "-e", "1"], os.path.join(tmp, "cli_v2.json"))
+        loss = [rec["loss"][n] for n in sorted(rec["loss"])]
+        if len(loss) != INC_V2_N // INC_CLI_BATCH or \
+                not all(np.isfinite(loss)):
+            raise AssertionError(f"inception CLI v2: losses {loss}")
+        say(f"phase 16 (a) --version v2 -n {INC_V2_N} -b {INC_CLI_BATCH} -e "
+            f"1 (synthetic): losses {['%.4f' % v for v in loss]}; "
+            f"{secs:.1f} s in all")
+
+        # (b) the Caffe round trip, (c) training the loaded graphs
+        rs = np.random.RandomState(6)
+        n = (1 + CAFFE_STEPS) * CAFFE_BATCH
+        x = rs.randn(n, 3, CAFFE_IMG, CAFFE_IMG).astype(np.float32)
+        y = (rs.randint(0, 1000, n) + 1).astype(np.float32)
+        for name, seq, optim in _caffe_models():
+            loaded, proto, cm = _round_trip(name, seq, tmp)
+            opt, loss, step_ms, peak = _caffe_train(loaded, optim, x, y)
+            say(f"phase 16 (c) {name} loaded graph, DistriOptimizer world "
+                f"{opt.n_shards} on {Engine._state.backend}, f32 (f32 wire), "
+                f"batch {CAFFE_BATCH} at {CAFFE_IMG}x{CAFFE_IMG}: losses "
+                f"{['%.4f' % v for v in loss]}; step {step_ms:.3f} ms over "
+                f"steps 2-{1 + CAFFE_STEPS} "
+                f"({CAFFE_BATCH / step_ms * 1e3:.1f} images/s); peak "
+                f"{peak / 2**30:.2f} GiB allocated [{smi}]")
+            phase_train_profile(opt, 16, f"loaded {name} step")
+            if name == "Inception-v1":
+                # (d) one more step, checkpointed by the trainer
+                graph_ck = os.path.join(tmp, "graph_ck")
+                opt.set_checkpoint(graph_ck, Trigger.several_iteration(1))
+                opt.set_end_when(Trigger.max_iteration(opt.state["neval"]))
+                opt.optimize()
+                snapshot = [p.detach().cpu().clone()
+                            for p in T.leaves(loaded.params())]
+            del opt
+            if name == "Inception-v1":
+                # the Graph scheduler's host cost: the Sequential against
+                # its loaded Graph, turn about
+                ab = {"Sequential": [], "Graph": [step_ms]}
+                for arm in ("Sequential", "Graph", "Sequential"):
+                    _, _, ms, _ = _caffe_train(
+                        seq if arm == "Sequential" else loaded, optim, x, y)
+                    ab[arm].append(ms)
+                say(f"phase 16 (c) Inception-v1 step ms, Sequential "
+                    f"{['%.3f' % v for v in ab['Sequential']]} against its "
+                    f"loaded Graph {['%.3f' % v for v in ab['Graph']]} "
+                    f"(order Graph, Sequential, Graph, Sequential) [{smi}]")
+                size = _check_graph_checkpoint(graph_ck, proto, cm,
+                                               snapshot)
+                say(f"phase 16 (d) the loaded graph's checkpoint "
+                    f"({size} bytes) verified, reloaded on the CPU by "
+                    f"load_latest_checkpoint and by its spec: bit-equal")
+                det = (torch.backends.cudnn.deterministic,
+                       torch.backends.cudnn.benchmark)
+                torch.backends.cudnn.deterministic = True
+                torch.backends.cudnn.benchmark = False
+                try:
+                    card, cpu, gap, tf32 = _inception_cpu_gap(proto, cm)
+                finally:
+                    torch.backends.cudnn.deterministic, \
+                        torch.backends.cudnn.benchmark = det
+                say(f"phase 16 (c) Inception-v1 loaded graph, batch "
+                    f"{INC_CPU_BATCH}, cuDNN deterministic: card losses "
+                    f"{['%.6f' % v for v in card]}, CPU "
+                    f"{['%.6f' % v for v in cpu]}, worst relative gap "
+                    f"{gap:.3e} (limit {INC_CPU_TOL:g}); the card's run "
+                    f"with TF32 on (the control) {tf32:.3e}, "
+                    f"{'over' if tf32 > INC_CPU_TOL else 'within'} the "
+                    "limit")
+                if not gap <= INC_CPU_TOL:
+                    raise AssertionError("Inception-v1 card losses off the "
+                                         "CPU's")
+            del loaded, seq
+            torch.cuda.empty_cache()
+        if dict(_cuda.launches) != kernels_before:
+            raise AssertionError("phase 16 launched a kernel of csrc/")
+    finally:
+        Engine.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    say(f"phase 16 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def _has_pillow() -> bool:
     try:
         import PIL  # noqa: F401
@@ -2102,6 +2517,7 @@ def main() -> int:
     phase_ptb()
     phase_lenet()
     phase_imagenet(smi)
+    phase_caffe(smi)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["launches"] <= 0:

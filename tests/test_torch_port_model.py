@@ -160,7 +160,9 @@ def test_import_loads_neither_jax_nor_bigdl_tpu():
         "bigdl_tpu_torch.resilience.retry, bigdl_tpu_torch.utils.serializer, "
         "bigdl_tpu_torch.utils.tree, bigdl_tpu_torch.transform.vision, "
         "bigdl_tpu_torch.dataset.imagenet, bigdl_tpu_torch.dataset.prefetch, "
-        "bigdl_tpu_torch.models.train_util\n"
+        "bigdl_tpu_torch.models.train_util, bigdl_tpu_torch.nn.graph, "
+        "bigdl_tpu_torch.utils.caffe, bigdl_tpu_torch.models.inception, "
+        "bigdl_tpu_torch.models.vgg\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'bigdl_tpu' or m.startswith('bigdl_tpu.')]\n"
         "print(bad)\n"

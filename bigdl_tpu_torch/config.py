@@ -1,8 +1,9 @@
 """Knobs of the PyTorch/CUDA port, read from ``BIGDL_TORCH_*``.
 
 Counterpart of the ``ServeConfig`` section of ``bigdl_tpu/config.py``
-(the serving defaults ``LMEngine`` reads) and of its training knobs
-(``TrainConfig``: the non-finite guard, the retry backoff, checkpoint
+(the serving defaults ``LMEngine``, ``ClassifierEngine`` and
+``ServingServer`` read, with the router's 503 ``Retry-After``) and of
+its training knobs (``TrainConfig``: the non-finite guard, the retry backoff, checkpoint
 retention, the gradient wire and the input feed, read by the
 trainers).  Constructor
 arguments win; these are the process-wide fallbacks a deployment sets
@@ -22,6 +23,11 @@ def _env_str(name: str, default: Optional[str]) -> Optional[str]:
 
 
 def _env_int(name: str, default: int) -> int:
+    v = os.environ.get(name)
+    return default if v is None or v == "" else int(v)
+
+
+def _env_opt_int(name: str, default: Optional[int]) -> Optional[int]:
     v = os.environ.get(name)
     return default if v is None or v == "" else int(v)
 
@@ -64,6 +70,15 @@ class ServeConfig:
     # slice each step's page tables to the pow2 used-page prefix
     # [BIGDL_TORCH_SERVE_DECODE_BUCKET]
     decode_bucket: bool = True
+    # int8 weights for the decode matmuls (LMEngine) and the
+    # quantize() module swap (ClassifierEngine) [BIGDL_TORCH_SERVE_INT8]
+    int8: bool = False
+    # ServingServer's HTTP port (0 = ephemeral); unset = the
+    # constructor's [BIGDL_TORCH_SERVE_PORT]
+    port: Optional[int] = None
+    # Retry-After seconds on a 503 (queue full, or the engine draining)
+    # [BIGDL_TORCH_SERVE_RETRY_AFTER]
+    retry_after_s: float = 1.0
 
     @classmethod
     def from_env(cls) -> "ServeConfig":
@@ -76,6 +91,9 @@ class ServeConfig:
             admission=_env_str("BIGDL_TORCH_SERVE_ADMISSION", "continuous"),
             decode_attn=_env_str("BIGDL_TORCH_SERVE_DECODE_ATTN", "auto"),
             decode_bucket=_env_bool("BIGDL_TORCH_SERVE_DECODE_BUCKET", True),
+            int8=_env_bool("BIGDL_TORCH_SERVE_INT8", False),
+            port=_env_opt_int("BIGDL_TORCH_SERVE_PORT", None),
+            retry_after_s=_env_float("BIGDL_TORCH_SERVE_RETRY_AFTER", 1.0),
         )
 
 

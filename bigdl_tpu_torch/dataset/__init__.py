@@ -2,6 +2,7 @@
 
 from bigdl_tpu_torch.dataset.dataset import (ArrayDataSet, DataSet,
                                              DistributedDataSet,
+                                             PartitionStreamDataSet,
                                              iter_process_batches,
                                              to_dataset)
 from bigdl_tpu_torch.dataset.mnist import load_mnist, synthetic_mnist
@@ -10,6 +11,6 @@ from bigdl_tpu_torch.dataset.text import (Dictionary, LabeledSentence,
                                           synthetic_ptb_stream)
 
 __all__ = ["ArrayDataSet", "DataSet", "DistributedDataSet",
-           "iter_process_batches", "to_dataset", "load_mnist",
+           "PartitionStreamDataSet", "iter_process_batches", "to_dataset", "load_mnist",
            "synthetic_mnist", "Dictionary", "LabeledSentence",
            "ptb_bptt_batches", "synthetic_ptb_stream"]

@@ -2,9 +2,9 @@
 
 Counterpart of ``bigdl_tpu/dataset/dataset.py``: ``DataSet``,
 ``ArrayDataSet`` (:52), ``iter_process_batches`` (:145),
-``DistributedDataSet`` (:181) and ``to_dataset`` (:291), the ``(x, y)``
-tuple case.  Batches are host numpy arrays; the trainer moves them to
-its device.  A training pass shuffles with the port's
+``DistributedDataSet`` (:181), ``PartitionStreamDataSet`` (:227) and
+``to_dataset`` (:291), the ``(x, y)`` tuple case.  Batches are host
+numpy arrays; the trainer moves them to its device.  A training pass shuffles with the port's
 ``RandomGenerator.RNG.randperm``, so a run seeded as a JAX run visits
 the batches in the JAX order.
 
@@ -17,7 +17,7 @@ where the JAX package reads ``jax.process_index``/``process_count``.
 
 from __future__ import annotations
 
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -128,6 +128,64 @@ class DistributedDataSet(ArrayDataSet):
             yield self.features[mine], self.labels[mine]
 
 
+class PartitionStreamDataSet(DataSet):
+    """Batches streamed from a partitioned row source, one partition at
+    a time, never the whole dataset on the host (the DataFrame path's
+    ``mapPartitions``-style feed, JAX :227-300).
+
+    ``source`` exposes ``num_partitions()`` and ``iter_partition(i)``,
+    which yields ``(feature_row, label_row)`` pairs.  This process reads
+    the partitions ``i % num_processes == process_id``, in order, and
+    batches their rows as they come; ``feature_size`` and
+    ``label_size`` reshape a batch's rows (a label size of ``[1]`` gives
+    a flat label vector).  A training pass drops the ragged tail batch,
+    an eval pass keeps it."""
+
+    def __init__(self, source, batch_size: int = 32,
+                 feature_size: Optional[Sequence[int]] = None,
+                 label_size: Optional[Sequence[int]] = None,
+                 process_id: int = 0, num_processes: int = 1,
+                 size_hint: Optional[int] = None):
+        self.source = source
+        self.batch_size = batch_size
+        self.feature_size = list(feature_size) if feature_size else None
+        self.label_size = list(label_size) if label_size else None
+        self._pid = process_id
+        self._nproc = num_processes
+        self._size_hint = size_hint
+
+    def size(self):
+        return self._size_hint or 0
+
+    @staticmethod
+    def _shape(arr, size):
+        arr = np.asarray(arr, np.float32)
+        if size is not None:
+            arr = arr.reshape([arr.shape[0]] + size)
+            if size == [1]:
+                arr = arr.reshape(-1)
+        return arr
+
+    def _batch(self, feats, labels):
+        return (self._shape(np.stack(feats), self.feature_size),
+                self._shape(np.stack(labels), self.label_size))
+
+    def data(self, train: bool = True):
+        feats: list = []
+        labels: list = []
+        for p in range(self.source.num_partitions()):
+            if p % self._nproc != self._pid:
+                continue
+            for feat, lbl in self.source.iter_partition(p):
+                feats.append(np.asarray(feat, np.float32))
+                labels.append(np.asarray(lbl, np.float32))
+                if len(feats) == self.batch_size:
+                    yield self._batch(feats, labels)
+                    feats, labels = [], []
+        if feats and not train:
+            yield self._batch(feats, labels)
+
+
 def to_dataset(data, batch_size: int = 32) -> Optional[DataSet]:
     """A ``DataSet`` as it is, or an ``(x, y)`` tuple as an
     ``ArrayDataSet``."""
@@ -141,4 +199,5 @@ def to_dataset(data, batch_size: int = 32) -> Optional[DataSet]:
 
 
 __all__ = ["DataSet", "ArrayDataSet", "DistributedDataSet",
-           "iter_process_batches", "process_world", "to_dataset"]
+           "PartitionStreamDataSet", "iter_process_batches",
+           "process_world", "to_dataset"]

@@ -21,7 +21,7 @@ from bigdl_tpu_torch.nn.table_ops import (CAddTable, CMaxTable, CMulTable,
 from bigdl_tpu_torch.nn.graph import (DynamicGraph, Graph, Input, Model,
                                       Node)
 from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion,
-                                          CrossEntropyCriterion,
+                                          CrossEntropyCriterion, MSECriterion,
                                           TimeDistributedCriterion)
 from bigdl_tpu_torch.nn.fused import SpatialConvolutionBatchNorm, fuse_conv_bn
 from bigdl_tpu_torch.nn.attention import (LayerNorm, MultiHeadAttention,
@@ -38,7 +38,8 @@ __all__ = ["AbstractModule", "Composite", "Container", "Identity",
            "SpatialAveragePooling", "SpatialBatchNormalization",
            "SpatialConvolution", "SpatialMaxPooling", "View", "Xavier",
            "Zeros", "CAddTable", "ConcatTable", "ClassNLLCriterion",
-           "CrossEntropyCriterion", "SpatialConvolutionBatchNorm",
+           "CrossEntropyCriterion", "MSECriterion",
+           "SpatialConvolutionBatchNorm",
            "fuse_conv_bn", "LayerNorm", "MultiHeadAttention",
            "PositionalEmbedding", "TransformerBlock", "LookupTable", "Tanh",
            "Sigmoid", "TimeDistributedCriterion", "Cell", "RnnCell", "LSTM",

@@ -1,9 +1,9 @@
-"""Criterions: negative log-likelihood, cross-entropy and the per-step
-wrapper of sequence models.
+"""Criterions: negative log-likelihood, cross-entropy, mean squared
+error and the per-step wrapper of sequence models.
 
 Counterpart of ``bigdl_tpu/nn/criterion.py``: ``ClassNLLCriterion``
-(:61), ``CrossEntropyCriterion`` (:100) and ``TimeDistributedCriterion``
-(:347).  Class targets are
+(:61), ``CrossEntropyCriterion`` (:100), ``MSECriterion`` (:115) and
+``TimeDistributedCriterion`` (:347).  Class targets are
 **1-based**; ``size_average`` divides by the summed target weights;
 targets equal to ``padding_value`` weigh zero.  ``loss(input, target)``
 is the pure scalar loss; gradients come from autograd.
@@ -76,6 +76,18 @@ class CrossEntropyCriterion(AbstractCriterion):
         return self._nll.loss(torch.log_softmax(input, dim=-1), target)
 
 
+class MSECriterion(AbstractCriterion):
+    """Mean (or, without ``size_average``, summed) squared error."""
+
+    def __init__(self, size_average: bool = True):
+        super().__init__()
+        self.size_average = size_average
+
+    def loss(self, input, target):
+        d = input - torch.as_tensor(target, device=input.device)
+        return torch.mean(d * d) if self.size_average else torch.sum(d * d)
+
+
 class TimeDistributedCriterion(AbstractCriterion):
     """The inner criterion over every timestep: the time dim (1-based
     ``dimension``, default 2, i.e. (batch, time, ...)) is folded into
@@ -105,4 +117,5 @@ class TimeDistributedCriterion(AbstractCriterion):
 
 
 __all__ = ["AbstractCriterion", "ClassNLLCriterion", "CrossEntropyCriterion",
+           "MSECriterion",
            "TimeDistributedCriterion"]

@@ -6,7 +6,8 @@ the streaming tier's ``BoundedBuffer``; here it is a plain bounded
 deque under a ``threading.Condition``, with the same contract: a full
 queue blocks the client in ``submit`` (requests are never dropped), and
 ``take`` waits at most ``timeout`` for the first request, then drains
-greedily without blocking.
+greedily without blocking.  ``depth()`` stamps the
+``bigdl_serve_queue_depth`` gauge, as the JAX queue does.
 """
 
 from __future__ import annotations
@@ -18,14 +19,17 @@ import threading
 import time
 from typing import Any, List, Optional
 
+from bigdl_tpu_torch import obs
+from bigdl_tpu_torch.obs import names
+
 _ids = itertools.count()
 
 
 @dataclasses.dataclass
 class ServeRequest:
-    """One in-flight LM request."""
+    """One in-flight request (LM decode or classifier forward)."""
 
-    payload: Any                      # prompt token ids
+    payload: Any                      # prompt token ids, or features
     max_new_tokens: int = 0
     temperature: float = 0.0
     id: int = dataclasses.field(default_factory=lambda: next(_ids))
@@ -34,6 +38,11 @@ class ServeRequest:
     t_done: Optional[float] = None
     tokens: List[int] = dataclasses.field(default_factory=list)
     error: Optional[str] = None
+    result: Any = None                # the classifier's output row
+    # the request-trace context (obs/reqtrace.py) a caller passed, and
+    # the caller's request id: both ride a drain's HandoffRecord
+    trace: Any = None
+    router_id: Optional[str] = None
     _event: threading.Event = dataclasses.field(
         default_factory=threading.Event, repr=False)
 
@@ -71,10 +80,15 @@ class RequestQueue:
         self._q: collections.deque = collections.deque()
         self._cond = threading.Condition()
         self._closed = False
+        self._depth_gauge = obs.get_registry().gauge(
+            names.SERVE_QUEUE_DEPTH,
+            "Requests queued ahead of engine admission")
 
     def depth(self) -> int:
         with self._cond:
-            return len(self._q)
+            d = len(self._q)
+        self._depth_gauge.set(float(d))
+        return d
 
     def submit(self, req: ServeRequest,
                timeout: Optional[float] = None) -> ServeRequest:

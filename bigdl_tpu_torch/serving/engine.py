@@ -1,7 +1,7 @@
 """Continuous-batching LM decode engine.
 
-Counterpart of ``bigdl_tpu/serving/engine.py`` on the float path with
-one device (the JAX package's ``tp=1``, ``int8=False``):
+Counterpart of ``bigdl_tpu/serving/engine.py`` on one device (the JAX
+package's ``tp=1``):
 
 * **slots**: up to ``max_batch`` requests decode together in one step
   over the paged KV cache (``serving/cache.py``);
@@ -13,17 +13,29 @@ one device (the JAX package's ``tp=1``, ``int8=False``):
   bucket of the page size, writes its K/V pages and yields its first
   token; the shared decode step then advances every active slot one
   token (``paged_decode_math``);
+* **int8 decode** (``int8=True``): the decode step's matmuls (q/k/v/o,
+  fc1, fc2, the head) run on per-output-channel int8 twins of the
+  weights through ``ops.quantized_matmul.int8_matmul``; the attention
+  stays on the paged decode and the prefill stays float;
 * **preemption**: if the page pool runs out mid-decode, the youngest
   request gives its pages back and re-queues with its generated prefix
-  folded into the prompt.
+  folded into the prompt;
+* **drain and hot swap**: ``drain()`` closes admissions and checkpoints
+  what is unfinished as ``HandoffRecord``s (``serving/drain.py``);
+  ``swap_weights`` copies new weights to the device on the caller's
+  thread and flips them in between two decode steps.
 
-PyTorch runs eagerly, so there is no per-bucket compile cache: each
-prefill bucket and decode page bucket is just a shape.
+The engine stamps the serving families of ``obs/names.py`` in the
+process registry (latency histograms, token, request, preemption and
+swap counters, the occupancy gauge).  PyTorch runs eagerly, so there
+is no per-bucket compile cache: each prefill bucket and decode page
+bucket is just a shape.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import math
 import threading
 import time
@@ -31,20 +43,84 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from bigdl_tpu_torch import obs
 from bigdl_tpu_torch.common import resolve_device
 from bigdl_tpu_torch.config import ServeConfig
+from bigdl_tpu_torch.obs import names
 from bigdl_tpu_torch.ops.decode_attention import (decode_hbm_bytes,
                                                   paged_decode_attention,
                                                   used_page_bucket)
+from bigdl_tpu_torch.ops.quantized_matmul import (int8_matmul,
+                                                  quantize_per_channel)
 from bigdl_tpu_torch.serving.batcher import RequestQueue, ServeRequest
 from bigdl_tpu_torch.serving.cache import PagedKVCache
-
-# the error a request still queued or in flight at close() finishes
-# with, so that a router can replay it elsewhere
-HANDOFF_ERROR = "handoff"
+# the error a drained or closed engine finishes an unfinished request
+# with, so that a router can replay it elsewhere (its home is drain.py)
+from bigdl_tpu_torch.serving.drain import HANDOFF_ERROR, drain_engine
+from bigdl_tpu_torch.utils.convert import params_from_jax
 
 DECODE_ATTN_IMPLS = ("auto", "dense", "kernel")
+
+LAT_META = (names.REQUEST_LATENCY_SECONDS,
+            "Request latency by engine and kind (ttft = time to first "
+            "token, per_token = mean inter-token, e2e = submit to done)")
+
+
+def _quantize_tree(params, n_layer: int) -> dict:
+    """Per-output-channel int8 twins ``(codes, scale)`` of every decode
+    matmul weight of a ``TransformerLM.params()`` tree (JAX :61-78)."""
+    q = {}
+    for i in range(n_layer):
+        pb = params[f"h{i}"]
+        q[f"h{i}"] = {
+            "attn": {w: quantize_per_channel(pb["attn"][w], axis=0)
+                     for w in ("wq", "wk", "wv", "wo")},
+            "fc1": quantize_per_channel(pb["fc1"]["weight"], axis=0),
+            "fc2": quantize_per_channel(pb["fc2"]["weight"], axis=0)}
+    q["head"] = quantize_per_channel(params["head"]["weight"], axis=0)
+    return q
+
+
+def _nested(params) -> dict:
+    """A flat ``state_dict()`` (dotted keys) as the nested tree of
+    ``params()``; a nested tree as it is."""
+    if not any("." in k for k in params):
+        return params
+    out: dict = {}
+    for key, v in params.items():
+        *parents, leaf = key.split(".")
+        node = out
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return out
+
+
+def _placed(target, tree, pairs, path="") -> dict:
+    """``tree`` laid out as ``target`` (a ``params()`` tree), each leaf
+    a copy on its parameter's device and in its dtype (numpy leaves
+    through ``params_from_jax``); appends (parameter, new tensor) to
+    ``pairs``."""
+    out = {}
+    for k, p in target.items():
+        at = f"{path}/{k}" if path else k
+        if not isinstance(tree, dict) or tree.get(k) is None:
+            raise KeyError(f"weight tree lacks {at}")
+        if isinstance(p, dict):
+            out[k] = _placed(p, tree[k], pairs, at)
+            continue
+        leaf = tree[k]
+        if not isinstance(leaf, torch.Tensor):
+            leaf = params_from_jax(leaf)
+        new = leaf.to(device=p.device, dtype=p.dtype, copy=True)
+        if new.shape != p.shape:
+            raise ValueError(f"swap_weights: {at} has shape "
+                             f"{tuple(new.shape)}, not {tuple(p.shape)}")
+        pairs.append((p, new))
+        out[k] = new
+    return out
 
 
 def _pick(logits, temps, generator):
@@ -63,26 +139,40 @@ def _pick(logits, temps, generator):
 @torch.no_grad()
 def paged_decode_math(model, page_size: int, kp, vp, tables, lengths,
                       tokens, temps, active, generator, *,
-                      attn_impl: str = "dense"):
+                      attn_impl: str = "dense", qparams=None):
     """One decode step over the paged cache for every slot.  Mirrors
     ``TransformerBlock.decode_step``: the slot's new K/V are written at
     position ``lengths`` BEFORE attending, so ``length + 1`` positions
     attend; ``wpe`` is indexed by ``lengths``.  ``kp``/``vp`` are the
     (L, pages, H, P, Dh) pools, updated in place; ``tables`` may be the
-    used-page bucket.  Returns the next token of every slot (0 where
+    used-page bucket.  With ``qparams`` (``_quantize_tree``) the
+    matmuls run ``int8_matmul`` on the twins, biases and LayerNorms in
+    float (JAX :81-176).  Returns the next token of every slot (0 where
     ``active`` is False)."""
     blocks = model.blocks()
     attn0 = blocks[0].attn
     heads, head_dim = attn0.n_head, attn0.head_dim
     bsz = tokens.shape[0]
     scale = 1.0 / math.sqrt(head_dim)
+    dev = tokens.device
+
+    def mm(h, qw):
+        return int8_matmul(h, qw[0], qw[1], impl="auto", device=dev)
+
     pos = lengths.long()
     x = (model.wte.weight[tokens.long()] + model.wpe.weight[pos])[:, None, :]
     pidx = tables.long().gather(1, (pos // page_size)[:, None])[:, 0]
     off = pos % page_size
     for i, block in enumerate(blocks):
         attn = block.attn
-        q, k, v = attn.project_qkv(block.ln1(x))
+        qb = None if qparams is None else qparams[f"h{i}"]
+        h = block.ln1(x)
+        if qb is None:
+            q, k, v = attn.project_qkv(h)
+        else:
+            q, k, v = (mm(h, qb["attn"][w]) for w in ("wq", "wk", "wv"))
+            if attn.bq is not None:
+                q, k, v = q + attn.bq, k + attn.bk, v + attn.bv
         qh = q.reshape(bsz, heads, head_dim)
         # the new token's K/V go into the pools in place (the JAX
         # package returns new pools via .at[].set with donation)
@@ -91,9 +181,19 @@ def paged_decode_math(model, page_size: int, kp, vp, tables, lengths,
         o = paged_decode_attention(qh, kp[i], vp[i], tables, lengths,
                                    page_size=page_size, scale=scale,
                                    impl=attn_impl)
-        x = x + attn.out_proj(o.reshape(bsz, 1, heads * head_dim))
-        x = block.mlp(x)
-    logits = model.head(model.ln_f(x))[:, 0, :]
+        o = o.reshape(bsz, 1, heads * head_dim)
+        if qb is None:
+            x = x + attn.out_proj(o)
+            x = block.mlp(x)
+            continue
+        y = mm(o, qb["attn"]["wo"])
+        x = x + (y + attn.bo if attn.bo is not None else y)
+        h = mm(block.ln2(x), qb["fc1"]) + block.fc1.bias
+        h = mm(F.gelu(h, approximate="tanh"), qb["fc2"])
+        x = x + (h + block.fc2.bias if block.fc2.bias is not None else h)
+    h = model.ln_f(x)
+    logits = (model.head(h) if qparams is None
+              else mm(h, qparams["head"]))[:, 0, :]
     nxt = _pick(logits, temps, generator)
     return torch.where(active, nxt, torch.zeros_like(nxt))
 
@@ -115,8 +215,10 @@ class LMEngine:
 
     ``decode_attn``: "auto" (= "dense"), "dense" or "kernel" (the paged
     flash-decode).  The model's ``attn_impl`` decides the prefill
-    attention.  ``device`` defaults to the card; the model must already
-    live on it."""
+    attention.  ``int8`` (default ``BIGDL_TORCH_SERVE_INT8``) runs the
+    decode matmuls on int8 twins.  ``weight_version`` names the weights
+    served (``/healthz``, handoff records).  ``device`` defaults to the
+    card; the model must already live on it."""
 
     def __init__(self, model, *, max_batch: Optional[int] = None,
                  page_size: Optional[int] = None,
@@ -127,8 +229,9 @@ class LMEngine:
                  slo_s: Optional[float] = None,
                  admission: Optional[str] = None,
                  decode_attn: Optional[str] = None,
-                 decode_bucket: Optional[bool] = None, seed: int = 0,
-                 device="cuda"):
+                 decode_bucket: Optional[bool] = None,
+                 int8: Optional[bool] = None, seed: int = 0,
+                 weight_version: str = "v0", device="cuda"):
         cfg = ServeConfig.from_env()
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -144,6 +247,7 @@ class LMEngine:
                 f"{self.decode_attn!r}")
         self.decode_bucket = (cfg.decode_bucket if decode_bucket is None
                               else bool(decode_bucket))
+        self.int8 = cfg.int8 if int8 is None else bool(int8)
         self.eos_id = eos_id
         self.slo_s = cfg.slo_s if slo_s is None else float(slo_s)
         self.admission = admission or cfg.admission
@@ -178,14 +282,82 @@ class LMEngine:
         self._t_last_done: Optional[float] = None
         self.completed: List[dict] = []
         self._slo_window: collections.deque = collections.deque(maxlen=256)
+        self.weight_version = str(weight_version)
+        self.manifest_sha: Optional[str] = None
+        self.swaps = 0
+        self.draining = False
         self._stop = False
         self._thread: Optional[threading.Thread] = None
         self._lock = threading.RLock()
+        # callers waiting in locked(): the step loop stands aside
+        self._waiters = 0
+        self._waiters_lock = threading.Lock()
         self._last_bucket = self.cache.max_pages_per_slot
         self._decode_ms_sum = 0.0
         self._last_step_bytes: Optional[float] = None
-        self._weight_bytes = float(sum(
-            p.numel() * p.element_size() for p in model.parameters()))
+        self._qparams = (_quantize_tree(model.params(), self.n_layer)
+                         if self.int8 else None)
+        self._weight_bytes = self._decode_weight_bytes()
+        reg = obs.get_registry()
+        self._lat = reg.histogram(*LAT_META, labels=("engine", "kind"))
+        self._tokens_counter = reg.counter(
+            names.SERVE_TOKENS_TOTAL, "Tokens generated by the LM "
+            "decode engine")
+        self._req_counter = reg.counter(
+            names.SERVE_REQUESTS_TOTAL,
+            "Requests completed, by engine and status",
+            labels=("engine", "status"))
+        self._occ_gauge = reg.gauge(
+            names.SERVE_BATCH_OCCUPANCY,
+            "Mean fraction of decode slots occupied per step")
+        self._preempt_counter = reg.counter(
+            names.SERVE_PREEMPTIONS_TOTAL,
+            "Requests preempted (pages reclaimed, request re-queued) "
+            "on KV-page exhaustion")
+        self._swap_counter = reg.counter(
+            names.SERVE_WEIGHT_SWAPS_TOTAL,
+            "Live weight hot-swaps completed, by promoted version",
+            labels=("version",))
+
+    def _decode_weight_bytes(self) -> float:
+        """Weight bytes one decode step streams: every parameter byte
+        once; an int8 engine counts each parameter of two or more
+        dimensions at 1 byte a weight, as the JAX engine counts it
+        (:335-358; the per-channel scales are left out)."""
+        return float(sum(
+            p.numel() * (1 if self._qparams is not None and p.ndim >= 2
+                         else p.element_size())
+            for p in self.model.parameters()))
+
+    # ------------------------------------------------------------ hot swap
+    def swap_weights(self, params, *, version: str,
+                     manifest_sha: Optional[str] = None) -> None:
+        """Hot-swap the served weights between decode steps (JAX
+        :361-404).
+
+        ``params`` is a ``TransformerLM.params()`` tree, the JAX
+        package's (numpy leaves, taken through ``params_from_jax``) or
+        the port's (tensors), or a port ``state_dict()``.  The
+        host-to-device copy and, for an int8 engine, the requantization
+        run on the CALLER's thread (on the engine's stream, so they are
+        done before any later step reads them); under the engine lock
+        each parameter then takes its new tensor (a pointer flip).
+        Slots, page tables and in-flight decodes survive: requests
+        already decoding continue on the new weights over their
+        old-weights KV prefix; requests admitted after the swap decode
+        as ``generate()`` on the new weights."""
+        pairs: list = []
+        tree = _placed(self.model.params(), _nested(params), pairs)
+        qparams = _quantize_tree(tree, self.n_layer) if self.int8 else None
+        with self.locked():
+            for p, new in pairs:
+                p.data = new
+            self._qparams = qparams
+            self._weight_bytes = self._decode_weight_bytes()
+            self.weight_version = str(version)
+            self.manifest_sha = manifest_sha
+            self.swaps += 1
+        self._swap_counter.labels(version=str(version)).inc()
 
     # ------------------------------------------------------------ prefill
     @torch.no_grad()
@@ -225,7 +397,14 @@ class LMEngine:
     # ------------------------------------------------------------- clients
     def submit(self, prompt, max_new_tokens: int, *,
                temperature: float = 0.0,
-               timeout: Optional[float] = None) -> ServeRequest:
+               timeout: Optional[float] = None,
+               trace=None) -> ServeRequest:
+        """Queue a request.  ``trace`` (an ``obs.reqtrace``
+        ``RequestTraceContext``) rides the request into a drain's
+        handoff record; the port has no sampling collector yet, so it
+        records no spans."""
+        if self.draining:
+            raise RuntimeError("engine is draining — admissions closed")
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
         if not prompt:
             raise ValueError("empty prompt")
@@ -244,7 +423,8 @@ class LMEngine:
                 f"{self.cache.num_pages - 1}")
         req = ServeRequest(payload=prompt,
                            max_new_tokens=int(max_new_tokens),
-                           temperature=float(temperature))
+                           temperature=float(temperature),
+                           trace=trace)
         return self.queue.submit(req, timeout=timeout)
 
     # ----------------------------------------------------------- admission
@@ -286,8 +466,11 @@ class LMEngine:
         self.cache.lengths[slot] = t0
         if req.t_first is None:
             req.t_first = time.monotonic()
+            self._lat.labels(engine="lm", kind="ttft").observe(
+                req.t_first - req.t_submit)
         req.tokens.append(tok)
         self._tokens_total += 1
+        self._tokens_counter.inc()
         if self._t_first_work is None:
             self._t_first_work = time.monotonic()
         self._order += 1
@@ -314,6 +497,7 @@ class LMEngine:
         self._slots[slot] = None
         self._stash.appendleft(req)
         self._preemptions += 1
+        self._preempt_counter.inc()
         return slot
 
     # ---------------------------------------------------------------- step
@@ -324,9 +508,16 @@ class LMEngine:
         req = act.req
         req.finish(error)
         self._t_last_done = req.t_done
+        n_tok = len(req.tokens)
+        self._lat.labels(engine="lm", kind="e2e").observe(req.e2e_s)
+        if n_tok > 1:
+            self._lat.labels(engine="lm", kind="per_token").observe(
+                (req.t_done - req.t_first) / (n_tok - 1))
+        self._req_counter.labels(
+            engine="lm", status="error" if error else "ok").inc()
         self.completed.append(
             {"id": req.id, "e2e_s": req.e2e_s, "ttft_s": req.ttft_s,
-             "tokens": len(req.tokens)})
+             "tokens": n_tok})
         if self.slo_s > 0:
             self._slo_window.append(1.0 if req.e2e_s <= self.slo_s else 0.0)
 
@@ -372,7 +563,7 @@ class LMEngine:
             tables, lengths, torch.from_numpy(tokens).to(dev),
             torch.from_numpy(temps).to(dev),
             torch.from_numpy(active).to(dev), self._gen,
-            attn_impl=self.decode_attn).cpu().numpy()
+            attn_impl=self.decode_attn, qparams=self._qparams).cpu().numpy()
         step_ms = (time.perf_counter() - t0) * 1000.0
         self._steps += 1
         self._decode_ms_sum += step_ms
@@ -384,6 +575,7 @@ class LMEngine:
                                      self.cache.kp.element_size())
                                  ) / len(active_slots)
         self._occ_sum += len(active_slots) / self.max_batch
+        self._occ_gauge.set(self._occ_sum / self._steps)
         for i in active_slots:
             act = self._slots[i]
             tok = int(nxt[i])
@@ -392,6 +584,7 @@ class LMEngine:
             act.remaining -= 1
             act.req.tokens.append(tok)
             self._tokens_total += 1
+            self._tokens_counter.inc()
             if act.remaining <= 0 or tok == self.eos_id:
                 self._complete(i)
         return True
@@ -423,13 +616,38 @@ class LMEngine:
 
         def loop():
             while not self._stop:
-                if not self.pump(wait_s=0.02):
+                if self._waiters:
+                    time.sleep(0.0005)
+                elif not self.pump(wait_s=0.02):
                     time.sleep(0.002)
 
         self._thread = threading.Thread(
             target=loop, name="bigdl-torch-serve-lm", daemon=True)
         self._thread.start()
         return self
+
+    @contextlib.contextmanager
+    def locked(self):
+        """Hold the engine lock from outside the step loop (a drain, a
+        swap).  The loop takes the lock again as soon as it lets go of
+        it, so a plain acquire from another thread could wait until the
+        engine goes idle; while a caller waits here, the loop stands
+        aside at its next step boundary."""
+        with self._waiters_lock:
+            self._waiters += 1
+        try:
+            with self._lock:
+                yield
+        finally:
+            with self._waiters_lock:
+                self._waiters -= 1
+
+    def drain(self, deadline_s: float = 10.0):
+        """Stop admissions, let in-flight decodes finish within the
+        deadline, checkpoint the rest (``serving/drain.py``).  Returns
+        the ``HandoffRecord`` list a router replays elsewhere exactly
+        once."""
+        return drain_engine(self, deadline_s=deadline_s)
 
     def close(self):
         """Stop the loop and the queue; requests still queued or in
@@ -473,6 +691,11 @@ class LMEngine:
             "queue_depth": self.queue.depth(),
             "kv_pages_in_use": self.cache.pages_in_use(),
             "kv_pages_total": self.cache.num_pages - 1,
+            "draining": self.draining,
+            "weight_version": self.weight_version,
+            "manifest_sha": self.manifest_sha,
+            "weight_swaps": self.swaps,
+            "int8": self.int8,
             "preemptions": self._preemptions,
             "e2e_p50_s": pct(e2e, 50), "e2e_p99_s": pct(e2e, 99),
             "ttft_p50_s": pct(ttft, 50), "ttft_p99_s": pct(ttft, 99),
@@ -488,4 +711,4 @@ class LMEngine:
         }
 
 
-__all__ = ["LMEngine", "paged_decode_math", "HANDOFF_ERROR"]
+__all__ = ["LMEngine", "LAT_META", "paged_decode_math", "HANDOFF_ERROR"]

@@ -154,6 +154,38 @@ it runs; any failure exits non-zero:
     a control; (d) one more step of the loaded
     Inception-v1 with a checkpoint, which ``load_latest_checkpoint``
     and its spec reload on the CPU bit-equal;
+17. the serving tier over HTTP at full width, no kernel of its own: (a)
+    phase 4's flagship in ``LMEngine`` (``start()``) and ResNet-50
+    (1000 classes, eval, f32, seed 0) in ``ClassifierEngine`` (batch 8)
+    behind one ``ServingServer(port=0)``: phase 4's 12 prompts from 12
+    concurrent ``/v1/generate`` clients (every token within 1e-3 of the
+    top logit of a full forward; ``flash_fwd`` and ``paged_decode``
+    launched on that path), then 8 single-image ``/v1/classify``
+    clients (outputs within 1e-5 of ``resnet(x)`` at batch 8, argmax
+    equal), ``/stats`` and ``/healthz`` well formed; TTFT, e2e and HTTP
+    ms, tokens/s, images/s; (c) ``/admin/drain`` with deadline 0 once
+    all 12 requests are in the engine and 40 tokens decoded: each
+    client gets its whole answer or a 503 + ``Retry-After`` whose
+    handoff equals the drain's record and carries its trace header,
+    each handoff replayed once (``HandoffLedger``) on a second engine
+    with the same weights, the joined tokens within 1e-3 of the top
+    logit; (b) ``int8_mm`` (``torch._int_mm`` on padded operands)
+    bit-equal to its float64 plain version at the decode shapes and
+    three ResNet-50 conv shapes, with what ``_int_mm`` refuses
+    unpadded; ``LMEngine(int8=True)`` serving the 12 prompts (tokens
+    in the vocab, ``paged_decode`` launched), its agreement with the
+    float tokens, decode step and weight bytes; ``ClassifierEngine``
+    float and int8 on ResNet-50 (finite, top-1 agreement, images/s);
+    (d) ``swap_weights`` to seed 1's weights (a numpy tree) while four
+    requests decode: they finish whole, the eight admitted after it
+    meet the 1e-3 gate on the new weights, ``/healthz`` reports v1;
+    (e) a queue of capacity 1 nobody pumps answers 503 +
+    ``Retry-After``; (f) BASELINE config 5: ``DLClassifier`` over a
+    dict DataFrame, ``bench.py:472-492``'s 4096 x 64 frame and MLP
+    (batch 256, 2 epochs, lr 1.0) and LeNet-5 on flat synthetic MNIST
+    rows (``feature_size=[28, 28]``), each on the card and on the CPU:
+    training accuracy above 0.9, the fitted NLL and weights against
+    the CPU's, rows/s through fit + transform;
 9. the kernels line, last: one JSON object listing each kernel with its
    launches on its own path (phase 4, the fused arm of phase 7, or the
    kernel arm of phase 11) and its numbers from phase 3, 6 or 10.
@@ -313,6 +345,27 @@ CAFFE_IMG, CAFFE_FWD_BATCH, CAFFE_CPU_BATCH = 224, 8, 2
 CAFFE_CARD_TOL, CAFFE_CPU_TOL = 1e-5, 3e-5
 CAFFE_BATCH, CAFFE_STEPS = 32, 5
 INC_CPU_BATCH, INC_CPU_STEPS, INC_CPU_TOL = 4, 3, 2.5e-7
+# the serving tier (phase 17): classify images a burst (and the
+# classifier's batch), and their limit against resnet(x) on the card at
+# that batch (relative to the largest |y|: the same cuDNN convs on the
+# same shapes, so equal but for the algorithm's order); a drain lands
+# after this many tokens of the burst; the int8 GEMM's (M, K, N): the
+# decode step's (M = 8 rows) and three ResNet-50 convs at batch 8
+# (the 7x7 stem, K = 147; a 3x3 of stage 1; a 3x3 of stage 4, K = 4608)
+SERVE_IMAGES, SERVE_CLS_TOL, DRAIN_AFTER_TOKENS = 8, 1e-5, 40
+INT8_MM_SHAPES = [("qkvo", (8, 512, 512)), ("fc1", (8, 512, 2048)),
+                  ("fc2", (8, 2048, 512)), ("head", (8, 512, 8192)),
+                  ("stem", (8 * 112 * 112, 147, 64)),
+                  ("3x3 stage 1", (8 * 56 * 56, 576, 64)),
+                  ("3x3 stage 4", (8 * 7 * 7, 4608, 512))]
+# BASELINE config 5 (phase 17 (f)): bench.py:472-492's frame (4096 rows
+# of 64 features, 4 classes), MLP 64-32-4, batch 256, 2 epochs, at SGD
+# lr 1.0 (the estimator's default 1e-3 reaches 0.24 training accuracy
+# in 2 epochs, 0.5 reaches 0.86: a rate that learns in 2 epochs); the
+# training-accuracy gate of tests/test_dlframes.py; LeNet-5 on flat
+# synthetic MNIST rows runs at phase 14's recipe
+C5_ROWS, C5_FEAT, C5_BATCH, C5_EPOCHS, C5_LR = 4096, 64, 256, 2, 1.0
+C5_ACC_MIN = 0.9
 # the device of the conv_bn, flash backward and training phases
 DEV = "cuda"
 # clock cycles of the busy wait before a device-only timing (some 2 ms at
@@ -663,24 +716,63 @@ def phase_decode(gen) -> dict:
                       f"{splits} splits")
 
 
-def phase_main_path() -> dict:
+# phase 4's prompts (100-400 tokens, seed 0) and new tokens a request
+SERVE_PROMPT_LENS = [100, 400, 127, 260, 200, 350, 256, 130, 300, 120, 390,
+                     250]
+SERVE_NEW_TOKENS = 32
+
+
+def _serving_prompts() -> list:
+    rs = np.random.RandomState(0)
+    return [rs.randint(0, 8192, n) for n in SERVE_PROMPT_LENS]
+
+
+def _flagship(seed: int):
+    """The flagship TransformerLM of bench.py:429-441 on the card, random
+    f32 weights from ``seed``, the flash prefill kernel."""
     from bigdl_tpu_torch.common import RandomGenerator
     from bigdl_tpu_torch.models.transformer import build_transformer_lm
-    from bigdl_tpu_torch.ops import _cuda
+
+    RandomGenerator.RNG.set_seed(seed)
+    return build_transformer_lm(8192, dim=512, n_head=8, n_layer=8,
+                                max_len=512, attn_impl="kernel",
+                                device=DEV)
+
+
+def _lm_engine(model, **kw):
     from bigdl_tpu_torch.serving.engine import LMEngine
 
-    RandomGenerator.RNG.set_seed(0)
-    model = build_transformer_lm(8192, dim=512, n_head=8, n_layer=8,
-                                 max_len=512, attn_impl="kernel",
-                                 device="cuda")
-    eng = LMEngine(model, max_batch=8, page_size=16, decode_attn="kernel",
-                   device="cuda")
-    rs = np.random.RandomState(0)
-    prompt_lens = [100, 400, 127, 260, 200, 350, 256, 130, 300, 120, 390,
-                   250]
-    prompts = [rs.randint(0, 8192, n) for n in prompt_lens]
-    buckets = sorted({eng._bucket(n) for n in prompt_lens})
-    new_tokens = 32
+    return LMEngine(model, max_batch=8, page_size=16, decode_attn="kernel",
+                    device=DEV, **kw)
+
+
+def _top_logit_gap(model, prompts, token_lists) -> float:
+    """The worst (top logit - the served token's logit) over every
+    served token, from one full forward of ``model`` over each prompt
+    and its tokens."""
+    worst = 0.0
+    with torch.no_grad():
+        for p, toks in zip(prompts, token_lists):
+            seq = torch.tensor(list(p) + list(toks), device=DEV)[None]
+            logits = model(seq[:, :-1])[0].float()
+            if not torch.isfinite(logits).all():
+                raise AssertionError("non-finite logits in the forward")
+            rows = logits[len(p) - 1:]
+            got = rows.gather(1, torch.tensor(list(toks),
+                                              device=DEV)[:, None])
+            worst = max(worst, (rows.max(dim=1).values - got[:, 0]).max()
+                        .item())
+    return worst
+
+
+def phase_main_path() -> tuple:
+    from bigdl_tpu_torch.ops import _cuda
+
+    model = _flagship(0)
+    eng = _lm_engine(model)
+    prompts = _serving_prompts()
+    buckets = sorted({eng._bucket(n) for n in SERVE_PROMPT_LENS})
+    new_tokens = SERVE_NEW_TOKENS
 
     torch.cuda.synchronize()
     _cuda.reset_launches()
@@ -701,17 +793,10 @@ def phase_main_path() -> dict:
     if any(r.error or len(r.tokens) != new_tokens for r in reqs):
         raise AssertionError("a request failed or came back short")
 
-    worst_gap, exact, prefix = 0.0, 0, []
+    worst_gap = _top_logit_gap(model, prompts, [r.tokens for r in reqs])
+    exact, prefix = 0, []
     with torch.no_grad():
         for p, r in zip(prompts, reqs):
-            seq = torch.tensor(list(p) + r.tokens, device="cuda")[None]
-            logits = model(seq[:, :-1])[0].float()
-            if not torch.isfinite(logits).all():
-                raise AssertionError("non-finite logits in the forward")
-            rows = logits[len(p) - 1:]
-            got = rows.gather(1, torch.tensor(r.tokens, device="cuda")[:, None])
-            gap = (rows.max(dim=1).values - got[:, 0]).max().item()
-            worst_gap = max(worst_gap, gap)
             ref = model.generate(p[None], new_tokens)[0, len(p):].tolist()
             exact += ref == r.tokens
             same = next((i for i, (a, b) in enumerate(zip(ref, r.tokens))
@@ -723,7 +808,7 @@ def phase_main_path() -> dict:
         f"{np.mean(prefix):.1f}/{new_tokens} tokens")
     if worst_gap > 1e-3:
         raise AssertionError(f"served token off the top logit by {worst_gap}")
-    return model, launches
+    return model, launches, st
 
 
 def phase_profile(model) -> None:
@@ -732,10 +817,7 @@ def phase_profile(model) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from bigdl_tpu_torch.serving.engine import LMEngine
-
-    eng = LMEngine(model, max_batch=8, page_size=16, decode_attn="kernel",
-                   device="cuda")
+    eng = _lm_engine(model)
     rs = np.random.RandomState(1)
     for _ in range(8):
         eng.submit(rs.randint(0, 8192, 256), 40)
@@ -2475,6 +2557,509 @@ def phase_caffe(smi: str) -> None:
     say(f"phase 16 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---- phase 17: the serving tier over HTTP, int8, drain, swap, config 5 ----
+def _http(url, payload=None, headers=None, timeout=600.0):
+    """One HTTP call (POST with ``payload``, else GET): (status, headers,
+    JSON body, client seconds)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(
+        url, data=data, headers={"Content-Type": "application/json",
+                                 **(headers or {})})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            out = resp.status, dict(resp.headers), json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        out = e.code, dict(e.headers), json.loads(e.read())
+    return out + (time.perf_counter() - t0,)
+
+
+def _in_threads(fn, n: int) -> list:
+    """``fn(i)`` for i < n, each on its own thread, all started
+    together; the results in order."""
+    import threading
+
+    out = [None] * n
+
+    def run(i):
+        out[i] = fn(i)
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
+               for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if any(t.is_alive() for t in threads) or any(o is None for o in out):
+        raise AssertionError("an HTTP client did not finish")
+    return out
+
+
+def _pct(vals, q) -> float:
+    return float(np.percentile(vals, q))
+
+
+def _generate_burst(srv, prompts, ids=None, headers=None) -> list:
+    return _in_threads(lambda i: _http(
+        srv.url("/v1/generate"),
+        {"prompt": [int(t) for t in prompts[i]],
+         "max_new_tokens": SERVE_NEW_TOKENS,
+         **({"request_id": ids[i]} if ids else {})},
+        headers=headers(i) if headers else None), len(prompts))
+
+
+def _check_served(model, prompts, answers, what: str) -> list:
+    """Every answer 200 with its tokens, each within 1e-3 of the top
+    logit of ``model``'s full forward; returns the token lists."""
+    bad = [a[:1] + (a[2].get("error"),) for a in answers
+           if a[0] != 200 or len(a[2]["tokens"]) != SERVE_NEW_TOKENS]
+    if bad:
+        raise AssertionError(f"{what}: failed or short answers {bad}")
+    toks = [a[2]["tokens"] for a in answers]
+    gap = _top_logit_gap(model, prompts, toks)
+    say(f"phase 17 {what}: worst (top logit - served token's logit) "
+        f"{gap:.3e} (limit 1e-3)")
+    if gap > 1e-3:
+        raise AssertionError(f"{what}: served token off the top logit by "
+                             f"{gap}")
+    return toks
+
+
+def _serve_http(srv, model, resnet, images, direct_ttft: float):
+    """(a): 12 concurrent /v1/generate clients, then 8 concurrent
+    single-image /v1/classify clients, through one ServingServer."""
+    from bigdl_tpu_torch.ops import _cuda
+
+    prompts = _serving_prompts()
+    _http(srv.url("/v1/generate"), {"prompt": [1, 2, 3],
+                                    "max_new_tokens": 2})      # warm
+    _http(srv.url("/v1/classify"), {"inputs": images[:1].tolist()})
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    answers = _generate_burst(srv, prompts)
+    wall = time.perf_counter() - t0
+    launches = dict(_cuda.launches)
+    toks = _check_served(model, prompts, answers, "(a) /v1/generate")
+    ttft = [a[2]["ttft_s"] for a in answers]
+    e2e = [a[3] for a in answers]
+    http = [a[3] - a[2]["e2e_s"] for a in answers]
+    say(f"phase 17 (a) 12 clients x {SERVE_NEW_TOKENS} tokens over HTTP "
+        f"in {wall:.3f} s, {12 * SERVE_NEW_TOKENS / wall:.1f} tokens/s; "
+        f"TTFT (engine, from the answers) p50 {_pct(ttft, 50) * 1e3:.2f} / "
+        f"p99 {_pct(ttft, 99) * 1e3:.2f} ms against phase 4's direct p50 "
+        f"{direct_ttft * 1e3:.2f} ms; client e2e p50 "
+        f"{_pct(e2e, 50) * 1e3:.2f} / p99 {_pct(e2e, 99) * 1e3:.2f} ms, of "
+        f"it HTTP (client wall - engine e2e) p50 "
+        f"{_pct(http, 50) * 1e3:.2f} ms; launches {launches}")
+    if launches["flash_fwd"] <= 0 or launches["paged_decode"] <= 0:
+        raise AssertionError(f"the HTTP path launched {launches}")
+
+    with torch.no_grad():
+        ref = resnet(torch.from_numpy(images).to(DEV)).float().cpu().numpy()
+    t0 = time.perf_counter()
+    cls = _in_threads(lambda i: _http(
+        srv.url("/v1/classify"), {"inputs": images[i:i + 1].tolist()}),
+        len(images))
+    cls_wall = time.perf_counter() - t0
+    if any(a[0] != 200 for a in cls):
+        raise AssertionError(f"classify failed: {[a[2] for a in cls]}")
+    out = np.concatenate([np.asarray(a[2]["outputs"], np.float32)
+                          for a in cls])
+    err = float(np.abs(out - ref).max() / np.abs(ref).max())
+    same = int(np.sum(np.argmax(out, 1) == np.argmax(ref, 1)))
+    top2 = np.sort(ref, axis=1)[:, -2:]
+    say(f"phase 17 (a) /v1/classify: {len(images)} single-image clients "
+        f"in {cls_wall:.3f} s, {len(images) / cls_wall:.1f} images/s over "
+        f"HTTP (JSON of 150528 floats each); outputs against resnet(x) at "
+        f"batch {len(images)}: {err:.3e} of max |y| (limit "
+        f"{SERVE_CLS_TOL:g}), argmax equal {same}/{len(images)}, smallest "
+        f"top-2 gap {float((top2[:, 1] - top2[:, 0]).min()):.3e}")
+    if not err <= SERVE_CLS_TOL or same != len(images):
+        raise AssertionError("classify outputs off resnet(x)")
+
+    st = _http(srv.url("/stats"))[2]
+    health = _http(srv.url("/healthz"))[2]
+    keys = {"draining", "weight_version", "manifest_sha", "weight_swaps",
+            "int8", "requests", "tokens", "ttft_p50_s"}
+    if (not keys <= set(st["lm"]) or st["lm"]["requests"] < 13
+            or st["classifier"]["requests"] < len(images) + 1
+            or health != {"status": "ok", "weight_version": "v0",
+                          "manifest_sha": None}):
+        raise AssertionError(f"/stats {st} or /healthz {health}")
+    say(f"phase 17 (a) /healthz {health}; /stats lm requests "
+        f"{st['lm']['requests']}, decode step "
+        f"{st['lm']['decode_ms_mean']:.3f} ms mean, classifier "
+        f"{st['classifier']}")
+    return toks, ref
+
+
+def _int8_mm_checks() -> None:
+    """(b) the int8 GEMM on the card against its exact plain version at
+    the decode shapes and three ResNet-50 conv shapes (batch 8)."""
+    from bigdl_tpu_torch.ops.quantized_matmul import int8_mm, int8_mm_plain
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(5)
+    for name, (m, k, n) in INT8_MM_SHAPES:
+        a = torch.randint(-127, 128, (m, k), dtype=torch.int8,
+                          device=DEV, generator=gen)
+        w = torch.randint(-127, 128, (n, k), dtype=torch.int8,
+                          device=DEV, generator=gen)
+        got, want = int8_mm(a, w), int8_mm_plain(a, w)
+        if got.dtype != torch.int32 or not torch.equal(got, want):
+            raise AssertionError(f"int8_mm {name} ({m}, {k}, {n}): "
+                                 "accumulators differ")
+        xf, wf = a.float(), w.float()
+        try:                              # the library's own shape rules
+            torch._int_mm(a, w.t())
+            bare = "takes it unpadded"
+        except RuntimeError as e:
+            bare = f"refuses it unpadded ({str(e).splitlines()[0][:80]})"
+        say(f"phase 17 (b) int8_mm {name} M={m} K={k} N={n}: torch._int_mm "
+            f"{bare}")
+        say(f"phase 17 (b) int8_mm {name} M={m} K={k} N={n}: int32 "
+            f"accumulators equal; {time_ms(lambda: int8_mm(a, w)):.4f} ms "
+            f"(f32 matmul {time_ms(lambda: xf @ wf.t()):.4f}, f64 plain "
+            f"{time_ms(lambda: int8_mm_plain(a, w), reps=5):.4f})")
+
+
+def _int8_serving(model, float_toks, float_stats, resnet, images, ref):
+    """(b) the int8 LMEngine and ClassifierEngine against the float
+    ones."""
+    from bigdl_tpu_torch.ops import _cuda
+    from bigdl_tpu_torch.serving import ClassifierEngine
+
+    prompts = _serving_prompts()
+    eng = _lm_engine(model, int8=True)
+    f32 = _lm_engine(model)
+    try:
+        _cuda.reset_launches()
+        reqs = [eng.submit(p, SERVE_NEW_TOKENS) for p in prompts]
+        eng.run_until_idle(600)
+        torch.cuda.synchronize()
+        launches = dict(_cuda.launches)
+        st = eng.stats()
+        ratio = eng._weight_bytes / f32._weight_bytes
+        toks = [r.tokens for r in reqs]
+        if any(r.error or len(t) != SERVE_NEW_TOKENS or
+               not all(0 <= v < 8192 for v in t)
+               for r, t in zip(reqs, toks)) or launches["paged_decode"] <= 0:
+            raise AssertionError(f"int8 engine: {[r.error for r in reqs]}, "
+                                 f"launches {launches}")
+        agree = np.mean([a == b for ta, tb in zip(toks, float_toks)
+                         for a, b in zip(ta, tb)])
+        say(f"phase 17 (b) int8 LMEngine: 12 x {SERVE_NEW_TOKENS} tokens, "
+            f"all in the vocab; tokens equal to the float engine's "
+            f"{agree:.3f}, requests equal "
+            f"{sum(a == b for a, b in zip(toks, float_toks))}/12; decode "
+            f"step {st['decode_ms_mean']:.3f} ms mean (float "
+            f"{float_stats['decode_ms_mean']:.3f}); weight bytes a step "
+            f"{eng._weight_bytes:.0f} against {f32._weight_bytes:.0f} "
+            f"({ratio:.3f}), {eng._weight_bytes / 8:.0f} a token at a full "
+            f"batch; launches {launches}")
+    finally:
+        eng.close()
+        f32.close()
+
+    for int8 in (False, True):
+        clf = ClassifierEngine(resnet, max_batch=len(images), int8=int8,
+                               batch_window_s=0.0, device=DEV)
+        try:
+            reqs = [clf.submit(x) for x in images]
+            clf.pump()                                  # warm
+            torch.cuda.synchronize()
+            reqs = [clf.submit(x) for x in images]
+            t0 = time.perf_counter()
+            while not all(r.done for r in reqs):
+                clf.pump()
+            wall = time.perf_counter() - t0
+        finally:
+            clf.close()
+        if any(r.error for r in reqs):
+            raise AssertionError(f"classifier int8={int8}: "
+                                 f"{[r.error for r in reqs]}")
+        out = np.stack([r.result for r in reqs])
+        if not np.isfinite(out).all():
+            raise AssertionError(f"classifier int8={int8}: non-finite")
+        agree = int(np.sum(np.argmax(out, 1) == np.argmax(ref, 1)))
+        say(f"phase 17 (b) ClassifierEngine int8={int8} on ResNet-50, "
+            f"batch {len(images)}: {len(images) / wall:.1f} images/s "
+            f"({wall * 1e3:.2f} ms, direct); top-1 equal to float "
+            f"{agree}/{len(images)}; max |y - float| "
+            f"{float(np.abs(out - ref).max()):.3e}")
+
+
+def _drain_over_http(srv, lm, model, float_toks):
+    """(c): /admin/drain with deadline 0 while the 12 requests decode;
+    each handoff replayed once on a second engine with the same
+    weights.  Returns that engine."""
+    from bigdl_tpu_torch.obs.reqtrace import TRACE_HEADER
+    from bigdl_tpu_torch.serving import HandoffLedger, HandoffRecord
+
+    prompts = _serving_prompts()
+    ids = [f"r{i}" for i in range(len(prompts))]
+    done0, start = len(lm.completed), lm.stats()["tokens"]
+    drained = {}
+
+    def taken_and_decoded():
+        """(requests the engine holds or has finished since the burst
+        began, tokens since then), read between two steps."""
+        with lm.locked():
+            return (lm.queue.depth() + lm.active_count() + len(lm._stash)
+                    + len(lm.completed) - done0,
+                    lm.stats()["tokens"] - start)
+
+    def drain_when_decoding():
+        # every request in the engine (none refused at the door) and
+        # some tokens decoded
+        deadline = time.monotonic() + 300
+        while True:
+            taken, decoded = taken_and_decoded()
+            if taken == len(prompts) and decoded >= DRAIN_AFTER_TOKENS:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError("the drain's requests never decoded")
+            time.sleep(0.002)
+        drained["answer"] = _http(srv.url("/admin/drain"),
+                                  {"deadline_s": 0})
+
+    import threading
+
+    trigger = threading.Thread(target=drain_when_decoding, daemon=True)
+    trigger.start()
+    answers = _generate_burst(srv, prompts, ids, headers=lambda i: {
+        TRACE_HEADER: f"trace{i}::"})
+    trigger.join(timeout=300)
+    status, _, body, _ = drained["answer"]
+    if status != 200 or not body["draining"]:
+        raise AssertionError(f"/admin/drain answered {status} {body}")
+    records = {r["request_id"]: HandoffRecord.from_dict(r)
+               for r in body["handoffs"]}
+    ledger = HandoffLedger()
+    replay = _lm_engine(_flagship(0))
+    full, n_handoff = [], 0
+    for i, (code, headers, ans, _) in enumerate(answers):
+        if code == 200 and len(ans["tokens"]) == SERVE_NEW_TOKENS:
+            if not ledger.deliver(ids[i]):
+                raise AssertionError(f"{ids[i]} delivered twice")
+            full.append(ans["tokens"])
+            continue
+        if code != 503 or "handoff" not in ans:
+            raise AssertionError(f"{ids[i]}: answer {code} {ans}")
+        rec = HandoffRecord.from_dict(ans["handoff"])
+        if ("Retry-After" not in headers or rec != records.get(ids[i])
+                or rec.trace != f"trace{i}::"
+                or len(rec.tokens_done) + rec.max_new_tokens
+                != SERVE_NEW_TOKENS):
+            raise AssertionError(f"{ids[i]}: answer {code} {ans}")
+        if not ledger.claim(rec.request_id) or ledger.claim(rec.request_id):
+            raise AssertionError(f"{ids[i]} claimed twice")
+        r = replay.submit(rec.prompt, rec.max_new_tokens,
+                          temperature=rec.temperature)
+        replay.run_until_idle(600)
+        if r.error or not ledger.deliver(rec.request_id):
+            raise AssertionError(f"{ids[i]} replay failed: {r.error}")
+        full.append(rec.tokens_done + r.tokens)
+        n_handoff += 1
+    st = ledger.stats()
+    say(f"phase 17 (c) drain after {DRAIN_AFTER_TOKENS} tokens: "
+        f"{len(prompts) - n_handoff} answered whole, {n_handoff} 503 + "
+        f"Retry-After with a handoff (tokens done "
+        f"{[len(r.tokens_done) for r in records.values()]}), replayed on a "
+        f"second engine: ledger {st}; requests equal to the uninterrupted "
+        f"run's {sum(a == b for a, b in zip(full, float_toks))}/12")
+    if n_handoff == 0 or st["delivered"] != len(prompts) \
+            or st["duplicates"]:
+        raise AssertionError(f"drain: {n_handoff} handoffs, ledger {st}")
+    _check_served(model, prompts, [(200, {}, {"tokens": t}, 0.0)
+                                   for t in full], "(c) drained + replayed")
+    return replay
+
+
+def _swap_over_http(eng):
+    """(d): swap_weights to seed 1's weights while four requests
+    decode; the eight admitted after it meet the gate on the new
+    weights."""
+    from bigdl_tpu_torch.serving import ServingServer
+
+    prompts = _serving_prompts()
+    new_model = _flagship(1)
+    tree = _host_tree(new_model.params())
+    srv = ServingServer(lm=eng.start(), port=0)
+    try:
+        first = {}
+        start = eng.stats()["tokens"]
+        import threading
+
+        t = threading.Thread(target=lambda: first.update(
+            a=_generate_burst(srv, prompts[:4])), daemon=True)
+        t.start()
+        while eng.stats()["tokens"] - start < 8 and t.is_alive():
+            time.sleep(0.001)
+        t0 = time.perf_counter()
+        eng.swap_weights(tree, version="v1", manifest_sha="seed1")
+        swap_s = time.perf_counter() - t0
+        after = _generate_burst(srv, prompts[4:])
+        t.join(timeout=600)
+        health = _http(srv.url("/healthz"))[2]
+    finally:
+        srv.close()
+        eng.close()
+    inflight = first.get("a") or []
+    if len(inflight) != 4 or any(a[0] != 200 or len(a[2]["tokens"])
+                                 != SERVE_NEW_TOKENS for a in inflight):
+        raise AssertionError(f"requests across the swap: {inflight}")
+    _check_served(new_model, prompts[4:], after,
+                  "(d) admitted after swap_weights, new weights")
+    say(f"phase 17 (d) swap_weights (numpy tree, host to device on the "
+        f"caller's thread) {swap_s * 1e3:.1f} ms; 4 requests across the "
+        f"swap answered whole; /healthz {health}")
+    if health != {"status": "ok", "weight_version": "v1",
+                  "manifest_sha": "seed1"}:
+        raise AssertionError(f"/healthz after the swap: {health}")
+
+
+def _host_tree(params) -> dict:
+    """A ``params()`` tree as numpy arrays on the host, as a checkpoint
+    gives it."""
+    if isinstance(params, dict):
+        return {k: _host_tree(v) for k, v in params.items()}
+    return params.detach().cpu().numpy()
+
+
+def _backpressure(model) -> None:
+    """(e): an engine nobody pumps, queue capacity 1: 503 +
+    Retry-After."""
+    from bigdl_tpu_torch import obs
+    from bigdl_tpu_torch.obs import names
+    from bigdl_tpu_torch.serving import ServingServer
+
+    rejects = obs.get_registry().counter(names.SERVE_REJECTS_TOTAL)
+    n0 = rejects._solo().value
+    eng = _lm_engine(model, queue_capacity=1)
+    srv = ServingServer(lm=eng, port=0, request_timeout_s=0.5)
+    try:
+        eng.submit([1, 2, 3], 4)
+        code, headers, body, sec = _http(
+            srv.url("/v1/generate"), {"prompt": [4, 5], "max_new_tokens": 3})
+    finally:
+        srv.close()
+        eng.close()
+    say(f"phase 17 (e) full queue: {code}, Retry-After "
+        f"{headers.get('Retry-After')}, {body} in {sec:.3f} s")
+    if code != 503 or headers.get("Retry-After") != "1" \
+            or rejects._solo().value != n0 + 1:
+        raise AssertionError("a full queue was not shed with 503")
+
+
+def _config5_run(device, which: str):
+    """One DLClassifier fit + transform over a dict DataFrame: the
+    bench's MLP, or LeNet-5 on flat synthetic MNIST rows.  Returns
+    (training accuracy, training NLL of the fitted model, its params,
+    rows/s)."""
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.dataset.mnist import load_mnist, normalize
+    from bigdl_tpu_torch.dlframes import DLClassifier
+    from bigdl_tpu_torch.models.lenet import build_lenet5
+    from bigdl_tpu_torch.nn import (ClassNLLCriterion, Linear, LogSoftMax,
+                                    ReLU, Sequential)
+    from bigdl_tpu_torch.optim.evaluator import predict
+
+    RandomGenerator.RNG.set_seed(0)
+    if which == "mlp":
+        rs = np.random.RandomState(0)
+        x = rs.randn(C5_ROWS, C5_FEAT).astype(np.float32)
+        w = rs.randn(C5_FEAT, 4)
+        y = (np.argmax(x @ w, axis=1) + 1).astype(np.float32)
+        model = Sequential().add(Linear(C5_FEAT, 32)).add(ReLU()) \
+            .add(Linear(32, 4)).add(LogSoftMax())
+        size, batch, lr = [C5_FEAT], C5_BATCH, C5_LR
+    else:
+        x, y = load_mnist(None, "train", synthetic_n=LENET_N)
+        x = normalize(x).reshape(LENET_N, 784).astype(np.float32)
+        model = build_lenet5(device=device)
+        size, batch, lr = [28, 28], LENET_BATCH, LENET_LR
+    df = {"features": [row for row in x], "label": list(y)}
+    est = DLClassifier(model, ClassNLLCriterion(), size, device=device) \
+        .set_batch_size(batch).set_max_epoch(C5_EPOCHS) \
+        .set_learning_rate(lr)
+    RandomGenerator.RNG.set_seed(1)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fitted = est.fit(df)
+    out = fitted.transform(df)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    acc = float(np.mean(np.asarray(out["prediction"]) == np.asarray(y)))
+    logp = predict(fitted.model, x.reshape([-1] + size), 1024, device)
+    nll = float(-np.mean(logp[np.arange(len(y)), np.asarray(y, int) - 1]))
+    params = {k: v.detach().cpu().numpy()
+              for k, v in fitted.model.state_dict().items()}
+    return acc, nll, params, len(x) * (C5_EPOCHS + 1) / dt
+
+
+def _config5() -> None:
+    """(f): BASELINE config 5, DLClassifier over a dict DataFrame on the
+    card, against the same run on the CPU."""
+    for which in ("mlp", "lenet"):
+        acc, nll, params, rows_s = _config5_run(DEV, which)
+        cacc, cnll, cparams, crows_s = _config5_run("cpu", which)
+        gap = max(float(np.abs(params[k] - cparams[k]).max())
+                  for k in params)
+        say(f"phase 17 (f) config 5 DLClassifier, {which}: training "
+            f"accuracy {acc:.4f} (CPU {cacc:.4f}, gate > {C5_ACC_MIN}); "
+            f"fitted NLL {nll:.6f} (CPU {cnll:.6f}, relative gap "
+            f"{abs(nll - cnll) / abs(cnll):.3e}); weights' max |card - CPU| "
+            f"{gap:.3e}; {rows_s:.1f} rows/s through fit + transform on "
+            f"the card (CPU {crows_s:.1f})")
+        if not acc > C5_ACC_MIN or not np.isfinite(nll):
+            raise AssertionError(f"config 5 {which}: accuracy {acc}")
+
+
+def phase_serving_http(smi: str, direct_ttft: float) -> None:
+    """Phase 17: the serving tier over HTTP at full width: (a) LMEngine
+    (the flagship) and ClassifierEngine (ResNet-50) behind one
+    ServingServer; (b) int8; (c) drain and replay; (d) swap_weights;
+    (e) backpressure; (f) BASELINE config 5."""
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.models.resnet import build_resnet_imagenet
+    from bigdl_tpu_torch.serving import ClassifierEngine, ServingServer
+
+    t_phase = time.perf_counter()
+    model = _flagship(0)
+    RandomGenerator.RNG.set_seed(0)
+    resnet = build_resnet_imagenet(50, 1000, device=DEV).evaluate()
+    images = np.random.RandomState(3).randn(
+        SERVE_IMAGES, 3, 224, 224).astype(np.float32)
+    lm = _lm_engine(model).start()
+    clf = ClassifierEngine(resnet, max_batch=SERVE_IMAGES,
+                           device=DEV).start()
+    srv = ServingServer(lm=lm, classifier=clf, port=0)
+    try:
+        toks, ref = _serve_http(srv, model, resnet, images, direct_ttft)
+        float_stats = lm.stats()
+        replay = _drain_over_http(srv, lm, model, toks)
+    finally:
+        srv.close()
+        lm.close()
+        clf.close()
+    _int8_mm_checks()
+    _int8_serving(model, toks, float_stats, resnet, images, ref)
+    _swap_over_http(replay)
+    _backpressure(model)
+    del model, resnet
+    torch.cuda.empty_cache()
+    _config5()
+    print(smi, flush=True)
+    say(f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def _has_pillow() -> bool:
     try:
         import PIL  # noqa: F401
@@ -2496,7 +3081,7 @@ def main() -> int:
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
     kernels = [phase_flash(gen), phase_decode(gen)]
-    model, launches = phase_main_path()
+    model, launches, serve_stats = phase_main_path()
     phase_profile(model)
     del model
     torch.cuda.empty_cache()
@@ -2518,6 +3103,7 @@ def main() -> int:
     phase_lenet()
     phase_imagenet(smi)
     phase_caffe(smi)
+    phase_serving_http(smi, serve_stats["ttft_p50_s"])
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["launches"] <= 0:

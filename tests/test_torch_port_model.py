@@ -162,7 +162,12 @@ def test_import_loads_neither_jax_nor_bigdl_tpu():
         "bigdl_tpu_torch.dataset.imagenet, bigdl_tpu_torch.dataset.prefetch, "
         "bigdl_tpu_torch.models.train_util, bigdl_tpu_torch.nn.graph, "
         "bigdl_tpu_torch.utils.caffe, bigdl_tpu_torch.models.inception, "
-        "bigdl_tpu_torch.models.vgg\n"
+        "bigdl_tpu_torch.models.vgg, bigdl_tpu_torch.obs, "
+        "bigdl_tpu_torch.obs.names, bigdl_tpu_torch.obs.metrics, "
+        "bigdl_tpu_torch.obs.reqtrace, bigdl_tpu_torch.serving.drain, "
+        "bigdl_tpu_torch.serving.classifier, bigdl_tpu_torch.serving.server, "
+        "bigdl_tpu_torch.ops.quantized_matmul, bigdl_tpu_torch.nn.quantized, "
+        "bigdl_tpu_torch.dlframes, bigdl_tpu_torch.dlframes.dl_estimator\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'bigdl_tpu' or m.startswith('bigdl_tpu.')]\n"
         "print(bad)\n"

@@ -71,12 +71,15 @@ class Linear(AbstractModule):
     param_names = ("weight", "bias")
 
     def __init__(self, input_size: int, output_size: int,
-                 with_bias: bool = True,
+                 with_bias: bool = True, w_regularizer=None,
+                 b_regularizer=None,
                  init_method: Optional[InitializationMethod] = None):
         super().__init__()
         self.input_size = input_size
         self.output_size = output_size
         self.with_bias = with_bias
+        self._set_regularizers((("w_regularizer", w_regularizer, ("weight",)),
+                                ("b_regularizer", b_regularizer, ("bias",))))
         init = init_method or Xavier()
         self._set_param("weight", init.init(
             (output_size, input_size), input_size, output_size))
@@ -106,13 +109,15 @@ class LookupTable(AbstractModule):
 
     def __init__(self, n_index: int, n_output: int,
                  padding_value: float = 0.0, max_norm: float = float("inf"),
-                 norm_type: float = 2.0):
+                 norm_type: float = 2.0, w_regularizer=None):
         super().__init__()
         self.n_index = n_index
         self.n_output = n_output
         self.padding_value = padding_value
         self.max_norm = max_norm
         self.norm_type = norm_type
+        self._set_regularizers((("w_regularizer", w_regularizer,
+                                 ("weight",)),))
         self.reset()
 
     def reset(self):
@@ -173,6 +178,7 @@ class SpatialConvolution(AbstractModule):
                  kernel_w: int, kernel_h: int, stride_w: int = 1,
                  stride_h: int = 1, pad_w: int = 0, pad_h: int = 0,
                  n_group: int = 1, with_bias: bool = True,
+                 w_regularizer=None, b_regularizer=None,
                  init_method: Optional[InitializationMethod] = None):
         super().__init__()
         if pad_w < 0 or pad_h < 0:
@@ -185,6 +191,8 @@ class SpatialConvolution(AbstractModule):
         self.pad_w, self.pad_h = pad_w, pad_h
         self.n_group = n_group
         self.with_bias = with_bias
+        self._set_regularizers((("w_regularizer", w_regularizer, ("weight",)),
+                                ("b_regularizer", b_regularizer, ("bias",))))
         init = init_method or MsraFiller(False)
         fan_in = n_input_plane // n_group * kernel_h * kernel_w
         fan_out = n_output_plane // n_group * kernel_h * kernel_w

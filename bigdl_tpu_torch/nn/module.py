@@ -16,6 +16,17 @@ Calling a module on graph nodes (``conv(input_node)``) wires it into a
 ``Graph`` (``nn/graph.py``) and returns its ``Node``, as the JAX
 ``AbstractModule.__call__`` does; a call on anything else is torch's
 forward call.
+
+Regularizers and freezing (JAX :291-305, :357-406): a layer built with
+``w_regularizer``/``b_regularizer`` lists (parameter name, regularizer)
+pairs, and ``regularization_loss`` sums their penalties over the module
+and its children; a frozen module adds nothing.  ``freeze()`` freezes a
+module and its descendants, ``freeze(name, ...)`` the descendants of
+those names; the trainers zero a frozen parameter's gradient before the
+clipper and keep the parameter as it was.  The JAX package's
+``_Composite`` (``TransformerLM``, ``TransformerBlock``) has no
+``modules`` list, so there a frozen child of a composite is not seen;
+here every child is (``ROADMAP.md`` queue 3).
 """
 
 from __future__ import annotations
@@ -51,6 +62,9 @@ class AbstractModule(torch.nn.Module):
     # the layer's name (``set_name``): kept in specs, and the layer's
     # name in an exported Caffe net
     _name: Optional[str] = None
+    # (parameter name, regularizer) pairs (``_set_regularizers``)
+    _regularizers: tuple = ()
+    _frozen: bool = False
 
     def __call__(self, *args, **kwargs):
         """Forward, or with graph nodes as the arguments (or none) a new
@@ -125,6 +139,93 @@ class AbstractModule(torch.nn.Module):
         self._name = name
         return self
 
+    # ---- regularizers and freezing ----------------------------------------
+    def _set_regularizers(self, args) -> None:
+        """``args``: (constructor argument, regularizer or its spec dict
+        or ``None``, the parameter names it covers) triples."""
+        from bigdl_tpu_torch.optim.regularizer import regularizer_from_config
+
+        pairs = []
+        for arg, reg, names in args:
+            reg = regularizer_from_config(reg)
+            setattr(self, arg, reg)
+            if reg is not None:
+                pairs.extend((n, reg) for n in names)
+        self._regularizers = tuple(pairs)
+
+    def regularization_loss(self, params: Optional[dict] = None):
+        """Σ of the regularizers' penalties over ``params`` (this
+        module's ``params()`` tree, the live parameters by default) and
+        the children's subtrees; 0.0 for a frozen module."""
+        if self._frozen:
+            return 0.0
+        if params is None:
+            params = self.params()
+        loss = 0.0
+        for name, reg in self._regularizers:
+            if params.get(name) is not None:
+                loss = loss + reg(params[name])
+        for name, child in self._modules.items():
+            if isinstance(child, AbstractModule):
+                loss = loss + child.regularization_loss(
+                    params.get(name, {}))
+        return loss
+
+    def _descendants(self):
+        return [m for m in torch.nn.Module.modules(self)
+                if m is not self and isinstance(m, AbstractModule)]
+
+    def find_module(self, name: str) -> Optional["AbstractModule"]:
+        """The first descendant named ``name`` (``set_name``), depth
+        first, or ``None``."""
+        for m in self._descendants():
+            if m._name == name:
+                return m
+        return None
+
+    def _set_frozen(self, frozen: bool, names) -> "AbstractModule":
+        if not names:
+            self._frozen = frozen
+            for m in self._descendants():
+                m._frozen = frozen
+            return self
+        verb = "freeze" if frozen else "unfreeze"
+        for name in names:
+            target = self.find_module(name)
+            if target is None:
+                raise ValueError(f"{verb}: no module named {name!r}")
+            target._set_frozen(frozen, ())
+        return self
+
+    def freeze(self, *names) -> "AbstractModule":
+        """Freeze this module and its descendants, or with ``names`` the
+        named descendants and theirs: the trainers leave their
+        parameters as they are, and their regularizers add nothing."""
+        return self._set_frozen(True, names)
+
+    def unfreeze(self, *names) -> "AbstractModule":
+        return self._set_frozen(False, names)
+
+    unFreeze = unfreeze
+
+    def is_frozen(self) -> bool:
+        return self._frozen
+
+    def has_frozen(self) -> bool:
+        """True when this module or a descendant is frozen."""
+        return self._frozen or any(m._frozen for m in self._descendants())
+
+    def frozen_parameters(self) -> set:
+        """The ids of the parameters that belong to frozen modules (what
+        JAX's ``grad_mask`` zeroes)."""
+        if self._frozen:
+            return {id(p) for p in self.parameters()}
+        out = set()
+        for child in self.children():
+            if isinstance(child, AbstractModule):
+                out |= child.frozen_parameters()
+        return out
+
     def get_config(self) -> Dict[str, Any]:
         """The constructor arguments ``cls(**config)`` rebuilds this
         module from (JAX ``get_config``).  A class whose constructor
@@ -144,6 +245,12 @@ class AbstractModule(torch.nn.Module):
         for n in self.config_names:
             v = getattr(self, n)
             out[n] = list(v) if isinstance(v, tuple) else v
+        # a regularizer is recorded only where one is set, so the spec
+        # of a layer without one stays the JAX package's
+        for n in ("w_regularizer", "u_regularizer", "b_regularizer"):
+            reg = getattr(self, n, None)
+            if reg is not None:
+                out[n] = reg.get_config()
         return out
 
 

@@ -144,12 +144,16 @@ class LSTM(Cell):
     n_gates = 4
 
     def __init__(self, input_size: int, hidden_size: int, p: float = 0.0,
-                 activation=None, inner_activation=None):
+                 activation=None, inner_activation=None, w_regularizer=None,
+                 u_regularizer=None, b_regularizer=None):
         super().__init__()
         self.input_size, self.hidden_size = input_size, hidden_size
         self.p = p
         self.activation = activation or Tanh()
         self.inner_activation = inner_activation or Sigmoid()
+        self._set_regularizers((("w_regularizer", w_regularizer, ("w",)),
+                                ("u_regularizer", u_regularizer, ("u",)),
+                                ("b_regularizer", b_regularizer, ("b",))))
         self.reset()
 
     def reset(self):
@@ -229,12 +233,17 @@ class GRU(Cell):
     config_names = ("input_size", "hidden_size", "p")
 
     def __init__(self, input_size: int, hidden_size: int, p: float = 0.0,
-                 activation=None, inner_activation=None):
+                 activation=None, inner_activation=None, w_regularizer=None,
+                 u_regularizer=None, b_regularizer=None):
         super().__init__()
         self.input_size, self.hidden_size = input_size, hidden_size
         self.p = p
         self.activation = activation or Tanh()
         self.inner_activation = inner_activation or Sigmoid()
+        self._set_regularizers(
+            (("w_regularizer", w_regularizer, ("w_rz", "w_h")),
+             ("u_regularizer", u_regularizer, ("u_rz", "u_h")),
+             ("b_regularizer", b_regularizer, ("b_rz", "b_h"))))
         self.reset()
 
     def reset(self):

@@ -152,6 +152,11 @@ class _Family:
         with self._lock:
             return list(self._children.items())
 
+    def clear(self):
+        """Drop every child (JAX ``_Family.clear``)."""
+        with self._lock:
+            self._children.clear()
+
 
 class MetricsRegistry:
     """Named families.  Registering a name again returns its family if

@@ -1,7 +1,8 @@
-"""Names of the metric families the port's serving tier stamps.
+"""Names of the metric families the port's serving tier and trainers
+stamp.
 
 Counterpart of the serving section of ``bigdl_tpu/obs/names.py``
-(:352-390, :434): the same ``bigdl_*`` names, and at the mint sites the
+(:352-390, :434) and of its optim phase timers (:133): the same ``bigdl_*`` names, and at the mint sites the
 same kinds and label names, so that a dashboard reads either package's
 engines.  Mint sites use these constants, never string literals.  The
 JAX package's other families, and its declaration registry with the
@@ -25,6 +26,11 @@ SERVE_PREEMPTIONS_TOTAL = "bigdl_serve_preemptions_total"
 SERVE_REJECTS_TOTAL = "bigdl_serve_rejects_total"
 # counter, labels (version)
 SERVE_WEIGHT_SWAPS_TOTAL = "bigdl_serve_weight_swaps_total"
+
+# histogram, labels (phase): the trainers' phase timers (optim/metrics.py),
+# minted in each trainer's own registry, so not among ``__all__``, the
+# families of the serving tier's process-wide registry
+PHASE_SECONDS = "bigdl_phase_seconds"
 
 __all__ = ["SERVE_REQUESTS_TOTAL", "REQUEST_LATENCY_SECONDS",
            "SERVE_TOKENS_TOTAL", "SERVE_BATCH_OCCUPANCY", "SERVE_QUEUE_DEPTH",

@@ -18,10 +18,23 @@ order, ``ravel_pytree``'s, padded to a multiple of the world size):
 - **Clip and guard.** The clipper reads the squared norm summed over
   ranks (``all_reduce``); the non-finite guard skips the step on every
   rank when any rank's shard or loss is not finite (``all_reduce`` MIN).
-- **State.** The optimizer state holds this rank's shard only; a
-  checkpoint gathers the shards and rank 0 writes the whole vector,
-  so the file is the JAX package's ``zero1_flat`` layout
-  (``_topology``: world size, ``flat_elems``, ``pad``).
+- **State.** The optimizer state holds this rank's shard of each
+  per-parameter entry (the method's ``per_param_keys``: a flat vector
+  whose length is the shard's, or LBFGS's (16, shard) histories); the
+  rest (counters, LBFGS's ``rho``) is whole on every rank.  A
+  checkpoint gathers the shards and rank 0 writes the whole vector, so
+  the file is the JAX package's ``zero1_flat`` layout (``_topology``:
+  world size, ``flat_elems``, ``pad``).  Every method runs unchanged on
+  the shard (a one-tensor list), so ``LarsSGD`` takes one trust ratio
+  per rank's shard, as in the JAX package; ``LBFGS`` runs at world 1
+  only (its two-loop recursion needs dot products over the whole
+  vector, and the JAX package's own LBFGS is wrong on a 2-device mesh,
+  ``ROADMAP.md`` queue 3).
+- **Regularizers and freeze.** Each rank adds the whole penalty to its
+  local loss before the sum over ranks, as JAX does (:823, :839).
+  Frozen parameters are intervals of the flat vector (JAX :495-535):
+  the gradient there is multiplied by 0 before the exchange, and the
+  shard's update there is undone after the step.
 - **BN.** The running statistics are averaged over ranks after each
   step, as ``pmean`` does there; the loss read is the ranks' mean.
 - **Inputs.** A per-process dataset gives each rank its own rows; any
@@ -125,6 +138,9 @@ class DistriOptimizer(LocalOptimizer):
         self.int8_block = 512 if block is None else int(block)
         self._flat = None
         self._flat_views = None
+        # merged [start, end) runs of frozen parameters in the flat vector
+        self._frozen_intervals = []
+        self._per_param = frozenset()
         self._flat_elems = None
         self._pad = 0
         self._warned_batch_sizes = set()
@@ -163,6 +179,16 @@ class DistriOptimizer(LocalOptimizer):
             params)]
         shard_len = padded // n
         opt = self.optim_method
+        from bigdl_tpu_torch.optim.optim_method import LBFGS
+
+        if isinstance(opt, LBFGS) and n > 1:
+            raise NotImplementedError(
+                "LBFGS runs on DistriOptimizer at world 1 only: its "
+                "two-loop recursion takes dot products over the whole "
+                "parameter vector, and the JAX package's sharded LBFGS "
+                "is wrong at world > 1 (ROADMAP.md queue 3)")
+        self._per_param = opt.per_param_keys()
+        self._frozen_intervals = self._frozen_runs(params)
         opt.param_tree = None
         if opt.state is None:
             local = opt.init_state([torch.zeros(shard_len, device=dev)])
@@ -182,7 +208,7 @@ class DistriOptimizer(LocalOptimizer):
         state = {}
         for k, v in opt.state.items():
             v = torch.as_tensor(v).to(dev)
-            if v.dim() == 1:
+            if k in self._per_param and v.dim() == 1:
                 if v.numel() != padded:
                     raise ValueError(
                         f"optimizer state {k!r} holds {v.numel()} elements, "
@@ -191,11 +217,26 @@ class DistriOptimizer(LocalOptimizer):
             state[k] = v
         opt.state = state
 
+    def _frozen_runs(self, params) -> list:
+        """[start, end) runs of the flat vector owned by frozen modules,
+        adjacent runs merged (JAX :505-526)."""
+        frozen = self.model.frozen_parameters()
+        runs, off = [], 0
+        for p in params:
+            sz = p.numel()
+            if id(p) in frozen and sz:
+                if runs and runs[-1][1] == off:
+                    runs[-1][1] = off + sz
+                else:
+                    runs.append([off, off + sz])
+            off += sz
+        return [tuple(r) for r in runs]
+
     def _gathered_state(self) -> dict:
         """The whole optimizer state: each shard vector gathered."""
         out = {}
         for k, v in self.optim_method.state.items():
-            if v.dim() == 1:
+            if k in self._per_param and v.dim() == 1:
                 full = torch.empty(v.numel() * self.n_shards, dtype=v.dtype,
                                    device=v.device)
                 dist.all_gather_into_tensor(full, v.contiguous())
@@ -261,12 +302,12 @@ class DistriOptimizer(LocalOptimizer):
         if mask is not None:
             per = _per_sample_losses(crit, out, tgt)
             local_sum = torch.sum(per * mask)
-            return local_sum, local_sum
+            return local_sum + self._regularization(), local_sum
         per_mean = crit.loss(out, tgt)
         local_bs = self.batch_size // self.n_shards
         total = per_mean * local_bs if getattr(crit, "size_average", True) \
             else per_mean
-        return total, per_mean
+        return total + self._regularization(), per_mean
 
     def _train_step(self, names, params, opt_state, inp, tgt, mask, guard,
                     seed):
@@ -280,6 +321,8 @@ class DistriOptimizer(LocalOptimizer):
                            if gr is None else gr.reshape(-1).float()
                            for gr, p in zip(grads, params)]
                           + [self._flat.new_zeros(self._pad)])
+            for a, b in self._frozen_intervals:
+                g[a:b] *= 0.0
             if self.wire_dtype == "bfloat16":
                 g = g.to(torch.bfloat16)
             shard = g.new_empty(g.numel() // n)
@@ -304,7 +347,7 @@ class DistriOptimizer(LocalOptimizer):
             else:
                 ok = torch.ones((), dtype=torch.bool, device=gshard.device)
             wshard = self._shard(self._flat)
-            per_param = {k for k, v in opt_state.items() if v.dim() == 1}
+            per_param = self._per_param
             listed = {k: [v] if k in per_param else v
                       for k, v in opt_state.items()}
             new_w, new_opt = self.optim_method.step([gshard], [wshard],
@@ -315,6 +358,12 @@ class DistriOptimizer(LocalOptimizer):
             if guard:
                 new_w = torch.where(ok, new_w, wshard)
                 new_opt = _where(ok, new_opt, opt_state)
+            # frozen runs inside this rank's shard keep their values
+            lo = self.rank * wshard.numel()
+            for a, b in self._frozen_intervals:
+                a, b = max(a - lo, 0), min(b - lo, wshard.numel())
+                if a < b:
+                    new_w[a:b] = wshard[a:b]
             dist.all_gather_into_tensor(self._flat, new_w.contiguous())
             torch._foreach_copy_(params, self._flat_views)
             if guard:

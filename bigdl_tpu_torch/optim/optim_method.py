@@ -1,8 +1,11 @@
 """Optimization methods and learning-rate schedules.
 
 Counterpart of ``bigdl_tpu/optim/optim_method.py``: ``OptimMethod``
-(:241, ``init_state``), ``SGD`` (:438) and the schedules ``Default``
-(:59), ``Poly`` (:69), ``MultiStep`` (:92), ``Warmup`` (:143),
+(:241, ``init_state``), ``SGD`` (:438), ``Adam`` (:488), ``Adagrad``
+(:528), ``Adadelta`` (:553), ``Adamax`` (:591), ``RMSprop`` (:622),
+``Ftrl`` (:649), ``LBFGS`` (:717), ``LarsSGD`` (:852) and the schedules
+``Default`` (:59), ``Poly`` (:69), ``Step`` (:81), ``MultiStep`` (:92),
+``Exponential`` (:106), ``EpochDecay`` (:124), ``Warmup`` (:143),
 ``SequentialSchedule`` (:155) and ``Plateau`` (:184).
 
 ``step(grads, params, state) -> (new_params, new_state)`` is pure, as
@@ -57,6 +60,17 @@ class Poly(LearningRateSchedule):
         return lr0 * (1.0 - frac) ** self.power
 
 
+class Step(LearningRateSchedule):
+    """lr0 · gamma ** floor(neval / step_size)."""
+
+    def __init__(self, step_size: int, gamma: float):
+        self.step_size, self.gamma = step_size, gamma
+
+    def rate(self, lr0, state):
+        return lr0 * self.gamma ** torch.floor(state["neval"]
+                                               / self.step_size)
+
+
 class MultiStep(LearningRateSchedule):
     """Decay by ``gamma`` at each iteration milestone."""
 
@@ -69,6 +83,43 @@ class MultiStep(LearningRateSchedule):
         k = sum((n >= float(s)).float() for s in self.step_sizes)
         return lr0 * self.gamma ** torch.as_tensor(k, dtype=torch.float32,
                                                    device=n.device)
+
+
+class Exponential(LearningRateSchedule):
+    """lr0 · decay_rate ** (neval / decay_step), the exponent floored
+    with ``stair_case``."""
+
+    def __init__(self, decay_step: int, decay_rate: float,
+                 stair_case: bool = False):
+        self.decay_step, self.decay_rate = decay_step, decay_rate
+        self.stair_case = stair_case
+
+    def rate(self, lr0, state):
+        e = state["neval"] / self.decay_step
+        if self.stair_case:
+            e = torch.floor(e)
+        return lr0 * self.decay_rate ** e
+
+
+class EpochDecay(LearningRateSchedule):
+    """lr0 · 0.1 ** decay_fn(epoch), the host function tabulated for
+    epochs 0-999 and the table indexed on the device by the state's
+    epoch, clipped to 999 (JAX :124-140)."""
+
+    _EPOCHS = 1000
+
+    def __init__(self, decay_fn):
+        self.decay_fn = decay_fn
+
+    def rate(self, lr0, state):
+        values = getattr(self, "_values", None)
+        if values is None:
+            values = self._values = tuple(
+                0.1 ** float(self.decay_fn(e)) for e in range(self._EPOCHS))
+        epoch = state["epoch"]
+        table = torch.tensor(values, dtype=torch.float32,
+                             device=epoch.device)
+        return lr0 * table[torch.clamp(epoch.long(), 0, self._EPOCHS - 1)]
 
 
 class Warmup(LearningRateSchedule):
@@ -181,6 +232,12 @@ class OptimMethod:
 
     def _extra_state(self, params) -> dict:
         return {}
+
+    def per_param_keys(self) -> frozenset:
+        """The state entries that hold one tensor per parameter (a list
+        in ``init_state``'s result), read off a one-element template."""
+        return frozenset(k for k, v in self._extra_state(
+            [torch.zeros(1)]).items() if isinstance(v, list))
 
     def current_rate(self, state):
         sched = getattr(self, "learningrate_schedule", None) or Default()
@@ -343,5 +400,315 @@ class SGD(OptimMethod):
         return new_params, new_state
 
 
-__all__ = ["LearningRateSchedule", "Default", "Poly", "MultiStep", "Warmup",
-           "SequentialSchedule", "Plateau", "OptimMethod", "SGD"]
+def _zeros(params):
+    return [torch.zeros_like(p) for p in params]
+
+
+def _dot(a, b):
+    """Σ over the tensors of Σ a·b (a 0-d tensor)."""
+    return sum(torch.sum(x * y) for x, y in zip(a, b))
+
+
+class Adam(OptimMethod):
+    """Adam with bias correction (JAX :488)."""
+
+    def __init__(self, learningrate: float = 1e-3,
+                 learningrate_decay: float = 0.0, beta1: float = 0.9,
+                 beta2: float = 0.999, epsilon: float = 1e-8):
+        super().__init__()
+        self.learningrate = learningrate
+        self.learningrate_decay = learningrate_decay
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.learningrate_schedule = None
+
+    def _extra_state(self, params):
+        return {"m": _zeros(params), "v": _zeros(params)}
+
+    def step(self, grads, params, state):
+        lr = self.current_rate(state)
+        b1, b2, eps = self.beta1, self.beta2, self.epsilon
+        t = state["neval"] + 1.0
+        m = [b1 * mm + (1 - b1) * g for mm, g in zip(state["m"], grads)]
+        v = [b2 * vv + (1 - b2) * g * g for vv, g in zip(state["v"], grads)]
+        bc1 = 1 - b1 ** t
+        bc2 = 1 - b2 ** t
+        new_p = [p - lr * (mm / bc1) / (torch.sqrt(vv / bc2) + eps)
+                 for p, mm, vv in zip(params, m, v)]
+        return new_p, {**state, "m": m, "v": v, "neval": t}
+
+
+class Adagrad(OptimMethod):
+    """Adagrad with weight decay (JAX :528)."""
+
+    def __init__(self, learningrate: float = 1e-3,
+                 learningrate_decay: float = 0.0, weightdecay: float = 0.0):
+        super().__init__()
+        self.learningrate = learningrate
+        self.learningrate_decay = learningrate_decay
+        self.weightdecay = weightdecay
+        self.learningrate_schedule = None
+
+    def _extra_state(self, params):
+        return {"accum": _zeros(params)}
+
+    def step(self, grads, params, state):
+        lr = self.current_rate(state)
+        wd = self.weightdecay
+        g = [gg + wd * p for gg, p in zip(grads, params)] if wd > 0 \
+            else list(grads)
+        accum = [a + gg * gg for a, gg in zip(state["accum"], g)]
+        new_p = [p - lr * gg / (torch.sqrt(a) + 1e-10)
+                 for p, gg, a in zip(params, g, accum)]
+        return new_p, {**state, "accum": accum,
+                       "neval": state["neval"] + 1.0}
+
+
+class Adadelta(OptimMethod):
+    """Adadelta (JAX :553); its rate is fixed at 1."""
+
+    def __init__(self, decayrate: float = 0.9, epsilon: float = 1e-10):
+        super().__init__()
+        self.learningrate = 1.0
+        self.learningrate_decay = 0.0
+        self.decayrate, self.epsilon = decayrate, epsilon
+        self.learningrate_schedule = None
+
+    def _extra_state(self, params):
+        return {"accum_g": _zeros(params), "accum_dx": _zeros(params)}
+
+    def step(self, grads, params, state):
+        rho, eps = self.decayrate, self.epsilon
+        ag = [rho * a + (1 - rho) * g * g
+              for a, g in zip(state["accum_g"], grads)]
+        dx = [-torch.sqrt(adx + eps) / torch.sqrt(a + eps) * g
+              for adx, a, g in zip(state["accum_dx"], ag, grads)]
+        adx = [rho * a + (1 - rho) * d * d
+               for a, d in zip(state["accum_dx"], dx)]
+        return [p + d for p, d in zip(params, dx)], {
+            **state, "accum_g": ag, "accum_dx": adx,
+            "neval": state["neval"] + 1.0}
+
+
+class Adamax(OptimMethod):
+    """Adamax (JAX :591).  Its default ``epsilon`` of 1e-38 is an f32
+    subnormal: torch keeps it, while XLA on the CPU flushes it to 0, so
+    where a gradient is exactly 0 from the start this gives a zero
+    update and the JAX package 0/0 = NaN (``ROADMAP.md`` queue 3)."""
+
+    def __init__(self, learningrate: float = 2e-3, beta1: float = 0.9,
+                 beta2: float = 0.999, epsilon: float = 1e-38):
+        super().__init__()
+        self.learningrate = learningrate
+        self.learningrate_decay = 0.0
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.learningrate_schedule = None
+
+    def _extra_state(self, params):
+        return {"m": _zeros(params), "u": _zeros(params)}
+
+    def step(self, grads, params, state):
+        b1, b2, eps = self.beta1, self.beta2, self.epsilon
+        t = state["neval"] + 1.0
+        m = [b1 * mm + (1 - b1) * g for mm, g in zip(state["m"], grads)]
+        u = [torch.maximum(b2 * uu, torch.abs(g) + eps)
+             for uu, g in zip(state["u"], grads)]
+        scale = self.learningrate / (1 - b1 ** t)
+        new_p = [p - scale * mm / uu for p, mm, uu in zip(params, m, u)]
+        return new_p, {**state, "m": m, "u": u, "neval": t}
+
+
+class RMSprop(OptimMethod):
+    """RMSprop (JAX :622)."""
+
+    def __init__(self, learningrate: float = 1e-2,
+                 learningrate_decay: float = 0.0, decayrate: float = 0.99,
+                 epsilon: float = 1e-8):
+        super().__init__()
+        self.learningrate = learningrate
+        self.learningrate_decay = learningrate_decay
+        self.decayrate, self.epsilon = decayrate, epsilon
+        self.learningrate_schedule = None
+
+    def _extra_state(self, params):
+        return {"accum": _zeros(params)}
+
+    def step(self, grads, params, state):
+        lr = self.current_rate(state)
+        dr, eps = self.decayrate, self.epsilon
+        accum = [dr * a + (1 - dr) * g * g
+                 for a, g in zip(state["accum"], grads)]
+        new_p = [p - lr * g / (torch.sqrt(a) + eps)
+                 for p, g, a in zip(params, grads, accum)]
+        return new_p, {**state, "accum": accum,
+                       "neval": state["neval"] + 1.0}
+
+
+class Ftrl(OptimMethod):
+    """FTRL-proximal for sparse and wide models (JAX :649)."""
+
+    def __init__(self, learningrate: float = 1e-3,
+                 learningrate_power: float = -0.5,
+                 initial_accumulator_value: float = 0.1,
+                 l1_regularization_strength: float = 0.0,
+                 l2_regularization_strength: float = 0.0,
+                 l2_shrinkage_regularization_strength: float = 0.0):
+        super().__init__()
+        self.learningrate = learningrate
+        self.learningrate_decay = 0.0
+        self.lr_power = learningrate_power
+        self.init_accum = initial_accumulator_value
+        self.l1 = l1_regularization_strength
+        self.l2 = l2_regularization_strength
+        self.l2_shrinkage = l2_shrinkage_regularization_strength
+        self.learningrate_schedule = None
+
+    def _extra_state(self, params):
+        return {"accum": [torch.full_like(p, self.init_accum)
+                          for p in params],
+                "linear": _zeros(params)}
+
+    def step(self, grads, params, state):
+        lr, lr_power = self.learningrate, self.lr_power
+        l1, l2, shrink = self.l1, self.l2, self.l2_shrinkage
+        new_p, accums, linears = [], [], []
+        for g, p, accum, lin in zip(grads, params, state["accum"],
+                                    state["linear"]):
+            g_shrink = g + 2 * shrink * p if shrink > 0 else g
+            accum_new = accum + g * g
+            sigma = (accum_new ** -lr_power - accum ** -lr_power) / lr
+            linear = lin + g_shrink - sigma * p
+            quad = accum_new ** -lr_power / lr + 2 * l2
+            new_p.append(torch.where(
+                torch.abs(linear) > l1,
+                -(linear - torch.sign(linear) * l1) / quad,
+                torch.zeros_like(linear)))
+            accums.append(accum_new)
+            linears.append(linear)
+        return new_p, {**state, "accum": accums, "linear": linears,
+                       "neval": state["neval"] + 1.0}
+
+
+class LBFGS(OptimMethod):
+    """Limited-memory BFGS with a fixed step of ``learningrate`` (no
+    line search), the two-loop recursion over a history of
+    ``ncorrection`` pairs kept as stacked tensors (JAX :717).  The
+    history is capped at 16, with a warning when the cap engages, as
+    in the JAX package.  ``DistriOptimizer`` runs it at world 1 only
+    (``ROADMAP.md`` queue 3)."""
+
+    _NCORRECTION_CAP = 16
+
+    def __init__(self, max_iter: int = 20, max_eval: Optional[float] = None,
+                 tolfun: float = 1e-5, tolx: float = 1e-9,
+                 ncorrection: int = 16, learningrate: float = 1.0,
+                 verbose: bool = False, linesearch=None):
+        super().__init__()
+        self.learningrate = learningrate
+        self.learningrate_decay = 0.0
+        self.max_iter = max_iter
+        self.tolfun, self.tolx = tolfun, tolx
+        if ncorrection > self._NCORRECTION_CAP:
+            import warnings
+
+            warnings.warn(
+                f"LBFGS ncorrection={ncorrection} capped at "
+                f"{self._NCORRECTION_CAP} (history unrolls into the "
+                "compiled step)", stacklevel=2)
+        self.ncorrection = min(ncorrection, self._NCORRECTION_CAP)
+        self.learningrate_schedule = None
+
+    def _extra_state(self, params):
+        m = self.ncorrection
+        dev = params[0].device if params else torch.device("cpu")
+        return {
+            "s_hist": [torch.zeros((m,) + tuple(p.shape), dtype=p.dtype,
+                                   device=p.device) for p in params],
+            "y_hist": [torch.zeros((m,) + tuple(p.shape), dtype=p.dtype,
+                                   device=p.device) for p in params],
+            "rho": torch.zeros(m, dtype=torch.float32, device=dev),
+            "prev_param": _zeros(params),
+            "prev_grad": _zeros(params),
+            "hist_len": _scalar(0.0, dev),
+        }
+
+    def step(self, grads, params, state):
+        m = self.ncorrection
+        t = state["neval"]
+        # the history takes (s, y) of the previous step
+        s = [p - pp for p, pp in zip(params, state["prev_param"])]
+        y = [g - pg for g, pg in zip(grads, state["prev_grad"])]
+        sy = _dot(s, y)
+        valid = (t > 0) & (sy > 1e-10)
+
+        def rolled(hist, new):
+            return [torch.where(valid, torch.cat([h[1:], n[None]]), h)
+                    for h, n in zip(hist, new)]
+
+        s_hist = rolled(state["s_hist"], s)
+        y_hist = rolled(state["y_hist"], y)
+        rho = torch.where(valid, torch.cat(
+            [state["rho"][1:], (1.0 / torch.clamp_min(sy, 1e-10))[None]]),
+            state["rho"])
+        hist_len = torch.where(valid,
+                               torch.clamp_max(state["hist_len"] + 1, m),
+                               state["hist_len"])
+        zero = torch.zeros_like(hist_len)
+        # the two-loop recursion
+        q = list(grads)
+        alphas = []
+        for i in range(m - 1, -1, -1):
+            live = (m - i) <= hist_len
+            a_i = torch.where(live, rho[i] * _dot([h[i] for h in s_hist],
+                                                  q), zero)
+            q = [qq - a_i * yh[i] for qq, yh in zip(q, y_hist)]
+            alphas.append((i, a_i, live))
+        # the initial Hessian scale sy/yy of the newest pair
+        yy = sum(torch.sum(yh[m - 1] ** 2) for yh in y_hist)
+        sy_last = torch.where(rho[m - 1] > 0, 1.0 / rho[m - 1],
+                              torch.ones_like(rho[m - 1]))
+        gamma = torch.where(hist_len > 0,
+                            sy_last / torch.clamp_min(yy, 1e-10),
+                            torch.ones_like(hist_len))
+        r = [gamma * qq for qq in q]
+        for i, a_i, live in reversed(alphas):
+            b_i = torch.where(live, rho[i] * _dot([h[i] for h in y_hist],
+                                                  r), zero)
+            r = [rr + (a_i - b_i) * sh[i] for rr, sh in zip(r, s_hist)]
+        lr = self.learningrate
+        new_p = [p - lr * rr for p, rr in zip(params, r)]
+        return new_p, {**state, "s_hist": s_hist, "y_hist": y_hist,
+                       # a copy: the trainer writes the parameters in place
+                       "rho": rho, "prev_param": [p.clone() for p in params],
+                       "prev_grad": list(grads), "hist_len": hist_len,
+                       "neval": t + 1.0}
+
+
+class LarsSGD(SGD):
+    """Layer-wise adaptive-rate SGD (JAX :852): each gradient tensor is
+    scaled by tc·‖w‖ / (‖g‖ + wd·‖w‖) before the SGD step.  On
+    ``DistriOptimizer``'s flat shard that is one ratio per rank's
+    shard, as in the JAX package."""
+
+    def __init__(self, learningrate=1e-3, trust_coefficient=0.001, **kw):
+        super().__init__(learningrate=learningrate, **kw)
+        self.trust_coefficient = trust_coefficient
+
+    def step(self, grads, params, state):
+        tc, wd = self.trust_coefficient, self.weightdecay
+
+        def scaled(g, p):
+            w_norm = torch.linalg.vector_norm(p)
+            g_norm = torch.linalg.vector_norm(g)
+            trust = torch.where((w_norm > 0) & (g_norm > 0),
+                                tc * w_norm / (g_norm + wd * w_norm + 1e-12),
+                                torch.ones_like(w_norm))
+            return g * trust
+
+        return super().step([scaled(g, p) for g, p in zip(grads, params)],
+                            params, state)
+
+
+__all__ = ["LearningRateSchedule", "Default", "Poly", "Step", "MultiStep",
+           "Exponential", "EpochDecay", "Warmup", "SequentialSchedule",
+           "Plateau", "OptimMethod", "SGD", "Adam", "Adagrad", "Adadelta",
+           "Adamax", "RMSprop", "Ftrl", "LBFGS", "LarsSGD"]

@@ -8,7 +8,9 @@ checkpoints (``set_checkpoint`` :155, ``_checkpoint`` :247,
 gives a ``DistriOptimizer`` for ``distributed=True``.  One step is
 
     loss, grads = autograd of criterion(model(x), y)
-    grads -> clipper -> optim_method.step -> non-finite guard
+                  + model.regularization_loss()
+    grads -> freeze mask -> clipper -> optim_method.step
+          -> frozen parameters kept -> non-finite guard
 
 with f32 master parameters.  Under ``set_compute_dtype("bfloat16")``
 every floating parameter and the input are cast to bf16 *inside* the
@@ -53,6 +55,16 @@ trainer, pins each one; the step copies it with ``non_blocking=True``.
 ``feed_stats`` holds how many batches the loop waited for and for how
 long.
 
+A frozen module's parameters (``AbstractModule.freeze``) get their
+gradients multiplied by 0 before the clipper, so they do not count in
+the global norm, and keep their values bit for bit after the update
+(JAX :577-603); the optimizer state of them still steps, as there.
+
+``metrics`` (``optim/metrics.py``) times the reference's phases: "data
+wait time" (the loop waiting for the feed), "put batch time" (the copy
+to the device) and "computing time" (a step's dispatch to its loss
+read, JAX :819, :936, :985), logged at each epoch's end.
+
 The port updates the model's parameters in place (the JAX step returns
 new arrays and writes them back at the end): the model holds the
 trained weights after every step.  The summary writers, observability
@@ -77,6 +89,7 @@ from bigdl_tpu_torch.config import TrainConfig
 from bigdl_tpu_torch.dataset import to_dataset
 from bigdl_tpu_torch.dataset.prefetch import PrefetchIterator, to_host_tensor
 from bigdl_tpu_torch.optim.evaluator import evaluate_dataset
+from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.optim_method import SGD, Plateau
 from bigdl_tpu_torch.optim.triggers import Trigger
 # the error moved to resilience/retry.py; this name stays importable
@@ -155,6 +168,10 @@ class LocalOptimizer:
         self._pending_fast_forward = 0
         # (batches waited for, seconds waited, batches) of the last epoch
         self.feed_stats = (0, 0.0, 0)
+        self.metrics = Metrics()
+        # per parameter (the trainer's order): does a frozen module own it
+        self._frozen_mask = []
+        self._regularized = False
         # the reference's state table; neval is the next iteration,
         # epoch_neval0 the neval of the current epoch's first batch
         self.state = {"epoch": 1, "neval": 1, "loss": None, "score": None,
@@ -242,10 +259,18 @@ class LocalOptimizer:
 
     # ---- one step --------------------------------------------------------
     def _loss(self, names, params, inp, tgt, seed):
-        """The f32 loss of one batch, differentiable in ``params``;
-        ``seed`` is the step's dropout seed."""
-        return self.criterion.loss(self._output(names, params, inp, seed),
+        """The f32 loss of one batch plus the model's regularization
+        penalty, differentiable in ``params``; ``seed`` is the step's
+        dropout seed."""
+        loss = self.criterion.loss(self._output(names, params, inp, seed),
                                    tgt)
+        return loss + self._regularization()
+
+    def _regularization(self):
+        """The model's penalty, or 0.0 without a walk of the module tree
+        when no layer has a regularizer."""
+        return self.model.regularization_loss() if self._regularized \
+            else 0.0
 
     def _output(self, names, params, inp, seed):
         """The model's output on one batch, floating outputs in f32,
@@ -272,10 +297,15 @@ class LocalOptimizer:
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, params)]
+        frozen = self._frozen_mask
+        if any(frozen):
+            grads = [g * 0.0 if f else g for g, f in zip(grads, frozen)]
         grads = self._clipper(grads)
         with torch.no_grad():
-            new_p, new_opt = self.optim_method.step(
-                grads, [p.detach() for p in params], opt_state)
+            old = [p.detach() for p in params]
+            new_p, new_opt = self.optim_method.step(grads, old, opt_state)
+            if any(frozen):
+                new_p = [o if f else q for q, o, f in zip(new_p, old, frozen)]
             ok = torch.ones((), dtype=torch.bool, device=loss.device)
             if guard:
                 ok = torch.isfinite(loss.detach())
@@ -426,6 +456,10 @@ class LocalOptimizer:
         model = self.model
         model.train()
         names, params, tree = self._param_leaves()
+        frozen = model.frozen_parameters()
+        self._frozen_mask = [id(p) in frozen for p in params]
+        self._regularized = any(
+            getattr(m, "_regularizers", ()) for m in model.modules())
         self._init_opt_state(params, tree)
         opt = self.optim_method
         self._nonfinite_consec = 0
@@ -437,6 +471,7 @@ class LocalOptimizer:
 
         def resolve(n, loss_dev, ok_dev, bs, t0):
             loss_val = float(loss_dev)
+            self.metrics.add("computing time", time.perf_counter() - t0)
             self.state["loss"] = loss_val
             if self.train_summary is not None:
                 self.train_summary.add_scalar("Loss", loss_val, n)
@@ -461,6 +496,17 @@ class LocalOptimizer:
             while pending:
                 resolve(*pending.pop(0))
 
+        def waited(it):
+            """The feed's items, each wait recorded."""
+            while True:
+                t_wait = time.perf_counter()
+                item = next(it, None)
+                if item is None:
+                    return
+                self.metrics.add("data wait time",
+                                 time.perf_counter() - t_wait)
+                yield item
+
         ckpt_trigger = self.checkpoint_trigger
         pin = self.device.type == "cuda"
         stop = False
@@ -479,10 +525,12 @@ class LocalOptimizer:
                 for _ in range(skip):
                     if next(batches, None) is None:
                         break
-                for inp, tgt, mask, records in batches:
+                for inp, tgt, mask, records in waited(batches):
                     n = self.state["neval"]
                     t0 = time.perf_counter()
-                    inp_d, tgt_d, mask_d = self._put_batch(inp, tgt, mask)
+                    with self.metrics.timer("put batch time"):
+                        inp_d, tgt_d, mask_d = self._put_batch(inp, tgt,
+                                                               mask)
                     opt.state, loss, ok = self._train_step(
                         names, params, opt.state, inp_d, tgt_d, mask_d,
                         cfg.nonfinite_guard, fold_in(DROPOUT_BASE_SEED, n))
@@ -514,6 +562,7 @@ class LocalOptimizer:
                 opt.state["epoch"] = opt.state["epoch"] + 1.0
                 log.info("Epoch %d done in %.1fs", epoch,
                          time.time() - t_epoch)
+                log.info("Metrics: %s", self.metrics.summary())
                 if val_trigger is not None and val_trigger(self.state):
                     self._run_validation()
                     model.train()

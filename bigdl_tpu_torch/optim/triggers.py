@@ -1,6 +1,7 @@
 """Triggers: when to stop and when to validate.
 
-Counterpart of ``bigdl_tpu/optim/triggers.py`` (``Trigger``, :103): a
+Counterpart of ``bigdl_tpu/optim/triggers.py`` (``Trigger``, :103,
+with ``and_``/``or_``, :83-135): a
 trigger is a predicate over the optimizer's state table (``epoch``,
 ``neval``, ``epoch_finished``, ``loss``, ``score``).  ``neval`` is the
 number of the next iteration (1 before the first step), as in the
@@ -78,6 +79,30 @@ class _MaxScore(_TriggerBase):
         return score is not None and score > self.m
 
 
+class _And(_TriggerBase):
+    """Fires when every one of ``ts`` fires (asked in order, stopping
+    at the first that does not, as JAX's ``all``); reads the loss when
+    any of them does."""
+
+    def __init__(self, *ts):
+        self.ts = ts
+        self.needs_loss = any(getattr(t, "needs_loss", True) for t in ts)
+
+    def __call__(self, state):
+        return all(t(state) for t in self.ts)
+
+
+class _Or(_TriggerBase):
+    """Fires when any of ``ts`` fires (stopping at the first)."""
+
+    def __init__(self, *ts):
+        self.ts = ts
+        self.needs_loss = any(getattr(t, "needs_loss", True) for t in ts)
+
+    def __call__(self, state):
+        return any(t(state) for t in self.ts)
+
+
 class Trigger:
     """Factory namespace matching the reference's ``Trigger`` object."""
 
@@ -104,6 +129,14 @@ class Trigger:
     @staticmethod
     def max_score(m: float):
         return _MaxScore(m)
+
+    @staticmethod
+    def and_(*ts):
+        return _And(*ts)
+
+    @staticmethod
+    def or_(*ts):
+        return _Or(*ts)
 
     everyEpoch = every_epoch
     severalIteration = several_iteration

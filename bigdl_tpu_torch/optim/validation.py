@@ -2,7 +2,9 @@
 
 Counterpart of ``bigdl_tpu/optim/validation.py``: ``ValidationResult``
 (:15), ``ValidationMethod`` (:36), ``Top1Accuracy`` (:49),
-``Top5Accuracy`` (:62), ``Loss`` (:77) and ``MAE`` (:93).  Each method
+``Top5Accuracy`` (:62), ``Loss`` (:77), ``MAE`` (:93),
+``TreeNNAccuracy`` (:106) and the ranking metrics ``HitRatio`` (:125)
+and ``NDCG`` (:144).  Each method
 folds one batch's model output, copied to the host, into a (sum, count)
 result in numpy; results add across batches.  ``Top5Accuracy`` ranks
 with numpy's ``argpartition``, as JAX does, so ties break the same way.
@@ -105,5 +107,63 @@ class MAE(ValidationMethod):
             self.name)
 
 
+class TreeNNAccuracy(ValidationMethod):
+    """Accuracy of a tree-structured output (Tree-LSTM sentiment): the
+    argmax of the root node's distribution, the first slice along the
+    node axis of a (batch, nodes, classes) output."""
+
+    name = "TreeNNAccuracy"
+
+    def batch_result(self, output, target):
+        out = np.asarray(output)
+        t = np.asarray(target)
+        if out.ndim >= 3:
+            out = out[:, 0]
+        if t.ndim >= 2:
+            t = t[:, 0]
+        t = t.reshape(-1).astype(np.int64)
+        pred = np.argmax(out.reshape(-1, out.shape[-1]), axis=-1) + 1
+        return ValidationResult(int(np.sum(pred == t)), t.size, self.name)
+
+
+def _ranks(output, neg_num: int) -> np.ndarray:
+    """The 1-based rank of each group's positive (item 0 of each run of
+    ``neg_num + 1`` scores) among its group; ties rank in its favour."""
+    out = np.asarray(output).reshape(-1, neg_num + 1)
+    return np.sum(out > out[:, :1], axis=1) + 1
+
+
+class HitRatio(ValidationMethod):
+    """HitRatio@k: the share of positives ranked within the top ``k`` of
+    their group of ``neg_num`` negatives."""
+
+    name = "HitRatio"
+
+    def __init__(self, k: int = 10, neg_num: int = 99):
+        self.k, self.neg_num = k, neg_num
+
+    def batch_result(self, output, target):
+        rank = _ranks(output, self.neg_num)
+        return ValidationResult(int(np.sum(rank <= self.k)), rank.shape[0],
+                                self.name)
+
+
+class NDCG(ValidationMethod):
+    """NDCG@k over the same groups: 1 / log2(rank + 1) inside the top
+    ``k``, else 0."""
+
+    name = "NDCG"
+
+    def __init__(self, k: int = 10, neg_num: int = 99):
+        self.k, self.neg_num = k, neg_num
+
+    def batch_result(self, output, target):
+        rank = _ranks(output, self.neg_num)
+        gain = np.where(rank <= self.k, 1.0 / np.log2(rank + 1.0), 0.0)
+        return ValidationResult(float(np.sum(gain)), rank.shape[0],
+                                self.name)
+
+
 __all__ = ["ValidationResult", "ValidationMethod", "Top1Accuracy",
-           "Top5Accuracy", "Loss", "MAE"]
+           "Top5Accuracy", "Loss", "MAE", "TreeNNAccuracy", "HitRatio",
+           "NDCG"]

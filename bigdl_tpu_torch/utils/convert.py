@@ -7,8 +7,10 @@ nesting with torch tensors: ``wte/wpe/h{i}/{ln1,attn,ln2,fc1,fc2}/
 ln_f/head``, where ``attn`` holds ``wq,wk,wv,wo,bq,bk,bv,bo`` and
 ``head`` has no bias.  ``load_jax_params`` copies such a tree into a
 port model, so that both packages compute with the same weights; a
-``Sequential`` (ResNet) nests by child index, ``"0"``, ``"1"``, ...,
-as the JAX ``Container.params()`` does.  ``load_jax_state`` does the
+``Sequential`` (ResNet, the autoencoder) nests by child index,
+``"0"``, ``"1"``, ..., as the JAX ``Container.params()`` does, and a
+``Graph`` (NCF, Inception) by its nodes' topological index, as the
+JAX ``Graph`` does.  ``load_jax_state`` does the
 same for the BN running statistics of ``model.state()``.
 """
 

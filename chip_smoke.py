@@ -186,6 +186,34 @@ it runs; any failure exits non-zero:
     rows (``feature_size=[28, 28]``), each on the card and on the CPU:
     training accuracy above 0.9, the fitted NLL and weights against
     the CPU's, rows/s through fit + transform;
+18. the optim methods, f32 throughout, no kernel of their own
+    (``phase_optim``, callable alone): (a) ``Adam``, ``Adagrad``,
+    ``Adadelta``, ``Adamax``, ``RMSprop``, ``Ftrl``, ``LBFGS``,
+    ``LarsSGD`` and ``SGD`` under ``Step``, ``Exponential`` and
+    ``EpochDecay``, 3 steps each at the flagship's parameter shapes (133
+    tensors, 34M values) on the card and on the CPU from the same
+    seeded parameters, quadratic gradients and state: what |card - CPU|
+    exceeds one ulp of p by, over the largest |Δp|, within 1e-5; ms a
+    step, LBFGS's peak memory; (b) NCF as
+    ``examples/recommendation/ncf_train.py`` runs it, at ml-1m's id
+    ranges (6040 users, 3706 items; the synthetic latent-factor
+    positives, 4 negatives each, 573800 rows), the example's widths,
+    ``Adam(1e-3)``, batch 256, one epoch through ``LocalOptimizer``
+    with ``Trigger.or_(max_epoch(1), max_iteration(3000))``: the first
+    20 losses within 1e-4 relative of the CPU's, HitRatio@10 above 0.10
+    and NDCG@10 above 0.045 (leave-one-out, 99 negatives), step ms and
+    rows/s; (c) the flagship (B=16, T=512, kernel attention) in f32 with
+    ``Adam(1e-3)`` under ``Step(2, 0.5)`` and its token embedding frozen,
+    1 + 5 steps through ``LocalOptimizer``, then through
+    ``DistriOptimizer`` (world 1, NCCL, f32 wire), then with ``SGD``:
+    every loss finite, the embedding bit-equal, 8 launches of each
+    flash kernel a step, Distri within 1e-5 of Local (cuDNN
+    deterministic), step ms beside phase 11's; (d) ``train_autoencoder``
+    (``Adagrad(0.01)``, batch 128, one epoch of synthetic MNIST) on the
+    card and on the CPU: the loss falls, the first 5 losses within 1e-4;
+    (e) ``LookupTable``, ``LSTM``, ``SpatialConvolution`` and ``Linear``,
+    each with an ``L1L2Regularizer``, 3 ``Adam`` steps on the card and
+    on the CPU: losses and ``regularization_loss`` within 1e-5;
 9. the kernels line, last: one JSON object listing each kernel with its
    launches on its own path (phase 4, the fused arm of phase 7, or the
    kernel arm of phase 11) and its numbers from phase 3, 6 or 10.
@@ -366,6 +394,35 @@ INT8_MM_SHAPES = [("qkvo", (8, 512, 512)), ("fc1", (8, 512, 2048)),
 # synthetic MNIST rows runs at phase 14's recipe
 C5_ROWS, C5_FEAT, C5_BATCH, C5_EPOCHS, C5_LR = 4096, 64, 256, 2, 1.0
 C5_ACC_MIN = 0.9
+# the optim methods (phase 18): (a) steps of each method at the flagship's
+# parameter shapes, on the card and on the CPU from the same parameters,
+# gradients (those of a quadratic, 0.5·p + a fixed noise, so no entry is
+# exactly 0 and LBFGS's sᵀy is positive) and state; limit on what each
+# |p_card - p_cpu| exceeds one f32 ulp of p_cpu by, over the largest |Δp|
+# of the CPU run (an update an ulp apart can round p - u to neighbouring
+# floats: Adam read 5.96e-08, half an ulp of 1.0, against a largest Δp of
+# 2.7e-03, on the first H100 run; LBFGS and LarsSGD also sum 34M products
+# in other orders); (b) NCF at ml-1m's id ranges with the
+# example's widths, batch and Adam rate: the CPU run's first losses and
+# their relative limit, the random-ranking levels HitRatio@10 and
+# NDCG@10 must beat (the example's log line), and the iteration cap of
+# the end trigger (above the epoch's 2241 steps); (c) the flagship in f32
+# with Adam under Step(2, 0.5) and the token embedding frozen, 1 + 5
+# steps per trainer, and the limit on DistriOptimizer (world 1) against
+# LocalOptimizer (relative: losses, and the params' L2); (d) the
+# autoencoder's published batch and rate, the first CPU losses gated and
+# their limit; (e) the regularized model's sizes, steps and limit
+OPT_STEPS, OPT_REL_TOL = 3, 1e-5
+NCF_USERS, NCF_ITEMS, NCF_BATCH, NCF_LR = 6040, 3706, 256, 1e-3
+NCF_CPU_STEPS, NCF_LOSS_REL_TOL, NCF_MAX_ITER = 20, 1e-4, 3000
+NCF_HR_MIN, NCF_NDCG_MIN = 0.10, 0.045
+LM_OPT_STEPS, LM_DISTRI_TOL = 5, 1e-5
+AE_BATCH, AE_LR, AE_CPU_LOSSES, AE_LOSS_REL_TOL = 128, 0.01, 5, 1e-4
+REG_VOCAB, REG_EMBED, REG_HIDDEN, REG_T, REG_BATCH = 1000, 64, 128, 16, 32
+REG_STEPS, REG_REL_TOL = 3, 1e-5
+# phase 11's kernel-arm SGD step (bf16), for phase 18 (c) to print beside
+# Adam's
+_LM_SGD_MS = {}
 # the device of the conv_bn, flash backward and training phases
 DEV = "cuda"
 # clock cycles of the busy wait before a device-only timing (some 2 ms at
@@ -1559,6 +1616,7 @@ def phase_lm_training():
             raise AssertionError(f"{impl} arm launched {launches}, want "
                                  f"{want} (fwd, dq, dkv)")
         arms[impl] = (loss, launches)
+        _LM_SGD_MS[impl] = ms
         if impl == "reference":
             del opt
             torch.cuda.empty_cache()
@@ -3022,6 +3080,385 @@ def _config5() -> None:
             raise AssertionError(f"config 5 {which}: accuracy {acc}")
 
 
+def _optim_cases() -> dict:
+    """Phase 18 (a)'s methods: the eight ported ones, and SGD under the
+    three new schedules."""
+    from bigdl_tpu_torch import optim as O
+
+    return {
+        "Adam": lambda: O.Adam(learningrate=1e-3, learningrate_decay=0.1),
+        "Adagrad": lambda: O.Adagrad(learningrate=0.01, weightdecay=1e-3),
+        "Adadelta": lambda: O.Adadelta(decayrate=0.9, epsilon=1e-6),
+        "Adamax": lambda: O.Adamax(learningrate=2e-3),
+        "RMSprop": lambda: O.RMSprop(learningrate=1e-2,
+                                     learningrate_decay=0.1),
+        "Ftrl": lambda: O.Ftrl(learningrate=0.1,
+                               l1_regularization_strength=1e-3,
+                               l2_regularization_strength=1e-2,
+                               l2_shrinkage_regularization_strength=1e-2),
+        "LBFGS": lambda: O.LBFGS(learningrate=0.1),
+        "LarsSGD": lambda: O.LarsSGD(learningrate=0.5, trust_coefficient=0.02,
+                                     momentum=0.9, weightdecay=1e-3),
+        "SGD+Step": lambda: O.SGD(learningrate=0.1, momentum=0.9,
+                                  learningrate_schedule=O.Step(2, 0.5)),
+        "SGD+Exponential": lambda: O.SGD(
+            learningrate=0.1, learningrate_schedule=O.Exponential(2, 0.5)),
+        "SGD+EpochDecay": lambda: O.SGD(
+            learningrate=0.1,
+            learningrate_schedule=O.EpochDecay(lambda e: 0.5 * e)),
+    }
+
+
+def _method_steps(make, params0, noise, device):
+    """``OPT_STEPS`` steps of a fresh method from ``params0`` on
+    ``device``, the gradient 0.5·p + noise; returns (params, the card's
+    ms of each step or None)."""
+    p = [t.to(device, copy=True) for t in params0]
+    nz = [t.to(device) for t in noise]
+    m = make()
+    state = m.init_state(p)
+    times = []
+    for _ in range(OPT_STEPS):
+        g = [0.5 * a + n for a, n in zip(p, nz)]
+        if device == DEV:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        p, state = m.step(g, p, state)
+        if device == DEV:
+            end.record()
+            times.append((start, end))
+    if device != DEV:
+        return p, None
+    torch.cuda.synchronize()
+    return p, [s.elapsed_time(e) for s, e in times]
+
+
+def _ulp(t: torch.Tensor) -> torch.Tensor:
+    """One f32 ulp of each |t|."""
+    a = t.abs()
+    return torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+
+
+def _phase_optim_steps() -> None:
+    """(a): each method's steps at the flagship's parameter shapes."""
+    from bigdl_tpu_torch.utils import tree as T
+
+    model = _lm("reference", LM_T)
+    params0 = [v.detach().cpu().clone() for v in T.leaves(model.params())]
+    del model
+    torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(18)
+    noise = [0.1 * torch.randn(t.shape, generator=gen) + 0.05
+             for t in params0]
+    n = sum(t.numel() for t in params0)
+    for name, make in _optim_cases().items():
+        if name == "LBFGS":
+            torch.cuda.reset_peak_memory_stats()
+        card, times = _method_steps(make, params0, noise, DEV)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        card = [t.cpu() for t in card]
+        t0 = time.perf_counter()
+        cpu, _ = _method_steps(make, params0, noise, "cpu")
+        cpu_s = time.perf_counter() - t0
+        moved = max(float((c - p0).abs().max()) for c, p0 in zip(cpu, params0))
+        err = max(float((a - b).abs().max()) for a, b in zip(card, cpu))
+        over = max(float(((a - b).abs() - _ulp(b)).max())
+                   for a, b in zip(card, cpu))
+        rel = max(over, 0.0) / moved if moved > 0 else float("inf")
+        say(f"phase 18 (a) {name}: {len(params0)} tensors, {n} f32 values, "
+            f"{OPT_STEPS} steps; ms a step on the card "
+            f"{['%.3f' % t for t in times]}; max |card - CPU| {err:.3e}, "
+            f"beyond an ulp of p {over:.3e}, over largest |dp| {moved:.3e} "
+            f"= {rel:.3e} (limit {OPT_REL_TOL:g}); CPU {cpu_s:.1f} s"
+            + (f"; peak memory {peak:.2f} GiB" if name == "LBFGS" else ""))
+        if not all(torch.isfinite(t).all() for t in card):
+            raise AssertionError(f"{name}: non-finite parameters on the card")
+        if not rel <= OPT_REL_TOL:
+            raise AssertionError(f"{name}: card off the CPU by {rel:.3e} of "
+                                 "the update")
+        del card, cpu
+
+
+def _ncf_train(device, x, y, end):
+    """NCF at ml-1m's id ranges from the seed-0 weights and the seed-1
+    shuffle, trained by ``LocalOptimizer`` with Adam until ``end``:
+    (model, losses)."""
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.models.ncf import build_ncf
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import Adam, LocalOptimizer
+
+    RandomGenerator.RNG.set_seed(0)
+    model = build_ncf(NCF_USERS, NCF_ITEMS, class_num=2, device=device)
+    RandomGenerator.RNG.set_seed(1)
+    losses = _TimedLosses()
+    opt = LocalOptimizer(model, (x, y), ClassNLLCriterion(), NCF_BATCH,
+                         device=device)
+    opt.set_optim_method(Adam(learningrate=NCF_LR))
+    opt.set_end_when(end).set_train_summary(losses)
+    opt.optimize()
+    return model, losses
+
+
+def _phase_optim_ncf() -> None:
+    """(b): NCF as ``examples/recommendation/ncf_train.py`` runs it."""
+    from bigdl_tpu_torch.examples import ncf_train as X
+    from bigdl_tpu_torch.optim import Trigger
+
+    t0 = time.perf_counter()
+    pos = X.synthetic_interactions(NCF_USERS, NCF_ITEMS)
+    x, y = X.training_pairs(pos, NCF_ITEMS)
+    data_s = time.perf_counter() - t0
+    steps = x.shape[0] // NCF_BATCH   # the last, partial batch is dropped
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, losses = _ncf_train(DEV, x, y, Trigger.or_(
+        Trigger.max_epoch(1), Trigger.max_iteration(NCF_MAX_ITER)))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    loss = [losses.loss[k] for k in sorted(losses.loss)]
+    step_ms = steady_step_ms(losses.at, steps)
+    t0 = time.perf_counter()
+    hr, ndcg = X.eval_ranking(model, pos, NCF_ITEMS, device=DEV)
+    eval_s = time.perf_counter() - t0
+    _, cpu_losses = _ncf_train("cpu", x, y,
+                               Trigger.max_iteration(NCF_CPU_STEPS))
+    cpu = [cpu_losses.loss[k] for k in sorted(cpu_losses.loss)]
+    rel = [abs(a - b) / abs(b) for a, b in zip(loss, cpu)]
+    say(f"phase 18 (b) NCF {NCF_USERS} users x {NCF_ITEMS} items, "
+        f"{x.shape[0]} rows ({data_s:.1f} s to make), batch {NCF_BATCH}, "
+        f"Adam({NCF_LR:g}), f32: {len(loss)} steps in {train_s:.1f} s, "
+        f"loss {loss[0]:.5f} -> {loss[-1]:.5f}; step {step_ms:.3f} ms "
+        f"(median, wall), {NCF_BATCH / step_ms * 1e3:.0f} rows/s; "
+        f"HitRatio@10 {hr:.4f}, NDCG@10 {ndcg:.4f} (random {NCF_HR_MIN}, "
+        f"{NCF_NDCG_MIN}; {eval_s:.1f} s); first {len(cpu)} losses against "
+        f"the CPU: worst relative gap {max(rel):.3e} (limit "
+        f"{NCF_LOSS_REL_TOL:g})")
+    if len(loss) != steps or not all(np.isfinite(loss)):
+        raise AssertionError(f"NCF: {len(loss)} losses of {steps}, or "
+                             "non-finite ones")
+    if len(cpu) != NCF_CPU_STEPS or not max(rel) <= NCF_LOSS_REL_TOL:
+        raise AssertionError(f"NCF losses off the CPU run's: {rel}")
+    if not (hr > NCF_HR_MIN and ndcg > NCF_NDCG_MIN):
+        raise AssertionError(f"NCF ranks no better than chance: HR {hr}, "
+                             f"NDCG {ndcg}")
+
+
+def _lm_optim_arm(cls, make, x, y):
+    """(c): the flagship in f32 with the kernels, the token embedding
+    frozen, trained by ``cls`` for 1 + ``LM_OPT_STEPS`` steps with the
+    method ``make()``.  Returns (losses, params, launches, step ms of
+    the timed steps, whether the embedding stayed bit-equal)."""
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.nn.criterion import CrossEntropyCriterion
+    from bigdl_tpu_torch.ops import _cuda
+    from bigdl_tpu_torch.optim import DistriOptimizer, Trigger
+    from bigdl_tpu_torch.utils import tree as T
+
+    model = _lm("kernel", LM_T)
+    model.child("wte").freeze()
+    wte0 = model.child("wte").weight.detach().clone()
+    RandomGenerator.RNG.set_seed(1)
+    kw = dict(wire_dtype="float32") if cls is DistriOptimizer else {}
+    opt = cls(model, (x, y), CrossEntropyCriterion(), x.shape[0], device=DEV,
+              **kw)
+    opt.set_optim_method(make())
+    losses = _Losses()
+    opt.set_train_summary(losses)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    opt.set_end_when(Trigger.max_iteration(1)).optimize()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt.set_end_when(Trigger.max_iteration(1 + LM_OPT_STEPS)).optimize()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / LM_OPT_STEPS * 1e3
+    launches = {k: _cuda.launches[k]
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    out = ([losses.loss[k] for k in sorted(losses.loss)],
+           [p.detach().clone() for p in T.leaves(model.params())], launches,
+           ms, torch.equal(model.child("wte").weight, wte0))
+    del opt, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _phase_optim_lm() -> None:
+    """(c): the flagship with Adam on the flash kernels."""
+    from bigdl_tpu_torch.engine import Engine
+    from bigdl_tpu_torch.optim import (SGD, Adam, DistriOptimizer,
+                                       LocalOptimizer, Step)
+
+    def adam():
+        m = Adam(learningrate=1e-3)
+        m.learningrate_schedule = Step(2, 0.5)
+        return m
+
+    x, y = _lm_data(LM_BATCH, LM_T)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        local = _lm_optim_arm(LocalOptimizer, adam, x, y)
+        distri = _lm_optim_arm(DistriOptimizer, adam, x, y)
+        sgd = _lm_optim_arm(LocalOptimizer, lambda: SGD(learningrate=1e-3),
+                            x, y)
+    finally:
+        torch.backends.cudnn.deterministic = det
+        Engine.reset()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(distri[0], local[0]))
+    num = sum(float(torch.sum((a - b) ** 2))
+              for a, b in zip(distri[1], local[1]))
+    den = sum(float(torch.sum(b ** 2)) for b in local[1])
+    p_rel = (num / den) ** 0.5
+    want = 8 * (1 + LM_OPT_STEPS)
+    sgd11 = _LM_SGD_MS.get("kernel")
+    say(f"phase 18 (c) flagship B={LM_BATCH} T={LM_T} f32, kernel attention, "
+        f"wte frozen, Adam(1e-3) under Step(2, 0.5): Local losses "
+        f"{['%.5f' % v for v in local[0]]}; Distri (world 1, NCCL, f32 wire) "
+        f"against Local: losses {loss_rel:.3e}, params L2 {p_rel:.3e} "
+        f"(limit {LM_DISTRI_TOL:g}); launches Local {local[2]}, Distri "
+        f"{distri[2]} (want {want} each); wte bit-equal Local {local[4]}, "
+        f"Distri {distri[4]}")
+    say(f"phase 18 (c) step ms over steps 2-{1 + LM_OPT_STEPS}: Adam f32 "
+        f"Local {local[3]:.3f}, Distri {distri[3]:.3f}; SGD f32 Local "
+        f"{sgd[3]:.3f}; phase 11's SGD bf16 kernel arm "
+        + (f"{sgd11:.3f}" if sgd11 is not None else "not run in this call"))
+    if not all(np.isfinite(v) for v in local[0] + distri[0] + sgd[0]):
+        raise AssertionError("flagship with Adam: non-finite losses")
+    if not (local[4] and distri[4] and sgd[4]):
+        raise AssertionError("the frozen token embedding moved")
+    for arm in (local, distri, sgd):
+        if tuple(arm[2].values()) != (want,) * 3:
+            raise AssertionError(f"flagship launched {arm[2]}, want {want} "
+                                 "each")
+    if not (loss_rel <= LM_DISTRI_TOL and p_rel <= LM_DISTRI_TOL):
+        raise AssertionError(f"Distri off Local: losses {loss_rel:.3e}, "
+                             f"params {p_rel:.3e}")
+
+
+def _ae_run(device):
+    """``train_autoencoder`` for one epoch on ``device``, each loss
+    recorded: (losses, step ms)."""
+    from bigdl_tpu_torch import optim as O
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.models.autoencoder import train_autoencoder
+
+    losses = _TimedLosses()
+    base = O.LocalOptimizer
+
+    class Recording(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.set_train_summary(losses)
+
+    O.LocalOptimizer = Recording
+    try:
+        RandomGenerator.RNG.set_seed(0)
+        _, opt = train_autoencoder(batch_size=AE_BATCH, max_epoch=1,
+                                   learning_rate=AE_LR, device=device)
+    finally:
+        O.LocalOptimizer = base
+    if type(opt.optim_method).__name__ != "Adagrad":
+        raise AssertionError("train_autoencoder did not train with Adagrad")
+    return [losses.loss[k] for k in sorted(losses.loss)], losses.at
+
+
+def _phase_optim_autoencoder() -> None:
+    """(d): the MNIST autoencoder with Adagrad."""
+    card, at = _ae_run(DEV)
+    cpu, _ = _ae_run("cpu")
+    rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+    steps = len(card)
+    say(f"phase 18 (d) autoencoder 784-32-784, Adagrad({AE_LR:g}), batch "
+        f"{AE_BATCH}, f32, synthetic MNIST: {steps} steps, loss "
+        f"{card[0]:.6f} -> {card[-1]:.6f}; step "
+        f"{steady_step_ms(at, steps):.3f} ms (median, wall); card against "
+        f"CPU relative gaps {['%.1e' % r for r in rel]} (first "
+        f"{AE_CPU_LOSSES} gated at {AE_LOSS_REL_TOL:g})")
+    if len(cpu) != steps or not all(np.isfinite(card)):
+        raise AssertionError("autoencoder: missing or non-finite losses")
+    if not card[-1] < card[0]:
+        raise AssertionError(f"autoencoder loss did not fall: {card}")
+    if not max(rel[:AE_CPU_LOSSES]) <= AE_LOSS_REL_TOL:
+        raise AssertionError(f"autoencoder losses off the CPU's: {rel}")
+
+
+def _reg_model(device):
+    """(e): LookupTable → Recurrent(LSTM) → a 3x3 conv over the (T, H)
+    sequence → Linear → LogSoftMax, each trained layer with an
+    ``L1L2Regularizer``, from seed 0."""
+    from bigdl_tpu_torch import nn as N
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.optim import L1L2Regularizer
+
+    RandomGenerator.RNG.set_seed(0)
+    reg = lambda: L1L2Regularizer(1e-5, 1e-4)  # noqa: E731
+    return N.Sequential() \
+        .add(N.LookupTable(REG_VOCAB, REG_EMBED, w_regularizer=reg())) \
+        .add(N.Recurrent().add(N.LSTM(
+            REG_EMBED, REG_HIDDEN, w_regularizer=reg(), u_regularizer=reg(),
+            b_regularizer=reg()))) \
+        .add(N.Reshape([1, REG_T, REG_HIDDEN])) \
+        .add(N.SpatialConvolution(1, 4, 3, 3, 1, 1, 1, 1,
+                                  w_regularizer=reg(), b_regularizer=reg())) \
+        .add(N.Reshape([4 * REG_T * REG_HIDDEN])) \
+        .add(N.Linear(4 * REG_T * REG_HIDDEN, 10, w_regularizer=reg(),
+                      b_regularizer=reg())) \
+        .add(N.LogSoftMax()).to(device)
+
+
+def _phase_optim_regularizers() -> None:
+    """(e): 3 steps of the regularized model on the card and the CPU."""
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import Adam, LocalOptimizer, Trigger
+
+    rs = np.random.RandomState(18)
+    x = (rs.randint(0, REG_VOCAB, (REG_BATCH * REG_STEPS, REG_T)) + 1) \
+        .astype(np.float32)
+    y = (rs.randint(0, 10, REG_BATCH * REG_STEPS) + 1).astype(np.float32)
+    res = {}
+    for dev in (DEV, "cpu"):
+        model = _reg_model(dev)
+        RandomGenerator.RNG.set_seed(1)
+        losses = _Losses()
+        opt = LocalOptimizer(model, (x, y), ClassNLLCriterion(), REG_BATCH,
+                             device=dev)
+        opt.set_optim_method(Adam(learningrate=1e-3))
+        opt.set_end_when(Trigger.max_iteration(REG_STEPS))
+        opt.set_train_summary(losses).optimize()
+        res[dev] = ([losses.loss[k] for k in sorted(losses.loss)],
+                    float(model.regularization_loss().detach()))
+    card, cpu = res[DEV], res["cpu"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(card[0] + [card[1]],
+                                               cpu[0] + [cpu[1]])]
+    say(f"phase 18 (e) LookupTable/LSTM/SpatialConvolution/Linear with "
+        f"L1L2Regularizer, {REG_STEPS} Adam steps: losses "
+        f"{['%.6f' % v for v in card[0]]}, regularization_loss "
+        f"{card[1]:.6f}; card against CPU worst relative gap {max(rel):.3e} "
+        f"(limit {REG_REL_TOL:g})")
+    if len(card[0]) != REG_STEPS or not max(rel) <= REG_REL_TOL:
+        raise AssertionError(f"regularized model off the CPU's: {rel}")
+
+
+def phase_optim(smi: str) -> None:
+    """Phase 18: the optim methods, schedules, regularizers and freeze;
+    callable alone after ``phase_device()`` (the flash kernels build on
+    their first launch without ``phase_build()``)."""
+    t_phase = time.perf_counter()
+    parts = {}
+    for part, run in (("a", _phase_optim_steps), ("b", _phase_optim_ncf),
+                      ("c", _phase_optim_lm),
+                      ("d", _phase_optim_autoencoder),
+                      ("e", _phase_optim_regularizers)):
+        t0 = time.perf_counter()
+        run()
+        parts[part] = round(time.perf_counter() - t0, 1)
+    say(f"phase 18 took {time.perf_counter() - t_phase:.1f} s on {smi} "
+        f"(seconds by part {parts})")
+
+
 def phase_serving_http(smi: str, direct_ttft: float) -> None:
     """Phase 17: the serving tier over HTTP at full width: (a) LMEngine
     (the flagship) and ClassifierEngine (ResNet-50) behind one
@@ -3104,6 +3541,7 @@ def main() -> int:
     phase_imagenet(smi)
     phase_caffe(smi)
     phase_serving_http(smi, serve_stats["ttft_p50_s"])
+    phase_optim(smi)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["launches"] <= 0:

@@ -167,7 +167,11 @@ def test_import_loads_neither_jax_nor_bigdl_tpu():
         "bigdl_tpu_torch.obs.reqtrace, bigdl_tpu_torch.serving.drain, "
         "bigdl_tpu_torch.serving.classifier, bigdl_tpu_torch.serving.server, "
         "bigdl_tpu_torch.ops.quantized_matmul, bigdl_tpu_torch.nn.quantized, "
-        "bigdl_tpu_torch.dlframes, bigdl_tpu_torch.dlframes.dl_estimator\n"
+        "bigdl_tpu_torch.dlframes, bigdl_tpu_torch.dlframes.dl_estimator, "
+        "bigdl_tpu_torch.optim.regularizer, bigdl_tpu_torch.optim.metrics, "
+        "bigdl_tpu_torch.dataset.movielens, bigdl_tpu_torch.models.ncf, "
+        "bigdl_tpu_torch.models.autoencoder, "
+        "bigdl_tpu_torch.examples.ncf_train\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'bigdl_tpu' or m.startswith('bigdl_tpu.')]\n"
         "print(bad)\n"

@@ -3,8 +3,9 @@
 Counterpart of ``bigdl_tpu/nn/recurrent.py``: ``_gate_dropout`` (:43),
 ``Cell`` (:58), ``RnnCell`` (:126), ``LSTM`` (:157), ``LSTMPeephole``
 (:228), ``GRU`` (:278), ``Recurrent`` (:348), ``BiRecurrent`` (:378),
-``TimeDistributed`` (:421), ``Select`` (:440) and ``MultiRNNCell``
-(:456).  Input is batch-first, (B, T, F).
+``TimeDistributed`` (:421), ``Select`` (:440), ``MultiRNNCell``
+(:456) and ``ConvLSTMPeephole`` (:526).  Input is batch-first, (B, T,
+F).
 
 The structure is the JAX package's: the input projection of every
 timestep is one hoisted (B·T, in) × (in, G·H) matmul, then a loop over
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.common import RandomGenerator, fold_in
-from bigdl_tpu_torch.nn.layers import Sigmoid, Tanh
+from bigdl_tpu_torch.nn.layers import Sigmoid, Tanh, conv2d_same
 from bigdl_tpu_torch.nn.module import AbstractModule, Container
 
 
@@ -431,5 +432,81 @@ class MultiRNNCell(Cell, Container):
             "MultiRNNCell runs whole sub-cell loops (run_sequence)")
 
 
+class ConvLSTMPeephole(Cell):
+    """2-D convolutional LSTM with optional per-channel peepholes (JAX
+    :526): input (B, T, C_in, H, W), state (B, C_out, H, W), gates
+    packed (i, f, g, o) along the channels.  The input conv of every
+    timestep is hoisted into one conv over the folded (B·T) batch; the
+    loop carries only the recurrent conv.  Both convs are SAME-padded
+    (XLA's split, ``conv2d_same``); ``stride`` must be 1, so that the
+    state keeps its spatial shape."""
+
+    param_names = ("w_i", "w_h", "b", "p_i", "p_f", "p_o")
+    config_names = ("input_size", "output_size", "kernel_i", "kernel_c",
+                    "stride", "with_peephole")
+    n_gates = 4
+
+    def __init__(self, input_size: int, output_size: int, kernel_i: int = 3,
+                 kernel_c: int = 3, stride: int = 1,
+                 with_peephole: bool = True):
+        super().__init__()
+        if stride != 1:
+            raise ValueError("ConvLSTMPeephole supports stride=1 only")
+        self.input_size, self.output_size = input_size, output_size
+        self.kernel_i, self.kernel_c = kernel_i, kernel_c
+        self.stride = stride
+        self.with_peephole = with_peephole
+        self.hidden_size = output_size
+        self.reset()
+
+    def reset(self):
+        k_i, k_c, o4 = self.kernel_i, self.kernel_c, 4 * self.output_size
+        stdv = 1.0 / math.sqrt(max(1, self.input_size * k_i * k_i))
+        stdv_h = 1.0 / math.sqrt(max(1, self.output_size * k_c * k_c))
+        self._set_param("w_i", _uniform((o4, self.input_size, k_i, k_i),
+                                        stdv))
+        self._set_param("w_h", _uniform((o4, self.output_size, k_c, k_c),
+                                        stdv_h))
+        self._set_param("b", np.zeros(o4, np.float32))
+        for name in ("p_i", "p_f", "p_o"):
+            self._set_param(name, _uniform((self.output_size,), stdv)
+                            if self.with_peephole else None)
+        return self
+
+    def precompute(self, x, rng_seed=None):
+        b, t = x.shape[0], x.shape[1]
+        merged = x.reshape((b * t,) + tuple(x.shape[2:]))
+        proj = conv2d_same(merged, self.w_i.to(x.dtype),
+                           self.b.to(x.dtype), (1, 1))
+        return proj.reshape((b, t) + tuple(proj.shape[1:]))
+
+    def init_carry(self, batch, dtype, device, input_shape=None):
+        if input_shape is None:
+            raise ValueError("ConvLSTMPeephole needs the input shape")
+        z = torch.zeros((batch, self.output_size, input_shape[-2],
+                         input_shape[-1]), dtype=dtype, device=device)
+        return (z, z)
+
+    def step(self, carry, proj_t):
+        h, c = carry
+        gates = proj_t + conv2d_same(h, self.w_h.to(h.dtype), None, (1, 1))
+        i, f, g, o = torch.chunk(gates, 4, dim=1)
+        if self.with_peephole:
+            def peep(p):
+                return p.to(c.dtype).reshape(1, -1, 1, 1)
+
+            i = i + peep(self.p_i) * c
+            f = f + peep(self.p_f) * c
+        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        if self.with_peephole:
+            o = o + self.p_o.to(c.dtype).reshape(1, -1, 1, 1) * c_new
+        h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        return (h_new, c_new), h_new
+
+    def extra_repr(self):
+        return f"{self.input_size}, {self.output_size}"
+
+
 __all__ = ["Cell", "RnnCell", "LSTM", "LSTMPeephole", "GRU", "Recurrent",
-           "BiRecurrent", "TimeDistributed", "Select", "MultiRNNCell"]
+           "BiRecurrent", "TimeDistributed", "Select", "MultiRNNCell",
+           "ConvLSTMPeephole"]

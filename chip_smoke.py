@@ -214,6 +214,35 @@ it runs; any failure exits non-zero:
     (e) ``LookupTable``, ``LSTM``, ``SpatialConvolution`` and ``Linear``,
     each with an ``L1L2Regularizer``, 3 ``Adam`` steps on the card and
     on the CPU: losses and ``regularization_loss`` within 1e-5;
+19. the text CNN and the rest of the criterions, layers and table ops,
+    f32, TF32 off, cuDNN deterministic, no kernel of ``csrc/``
+    (``phase_text_cnn``, callable alone after ``phase_device()``): (a)
+    ``bigdl_tpu_torch.examples.train_text_cnn.main`` at the JAX
+    example's defaults (``-b 128 -e 3 --learning-rate 0.05 --doc-len
+    32``: the ``synthetic_news20(1536, 4)`` stand-in, embed 32, 64
+    filters of width 5, ``Adam``, Top1 validation each epoch) on the
+    card and on the CPU: each of the first 20 losses within 1e-6 of the
+    CPU's, over the CPU's first loss (beside the gaps relative to each
+    loss and those of the CPU run on one thread, a control), the last
+    Top1 at least 0.9 and within 0.02 of the CPU's; step ms (median
+    and range over steps 2-end) and tokens/s; (b) ``build_text_cnn`` at
+    the news20 shape (vocab 20001, 20 classes, 128 tokens) on ids from a
+    seeded ``torch.Generator``, 50 ``Adam`` steps of batch 128 through
+    ``LocalOptimizer``, for speed only: step ms, tokens/s, peak memory
+    and two profiled steps; (c) (a)'s model served by ``udf_predict``'s
+    ``make_predict_udf`` and by ``DLClassifierModel.transform`` over
+    the 1536 documents: the class ids of both equal and equal to the
+    CPU model's on the same weights, the log-probabilities within 1e-5
+    (times the largest magnitude above 1), rows/s of each form; (d)
+    every class the slice ported (the criterions, layers and table ops,
+    ``ConvLSTMPeephole`` at B=4, T=8, 16->32 channels, 32x32, SAME
+    ``SpatialConvolution`` at strides 1 and 2) at about 1e5 elements an
+    input, forward and backward on the card and on the CPU from the same
+    weights: outputs, input and parameter gradients within 1e-5 of the
+    largest magnitude beyond one ulp (3e-5 for the convs, cuDNN's f32
+    weight gradient), integer outputs equal; the worst gap printed per
+    family, and each tensor's above 1e-6 with the card's and the CPU's
+    gaps to the same case in f64 on the CPU;
 9. the kernels line, last: one JSON object listing each kernel with its
    launches on its own path (phase 4, the fused arm of phase 7, or the
    kernel arm of phase 11) and its numbers from phase 3, 6 or 10.
@@ -420,6 +449,28 @@ LM_OPT_STEPS, LM_DISTRI_TOL = 5, 1e-5
 AE_BATCH, AE_LR, AE_CPU_LOSSES, AE_LOSS_REL_TOL = 128, 0.01, 5, 1e-4
 REG_VOCAB, REG_EMBED, REG_HIDDEN, REG_T, REG_BATCH = 1000, 64, 128, 16, 32
 REG_STEPS, REG_REL_TOL = 3, 1e-5
+# the text CNN (phase 19): (a) train_text_cnn's defaults (the JAX
+# example's flags); the limit on each of its first losses against the CPU
+# run's, |card - CPU| over the CPU's first loss (f32 sums in other
+# orders, TF32 off, cuDNN deterministic: the loss falls from 5.2 to
+# 3e-5 by step 19, where 1e-4 of the loss itself is some 3e-9, and a CPU
+# run on one thread, another summation order, is 2e-5-9e-5 of the loss
+# off the CPU's there); the Top1 the synthetic stand-in's signature
+# tokens allow and the largest Top1 gap to the CPU run; (b) the news20 shape: tokenize_corpus's vocab_limit + 1,
+# its doc_len, and steps; (c) the log-probabilities' limit, card against
+# CPU on the same weights, times the largest magnitude above 1; (d) each
+# new class's limit on what |card - CPU| exceeds one f32 ulp by, over the
+# largest magnitude of the CPU's value (outputs and gradients), and the
+# convs' limit, phase 16's CAFFE_CPU_TOL for the same cause: cuDNN's f32
+# weight gradient of ConvLSTMPeephole's hoisted input conv (16 -> 128
+# channels over 32 images of 32x32) reads 2.5e-5 off the f64 result where
+# the CPU's reads 1.7e-6 and the same conv with cuDNN off 2.8e-7 (H100,
+# deterministic or not)
+TC_BATCH, TC_EPOCHS, TC_LR, TC_DOC_LEN = 128, 3, 0.05, 32
+TC_CPU_STEPS, TC_LOSS_TOL, TC_TOP1_MIN, TC_TOP1_GAP = 20, 1e-6, 0.9, 0.02
+TC_NEWS_VOCAB, TC_NEWS_DOC_LEN, TC_NEWS_BATCH, TC_NEWS_STEPS = (20001, 128,
+                                                                128, 50)
+TC_LOGP_TOL, ITEM14_TOL, ITEM14_CONV_TOL = 1e-5, 1e-5, 3e-5
 # phase 11's kernel-arm SGD step (bf16), for phase 18 (c) to print beside
 # Adam's
 _LM_SGD_MS = {}
@@ -3497,6 +3548,572 @@ def phase_serving_http(smi: str, direct_ttft: float) -> None:
     say(f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---- phase 19: the text CNN and the rest of the criterions, layers and
+# table ops ------------------------------------------------------------------
+def _tc(shape, seed, scale=1.0, lo=None, hi=None):
+    """f32 numpy input of ``shape`` from ``seed``: normal times ``scale``,
+    or uniform in [lo, hi)."""
+    rs = np.random.RandomState(seed)
+    if lo is not None:
+        return rs.uniform(lo, hi, shape).astype(np.float32)
+    return (scale * rs.randn(*shape)).astype(np.float32)
+
+
+def _tc_ids(shape, hi, seed=1):
+    """1-based float32 ids in [1, hi]."""
+    return (np.random.RandomState(seed).randint(0, hi, shape) + 1).astype(
+        np.float32)
+
+
+def _tc_pm1(shape, seed=1):
+    return np.where(np.random.RandomState(seed).rand(*shape) < 0.5, -1.0,
+                    1.0).astype(np.float32)
+
+
+def _tc_bits(shape, seed=1):
+    return (np.random.RandomState(seed).rand(*shape) < 0.5).astype(
+        np.float32)
+
+
+def _tc_multilabel():
+    t = _tc_ids((1024, 100), 100, seed=2)
+    t[:, 5:] = 0.0
+    t[::3, 2] = 0.0                          # a nonzero entry after a 0
+    return t
+
+
+def _tc_logp(shape, seed=0):
+    x = _tc(shape, seed)
+    return (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32)
+
+
+# Phase 19 (d)'s cases at about 1e5 elements an input: (family, name,
+# build function over the port's nn, input maker, target maker (None: a
+# module), exact outputs)
+ITEM14_E = (256, 400)
+ITEM14_CASES = [
+    ("conv", "TemporalConvolution", lambda N: N.TemporalConvolution(
+        32, 64, 5), lambda: _tc((32, 100, 32), 0), None, False),
+    ("conv", "SpatialConvolution SAME s1", lambda N: N.SpatialConvolution(
+        16, 32, 3, 3, 1, 1, -1, -1), lambda: _tc((8, 16, 28, 28), 0), None,
+     False),
+    ("conv", "SpatialConvolution SAME s2", lambda N: N.SpatialConvolution(
+        16, 32, 3, 3, 2, 2, -1, -1), lambda: _tc((8, 16, 28, 28), 0), None,
+     False),
+    ("conv", "ConvLSTMPeephole", lambda N: N.Recurrent().add(
+        N.ConvLSTMPeephole(16, 32)), lambda: _tc((4, 8, 16, 32, 32), 0),
+     None, False),
+    ("reduce", "Max", lambda N: N.Max(2), lambda: _tc((64, 40, 40), 0), None,
+     False),
+    ("reduce", "Min", lambda N: N.Min(2), lambda: _tc((64, 40, 40), 0), None,
+     False),
+    ("reduce", "Mean", lambda N: N.Mean(2), lambda: _tc((64, 40, 40), 0),
+     None, False),
+    ("reduce", "Sum", lambda N: N.Sum(2, -1, True),
+     lambda: _tc((64, 40, 40), 0), None, False),
+] + [("elementwise", name, build, make, None, exact)
+     for name, build, make, exact in [
+    ("ReLU6", lambda N: N.ReLU6(), lambda: _tc(ITEM14_E, 0, 5.0), False),
+    ("HardTanh", lambda N: N.HardTanh(-0.5, 0.7), lambda: _tc(ITEM14_E, 0),
+     False),
+    ("Clamp", lambda N: N.Clamp(-0.3, 0.4), lambda: _tc(ITEM14_E, 0), False),
+    ("Threshold", lambda N: N.Threshold(0.1, -2.0), lambda: _tc(ITEM14_E, 0),
+     False),
+    ("HardSigmoid", lambda N: N.HardSigmoid(), lambda: _tc(ITEM14_E, 0, 4.0),
+     False),
+    ("SoftMin", lambda N: N.SoftMin(), lambda: _tc(ITEM14_E, 0), False),
+    ("SoftSign", lambda N: N.SoftSign(), lambda: _tc(ITEM14_E, 0), False),
+    ("GELU", lambda N: N.GELU(), lambda: _tc(ITEM14_E, 0, 2.0), False),
+    ("SELU", lambda N: N.SELU(), lambda: _tc(ITEM14_E, 0), False),
+    ("Square", lambda N: N.Square(), lambda: _tc(ITEM14_E, 0), False),
+    ("Sqrt", lambda N: N.Sqrt(), lambda: _tc(ITEM14_E, 0, lo=0.1, hi=3.0),
+     False),
+    ("Negative", lambda N: N.Negative(), lambda: _tc(ITEM14_E, 0), False),
+    ("Floor", lambda N: N.Floor(), lambda: _tc(ITEM14_E, 0, 3.0), True),
+    ("Ceil", lambda N: N.Ceil(), lambda: _tc(ITEM14_E, 0, 3.0), True),
+    ("Round", lambda N: N.Round(), lambda: np.round(
+        _tc(ITEM14_E, 0, 3.0) * 2) / 2, True),
+    ("Sign", lambda N: N.Sign(), lambda: np.round(_tc(ITEM14_E, 0)), True),
+    ("Log1p", lambda N: N.Log1p(), lambda: _tc(ITEM14_E, 0, lo=0.0, hi=3.0),
+     False),
+    ("Expm1", lambda N: N.Expm1(), lambda: _tc(ITEM14_E, 0), False),
+    ("Erf", lambda N: N.Erf(), lambda: _tc(ITEM14_E, 0), False),
+    ("Sin", lambda N: N.Sin(), lambda: _tc(ITEM14_E, 0, 3.0), False),
+    ("Cos", lambda N: N.Cos(), lambda: _tc(ITEM14_E, 0, 3.0), False),
+    ("ArgMax", lambda N: N.ArgMax(2), lambda: _tc(ITEM14_E, 0), True),
+    ("AddConstant", lambda N: N.AddConstant(1.5), lambda: _tc(ITEM14_E, 0),
+     False),
+    ("DivConstant", lambda N: N.DivConstant(3.0), lambda: _tc(ITEM14_E, 0),
+     False),
+    ("MulConstant", lambda N: N.MulConstant(-2.5), lambda: _tc(ITEM14_E, 0),
+     False)]] + [("learnable", name, build, make, None, False)
+                 for name, build, make in [
+    ("CMul", lambda N: N.CMul([1, 400]), lambda: _tc(ITEM14_E, 0)),
+    ("CAdd", lambda N: N.CAdd([1, 400]), lambda: _tc(ITEM14_E, 0)),
+    ("Add", lambda N: N.Add(400), lambda: _tc(ITEM14_E, 0)),
+    ("Mul", lambda N: N.Mul(), lambda: _tc(ITEM14_E, 0)),
+    ("Cosine", lambda N: N.Cosine(100, 64), lambda: _tc((1024, 100), 0)),
+    ("Euclidean", lambda N: N.Euclidean(100, 64),
+     lambda: _tc((1024, 100), 0)),
+    ("Bilinear", lambda N: N.Bilinear(100, 100, 10),
+     lambda: (_tc((1024, 100), 0), _tc((1024, 100), 1)))]] + [
+    ("shape", name, build, make, None, exact)
+    for name, build, make, exact in [
+    ("Squeeze", lambda N: N.Squeeze(2), lambda: _tc((256, 1, 400), 0),
+     False),
+    ("Unsqueeze", lambda N: N.Unsqueeze(2), lambda: _tc(ITEM14_E, 0), False),
+    ("Transpose", lambda N: N.Transpose([[1, 3], [2, 3]]),
+     lambda: _tc((64, 40, 40), 0), False),
+    ("Contiguous", lambda N: N.Contiguous(), lambda: _tc(ITEM14_E, 0),
+     False),
+    ("Replicate", lambda N: N.Replicate(3, 2), lambda: _tc(ITEM14_E, 0),
+     False),
+    ("Narrow", lambda N: N.Narrow(2, 11, 300), lambda: _tc(ITEM14_E, 0),
+     False),
+    ("Padding", lambda N: N.Padding(1, -7, 1, 0.5),
+     lambda: _tc(ITEM14_E, 0), False),
+    ("SpatialZeroPadding", lambda N: N.SpatialZeroPadding(1, 2, 0, 3),
+     lambda: _tc((8, 16, 28, 28), 0), False),
+    ("Index", lambda N: N.Index(1), lambda: (_tc(ITEM14_E, 0),
+                                              _tc_ids((300,), 256)), True),
+    ("Masking", lambda N: N.Masking(0.0), lambda: np.where(
+        _tc((64, 40, 1), 1) > 0.5, 0.0, _tc((64, 40, 40), 0)).astype(
+        np.float32), False)]] + [
+    ("resample+normalize", "SpatialUpSamplingNearest",
+     lambda N: N.SpatialUpSamplingNearest(2),
+     lambda: _tc((8, 16, 28, 28), 0), None, False),
+    ("resample+normalize", "SpatialUpSamplingBilinear up",
+     lambda N: N.SpatialUpSamplingBilinear(56, 70),
+     lambda: _tc((8, 16, 28, 28), 0), None, False),
+    ("resample+normalize", "SpatialUpSamplingBilinear down",
+     lambda N: N.SpatialUpSamplingBilinear(9, 11),
+     lambda: _tc((8, 16, 28, 28), 0), None, False),
+    ("resample+normalize", "Normalize", lambda N: N.Normalize(2.0),
+     lambda: _tc(ITEM14_E, 0), None, False),
+    ("resample+normalize", "Normalize inf",
+     lambda N: N.Normalize(float("inf")), lambda: _tc(ITEM14_E, 0), None,
+     False),
+    ("gradient-shaping", "GradientReversal",
+     lambda N: N.GradientReversal(0.7), lambda: _tc(ITEM14_E, 0), None,
+     False),
+    ("gradient-shaping", "L1Penalty", lambda N: N.L1Penalty(0.3, True),
+     lambda: _tc(ITEM14_E, 0), None, False),
+] + [("table", name, build, make, None, exact)
+     for name, build, make, exact in [
+    ("ParallelTable", lambda N: N.ParallelTable().add(N.Linear(400, 64))
+     .add(N.Tanh()), lambda: (_tc(ITEM14_E, 0), _tc(ITEM14_E, 1)), False),
+    ("MapTable", lambda N: N.MapTable(N.BatchNormalization(400)),
+     lambda: (_tc(ITEM14_E, 0), _tc(ITEM14_E, 1, 2.0)), False),
+    ("Bottle", lambda N: N.Bottle(N.Linear(40, 64)),
+     lambda: _tc((64, 40, 40), 0), False),
+    ("SelectTable", lambda N: N.SelectTable(2),
+     lambda: (_tc(ITEM14_E, 0), _tc(ITEM14_E, 1)), False),
+    ("NarrowTable", lambda N: N.NarrowTable(2, 2),
+     lambda: (_tc(ITEM14_E, 0), _tc(ITEM14_E, 1), _tc(ITEM14_E, 2)), False),
+    ("FlattenTable", lambda N: N.FlattenTable(),
+     lambda: (_tc(ITEM14_E, 0), (_tc(ITEM14_E, 1), _tc(ITEM14_E, 2))),
+     False),
+    ("SplitTable", lambda N: N.SplitTable(2), lambda: _tc((64, 40, 40), 0),
+     False),
+    ("BifurcateSplitTable", lambda N: N.BifurcateSplitTable(2),
+     lambda: _tc(ITEM14_E, 0), False),
+    ("Pack", lambda N: N.Pack(2), lambda: (_tc(ITEM14_E, 0),
+                                            _tc(ITEM14_E, 1)), False),
+    ("CSubTable", lambda N: N.CSubTable(),
+     lambda: (_tc(ITEM14_E, 0), _tc(ITEM14_E, 1)), False),
+    ("CDivTable", lambda N: N.CDivTable(),
+     lambda: (_tc(ITEM14_E, 0), _tc(ITEM14_E, 1, lo=0.5, hi=2.0)), False),
+    ("CMinTable", lambda N: N.CMinTable(),
+     lambda: (_tc(ITEM14_E, 0), _tc(ITEM14_E, 1)), False),
+    ("CAveTable", lambda N: N.CAveTable(),
+     lambda: (_tc(ITEM14_E, 0), _tc(ITEM14_E, 1)), False),
+    ("MM", lambda N: N.MM(False, True),
+     lambda: (_tc((64, 40, 40), 0), _tc((64, 40, 40), 1)), False),
+    ("MV", lambda N: N.MV(True), lambda: (_tc((256, 20, 20), 0),
+                                           _tc((256, 20), 1)), False),
+    ("DotProduct", lambda N: N.DotProduct(),
+     lambda: (_tc(ITEM14_E, 0), _tc(ITEM14_E, 1)), False),
+    ("CosineDistance", lambda N: N.CosineDistance(),
+     lambda: (_tc(ITEM14_E, 0), _tc(ITEM14_E, 1)), False),
+    ("MixtureTable", lambda N: N.MixtureTable(),
+     lambda: (_tc((1024, 4), 0), _tc((1024, 4, 100), 1)), False),
+    ("InTopK", lambda N: N.InTopK(5), lambda: (
+        _tc((1024, 100), 0), _tc_ids((1024,), 100) - 1.0), True),
+    ("WhereTable", lambda N: N.WhereTable(True), lambda: (
+        _tc_bits((256,)), _tc(ITEM14_E, 0), _tc(ITEM14_E, 1)), False)]] + [
+    ("criterion", name, build, make, target, False)
+    for name, build, make, target in [
+    ("AbsCriterion", lambda N: N.AbsCriterion(), lambda: _tc((512, 200), 0),
+     lambda: _tc((512, 200), 1)),
+    ("SmoothL1Criterion", lambda N: N.SmoothL1Criterion(),
+     lambda: _tc((512, 200), 0, 2.0), lambda: _tc((512, 200), 1)),
+    ("BCECriterion", lambda N: N.BCECriterion(),
+     lambda: _tc((512, 200), 0, lo=0.02, hi=0.98),
+     lambda: _tc_bits((512, 200))),
+    ("BCECriterionWithLogits", lambda N: N.BCECriterionWithLogits(),
+     lambda: _tc((512, 200), 0, 3.0), lambda: _tc_bits((512, 200))),
+    ("MultiLabelSoftMarginCriterion",
+     lambda N: N.MultiLabelSoftMarginCriterion(),
+     lambda: _tc((512, 200), 0), lambda: _tc_bits((512, 200))),
+    ("MarginCriterion", lambda N: N.MarginCriterion(0.5, True, True),
+     lambda: _tc((512, 200), 0), lambda: _tc_pm1((512, 200))),
+    ("HingeEmbeddingCriterion", lambda N: N.HingeEmbeddingCriterion(1.5),
+     lambda: _tc((512, 200), 0, lo=0.0, hi=2.0),
+     lambda: _tc_pm1((512, 200))),
+    ("DistKLDivCriterion", lambda N: N.DistKLDivCriterion(),
+     lambda: _tc_logp((512, 200)), lambda: _tc((512, 200), 1, lo=0.0,
+                                               hi=1.0)),
+    ("CosineEmbeddingCriterion", lambda N: N.CosineEmbeddingCriterion(0.1),
+     lambda: (_tc((1024, 100), 0), _tc((1024, 100), 1)),
+     lambda: _tc_pm1((1024,))),
+    ("SoftmaxWithCriterion", lambda N: N.SoftmaxWithCriterion(3),
+     lambda: _tc((8, 16, 28, 28), 0), lambda: _tc_ids((8, 28, 28), 16)),
+    ("MultiCriterion", lambda N: N.MultiCriterion().add(N.MSECriterion(),
+                                                         0.5)
+     .add(N.AbsCriterion()), lambda: _tc((512, 200), 0),
+     lambda: _tc((512, 200), 1)),
+    ("ParallelCriterion", lambda N: N.ParallelCriterion(True)
+     .add(N.MSECriterion()).add(N.AbsCriterion(), 2.0),
+     lambda: (_tc((512, 200), 0), _tc((512, 200), 2)),
+     lambda: _tc((512, 200), 1)),
+    ("ClassSimplexCriterion", lambda N: N.ClassSimplexCriterion(100),
+     lambda: _tc((1024, 100), 0), lambda: _tc_ids((1024,), 100)),
+    ("L1Cost", lambda N: N.L1Cost(), lambda: _tc((512, 200), 0),
+     lambda: _tc((512, 200), 1)),
+    ("MarginRankingCriterion", lambda N: N.MarginRankingCriterion(0.5),
+     lambda: (_tc((102400,), 0), _tc((102400,), 1)),
+     lambda: _tc_pm1((102400,))),
+    ("MultiMarginCriterion", lambda N: N.MultiMarginCriterion(2),
+     lambda: _tc((1024, 100), 0), lambda: _tc_ids((1024,), 100)),
+    ("CosineDistanceCriterion", lambda N: N.CosineDistanceCriterion(),
+     lambda: _tc((1024, 100), 0), lambda: _tc((1024, 100), 1)),
+    ("DiceCoefficientCriterion", lambda N: N.DiceCoefficientCriterion(),
+     lambda: _tc((64, 40, 40), 0, lo=0.0, hi=1.0),
+     lambda: _tc_bits((64, 40, 40))),
+    ("SoftMarginCriterion", lambda N: N.SoftMarginCriterion(),
+     lambda: _tc((512, 200), 0, 3.0), lambda: _tc_pm1((512, 200))),
+    ("MultiLabelMarginCriterion", lambda N: N.MultiLabelMarginCriterion(),
+     lambda: _tc((1024, 100), 0), _tc_multilabel),
+    ("GaussianCriterion", lambda N: N.GaussianCriterion(),
+     lambda: (_tc((512, 200), 0), _tc((512, 200), 2, 0.5)),
+     lambda: _tc((512, 200), 1)),
+    ("KLDCriterion", lambda N: N.KLDCriterion(),
+     lambda: (_tc((512, 200), 0), _tc((512, 200), 2, 0.5)),
+     lambda: _tc((512, 200), 1)),
+    ("L1HingeEmbeddingCriterion", lambda N: N.L1HingeEmbeddingCriterion(
+        20.0), lambda: (_tc((1024, 100), 0), _tc((1024, 100), 1)),
+     lambda: _tc_pm1((1024,))),
+    ("PoissonCriterion", lambda N: N.PoissonCriterion(),
+     lambda: _tc((512, 200), 0, lo=0.05, hi=3.0),
+     lambda: _tc((512, 200), 1, lo=0.0, hi=3.0)),
+    ("CosineProximityCriterion", lambda N: N.CosineProximityCriterion(),
+     lambda: _tc((1024, 100), 0), lambda: _tc((1024, 100), 1)),
+    ("MeanAbsolutePercentageCriterion",
+     lambda N: N.MeanAbsolutePercentageCriterion(),
+     lambda: _tc((512, 200), 0), lambda: _tc((512, 200), 1, lo=0.5,
+                                             hi=2.0)),
+    ("MeanSquaredLogarithmicCriterion",
+     lambda N: N.MeanSquaredLogarithmicCriterion(),
+     lambda: _tc((512, 200), 0, lo=0.0, hi=3.0),
+     lambda: _tc((512, 200), 1, lo=0.0, hi=3.0))]]
+
+
+def _tmap(fn, t):
+    if isinstance(t, (tuple, list)):
+        return tuple(_tmap(fn, u) for u in t)
+    return fn(t)
+
+
+def _tleaves(t) -> list:
+    if isinstance(t, (tuple, list)):
+        return [leaf for u in t for leaf in _tleaves(u)]
+    return [t]
+
+
+def _item14_run(m, make, target, device, dtype=torch.float32):
+    """One case's forward and backward on ``device``, the float inputs
+    and targets in ``dtype``: (outputs, input gradients, parameter
+    gradients), all on the host."""
+    def put(a):
+        return torch.tensor(a, device=device, dtype=dtype,
+                            requires_grad=True)
+
+    xs = _tmap(put, make())
+    if target is not None:
+        outs = [m.loss(xs, _tmap(lambda a: torch.as_tensor(
+            a, device=device, dtype=dtype), target()))]
+    else:
+        outs = _tleaves(m(xs))
+    rs = np.random.RandomState(190)
+    total = None
+    for o in outs:
+        if o.requires_grad:
+            cot = torch.as_tensor(np.asarray(rs.randn(*o.shape), np.float32),
+                                  device=device).to(o.dtype)
+            part = (o * cot).sum()
+            total = part if total is None else total + part
+    if total is not None:
+        total.backward()
+
+    def host(g, like):
+        return (g if g is not None else torch.zeros_like(like)).detach().cpu()
+
+    params = list(m.parameters()) if isinstance(m, torch.nn.Module) else []
+    return ([o.detach().cpu() for o in outs],
+            [host(x.grad, x) for x in _tleaves(xs)],
+            [host(p.grad, p) for p in params])
+
+
+def _ulp_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """What |a - b| exceeds one f32 ulp of b by, over the largest |b|."""
+    b32 = b.float()
+    over = ((a.double() - b.double()).abs() - _ulp(b32).double()) \
+        .clamp_min(0.0).max().item()
+    return over / max(b32.abs().max().item(), 1e-30)
+
+
+def _item14_case(build, make, target, exact) -> tuple:
+    """(worst gap, card against CPU, over the outputs and the input and
+    parameter gradients; per tensor (what, that gap, the card's and the
+    CPU's gaps to the same case in f64 on the CPU)).  Integer outputs
+    must be equal."""
+    import copy
+
+    from bigdl_tpu_torch import nn as TN
+    from bigdl_tpu_torch.common import RandomGenerator
+
+    RandomGenerator.RNG.set_seed(19)
+    cpu_m = build(TN)
+    card_m, ref_m = copy.deepcopy(cpu_m), copy.deepcopy(cpu_m)
+    if isinstance(cpu_m, torch.nn.Module):
+        card_m.to(DEV)
+        ref_m.double()
+    card = _item14_run(card_m, make, target, DEV)
+    cpu = _item14_run(cpu_m, make, target, "cpu")
+    ref = _item14_run(ref_m, make, target, "cpu", torch.float64)
+    names = ["output", "input gradient", "parameter gradient"]
+    worst, rows = 0.0, []
+    for k in range(3):
+        if len(card[k]) != len(cpu[k]):
+            raise AssertionError("card and CPU differ in their outputs")
+        for i, (a, b, r) in enumerate(zip(card[k], cpu[k], ref[k])):
+            if k == 0 and exact:
+                if not torch.equal(a, b):
+                    raise AssertionError("integer outputs differ")
+                continue
+            if not torch.isfinite(a).all():
+                raise AssertionError("non-finite values on the card")
+            gap = _ulp_gap(a, b)
+            worst = max(worst, gap)
+            rows.append((f"{names[k]} {i}", gap, _ulp_gap(a, r),
+                         _ulp_gap(b, r)))
+    return worst, rows
+
+
+def _phase_text_cnn_main():
+    """(a): the example's ``main`` at its defaults on the card and on the
+    CPU.  Returns the card's trainer."""
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.examples import train_text_cnn as X
+    from bigdl_tpu_torch.ops import _cuda
+
+    argv = ["-b", str(TC_BATCH), "-e", str(TC_EPOCHS), "--learning-rate",
+            str(TC_LR), "--doc-len", str(TC_DOC_LEN)]
+    runs = {}
+    kernels_before = dict(_cuda.launches)
+    threads = torch.get_num_threads()
+    # the CPU run, then the same run on one thread (another f32 summation
+    # order): the control that shows how far the recipe itself carries
+    # a last-bit difference
+    for run, dev in ((DEV, DEV), ("cpu", "cpu"), ("cpu1", "cpu")):
+        torch.set_num_threads(1 if run == "cpu1" else threads)
+        RandomGenerator.RNG.set_seed(0)
+        losses, vals = _TimedLosses(), _Scalars()
+        t0 = time.perf_counter()
+        opt = X.main(argv + ["--device", dev], train_summary=losses,
+                     val_summary=vals)
+        if dev == DEV:
+            torch.cuda.synchronize()
+        runs[run] = (opt, [losses.loss[n] for n in sorted(losses.loss)],
+                     [v for t, _, v in vals.rows if t == "Top1Accuracy"],
+                     losses.at, time.perf_counter() - t0)
+    torch.set_num_threads(threads)
+    opt, loss, top1, at, secs = runs[DEV]
+    _, cpu_loss, cpu_top1, _, cpu_secs = runs["cpu"]
+    control = runs["cpu1"][1]
+    per_epoch = len(loss) // TC_EPOCHS
+    gaps = sorted(at[n + 1] - at[n] for n in sorted(at)
+                  if n >= 2 and n + 1 in at
+                  and (n - 1) % per_epoch <= per_epoch - 3)
+    step_ms = steady_step_ms(at, per_epoch)
+    n = TC_CPU_STEPS
+    rel = [abs(a - b) / abs(b) for a, b in zip(loss[:n], cpu_loss[:n])]
+    ctl = [abs(a - b) / abs(b) for a, b in zip(control[:n], cpu_loss[:n])]
+    scaled = [abs(a - b) / abs(cpu_loss[0])
+              for a, b in zip(loss[:n], cpu_loss[:n])]
+    say(f"phase 19 (a) train_text_cnn.main {' '.join(argv)}: the "
+        f"synthetic_news20(1536, 4) stand-in, embed 32, 64 filters, k 5, "
+        f"{len(loss)} Adam steps in {secs:.1f} s; losses "
+        f"{['%.3e' % v for v in loss]}; validation Top1 by epoch card "
+        f"{['%.4f' % v for v in top1]}, CPU {['%.4f' % v for v in cpu_top1]} "
+        f"({cpu_secs:.1f} s)")
+    say(f"phase 19 (a) step {step_ms:.3f} ms (median over steps 2-end, "
+        f"wall; range {gaps[0] * 1e3:.3f}-{gaps[-1] * 1e3:.3f} ms), "
+        f"{TC_BATCH * TC_DOC_LEN / step_ms * 1e3:.0f} tokens/s")
+    say(f"phase 19 (a) first {n} losses, |card - CPU| over the CPU's first "
+        f"loss: worst {max(scaled):.3e} at step "
+        f"{int(np.argmax(scaled)) + 1} (limit {TC_LOSS_TOL:g}); relative "
+        f"to each loss {['%.1e' % v for v in rel]}; the CPU on one thread "
+        f"against the CPU, relative {['%.1e' % v for v in ctl]}")
+    if len(loss) != len(cpu_loss) or not all(np.isfinite(loss)):
+        raise AssertionError(f"text CNN: missing or non-finite losses {loss}")
+    if len(scaled) != n or not max(scaled) <= TC_LOSS_TOL:
+        raise AssertionError(f"text CNN losses off the CPU's: {scaled}")
+    if len(top1) != TC_EPOCHS or not top1[-1] >= TC_TOP1_MIN or not (
+            abs(top1[-1] - cpu_top1[-1]) <= TC_TOP1_GAP):
+        raise AssertionError(f"text CNN Top1 card {top1}, CPU {cpu_top1}")
+    if dict(_cuda.launches) != kernels_before:
+        raise AssertionError("the text CNN launched a kernel of csrc/")
+    return opt
+
+
+def _phase_text_cnn_news20_shape() -> None:
+    """(b): the news20 shape (vocab 20001, 20 classes, 128 tokens) on
+    random ids, for speed only."""
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.dataset.news20 import CLASS_NUM
+    from bigdl_tpu_torch.examples.train_text_cnn import build_text_cnn
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import Adam, LocalOptimizer, Trigger
+
+    gen = torch.Generator().manual_seed(19)
+    n = TC_NEWS_BATCH * TC_NEWS_STEPS
+    x = torch.randint(1, TC_NEWS_VOCAB + 1, (n, TC_NEWS_DOC_LEN),
+                      generator=gen).float().numpy()
+    y = torch.randint(1, CLASS_NUM + 1, (n,), generator=gen).float().numpy()
+    RandomGenerator.RNG.set_seed(0)
+    model = build_text_cnn(vocab=TC_NEWS_VOCAB, n_classes=CLASS_NUM,
+                           doc_len=TC_NEWS_DOC_LEN, device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    losses = _TimedLosses()
+    opt = LocalOptimizer(model, (x, y), ClassNLLCriterion(), TC_NEWS_BATCH,
+                         device=DEV)
+    opt.set_optim_method(Adam(learningrate=TC_LR))
+    opt.set_end_when(Trigger.max_iteration(TC_NEWS_STEPS))
+    opt.set_train_summary(losses).optimize()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    loss = [losses.loss[k] for k in sorted(losses.loss)]
+    step_ms = steady_step_ms(losses.at, TC_NEWS_STEPS)
+    say(f"phase 19 (b) the news20 shape on random ids (a stand-in for the "
+        f"corpus, no accuracy): vocab {TC_NEWS_VOCAB}, {CLASS_NUM} classes, "
+        f"doc_len {TC_NEWS_DOC_LEN}, batch {TC_NEWS_BATCH}, {len(loss)} "
+        f"Adam steps: step {step_ms:.3f} ms (median, wall), "
+        f"{TC_NEWS_BATCH * TC_NEWS_DOC_LEN / step_ms * 1e3:.0f} tokens/s, "
+        f"peak memory {peak:.1f} MiB")
+    if len(loss) != TC_NEWS_STEPS or not all(np.isfinite(loss)):
+        raise AssertionError(f"news20-shape run: losses {loss}")
+    phase_train_profile(opt, 19, "news20-shape text CNN step")
+
+
+def _phase_text_cnn_serving(opt) -> None:
+    """(c): (a)'s model as the UDF and through DLClassifierModel, on the
+    card and, from the same weights, on the CPU."""
+    from bigdl_tpu_torch.dataset.news20 import synthetic_news20
+    from bigdl_tpu_torch.dlframes import DLClassifierModel
+    from bigdl_tpu_torch.examples.train_text_cnn import (build_text_cnn,
+                                                         encode_texts,
+                                                         tokenize_corpus)
+    from bigdl_tpu_torch.examples.udf_predict import make_predict_udf
+    from bigdl_tpu_torch.optim.evaluator import predict
+
+    docs = synthetic_news20(1536, class_num=4)
+    _, _, dic = tokenize_corpus(docs, TC_DOC_LEN)
+    texts = [d for d, _ in docs]
+    model = opt.model
+    cpu_model = build_text_cnn(len(dic) + 1, n_classes=4,
+                               doc_len=TC_DOC_LEN, device="cpu")
+    cpu_model.set_params(model.params())
+    udf = make_predict_udf(model, dic, TC_DOC_LEN, DEV)
+    udf(texts[:64])
+    t0 = time.perf_counter()
+    ids = udf(texts)
+    udf_s = time.perf_counter() - t0
+    feats = encode_texts(texts, dic, TC_DOC_LEN)
+    df = {"text": texts, "features": [row for row in feats]}
+    dl = DLClassifierModel(model, feature_size=[TC_DOC_LEN], device=DEV)
+    t0 = time.perf_counter()
+    preds = np.asarray(dl.transform(df)["prediction"])
+    dl_s = time.perf_counter() - t0
+    cpu_ids = make_predict_udf(cpu_model, dic, TC_DOC_LEN, "cpu")(texts)
+    lp = predict(model, feats, device=DEV)
+    cpu_lp = predict(cpu_model, feats, device="cpu")
+    lp_gap = float(np.abs(lp - cpu_lp).max())
+    lp_mag = float(np.abs(cpu_lp).max())
+    acc = float(np.mean(ids == np.asarray([lab for _, lab in docs])))
+    say(f"phase 19 (c) {len(texts)} rows: UDF {len(texts) / udf_s:.0f} "
+        f"rows/s, DLClassifierModel.transform {len(texts) / dl_s:.0f} rows/s; "
+        f"ids UDF = transform {bool((ids == preds).all())}, = CPU model's "
+        f"{bool((ids == cpu_ids).all())}; log-probabilities card against CPU "
+        f"max |gap| {lp_gap:.3e} (limit {TC_LOGP_TOL:g} x max(1, "
+        f"{lp_mag:.2f})); UDF accuracy {acc:.4f}")
+    if not (ids == preds).all() or not (ids == cpu_ids).all():
+        raise AssertionError("the UDF, transform and CPU class ids differ")
+    if not lp_gap <= TC_LOGP_TOL * max(1.0, lp_mag):
+        raise AssertionError(f"log-probabilities off the CPU's by {lp_gap}")
+
+
+def _phase_item14() -> None:
+    """(d): every class of the slice, forward and backward on the card
+    against the CPU (and both against the CPU in f64)."""
+    worst = {}
+    for family, name, build, make, target, exact in ITEM14_CASES:
+        limit = ITEM14_CONV_TOL if family == "conv" else ITEM14_TOL
+        gap, rows = _item14_case(build, make, target, exact)
+        for what, g, g_card, g_cpu in rows:
+            if g > 1e-6:
+                say(f"phase 19 (d) {name} {what}: card - CPU {g:.3e}; "
+                    f"against f64 card {g_card:.3e}, CPU {g_cpu:.3e}")
+        if not gap <= limit:
+            raise AssertionError(f"{name}: card off the CPU by {gap:.3e}")
+        n, w, at = worst.get(family, (0, -1.0, ""))
+        worst[family] = (n + 1, max(w, gap), name if gap > w else at)
+    for family, (n, w, at) in worst.items():
+        limit = ITEM14_CONV_TOL if family == "conv" else ITEM14_TOL
+        say(f"phase 19 (d) {family}: {n} cases, worst gap beyond an ulp "
+            f"{w:.3e} of the largest magnitude ({at}; limit {limit:g})")
+
+
+def phase_text_cnn(smi: str) -> None:
+    """Phase 19: the text CNN trained and served, and the rest of the
+    criterions, layers and table ops on the card; callable alone after
+    ``phase_device()``.  f32, TF32 off, cuDNN deterministic."""
+    from bigdl_tpu_torch.ops import _cuda
+
+    t_phase = time.perf_counter()
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    kernels_before = dict(_cuda.launches)
+    parts = {}
+    try:
+        t0 = time.perf_counter()
+        opt = _phase_text_cnn_main()
+        parts["a"] = round(time.perf_counter() - t0, 1)
+        for part, run in (("b", _phase_text_cnn_news20_shape),
+                          ("c", lambda: _phase_text_cnn_serving(opt)),
+                          ("d", _phase_item14)):
+            t0 = time.perf_counter()
+            run()
+            parts[part] = round(time.perf_counter() - t0, 1)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    if dict(_cuda.launches) != kernels_before:
+        raise AssertionError("phase 19 launched a kernel of csrc/")
+    print(smi, flush=True)
+    say(f"phase 19 took {time.perf_counter() - t_phase:.1f} s (seconds by "
+        f"part {parts})")
+
+
 def _has_pillow() -> bool:
     try:
         import PIL  # noqa: F401
@@ -3542,6 +4159,7 @@ def main() -> int:
     phase_caffe(smi)
     phase_serving_http(smi, serve_stats["ttft_p50_s"])
     phase_optim(smi)
+    phase_text_cnn(smi)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["launches"] <= 0:

@@ -171,7 +171,9 @@ def test_import_loads_neither_jax_nor_bigdl_tpu():
         "bigdl_tpu_torch.optim.regularizer, bigdl_tpu_torch.optim.metrics, "
         "bigdl_tpu_torch.dataset.movielens, bigdl_tpu_torch.models.ncf, "
         "bigdl_tpu_torch.models.autoencoder, "
-        "bigdl_tpu_torch.examples.ncf_train\n"
+        "bigdl_tpu_torch.examples.ncf_train, bigdl_tpu_torch.dataset.news20, "
+        "bigdl_tpu_torch.examples.train_text_cnn, "
+        "bigdl_tpu_torch.examples.udf_predict\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'bigdl_tpu' or m.startswith('bigdl_tpu.')]\n"
         "print(bad)\n"
@@ -191,3 +193,20 @@ def test_no_port_source_imports_jax_or_bigdl_tpu():
     for f in files:
         hits = pattern.findall(f.read_text())
         assert not hits, f"{f} imports {hits}"
+
+
+def test_port_exports_every_jax_criterion_layer_table_op_and_cell():
+    """What ``bigdl_tpu.nn`` exports from ``criterion``, ``layers``,
+    ``table_ops`` and ``recurrent``, ``bigdl_tpu_torch.nn`` exports
+    under the same names."""
+    import bigdl_tpu.nn as JN
+    import bigdl_tpu_torch.nn as TN
+
+    mods = {f"bigdl_tpu.nn.{m}" for m in ("criterion", "layers",
+                                          "table_ops", "recurrent")}
+    jax_names = {n for n in JN.__all__
+                 if getattr(JN, n).__module__ in mods}
+    assert len(jax_names) > 150
+    assert sorted(jax_names - set(TN.__all__)) == []
+    for n in jax_names:
+        assert getattr(TN, n).__name__ == n

@@ -253,3 +253,120 @@ def test_keep_last_and_optim_method_files(tmp_path):
         TO.OptimMethod.load(str(tmp_path / "ck" / "checkpoint_4_7.optim"))
     with pytest.raises(NotImplementedError, match="background"):
         opt.set_checkpoint(str(tmp_path), background=True)
+
+
+# every class the rest of the criterions, layers and table ops brought,
+# built the same way in both packages (a container with its children)
+SLICE_MODULES = [
+    ("TemporalConvolution", lambda N: N.TemporalConvolution(6, 5, 3, 2)),
+    ("Max", lambda N: N.Max(2)), ("Min", lambda N: N.Min(3)),
+    ("Mean", lambda N: N.Mean(2, 2, False)),
+    ("Sum", lambda N: N.Sum(2, -1, True, False)),
+    ("ReLU6", lambda N: N.ReLU6()), ("HardTanh", lambda N: N.HardTanh(-2, 3)),
+    ("Clamp", lambda N: N.Clamp(-0.5, 0.5)),
+    ("Threshold", lambda N: N.Threshold(0.1, -1.0)),
+    ("HardSigmoid", lambda N: N.HardSigmoid()),
+    ("SoftMin", lambda N: N.SoftMin()), ("SoftSign", lambda N: N.SoftSign()),
+    ("GELU", lambda N: N.GELU()), ("SELU", lambda N: N.SELU()),
+    ("Square", lambda N: N.Square()), ("Sqrt", lambda N: N.Sqrt()),
+    ("Negative", lambda N: N.Negative()), ("Floor", lambda N: N.Floor()),
+    ("Ceil", lambda N: N.Ceil()), ("Round", lambda N: N.Round()),
+    ("Sign", lambda N: N.Sign()), ("Log1p", lambda N: N.Log1p()),
+    ("Expm1", lambda N: N.Expm1()), ("Erf", lambda N: N.Erf()),
+    ("Sin", lambda N: N.Sin()), ("Cos", lambda N: N.Cos()),
+    ("ArgMax", lambda N: N.ArgMax(-1)),
+    ("AddConstant", lambda N: N.AddConstant(1.5)),
+    ("DivConstant", lambda N: N.DivConstant(4.0)),
+    ("MulConstant", lambda N: N.MulConstant(-2.0)),
+    ("CMul", lambda N: N.CMul([1, 5])), ("CAdd", lambda N: N.CAdd([3, 1])),
+    ("Add", lambda N: N.Add(5)), ("Mul", lambda N: N.Mul()),
+    ("Cosine", lambda N: N.Cosine(5, 4)),
+    ("Euclidean", lambda N: N.Euclidean(5, 4)),
+    ("Bilinear", lambda N: N.Bilinear(4, 3, 5, False)),
+    ("Normalize", lambda N: N.Normalize(1.5, 1e-6)),
+    ("Squeeze", lambda N: N.Squeeze(2)),
+    ("Unsqueeze", lambda N: N.Unsqueeze(3)),
+    ("Transpose", lambda N: N.Transpose([[1, 3], [2, 3]])),
+    ("Contiguous", lambda N: N.Contiguous()),
+    ("Replicate", lambda N: N.Replicate(3, 2)),
+    ("Narrow", lambda N: N.Narrow(-1, 2, -2)),
+    ("Padding", lambda N: N.Padding(2, -3, 2, 0.5)),
+    ("SpatialZeroPadding", lambda N: N.SpatialZeroPadding(1, 2, 0, 3)),
+    ("SpatialUpSamplingNearest", lambda N: N.SpatialUpSamplingNearest(2)),
+    ("SpatialUpSamplingBilinear",
+     lambda N: N.SpatialUpSamplingBilinear(8, 10)),
+    ("Index", lambda N: N.Index(2)), ("Masking", lambda N: N.Masking(0.5)),
+    ("GradientReversal", lambda N: N.GradientReversal(0.7)),
+    ("L1Penalty", lambda N: N.L1Penalty(0.3, True)),
+    ("SpatialConvolution-SAME",
+     lambda N: N.SpatialConvolution(3, 4, 3, 3, 2, 2, -1, -1)),
+    ("ParallelTable", lambda N: N.ParallelTable().add(N.Linear(4, 3))
+     .add(N.Tanh())),
+    ("MapTable", lambda N: N.MapTable(N.BatchNormalization(4))),
+    ("Bottle", lambda N: N.Bottle(N.Linear(4, 3), 3, 3)),
+    ("SelectTable", lambda N: N.SelectTable(-1)),
+    ("NarrowTable", lambda N: N.NarrowTable(2, -1)),
+    ("FlattenTable", lambda N: N.FlattenTable()),
+    ("SplitTable", lambda N: N.SplitTable(1, 2)),
+    ("BifurcateSplitTable", lambda N: N.BifurcateSplitTable(2)),
+    ("Pack", lambda N: N.Pack(2)), ("CSubTable", lambda N: N.CSubTable()),
+    ("CDivTable", lambda N: N.CDivTable()),
+    ("CMinTable", lambda N: N.CMinTable()),
+    ("CAveTable", lambda N: N.CAveTable()), ("MM", lambda N: N.MM(True)),
+    ("MV", lambda N: N.MV(True)), ("DotProduct", lambda N: N.DotProduct()),
+    ("CosineDistance", lambda N: N.CosineDistance()),
+    ("MixtureTable", lambda N: N.MixtureTable()),
+    ("InTopK", lambda N: N.InTopK(3)),
+    ("WhereTable", lambda N: N.WhereTable(True)),
+    ("ConvLSTMPeephole", lambda N: N.Recurrent().add(
+        N.ConvLSTMPeephole(2, 3, 3, 1, 1, False))),
+    ("text-cnn", lambda N: N.Sequential().add(N.LookupTable(30, 8))
+     .add(N.TemporalConvolution(8, 6, 5)).add(N.ReLU()).add(N.Max(2))
+     .add(N.Linear(6, 4)).add(N.LogSoftMax())),
+]
+
+
+@pytest.mark.parametrize("name,build", SLICE_MODULES,
+                         ids=[c[0] for c in SLICE_MODULES])
+def test_slice_specs_and_files_cross_the_packages(tmp_path, name, build):
+    JRandom.RNG.set_seed(5)
+    jm = build(JN)
+    TRandom.RNG.set_seed(5)
+    tm = build(TN)
+    spec = TS.module_to_spec(tm)
+    assert spec == JS.module_to_spec(jm)
+    assert TS.module_to_spec(TS.spec_to_module(spec)) == spec
+    assert JS.module_to_spec(JS.spec_to_module(spec)) == spec
+    JS.save_module(jm, str(tmp_path / "j"))
+    t_from_j = TS.load_module(str(tmp_path / "j"))
+    assert TS.module_to_spec(t_from_j) == spec
+    _assert_trees_equal(t_from_j.params(), jm.params())
+    _assert_trees_equal(t_from_j.state(), jm.state())
+    j_from_t = JS.load_module(TS.save_module(tm, str(tmp_path / "t")))
+    _assert_trees_equal(tm.params(), j_from_t.params())
+
+
+def test_dropped_arguments_keep_the_jax_spec():
+    """JAX's ``_config`` leaves out ``TemporalConvolution.with_bias`` and
+    ``Max``/``Min``'s ``num_input_dims``.  The port records each only
+    off its default, so a default layer's spec is JAX's, and a spec
+    JAX cannot hold still rebuilds the layer in both packages."""
+    conv = TN.TemporalConvolution(4, 3, 2, 1, False)
+    spec = TS.module_to_spec(conv)
+    assert spec["config"]["with_bias"] is False
+    assert "with_bias" not in JS.module_to_spec(
+        JN.TemporalConvolution(4, 3, 2, 1, False))["config"]
+    assert "with_bias" not in TS.module_to_spec(
+        TN.TemporalConvolution(4, 3, 2))["config"]
+    assert TS.spec_to_module(spec).bias is None
+    assert JS.spec_to_module(spec).bias is None
+    # the JAX spec of a bias-free conv rebuilds one with a bias
+    assert JS.spec_to_module(JS.module_to_spec(
+        JN.TemporalConvolution(4, 3, 2, 1, False))).bias is not None
+    for cls in ("Max", "Min"):
+        m = getattr(TN, cls)(2, 3)
+        assert TS.module_to_spec(m)["config"] == {"dim": 2,
+                                                 "num_input_dims": 3}
+        assert TS.spec_to_module(TS.module_to_spec(m)).num_input_dims == 3
+        assert TS.module_to_spec(getattr(TN, cls)(2)) == JS.module_to_spec(
+            getattr(JN, cls)(2, 3))

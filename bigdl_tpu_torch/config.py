@@ -2,12 +2,16 @@
 
 Counterpart of the ``ServeConfig`` section of ``bigdl_tpu/config.py``
 (the serving defaults ``LMEngine``, ``ClassifierEngine`` and
-``ServingServer`` read, with the router's 503 ``Retry-After``) and of
-its training knobs (``TrainConfig``: the non-finite guard, the retry backoff, checkpoint
-retention, the gradient wire and the input feed, read by the
-trainers).  Constructor
-arguments win; these are the process-wide fallbacks a deployment sets
-once.
+``ServingServer`` read, with the router's 503 ``Retry-After``), of its
+training knobs (``TrainConfig``: the non-finite guard, the retry
+backoff, checkpoint retention, the gradient wire and the input feed,
+read by the trainers), of the observability switches the tracer, the
+request tracer, the metrics registry and the obs server read
+(``ObsConfig``), and of the router's and the rollout's knobs
+(``RouterConfig``, ``RolloutConfig``), each with the JAX package's
+defaults.  Constructor arguments win; these are the process-wide
+fallbacks a deployment sets once.  Each is read from the environment
+when it is used, so a knob exported after import counts.
 """
 
 from __future__ import annotations
@@ -145,6 +149,154 @@ class TrainConfig:
         )
 
 
+@dataclasses.dataclass
+class ObsConfig:
+    """Observability switches (``bigdl_tpu_torch/obs``), off by default
+    (JAX ``ObsConfig``, the subset the port reads)."""
+
+    # Chrome trace JSON + JSONL events of the tracer are written here;
+    # unset = the null tracer [BIGDL_TORCH_TRACE_DIR]
+    trace_dir: Optional[str] = None
+    # flight recorder: span/event records the tracer keeps in memory
+    # for /trace?last=K [BIGDL_TORCH_FLIGHT_SPANS]
+    flight_spans: int = 512
+    # live telemetry endpoint (obs/server.py): 0 = ephemeral port,
+    # unset = no thread and no socket [BIGDL_TORCH_OBS_PORT]
+    obs_port: Optional[int] = None
+    # the server writes its bound port here [BIGDL_TORCH_OBS_PORT_FILE]
+    obs_port_file: Optional[str] = None
+    # reject an undeclared bigdl_* family, or one whose kind or labels
+    # differ from obs/names.py, and cap label cardinality
+    # [BIGDL_TORCH_OBS_STRICT]
+    strict: bool = False
+    # request tracing (obs/reqtrace.py): keep probability of a clean
+    # request's trace; 0 turns the subsystem off
+    # [BIGDL_TORCH_REQTRACE_SAMPLE]
+    reqtrace_sample: float = 0.0
+    # kept request traces held for /trace?request=ID
+    # [BIGDL_TORCH_REQTRACE_RING]
+    reqtrace_ring: int = 256
+    # a replica whose exported host-clock skew exceeds this is left out
+    # of placement; <= 0 disables [BIGDL_TORCH_STALE_AFTER_S]
+    stale_after_s: float = 30.0
+
+    @property
+    def active(self) -> bool:
+        return bool(self.trace_dir or self.obs_port is not None)
+
+    @classmethod
+    def from_env(cls) -> "ObsConfig":
+        return cls(
+            trace_dir=_env_str("BIGDL_TORCH_TRACE_DIR", None),
+            flight_spans=_env_int("BIGDL_TORCH_FLIGHT_SPANS", 512),
+            obs_port=_env_opt_int("BIGDL_TORCH_OBS_PORT", None),
+            obs_port_file=_env_str("BIGDL_TORCH_OBS_PORT_FILE", None),
+            strict=_env_bool("BIGDL_TORCH_OBS_STRICT", False),
+            reqtrace_sample=_env_float("BIGDL_TORCH_REQTRACE_SAMPLE", 0.0),
+            reqtrace_ring=_env_int("BIGDL_TORCH_REQTRACE_RING", 256),
+            stale_after_s=_env_float("BIGDL_TORCH_STALE_AFTER_S", 30.0),
+        )
+
+
+@dataclasses.dataclass
+class RouterConfig:
+    """The multi-replica router (``serving/router.py``), JAX
+    ``RouterConfig``."""
+
+    # router HTTP port (0 = ephemeral); unset = the constructor's
+    # [BIGDL_TORCH_ROUTER_PORT]
+    port: Optional[int] = None
+    # session-affinity binding TTL in seconds; <= 0 disables affinity
+    # [BIGDL_TORCH_ROUTER_AFFINITY_TTL]
+    affinity_ttl_s: float = 300.0
+    # retry budget: tokens each routed request deposits, one spent per
+    # retry [BIGDL_TORCH_ROUTER_RETRY_BUDGET]
+    retry_budget_ratio: float = 0.2
+    # the bucket's cap and cold-start allowance
+    # [BIGDL_TORCH_ROUTER_RETRY_BURST]
+    retry_budget_burst: float = 8.0
+    # placement attempts past the first [BIGDL_TORCH_ROUTER_MAX_RETRIES]
+    max_retries: int = 2
+    # per-attempt replica timeout in seconds [BIGDL_TORCH_ROUTER_TIMEOUT]
+    request_timeout_s: float = 30.0
+    # a draining replica's deadline before the rest is handed off
+    # [BIGDL_TORCH_ROUTER_DRAIN_DEADLINE]
+    drain_deadline_s: float = 10.0
+    # weight of KV-page pressure in the placement score
+    # [BIGDL_TORCH_ROUTER_KV_WEIGHT]
+    kv_weight: float = 4.0
+    # jittered-backoff base between retries in seconds
+    # [BIGDL_TORCH_ROUTER_BACKOFF_BASE]
+    backoff_base_s: float = 0.05
+    # Retry-After seconds on a shed 503 [BIGDL_TORCH_ROUTER_RETRY_AFTER]
+    retry_after_s: float = 1.0
+    # leave replicas whose clock skew exceeds BIGDL_TORCH_STALE_AFTER_S
+    # out of placement [BIGDL_TORCH_ROUTER_STALE_EXCLUDE]
+    stale_exclude: bool = True
+
+    @classmethod
+    def from_env(cls) -> "RouterConfig":
+        return cls(
+            port=_env_opt_int("BIGDL_TORCH_ROUTER_PORT", None),
+            affinity_ttl_s=_env_float("BIGDL_TORCH_ROUTER_AFFINITY_TTL",
+                                      300.0),
+            retry_budget_ratio=_env_float("BIGDL_TORCH_ROUTER_RETRY_BUDGET",
+                                          0.2),
+            retry_budget_burst=_env_float("BIGDL_TORCH_ROUTER_RETRY_BURST",
+                                          8.0),
+            max_retries=_env_int("BIGDL_TORCH_ROUTER_MAX_RETRIES", 2),
+            request_timeout_s=_env_float("BIGDL_TORCH_ROUTER_TIMEOUT", 30.0),
+            drain_deadline_s=_env_float("BIGDL_TORCH_ROUTER_DRAIN_DEADLINE",
+                                        10.0),
+            kv_weight=_env_float("BIGDL_TORCH_ROUTER_KV_WEIGHT", 4.0),
+            backoff_base_s=_env_float("BIGDL_TORCH_ROUTER_BACKOFF_BASE",
+                                      0.05),
+            retry_after_s=_env_float("BIGDL_TORCH_ROUTER_RETRY_AFTER", 1.0),
+            stale_exclude=_env_bool("BIGDL_TORCH_ROUTER_STALE_EXCLUDE",
+                                    True),
+        )
+
+
+@dataclasses.dataclass
+class RolloutConfig:
+    """Live weight rollout (``serving/rollout.py``), JAX
+    ``RolloutConfig``."""
+
+    # the directory a CheckpointWatcher polls; unset = watch_dir= only
+    # [BIGDL_TORCH_ROLLOUT_WATCH]
+    watch_dir: Optional[str] = None
+    # watcher poll period in seconds [BIGDL_TORCH_ROLLOUT_POLL]
+    poll_s: float = 1.0
+    # fraction of replicas a new version canaries on (at least one)
+    # [BIGDL_TORCH_ROLLOUT_CANARY_FRACTION]
+    canary_fraction: float = 0.25
+    # token divergence past which an evaluation counts as a breach
+    # [BIGDL_TORCH_ROLLOUT_DIVERGENCE]
+    divergence_threshold: float = 0.05
+    # consecutive breaches before a rollback [BIGDL_TORCH_ROLLOUT_FOR]
+    for_count: int = 2
+    # consecutive clean evaluations before a promote
+    # [BIGDL_TORCH_ROLLOUT_HOLD]
+    hold_evals: int = 3
+    # seconds after a rollback during which offers are refused
+    # [BIGDL_TORCH_ROLLOUT_COOLDOWN]
+    cooldown_s: float = 30.0
+
+    @classmethod
+    def from_env(cls) -> "RolloutConfig":
+        return cls(
+            watch_dir=_env_str("BIGDL_TORCH_ROLLOUT_WATCH", None),
+            poll_s=_env_float("BIGDL_TORCH_ROLLOUT_POLL", 1.0),
+            canary_fraction=_env_float("BIGDL_TORCH_ROLLOUT_CANARY_FRACTION",
+                                       0.25),
+            divergence_threshold=_env_float(
+                "BIGDL_TORCH_ROLLOUT_DIVERGENCE", 0.05),
+            for_count=_env_int("BIGDL_TORCH_ROLLOUT_FOR", 2),
+            hold_evals=_env_int("BIGDL_TORCH_ROLLOUT_HOLD", 3),
+            cooldown_s=_env_float("BIGDL_TORCH_ROLLOUT_COOLDOWN", 30.0),
+        )
+
+
 def build_dir() -> str:
     """Where the CUDA kernels are compiled to: ``build/bigdl_tpu_torch``
     beside the package's checkout, or ``BIGDL_TORCH_BUILD_DIR``."""
@@ -165,4 +317,5 @@ def nvcc_path() -> str:
     return cand if os.path.exists(cand) else "nvcc"
 
 
-__all__ = ["ServeConfig", "TrainConfig", "build_dir", "nvcc_path"]
+__all__ = ["ServeConfig", "TrainConfig", "ObsConfig", "RouterConfig",
+           "RolloutConfig", "build_dir", "nvcc_path"]

@@ -11,6 +11,10 @@ output, seeded per block from the step's seed as JAX folds the block
 index into its key (``fold_in(rng, i)``, :97-99); ``remat`` recomputes
 each block's forward in the backward (``jax.checkpoint``, :101-105)
 through ``torch.utils.checkpoint``.
+
+The model and its embeddings record the JAX config keys (JAX :38, :68),
+so ``save_module``/``load_module`` carry the flagship between the
+packages; ``device`` is the port's own and stays out of the spec.
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ from torch.utils.checkpoint import checkpoint
 
 from bigdl_tpu_torch.common import RandomGenerator, fold_in, resolve_device
 from bigdl_tpu_torch.nn.attention import (LayerNorm, PositionalEmbedding,
-                                          TransformerBlock)
+                                          TransformerBlock, _AttnConfig,
+                                          port_attn_impl)
 from bigdl_tpu_torch.nn.layers import Linear
 from bigdl_tpu_torch.nn.module import AbstractModule, Composite
 
@@ -32,6 +37,7 @@ class TokenEmbedding(AbstractModule):
     """0-based token embedding, N(0, 0.02) init."""
 
     param_names = ("weight",)
+    config_names = ("vocab_size", "dim")
 
     def __init__(self, vocab_size: int, dim: int):
         super().__init__()
@@ -48,7 +54,7 @@ def _call_block(block, params, x, seed):
     return torch.func.functional_call(block, params, (x, seed))
 
 
-class TransformerLM(Composite):
+class TransformerLM(_AttnConfig, Composite):
     """Decoder-only causal LM over (batch, seq) int tokens -> logits
     (batch, seq, vocab).  ``attn_impl`` is the prefill/forward
     attention: "auto", "reference" or "kernel" (``ops.attention``).
@@ -56,6 +62,8 @@ class TransformerLM(Composite):
     (``takes_rng_seed``: ``LocalOptimizer`` passes one each step)."""
 
     takes_rng_seed = True
+    config_names = ("vocab_size", "dim", "n_head", "n_layer", "max_len",
+                    "mlp_ratio", "dropout", "attn_impl", "remat")
 
     def __init__(self, vocab_size: int, dim: int = 256, n_head: int = 4,
                  n_layer: int = 4, max_len: int = 1024, mlp_ratio: int = 4,
@@ -68,6 +76,9 @@ class TransformerLM(Composite):
         self.n_head = n_head
         self.n_layer = n_layer
         self.max_len = max_len
+        self.mlp_ratio = mlp_ratio
+        self.dropout = dropout
+        self.attn_impl = port_attn_impl(attn_impl)
         self.remat = remat
         self._add_child("wte", TokenEmbedding(vocab_size, dim))
         self._add_child("wpe", PositionalEmbedding(max_len, dim))

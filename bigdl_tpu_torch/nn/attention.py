@@ -11,6 +11,12 @@ counterpart of the JAX ``rng`` key: ``forward(x, rng_seed)``.  The mask
 comes from a ``torch.Generator`` made from that seed inside the call,
 so a forward that ``torch.utils.checkpoint`` runs again draws the same
 mask; no global RNG state is read.
+
+Each layer records the JAX package's config keys (JAX :48, :90, :221,
+:323), so a spec written by either package rebuilds in the other.
+``attn_impl`` is recorded in the JAX package's words ("lax" for the
+port's "reference", "pallas" for its "kernel", "auto" as it is) and a
+JAX name is read back as the port's.
 """
 
 from __future__ import annotations
@@ -27,12 +33,37 @@ from bigdl_tpu_torch.nn.layers import Linear, Xavier, dropout
 from bigdl_tpu_torch.nn.module import AbstractModule, Composite
 from bigdl_tpu_torch.ops.attention import dot_product_attention
 
+# the JAX package's attention impls as the port's, and back
+_PORT_ATTN_IMPL = {"lax": "reference", "xla": "reference",
+                   "pallas": "kernel", "pallas_interpret": "kernel"}
+_JAX_ATTN_IMPL = {"reference": "lax", "kernel": "pallas"}
+
+
+def port_attn_impl(impl: str) -> str:
+    """An ``attn_impl`` in the port's words (a JAX name is translated)."""
+    return _PORT_ATTN_IMPL.get(impl, impl)
+
+
+def jax_attn_impl(impl: str) -> str:
+    """An ``attn_impl`` as the JAX package's spec records it."""
+    return _JAX_ATTN_IMPL.get(impl, impl)
+
+
+class _AttnConfig:
+    """``get_config`` that records ``attn_impl`` in JAX's words."""
+
+    def get_config(self):
+        cfg = super().get_config()
+        cfg["attn_impl"] = jax_attn_impl(cfg["attn_impl"])
+        return cfg
+
 
 class LayerNorm(AbstractModule):
     """Layer normalization over the last dimension: statistics in f32,
     eps 1e-5, the result cast back to the input dtype."""
 
     param_names = ("weight", "bias")
+    config_names = ("n_output", "eps")
 
     def __init__(self, n_output: int, eps: float = 1e-5):
         super().__init__()
@@ -49,13 +80,15 @@ class LayerNorm(AbstractModule):
         return (y * self.weight + self.bias).to(x.dtype)
 
 
-class MultiHeadAttention(AbstractModule):
+class MultiHeadAttention(_AttnConfig, AbstractModule):
     """Multi-head self attention, (batch, seq, dim) -> (batch, seq, dim).
     ``attn_impl`` picks the inner attention (``ops.attention``):
     "auto", "reference" or "kernel".  ``dropout`` acts on the merged
     attention output in training mode, given a seed."""
 
     param_names = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo")
+    config_names = ("dim", "n_head", "causal", "with_bias", "dropout",
+                    "attn_impl")
 
     def __init__(self, dim: int, n_head: int, causal: bool = False,
                  with_bias: bool = True, attn_impl: str = "auto",
@@ -68,7 +101,7 @@ class MultiHeadAttention(AbstractModule):
         self.head_dim = dim // n_head
         self.causal = causal
         self.with_bias = with_bias
-        self.attn_impl = attn_impl
+        self.attn_impl = port_attn_impl(attn_impl)
         self.dropout = dropout
         init = Xavier()
         for name in ("wq", "wk", "wv", "wo"):
@@ -113,15 +146,23 @@ class MultiHeadAttention(AbstractModule):
         return self.out_proj(o)
 
 
-class TransformerBlock(Composite):
+class TransformerBlock(_AttnConfig, Composite):
     """Pre-LN transformer block: x + MHA(LN(x)); x + MLP(LN(x)), with
     the tanh-approximated GELU that ``jax.nn.gelu`` defaults to."""
+
+    config_names = ("dim", "n_head", "mlp_ratio", "causal", "dropout",
+                    "attn_impl")
 
     def __init__(self, dim: int, n_head: int, mlp_ratio: int = 4,
                  causal: bool = True, attn_impl: str = "auto",
                  dropout: float = 0.0):
         super().__init__()
         self.dim = dim
+        self.n_head = n_head
+        self.mlp_ratio = mlp_ratio
+        self.causal = causal
+        self.dropout = dropout
+        self.attn_impl = port_attn_impl(attn_impl)
         self._add_child("ln1", LayerNorm(dim))
         self._add_child("attn", MultiHeadAttention(
             dim, n_head, causal=causal, attn_impl=attn_impl,
@@ -177,6 +218,7 @@ class PositionalEmbedding(AbstractModule):
     """Learned absolute positional embedding added to (B, T, D) input."""
 
     param_names = ("weight",)
+    config_names = ("max_len", "dim")
 
     def __init__(self, max_len: int, dim: int):
         super().__init__()
@@ -190,4 +232,5 @@ class PositionalEmbedding(AbstractModule):
 
 
 __all__ = ["LayerNorm", "MultiHeadAttention", "TransformerBlock",
-           "PositionalEmbedding", "dropout"]
+           "PositionalEmbedding", "dropout", "jax_attn_impl",
+           "port_attn_impl"]

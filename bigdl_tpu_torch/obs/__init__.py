@@ -1,10 +1,86 @@
-"""Telemetry of the port (counterpart of ``bigdl_tpu.obs``): the
-process-wide metrics registry the serving tier stamps, the family
-names, and the request-trace header."""
+"""Telemetry of the port (counterpart of ``bigdl_tpu.obs``).
 
-from bigdl_tpu_torch.obs.metrics import MetricsRegistry
+* :mod:`~bigdl_tpu_torch.obs.metrics`: the labelled Counter / Gauge /
+  Histogram registry, with exemplars, the Prometheus text export and
+  the strict-declaration check;
+* :mod:`~bigdl_tpu_torch.obs.names`: every ``bigdl_*`` family the port
+  mints, declared once;
+* :mod:`~bigdl_tpu_torch.obs.trace`: the span tracer
+  (``BIGDL_TORCH_TRACE_DIR`` turns it on);
+* :mod:`~bigdl_tpu_torch.obs.reqtrace`: request tracing with tail
+  sampling (``BIGDL_TORCH_REQTRACE_SAMPLE``);
+* :mod:`~bigdl_tpu_torch.obs.server`: the live ``/metrics``,
+  ``/healthz`` and ``/trace`` endpoint (``BIGDL_TORCH_OBS_PORT``).
 
+Everything is off by default.  The tracer and the request collector are
+rebuilt when their knobs change (JAX ``obs/__init__.py:96-115``); a
+call whose knobs read as the last one's returns the cached object after
+one environment lookup a knob, with no lock, since the engine asks at
+every decode step.
+"""
+
+from __future__ import annotations
+
+import atexit
+import os
+import threading
+
+from bigdl_tpu_torch.obs.metrics import DEFAULT_BUCKETS, MetricsRegistry
+from bigdl_tpu_torch.obs.trace import NULL_TRACER, NullTracer, Tracer
+
+_lock = threading.Lock()
+_tracer = NULL_TRACER
+_tracer_dir = None
+# (raw BIGDL_TORCH_TRACE_DIR, tracer): one tuple rebind, so the lock-free
+# read in get_tracer sees a matched pair
+_UNSET = object()
+_tracer_state = (_UNSET, NULL_TRACER)
 _registry = MetricsRegistry()
+_atexit_registered = False
+
+
+def _obs_config():
+    from bigdl_tpu_torch.config import ObsConfig
+
+    return ObsConfig.from_env()
+
+
+def active() -> bool:
+    """Is any observability output on (a trace directory or the obs
+    server's port)?"""
+    return _obs_config().active
+
+
+def get_tracer():
+    """The process tracer: a recording :class:`Tracer` bound to
+    ``BIGDL_TORCH_TRACE_DIR``, or the shared :data:`NULL_TRACER` when it
+    is unset; rebuilt when the directory changes."""
+    global _tracer, _tracer_dir, _tracer_state, _atexit_registered
+    raw = os.environ.get("BIGDL_TORCH_TRACE_DIR")
+    seen, tracer = _tracer_state
+    if raw == seen:
+        return tracer
+    cfg = _obs_config()
+    d = cfg.trace_dir
+    with _lock:
+        if d != _tracer_dir:
+            if _tracer is not NULL_TRACER:
+                _tracer.close()
+            _tracer_dir = d
+            _tracer = (Tracer(d, ring_size=cfg.flight_spans)
+                       if d else NULL_TRACER)
+            if d and not _atexit_registered:
+                atexit.register(_atexit_close)
+                _atexit_registered = True
+        _tracer_state = (raw, _tracer)
+        return _tracer
+
+
+def _atexit_close():
+    try:
+        _tracer.close()
+    except Exception:  # noqa: BLE001 — interpreter teardown
+        pass
 
 
 def get_registry() -> MetricsRegistry:
@@ -12,4 +88,26 @@ def get_registry() -> MetricsRegistry:
     return _registry
 
 
-__all__ = ["MetricsRegistry", "get_registry"]
+def reset():
+    """Close the tracer, start a new registry, stop the obs server and
+    drop the request collector; the next accessor rebuilds each from
+    the environment (the tests' hook, JAX ``obs.reset``)."""
+    global _tracer, _tracer_dir, _tracer_state, _registry
+    with _lock:
+        if _tracer is not NULL_TRACER:
+            try:
+                _tracer.close()
+            except Exception:  # noqa: BLE001 — half-removed test dirs
+                pass
+        _tracer = NULL_TRACER
+        _tracer_dir = None
+        _tracer_state = (_UNSET, NULL_TRACER)
+        _registry = MetricsRegistry()
+    from bigdl_tpu_torch.obs import reqtrace, server
+
+    server.stop_server()
+    reqtrace.reset_collector()
+
+
+__all__ = ["DEFAULT_BUCKETS", "MetricsRegistry", "NullTracer", "Tracer",
+           "NULL_TRACER", "active", "get_tracer", "get_registry", "reset"]

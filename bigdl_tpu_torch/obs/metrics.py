@@ -1,25 +1,74 @@
 """Labelled Counter / Gauge / Histogram registry.
 
-Counterpart of ``bigdl_tpu/obs/metrics.py`` (:83-330): monotonic
-:class:`Counter`, settable :class:`Gauge` and bucketed
+Counterpart of ``bigdl_tpu/obs/metrics.py`` (:38-330, :383-470):
+monotonic :class:`Counter`, settable :class:`Gauge` and bucketed
 :class:`Histogram` children, each family optionally labelled (children
 made lazily per label combination), thread-safe (engine loops, HTTP
 handler threads and clients stamp them at once).  Registration is
 idempotent for the same kind and label names and raises for another.
-The Prometheus text export and the strict-declaration check wait for
-the ``obs/server`` slice.
+
+* a histogram observation may carry an exemplar (``{"trace_id": ...}``),
+  the newest per bucket, exported in OpenMetrics syntax so that a
+  latency bucket links to a kept request trace;
+* :meth:`MetricsRegistry.to_prometheus` is the text exposition format
+  0.0.4 the obs server's ``/metrics`` serves, and
+  :func:`parse_prometheus` its reader;
+* under ``BIGDL_TORCH_OBS_STRICT=1`` a ``bigdl_*`` family must be
+  declared in ``obs/names.py`` with the kind and labels it is minted
+  with, and a family may not grow past its declared label cardinality.
 """
 
 from __future__ import annotations
 
 import bisect
+import re
 import threading
+import time
 from typing import Dict, Optional, Sequence, Tuple
 
 # bucket bounds from sub-millisecond host work up to multi-second
 # requests
 DEFAULT_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
                    0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
+
+
+def _strict() -> bool:
+    """Is the strict registry on (``BIGDL_TORCH_OBS_STRICT``)?  Read at
+    call time, so a test can switch it without a new registry."""
+    from bigdl_tpu_torch.config import ObsConfig
+
+    return ObsConfig.from_env().strict
+
+
+def _declared_spec(name: str):
+    """The ``obs/names.py`` spec of a ``bigdl_*`` family (None for a
+    foreign name: a private registry mints what it likes)."""
+    if not name.startswith("bigdl_"):
+        return None
+    from bigdl_tpu_torch.obs import names as _names
+
+    return _names.REGISTRY.get(name)
+
+
+def _escape(v) -> str:
+    return (str(v).replace("\\", r"\\").replace("\n", r"\n")
+            .replace('"', r'\"'))
+
+
+def _escape_help(v: str) -> str:
+    """HELP-line escaping: backslash and newline only."""
+    return str(v).replace("\\", r"\\").replace("\n", r"\n")
+
+
+def _fmt(v: float) -> str:
+    """A sample value: integers without a trailing .0, non-finite values
+    as ``NaN`` / ``+Inf`` / ``-Inf``."""
+    f = float(v)
+    if f != f:
+        return "NaN"
+    if f in (float("inf"), float("-inf")):
+        return "+Inf" if f > 0 else "-Inf"
+    return repr(int(f)) if f == int(f) else repr(f)
 
 
 class Counter:
@@ -61,7 +110,7 @@ class Gauge:
 
 class Histogram:
     """Bucketed histogram child: per-bucket counts (the last bucket is
-    +Inf), the count and the sum."""
+    +Inf), the count, the sum and the newest exemplar of each bucket."""
 
     kind = "histogram"
 
@@ -72,15 +121,25 @@ class Histogram:
         self.bucket_counts = [0] * (len(self.bounds) + 1)
         self.count = 0
         self.sum = 0.0
+        # bucket index -> (labels, value, unix time)
+        self.exemplars: Dict[int, tuple] = {}
 
-    def observe(self, value: float):
+    def observe(self, value: float, exemplar: Optional[dict] = None):
+        """Record ``value``; ``exemplar`` (a small ``{label: value}``
+        dict) attaches to the bucket the value lands in, newest wins."""
         v = float(value)
         i = bisect.bisect_left(self.bounds, v)
         with self._lock:
             self.bucket_counts[i] += 1
             self.count += 1
             self.sum += v
+            if exemplar:
+                self.exemplars[i] = (dict(exemplar), v, time.time())
         return self
+
+    def exemplar_items(self) -> Dict[int, tuple]:
+        with self._lock:
+            return dict(self.exemplars)
 
     def snapshot_state(self):
         """``(bucket_counts, count, sum)`` under one lock, so a reader
@@ -89,14 +148,17 @@ class Histogram:
         with self._lock:
             return list(self.bucket_counts), self.count, self.sum
 
-    def cumulative(self):
-        """[(upper bound, cumulative count), ...] ending with +Inf."""
-        counts, _, _ = self.snapshot_state()
+    def _cumulative_from(self, counts):
         out, acc = [], 0
         for b, c in zip(self.bounds + (float("inf"),), counts):
             acc += c
             out.append((b, acc))
         return out
+
+    def cumulative(self):
+        """[(upper bound, cumulative count), ...] ending with +Inf."""
+        counts, _, _ = self.snapshot_state()
+        return self._cumulative_from(counts)
 
 
 _KINDS = {"counter": Counter, "gauge": Gauge, "histogram": Histogram}
@@ -109,12 +171,16 @@ class _Family:
 
     def __init__(self, name: str, help: str, kind: str,
                  labelnames: Tuple[str, ...] = (),
-                 buckets: Optional[Sequence[float]] = None):
+                 buckets: Optional[Sequence[float]] = None,
+                 max_children: Optional[int] = None):
         self.name = name
         self.help = help
         self.kind = kind
         self.labelnames = tuple(labelnames)
         self.buckets = tuple(buckets) if buckets else DEFAULT_BUCKETS
+        # the declared label-cardinality ceiling, enforced only in
+        # strict mode
+        self.max_children = max_children
         self._lock = threading.Lock()
         self._children: Dict[tuple, object] = {}
 
@@ -127,6 +193,13 @@ class _Family:
         with self._lock:
             child = self._children.get(key)
             if child is None:
+                if self.max_children is not None \
+                        and len(self._children) >= self.max_children \
+                        and _strict():
+                    raise ValueError(
+                        f"{self.name}: label cardinality ceiling "
+                        f"{self.max_children} exceeded (new combination "
+                        f"{key!r})")
                 cls = _KINDS[self.kind]
                 child = (cls(self._lock, self.buckets)
                          if self.kind == "histogram" else cls(self._lock))
@@ -145,8 +218,8 @@ class _Family:
     def set(self, value: float):
         return self._solo().set(value)
 
-    def observe(self, value: float):
-        return self._solo().observe(value)
+    def observe(self, value: float, exemplar: Optional[dict] = None):
+        return self._solo().observe(value, exemplar=exemplar)
 
     def child_items(self):
         with self._lock:
@@ -176,7 +249,21 @@ class MetricsRegistry:
                         f"{fam.kind}{fam.labelnames}, not "
                         f"{kind}{tuple(labels)}")
                 return fam
-            fam = _Family(name, help, kind, tuple(labels), buckets)
+            spec = _declared_spec(name)
+            if spec is None and name.startswith("bigdl_") and _strict():
+                raise ValueError(
+                    f"metric {name!r} is not declared in "
+                    "bigdl_tpu_torch/obs/names.py and "
+                    "BIGDL_TORCH_OBS_STRICT is on")
+            if spec is not None and _strict() and (
+                    spec.kind != kind or set(spec.labels) != set(labels)):
+                raise ValueError(
+                    f"metric {name!r} declared as {spec.kind}"
+                    f"{spec.labels} in bigdl_tpu_torch/obs/names.py but "
+                    f"registered as {kind}{tuple(labels)}")
+            fam = _Family(name, help, kind, tuple(labels), buckets,
+                          max_children=(spec.cardinality
+                                        if spec is not None else None))
             self._families[name] = fam
             return fam
 
@@ -194,6 +281,129 @@ class MetricsRegistry:
         with self._lock:
             return list(self._families.values())
 
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition format 0.0.4: a ``# HELP`` and a
+        ``# TYPE`` line for every family (a help-less one falls back to
+        its name), the families by name, the children by label values;
+        a histogram's buckets, ``_sum`` and ``_count`` come from one
+        locked read, its exemplars in OpenMetrics ``# {...} v ts``
+        syntax."""
+        lines = []
+        for fam in sorted(self.families(), key=lambda f: f.name):
+            lines.append(
+                f"# HELP {fam.name} {_escape_help(fam.help or fam.name)}")
+            lines.append(f"# TYPE {fam.name} {fam.kind}")
+            for key, child in sorted(fam.child_items()):
+                pairs = [f'{n}="{_escape(v)}"'
+                         for n, v in zip(fam.labelnames, key)]
+                base = "{" + ",".join(pairs) + "}" if pairs else ""
+                if fam.kind != "histogram":
+                    lines.append(f"{fam.name}{base} {_fmt(child.value)}")
+                    continue
+                counts, count, total = child.snapshot_state()
+                exs = child.exemplar_items()
+                for i, (bound, acc) in enumerate(
+                        child._cumulative_from(counts)):
+                    le = "+Inf" if bound == float("inf") else _fmt(bound)
+                    bpairs = pairs + [f'le="{le}"']
+                    line = f"{fam.name}_bucket{{{','.join(bpairs)}}} {acc}"
+                    ex = exs.get(i)
+                    if ex is not None:
+                        exl, exv, exts = ex
+                        body = ",".join(f'{k}="{_escape(v)}"'
+                                        for k, v in exl.items())
+                        line += f" # {{{body}}} {_fmt(exv)} {exts:.3f}"
+                    lines.append(line)
+                lines.append(f"{fam.name}_sum{base} {_fmt(total)}")
+                lines.append(f"{fam.name}_count{base} {count}")
+        return "\n".join(lines) + ("\n" if lines else "")
+
+
+# ------------------------------------------------------------------ reader
+# one exposition sample line: name, optional {labels}, value
+_SAMPLE_RE = re.compile(
+    r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})?\s+(\S+)$')
+_LABEL_RE = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+_EXEMPLAR_RE = re.compile(r'^\{(.*)\}\s+(\S+)(?:\s+(\S+))?$')
+_UNESCAPE = {r"\\": "\\", r"\"": '"', r"\n": "\n"}
+
+
+def _unescape_label(v: str) -> str:
+    return re.sub(r'\\(.)', lambda m: _UNESCAPE.get(m.group(0),
+                                                    m.group(1)), v)
+
+
+def _parse_value(v: str) -> float:
+    low = v.lower()
+    if low == "nan":
+        return float("nan")
+    if low in ("+inf", "inf"):
+        return float("inf")
+    if low == "-inf":
+        return float("-inf")
+    return float(v)
+
+
+def _parse_exemplar(tail: str) -> dict:
+    m = _EXEMPLAR_RE.match(tail.strip())
+    if not m:
+        raise ValueError(f"bad exemplar: {tail!r}")
+    labelbody, value, ts = m.groups()
+    out = {"labels": {k: _unescape_label(v)
+                      for k, v in _LABEL_RE.findall(labelbody or "")},
+           "value": _parse_value(value)}
+    if ts:
+        out["ts"] = float(ts)
+    return out
+
+
+def parse_prometheus(text: str) -> dict:
+    """Text exposition back into ``{"families": {name: {"type",
+    "help"}}, "samples": [{"name", "labels", "value"[, "exemplar"]}]}``
+    (JAX :383-440).  A malformed line raises: a scrape that parses
+    parses whole."""
+    families: Dict[str, dict] = {}
+    samples = []
+    for raw in text.splitlines():
+        line = raw.strip()
+        if not line:
+            continue
+        if line.startswith("# HELP ") or line.startswith("# TYPE "):
+            key = "help" if line.startswith("# HELP ") else "type"
+            rest = line[len("# HELP "):].split(" ", 1)
+            families.setdefault(rest[0], {})[key] = \
+                rest[1] if len(rest) > 1 else ""
+            continue
+        if line.startswith("#"):
+            continue
+        m = _SAMPLE_RE.match(line)
+        exemplar = None
+        if not m and " # " in line:
+            body, _, tail = line.partition(" # ")
+            m = _SAMPLE_RE.match(body.strip())
+            if m:
+                exemplar = _parse_exemplar(tail)
+        if not m:
+            raise ValueError(f"bad exposition line: {line!r}")
+        name, labelbody, value = m.groups()
+        entry = {"name": name,
+                 "labels": {k: _unescape_label(v)
+                            for k, v in _LABEL_RE.findall(labelbody or "")},
+                 "value": _parse_value(value)}
+        if exemplar is not None:
+            entry["exemplar"] = exemplar
+        samples.append(entry)
+    return {"families": families, "samples": samples}
+
+
+def sample_value(parsed: dict, name: str, **labels) -> Optional[float]:
+    """The first sample named ``name`` whose labels contain ``labels``."""
+    for s in parsed["samples"]:
+        if s["name"] == name and all(
+                s["labels"].get(k) == str(v) for k, v in labels.items()):
+            return s["value"]
+    return None
+
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
-           "DEFAULT_BUCKETS"]
+           "DEFAULT_BUCKETS", "parse_prometheus", "sample_value"]

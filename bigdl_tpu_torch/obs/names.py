@@ -1,37 +1,208 @@
-"""Names of the metric families the port's serving tier and trainers
-stamp.
+"""Every ``bigdl_*`` metric family the port mints, declared once.
 
-Counterpart of the serving section of ``bigdl_tpu/obs/names.py``
-(:352-390, :434) and of its optim phase timers (:133): the same ``bigdl_*`` names, and at the mint sites the
-same kinds and label names, so that a dashboard reads either package's
-engines.  Mint sites use these constants, never string literals.  The
-JAX package's other families, and its declaration registry with the
-strict check that rejects an undeclared name, join when the modules
-that need them are ported (the ``obs/server`` slice).
+Counterpart of ``bigdl_tpu/obs/names.py`` (``MetricSpec`` and ``_m``
+:50-125, ``spec`` and ``is_declared`` :526-545): each family carries
+its kind, label names, a label-cardinality ceiling, a one-line doc and
+a fleet aggregation policy, with the JAX package's names and values
+(the serving section :352-390, the router's :392-431, the rollout's
+:433-470, the request tracer's :472-495 and the optim phase timers
+:133), so that one dashboard reads either package.  Mint sites use
+these constants, never string literals.  Under
+``BIGDL_TORCH_OBS_STRICT=1`` the registry rejects a ``bigdl_*`` family
+that is not declared here, or whose kind or labels differ, and caps
+each family at its ceiling (``obs/metrics.py``).  The JAX package's
+families of modules the port does not have yet are left out.
 """
 
-# counter, labels (engine, status)
-SERVE_REQUESTS_TOTAL = "bigdl_serve_requests_total"
-# histogram, labels (engine, kind)
-REQUEST_LATENCY_SECONDS = "bigdl_request_latency_seconds"
-# counter
-SERVE_TOKENS_TOTAL = "bigdl_serve_tokens_total"
-# gauge
-SERVE_BATCH_OCCUPANCY = "bigdl_serve_batch_occupancy"
-# gauge
-SERVE_QUEUE_DEPTH = "bigdl_serve_queue_depth"
-# counter
-SERVE_PREEMPTIONS_TOTAL = "bigdl_serve_preemptions_total"
-# counter
-SERVE_REJECTS_TOTAL = "bigdl_serve_rejects_total"
-# counter, labels (version)
-SERVE_WEIGHT_SWAPS_TOTAL = "bigdl_serve_weight_swaps_total"
+from __future__ import annotations
 
-# histogram, labels (phase): the trainers' phase timers (optim/metrics.py),
-# minted in each trainer's own registry, so not among ``__all__``, the
-# families of the serving tier's process-wide registry
-PHASE_SECONDS = "bigdl_phase_seconds"
+import dataclasses
+from typing import Dict, Optional, Tuple
 
+
+@dataclasses.dataclass(frozen=True)
+class MetricSpec:
+    """Declared shape of one metric family."""
+
+    name: str
+    kind: str                    # "counter" | "gauge" | "histogram"
+    labels: Tuple[str, ...]      # declared label names, order-free
+    cardinality: int             # max label-value combinations
+    doc: str                     # one-line purpose
+    policy: str = "sum"          # fleet aggregation policy
+
+
+#: name -> :class:`MetricSpec` of every declared family
+REGISTRY: Dict[str, MetricSpec] = {}
+
+_KINDS = ("counter", "gauge", "histogram")
+
+#: legal fleet aggregation policies
+POLICIES = ("sum", "max", "min", "last")
+
+
+def _m(name: str, kind: str, labels: Tuple[str, ...] = (),
+       cardinality: int = 1, doc: str = "",
+       policy: Optional[str] = None) -> str:
+    if kind not in _KINDS:
+        raise ValueError(f"{name}: bad kind {kind!r}")
+    if name in REGISTRY:
+        raise ValueError(f"duplicate metric declaration {name!r}")
+    if labels and cardinality <= 1:
+        raise ValueError(f"{name}: labeled metric needs a ceiling > 1")
+    if policy is None:
+        if kind == "gauge":
+            raise ValueError(f"{name}: gauge needs an explicit fleet "
+                             f"aggregation policy (one of {POLICIES})")
+        policy = "sum"
+    if policy not in POLICIES:
+        raise ValueError(f"{name}: bad policy {policy!r} "
+                         f"(one of {POLICIES})")
+    if kind in ("counter", "histogram") and policy != "sum":
+        raise ValueError(f"{name}: {kind} families merge by 'sum' "
+                         f"only, got policy {policy!r}")
+    REGISTRY[name] = MetricSpec(name, kind, tuple(labels),
+                                int(cardinality), doc, policy)
+    return name
+
+
+# --------------------------------------------------------------- optim
+# the trainers' phase timers (optim/metrics.py), minted in each
+# trainer's own registry
+PHASE_SECONDS = _m(
+    "bigdl_phase_seconds", "histogram", ("phase",), 24,
+    "Driver phase timers (the reference's optim.Metrics)")
+
+# --------------------------------------------------------------- serving
+SERVE_REQUESTS_TOTAL = _m(
+    "bigdl_serve_requests_total", "counter", ("engine", "status"), 16,
+    "Completed serve requests, by engine and outcome")
+REQUEST_LATENCY_SECONDS = _m(
+    "bigdl_request_latency_seconds", "histogram", ("engine", "kind"), 16,
+    "Request latency by engine and kind (ttft/per_token/e2e)")
+SERVE_TOKENS_TOTAL = _m(
+    "bigdl_serve_tokens_total", "counter",
+    doc="Tokens decoded by the LM engine")
+SERVE_BATCH_OCCUPANCY = _m(
+    "bigdl_serve_batch_occupancy", "gauge", policy="max",
+    doc="Fraction of decode slots / micro-batch rows in use")
+# fleet queue pressure is additive across replicas
+SERVE_QUEUE_DEPTH = _m(
+    "bigdl_serve_queue_depth", "gauge", policy="sum",
+    doc="Requests waiting in the bounded admission queue")
+SERVE_PREEMPTIONS_TOTAL = _m(
+    "bigdl_serve_preemptions_total", "counter",
+    doc="In-flight sequences evicted to free KV pages")
+SERVE_REJECTS_TOTAL = _m(
+    "bigdl_serve_rejects_total", "counter",
+    doc="Admissions rejected 503 + Retry-After (queue full past the "
+        "admission timeout, or the engine is draining)")
+
+# --------------------------------------------------------------- router
+ROUTER_REQUESTS_TOTAL = _m(
+    "bigdl_router_requests_total", "counter", ("outcome",), 8,
+    "Routed requests by final outcome (ok / shed / failed)")
+ROUTER_RETRIES_TOTAL = _m(
+    "bigdl_router_retries_total", "counter",
+    doc="Re-placements after a transient replica failure (each one "
+        "spent a retry-budget token)")
+ROUTER_SHED_TOTAL = _m(
+    "bigdl_router_shed_total", "counter",
+    doc="Requests shed 503 + Retry-After on an exhausted retry budget "
+        "or no eligible replica")
+ROUTER_HANDOFFS_TOTAL = _m(
+    "bigdl_router_handoffs_total", "counter",
+    doc="Checkpointed decodes replayed exactly-once off a draining "
+        "replica")
+ROUTER_DRAINS_TOTAL = _m(
+    "bigdl_router_drains_total", "counter",
+    doc="Replica drain cycles the router completed")
+ROUTER_AFFINITY_HITS_TOTAL = _m(
+    "bigdl_router_affinity_hits_total", "counter",
+    doc="Placements that landed on the session's bound replica (the "
+        "multi-turn KV prefix stayed resident)")
+# replica counts sum across routers in a multi-router fleet
+ROUTER_REPLICAS = _m(
+    "bigdl_router_replicas", "gauge", ("state",), 4,
+    "Replicas by router-observed state (up / draining / down)",
+    policy="sum")
+ROUTER_RETRY_BUDGET_TOKENS = _m(
+    "bigdl_router_retry_budget_tokens", "gauge", policy="min",
+    doc="Tokens left in the router's shared retry-budget bucket")
+ROUTER_STALE_EXCLUDED_TOTAL = _m(
+    "bigdl_router_stale_excluded_total", "counter",
+    doc="Placement snapshots that marked a replica ineligible because "
+        "its host clock skew (staleness_s signal) exceeded the "
+        "staleness threshold")
+
+# --------------------------------------------------------------- rollout
+SERVE_WEIGHT_SWAPS_TOTAL = _m(
+    "bigdl_serve_weight_swaps_total", "counter", ("version",), 64,
+    "Live weight hot-swaps the engine completed, by promoted version "
+    "(slots, page tables and in-flight decodes survive)")
+ROLLOUT_REJECTED_TOTAL = _m(
+    "bigdl_rollout_rejected_total", "counter", ("reason",), 8,
+    "Published checkpoints the rollout watcher refused before touching "
+    "serving state (manifest verify failed: torn / corrupt / checksum "
+    "mismatch / missing pair), counted and never loaded")
+ROLLOUT_CANARY_DIVERGENCE = _m(
+    "bigdl_rollout_canary_divergence", "gauge", policy="max",
+    doc="Worst token-level divergence of the canary version's pinned-"
+        "prompt replay vs the incumbent (fraction of mismatched "
+        "tokens; the auto-rollback signal next to SLO burn)")
+ROLLOUT_CANARY_STATE = _m(
+    "bigdl_rollout_canary_state", "gauge", policy="max",
+    doc="CanaryController phase (0 = idle, 1 = canarying, 2 = rolling "
+        "back)")
+ROLLOUT_ROLLBACKS_TOTAL = _m(
+    "bigdl_rollout_rollbacks_total", "counter", ("reason",), 8,
+    "Canary auto-rollback episodes, by the signal that fired "
+    "(slo_burn / divergence)")
+ROLLOUT_VERSION_MISMATCH_TOTAL = _m(
+    "bigdl_rollout_version_mismatch_total", "counter",
+    doc="Drain-handoff replays refused because the absorbing replica "
+        "serves a different weight version than the checkpoint pinned")
+
+# --------------------------------------------------------------- reqtrace
+REQTRACE_SAMPLED_TOTAL = _m(
+    "bigdl_reqtrace_sampled_total", "counter", ("reason",), 8,
+    "Request traces kept by the tail sampler, by keep reason "
+    "(error/retry/preempt/slo/handoff/forced always keep; 'sampled' "
+    "is the probabilistic tail)")
+REQTRACE_DROPPED_TOTAL = _m(
+    "bigdl_reqtrace_dropped_total", "counter",
+    doc="Completed request traces dropped by the tail sampler")
+REQTRACE_RING_EVICTED_TOTAL = _m(
+    "bigdl_reqtrace_ring_evicted_total", "counter",
+    doc="Kept request traces evicted from the bounded completed-trace "
+        "ring")
+REQTRACE_ACTIVE_TRACES = _m(
+    "bigdl_reqtrace_active_traces", "gauge", policy="max",
+    doc="Request traces currently open (begun, not yet through the "
+        "tail sampler)")
+
+
+def spec(name: str) -> MetricSpec:
+    """The declared spec of ``name`` (KeyError when undeclared)."""
+    return REGISTRY[name]
+
+
+def is_declared(name: str) -> bool:
+    """Is ``name`` a declared family, or a histogram's ``_bucket`` /
+    ``_sum`` / ``_count`` sample of one?"""
+    if name in REGISTRY:
+        return True
+    for suffix in ("_bucket", "_sum", "_count"):
+        if name.endswith(suffix):
+            s = REGISTRY.get(name[: -len(suffix)])
+            if s is not None and s.kind == "histogram":
+                return True
+    return False
+
+
+# the families the engines, the classifier and ServingServer mint in the
+# process registry (a test holds each to its JAX declaration); the
+# router's, the rollout's and the request tracer's are in REGISTRY too
 __all__ = ["SERVE_REQUESTS_TOTAL", "REQUEST_LATENCY_SECONDS",
            "SERVE_TOKENS_TOTAL", "SERVE_BATCH_OCCUPANCY", "SERVE_QUEUE_DEPTH",
            "SERVE_PREEMPTIONS_TOTAL", "SERVE_REJECTS_TOTAL",

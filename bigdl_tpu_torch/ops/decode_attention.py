@@ -5,6 +5,11 @@ Counterpart of ``bigdl_tpu/ops/decode_attention.py``:
 * ``impl="dense"`` (JAX ``_dense``, :103): gather the slot's pages into
   a contiguous copy, masked softmax.  The engine's static default, and
   the path whose op sequence mirrors ``TransformerLM.generate``;
+* ``impl="fused"`` (JAX ``_fused``, :142-202): an online softmax over
+  blocks of ``block_pages`` table columns (``_chunk_pages`` :129), each
+  block's pages gathered through the table in page layout and folded
+  into a carried f32 (m, l, acc).  It is XLA work in the JAX package,
+  not a Pallas kernel, so here it is torch ops;
 * ``impl="kernel"``: the paged flash-decode (JAX ``_decode_kernel``,
   :205, launched at :288).  On a CUDA tensor it launches the
   hand-written kernel ``csrc/paged_decode.cu``, which splits each
@@ -16,8 +21,6 @@ Counterpart of ``bigdl_tpu/ops/decode_attention.py``:
 Mask contract, shared by every impl: position ``pos <= length``
 attends, everything else is -inf before the softmax, so page 0 (the
 trash page unallocated table entries point at) never contributes.
-
-The JAX package's lax ``_fused`` impl is not ported yet.
 """
 
 from __future__ import annotations
@@ -59,13 +62,20 @@ def decode_hbm_bytes(impl: str, b: int, h: int, d: int, page_size: int,
     """Analytic device-memory traffic of ONE layer's decode attention
     over ``maxp`` table columns: every impl reads the K/V pages the
     tables name; the dense path also writes and re-reads the gathered
-    copy and the f32 score plane; the kernel also writes and re-reads
-    its splits' f32 partials (acc, m, l) when it splits the KV."""
+    copy and the f32 score plane; so does the fused path's torch body
+    (block by block: it bounds the working set, not the bytes), which
+    also widens a cache narrower than f32 to an f32 copy of each block
+    (JAX counts its fused as the ideal read, since XLA fuses the
+    gather); the kernel also writes and re-reads its splits' f32
+    partials (acc, m, l) when it splits the KV."""
     k = maxp * page_size
-    pages = 2.0 * b * maxp * page_size * h * d * kv_itemsize  # K + V
+    n_kv = 2.0 * b * maxp * page_size * h * d                  # K + V
+    pages = n_kv * kv_itemsize
     qio = 2.0 * b * h * d * 4                                 # q + out
-    if impl == "dense":
-        return pages * 3 + 2.0 * b * h * k * 4 + qio
+    if impl in ("dense", "fused"):
+        widen = 2.0 * n_kv * 4 if impl == "fused" and kv_itemsize != 4 \
+            else 0.0
+        return pages * 3 + widen + 2.0 * b * h * k * 4 + qio
     if impl == "kernel":
         splits = decode_splits(b, h, maxp)
         if splits > 1:
@@ -88,6 +98,59 @@ def _dense(q, kp, vp, tables, lengths, *, scale: float):
     probs = torch.softmax(scores, dim=-1)
     o = torch.matmul(probs, vall.to(probs.dtype))
     return o[:, :, 0, :]
+
+
+def _chunk_pages(maxp: int, block_pages: int) -> int:
+    """The largest page-block size <= the request that divides the table
+    width (0 or an oversize request: the whole width, one block)."""
+    maxp = int(maxp)
+    bp = int(block_pages)
+    if bp <= 0 or bp >= maxp:
+        return maxp
+    while bp > 1 and maxp % bp:
+        bp -= 1
+    return bp
+
+
+def _fused(q, kp, vp, tables, lengths, *, page_size: int, scale: float,
+           block_pages: int = 0):
+    """Online-softmax paged decode over page blocks (JAX :142-202): each
+    block's pages come through the table as (B, bp, H, P, Dh), their
+    masked scores fold into the carried (m, l, acc), one rescale at the
+    end; f32 accumulation throughout, output in q's dtype."""
+    b, maxp = tables.shape
+    h, d = q.shape[1], q.shape[2]
+    p = int(page_size)
+    bp = _chunk_pages(maxp, block_pages)
+    qf = q.float() * scale                    # (B, H, Dh)
+    tbl = tables.long()
+    len_b = lengths[:, None, None, None]      # (B, 1, 1, 1)
+    m = torch.full((b, h), float("-inf"), device=q.device)
+    l = torch.zeros((b, h), device=q.device)
+    acc = torch.zeros((b, h, d), device=q.device)
+    offs = torch.arange(p, device=q.device)
+    for c0 in range(0, maxp, bp):
+        tbl_c = tbl[:, c0:c0 + bp]
+        kc = kp[tbl_c].float()                # (B, bp, H, P, Dh)
+        vc = vp[tbl_c].float()
+        s = torch.einsum("bhd,bmhpd->bhmp", qf, kc)
+        pos = ((c0 + torch.arange(bp, device=q.device)) * p)[
+            None, None, :, None] + offs[None, None, None, :]
+        s = torch.where(pos <= len_b, s, torch.full_like(s, float("-inf")))
+        s = s.reshape(b, h, bp * p)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # rows masked so far keep m = -inf; a shift of 0 avoids NaN
+        shift = torch.where(torch.isfinite(m_new), m_new,
+                            torch.zeros_like(m_new))
+        pr = torch.exp(s - shift[..., None])
+        alpha = torch.exp(torch.where(torch.isfinite(m), m - shift,
+                                      torch.full_like(m, float("-inf"))))
+        l = l * alpha + pr.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhmp,bmhpd->bhd", pr.reshape(b, h, bp, p), vc)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.to(q.dtype)
 
 
 def paged_decode_plain(q, kp, vp, tables, lengths, *, page_size: int,
@@ -199,13 +262,14 @@ def static_decode_dispatch() -> str:
 
 def paged_decode_attention(q, kp, vp, tables, lengths, *,
                            page_size: int, scale: Optional[float] = None,
-                           impl: str = "auto"):
+                           impl: str = "auto", block_pages: int = 0):
     """One decode-attention step over the paged KV cache.
 
     q: ``(B, H, Dh)``; kp/vp: ``(num_pages, H, P, Dh)`` (one layer's
     pool); tables: ``(B, maxp)`` int32 (maxp may be the used-page
     bucket); lengths: ``(B,)`` int32, position ``pos <= length``
-    attends.  impl: "auto" (= "dense"), "dense" or "kernel"."""
+    attends.  impl: "auto" (= "dense"), "dense", "fused" (its page
+    blocks ``block_pages`` wide, 0 = one block) or "kernel"."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if impl == "auto":
@@ -213,8 +277,12 @@ def paged_decode_attention(q, kp, vp, tables, lengths, *,
     if impl == "kernel":
         return paged_decode(q, kp, vp, tables, lengths, page_size=page_size,
                             scale=scale)
+    if impl == "fused":
+        return _fused(q, kp, vp, tables, lengths, page_size=page_size,
+                      scale=scale, block_pages=block_pages)
     if impl != "dense":
-        raise ValueError(f"impl must be auto|dense|kernel, got {impl!r}")
+        raise ValueError(
+            f"impl must be auto|dense|fused|kernel, got {impl!r}")
     return _dense(q, kp, vp, tables, lengths, scale=scale)
 
 

@@ -1,10 +1,12 @@
-"""Fault tolerance of the port's trainers (counterpart of
-``bigdl_tpu.resilience``): the retry policy and its error classes."""
+"""Fault tolerance of the port (counterpart of
+``bigdl_tpu.resilience``): the trainers' retry policy and its error
+classes, and the serving router's retry budget."""
 
 from bigdl_tpu_torch.resilience.retry import (CheckpointWriteError,
                                               NonFiniteStepError,
-                                              PeerLostError, RetryPolicy,
-                                              backoff_delay, classify)
+                                              PeerLostError, RetryBudget,
+                                              RetryPolicy, backoff_delay,
+                                              classify)
 
 __all__ = ["CheckpointWriteError", "NonFiniteStepError", "PeerLostError",
-           "RetryPolicy", "backoff_delay", "classify"]
+           "RetryBudget", "RetryPolicy", "backoff_delay", "classify"]

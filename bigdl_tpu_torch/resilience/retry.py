@@ -1,17 +1,18 @@
 """Error classification and the retry policy of the trainers.
 
 Counterpart of ``bigdl_tpu/resilience/retry.py``: the error classes
-(:45-57), ``classify`` (:79), ``backoff_delay`` (:95) and
-``RetryPolicy`` (:163).  ``DistriOptimizer.optimize`` asks ``classify``
-whether a failure is ``"transient"`` (back off, reload the newest
-intact checkpoint, go on) or ``"fatal"`` (raise at once: a bad
-configuration cannot get better by retrying).  The serving router's
-``RetryBudget`` is not ported (ROADMAP.md queue 1).
+(:45-57), ``classify`` (:79), ``backoff_delay`` (:95), the serving
+router's ``RetryBudget`` (:108) and ``RetryPolicy`` (:163).
+``DistriOptimizer.optimize`` asks ``classify`` whether a failure is
+``"transient"`` (back off, reload the newest intact checkpoint, go on)
+or ``"fatal"`` (raise at once: a bad configuration cannot get better by
+retrying).
 """
 
 from __future__ import annotations
 
 import random
+import threading
 import time
 from collections import deque
 from typing import Optional
@@ -63,6 +64,57 @@ def backoff_delay(attempt: int, base: float = 0.5, cap: float = 30.0,
     return delay * (1.0 + float(jitter) * u)
 
 
+class RetryBudget:
+    """Token-bucket retry budget shared by concurrent requests.
+
+    Count-based, not clock-based: each admitted request deposits
+    ``ratio`` tokens (the bucket is capped at ``burst``) and each retry
+    spends one, so retries stay under ``burst + ratio * requests``
+    however the failures fall, on any clock.  ``try_spend`` never
+    blocks: an empty bucket means shed now (503 + Retry-After)."""
+
+    def __init__(self, ratio: float = 0.2, burst: float = 8.0,
+                 initial: Optional[float] = None):
+        if ratio < 0:
+            raise ValueError(f"retry budget ratio must be >= 0, got {ratio}")
+        self.ratio = float(ratio)
+        self.burst = max(0.0, float(burst))
+        self._tokens = self.burst if initial is None \
+            else min(self.burst, float(initial))
+        self._lock = threading.Lock()
+        self.requests = 0
+        self.spent = 0
+        self.denied = 0
+
+    def record_request(self) -> None:
+        """One admitted request: deposit ``ratio`` tokens (capped)."""
+        with self._lock:
+            self.requests += 1
+            self._tokens = min(self.burst, self._tokens + self.ratio)
+
+    def try_spend(self, cost: float = 1.0) -> bool:
+        """Spend ``cost`` tokens for one retry; False when the budget is
+        exhausted (the caller sheds, it does not wait)."""
+        with self._lock:
+            if self._tokens >= cost:
+                self._tokens -= cost
+                self.spent += 1
+                return True
+            self.denied += 1
+            return False
+
+    def tokens(self) -> float:
+        with self._lock:
+            return self._tokens
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"tokens": self._tokens, "burst": self.burst,
+                    "ratio": self.ratio, "requests": self.requests,
+                    "retries_granted": self.spent,
+                    "retries_denied": self.denied}
+
+
 class RetryPolicy:
     """Backoff with a per-run attempt cap and a sliding-window budget.
     ``record_failure`` gives the seconds to wait before the next
@@ -112,5 +164,5 @@ class RetryPolicy:
 
 
 __all__ = ["NonFiniteStepError", "CheckpointWriteError", "PeerLostError",
-           "FATAL_TYPES", "classify", "backoff_delay",
+           "FATAL_TYPES", "classify", "backoff_delay", "RetryBudget",
            "RetryPolicy"]

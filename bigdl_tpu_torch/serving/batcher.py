@@ -46,9 +46,13 @@ class ServeRequest:
     _event: threading.Event = dataclasses.field(
         default_factory=threading.Event, repr=False)
 
-    def finish(self, error: Optional[str] = None):
+    def finish(self, error: Optional[str] = None,
+               t_done: Optional[float] = None):
+        """Done (``error`` None) or failed; ``t_done`` (monotonic) is
+        the engine's completion time when it has read the clock already,
+        so that ``e2e_s`` is the e2e its trace spans partition."""
         self.error = error
-        self.t_done = time.monotonic()
+        self.t_done = time.monotonic() if t_done is None else t_done
         self._event.set()
 
     def wait(self, timeout: Optional[float] = None) -> "ServeRequest":

@@ -123,9 +123,10 @@ def drain_engine(engine, deadline_s: float = 10.0,
     every still-active slot is preempted through the engine's own fold
     (generated tokens -> prompt), and everything left (preempted,
     stashed or still queued) becomes a :class:`HandoffRecord`, its
-    request finished with :data:`HANDOFF_ERROR`.  The engine's lock is
-    taken through ``engine.locked()``, so a running step loop lets the
-    drain in at its next step boundary."""
+    request finished with :data:`HANDOFF_ERROR` (a traced request's
+    trace ends with a handoff span, kept).  The engine's lock is taken
+    through ``engine.locked()``, so a running step loop lets the drain
+    in at its next step boundary."""
     engine.draining = True
     deadline = time.monotonic() + max(0.0, float(deadline_s))
     while time.monotonic() < deadline:
@@ -152,6 +153,21 @@ def drain_engine(engine, deadline_s: float = 10.0,
             leftovers.extend(batch)
         for req in leftovers:
             ctx = req.trace
+            if getattr(req, "_tr_admits", None) is not None:
+                # the engine-side trace ends here, kept (a handoff), and
+                # before the record serializes the context, so its
+                # header carries the keep flag to the replay
+                from bigdl_tpu_torch.obs import reqtrace
+                from bigdl_tpu_torch.serving import spans
+
+                col = reqtrace.get_collector()
+                now = time.monotonic()
+                col.span(ctx, spans.SPAN_HANDOFF, now, 0.0,
+                         tokens_done=len(req.tokens),
+                         owed=int(req.max_new_tokens), side="drain")
+                col.finish(ctx, request=str(req.router_id or req.id),
+                           handoff=True,
+                           e2e_s=max(0.0, now - req.t_submit))
             handoffs.append(HandoffRecord(
                 prompt=[int(t) for t in req.payload],
                 max_new_tokens=int(req.max_new_tokens),

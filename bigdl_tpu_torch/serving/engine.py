@@ -23,13 +23,26 @@ package's ``tp=1``):
 * **drain and hot swap**: ``drain()`` closes admissions and checkpoints
   what is unfinished as ``HandoffRecord``s (``serving/drain.py``);
   ``swap_weights`` copies new weights to the device on the caller's
-  thread and flips them in between two decode steps.
+  thread and flips them in between two decode steps;
+* **request tracing** (JAX :523-540, :688-728): with the request
+  collector on (``BIGDL_TORCH_REQTRACE_SAMPLE`` > 0) ``submit`` begins
+  the caller's trace or mints one, and completion splits the engine's
+  e2e exactly into queue + prefill + preempt + decode spans (decode is
+  the remainder) before the tail sampler decides; a kept trace's id
+  rides the e2e histogram as an exemplar.  With the collector off a
+  caller's context is only carried into a handoff record, and the
+  engine keeps no trace state;
+* **a stream of its own** on the card: every prefill, decode step and
+  weight copy of the engine is queued on it, so engines that share a
+  card (a router's replicas in one process) do not wait at a step's
+  token read for each other's queued kernels.
 
 The engine stamps the serving families of ``obs/names.py`` in the
 process registry (latency histograms, token, request, preemption and
-swap counters, the occupancy gauge).  PyTorch runs eagerly, so there
-is no per-bucket compile cache: each prefill bucket and decode page
-bucket is just a shape.
+swap counters, the occupancy gauge) and the tracer's ``serve.*`` events
+and decode-step spans (``serving/spans.py``).  PyTorch runs eagerly, so
+there is no per-bucket compile cache: each prefill bucket and decode
+page bucket is just a shape.
 """
 
 from __future__ import annotations
@@ -48,12 +61,13 @@ import torch.nn.functional as F
 from bigdl_tpu_torch import obs
 from bigdl_tpu_torch.common import resolve_device
 from bigdl_tpu_torch.config import ServeConfig
-from bigdl_tpu_torch.obs import names
+from bigdl_tpu_torch.obs import names, reqtrace
 from bigdl_tpu_torch.ops.decode_attention import (decode_hbm_bytes,
                                                   paged_decode_attention,
                                                   used_page_bucket)
 from bigdl_tpu_torch.ops.quantized_matmul import (int8_matmul,
                                                   quantize_per_channel)
+from bigdl_tpu_torch.serving import spans
 from bigdl_tpu_torch.serving.batcher import RequestQueue, ServeRequest
 from bigdl_tpu_torch.serving.cache import PagedKVCache
 # the error a drained or closed engine finishes an unfinished request
@@ -61,7 +75,7 @@ from bigdl_tpu_torch.serving.cache import PagedKVCache
 from bigdl_tpu_torch.serving.drain import HANDOFF_ERROR, drain_engine
 from bigdl_tpu_torch.utils.convert import params_from_jax
 
-DECODE_ATTN_IMPLS = ("auto", "dense", "kernel")
+DECODE_ATTN_IMPLS = ("auto", "dense", "fused", "kernel")
 
 LAT_META = (names.REQUEST_LATENCY_SECONDS,
             "Request latency by engine and kind (ttft = time to first "
@@ -213,7 +227,8 @@ class _Active:
 class LMEngine:
     """Continuous-batching decode over a :class:`PagedKVCache`.
 
-    ``decode_attn``: "auto" (= "dense"), "dense" or "kernel" (the paged
+    ``decode_attn``: "auto" (= "dense"), "dense", "fused" (the online
+    softmax over page blocks in torch) or "kernel" (the paged
     flash-decode).  The model's ``attn_impl`` decides the prefill
     attention.  ``int8`` (default ``BIGDL_TORCH_SERVE_INT8``) runs the
     decode matmuls on int8 twins.  ``weight_version`` names the weights
@@ -243,7 +258,7 @@ class LMEngine:
         self.decode_attn = decode_attn or cfg.decode_attn
         if self.decode_attn not in DECODE_ATTN_IMPLS:
             raise ValueError(
-                f"decode_attn must be auto|dense|kernel, got "
+                f"decode_attn must be auto|dense|fused|kernel, got "
                 f"{self.decode_attn!r}")
         self.decode_bucket = (cfg.decode_bucket if decode_bucket is None
                               else bool(decode_bucket))
@@ -273,6 +288,13 @@ class LMEngine:
         self._stash: collections.deque = collections.deque()
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
+        self._stream = (torch.cuda.Stream(device=self.device)
+                        if self.device.type == "cuda" else None)
+        if self._stream is not None:
+            # the weights and the cache were written on the caller's
+            # stream
+            self._stream.wait_stream(
+                torch.cuda.current_stream(self.device))
         self._order = 0
         self._steps = 0
         self._occ_sum = 0.0
@@ -294,6 +316,9 @@ class LMEngine:
         self._waiters_lock = threading.Lock()
         self._last_bucket = self.cache.max_pages_per_slot
         self._decode_ms_sum = 0.0
+        # the step thread's CPU time: wall minus it is the time the
+        # thread waited (for the interpreter lock, the device or the OS)
+        self._decode_cpu_ms_sum = 0.0
         self._last_step_bytes: Optional[float] = None
         self._qparams = (_quantize_tree(model.params(), self.n_layer)
                          if self.int8 else None)
@@ -347,8 +372,20 @@ class LMEngine:
         old-weights KV prefix; requests admitted after the swap decode
         as ``generate()`` on the new weights."""
         pairs: list = []
-        tree = _placed(self.model.params(), _nested(params), pairs)
-        qparams = _quantize_tree(tree, self.n_layer) if self.int8 else None
+        if self._stream is not None:
+            self._stream.wait_stream(
+                torch.cuda.current_stream(self.device))
+        with self._on_stream():
+            tree = _placed(self.model.params(), _nested(params), pairs)
+            qparams = (_quantize_tree(tree, self.n_layer) if self.int8
+                       else None)
+        if self._stream is not None:
+            # the copies read the caller's tensors, which the caller may
+            # free once this returns
+            self._stream.synchronize()
+        # the old weights are freed at the flip below; every step ends
+        # in a token read that syncs the engine's stream, so no kernel
+        # still reads them then
         with self.locked():
             for p, new in pairs:
                 p.data = new
@@ -358,6 +395,9 @@ class LMEngine:
             self.manifest_sha = manifest_sha
             self.swaps += 1
         self._swap_counter.labels(version=str(version)).inc()
+        obs.get_tracer().event(spans.EVENT_WEIGHT_SWAP,
+                               version=str(version),
+                               sha=manifest_sha or "", swaps=self.swaps)
 
     # ------------------------------------------------------------ prefill
     @torch.no_grad()
@@ -401,8 +441,8 @@ class LMEngine:
                trace=None) -> ServeRequest:
         """Queue a request.  ``trace`` (an ``obs.reqtrace``
         ``RequestTraceContext``) rides the request into a drain's
-        handoff record; the port has no sampling collector yet, so it
-        records no spans."""
+        handoff record; with the request collector on, the engine begins
+        that trace (or mints one) and records the request's spans."""
         if self.draining:
             raise RuntimeError("engine is draining — admissions closed")
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
@@ -421,10 +461,18 @@ class LMEngine:
             raise ValueError(
                 f"request needs {worst} KV pages but the pool has "
                 f"{self.cache.num_pages - 1}")
+        col = reqtrace.get_collector()
+        if col.enabled:
+            if trace is None:
+                trace = col.new_context()
+            col.begin(trace)
         req = ServeRequest(payload=prompt,
                            max_new_tokens=int(max_new_tokens),
                            temperature=float(temperature),
                            trace=trace)
+        if col.enabled:
+            req._tr_admits = []    # [{t, dur, bucket, prompt_len, slot}]
+            req._tr_preempts = []  # [t_preempted]
         return self.queue.submit(req, timeout=timeout)
 
     # ----------------------------------------------------------- admission
@@ -459,11 +507,17 @@ class LMEngine:
         return admitted
 
     def _prefill_into(self, slot: int, req: ServeRequest):
+        t_admit = time.monotonic()
         t0 = len(req.payload)
         bucket = self._bucket(t0)
         pages = self.cache.alloc(slot, t0)
         tok = self._prefill(req.payload, bucket, pages, req.temperature)
         self.cache.lengths[slot] = t0
+        admits = getattr(req, "_tr_admits", None)
+        if admits is not None:
+            admits.append({"t": t_admit, "dur": time.monotonic() - t_admit,
+                           "bucket": bucket, "prompt_len": t0,
+                           "slot": slot})
         if req.t_first is None:
             req.t_first = time.monotonic()
             self._lat.labels(engine="lm", kind="ttft").observe(
@@ -476,6 +530,9 @@ class LMEngine:
         self._order += 1
         act = _Active(req, req.max_new_tokens - 1, tok, self._order)
         self._slots[slot] = act
+        obs.get_tracer().event(spans.EVENT_ADMIT, slot=slot,
+                               request=req.id, prompt_len=t0,
+                               bucket=bucket)
         if act.remaining <= 0 or tok == self.eos_id:
             self._complete(slot)
 
@@ -498,6 +555,11 @@ class LMEngine:
         self._stash.appendleft(req)
         self._preemptions += 1
         self._preempt_counter.inc()
+        preempts = getattr(req, "_tr_preempts", None)
+        if preempts is not None:
+            preempts.append(time.monotonic())
+        obs.get_tracer().event(spans.EVENT_PREEMPT, slot=slot,
+                               request=req.id, owed=act.remaining)
         return slot
 
     # ---------------------------------------------------------------- step
@@ -506,10 +568,19 @@ class LMEngine:
         self.cache.release(slot)
         self._slots[slot] = None
         req = act.req
-        req.finish(error)
+        now = time.monotonic()
+        exemplar = None
+        if getattr(req, "_tr_admits", None) is not None:
+            # the spans reach the collector BEFORE finish() wakes the
+            # client, so a router in this process finishes the trace
+            # after the engine has
+            if self._finalize_trace(req, error, now):
+                exemplar = {"trace_id": req.trace.trace_id}
+        req.finish(error, t_done=now)
         self._t_last_done = req.t_done
         n_tok = len(req.tokens)
-        self._lat.labels(engine="lm", kind="e2e").observe(req.e2e_s)
+        self._lat.labels(engine="lm", kind="e2e").observe(
+            req.e2e_s, exemplar=exemplar)
         if n_tok > 1:
             self._lat.labels(engine="lm", kind="per_token").observe(
                 (req.t_done - req.t_first) / (n_tok - 1))
@@ -520,6 +591,43 @@ class LMEngine:
              "tokens": n_tok})
         if self.slo_s > 0:
             self._slo_window.append(1.0 if req.e2e_s <= self.slo_s else 0.0)
+
+    def _finalize_trace(self, req: ServeRequest, error: Optional[str],
+                        now: float) -> bool:
+        """Split the request's engine e2e (``now - t_submit``) into its
+        spans and pass them through the tail sampler.  The partition is
+        exact: queue + prefill + preempt + decode == e2e, decode being
+        the remainder.  Returns whether the trace was kept."""
+        col = reqtrace.get_collector()
+        ctx = req.trace
+        e2e = max(0.0, now - req.t_submit)
+        admits, preempts = req._tr_admits, req._tr_preempts
+        queue = (max(0.0, admits[0]["t"] - req.t_submit)
+                 if admits else e2e)
+        prefill = sum(a["dur"] for a in admits)
+        col.span(ctx, spans.SPAN_QUEUE, req.t_submit, queue, engine="lm")
+        for a in admits:
+            col.span(ctx, spans.SPAN_PREFILL, a["t"], a["dur"],
+                     slot=a["slot"], bucket=a["bucket"],
+                     prompt_len=a["prompt_len"], engine="lm")
+        # each preemption pairs with the NEXT admission: the gap is what
+        # the preemption cost this request
+        preempt_wait = 0.0
+        for i, tp in enumerate(preempts):
+            if i + 1 < len(admits):
+                gap = max(0.0, admits[i + 1]["t"] - tp)
+                preempt_wait += gap
+                col.span(ctx, spans.SPAN_PREEMPT, tp, gap, engine="lm")
+        decode = max(0.0, e2e - queue - prefill - preempt_wait)
+        t_dec = req.t_first if req.t_first is not None else now
+        col.span(ctx, spans.SPAN_DECODE, t_dec, decode,
+                 tokens=len(req.tokens), engine="lm")
+        kept, _ = col.finish(
+            ctx, request=str(req.router_id or req.id), error=error,
+            preempted=bool(preempts),
+            slo_violation=(self.slo_s > 0 and e2e > self.slo_s),
+            handoff=(error == HANDOFF_ERROR), e2e_s=e2e)
+        return kept
 
     def _step(self) -> bool:
         active_slots = [i for i, s in enumerate(self._slots)
@@ -558,16 +666,23 @@ class LMEngine:
         tables, lengths = self.cache.device_tables(pages=bucket)
         dev = self.device
         t0 = time.perf_counter()
-        nxt = paged_decode_math(
-            self.model, self.page_size, self.cache.kp, self.cache.vp,
-            tables, lengths, torch.from_numpy(tokens).to(dev),
-            torch.from_numpy(temps).to(dev),
-            torch.from_numpy(active).to(dev), self._gen,
-            attn_impl=self.decode_attn, qparams=self._qparams).cpu().numpy()
+        c0 = time.thread_time()
+        # a live tracer span around the step, dispatch to resolved tokens
+        with obs.get_tracer().span(spans.SPAN_STEP_DECODE, bucket=bucket,
+                                   active=len(active_slots)):
+            nxt = paged_decode_math(
+                self.model, self.page_size, self.cache.kp, self.cache.vp,
+                tables, lengths, torch.from_numpy(tokens).to(dev),
+                torch.from_numpy(temps).to(dev),
+                torch.from_numpy(active).to(dev), self._gen,
+                attn_impl=self.decode_attn,
+                qparams=self._qparams).cpu().numpy()
         step_ms = (time.perf_counter() - t0) * 1000.0
         self._steps += 1
         self._decode_ms_sum += step_ms
-        impl = "dense" if self.decode_attn in ("auto", "dense") else "kernel"
+        self._decode_cpu_ms_sum += (time.thread_time() - c0) * 1000.0
+        impl = ("dense" if self.decode_attn in ("auto", "dense")
+                else self.decode_attn)
         self._last_step_bytes = (self._weight_bytes + self.n_layer
                                  * decode_hbm_bytes(
                                      impl, self.max_batch, self.n_head,
@@ -590,9 +705,16 @@ class LMEngine:
         return True
 
     # ---------------------------------------------------------- driving
+    def _on_stream(self):
+        """Queue what follows on the engine's stream (no-op on the
+        CPU)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
     def pump(self, wait_s: float = 0.0) -> bool:
         """One admission + decode cycle; True while there is work."""
-        with self._lock:
+        with self._lock, self._on_stream():
             self._admit(wait_s=wait_s if not self.active_count() else 0.0)
             stepped = self._step()
             return stepped or bool(self._stash) \
@@ -707,6 +829,8 @@ class LMEngine:
             "last_bucket_pages": self._last_bucket,
             "decode_ms_mean": (self._decode_ms_sum / self._steps
                                if self._steps else None),
+            "decode_cpu_ms_mean": (self._decode_cpu_ms_sum / self._steps
+                                   if self._steps else None),
             "decode_hbm_bytes_per_token": self._last_step_bytes,
         }
 

@@ -20,6 +20,7 @@ hook are not ported yet (ROADMAP.md queue 1).
 from __future__ import annotations
 
 import hashlib
+import inspect
 import json
 import logging
 import os
@@ -105,7 +106,12 @@ def spec_to_module(spec: dict) -> AbstractModule:
         module = Graph([nodes[i] for i in g["inputs"]],
                        [nodes[i] for i in g["outputs"]])
     else:
-        module = cls(**spec.get("config", {}))
+        config = dict(spec.get("config", {}))
+        # a port class that places itself (``device=``, the flagship)
+        # is rebuilt on the CPU, where load_module builds every module
+        if "device" in inspect.signature(cls.__init__).parameters:
+            config.setdefault("device", "cpu")
+        module = cls(**config)
     if "children" in spec:
         if not isinstance(module, Container):
             raise TypeError(f"{spec['class']} is not a container but its "

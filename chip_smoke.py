@@ -243,6 +243,40 @@ it runs; any failure exits non-zero:
     weight gradient), integer outputs equal; the worst gap printed per
     family, and each tensor's above 1e-6 with the card's and the CPU's
     gaps to the same case in f64 on the CPU;
+20. the flagship behind the router (``BIGDL_TORCH_REQTRACE_SAMPLE=1``
+    for this phase only): three ``LMEngine`` replicas of phase 4's
+    flagship (max_batch 8, page 16, the paged decode kernel), each on
+    its own weights object, in this process behind ``Router`` and
+    ``RouterServer``: (a) 24 requests from 12 client threads over HTTP,
+    prompts of 100-400 tokens, 32 new tokens, four sessions of three
+    turns: every token within 1e-3 of the top logit of the serving
+    replica's model, affinity hits >= 8, ``flash_fwd`` and
+    ``paged_decode`` launched; per-replica counts, client e2e p50/p99,
+    the router's share of each request (client e2e - engine e2e) and
+    tokens/s against phase 4; controls: the 12 single prompts through
+    the router, plain and under ``torch.profiler`` (the device's busy
+    share), and straight into one engine, each with every replica's
+    decode step and its thread's CPU time a step; then the 12 through
+    a router over one engine with ``decode_attn="fused"``, every token
+    within 1e-3 of the top logit and the decode kernel not launched;
+    (b) ``begin_drain`` at deadline 0 on a session's replica while four
+    of its requests decode: each handoff claimed and replayed once,
+    every request answered whole and equal to (a)'s tokens, the drain's
+    ms; (c) one replica's queue closed:
+    requests retry onto the others within the budget; then a budget of
+    0 and the other queues held full: every request shed 503 +
+    ``Retry-After``; the retry and shed counters equal what the clients
+    saw; (d) rollout: a perturbed flagship v1 published and swapped in
+    by the canary's ``CheckpointWatcher``, promoted by
+    ``CanaryController`` on ``divergence_probe``; v2 with one byte of
+    its ``.npz`` flipped after the manifest, refused and counted; v3 on
+    other weights, rolled back (drain, revert, undrain) while clients
+    send, none dropped; the swap ms and the poll-to-swap ms; (e) every
+    kept trace's queue + prefill + preempt + decode within 1e-6 s of
+    its engine's e2e, ``ObsServer``'s ``/trace?request=ID`` and
+    ``/metrics`` (parsed, the router, rollout and serving families, an
+    exemplar), an undeclared ``bigdl_`` family refused in strict mode,
+    the scrape's ms;
 9. the kernels line, last: one JSON object listing each kernel with its
    launches on its own path (phase 4, the fused arm of phase 7, or the
    kernel arm of phase 11) and its numbers from phase 3, 6 or 10.
@@ -847,11 +881,11 @@ def _flagship(seed: int):
                                 device=DEV)
 
 
-def _lm_engine(model, **kw):
+def _lm_engine(model, decode_attn="kernel", **kw):
     from bigdl_tpu_torch.serving.engine import LMEngine
 
-    return LMEngine(model, max_batch=8, page_size=16, decode_attn="kernel",
-                    device=DEV, **kw)
+    return LMEngine(model, max_batch=8, page_size=16,
+                    decode_attn=decode_attn, device=DEV, **kw)
 
 
 def _top_logit_gap(model, prompts, token_lists) -> float:
@@ -4114,6 +4148,649 @@ def phase_text_cnn(smi: str) -> None:
         f"part {parts})")
 
 
+# ---- phase 20: the flagship behind the router --------------------------
+ROUTER_REPLICAS = ("r0", "r1", "r2")
+ROUTER_SINGLE_LENS = [100, 400, 127, 260, 200, 350, 256, 130, 300, 120, 390,
+                      250]
+ROUTER_SESSION_LENS = [100, 150, 180, 120]
+ROUTER_TURN_TOKENS = 16
+ROUTER_AFFINITY_MIN = 8
+# the canary's pinned prompts and their decode length (32 tokens: a
+# single flipped near-tie reads 1/32, under the 0.05 threshold)
+CANARY_PROMPTS = 4
+CANARY_TOKENS = 32
+ROLLOUT_PERTURB = 1e-6
+PARTITION_TOL = 1e-6
+ENGINE_HOPS = ("req.queue", "req.prefill", "req.preempt", "req.decode")
+# trace id -> the engine e2e of the routed answer that carried it
+_ENGINE_E2E = {}
+
+
+def _router_post(front, prompt, session=None, n_new=SERVE_NEW_TOKENS):
+    body = {"prompt": [int(t) for t in prompt], "max_new_tokens": n_new}
+    if session is not None:
+        body["session"] = session
+    out = _http(front.url("/v1/generate"), body)
+    if out[0] == 200 and out[2].get("trace"):
+        _ENGINE_E2E[out[2]["trace"]] = out[2]["e2e_s"]
+    return out
+
+
+def _router_fleet():
+    """Three replicas of the flagship (seed 0), each its own model (a
+    swap must touch one replica only), started, behind a Router and a
+    RouterServer."""
+    from bigdl_tpu_torch.serving import EngineReplica, Router, RouterServer
+
+    models = {n: _flagship(0) for n in ROUTER_REPLICAS}
+    engines = {n: _lm_engine(models[n]).start() for n in ROUTER_REPLICAS}
+    router = Router([EngineReplica(n, engines[n]) for n in ROUTER_REPLICAS],
+                    request_timeout_s=120.0)
+    return models, engines, router, RouterServer(router, port=0)
+
+
+def _router_traffic(front) -> dict:
+    """(a): 12 client threads, 24 requests: four threads run a session
+    of three turns each (a turn's prompt is the last prompt, its answer
+    and 16 new tokens), eight run the 12 single requests."""
+    rs = np.random.RandomState(20)
+    singles = [rs.randint(0, 8192, n) for n in ROUTER_SINGLE_LENS]
+    firsts = [rs.randint(0, 8192, n) for n in ROUTER_SESSION_LENS]
+    extra = [[rs.randint(0, 8192, ROUTER_TURN_TOKENS) for _ in range(2)]
+             for _ in ROUTER_SESSION_LENS]
+
+    def client(i):
+        out = []
+        if i < 4:
+            prompt = list(firsts[i])
+            for turn in range(3):
+                ans = _router_post(front, prompt, session=f"s{i}")
+                out.append((prompt, ans))
+                if ans[0] != 200:
+                    break
+                if turn < 2:
+                    prompt = prompt + ans[2]["tokens"] + list(
+                        extra[i][turn])
+            return out
+        for k in ((i - 4, i + 4) if i < 8 else (i - 4,)):
+            out.append((list(singles[k]), _router_post(front, singles[k])))
+        return out
+
+    t0 = time.perf_counter()
+    results = [r for rs_ in _in_threads(client, 12) for r in rs_]
+    wall = time.perf_counter() - t0
+    return {"results": results, "wall": wall, "singles": singles}
+
+
+def _check_router_answers(models, results, what: str) -> None:
+    """Every answer 200 and whole, each token within 1e-3 of the top
+    logit of the model of the replica that served it."""
+    bad = [(a[0], a[2].get("error")) for _, a in results
+           if a[0] != 200 or len(a[2]["tokens"]) != SERVE_NEW_TOKENS]
+    if bad:
+        raise AssertionError(f"phase 20 {what}: failed answers {bad}")
+    worst = 0.0
+    for name, model in models.items():
+        mine = [(p, a[2]["tokens"]) for p, a in results
+                if a[2]["replica"] == name]
+        if mine:
+            worst = max(worst, _top_logit_gap(
+                model, [p for p, _ in mine], [t for _, t in mine]))
+    say(f"phase 20 {what}: worst (top logit - served token's logit) "
+        f"{worst:.3e} (limit 1e-3)")
+    if worst > 1e-3:
+        raise AssertionError(f"phase 20 {what}: a token off the top logit "
+                             f"by {worst}")
+
+
+def _phase_router_a(front, router, models, direct_tps: float) -> dict:
+    from bigdl_tpu_torch.ops import _cuda
+
+    _router_post(front, [1, 2, 3], n_new=2)                # warm
+    torch.cuda.synchronize()
+    hits0 = router.placement.affinity_hits
+    _cuda.reset_launches()
+    run = _router_traffic(front)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.launches)
+    results = run["results"]
+    if len(results) != 24:
+        raise AssertionError(f"phase 20 (a): {len(results)} answers of 24")
+    _check_router_answers(models, results, "(a) routed")
+    hits = router.placement.affinity_hits - hits0
+    per = {n: sum(a[2]["replica"] == n for _, a in results)
+           for n in ROUTER_REPLICAS}
+    e2e = [a[3] for _, a in results]
+    over = [a[3] - a[2]["e2e_s"] for _, a in results]
+    tps = 24 * SERVE_NEW_TOKENS / run["wall"]
+    say(f"phase 20 (a) 24 requests from 12 clients in {run['wall']:.3f} s: "
+        f"per replica {per}; affinity hits {hits} (at least "
+        f"{ROUTER_AFFINITY_MIN}); client e2e p50 {_pct(e2e, 50) * 1e3:.2f}"
+        f" / p99 {_pct(e2e, 99) * 1e3:.2f} ms; router + HTTP a request "
+        f"(client e2e - engine e2e) p50 {_pct(over, 50) * 1e3:.2f} / p99 "
+        f"{_pct(over, 99) * 1e3:.2f} ms; {tps:.1f} tokens/s over three "
+        f"replicas against phase 4's direct {direct_tps:.1f}; launches "
+        f"{launches}")
+    if hits < ROUTER_AFFINITY_MIN:
+        raise AssertionError(f"phase 20 (a): {hits} affinity hits")
+    if launches.get("flash_fwd", 0) <= 0 \
+            or launches.get("paged_decode", 0) <= 0:
+        raise AssertionError(f"phase 20 (a) launched {launches}")
+    by_prompt = {tuple(int(t) for t in p): a[2]["tokens"]
+                 for p, a in results}
+    return {"results": results, "by_prompt": by_prompt,
+            "singles": run["singles"]}
+
+
+def _decode_totals(engines) -> dict:
+    """(steps, decode ms, decode-thread CPU ms) summed, of each engine so
+    far."""
+    out = {}
+    for n, e in engines.items():
+        st = e.stats()
+        out[n] = (st["steps"], (st["decode_ms_mean"] or 0.0) * st["steps"],
+                  (st["decode_cpu_ms_mean"] or 0.0) * st["steps"])
+    return out
+
+
+def _step_split(before, after) -> dict:
+    """Each engine's (decode step wall ms, its thread's CPU ms) a step
+    between two ``_decode_totals``."""
+    out = {}
+    for n in after:
+        steps = max(1, after[n][0] - before[n][0])
+        out[n] = (round((after[n][1] - before[n][1]) / steps, 3),
+                  round((after[n][2] - before[n][2]) / steps, 3))
+    return out
+
+
+def _device_busy_ms(prof) -> float:
+    """The union of the device intervals (kernels, copies, on every
+    stream) in a ``torch.profiler`` run, in ms."""
+    from torch.autograd import DeviceType
+
+    spans_ = sorted((e.time_range.start, e.time_range.end)
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA
+                    and e.time_range.end > e.time_range.start)
+    busy, end = 0.0, None
+    for a, b in spans_:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e3
+
+
+def _router_controls(front, engines, singles) -> None:
+    """(a) controls, for where (a)'s time goes: the 12 single prompts at
+    once through the router over the three replicas, then once more
+    under ``torch.profiler`` (device events only) for the device's busy
+    share, and the same 12 straight into one engine, with each
+    replica's decode step ms and its step thread's CPU ms (the rest of
+    the step the thread waited: for the interpreter lock, the device or
+    the OS)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def burst(tag, profiled=False):
+        before = _decode_totals(engines)
+        with (profile(activities=[ProfilerActivity.CUDA]) if profiled
+              else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
+            ans = _in_threads(lambda i: _router_post(front, singles[i]), 12)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if any(x[0] != 200 or len(x[2]["tokens"]) != SERVE_NEW_TOKENS
+               for x in ans):
+            raise AssertionError(f"phase 20 (a) {tag}: a request failed")
+        split = _step_split(before, _decode_totals(engines))
+        busy = ""
+        if prof is not None:
+            busy_ms = _device_busy_ms(prof)
+            busy = (f"; device busy {busy_ms:.1f} ms of {wall * 1e3:.1f}, "
+                    f"share {busy_ms / (wall * 1e3):.3f}" if busy_ms > 0
+                    else "; the profiler shows no device time (busy share "
+                    "not measured)")
+        say(f"phase 20 (a) control, {tag}: 12 requests in {wall:.3f} s, "
+            f"{12 * SERVE_NEW_TOKENS / wall:.1f} tokens/s; decode step "
+            f"(wall ms, thread CPU ms) by replica {split}{busy}")
+
+    burst("router over 3 replicas, switch interval "
+          f"{sys.getswitchinterval() * 1e3:g} ms")
+    burst("router over 3 replicas, profiled", profiled=True)
+    eng = engines["r1"]
+    before = _decode_totals({"r1": eng})
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, SERVE_NEW_TOKENS) for p in singles]
+    for r in reqs:
+        r.wait(600)
+    wall = time.perf_counter() - t0
+    split = _step_split(before, _decode_totals({"r1": eng}))["r1"]
+    if any(r.error or len(r.tokens) != SERVE_NEW_TOKENS for r in reqs):
+        raise AssertionError("phase 20 (a) control: a direct request failed")
+    say(f"phase 20 (a) control, the 12 straight into r1 (no HTTP, the "
+        f"other replicas idle): {wall:.3f} s, "
+        f"{12 * SERVE_NEW_TOKENS / wall:.1f} tokens/s; decode step "
+        f"{split[0]:.3f} ms wall, {split[1]:.3f} ms thread CPU")
+
+
+def _router_fused(models, engines, singles) -> None:
+    """(a) with ``decode_attn="fused"``: one engine over r0's model
+    behind a router and a RouterServer of its own, the 12 single prompts
+    at once; every token held to r0's top logit (1e-3), the paged
+    decode kernel launched no time; its decode step and analytic bytes
+    a token beside r0's (the kernel's)."""
+    from bigdl_tpu_torch.ops import _cuda
+    from bigdl_tpu_torch.serving import EngineReplica, Router, RouterServer
+
+    r0_bytes = engines["r0"].stats()["decode_hbm_bytes_per_token"]
+    eng = _lm_engine(models["r0"], decode_attn="fused").start()
+    front = RouterServer(Router([EngineReplica("fused", eng)],
+                                request_timeout_s=120.0), port=0)
+    try:
+        _router_post(front, [1, 2, 3], n_new=2)            # warm
+        torch.cuda.synchronize()
+        before = _decode_totals({"fused": eng})
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        ans = _in_threads(lambda i: _router_post(front, singles[i]), 12)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_cuda.launches)
+        split = _step_split(before, _decode_totals({"fused": eng}))["fused"]
+        st = eng.stats()
+    finally:
+        front.close()
+        eng.close()
+    _check_router_answers({"fused": models["r0"]},
+                          list(zip(singles, ans)), "(a) fused decode")
+    say(f"phase 20 (a) decode_attn=\"fused\", one replica: 12 requests in "
+        f"{wall:.3f} s, {12 * SERVE_NEW_TOKENS / wall:.1f} tokens/s; decode "
+        f"step {split[0]:.3f} ms wall, {split[1]:.3f} ms thread CPU; "
+        f"analytic bytes a token {st['decode_hbm_bytes_per_token']:.4g} "
+        f"(r0's kernel decode: {r0_bytes:.4g}); "
+        f"launches {launches}")
+    if launches.get("paged_decode", 0) or launches.get("flash_fwd", 0) <= 0:
+        raise AssertionError(f"phase 20 (a) fused launched {launches}")
+
+
+def _phase_router_b(front, router, engines, models, a) -> None:
+    """(b): bind a session, put four of (a)'s single prompts on it at
+    once, drain its replica at deadline 0 while they decode."""
+    import threading
+
+    from bigdl_tpu_torch.obs import names
+
+    prompts = a["singles"][:4]
+    first = _router_post(front, prompts[0], session="drain", n_new=2)
+    if first[0] != 200:
+        raise AssertionError(f"phase 20 (b): bind answered {first}")
+    bound = first[2]["replica"]
+    eng = engines[bound]
+    ledger0 = router.ledger.stats()
+    handoffs0 = _counter_value(names.ROUTER_HANDOFFS_TOTAL)
+    start = eng.stats()["tokens"]
+    out, drained = {}, {}
+
+    def clients():
+        out["answers"] = _in_threads(lambda i: _router_post(
+            front, prompts[i], session="drain"), len(prompts))
+
+    t = threading.Thread(target=clients, daemon=True)
+    t.start()
+    deadline = time.monotonic() + 300
+    while True:
+        with eng.locked():
+            held = eng.queue.depth() + eng.active_count() + len(eng._stash)
+            decoded = eng.stats()["tokens"] - start
+        if held == len(prompts) and decoded >= 2 * DRAIN_AFTER_TOKENS:
+            break
+        if time.monotonic() > deadline or not t.is_alive():
+            raise AssertionError("phase 20 (b): the requests never decoded "
+                                 "on the bound replica")
+        time.sleep(0.002)
+    t0 = time.perf_counter()
+    drained["summary"] = router.begin_drain(bound, deadline_s=0.0)
+    drain_ms = (time.perf_counter() - t0) * 1e3
+    t.join(timeout=600)
+    answers = out.get("answers") or []
+    router.undrain(bound)
+    summary = drained["summary"]
+    ledger = router.ledger.stats()
+    results = list(zip([list(p) for p in prompts], answers))
+    _check_router_answers(models, results, "(b) drained + replayed")
+    n_hand = sum(a[2]["handoffs"] for _, a in results)
+    equal = sum(a[2]["tokens"] == a_tok for (_, a), a_tok in zip(
+        results, (a["by_prompt"][tuple(int(t) for t in p)]
+                  for p in prompts)))
+    claims = ledger["claimed"] - ledger0["claimed"]
+    say(f"phase 20 (b) drain of {bound} at deadline 0 after "
+        f"{2 * DRAIN_AFTER_TOKENS} tokens took {drain_ms:.1f} ms: "
+        f"{summary['handoffs']} handoffs ({summary['router_owned']} "
+        f"router-owned), replayed on {sorted({a[2]['replica'] for _, a in results})}; "
+        f"claims {claims}, ledger {ledger}; answers equal to (a)'s "
+        f"{equal}/{len(prompts)}")
+    if (summary["handoffs"] == 0 or summary["router_owned"]
+            != summary["handoffs"] or n_hand != summary["handoffs"]
+            or claims != summary["handoffs"] or ledger["duplicates"]
+            or _counter_value(names.ROUTER_HANDOFFS_TOTAL) - handoffs0
+            != summary["handoffs"]):
+        raise AssertionError(f"phase 20 (b): handoffs {summary}, replayed "
+                             f"{n_hand}, claims {claims}, ledger {ledger}")
+    if equal != len(prompts):
+        raise AssertionError("phase 20 (b): a replayed stream differs from "
+                             "the undrained run's")
+
+
+def _counter_value(name, **labels) -> float:
+    from bigdl_tpu_torch import obs
+
+    for fam in obs.get_registry().families():
+        if fam.name == name:
+            return sum(c.value for key, c in fam.child_items()
+                       if all(dict(zip(fam.labelnames, key)).get(k) == v
+                              for k, v in labels.items()))
+    return 0.0
+
+
+def _wait_idle(engines) -> None:
+    deadline = time.monotonic() + 300
+    while any(e.queue.depth() or e.active_count() or e._stash
+              for e in engines.values()):
+        if time.monotonic() > deadline:
+            raise AssertionError("phase 20: a replica never went idle")
+        time.sleep(0.005)
+
+
+def _phase_router_c(front, router, engines, models, a) -> None:
+    """(c): r0's queue closed: six requests retry onto r1/r2 within the
+    budget.  Then a budget of 0 with r1's and r2's loops held (their
+    queues fill, nothing is served): six more are shed 503."""
+    import contextlib as _ctx
+
+    from bigdl_tpu_torch.obs import names
+    from bigdl_tpu_torch.resilience import RetryBudget
+
+    retries0 = _counter_value(names.ROUTER_RETRIES_TOTAL)
+    shed0 = _counter_value(names.ROUTER_SHED_TOTAL)
+    prompts = a["singles"][4:10]
+    engines["r0"].queue.close()
+    first = _in_threads(lambda i: _router_post(front, prompts[i]), 6)
+    results = list(zip([list(p) for p in prompts], first))
+    _check_router_answers(models, results, "(c) retried")
+    seen_retries = sum(ans[2]["retries"] for ans in first)
+    saved_budget, saved_timeout = router.budget, router.request_timeout_s
+    router.budget = RetryBudget(ratio=0.0, burst=0.0)
+    router.request_timeout_s = 0.5
+    with _ctx.ExitStack() as held:
+        for n in ("r1", "r2"):
+            held.enter_context(engines[n].locked())
+        shed = _in_threads(lambda i: _router_post(front, prompts[i]), 6)
+    router.budget, router.request_timeout_s = saved_budget, saved_timeout
+    n_shed = sum(s[0] == 503 for s in shed)
+    retry_after = {s[1].get("Retry-After") for s in shed}
+    d_retries = _counter_value(names.ROUTER_RETRIES_TOTAL) - retries0
+    d_shed = _counter_value(names.ROUTER_SHED_TOTAL) - shed0
+    say(f"phase 20 (c) r0's queue closed: 6 answered on "
+        f"{sorted({s[2]['replica'] for s in first})} after {seen_retries} "
+        f"retries (budget {saved_budget.stats()}); budget 0 and r1, r2 "
+        f"held: {n_shed}/6 shed 503, Retry-After {retry_after}; counters: "
+        f"retries +{d_retries:g}, shed +{d_shed:g}")
+    if seen_retries < 1 or any(s[2]["replica"] == "r0" for s in first):
+        raise AssertionError("phase 20 (c): no retry off the closed queue")
+    if n_shed != 6 or retry_after != {"1"}:
+        raise AssertionError(f"phase 20 (c): shed answers {shed}")
+    if d_retries != seen_retries or d_shed != n_shed:
+        raise AssertionError(f"phase 20 (c): counters retries {d_retries} "
+                             f"shed {d_shed} against the clients' "
+                             f"{seen_retries} and {n_shed}")
+    # the shed requests queued on r1/r2 finish with nobody waiting; r0
+    # comes back as a new engine on its weights
+    _wait_idle({n: engines[n] for n in ("r1", "r2")})
+    from bigdl_tpu_torch.serving import EngineReplica
+
+    engines["r0"].close()
+    engines["r0"] = _lm_engine(models["r0"]).start()
+    router.remove_replica("r0")
+    router.add_replica(EngineReplica("r0", engines["r0"]))
+
+
+def _perturbed(seed: int, scale: float):
+    model = _flagship(0)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(scale * torch.randn(p.shape, generator=gen, device=DEV))
+    return model
+
+
+def _phase_router_d(front, router, engines, models, a, tmp: str) -> None:
+    """(d): the rollout: v1 promoted, v2 refused, v3 rolled back."""
+    import threading
+
+    from bigdl_tpu_torch.obs import names
+    from bigdl_tpu_torch.serving import (CanaryController,
+                                         CheckpointWatcher,
+                                         publish_checkpoint)
+    from bigdl_tpu_torch.serving.rollout import divergence_probe
+
+    watch = os.path.join(tmp, "watch")
+    watchers = {n: CheckpointWatcher(engines[n], watch)
+                for n in ROUTER_REPLICAS}
+    trees = {"v0": _host_tree(models["r0"].params())}
+    swap_ms, poll_ms = [], []
+    for n, eng in engines.items():
+        def timed(params, *, version, manifest_sha=None, _orig=eng.swap_weights):
+            t0 = time.perf_counter()
+            _orig(params, version=version, manifest_sha=manifest_sha)
+            swap_ms.append((time.perf_counter() - t0) * 1e3)
+        eng.swap_weights = timed
+
+    def set_version(name, version):
+        eng = engines[name]
+        if eng.weight_version == version:
+            return
+        if version in trees:
+            eng.swap_weights(trees[version], version=version)
+            return
+        t0 = time.perf_counter()
+        watchers[name].poll_once()
+        poll_ms.append((time.perf_counter() - t0) * 1e3)
+        if eng.weight_version != version:
+            raise AssertionError(f"phase 20 (d): {name} serves "
+                                 f"{eng.weight_version}, not {version}")
+
+    pinned = a["singles"][:CANARY_PROMPTS]
+    probe = divergence_probe(
+        lambda p, n: router.replicas["r0"].generate(p, n)["tokens"],
+        lambda p, n: router.replicas["r1"].generate(p, n)["tokens"],
+        [[int(t) for t in p[:64]] for p in pinned], CANARY_TOKENS)
+    divs = []
+
+    def measure():
+        divs.append(probe())
+        return divs[-1]
+
+    ctl = CanaryController(
+        list(ROUTER_REPLICAS), set_version=set_version, incumbent="v0",
+        measure_divergence=measure, alerts=lambda: [],
+        drain=lambda n: router.begin_drain(n, deadline_s=60.0),
+        undrain=router.undrain, fraction=0.34, for_count=2, hold_evals=2,
+        cooldown_s=30.0)
+    # v1: a perturbed flagship, promoted
+    v1 = _perturbed(7, ROLLOUT_PERTURB)
+    publish_checkpoint(v1, watch, "v1")
+    if not ctl.offer("v1") or ctl.canaries != ["r0"]:
+        raise AssertionError(f"phase 20 (d): offer of v1 {ctl.stats()}")
+    for _ in range(2):
+        ctl.evaluate()
+    versions = {n: e.weight_version for n, e in engines.items()}
+    say(f"phase 20 (d) v1 (seed 0 + {ROLLOUT_PERTURB:g} N(0,1)): canary "
+        f"r0, divergence {divs}, then {ctl.state}, incumbent "
+        f"{ctl.incumbent}, versions {versions}")
+    if ctl.promotions != ["v1"] or set(versions.values()) != {"v1"} \
+            or len(poll_ms) != 3:
+        raise AssertionError(f"phase 20 (d): v1 not promoted through the "
+                             f"watchers {ctl.stats()}, {len(poll_ms)} polls")
+    # the incumbent's weights on the host, for a rollback's revert
+    trees["v1"] = _host_tree(v1.params())
+    # v2: one byte flipped after the manifest, refused
+    del v1
+    prefix = publish_checkpoint(_flagship(2), watch, "v2")
+    with open(prefix + ".model.npz", "r+b") as fh:
+        fh.seek(4096)
+        byte = fh.read(1)
+        fh.seek(4096)
+        fh.write(bytes([byte[0] ^ 0x01]))
+    swaps0 = engines["r0"].swaps
+    rejected0 = _counter_value(names.ROLLOUT_REJECTED_TOTAL,
+                               reason="checksum")
+    if watchers["r0"].poll_once() is not None:
+        raise AssertionError("phase 20 (d): the corrupted v2 was loaded")
+    reason = watchers["r0"].rejected.get(prefix, "")
+    say(f"phase 20 (d) v2 with a flipped byte: refused ({reason}); r0 "
+        f"serves {engines['r0'].weight_version}")
+    if ("checksum" not in reason or engines["r0"].swaps != swaps0
+            or engines["r0"].weight_version != "v1"
+            or _counter_value(names.ROLLOUT_REJECTED_TOTAL,
+                              reason="checksum") != rejected0 + 1):
+        raise AssertionError("phase 20 (d): v2 not refused and counted")
+    # v3: other weights, rolled back while clients send
+    publish_checkpoint(_flagship(1), watch, "v3")
+    if not ctl.offer("v3"):
+        raise AssertionError(f"phase 20 (d): offer of v3 {ctl.stats()}")
+    ctl.evaluate()
+    out = {}
+    clients = threading.Thread(target=lambda: out.update(a=_in_threads(
+        lambda i: _router_post(front, a["singles"][i]), 8)), daemon=True)
+    clients.start()
+    decision = ctl.evaluate()
+    clients.join(timeout=600)
+    answers = out.get("a") or []
+    dropped = [x[0] for x in answers if x[0] != 200
+               or len(x[2]["tokens"]) != SERVE_NEW_TOKENS]
+    versions = {n: e.weight_version for n, e in engines.items()}
+    cooled = not ctl.offer("v3")
+    say(f"phase 20 (d) v3 (seed 1): divergence {divs[-2:]}, "
+        f"{decision.get('state')} ({decision.get('rollback')}); versions "
+        f"after {versions}; {len(answers)} requests during the rollback, "
+        f"dropped {len(dropped)}; an offer inside the cooldown refused "
+        f"{cooled}; swaps {len(swap_ms)}: "
+        f"{[round(x, 1) for x in swap_ms]} ms; poll-to-swap (verify, load "
+        f"on the host, swap) {[round(x, 1) for x in poll_ms]} ms")
+    if (decision.get("rollback") != "divergence" or len(ctl.rollbacks) != 1
+            or set(versions.values()) != {"v1"} or len(answers) != 8
+            or dropped or not cooled):
+        raise AssertionError(f"phase 20 (d): rollback {decision}, "
+                             f"{ctl.stats()}, versions {versions}, "
+                             f"dropped {dropped}")
+    for eng in engines.values():
+        del eng.swap_weights
+
+
+def _phase_router_e(a) -> None:
+    """(e): the exact partition of every kept trace, the obs server, and
+    strict mode."""
+    import urllib.request
+
+    from bigdl_tpu_torch import obs
+    from bigdl_tpu_torch.obs import metrics, reqtrace, server
+
+    col = reqtrace.get_collector()
+    worst, checked = 0.0, 0
+    for entry in col.completed():
+        hops = [s for s in entry["spans"] if s["name"] in ENGINE_HOPS]
+        if not hops:
+            continue
+        # a routed trace's entry ends with the router's e2e; the engine's
+        # rode its answer
+        e2e = _ENGINE_E2E.get(entry["trace"], entry["e2e_s"])
+        worst = max(worst, abs(sum(s["dur_s"] for s in hops) - e2e))
+        checked += 1
+    srv = server.ensure_server()
+    rid = a["results"][0][1][2]["id"]
+    code, _, kept, _ = _http(srv.url(f"/trace?request={rid}"))
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(srv.url("/metrics"), timeout=60) as r:
+        text = r.read().decode()
+    scrape_ms = (time.perf_counter() - t0) * 1e3
+    parsed = metrics.parse_prometheus(text)
+    fams = set(parsed["families"])
+    exemplars = sum("exemplar" in smp for smp in parsed["samples"])
+    os.environ["BIGDL_TORCH_OBS_STRICT"] = "1"
+    try:
+        obs.get_registry().counter("bigdl_phase20_undeclared_total")
+        refused = False
+    except ValueError:
+        refused = True
+    finally:
+        os.environ.pop("BIGDL_TORCH_OBS_STRICT", None)
+    stats = col.stats()
+    say(f"phase 20 (e) {checked} kept traces with engine hops: worst |queue "
+        f"+ prefill + preempt + decode - engine e2e| {worst:.3e} s (limit "
+        f"{PARTITION_TOL:g}); sampler {stats}; /trace?request={rid} "
+        f"{code} with {len(kept.get('spans', []))} spans; /metrics "
+        f"{len(text)} bytes, {len(parsed['samples'])} samples, "
+        f"{exemplars} exemplars, scraped in {scrape_ms:.2f} ms; strict "
+        f"mode refused an undeclared bigdl_ family: {refused}")
+    if checked < 24 or worst > PARTITION_TOL:
+        raise AssertionError(f"phase 20 (e): partition {worst} over "
+                             f"{checked} traces")
+    if code != 200 or kept.get("request") != rid or not any(
+            s["name"] == "req.route" for s in kept["spans"]):
+        raise AssertionError(f"phase 20 (e): /trace?request={rid}: {kept}")
+    for prefix in ("bigdl_router_", "bigdl_rollout_", "bigdl_serve_"):
+        if not any(f.startswith(prefix) for f in fams):
+            raise AssertionError(f"phase 20 (e): /metrics lacks {prefix}*")
+    if exemplars < 1 or not refused:
+        raise AssertionError("phase 20 (e): no exemplar, or strict mode "
+                             "let an undeclared family in")
+
+
+def phase_router(smi: str, direct_tps: float) -> None:
+    """Phase 20: three flagship replicas behind the router, with drain,
+    retry and shed, rollout, traces and metrics."""
+    import tempfile
+
+    from bigdl_tpu_torch import obs
+
+    t_phase = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in ("BIGDL_TORCH_REQTRACE_SAMPLE",
+                                            "BIGDL_TORCH_OBS_PORT")}
+    os.environ["BIGDL_TORCH_REQTRACE_SAMPLE"] = "1"
+    os.environ["BIGDL_TORCH_OBS_PORT"] = "0"
+    obs.reset()
+    _ENGINE_E2E.clear()
+    models, engines, router, front = _router_fleet()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            a = _phase_router_a(front, router, models, direct_tps)
+            _router_controls(front, engines, a["singles"])
+            _router_fused(models, engines, a["singles"])
+            _phase_router_b(front, router, engines, models, a)
+            _phase_router_c(front, router, engines, models, a)
+            _phase_router_d(front, router, engines, models, a, tmp)
+            _wait_idle(engines)
+            _phase_router_e(a)
+    finally:
+        front.close()
+        for eng in engines.values():
+            eng.close()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        obs.reset()
+    del models
+    torch.cuda.empty_cache()
+    print(smi, flush=True)
+    say(f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def _has_pillow() -> bool:
     try:
         import PIL  # noqa: F401
@@ -4160,6 +4837,7 @@ def main() -> int:
     phase_serving_http(smi, serve_stats["ttft_p50_s"])
     phase_optim(smi)
     phase_text_cnn(smi)
+    phase_router(smi, serve_stats["tokens_per_s"])
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["launches"] <= 0:

@@ -173,7 +173,10 @@ def test_import_loads_neither_jax_nor_bigdl_tpu():
         "bigdl_tpu_torch.models.autoencoder, "
         "bigdl_tpu_torch.examples.ncf_train, bigdl_tpu_torch.dataset.news20, "
         "bigdl_tpu_torch.examples.train_text_cnn, "
-        "bigdl_tpu_torch.examples.udf_predict\n"
+        "bigdl_tpu_torch.examples.udf_predict, "
+        "bigdl_tpu_torch.obs.trace, bigdl_tpu_torch.obs.server, "
+        "bigdl_tpu_torch.serving.spans, bigdl_tpu_torch.serving.placement, "
+        "bigdl_tpu_torch.serving.router, bigdl_tpu_torch.serving.rollout\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'bigdl_tpu' or m.startswith('bigdl_tpu.')]\n"
         "print(bad)\n"
@@ -188,6 +191,7 @@ def test_no_port_source_imports_jax_or_bigdl_tpu():
         r"^\s*(import|from)\s+(jax|jaxlib|bigdl_tpu)(\s|\.|$|,)", re.M)
     files = sorted((REPO / "bigdl_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "chip_mutants.py",
+              REPO / "chip_ab.py",
               REPO / "tests" / "torch_port_distri_worker.py"]
     assert len(files) > 10
     for f in files:
@@ -210,3 +214,31 @@ def test_port_exports_every_jax_criterion_layer_table_op_and_cell():
     assert sorted(jax_names - set(TN.__all__)) == []
     for n in jax_names:
         assert getattr(TN, n).__name__ == n
+
+
+def test_port_exports_the_jax_serving_and_obs_surface():
+    """What ``bigdl_tpu.serving`` exports, ``bigdl_tpu_torch.serving``
+    exports under the same names; of ``bigdl_tpu.obs``, what its metrics
+    and trace modules define and the accessors the port has
+    (``get_tracer``, ``get_registry``, ``reset``, ``active``)."""
+    import bigdl_tpu.obs as JO
+    import bigdl_tpu.serving as JS
+    import bigdl_tpu_torch.obs as TO
+    import bigdl_tpu_torch.serving as TS
+
+    assert len(JS.__all__) >= 26
+    assert sorted(set(JS.__all__) - set(TS.__all__)) == []
+    for n in JS.__all__:
+        t, j = getattr(TS, n), getattr(JS, n)
+        if isinstance(j, str):
+            assert t == j, n                  # HANDOFF_ERROR's value
+        else:
+            assert t.__name__.rsplit(".", 1)[-1] == n
+    mods = {"bigdl_tpu.obs.metrics", "bigdl_tpu.obs.trace"}
+    jax_names = {n for n in JO.__all__
+                 if getattr(getattr(JO, n), "__module__", None) in mods
+                 or n in ("NULL_TRACER", "DEFAULT_BUCKETS")}
+    jax_names |= {"get_tracer", "get_registry", "reset", "active"}
+    assert len(jax_names) == 9
+    assert sorted(jax_names - set(TO.__all__)) == []
+

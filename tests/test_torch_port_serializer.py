@@ -36,7 +36,6 @@ from bigdl_tpu_torch.dataset import ArrayDataSet as TArray
 from bigdl_tpu_torch.models.lenet import build_lenet5 as t_lenet
 from bigdl_tpu_torch.models.resnet import build_resnet_imagenet as t_resnet
 from bigdl_tpu_torch.models.rnn import build_ptb_lm as t_ptb
-from bigdl_tpu_torch.models.transformer import build_transformer_lm
 from bigdl_tpu_torch.nn.fused import fuse_conv_bn as t_fuse
 from bigdl_tpu_torch.utils import serializer as TS
 from bigdl_tpu_torch.utils import tree as T
@@ -91,11 +90,16 @@ def test_specs_and_module_files_match_jax(tmp_path, name):
     _assert_trees_equal(tm.params(), j_from_t.params())
 
 
+class _Unrecorded(TN.Linear):
+    """A layer whose constructor takes an argument it does not record."""
+
+    def __init__(self, width):
+        super().__init__(width, width)
+
+
 def test_what_cannot_be_serialized_raises(tmp_path):
-    lm = build_transformer_lm(48, dim=32, n_head=4, n_layer=1, max_len=16,
-                              device="cpu")
     with pytest.raises(NotImplementedError, match="cannot be serialized"):
-        TS.save_module(lm, str(tmp_path / "lm"))
+        TS.save_module(_Unrecorded(4), str(tmp_path / "lm"))
     with pytest.raises(NotImplementedError, match="protobuf"):
         TS.save_module(t_lenet(device="cpu"), str(tmp_path / "m.bigdl"))
     with pytest.raises(KeyError, match="unknown module class"):

@@ -4,8 +4,8 @@ Counterpart of the ``ServeConfig`` section of ``bigdl_tpu/config.py``
 (the serving defaults ``LMEngine``, ``ClassifierEngine`` and
 ``ServingServer`` read, with the router's 503 ``Retry-After``), of its
 training knobs (``TrainConfig``: the non-finite guard, the retry
-backoff, checkpoint retention, the gradient wire and the input feed,
-read by the trainers), of the observability switches the tracer, the
+backoff, checkpoint retention and background writes, the gradient
+wire, the fault plan and the stream's buffer, read by the trainers), of the observability switches the tracer, the
 request tracer, the metrics registry and the obs server read
 (``ObsConfig``), and of the router's and the rollout's knobs
 (``RouterConfig``, ``RolloutConfig``), each with the JAX package's
@@ -105,7 +105,8 @@ class ServeConfig:
 class TrainConfig:
     """Training-loop defaults (``bigdl_tpu_torch/optim``), the JAX
     package's ``nonfinite_guard``/``max_nonfinite_skips``, retry,
-    retention and wire knobs."""
+    retention, ``checkpoint_async``, wire, ``fault_plan`` and stream
+    knobs."""
 
     # skip (keep params, optimizer and BN state) a step whose loss or a
     # gradient is NaN or inf [BIGDL_TORCH_NONFINITE_GUARD]
@@ -128,6 +129,20 @@ class TrainConfig:
     # DistriOptimizer's gradient wire: "bfloat16" (cast before the
     # reduce-scatter), "float32" or "none" [BIGDL_TORCH_WIRE_DTYPE]
     wire_dtype: str = "bfloat16"
+    # set_checkpoint's default for background=: snapshot to host on the
+    # loop, serialize + fsync + manifest on one writer thread
+    # [BIGDL_TORCH_CHECKPOINT_ASYNC]
+    checkpoint_async: bool = False
+    # deterministic fault injection (resilience/faults.py), e.g.
+    # "step:3:raise,step:7:nan_grad,ckpt:1:truncate"
+    # [BIGDL_TORCH_FAULT_PLAN]
+    fault_plan: Optional[str] = None
+    # records the stream's bounded buffer holds before its producer
+    # waits (dataset/stream.py) [BIGDL_TORCH_STREAM_BUFFER]
+    stream_buffer: int = 1024
+    # records in one epoch of a stream; 0 = one epoch until the source
+    # ends [BIGDL_TORCH_STREAM_EPOCH_RECORDS]
+    stream_epoch_records: int = 0
 
     @classmethod
     def from_env(cls) -> "TrainConfig":
@@ -146,6 +161,11 @@ class TrainConfig:
             checkpoint_keep_last=_env_int("BIGDL_TORCH_CHECKPOINT_KEEP_LAST",
                                           0),
             wire_dtype=_env_str("BIGDL_TORCH_WIRE_DTYPE", "bfloat16"),
+            checkpoint_async=_env_bool("BIGDL_TORCH_CHECKPOINT_ASYNC", False),
+            fault_plan=_env_str("BIGDL_TORCH_FAULT_PLAN", None),
+            stream_buffer=_env_int("BIGDL_TORCH_STREAM_BUFFER", 1024),
+            stream_epoch_records=_env_int(
+                "BIGDL_TORCH_STREAM_EPOCH_RECORDS", 0),
         )
 
 

@@ -1,9 +1,10 @@
 """In-memory datasets: (features, labels) arrays batched for training.
 
-Counterpart of ``bigdl_tpu/dataset/dataset.py``: ``DataSet``,
-``ArrayDataSet`` (:52), ``iter_process_batches`` (:145),
+Counterpart of ``bigdl_tpu/dataset/dataset.py``: ``DataSet`` with its
+``transform``/``>>`` chaining, ``LocalDataSet`` (:48), ``ArrayDataSet``
+(:52), ``SampleDataSet`` (:112), ``iter_process_batches`` (:145),
 ``DistributedDataSet`` (:181), ``PartitionStreamDataSet`` (:227) and
-``to_dataset`` (:291), the ``(x, y)`` tuple case.  Batches are host
+``to_dataset`` (:291).  Batches are host
 numpy arrays; the trainer moves them to its device.  A training pass shuffles with the port's
 ``RandomGenerator.RNG.randperm``, so a run seeded as a JAX run visits
 the batches in the JAX order.
@@ -22,6 +23,7 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 
 from bigdl_tpu_torch.common import RandomGenerator
+from bigdl_tpu_torch.dataset.sample import Sample, samples_to_minibatch
 
 
 class DataSet:
@@ -33,8 +35,32 @@ class DataSet:
     def size(self) -> int:
         raise NotImplementedError
 
+    def transform(self, transformer):
+        """This dataset's batches through ``transformer`` (an iterator
+        -> iterator stage, ``dataset/transformer.py``)."""
+        return _TransformedDataSet(self, transformer)
 
-class ArrayDataSet(DataSet):
+    def __rshift__(self, transformer):
+        return self.transform(transformer)
+
+
+class _TransformedDataSet(DataSet):
+    def __init__(self, base: DataSet, transformer):
+        self.base = base
+        self.transformer = transformer
+
+    def data(self, train: bool = True):
+        return self.transformer(self.base.data(train))
+
+    def size(self):
+        return self.base.size()
+
+
+class LocalDataSet(DataSet):
+    """A dataset whose every batch is read on this process."""
+
+
+class ArrayDataSet(LocalDataSet):
     """(features, labels) arrays batched to (input, target).  Training
     passes shuffle and drop the ragged tail batch; eval passes keep
     the order and the tail."""
@@ -62,6 +88,42 @@ class ArrayDataSet(DataSet):
         if self._n > n_full * bs and not train:
             sel = idx[n_full * bs:]
             yield self.features[sel], self.labels[sel]
+
+
+class SampleDataSet(LocalDataSet):
+    """``Sample`` records batched with padding (the reference's
+    ``DataSet.array(samples) -> SampleToMiniBatch``): a training pass
+    shuffles with ``RandomGenerator.RNG.randperm`` and drops the ragged
+    tail, an eval pass keeps the order and the tail."""
+
+    def __init__(self, samples: Sequence[Sample], batch_size: int = 32,
+                 padding_value: float = 0.0,
+                 fixed_length: Optional[int] = None, shuffle: bool = True):
+        self.samples = list(samples)
+        self.batch_size = batch_size
+        self.padding_value = padding_value
+        self.fixed_length = fixed_length
+        self.shuffle = shuffle
+
+    def size(self):
+        return len(self.samples)
+
+    def _batch(self, idx):
+        mb = samples_to_minibatch([self.samples[i] for i in idx],
+                                  self.padding_value, self.fixed_length)
+        return mb.input, mb.target
+
+    def data(self, train: bool = True):
+        n = len(self.samples)
+        order = np.arange(n)
+        if train and self.shuffle:
+            order = RandomGenerator.RNG.randperm(n)
+        bs = self.batch_size
+        n_full = n // bs
+        for b in range(n_full):
+            yield self._batch(order[b * bs:(b + 1) * bs])
+        if n > n_full * bs and not train:
+            yield self._batch(order[n_full * bs:])
 
 
 def process_world():
@@ -187,17 +249,19 @@ class PartitionStreamDataSet(DataSet):
 
 
 def to_dataset(data, batch_size: int = 32) -> Optional[DataSet]:
-    """A ``DataSet`` as it is, or an ``(x, y)`` tuple as an
-    ``ArrayDataSet``."""
+    """A ``DataSet`` as it is, an ``(x, y)`` tuple as an
+    ``ArrayDataSet``, or a list of ``Sample``s as a ``SampleDataSet``."""
     if data is None:
         return None
     if isinstance(data, DataSet):
         return data
     if isinstance(data, tuple) and len(data) == 2:
         return ArrayDataSet(data[0], data[1], batch_size)
+    if isinstance(data, list) and data and isinstance(data[0], Sample):
+        return SampleDataSet(data, batch_size)
     raise TypeError(f"cannot build a DataSet from {type(data)}")
 
 
-__all__ = ["DataSet", "ArrayDataSet", "DistributedDataSet",
-           "PartitionStreamDataSet", "iter_process_batches",
-           "process_world", "to_dataset"]
+__all__ = ["DataSet", "LocalDataSet", "ArrayDataSet", "SampleDataSet",
+           "DistributedDataSet", "PartitionStreamDataSet",
+           "iter_process_batches", "process_world", "to_dataset"]

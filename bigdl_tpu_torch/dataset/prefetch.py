@@ -62,13 +62,22 @@ class PrefetchIterator:
         return False
 
     def _work(self):
+        it = iter(self._iterable)
         try:
-            for item in self._iterable:
+            for item in it:
                 if not self._put(item):
                     return          # the consumer stopped early
         except BaseException as e:  # noqa: BLE001 - handed to the consumer
             self._err = e
         finally:
+            # a generator left early runs its cleanup here, on this
+            # thread (a stream stops its producer thread)
+            close = getattr(it, "close", None)
+            if close is not None:
+                try:
+                    close()
+                except BaseException as e:  # noqa: BLE001 - as above
+                    self._err = self._err or e
             self._put(self._done)
 
     def __iter__(self):

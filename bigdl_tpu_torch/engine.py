@@ -13,9 +13,11 @@ is a ``torch.distributed`` process group:
 - otherwise it makes a world of 1 over an in-process ``HashStore``,
   which opens no port.
 
-The backend is NCCL on the card and gloo on the CPU.  The preemption
-handler, fault injection and observability of the JAX ``Engine.init``
-are not ported yet (ROADMAP.md queue 1).
+The backend is NCCL on the card and gloo on the CPU.  ``init`` builds
+the fault injector from ``BIGDL_TORCH_FAULT_PLAN`` (JAX :77-79) and
+``reset`` drops it (JAX :179), so a test's plan does not leak into the
+next.  The preemption handler and observability of the JAX
+``Engine.init`` are not ported yet (ROADMAP.md queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -48,6 +50,10 @@ class Engine:
         if cls._state.initialized:
             return cls
         dev = resolve_device(device)
+        # a plan exported before init is live before the first trainer
+        from bigdl_tpu_torch.resilience.faults import get_injector
+
+        get_injector()
         env = os.environ
         if dev.type == "cuda" and "LOCAL_RANK" in env:
             dev = torch.device("cuda", int(env["LOCAL_RANK"]))
@@ -99,7 +105,10 @@ class Engine:
     @classmethod
     def reset(cls) -> None:
         """Forget the world, destroying the process group if ``init``
-        made it."""
+        made it, and the fault injector's fire-once counters with it."""
+        from bigdl_tpu_torch.resilience.faults import reset_injector
+
+        reset_injector()
         if cls._state.owns_group and dist.is_initialized():
             dist.destroy_process_group()
         cls._state = _EngineState()

@@ -5,8 +5,10 @@ Counterpart of ``bigdl_tpu/obs/names.py`` (``MetricSpec`` and ``_m``
 its kind, label names, a label-cardinality ceiling, a one-line doc and
 a fleet aggregation policy, with the JAX package's names and values
 (the serving section :352-390, the router's :392-431, the rollout's
-:433-470, the request tracer's :472-495 and the optim phase timers
-:133), so that one dashboard reads either package.  Mint sites use
+:433-470, the request tracer's :472-495, the optim phase timers :133, the
+trainers' retry, background-writer and guard counters :145-160, the
+checkpoint section :316-326 and the stream's :328-349), so that one
+dashboard reads either package.  Mint sites use
 these constants, never string literals.  Under
 ``BIGDL_TORCH_OBS_STRICT=1`` the registry rejects a ``bigdl_*`` family
 that is not declared here, or whose kind or labels differ, and caps
@@ -72,6 +74,54 @@ def _m(name: str, kind: str, labels: Tuple[str, ...] = (),
 PHASE_SECONDS = _m(
     "bigdl_phase_seconds", "histogram", ("phase",), 24,
     "Driver phase timers (the reference's optim.Metrics)")
+
+# --------------------------------------------------------------- training
+# the trainers' retry, guard and background-writer accounting
+RETRY_ATTEMPTS_TOTAL = _m(
+    "bigdl_retry_attempts_total", "counter",
+    ("classification", "error"), 64,
+    "Classified-retry attempts, by failure class and error type")
+CHECKPOINT_WRITE_FAILURES_TOTAL = _m(
+    "bigdl_checkpoint_write_failures_total", "counter",
+    doc="Checkpoint writes that raised (sync or background writer)")
+NONFINITE_SKIPS_TOTAL = _m(
+    "bigdl_nonfinite_skips_total", "counter",
+    doc="Weight updates skipped by the non-finite step guard")
+
+# --------------------------------------------------------------- checkpoint
+CHECKPOINT_SNAPSHOT_SECONDS = _m(
+    "bigdl_checkpoint_snapshot_seconds", "gauge", policy="max",
+    doc="Blocking device-to-host snapshot span of the last checkpoint")
+CHECKPOINT_WRITE_SECONDS = _m(
+    "bigdl_checkpoint_write_seconds", "gauge", policy="max",
+    doc="Serialize+fsync span of the last checkpoint write")
+CHECKPOINT_WRITES_TOTAL = _m(
+    "bigdl_checkpoint_writes_total", "counter",
+    doc="Completed checkpoint writes")
+CHECKPOINT_VERIFY_FAILURES_TOTAL = _m(
+    "bigdl_checkpoint_verify_failures_total", "counter",
+    doc="Checkpoint read-back verifications that failed")
+
+# --------------------------------------------------------------- streaming
+# the buffered records of a fleet add up
+STREAM_BUFFER_DEPTH = _m(
+    "bigdl_stream_buffer_depth", "gauge", policy="sum",
+    doc="Records buffered between the stream producer and the trainer")
+STREAM_BACKPRESSURE_WAITS_TOTAL = _m(
+    "bigdl_stream_backpressure_waits_total", "counter",
+    doc="Producer blocks on a full stream buffer")
+STREAM_OFFSET = _m(
+    "bigdl_stream_offset", "gauge", policy="min",
+    doc="Last source offset handed to the trainer")
+STREAM_WATERMARK = _m(
+    "bigdl_stream_watermark", "gauge", policy="max",
+    doc="Highest source offset the producer has ingested")
+STREAM_LAG_RECORDS = _m(
+    "bigdl_stream_lag_records", "gauge", policy="max",
+    doc="Producer watermark minus trainer offset")
+STREAM_RECORDS_TOTAL = _m(
+    "bigdl_stream_records_total", "counter",
+    doc="Records handed to the trainer, exactly-once audited")
 
 # --------------------------------------------------------------- serving
 SERVE_REQUESTS_TOTAL = _m(

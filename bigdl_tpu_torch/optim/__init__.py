@@ -3,7 +3,7 @@
 from bigdl_tpu_torch.optim.evaluator import (Evaluator, LocalValidator,
                                              Predictor, Validator,
                                              evaluate_dataset, predict,
-                                             predict_class)
+                                             predict_class, predict_image)
 from bigdl_tpu_torch.optim.optim_method import (
     LBFGS, SGD, Adadelta, Adagrad, Adam, Adamax, Default, EpochDecay,
     Exponential, Ftrl, LarsSGD, MultiStep, OptimMethod, Plateau, Poly,
@@ -34,4 +34,5 @@ __all__ = [
     "Optimizer", "LocalOptimizer", "DistriOptimizer", "Metrics",
     "Evaluator", "Predictor", "Validator", "LocalValidator",
     "NonFiniteStepError", "evaluate_dataset", "predict", "predict_class",
+    "predict_image",
 ]

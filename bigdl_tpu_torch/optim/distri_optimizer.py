@@ -44,16 +44,26 @@ order, ``ravel_pytree``'s, padded to a multiple of the world size):
   (``_prepare_batch``).  The gather writes a flat buffer, which is
   copied into the parameters (a parameter made a view of it would sit
   at any 4-byte offset, and cuDNN picks its algorithms by alignment).
+- **Checkpoints.** Every rank gathers the state's shards, then rank 0
+  takes ``LocalOptimizer``'s path: a synchronous write, or a host
+  snapshot handed to the background writer (``set_checkpoint(
+  background=True)``).
 - **Retry.** ``optimize`` retries a transient failure
-  (``resilience/retry.py``): back off, reload the newest intact
-  checkpoint, rewind ``epoch``/``neval``/``epoch_neval0`` and skip to
-  the checkpoint's batch; a fatal one is raised at once.
+  (``resilience/retry.py``, an ``InjectedFault`` of the fault plan
+  among them): back off, reload the newest intact checkpoint, rewind
+  ``epoch``/``neval``/``epoch_neval0`` and skip to the checkpoint's
+  batch, or for a stream seek it back to the checkpoint's trained
+  offset (``elastic.restore_stream``); a fatal one
+  (``CheckpointWriteError`` among them) is raised at once.  Each
+  attempt counts in ``bigdl_retry_attempts_total`` and the summary's
+  "RetryCount".
 
-Not ported yet (ROADMAP.md queue 1): the int8/fp8 wires and error
-feedback, ``overlap_bucket_mb > 0``, hierarchical ``data_axes``, a
-resume at another world size than the writer's
-(``elastic.ensure_shard_layout``), the health monitor and the ``obs``
-spans.  Each raises ``NotImplementedError``.
+Not ported yet (ROADMAP.md queue 1 item 6): the int8/fp8 wires and
+error feedback, ``overlap_bucket_mb > 0``, hierarchical ``data_axes``
+and a resume at another world size than the writer's
+(``elastic.ensure_shard_layout``), each of which raises
+``NotImplementedError``; the health monitor and the step spans (the
+checkpoint spans and the resilience events are recorded).
 """
 
 from __future__ import annotations
@@ -66,8 +76,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from bigdl_tpu_torch import obs
 from bigdl_tpu_torch.config import TrainConfig
 from bigdl_tpu_torch.engine import Engine
+from bigdl_tpu_torch.obs import names
 from bigdl_tpu_torch.optim.optimizer import LocalOptimizer, _where
 
 log = logging.getLogger("bigdl_tpu_torch.optim")
@@ -418,30 +430,55 @@ class DistriOptimizer(LocalOptimizer):
         :900-1001).  A fatal failure, or one without checkpoints, is
         raised at once; so is the last when the retry budget is spent.
         ``retries`` counts the reloads."""
+        from bigdl_tpu_torch.resilience.elastic import restore_stream
         from bigdl_tpu_torch.resilience.retry import RetryPolicy, classify
         from bigdl_tpu_torch.utils.serializer import load_latest_checkpoint
 
         policy = RetryPolicy.from_config(max_retries=self.max_retry)
+        counter = obs.get_registry().counter(
+            names.RETRY_ATTEMPTS_TOTAL,
+            "Training failures handled by the retry policy",
+            labels=("classification", "error"))
+        tracer = obs.get_tracer()
         self.retries = 0
         while True:
             try:
                 return super().optimize()
             except Exception as e:
                 kind = classify(e)
+                err = type(e).__name__
                 if not self.checkpoint_path or kind == "fatal":
+                    counter.labels(classification=kind, error=err).inc()
+                    tracer.event("resilience.failure", classification=kind,
+                                 error=err, step=self.state["neval"],
+                                 retried=False)
                     raise
                 delay = policy.record_failure(e)
+                counter.labels(classification="transient", error=err).inc()
                 if delay is None:
                     log.error("retry budget exhausted after %d transient "
                               "failures; raising the last one",
                               policy.attempts)
+                    tracer.event("resilience.retry_budget_exhausted",
+                                 attempts=policy.attempts, error=err,
+                                 step=self.state["neval"])
                     raise
                 log.exception("transient training failure (%s); retry %d/%d "
                               "from the last intact checkpoint in %.2fs",
-                              type(e).__name__, policy.attempts,
-                              self.max_retry, delay)
+                              err, policy.attempts, self.max_retry, delay)
+                tracer.event("resilience.retry", classification="transient",
+                             error=err, attempt=policy.attempts,
+                             max_retries=self.max_retry,
+                             delay_s=round(delay, 4),
+                             step=self.state["neval"])
+                self._summary_resilience(self.state["neval"],
+                                         retries=policy.attempts)
                 if delay > 0:
                     time.sleep(delay)
+                if self.n_shards > 1 and self.checkpoint_background:
+                    # rank 0's writer has flushed (optimize's finally)
+                    # before any rank lists the directory
+                    dist.barrier()
                 extra = load_latest_checkpoint(self.checkpoint_path,
                                                self.model, self.optim_method)
                 self.retries += 1
@@ -453,6 +490,9 @@ class DistriOptimizer(LocalOptimizer):
                                                        self.state["neval"])
                 self._pending_fast_forward = max(
                     0, self.state["neval"] - self.state["epoch_neval0"])
+                # a stream seeks to the checkpoint's trained offset
+                # instead: the records past it are read and trained again
+                restore_stream(self, extra)
 
 
 __all__ = ["DistriOptimizer"]

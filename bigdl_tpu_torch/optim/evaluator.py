@@ -2,8 +2,8 @@
 
 Counterpart of the single-device half of ``bigdl_tpu/optim/
 evaluator.py``: ``evaluate_dataset`` (:110), ``predict`` (:163),
-``predict_class`` (:193), ``Evaluator`` (:234), ``Validator`` (:252)
-and ``Predictor`` (:286).  The model runs its eval-mode forward under
+``predict_class`` (:193), ``predict_image`` (:199), ``Evaluator``
+(:234), ``Validator`` (:252) and ``Predictor`` (:286).  The model runs its eval-mode forward under
 ``no_grad`` on ``device`` (default the card; raises without CUDA unless
 ``device="cpu"``), with the parameters it holds (a trainer validates on
 its live weights, no copy); each batch's output comes to the host, where
@@ -59,6 +59,29 @@ def predict_class(model, features, batch_size: int = 32, device="cuda"):
     """The 1-based class of each sample: argmax + 1."""
     out = predict(model, features, batch_size, device)
     return np.argmax(out.reshape(out.shape[0], -1), axis=-1) + 1
+
+
+def predict_image(model, image_frame, batch_size: int = 32,
+                  device="cuda", predict_key: str = "predict"):
+    """Run the model over an ``ImageFrame``'s transformed tensors (the
+    ``sample`` slot: a CHW array or a ``Sample``; else the image, HWC
+    -> CHW) and write each prediction into its feature under
+    ``predict_key`` (the reference's ``model.predictImage``); returns
+    the frame."""
+    from bigdl_tpu_torch.transform.vision import ImageFeature
+
+    feats = []
+    for f in image_frame.features:
+        t = f.get(ImageFeature.SAMPLE)
+        if t is None:
+            t = np.transpose(np.asarray(f.image, np.float32), (2, 0, 1))
+        elif hasattr(t, "features"):  # a Sample record
+            t = np.asarray(t.features)
+        feats.append(np.asarray(t))
+    out = predict(model, np.stack(feats), batch_size, device)
+    for f, o in zip(image_frame.features, out):
+        f[predict_key] = o
+    return image_frame
 
 
 class Evaluator:
@@ -118,5 +141,6 @@ class Predictor:
                              self.device)
 
 
-__all__ = ["evaluate_dataset", "predict", "predict_class", "Evaluator",
+__all__ = ["evaluate_dataset", "predict", "predict_class", "predict_image",
+           "Evaluator",
            "Validator", "LocalValidator", "Predictor"]

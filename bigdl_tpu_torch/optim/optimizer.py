@@ -2,10 +2,13 @@
 
 Counterpart of ``bigdl_tpu/optim/optimizer.py``: ``_GradClipper``
 (:38), the fluent setters of ``BaseOptimizer`` (:139-211), its
-checkpoints (``set_checkpoint`` :155, ``_checkpoint`` :247,
-``_topology``, ``_checkpoint_extra`` :327), ``_run_validation`` (:454),
-``LocalOptimizer`` (:491) and the ``Optimizer`` factory (:1173), which
-gives a ``DistriOptimizer`` for ``distributed=True``.  One step is
+checkpoints (``set_checkpoint`` :155-183, ``_raise_pending_ckpt_error``
+:231, ``_checkpoint`` :247, ``_flush_checkpoints`` :286, ``_topology``,
+``_checkpoint_extra`` :327), ``_summary_resilience`` (:224),
+``_run_validation`` (:454), ``LocalOptimizer`` (:491) with its
+parameter histograms (:1162) and the ``Optimizer`` factory (:1173),
+which gives a ``DistriOptimizer`` for ``distributed=True``.  One step
+is
 
     loss, grads = autograd of criterion(model(x), y)
                   + model.regularization_loss()
@@ -41,13 +44,31 @@ goes back to training mode.
 The parameters are taken in the JAX package's leaf order
 (``utils/tree.py``), so a per-parameter optimizer state (``velocity``)
 is a list in that order and checkpoints under the JAX package's keys.
-Checkpoints (``set_checkpoint``) are written synchronously when their
-trigger fires after a step or at an epoch's end, with ``epoch``,
-``neval``, ``epoch_neval0`` (the neval of the epoch's first batch) and
-the topology (``"tree"``); a resume from a mid-epoch checkpoint skips
-``neval - epoch_neval0`` batches of the next epoch
-(``_pending_fast_forward``), so it trains the batches the uninterrupted
-run would.
+Checkpoints (``set_checkpoint``) are written when their trigger fires
+after a step or at an epoch's end, with ``epoch``, ``neval``,
+``epoch_neval0`` (the neval of the epoch's first batch), the topology
+(``"tree"``) and, for a stream, its trained frontier; a resume from a
+mid-epoch checkpoint skips ``neval - epoch_neval0`` batches of the next
+epoch (``_pending_fast_forward``), so it trains the batches the
+uninterrupted run would.  With ``background=True`` the loop only
+snapshots every array to the host (``snapshot_checkpoint(to_host=
+True)``, finished before it returns, since the parameters change in
+place) and one writer thread serializes, fsyncs and writes the
+manifest; at most one write is in flight (the next trigger waits for
+it).  A failed background write is counted
+(``checkpoint_write_failures``, ``bigdl_checkpoint_write_failures_total``,
+the summary's "CheckpointWriteFailures") and raised as
+``CheckpointWriteError`` at the next checkpoint, at the end of
+``optimize`` or, when the run failed meanwhile, at the next
+``optimize``.
+
+Fault injection (``resilience/faults.py``): with a plan set, each step
+asks the injector before its batch goes to the device; ``raise``
+raises ``InjectedFault`` there, ``nan_grad`` replaces the batch with
+NaN.  A stream (``dataset/stream.py``) is told of each dispatched batch
+(``note_batch_trained``), so a checkpoint's offset covers exactly the
+batches in its weights; the port's trainers drop no batch (a batch the
+world does not divide is padded and masked).
 
 The input feed (``dataset/prefetch.py``): a producer thread pulls the
 dataset's batches (decoding an image folder there) and, for a CUDA
@@ -67,11 +88,14 @@ read, JAX :819, :936, :985), logged at each epoch's end.
 
 The port updates the model's parameters in place (the JAX step returns
 new arrays and writes them back at the end): the model holds the
-trained weights after every step.  The summary writers, observability
-and background checkpoint writes are not ported yet; a train summary
-here is any object with ``add_scalar(tag, value, step)``, given the
-"Loss" and "Throughput" scalars of each step, and a validation summary
-gets each method's value at the ``neval`` of its validation.
+trained weights after every step.  A train summary
+(``visualization.TrainSummary``, or any object with ``add_scalar``) gets
+the "Loss" and "Throughput" scalars of each step, the resilience
+counters (``add_resilience``, where it has one) and, when its
+"Parameters" trigger fires, a histogram of each parameter tagged by its
+JAX leaf path; a validation summary gets each method's value at the
+``neval`` of its validation.  The health monitor (``obs/health.py``)
+is not ported yet (ROADMAP.md queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -84,10 +108,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from bigdl_tpu_torch import obs
 from bigdl_tpu_torch.common import fold_in, resolve_device
 from bigdl_tpu_torch.config import TrainConfig
 from bigdl_tpu_torch.dataset import to_dataset
 from bigdl_tpu_torch.dataset.prefetch import PrefetchIterator, to_host_tensor
+from bigdl_tpu_torch.obs import names
 from bigdl_tpu_torch.optim.evaluator import evaluate_dataset
 from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.optim_method import SGD, Plateau
@@ -160,6 +186,15 @@ class LocalOptimizer:
         self.checkpoint_path = None
         self.checkpoint_trigger = None
         self.checkpoint_keep_last = 0
+        self.checkpoint_background = False
+        # background writes: one writer thread, the write in flight, and
+        # a failure recorded by the exception path's flush, raised at the
+        # next _checkpoint/optimize call
+        self.checkpoint_write_failures = 0
+        self._ckpt_write_error = None
+        self._ckpt_executor = None
+        self._ckpt_future = None
+        self._fault_injector = None
         self.max_retry = 5
         self._clipper = _GradClipper()
         self._nonfinite_consec = 0
@@ -203,18 +238,19 @@ class LocalOptimizer:
         """Write a checkpoint into directory ``path`` whenever
         ``trigger`` (default every epoch) fires, keeping the newest
         ``keep_last`` pairs (default ``BIGDL_TORCH_CHECKPOINT_KEEP_LAST``,
-        0 = all).  Writes are synchronous; ``background=True`` is not
-        ported yet and raises."""
-        if background:
-            raise NotImplementedError(
-                "background checkpoint writes are not ported yet "
-                "(ROADMAP.md queue 1 item 4)")
+        0 = all).  ``background=True`` snapshots to the host on the loop
+        and writes on one writer thread (default
+        ``BIGDL_TORCH_CHECKPOINT_ASYNC``)."""
+        cfg = TrainConfig.from_env()
         os.makedirs(path, exist_ok=True)
         self.checkpoint_path = path
         self.checkpoint_trigger = trigger or Trigger.every_epoch()
-        self.checkpoint_keep_last = (
-            TrainConfig.from_env().checkpoint_keep_last
-            if keep_last is None else int(keep_last))
+        self.checkpoint_background = (cfg.checkpoint_async
+                                      if background is None
+                                      else bool(background))
+        self.checkpoint_keep_last = (cfg.checkpoint_keep_last
+                                     if keep_last is None
+                                     else int(keep_last))
         return self
 
     def set_train_summary(self, summary):
@@ -345,6 +381,27 @@ class LocalOptimizer:
                                 self.validation_methods, self.device)
 
     # ---- checkpoints -------------------------------------------------------
+    def _summary_resilience(self, step, **counters) -> None:
+        """Resilience counters into the train summary, where it has
+        ``add_resilience`` (a plain ``add_scalar`` object has not)."""
+        add = getattr(self.train_summary, "add_resilience", None)
+        if add is not None:
+            add(step, **counters)
+
+    def _raise_pending_ckpt_error(self) -> None:
+        """Raise the background write failure the exception path's
+        flush recorded: training must not go on against a checkpoint
+        sink that stopped persisting."""
+        err = self._ckpt_write_error
+        if err is not None:
+            from bigdl_tpu_torch.resilience.retry import CheckpointWriteError
+
+            self._ckpt_write_error = None
+            raise CheckpointWriteError(
+                f"a background checkpoint write failed earlier "
+                f"({self.checkpoint_write_failures} write failures in "
+                f"all): {err!r}") from err
+
     def _topology(self) -> dict:
         """How the optimizer state of a checkpoint is laid out: local
         training keeps one entry per parameter tree leaf."""
@@ -352,26 +409,88 @@ class LocalOptimizer:
                 "step": self.state["neval"]}
 
     def _checkpoint_extra(self) -> dict:
-        """What a resume needs beyond the arrays."""
-        return {"epoch": self.state["epoch"], "neval": self.state["neval"],
-                "epoch_neval0": self.state.get("epoch_neval0",
-                                               self.state["neval"]),
-                "topology": self._topology()}
+        """What a resume needs beyond the arrays; a stream's trained
+        offset and watermark (the exactly-once commit point) under
+        ``"stream"``."""
+        extra = {"epoch": self.state["epoch"], "neval": self.state["neval"],
+                 "epoch_neval0": self.state.get("epoch_neval0",
+                                                self.state["neval"]),
+                 "topology": self._topology()}
+        stream_state = getattr(self.dataset, "stream_checkpoint_state", None)
+        if stream_state is not None:
+            extra["stream"] = stream_state()
+        return extra
 
     def _checkpoint(self, method=None) -> None:
         """Write ``checkpoint_<epoch>_<neval>`` with ``method``'s state
-        (the live optimizer method by default)."""
+        (the live optimizer method by default): now, or in the
+        background after a host snapshot."""
         if not self.checkpoint_path:
             return
-        from bigdl_tpu_torch.utils.serializer import save_checkpoint
+        self._raise_pending_ckpt_error()
+        from bigdl_tpu_torch.utils.serializer import (save_checkpoint,
+                                                      snapshot_checkpoint,
+                                                      write_checkpoint)
 
         tag = f"{self.state['epoch']}_{self.state['neval']}"
         prefix = os.path.join(self.checkpoint_path, f"checkpoint_{tag}")
-        save_checkpoint(prefix, self.model, method or self.optim_method,
-                        self._checkpoint_extra(),
-                        keep_last=self.checkpoint_keep_last)
+        method = method or self.optim_method
+        extra = self._checkpoint_extra()
+        keep = self.checkpoint_keep_last
+        if self.checkpoint_background:
+            if self._ckpt_executor is None:
+                from concurrent.futures import ThreadPoolExecutor
+
+                self._ckpt_executor = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="bigdl-torch-ckpt")
+            self._flush_checkpoints()       # at most one write in flight
+            snap = snapshot_checkpoint(self.model, method, extra,
+                                       to_host=True)
+            self._ckpt_future = self._ckpt_executor.submit(
+                write_checkpoint, snap, prefix, keep, True)
+            log.info("checkpoint scheduled at epoch %s iter %s",
+                     self.state["epoch"], self.state["neval"])
+            return
+        save_checkpoint(prefix, self.model, method, extra, keep_last=keep)
         log.info("checkpoint saved at epoch %s iter %s", self.state["epoch"],
                  self.state["neval"])
+
+    def _flush_checkpoints(self, raise_errors: bool = True) -> None:
+        """Wait for the background write in flight.  A failure is
+        counted; it is raised as ``CheckpointWriteError`` (fatal to the
+        retry policy: the JAX package re-raises the writer's own error),
+        or with ``raise_errors=False`` (the exception path, where
+        raising would hide the first error) recorded for the next
+        ``_checkpoint``/``optimize`` call."""
+        fut, self._ckpt_future = self._ckpt_future, None
+        if fut is None:
+            return
+        try:
+            fut.result()
+        except Exception as e:
+            self.checkpoint_write_failures += 1
+            self._summary_resilience(
+                self.state["neval"],
+                checkpoint_write_failures=self.checkpoint_write_failures)
+            obs.get_tracer().event(
+                "resilience.checkpoint_write_failed",
+                step=self.state["neval"], error=type(e).__name__,
+                total=self.checkpoint_write_failures)
+            obs.get_registry().counter(
+                names.CHECKPOINT_WRITE_FAILURES_TOTAL,
+                "Background checkpoint writes that raised").inc()
+            self._ckpt_write_error = e
+            if raise_errors:
+                self._raise_pending_ckpt_error()
+            log.exception("background checkpoint write failed (recorded; "
+                          "raised at the next checkpoint or optimize)")
+
+    def _write_param_histograms(self, step) -> None:
+        """A histogram of each parameter into the train summary, tagged
+        by its JAX leaf path (the reference's "Parameters" trigger)."""
+        for path, leaf in T.leaves_with_paths(self.model.params()):
+            self.train_summary.add_histogram(
+                "/".join(path), leaf.detach().float().cpu().numpy(), step)
 
     # ---- parameters, optimizer state and the input feed -----------------
     def _param_leaves(self):
@@ -452,10 +571,32 @@ class LocalOptimizer:
 
     # ---- the loop ----------------------------------------------------------
     def optimize(self):
+        # a background write that failed in an earlier optimize surfaces
+        # before any new work trusts the sink
+        self._raise_pending_ckpt_error()
+        from bigdl_tpu_torch.resilience.faults import get_injector
+
+        inj = get_injector()
+        self._fault_injector = inj if inj.active else None
+        try:
+            model = self._optimize_loop()
+        finally:
+            # the write in flight is durable (or its error recorded)
+            # before optimize returns or the retry reads the directory;
+            # no writer thread outlives the run
+            self._flush_checkpoints(raise_errors=False)
+            ex, self._ckpt_executor = self._ckpt_executor, None
+            if ex is not None:
+                ex.shutdown(wait=True)
+        # normal completion: a background write's error reaches the caller
+        self._raise_pending_ckpt_error()
+        return model
+
+    def _optimize_loop(self):
         cfg = TrainConfig.from_env()
         model = self.model
         model.train()
-        names, params, tree = self._param_leaves()
+        param_names, params, tree = self._param_leaves()
         frozen = model.frozen_parameters()
         self._frozen_mask = [id(p) in frozen for p in params]
         self._regularized = any(
@@ -465,17 +606,26 @@ class LocalOptimizer:
         self._nonfinite_consec = 0
         pending = []        # (n, loss, ok, batch size, dispatch time)
         val_trigger = self.validation_trigger
+        ckpt_trigger = self.checkpoint_trigger
+        summary = self.train_summary
+        get_trigger = getattr(summary, "get_summary_trigger", None)
+        param_trigger = get_trigger("Parameters") if get_trigger else None
         sync_per_step = any(getattr(t, "needs_loss", True)
-                            for t in (self.end_when, val_trigger)
+                            for t in (self.end_when, val_trigger,
+                                      ckpt_trigger, param_trigger)
                             if t is not None)
+        tracer = obs.get_tracer()
+        inj = self._fault_injector
+        # a stream's trained frontier moves once per dispatched batch
+        note_stream = getattr(self.dataset, "note_batch_trained", None)
 
         def resolve(n, loss_dev, ok_dev, bs, t0):
             loss_val = float(loss_dev)
             self.metrics.add("computing time", time.perf_counter() - t0)
             self.state["loss"] = loss_val
-            if self.train_summary is not None:
-                self.train_summary.add_scalar("Loss", loss_val, n)
-                self.train_summary.add_scalar(
+            if summary is not None:
+                summary.add_scalar("Loss", loss_val, n)
+                summary.add_scalar(
                     "Throughput", bs / max(1e-9, time.perf_counter() - t0),
                     n)
             if bool(ok_dev):
@@ -487,6 +637,14 @@ class LocalOptimizer:
                         "skipped (%d consecutive, %d total)", n, loss_val,
                         self._nonfinite_consec,
                         self.state["nonfinite_skips"])
+            self._summary_resilience(
+                n, nonfinite_skips=self.state["nonfinite_skips"])
+            tracer.event("resilience.nonfinite_skip", step=n, loss=loss_val,
+                         consecutive=self._nonfinite_consec,
+                         total=self.state["nonfinite_skips"])
+            obs.get_registry().counter(
+                names.NONFINITE_SKIPS_TOTAL,
+                "Train steps skipped by the non-finite guard").inc()
             if self._nonfinite_consec >= cfg.max_nonfinite_skips:
                 raise NonFiniteStepError(
                     f"{self._nonfinite_consec} consecutive non-finite "
@@ -507,7 +665,6 @@ class LocalOptimizer:
                                  time.perf_counter() - t_wait)
                 yield item
 
-        ckpt_trigger = self.checkpoint_trigger
         pin = self.device.type == "cuda"
         stop = False
         while not stop:
@@ -527,18 +684,25 @@ class LocalOptimizer:
                         break
                 for inp, tgt, mask, records in waited(batches):
                     n = self.state["neval"]
+                    if inj is not None and inj.on_step(n) == "nan_grad":
+                        inp = torch.from_numpy(inj.poison_batch(inp))
                     t0 = time.perf_counter()
                     with self.metrics.timer("put batch time"):
                         inp_d, tgt_d, mask_d = self._put_batch(inp, tgt,
                                                                mask)
                     opt.state, loss, ok = self._train_step(
-                        names, params, opt.state, inp_d, tgt_d, mask_d,
+                        param_names, params, opt.state, inp_d, tgt_d, mask_d,
                         cfg.nonfinite_guard, fold_in(DROPOUT_BASE_SEED, n))
+                    if note_stream is not None:
+                        note_stream()
                     # read the previous step's loss while this one runs
                     flush()
                     pending.append((n, loss, ok, records, t0))
                     if sync_per_step:
                         flush()
+                    if param_trigger is not None and param_trigger(
+                            self.state):
+                        self._write_param_histograms(n)
                     self.state["neval"] = n + 1
                     if val_trigger is not None and val_trigger(self.state):
                         flush()
@@ -546,7 +710,8 @@ class LocalOptimizer:
                         model.train()
                     if ckpt_trigger is not None and ckpt_trigger(self.state):
                         flush()
-                        self._checkpoint()
+                        with tracer.span("checkpoint", step=n):
+                            self._checkpoint()
                     if self.end_when(self.state):
                         stop, finished = True, False
                         break
@@ -567,7 +732,8 @@ class LocalOptimizer:
                     self._run_validation()
                     model.train()
                 if ckpt_trigger is not None and ckpt_trigger(self.state):
-                    self._checkpoint()
+                    with tracer.span("checkpoint", epoch=epoch):
+                        self._checkpoint()
                 if self.end_when(self.state):
                     stop = True
         self._publish_optim_state()

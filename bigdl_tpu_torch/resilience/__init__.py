@@ -1,7 +1,13 @@
 """Fault tolerance of the port (counterpart of
 ``bigdl_tpu.resilience``): the trainers' retry policy and its error
-classes, and the serving router's retry budget."""
+classes, the serving router's retry budget, the fault injector
+(``BIGDL_TORCH_FAULT_PLAN``) and the stream's resume
+(``elastic.restore_stream``)."""
 
+from bigdl_tpu_torch.resilience.elastic import restore_stream
+from bigdl_tpu_torch.resilience.faults import (Fault, FaultInjector,
+                                               FaultPlan, InjectedFault,
+                                               get_injector, reset_injector)
 from bigdl_tpu_torch.resilience.retry import (CheckpointWriteError,
                                               NonFiniteStepError,
                                               PeerLostError, RetryBudget,
@@ -9,4 +15,6 @@ from bigdl_tpu_torch.resilience.retry import (CheckpointWriteError,
                                               classify)
 
 __all__ = ["CheckpointWriteError", "NonFiniteStepError", "PeerLostError",
-           "RetryBudget", "RetryPolicy", "backoff_delay", "classify"]
+           "RetryBudget", "RetryPolicy", "backoff_delay", "classify",
+           "Fault", "FaultInjector", "FaultPlan", "InjectedFault",
+           "get_injector", "reset_injector", "restore_stream"]

@@ -121,15 +121,17 @@ def publish_checkpoint(module, directory: str, version: str) -> str:
     checkpoint prefix: ``<version>.model.npz`` first, then the manifest.
     The manifest lands last, so a watcher that sees one knows the pair
     before it is whole (a crash mid-publish leaves a manifest-less
-    prefix the watcher ignores).  The JAX package then runs its fault
-    injector's ``publish`` site; the port's fault injector waits for
-    ``resilience/faults.py`` (ROADMAP.md queue 1 item 6)."""
+    prefix the watcher ignores).  Then the fault injector's ``publish``
+    site runs (``resilience/faults.py``): damage after the manifest,
+    which the watcher's verify-before-swap gate must refuse."""
+    from bigdl_tpu_torch.resilience.faults import get_injector
     from bigdl_tpu_torch.utils.serializer import save_module, write_manifest
 
     os.makedirs(directory, exist_ok=True)
     prefix = os.path.join(directory, str(version))
     save_module(module, prefix + ".model")
     write_manifest(prefix)
+    get_injector().on_checkpoint_publish(prefix)
     return prefix
 
 

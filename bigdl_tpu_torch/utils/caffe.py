@@ -10,7 +10,8 @@ sizes and the ``(C, H, W)`` inference that sizes ``InnerProduct``'s
 ``LogSoftMax`` is written as ``Softmax``), ``load_caffe_model`` and
 ``load_caffe_weights``.  The port keeps its own copy of the parsers
 (the JAX module's are numpy only, but the port imports nothing of that
-package); a file written by either package loads in the other.
+package); a file written by either package loads in the other.  The wire
+helpers also carry the ``.bigdl`` format (``utils/bigdl_proto.py``).
 
 No protobuf runtime: the schema slices upstream Caffe fixes are field
 numbers here.  The reader walks ``memoryview`` slices of the file, so
@@ -27,6 +28,7 @@ there and given its blobs as f32 tensors on that device.
 
 from __future__ import annotations
 
+import struct
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -205,9 +207,28 @@ def _w_str(f: Dict[int, list], fno: int, default=None):
     return default
 
 
+def _w_strs(f, fno) -> List[str]:
+    """A repeated string field."""
+    return [bytes(v).decode("utf-8", "replace") for _, v in f.get(fno, [])]
+
+
 def _w_int(f, fno, default=None):
     if fno in f:
         return _signed(int(f[fno][-1][1]))
+    return default
+
+
+def _w_bool(f, fno, default=None):
+    v = _w_int(f, fno, None)
+    return default if v is None else bool(v)
+
+
+def _w_float(f, fno, default=None):
+    """A fixed32 float field (its last value)."""
+    if fno in f:
+        wt, v = f[fno][-1]
+        if wt == _WT_FIX32:
+            return struct.unpack("<f", v)[0]
     return default
 
 

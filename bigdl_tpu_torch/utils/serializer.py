@@ -12,9 +12,19 @@ parameter and state leaves as ``p{i}``/``s{i}`` in JAX's leaf order
 (``utils/tree.py``), so each package reads the other's files: a spec
 is rebuilt with ``cls(**config)`` from either package's classes of
 that name.  A spec this package cannot rebuild raises; nothing is
-skipped.  The protobuf ``.bigdl`` format, ``DynamicGraph`` specs,
-background writes, the observability spans and the fault-injection
-hook are not ported yet (ROADMAP.md queue 1).
+skipped.  A ``.bigdl`` path reads and writes the reference's protobuf
+interchange format instead (``utils/bigdl_proto.py``, JAX :157-205).
+
+The checkpoint layer records the JAX package's spans on the port's
+tracer (``checkpoint.snapshot``, ``checkpoint.write`` or
+``checkpoint.write_async``, ``checkpoint.verify``, ``checkpoint.load``)
+and its ``bigdl_checkpoint_*`` metrics, runs the fault injector's
+``ckpt`` site after each write (``resilience/faults.py``), and keeps a
+stream's trained frontier in the manifest (``read_checkpoint_stream``).
+``snapshot_checkpoint(to_host=True)`` returns numpy copies finished
+before it returns, so a background writer thread holds nothing the
+trainer changes in place.  ``DynamicGraph`` specs are not ported yet
+(ROADMAP.md queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -24,13 +34,16 @@ import inspect
 import json
 import logging
 import os
+import time
 from typing import Dict
 
 import numpy as np
 import torch
 
+from bigdl_tpu_torch import obs
 from bigdl_tpu_torch.nn.graph import Graph, Node
 from bigdl_tpu_torch.nn.module import AbstractModule, Container
+from bigdl_tpu_torch.obs import names
 from bigdl_tpu_torch.utils import tree as T
 
 log = logging.getLogger("bigdl_tpu_torch.serializer")
@@ -141,12 +154,12 @@ def _module_arrays(spec, p_leaves, s_leaves) -> dict:
 
 
 def save_module(module: AbstractModule, path: str) -> str:
-    """The module as ``path`` (``.npz`` added); ``.bigdl`` (the
-    protobuf interchange format) is not ported yet and raises."""
+    """The module as ``path`` (``.npz`` added), or a ``.bigdl`` path in
+    the reference's protobuf format."""
     if path.endswith(".bigdl"):
-        raise NotImplementedError(
-            "the .bigdl protobuf format is not ported yet (ROADMAP.md "
-            "queue 1 item 4)")
+        from bigdl_tpu_torch.utils.bigdl_proto import ModulePersister
+
+        return ModulePersister.save(module, path)
     arrays = _module_arrays(module_to_spec(module),
                             T.leaves(module.params()),
                             T.leaves(module.state()))
@@ -166,16 +179,17 @@ def _set_leaves(tree, values):
 
 
 def load_module(path: str) -> AbstractModule:
-    """A module from ``save_module``'s (or the JAX package's) npz, on
-    the CPU."""
+    """A module from ``save_module``'s (or the JAX package's) file, on
+    the CPU: an npz container, or anything else as the protobuf
+    ``.bigdl`` format."""
     if not path.endswith(".npz") and os.path.exists(path + ".npz"):
         path = path + ".npz"
     with open(path, "rb") as fh:
         magic = fh.read(2)
     if magic != b"PK":
-        raise NotImplementedError(
-            f"{path} is not an npz container; the .bigdl protobuf format "
-            "is not ported yet (ROADMAP.md queue 1 item 4)")
+        from bigdl_tpu_torch.utils.bigdl_proto import ModuleLoader
+
+        return ModuleLoader.load(path)
     with np.load(path) as data:
         spec = json.loads(bytes(data["__spec__"]).decode("utf-8"))
         module = spec_to_module(spec)
@@ -191,17 +205,42 @@ def load_module(path: str) -> AbstractModule:
 
 
 # ---- checkpoints ------------------------------------------------------------
-def snapshot_checkpoint(model, optim_method=None, extra: dict = None) -> dict:
-    """Everything a checkpoint holds, copied to host numpy now (the
-    port writes synchronously)."""
-    snap = {"spec": module_to_spec(model),
-            "p_leaves": [_host(v) for v in T.leaves(model.params())],
-            "s_leaves": [_host(v) for v in T.leaves(model.state())],
-            "optim": None}
-    if optim_method is not None:
-        snap["optim"] = {"class": type(optim_method).__name__,
-                         "arrays": optim_method.get_state_arrays(),
-                         "extra": extra or {}}
+def snapshot_checkpoint(model, optim_method=None, extra: dict = None,
+                        to_host: bool = False) -> dict:
+    """Everything a checkpoint holds, as host numpy arrays, for
+    ``write_checkpoint``.  A CUDA tensor is copied to the host here (a
+    blocking copy, so the values are the ones the device holds once
+    the queued steps are done).  ``to_host=True`` (a background write)
+    also copies what lies on the CPU already, where ``.numpy()`` would
+    share the memory the trainer updates in place: the writer thread
+    then holds no array the next step changes.  The blocking time goes
+    to ``bigdl_checkpoint_snapshot_seconds``."""
+    t0 = time.perf_counter()
+    with obs.get_tracer().span("checkpoint.snapshot",
+                               to_host=bool(to_host)):
+        on_cpu = to_host and any(p.device.type == "cpu"
+                                 for p in model.parameters())
+
+        def own(a):
+            return np.array(a, copy=True) if on_cpu else a
+
+        snap = {"spec": module_to_spec(model),
+                "p_leaves": [own(_host(v))
+                             for v in T.leaves(model.params())],
+                "s_leaves": [own(_host(v))
+                             for v in T.leaves(model.state())],
+                "optim": None}
+        if optim_method is not None:
+            snap["optim"] = {
+                "class": type(optim_method).__name__,
+                "arrays": {k: own(v) for k, v in
+                           optim_method.get_state_arrays().items()},
+                "extra": extra or {}}
+    obs.get_registry().gauge(
+        names.CHECKPOINT_SNAPSHOT_SECONDS,
+        "Blocking snapshot span of the newest checkpoint (the only "
+        "critical-path cost of a background checkpoint)").set(
+        round(time.perf_counter() - t0, 6))
     return snap
 
 
@@ -242,9 +281,12 @@ def _sha256(path: str) -> str:
 _CKPT_SUFFIXES = (".model.npz", ".optim.npz")
 
 
-def write_manifest(path_prefix: str, topology: dict = None) -> str:
-    """Size and sha256 of each file of the pair, and the writer's
-    ``topology``, written atomically after the pair."""
+def write_manifest(path_prefix: str, topology: dict = None,
+                   stream: dict = None) -> str:
+    """Size and sha256 of each file of the pair, the writer's
+    ``topology`` and, for a stream, its trained frontier ``stream``
+    (``{offset, watermark, records}``), written atomically after the
+    pair."""
     files = {}
     for suffix in _CKPT_SUFFIXES:
         p = path_prefix + suffix
@@ -255,6 +297,8 @@ def write_manifest(path_prefix: str, topology: dict = None) -> str:
     doc = {"format": 1, "files": files}
     if topology:
         doc["topology"] = topology
+    if stream:
+        doc["stream"] = stream
     tmp = manifest_path + ".tmp"
     with open(tmp, "w", encoding="utf-8") as fh:
         json.dump(doc, fh)
@@ -265,30 +309,59 @@ def write_manifest(path_prefix: str, topology: dict = None) -> str:
     return manifest_path
 
 
-def read_checkpoint_topology(path_prefix: str) -> dict:
-    """The writer's topology, from the manifest, else from the
-    ``.optim`` meta; ``{}`` when neither has one."""
+def _checkpoint_meta(path_prefix: str, key: str) -> dict:
+    """The manifest's ``key`` entry, else the ``.optim`` meta's extra
+    of that name; ``{}`` when neither has one."""
     try:
         with open(path_prefix + ".manifest.json", "r",
                   encoding="utf-8") as fh:
-            topo = json.load(fh).get("topology")
-            if topo:
-                return topo
+            found = json.load(fh).get(key)
+            if found:
+                return found
     except (OSError, ValueError):
         pass
     try:
         with np.load(path_prefix + ".optim.npz") as data:
             meta = json.loads(bytes(data["__meta__"]).decode("utf-8"))
-        return (meta.get("extra") or {}).get("topology") or {}
+        return (meta.get("extra") or {}).get(key) or {}
     except Exception:  # noqa: BLE001 - an absent or torn pair has none
         return {}
+
+
+def read_checkpoint_topology(path_prefix: str) -> dict:
+    """The writer's topology, from the manifest, else from the
+    ``.optim`` meta; ``{}`` when neither has one."""
+    return _checkpoint_meta(path_prefix, "topology")
+
+
+def read_checkpoint_stream(path_prefix: str) -> dict:
+    """The stream frontier a checkpoint was written at (``{offset,
+    watermark, records}``), from the manifest, else from the
+    ``.optim`` meta; ``{}`` for a run that trained no stream."""
+    return _checkpoint_meta(path_prefix, "stream")
 
 
 def verify_checkpoint(path_prefix: str):
     """``(ok, reason)`` for one checkpoint pair.  With a manifest every
     recorded file must exist with its size and sha256; without one the
     model npz must open, and a leftover temporary file of the prefix
-    marks an interrupted write."""
+    marks an interrupted write.  Traced as ``checkpoint.verify``; a
+    failure is an event and counts in
+    ``bigdl_checkpoint_verify_failures_total``."""
+    tracer = obs.get_tracer()
+    with tracer.span("checkpoint.verify",
+                     prefix=os.path.basename(path_prefix)):
+        ok, reason = _verify_checkpoint_impl(path_prefix)
+    if not ok:
+        tracer.event("resilience.checkpoint_verify_failed",
+                      prefix=os.path.basename(path_prefix), reason=reason)
+        obs.get_registry().counter(
+            names.CHECKPOINT_VERIFY_FAILURES_TOTAL,
+            "Checkpoint pairs that failed the integrity check").inc()
+    return ok, reason
+
+
+def _verify_checkpoint_impl(path_prefix: str):
     model_path = path_prefix + ".model.npz"
     if not os.path.exists(model_path):
         return False, "missing .model.npz"
@@ -358,24 +431,43 @@ def gc_checkpoints(directory: str, keep_last: int):
     return removed
 
 
-def write_checkpoint(snap: dict, path_prefix: str, keep_last: int = 0):
+def write_checkpoint(snap: dict, path_prefix: str, keep_last: int = 0,
+                     background: bool = False):
     """Write a ``snapshot_checkpoint``: ``.optim`` first, then
     ``.model`` (checkpoint discovery keys on it), then the manifest,
-    each atomic; then the retention."""
-    if snap["optim"] is not None:
-        opt_arrays = dict(snap["optim"]["arrays"])
-        meta = {"class": snap["optim"]["class"],
-                "extra": snap["optim"]["extra"]}
-        opt_arrays["__meta__"] = np.frombuffer(
-            json.dumps(meta).encode("utf-8"), dtype=np.uint8)
-        _atomic_savez(path_prefix + ".optim", opt_arrays)
-    _atomic_savez(path_prefix + ".model",
-                  _module_arrays(snap["spec"], snap["p_leaves"],
-                                 snap["s_leaves"]))
-    extra = (snap["optim"] or {}).get("extra") or {}
-    write_manifest(path_prefix, topology=extra.get("topology"))
-    if keep_last:
-        gc_checkpoints(os.path.dirname(path_prefix) or ".", keep_last)
+    each atomic; then the fault injector's ``ckpt`` site (damage after
+    the files are durable, which verify must catch) and the retention.
+    Traced as ``checkpoint.write``, or ``checkpoint.write_async`` on
+    the background writer's thread."""
+    t0 = time.perf_counter()
+    span = "checkpoint.write_async" if background else "checkpoint.write"
+    with obs.get_tracer().span(span, prefix=os.path.basename(path_prefix)):
+        topology = stream = None
+        if snap["optim"] is not None:
+            opt_arrays = dict(snap["optim"]["arrays"])
+            meta = {"class": snap["optim"]["class"],
+                    "extra": snap["optim"]["extra"]}
+            opt_arrays["__meta__"] = np.frombuffer(
+                json.dumps(meta).encode("utf-8"), dtype=np.uint8)
+            _atomic_savez(path_prefix + ".optim", opt_arrays)
+            extra = snap["optim"]["extra"] or {}
+            topology, stream = extra.get("topology"), extra.get("stream")
+        _atomic_savez(path_prefix + ".model",
+                      _module_arrays(snap["spec"], snap["p_leaves"],
+                                     snap["s_leaves"]))
+        write_manifest(path_prefix, topology=topology, stream=stream)
+        from bigdl_tpu_torch.resilience.faults import get_injector
+
+        get_injector().on_checkpoint_write(path_prefix)
+        if keep_last:
+            gc_checkpoints(os.path.dirname(path_prefix) or ".", keep_last)
+    reg = obs.get_registry()
+    reg.gauge(names.CHECKPOINT_WRITE_SECONDS,
+              "Serialize+fsync+manifest span of the newest checkpoint "
+              "(off the critical path when written in the background)"
+              ).set(round(time.perf_counter() - t0, 6))
+    reg.counter(names.CHECKPOINT_WRITES_TOTAL,
+                "Checkpoint pairs written (model + optim + manifest)").inc()
     return path_prefix
 
 
@@ -389,7 +481,14 @@ def save_checkpoint(path_prefix: str, model, optim_method=None,
 
 def load_checkpoint(path_prefix: str, model, optim_method=None) -> dict:
     """Load the weights into ``model`` (in place, on its device) and
-    the state into ``optim_method``; returns the ``extra`` dict."""
+    the state into ``optim_method``; returns the ``extra`` dict.
+    Traced as ``checkpoint.load``."""
+    with obs.get_tracer().span("checkpoint.load",
+                               prefix=os.path.basename(path_prefix)):
+        return _load_checkpoint_impl(path_prefix, model, optim_method)
+
+
+def _load_checkpoint_impl(path_prefix, model, optim_method) -> dict:
     loaded = load_module(path_prefix + ".model")
     model.set_params(loaded.params())
     model.set_state(loaded.state())
@@ -438,6 +537,7 @@ def load_latest_checkpoint(directory: str, model, optim_method=None,
 
 __all__ = ["CheckpointIntegrityError", "lookup_module_class", "module_to_spec", "spec_to_module",
            "save_module", "load_module", "snapshot_checkpoint",
-           "write_manifest", "read_checkpoint_topology", "verify_checkpoint",
+           "write_manifest", "read_checkpoint_topology",
+           "read_checkpoint_stream", "verify_checkpoint",
            "checkpoint_prefixes", "gc_checkpoints", "write_checkpoint",
            "save_checkpoint", "load_checkpoint", "load_latest_checkpoint"]

@@ -277,9 +277,50 @@ it runs; any failure exits non-zero:
     ``/metrics`` (parsed, the router, rollout and serving families, an
     exemplar), an undeclared ``bigdl_`` family refused in strict mode,
     the scrape's ms;
+21. BigDL's ImageNet recipe through the image pipeline and the
+    checkpoint layer (``phase_image_pipeline``, callable alone after
+    ``phase_device()`` and ``phase_build()``): (a) phase 15's folder
+    decoded by ``read_image`` into ``DistributedImageFrame.read`` at
+    world 1, ``RandomAspectScale([256, 288])`` -> ``RandomCrop(224,
+    224)`` -> ``RandomTransformer(HFlip(), 0.5)`` -> ``ColorJitter()``
+    -> ``ChannelNormalize`` -> ``MatToTensor`` -> ``to_dataset(32)``;
+    ResNet-50 (8 classes, seed 0) fused, bf16 compute, through
+    ``DistriOptimizer`` on NCCL with SGD and momentum for 2 epochs (16
+    steps), background checkpoints every 4 iterations (2 kept), a
+    ``TrainSummary`` with "Parameters" histograms every 8 and a
+    ``ValidationSummary`` of Top1 on the val frame (``Resize(256, 256)``
+    -> ``CenterCrop(224, 224)`` -> ``ChannelNormalize`` ->
+    ``MatToTensor``): 36 ``conv_bn_1x1`` and 16 ``conv_bn_kxk`` launches
+    a step, every loss finite, the first loss within phase 7's 1e-2 of
+    an unfused run's on the same batch, every checkpoint verified
+    against its manifest as it lands, the event file's "Loss" scalars
+    equal to f32 of each step's loss bit for bit, one histogram a
+    parameter leaf a trigger; step ms, images/s, host decode and
+    transform ms a batch, then two profiled steps (busy share); (d) the
+    trained model through ``save_module(.bigdl)`` and ``load_module``
+    back onto the card, parameters and state bit-equal, and
+    ``predict_image`` over the val frame within 1e-5 of the model's
+    forward, Top1; with cuDNN deterministic: (b) one epoch with
+    background and with synchronous writes, weights and every
+    checkpoint array bit-equal, the snapshot, write and step ms; then
+    the directory removed under a background write: the next trigger
+    raises ``CheckpointWriteError`` and
+    ``bigdl_checkpoint_write_failures_total`` reads 1; (c)
+    ``BIGDL_TORCH_FAULT_PLAN="step:6:raise,ckpt:2:corrupt"`` (shuffle
+    off, checkpoints every 2): the corrupted second checkpoint fails
+    verification, the retry loads the first, the run ends bit-equal to
+    an uninterrupted one; ``step:3:nan_grad``: the step skipped,
+    ``nonfinite_skips`` and the summary's "NonFiniteSkips" 1; (e) the
+    JAX stream tests' MLP on ``StreamDataSet(SyntheticStream(16, 4,
+    seed 0))`` through ``DistriOptimizer`` on the card, a 16-record
+    buffer, background checkpoints every 5 and ``step:8:raise``: the
+    offset 12 x 32, the retry replaying from the checkpoint's offset,
+    weights bit-equal to an uninterrupted run, the producer pushed back
+    (the depth gauge and the waits printed);
 9. the kernels line, last: one JSON object listing each kernel with its
-   launches on its own path (phase 4, the fused arm of phase 7, or the
-   kernel arm of phase 11) and its numbers from phase 3, 6 or 10.
+   launches on its own path (phase 4, phase 21 (a) for the conv_bn
+   kernels, or the kernel arm of phase 11) and its numbers from phase
+   3, 6 or 10.
 
 The last line is ``{"ok": true, "device": {...}}``, after the card's
 name and power limit and the script's total seconds.
@@ -505,6 +546,22 @@ TC_CPU_STEPS, TC_LOSS_TOL, TC_TOP1_MIN, TC_TOP1_GAP = 20, 1e-6, 0.9, 0.02
 TC_NEWS_VOCAB, TC_NEWS_DOC_LEN, TC_NEWS_BATCH, TC_NEWS_STEPS = (20001, 128,
                                                                 128, 50)
 TC_LOGP_TOL, ITEM14_TOL, ITEM14_CONV_TOL = 1e-5, 1e-5, 3e-5
+# the image pipeline and checkpoint layer (phase 21): (a) 2 epochs of
+# phase 15's 256 training images (8 steps an epoch) at SGD lr 0.1 with
+# momentum 0.9, checkpoints every 4 iterations with 2 kept, "Parameters"
+# histograms every 8; (b) and (c) one epoch each, (c) with checkpoints
+# every 2 so that the plan's corrupted second write is the newest when
+# step 6 raises, and a NaN batch at step 3; (d) predict_image against the
+# trained model's forward (f32, the same cuDNN convs on the same
+# tensors); (e) the JAX stream tests' MLP (tests/test_stream.py), 12 steps
+# of 32 records, checkpoints every 5, a raise at step 8, and a buffer of
+# 16 records, under one batch, so the producer waits
+P21_EPOCHS, P21_LR, P21_CKPT_EVERY, P21_KEEP, P21_PARAM_EVERY = (2, 0.1, 4,
+                                                                  2, 8)
+P21_SHORT_STEPS, P21_FAULT_CKPT_EVERY = 8, 2
+P21_FAULT_PLAN, P21_NAN_PLAN = "step:6:raise,ckpt:2:corrupt", "step:3:nan_grad"
+P21_PRED_TOL = 1e-5
+STREAM_STEPS, STREAM_CKPT_EVERY, STREAM_RAISE_AT, STREAM_BUFFER = 12, 5, 8, 16
 # phase 11's kernel-arm SGD step (bf16), for phase 18 (c) to print beside
 # Adam's
 _LM_SGD_MS = {}
@@ -4791,6 +4848,635 @@ def phase_router(smi: str, direct_tps: float) -> None:
     say(f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---- phase 21: ImageFrame -> fused ResNet-50 -> background checkpoints ----
+def _p21_decode(root: str):
+    """Phase 15's folder decoded by ``read_image``: (train arrays, train
+    labels, val arrays, val labels, decode ms a batch of IMG_BATCH)."""
+    from bigdl_tpu_torch.dataset.imagenet import scan_image_folder
+    from bigdl_tpu_torch.transform.vision import read_image
+
+    out, n = [], 0
+    t0 = time.perf_counter()
+    for split in ("train", "val"):
+        paths, labels, _ = scan_image_folder(os.path.join(root, split))
+        out += [[read_image(p) for p in paths], [float(v) for v in labels]]
+        n += len(paths)
+    return (*out, (time.perf_counter() - t0) * 1e3 / n * IMG_BATCH)
+
+
+def _p21_norm(V):
+    from bigdl_tpu_torch.dataset.imagenet import ImageFolderDataSet as F
+
+    return V.ChannelNormalize(*F.IMAGENET_MEAN, *F.IMAGENET_STD)
+
+
+def _p21_train_chain(V):
+    """The reference's ImageNet training augmentation."""
+    return (V.RandomAspectScale([256, 288]) >> V.RandomCrop(IMG_SIZE, IMG_SIZE)
+            >> V.RandomTransformer(V.HFlip(), 0.5) >> V.ColorJitter()
+            >> _p21_norm(V) >> V.MatToTensor())
+
+
+def _p21_val_chain(V):
+    return (V.Resize(256, 256) >> V.CenterCrop(IMG_SIZE, IMG_SIZE)
+            >> _p21_norm(V) >> V.MatToTensor())
+
+
+def _p21_resnet(fused: bool = True):
+    """ResNet-50 with 8 classes from seed 0, fused or not, the
+    LogSoftMax tail dropped for ``CrossEntropyCriterion`` as in phase 7
+    (a bf16 LogSoftMax rounds each log-probability to a bf16 ulp, some
+    8e-3 at a loss of 2, which phase 7's 1e-2 limit would read)."""
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.models.resnet import build_resnet_imagenet
+    from bigdl_tpu_torch.nn.fused import fuse_conv_bn
+
+    RandomGenerator.RNG.set_seed(0)
+    model = build_resnet_imagenet(50, IMG_CLASSES, device=DEV)
+    if fused:
+        fuse_conv_bn(model, kernels=(1, 3))
+    model.modules = model.modules[:-1]
+    return model
+
+
+def _p21_trainer(model, ds, summary=None, end=None, ck=None,
+                 background=True, every=None, keep_last=0):
+    """``DistriOptimizer`` at world 1 (bf16 compute, bf16 wire) with
+    SGD and momentum; checkpoints into ``ck`` every ``every``
+    (default ``P21_CKPT_EVERY``) iterations."""
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import SGD, DistriOptimizer, Trigger
+
+    opt = DistriOptimizer(model, ds, CrossEntropyCriterion(), IMG_BATCH,
+                          device=DEV)
+    opt.set_optim_method(SGD(learningrate=P21_LR, momentum=0.9))
+    opt.set_compute_dtype("bfloat16")
+    opt.set_end_when(end or Trigger.max_epoch(P21_EPOCHS))
+    if ck:
+        opt.set_checkpoint(ck, Trigger.several_iteration(
+            every or P21_CKPT_EVERY),
+                           background=background, keep_last=keep_last)
+    if summary is not None:
+        opt.set_train_summary(summary)
+    return opt
+
+
+def _p21_recording_summary(log_dir: str):
+    """A ``TrainSummary`` that also keeps each step's loss as the
+    trainer handed it, and the host clock when it did."""
+    from bigdl_tpu_torch.visualization import TrainSummary
+
+    class Recording(TrainSummary):
+        def __init__(self):
+            super().__init__(log_dir, "resnet50")
+            self.loss, self.at = {}, {}
+
+        def add_scalar(self, tag, value, step):
+            if tag == "Loss":
+                self.loss[step] = value
+                self.at[step] = time.perf_counter()
+            return super().add_scalar(tag, value, step)
+
+    return Recording()
+
+
+@contextlib.contextmanager
+def _p21_verified_writes(log: list):
+    """Every checkpoint write verified against its manifest as it lands
+    (on the writer's thread), before retention may delete it."""
+    from bigdl_tpu_torch.utils import serializer as S
+
+    real = S.write_checkpoint
+
+    def checked(snap, prefix, keep_last=0, background=False):
+        out = real(snap, prefix, keep_last, background)
+        log.append((os.path.basename(prefix), S.verify_checkpoint(prefix)))
+        return out
+
+    S.write_checkpoint = checked
+    try:
+        yield log
+    finally:
+        S.write_checkpoint = real
+
+
+def _p21_host(model) -> list:
+    from bigdl_tpu_torch.utils import tree as T
+
+    return [v.detach().cpu().clone()
+            for v in T.leaves(model.params()) + T.leaves(model.state())]
+
+
+def _p21_fires(every: int, steps: int) -> int:
+    """How often a several-iteration trigger asked before each step's
+    neval moves (the "Parameters" trigger) fires in ``steps`` steps."""
+    return sum(1 for n in range(1, steps + 1) if n > 1 and (n - 1) % every == 0)
+
+
+def _phase21_main(root: str, tmp: str, smi: str):
+    """(a): the frame, the unfused first step, the fused run and its
+    gates.  Returns (optimizer, model, train dataset, val frame)."""
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.ops import _cuda
+    from bigdl_tpu_torch.optim import Top1Accuracy, Trigger
+    from bigdl_tpu_torch.transform import vision as V
+    from bigdl_tpu_torch.utils import serializer as S
+    from bigdl_tpu_torch.utils import tree as T
+    from bigdl_tpu_torch.visualization import ValidationSummary
+
+    tr_x, tr_y, va_x, va_y, decode_ms = _p21_decode(root)
+    RandomGenerator.RNG.set_seed(0)
+    t0 = time.perf_counter()
+    frame = V.DistributedImageFrame.read(tr_x, tr_y)
+    ds = frame.transform(_p21_train_chain(V)).to_dataset(IMG_BATCH)
+    transform_ms = (time.perf_counter() - t0) * 1e3 / (len(tr_x) / IMG_BATCH)
+    val_frame = V.ImageFrame.read(va_x, va_y).transform(_p21_val_chain(V))
+    val_ds = val_frame.to_dataset(IMG_BATCH)
+    del tr_x, va_x, frame
+    steps = P21_EPOCHS * len(ds.labels) // IMG_BATCH
+
+    # the unfused arm's first loss on the same first batch
+    std = _p21_resnet(False)
+    first = _Losses()
+    opt = _p21_trainer(std, ds, first, Trigger.max_iteration(1))
+    RandomGenerator.RNG.set_seed(1)
+    opt.optimize()
+    std_first = first.loss[1]
+    del opt, std
+    torch.cuda.empty_cache()
+
+    model = _p21_resnet(True)
+    summary = _p21_recording_summary(os.path.join(tmp, "tb"))
+    summary.set_summary_trigger("Parameters",
+                                Trigger.several_iteration(P21_PARAM_EVERY))
+    val_summary = ValidationSummary(os.path.join(tmp, "tb"), "resnet50")
+    ck = os.path.join(tmp, "ck_a")
+    opt = _p21_trainer(model, ds, summary, ck=ck, keep_last=P21_KEEP)
+    opt.set_val_summary(val_summary)
+    opt.set_validation(Trigger.every_epoch(), val_ds, [Top1Accuracy()])
+    written = []
+    with _p21_verified_writes(written):
+        RandomGenerator.RNG.set_seed(1)
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        opt.optimize()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(_cuda.launches)
+    loss = [summary.loss[n] for n in sorted(summary.loss)]
+    step_ms = steady_step_ms(summary.at, steps // P21_EPOCHS)
+    say(f"phase 21 (a) DistributedImageFrame (world {opt.n_shards}, "
+        f"{len(ds.labels)} train + {len(val_frame)} val images) -> "
+        f"fused ResNet-50, bf16, DistriOptimizer on "
+        f"{opt.wire_dtype} wire: {len(loss)} losses "
+        f"{['%.4f' % v for v in loss]}; first loss fused {loss[0]:.6f}, "
+        f"unfused {std_first:.6f}, |gap| {abs(loss[0] - std_first):.3e} "
+        f"(limit {LOSS_TOL:g}); conv_bn launches {launches['conv_bn_1x1']} "
+        f"1x1, {launches['conv_bn_kxk']} kxk in {steps} steps; {secs:.1f} s")
+    if len(loss) != steps or not all(np.isfinite(loss)):
+        raise AssertionError("phase 21 (a): missing or non-finite losses")
+    if not abs(loss[0] - std_first) <= LOSS_TOL:
+        raise AssertionError("phase 21 (a): fused first loss off the "
+                             "unfused one")
+    got = (launches["conv_bn_1x1"], launches["conv_bn_kxk"])
+    if got != (36 * steps, 16 * steps):
+        raise AssertionError(f"phase 21 (a): conv_bn launches {got}, want "
+                             f"{(36 * steps, 16 * steps)}")
+    want_ckpts = steps // P21_CKPT_EVERY + P21_EPOCHS
+    bad = [(n, r) for n, (ok, r) in written if not ok]
+    kept = S.checkpoint_prefixes(ck)
+    say(f"phase 21 (a) checkpoints: {len(written)} background writes "
+        f"{[n for n, _ in written]}, each verified against its sha256 "
+        f"manifest as it landed ({len(bad)} failed); {len(kept)} kept "
+        f"(keep_last {P21_KEEP})")
+    if len(written) != want_ckpts or bad or len(kept) != P21_KEEP:
+        raise AssertionError(f"phase 21 (a): checkpoints {written}, kept "
+                             f"{kept}")
+    back = summary.read_scalar("Loss")
+    exact = [s for s, v in back
+             if np.float32(v).tobytes() == np.float32(summary.loss[s]).tobytes()]
+    leaves = [("/".join(p), v) for p, v in T.leaves_with_paths(model.params())]
+    fires = _p21_fires(P21_PARAM_EVERY, steps)
+    hist = {tag: len(summary.read_histogram(tag)) for tag, _ in leaves}
+    tops = val_summary.read_scalar("Top1Accuracy")
+    say(f"phase 21 (a) TensorBoard: {len(exact)} of {len(back)} Loss "
+        f"scalars read back equal to the step's f32 loss bit for bit; "
+        f"{len(leaves)} parameter leaves, histograms each "
+        f"{sorted(set(hist.values()))} (want {fires}); validation Top1 "
+        f"{[(s, round(v, 4)) for s, v in tops]}")
+    if sorted(exact) != sorted(summary.loss) or len(back) != steps:
+        raise AssertionError("phase 21 (a): Loss scalars off the losses")
+    if set(hist.values()) != {fires}:
+        raise AssertionError(f"phase 21 (a): histograms {hist}")
+    if len(tops) != P21_EPOCHS:
+        raise AssertionError(f"phase 21 (a): validation {tops}")
+    summary.close()
+    val_summary.close()
+    say(f"phase 21 (a) speed: step {step_ms:.3f} ms (median wall gap), "
+        f"{IMG_BATCH / step_ms * 1e3:.1f} images/s; host decode "
+        f"{decode_ms:.1f} ms and host transform {transform_ms:.1f} ms a "
+        f"batch of {IMG_BATCH} (phase 15 decodes in its feed thread) "
+        f"[{smi}]")
+    return opt, model, ds, val_frame
+
+
+def _p21_spans(names) -> dict:
+    """The tracer's recent spans of each name, ms."""
+    from bigdl_tpu_torch import obs
+
+    out = {n: [] for n in names}
+    for r in obs.get_tracer().recent():
+        if r.get("kind") == "span" and r["name"] in out:
+            out[r["name"]].append(r["dur_s"] * 1e3)
+    return out
+
+
+def _p21_short_run(ds, ck, background, tmp, tag):
+    """(b): one epoch of (a)'s training, checkpoints every
+    P21_CKPT_EVERY; returns (host weights and state, the timed losses,
+    the checkpoint spans)."""
+    from bigdl_tpu_torch import obs
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.optim import Trigger
+
+    os.environ["BIGDL_TORCH_TRACE_DIR"] = os.path.join(tmp, f"trace_{tag}")
+    obs.reset()
+    try:
+        model = _p21_resnet(True)
+        rec = _TimedLosses()
+        opt = _p21_trainer(model, ds, rec, Trigger.max_iteration(
+            P21_SHORT_STEPS), ck=ck, background=background)
+        RandomGenerator.RNG.set_seed(1)
+        opt.optimize()
+        torch.cuda.synchronize()
+        spans = _p21_spans(("checkpoint.snapshot", "checkpoint.write",
+                            "checkpoint.write_async"))
+    finally:
+        os.environ.pop("BIGDL_TORCH_TRACE_DIR", None)
+        obs.reset()
+    out = (_p21_host(model), rec, spans)
+    del opt, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _p21_arrays(directory: str) -> dict:
+    from bigdl_tpu_torch.utils import serializer as S
+
+    out = {}
+    for name in S.checkpoint_prefixes(directory):
+        for suffix in (".model.npz", ".optim.npz"):
+            with np.load(os.path.join(directory, name + suffix)) as d:
+                out.update({(name, suffix, k): np.array(d[k])
+                            for k in d.files})
+    return out
+
+
+def _phase21_background(ds, tmp: str, smi: str) -> None:
+    """(b): background against synchronous writes, then a write that
+    fails under the writer."""
+    import shutil
+
+    from bigdl_tpu_torch import obs
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.obs import names
+    from bigdl_tpu_torch.optim import Trigger
+    from bigdl_tpu_torch.resilience.retry import CheckpointWriteError
+    from bigdl_tpu_torch.utils import serializer as S
+
+    bg = _p21_short_run(ds, os.path.join(tmp, "ck_bg"), True, tmp, "bg")
+    sync = _p21_short_run(ds, os.path.join(tmp, "ck_sync"), False, tmp,
+                          "sync")
+    same_w = all(torch.equal(a, b) for a, b in zip(bg[0], sync[0]))
+    a, b = _p21_arrays(os.path.join(tmp, "ck_bg")), _p21_arrays(
+        os.path.join(tmp, "ck_sync"))
+    same_ck = sorted(a) == sorted(b) and all(
+        np.array_equal(a[k], b[k]) for k in a)
+    n_ck = len({k[0] for k in a})
+    ck_steps = {n + 1 for n in range(1, P21_SHORT_STEPS + 1)
+                if n % P21_CKPT_EVERY == 0}
+
+    def gaps(rec, at_ck):
+        at = rec.at
+        return [(at[n] - at[n - 1]) * 1e3 for n in sorted(at)
+                if n - 1 in at and n > 2 and (n in ck_steps) == at_ck]
+
+    say(f"phase 21 (b) background vs synchronous writes, cuDNN "
+        f"deterministic, {P21_SHORT_STEPS} steps: final weights and BN "
+        f"state bit-equal {same_w}; {n_ck} checkpoints, every array of "
+        f"each bit-equal {same_ck}; blocking checkpoint.snapshot "
+        f"{['%.1f' % v for v in bg[2]['checkpoint.snapshot']]} ms, "
+        f"checkpoint.write_async (writer thread) "
+        f"{['%.1f' % v for v in bg[2]['checkpoint.write_async']]} ms; "
+        f"synchronous snapshot "
+        f"{['%.1f' % v for v in sync[2]['checkpoint.snapshot']]} + "
+        f"checkpoint.write {['%.1f' % v for v in sync[2]['checkpoint.write']]}"
+        f" ms; step ms after a checkpoint: background "
+        f"{['%.1f' % v for v in gaps(bg[1], True)]}, synchronous "
+        f"{['%.1f' % v for v in gaps(sync[1], True)]}; other steps median "
+        f"{np.median(gaps(bg[1], False)):.1f} / "
+        f"{np.median(gaps(sync[1], False)):.1f} ms [{smi}]")
+    if not same_w or not same_ck or n_ck < 2:
+        raise AssertionError("phase 21 (b): background and synchronous "
+                             "writes differ")
+    if not bg[2]["checkpoint.write_async"] or bg[2]["checkpoint.write"]:
+        raise AssertionError(f"phase 21 (b): spans {bg[2]}")
+
+    # a write that fails: the directory goes away under the writer
+    obs.reset()
+    ck = os.path.join(tmp, "ck_fail")
+    real = S.write_checkpoint
+    calls = []
+
+    def vanishing(snap, prefix, keep_last=0, background=False):
+        calls.append(prefix)
+        if len(calls) == 2:
+            shutil.rmtree(ck)
+        return real(snap, prefix, keep_last, background)
+
+    model = _p21_resnet(True)
+    opt = _p21_trainer(model, ds, end=Trigger.max_iteration(P21_SHORT_STEPS),
+                       ck=ck, every=P21_FAULT_CKPT_EVERY)
+    S.write_checkpoint = vanishing
+    raised = None
+    try:
+        RandomGenerator.RNG.set_seed(1)
+        opt.optimize()
+    except CheckpointWriteError as e:
+        raised = e
+    finally:
+        S.write_checkpoint = real
+    fam = {f.name: f for f in obs.get_registry().families()}.get(
+        names.CHECKPOINT_WRITE_FAILURES_TOTAL)
+    failures = fam.child_items()[0][1].value if fam else 0
+    say(f"phase 21 (b) the checkpoint directory removed under the second "
+        f"background write: {type(raised).__name__} at neval "
+        f"{opt.state['neval']} ({raised!r:.120}); "
+        f"{names.CHECKPOINT_WRITE_FAILURES_TOTAL} {failures:g}; "
+        f"{len(calls)} writes started")
+    if raised is None or failures != 1 or len(calls) != 2 \
+            or opt.state["neval"] != 1 + 3 * P21_FAULT_CKPT_EVERY:
+        raise AssertionError("phase 21 (b): the failed write did not "
+                             "surface at the next trigger")
+    obs.reset()
+    del opt, model
+    torch.cuda.empty_cache()
+
+
+def _phase21_faults(ds, tmp: str) -> None:
+    """(c): the fault plan against an uninterrupted run, then a NaN
+    step."""
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.optim import Trigger
+    from bigdl_tpu_torch.resilience.faults import reset_injector
+    from bigdl_tpu_torch.utils import serializer as S
+
+    loaded, verified = [], []
+    real_load, real_verify = S.load_checkpoint, S.verify_checkpoint
+
+    def recording_load(prefix, *a, **k):
+        loaded.append(os.path.basename(prefix))
+        return real_load(prefix, *a, **k)
+
+    def recording_verify(prefix):
+        ok, reason = real_verify(prefix)
+        verified.append((os.path.basename(prefix), ok, reason))
+        return ok, reason
+
+    shuffle, ds.shuffle = ds.shuffle, False
+    runs = []
+    try:
+        for plan in ("", P21_FAULT_PLAN):
+            os.environ["BIGDL_TORCH_FAULT_PLAN"] = plan
+            reset_injector()
+            model = _p21_resnet(True)
+            ck = os.path.join(tmp, "ck_fault" if plan else "ck_clean")
+            opt = _p21_trainer(model, ds, end=Trigger.max_iteration(
+                P21_SHORT_STEPS), ck=ck, every=P21_FAULT_CKPT_EVERY)
+            S.load_checkpoint = recording_load
+            S.verify_checkpoint = recording_verify
+            try:
+                RandomGenerator.RNG.set_seed(1)
+                opt.optimize()
+            finally:
+                S.load_checkpoint = real_load
+                S.verify_checkpoint = real_verify
+            torch.cuda.synchronize()
+            runs.append((_p21_host(model), opt.retries, ck))
+            del opt, model
+            torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("BIGDL_TORCH_FAULT_PLAN", None)
+        reset_injector()
+        ds.shuffle = shuffle
+    (clean, _, _), (faulted, retries, _) = runs
+    same = all(torch.equal(a, b) for a, b in zip(clean, faulted))
+    first = f"checkpoint_1_{P21_FAULT_CKPT_EVERY + 1}"
+    second = f"checkpoint_1_{2 * P21_FAULT_CKPT_EVERY + 1}"
+    say(f"phase 21 (c) BIGDL_TORCH_FAULT_PLAN={P21_FAULT_PLAN!r} (shuffle "
+        f"off, checkpoints every {P21_FAULT_CKPT_EVERY}): {retries} retry; "
+        f"the retry's verify {verified}, loaded {loaded}; final weights and "
+        f"BN state bit-equal to the uninterrupted run {same}")
+    if retries != 1 or loaded != [first] or not same:
+        raise AssertionError("phase 21 (c): the retry did not resume from "
+                             "the first intact checkpoint bit-equal")
+    if [v[:2] for v in verified] != [(second, False), (first, True)] \
+            or "checksum" not in verified[0][2]:
+        raise AssertionError("phase 21 (c): the corrupted checkpoint "
+                             "passed verification")
+
+    os.environ["BIGDL_TORCH_FAULT_PLAN"] = P21_NAN_PLAN
+    reset_injector()
+    try:
+        model = _p21_resnet(True)
+        summary = _p21_recording_summary(os.path.join(tmp, "tb_nan"))
+        opt = _p21_trainer(model, ds, summary, Trigger.max_iteration(4))
+        RandomGenerator.RNG.set_seed(1)
+        opt.optimize()
+        torch.cuda.synchronize()
+    finally:
+        os.environ.pop("BIGDL_TORCH_FAULT_PLAN", None)
+        reset_injector()
+    skips = summary.read_scalar("NonFiniteSkips")
+    finite = all(torch.isfinite(v).all() for v in _p21_host(model))
+    say(f"phase 21 (c) {P21_NAN_PLAN!r}: loss at step 3 "
+        f"{summary.loss.get(3)}, nonfinite_skips "
+        f"{opt.state['nonfinite_skips']}, the summary's NonFiniteSkips "
+        f"{skips}, weights finite {finite}")
+    summary.close()
+    if opt.state["nonfinite_skips"] != 1 or skips != [(3, 1.0)] \
+            or not finite:
+        raise AssertionError("phase 21 (c): the NaN step was not skipped")
+    del opt, model
+    torch.cuda.empty_cache()
+
+
+def _phase21_bigdl_file(model, val_frame, tmp: str) -> None:
+    """(d): the trained model through a ``.bigdl`` file and back onto
+    the card; ``predict_image`` over the validation frame."""
+    from bigdl_tpu_torch.optim import predict_image
+    from bigdl_tpu_torch.utils import serializer as S
+    from bigdl_tpu_torch.utils import tree as T
+
+    path = os.path.join(tmp, "resnet50.bigdl")
+    model.evaluate()
+    t0 = time.perf_counter()
+    S.save_module(model, path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = S.load_module(path).to(DEV)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    pairs = list(zip(T.leaves(loaded.params()) + T.leaves(loaded.state()),
+                     T.leaves(model.params()) + T.leaves(model.state())))
+    same = len(pairs) > 0 and all(torch.equal(a, b) for a, b in pairs) \
+        and len(T.leaves(loaded.params())) == len(T.leaves(model.params()))
+    predict_image(loaded, val_frame, batch_size=IMG_BATCH, device=DEV)
+    preds = np.stack([f["predict"] for f in val_frame.features])
+    x = torch.from_numpy(np.stack([np.asarray(f["sample"].features)
+                                   for f in val_frame.features])).to(DEV)
+    with torch.no_grad():
+        want = torch.cat([model(x[i:i + IMG_BATCH])
+                          for i in range(0, x.shape[0], IMG_BATCH)]).cpu()
+    err = float(np.max(np.abs(preds - want.numpy())))
+    labels = np.asarray([f["label"] for f in val_frame.features])
+    top1 = float(np.mean(np.argmax(preds, axis=1) + 1 == labels))
+    say(f"phase 21 (d) save_module -> {os.path.getsize(path)} bytes of "
+        f".bigdl in {save_s:.2f} s, load_module + .to(card) {load_s:.2f} s; "
+        f"{len(pairs)} parameter and state tensors bit-equal {same}; "
+        f"predict_image over {len(labels)} val images within {err:.3e} "
+        f"of the trained model's eval forward (limit {P21_PRED_TOL:g}); "
+        f"Top1 {top1:.4f}")
+    if not same or not err <= P21_PRED_TOL:
+        raise AssertionError("phase 21 (d): the .bigdl round trip or "
+                             "predict_image is off")
+    del loaded
+    torch.cuda.empty_cache()
+
+
+def _p21_stream_run(ck: str, plan: str = ""):
+    """(e): the JAX stream tests' MLP through ``DistriOptimizer`` on a
+    ``StreamDataSet`` with a small buffer, background checkpoints."""
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.dataset import StreamDataSet, SyntheticStream
+    from bigdl_tpu_torch.nn import (ClassNLLCriterion, Linear, LogSoftMax,
+                                    ReLU, Sequential)
+    from bigdl_tpu_torch.optim import SGD, DistriOptimizer, Trigger
+    from bigdl_tpu_torch.resilience.faults import reset_injector
+
+    os.environ["BIGDL_TORCH_FAULT_PLAN"] = plan
+    reset_injector()
+    try:
+        RandomGenerator.RNG.set_seed(7)
+        model = Sequential().add(Linear(16, 32)).add(ReLU()) \
+            .add(Linear(32, 4)).add(LogSoftMax()).to(DEV)
+        ds = StreamDataSet(SyntheticStream(feature_dim=16, n_classes=4,
+                                           seed=0), batch_size=32,
+                           buffer_records=STREAM_BUFFER, audit_log=True)
+        opt = DistriOptimizer(model, ds, ClassNLLCriterion(), 32,
+                              wire_dtype="float32", device=DEV)
+        opt.set_optim_method(SGD(learningrate=0.5, momentum=0.9))
+        opt.set_end_when(Trigger.max_iteration(STREAM_STEPS))
+        opt.set_checkpoint(ck, Trigger.several_iteration(STREAM_CKPT_EVERY),
+                           background=True)
+        opt.optimize()
+        torch.cuda.synchronize()
+    finally:
+        os.environ.pop("BIGDL_TORCH_FAULT_PLAN", None)
+        reset_injector()
+    return model, opt, ds
+
+
+def _phase21_stream(tmp: str) -> None:
+    from bigdl_tpu_torch import obs
+    from bigdl_tpu_torch.obs import names
+
+    obs.reset()
+    ref, _, ref_ds = _p21_stream_run(os.path.join(tmp, "ck_s0"))
+    model, opt, ds = _p21_stream_run(os.path.join(tmp, "ck_s1"),
+                                     f"step:{STREAM_RAISE_AT}:raise")
+    fams = {f.name: f for f in obs.get_registry().families()}
+
+    def value(name):
+        items = fams[name].child_items() if name in fams else []
+        return items[0][1].value if items else None
+
+    offset = ds.stream_checkpoint_state()["offset"]
+    same = all(torch.equal(a, b)
+               for a, b in zip(_p21_host(model), _p21_host(ref)))
+    flat = [o for s, e in ds.audit_log for o in range(s, e)]
+    resumed = (STREAM_RAISE_AT - 1) // STREAM_CKPT_EVERY * STREAM_CKPT_EVERY
+    want = list(range((STREAM_RAISE_AT - 1) * 32)) + list(
+        range(resumed * 32, STREAM_STEPS * 32))
+    ref_flat = [o for s, e in ref_ds.audit_log for o in range(s, e)]
+    waits = value(names.STREAM_BACKPRESSURE_WAITS_TOTAL)
+    say(f"phase 21 (e) StreamDataSet(SyntheticStream(16, 4, seed 0)), "
+        f"batch 32, buffer {STREAM_BUFFER} records, the stream tests' MLP "
+        f"through DistriOptimizer on the card, {STREAM_STEPS} steps, "
+        f"step:{STREAM_RAISE_AT}:raise: {opt.retries} retry, trained offset "
+        f"{offset} (want {STREAM_STEPS * 32}); the retried run's records "
+        f"as the audit saw them match the replay from offset "
+        f"{resumed * 32} {flat == want}; the uninterrupted run trained "
+        f"0..{STREAM_STEPS * 32} once {ref_flat == list(range(STREAM_STEPS * 32))}"
+        f"; final weights bit-equal {same}; buffer depth gauge "
+        f"{value(names.STREAM_BUFFER_DEPTH)}, backpressure waits {waits}, "
+        f"records {value(names.STREAM_RECORDS_TOTAL)}")
+    if opt.retries != 1 or offset != STREAM_STEPS * 32 or not same \
+            or flat != want or ref_flat != list(range(STREAM_STEPS * 32)):
+        raise AssertionError("phase 21 (e): the stream did not resume "
+                             "exactly once")
+    if not waits:
+        raise AssertionError("phase 21 (e): the buffer never pushed back")
+    obs.reset()
+
+
+def phase_image_pipeline(smi: str) -> dict:
+    """Phase 21: ImageFrame and the vision transforms into the fused
+    ResNet-50 through DistriOptimizer with background checkpoints,
+    TensorBoard summaries, the fault plan, a ``.bigdl`` file,
+    ``predict_image`` and the stream.  Returns the conv_bn launches of
+    (a), its main path."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.engine import Engine
+    from bigdl_tpu_torch.ops import _cuda
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase21_")
+    det = (torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark)
+    try:
+        root = os.path.join(tmp, "data")
+        _write_image_folder(root)
+        Engine.init(DEV)
+        opt, model, ds, val_frame = _phase21_main(root, tmp, smi)
+        launches = {k: _cuda.launches[k]
+                    for k in ("conv_bn_1x1", "conv_bn_kxk")}
+        opt.checkpoint_trigger = opt.validation_trigger = None
+        opt.train_summary = None
+        phase_train_profile(opt, 21, "ImageFrame ResNet-50 step")
+        del opt
+        _phase21_bigdl_file(model, val_frame, tmp)
+        del model, val_frame
+        torch.cuda.empty_cache()
+        # (b) and (c) compare runs bit for bit
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        _phase21_background(ds, tmp, smi)
+        _phase21_faults(ds, tmp)
+        _phase21_stream(tmp)
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = det
+        Engine.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    say(f"phase 21 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _has_pillow() -> bool:
     try:
         import PIL  # noqa: F401
@@ -4838,6 +5524,8 @@ def main() -> int:
     phase_optim(smi)
     phase_text_cnn(smi)
     phase_router(smi, serve_stats["tokens_per_s"])
+    # rows 4-5's launches: this slice's main path, phase 21 (a)
+    launches.update(phase_image_pipeline(smi))
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["launches"] <= 0:

@@ -176,7 +176,14 @@ def test_import_loads_neither_jax_nor_bigdl_tpu():
         "bigdl_tpu_torch.examples.udf_predict, "
         "bigdl_tpu_torch.obs.trace, bigdl_tpu_torch.obs.server, "
         "bigdl_tpu_torch.serving.spans, bigdl_tpu_torch.serving.placement, "
-        "bigdl_tpu_torch.serving.router, bigdl_tpu_torch.serving.rollout\n"
+        "bigdl_tpu_torch.serving.router, bigdl_tpu_torch.serving.rollout, "
+        "bigdl_tpu_torch.visualization, "
+        "bigdl_tpu_torch.visualization.summary, "
+        "bigdl_tpu_torch.dataset.stream, bigdl_tpu_torch.dataset.sample, "
+        "bigdl_tpu_torch.dataset.transformer, "
+        "bigdl_tpu_torch.utils.bigdl_proto, "
+        "bigdl_tpu_torch.resilience.faults, "
+        "bigdl_tpu_torch.resilience.elastic\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'bigdl_tpu' or m.startswith('bigdl_tpu.')]\n"
         "print(bad)\n"
@@ -241,4 +248,35 @@ def test_port_exports_the_jax_serving_and_obs_surface():
     jax_names |= {"get_tracer", "get_registry", "reset", "active"}
     assert len(jax_names) == 9
     assert sorted(jax_names - set(TO.__all__)) == []
+
+
+# the slice-14 modules and their JAX counterparts
+SLICE14_MODULES = ["visualization", "visualization.summary",
+                   "dataset.stream", "dataset.sample", "dataset.transformer",
+                   "transform.vision", "utils.bigdl_proto",
+                   "resilience.faults"]
+
+
+def _public(mod) -> set:
+    """A module's export set: its ``__all__`` for a package, else the
+    public classes and functions it defines."""
+    if mod.__name__.split(".")[-1] in ("visualization",):
+        return set(mod.__all__)
+    return {n for n, v in vars(mod).items()
+            if not n.startswith("_") and callable(v)
+            and getattr(v, "__module__", None) == mod.__name__}
+
+
+@pytest.mark.parametrize("name", SLICE14_MODULES)
+def test_slice14_export_sets_equal_jax(name):
+    import importlib
+
+    j = importlib.import_module(f"bigdl_tpu.{name}")
+    t = importlib.import_module(f"bigdl_tpu_torch.{name}")
+    want = _public(j)
+    assert len(want) >= 3
+    assert _public(t) == want
+    assert want <= set(t.__all__)
+    for n in want:
+        assert getattr(t, n).__name__ == n
 

@@ -1,12 +1,16 @@
 """One rank of the port's DistriOptimizer for
-``tests/test_torch_port_distri.py`` (not a test module itself):
+``tests/test_torch_port_distri.py`` and
+``tests/test_torch_port_image_frame.py`` (not a test module itself):
 
     python tests/torch_port_distri_worker.py RANK WORLD STORE OUT CASE
 
 joins a gloo world of WORLD processes over the ``FileStore`` STORE,
 trains the case's model and writes each step's loss, the final
 parameters and BN state (JAX leaf order) and the optimizer state to
-the npz OUT.  Imports neither JAX nor the JAX package.
+the npz OUT.  CASE ``"array"`` feeds every rank the global batch,
+``"per_process"`` a ``DistributedDataSet`` and ``"frame"`` a
+``DistributedImageFrame`` of ``frame_images()`` read at the world's
+rank and size.  Imports neither JAX nor the JAX package.
 """
 
 import os
@@ -46,6 +50,20 @@ def data(n=22):
             (rs.randint(0, 3, n) + 1).astype(np.float32))
 
 
+def frame_images(n=22):
+    """HWC f32 images of 8x8 and their 1-based labels (3 classes)."""
+    rs = np.random.RandomState(0)
+    return ([rs.rand(8, 8, 3).astype(np.float32) for _ in range(n)],
+            [float(i % 3 + 1) for i in range(n)])
+
+
+def frame_chain(V):
+    """The transforms of the frame case, from ``V`` (either package's
+    ``transform.vision``)."""
+    return V.ChannelNormalize(0.5, 0.5, 0.5, 0.25, 0.25, 0.25) \
+        >> V.MatToTensor()
+
+
 class Batches(DataSet):
     """Fixed batches of SIZES rows, in order (every rank sees the global
     batch)."""
@@ -80,6 +98,12 @@ def run(rank, world, store, out, case):
     model = small_model(TN)
     if case == "array":
         ds = Batches(x, y)
+    elif case == "frame":
+        from bigdl_tpu_torch.transform import vision as V
+
+        arrays, labels = frame_images()
+        frame = V.DistributedImageFrame.read(arrays, labels)
+        ds = frame.transform(frame_chain(V)).to_dataset(8)
     else:
         ds = DistributedDataSet(x, y, 8, shuffle=True)
     opt = TO.DistriOptimizer(model, ds, TN.ClassNLLCriterion(), 8,

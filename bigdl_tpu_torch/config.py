@@ -5,9 +5,11 @@ Counterpart of the ``ServeConfig`` section of ``bigdl_tpu/config.py``
 ``ServingServer`` read, with the router's 503 ``Retry-After``), of its
 training knobs (``TrainConfig``: the non-finite guard, the retry
 backoff, checkpoint retention and background writes, the gradient
-wire, the fault plan and the stream's buffer, read by the trainers), of the observability switches the tracer, the
-request tracer, the metrics registry and the obs server read
-(``ObsConfig``), and of the router's and the rollout's knobs
+wire and its buckets, the fault plan, the stream's buffer, preemption,
+heartbeats and the hang timeout, read by the trainers), of the
+observability switches the tracer, the request tracer, the metrics
+registry, the obs server, the runtime profile and the health monitor
+read (``ObsConfig``), and of the router's and the rollout's knobs
 (``RouterConfig``, ``RolloutConfig``), each with the JAX package's
 defaults.  Constructor arguments win; these are the process-wide
 fallbacks a deployment sets once.  Each is read from the environment
@@ -127,8 +129,35 @@ class TrainConfig:
     # [BIGDL_TORCH_CHECKPOINT_KEEP_LAST]
     checkpoint_keep_last: int = 0
     # DistriOptimizer's gradient wire: "bfloat16" (cast before the
-    # reduce-scatter), "float32" or "none" [BIGDL_TORCH_WIRE_DTYPE]
+    # reduce-scatter), "int8" / "fp8_e4m3" / "fp8_e5m2" (the blockwise-
+    # scaled staged ring, parallel/wire.py), "float32" or "none"
+    # [BIGDL_TORCH_WIRE_DTYPE]
     wire_dtype: str = "bfloat16"
+    # elements per quantization scale of the scaled wires
+    # [BIGDL_TORCH_WIRE_BLOCK]
+    wire_block: int = 512
+    # error feedback: each rank's quantization residual carried across
+    # steps [BIGDL_TORCH_WIRE_EF]
+    wire_ef: bool = False
+    # the bucketed gradient exchange: about this many MiB of gradient a
+    # bucket, exchanged last bucket first; <= 0 = one monolithic
+    # exchange [BIGDL_TORCH_OVERLAP_BUCKET_MB]
+    overlap_bucket_mb: float = 0.0
+    # Engine.init installs the SIGTERM/SIGINT handler: finish the step,
+    # write an emergency checkpoint, exit 170
+    # [BIGDL_TORCH_PREEMPTION_HANDLER]
+    preemption_handler: bool = True
+    # heartbeat peer liveness at world > 1: a shared directory each rank
+    # touches a file in; unset = off [BIGDL_TORCH_HEARTBEAT_DIR]
+    heartbeat_dir: Optional[str] = None
+    # touch the heartbeat file every K steps [BIGDL_TORCH_HEARTBEAT_EVERY]
+    heartbeat_every: int = 1
+    # a peer silent this many seconds raises PeerLostError
+    # [BIGDL_TORCH_HEARTBEAT_TIMEOUT]
+    heartbeat_timeout: float = 60.0
+    # /healthz reads "stalled" when the last step stamp is older than
+    # this many seconds; <= 0 disables [BIGDL_TORCH_HANG_TIMEOUT]
+    hang_timeout: float = 0.0
     # set_checkpoint's default for background=: snapshot to host on the
     # loop, serialize + fsync + manifest on one writer thread
     # [BIGDL_TORCH_CHECKPOINT_ASYNC]
@@ -161,6 +190,17 @@ class TrainConfig:
             checkpoint_keep_last=_env_int("BIGDL_TORCH_CHECKPOINT_KEEP_LAST",
                                           0),
             wire_dtype=_env_str("BIGDL_TORCH_WIRE_DTYPE", "bfloat16"),
+            wire_block=_env_int("BIGDL_TORCH_WIRE_BLOCK", 512),
+            wire_ef=_env_bool("BIGDL_TORCH_WIRE_EF", False),
+            overlap_bucket_mb=_env_float("BIGDL_TORCH_OVERLAP_BUCKET_MB",
+                                         0.0),
+            preemption_handler=_env_bool("BIGDL_TORCH_PREEMPTION_HANDLER",
+                                         True),
+            heartbeat_dir=_env_str("BIGDL_TORCH_HEARTBEAT_DIR", None),
+            heartbeat_every=_env_int("BIGDL_TORCH_HEARTBEAT_EVERY", 1),
+            heartbeat_timeout=_env_float("BIGDL_TORCH_HEARTBEAT_TIMEOUT",
+                                         60.0),
+            hang_timeout=_env_float("BIGDL_TORCH_HANG_TIMEOUT", 0.0),
             checkpoint_async=_env_bool("BIGDL_TORCH_CHECKPOINT_ASYNC", False),
             fault_plan=_env_str("BIGDL_TORCH_FAULT_PLAN", None),
             stream_buffer=_env_int("BIGDL_TORCH_STREAM_BUFFER", 1024),
@@ -199,6 +239,22 @@ class ObsConfig:
     # a replica whose exported host-clock skew exceeds this is left out
     # of placement; <= 0 disables [BIGDL_TORCH_STALE_AFTER_S]
     stale_after_s: float = 30.0
+    # step-time reservoir size (obs/runtime.py) [BIGDL_TORCH_OBS_RESERVOIR]
+    reservoir_size: int = 4096
+    # a step slower than median * this emits a slow_step event with its
+    # child spans; <= 0 disables [BIGDL_TORCH_SLOW_STEP_FACTOR]
+    slow_step_factor: float = 3.0
+    # per-layer health stats (obs/health.py) every N steps; 0 = off, and
+    # the step then computes none [BIGDL_TORCH_HEALTH_EVERY]
+    health_every: int = 0
+    # the anomaly detector's rolling window [BIGDL_TORCH_HEALTH_WINDOW]
+    health_window: int = 64
+    # a loss or gradient norm above median * this is an anomaly; <= 0
+    # disables [BIGDL_TORCH_HEALTH_SPIKE_FACTOR]
+    health_spike_factor: float = 10.0
+    # assumed interconnect GB/s for the exposed-comm seconds gauge; 0 =
+    # unknown [BIGDL_TORCH_WIRE_GBPS]
+    wire_gbps: float = 0.0
 
     @property
     def active(self) -> bool:
@@ -215,6 +271,13 @@ class ObsConfig:
             reqtrace_sample=_env_float("BIGDL_TORCH_REQTRACE_SAMPLE", 0.0),
             reqtrace_ring=_env_int("BIGDL_TORCH_REQTRACE_RING", 256),
             stale_after_s=_env_float("BIGDL_TORCH_STALE_AFTER_S", 30.0),
+            reservoir_size=_env_int("BIGDL_TORCH_OBS_RESERVOIR", 4096),
+            slow_step_factor=_env_float("BIGDL_TORCH_SLOW_STEP_FACTOR", 3.0),
+            health_every=_env_int("BIGDL_TORCH_HEALTH_EVERY", 0),
+            health_window=_env_int("BIGDL_TORCH_HEALTH_WINDOW", 64),
+            health_spike_factor=_env_float("BIGDL_TORCH_HEALTH_SPIKE_FACTOR",
+                                           10.0),
+            wire_gbps=_env_float("BIGDL_TORCH_WIRE_GBPS", 0.0),
         )
 
 

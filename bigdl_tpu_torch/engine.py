@@ -1,8 +1,8 @@
 """Engine: the process's place in the training world.
 
 Counterpart of ``bigdl_tpu/engine.py``: ``Engine.init`` (:36),
-``is_initialized``, ``node_number`` and, in place of ``mesh()``,
-``world()``.  The JAX package builds one device mesh for a process
+``is_initialized``, ``node_number``, ``world()`` and ``build_mesh`` /
+``mesh()`` (:184).  The JAX package builds one device mesh for a process
 that drives every chip; the port runs one process per GPU, so the world
 is a ``torch.distributed`` process group:
 
@@ -15,9 +15,20 @@ is a ``torch.distributed`` process group:
 
 The backend is NCCL on the card and gloo on the CPU.  ``init`` builds
 the fault injector from ``BIGDL_TORCH_FAULT_PLAN`` (JAX :77-79) and
-``reset`` drops it (JAX :179), so a test's plan does not leak into the
-next.  The preemption handler and observability of the JAX
-``Engine.init`` are not ported yet (ROADMAP.md queue 1 item 6).
+installs the preemption handler (``resilience/elastic.py``: SIGTERM or
+SIGINT finishes the step in flight, writes an emergency checkpoint and
+exits 170) unless ``BIGDL_TORCH_PREEMPTION_HANDLER=0`` (JAX :80-89);
+``reset`` drops the injector, a pending preemption request and the
+obs server (JAX :175-182), so a test's state does not leak into the
+next.
+
+A mesh: the JAX package lays named axes over its devices
+(``Engine.build_mesh({"dcn": a, "data": b})``); here each process is
+one device, so :meth:`Engine.build_mesh` lays the axes over the
+process world, row-major (rank ``= dcn * b + data``), and makes one
+``torch.distributed`` group for each line of each axis.  A
+``DistriOptimizer`` with ``data_axes=("dcn", "data")`` runs its
+exchange over those groups.
 """
 
 from __future__ import annotations
@@ -30,6 +41,36 @@ import torch.distributed as dist
 from bigdl_tpu_torch.common import resolve_device
 
 
+class Mesh:
+    """Named axes over the process world (``Engine.build_mesh``): rank
+    ``r``'s coordinate on axis ``k`` is the k-th digit of ``r`` in the
+    row-major mixed radix of ``shape``.  ``group(axis)`` is this
+    process's group along ``axis`` (the ranks that differ from it only
+    there, in coordinate order), ``index(axis)`` its coordinate."""
+
+    def __init__(self, shape: dict, rank: int, groups: dict):
+        self.axis_names = tuple(shape)
+        self.shape = dict(shape)
+        self.rank = rank
+        self._groups = groups
+
+    def coords(self, rank: int) -> dict:
+        out, rem = {}, rank
+        for a in reversed(self.axis_names):
+            out[a] = rem % self.shape[a]
+            rem //= self.shape[a]
+        return out
+
+    def index(self, axis: str) -> int:
+        return self.coords(self.rank)[axis]
+
+    def group(self, axis: str):
+        return self._groups[axis]
+
+    def __repr__(self):
+        return f"Mesh({self.shape})"
+
+
 class _EngineState:
     initialized = False
     owns_group = False
@@ -37,6 +78,7 @@ class _EngineState:
     backend = None
     rank = 0
     world_size = 1
+    mesh = None
 
 
 class Engine:
@@ -51,9 +93,15 @@ class Engine:
             return cls
         dev = resolve_device(device)
         # a plan exported before init is live before the first trainer
+        from bigdl_tpu_torch.config import TrainConfig
         from bigdl_tpu_torch.resilience.faults import get_injector
 
         get_injector()
+        if TrainConfig.from_env().preemption_handler:
+            from bigdl_tpu_torch.resilience.elastic import (
+                install_preemption_handler)
+
+            install_preemption_handler()
         env = os.environ
         if dev.type == "cuda" and "LOCAL_RANK" in env:
             dev = torch.device("cuda", int(env["LOCAL_RANK"]))
@@ -103,15 +151,59 @@ class Engine:
         return cls._state.device
 
     @classmethod
+    def build_mesh(cls, mesh_shape: dict):
+        """Named axes over the world (``{"dcn": a, "data": b}``, their
+        product the world size): a :class:`Mesh`, also kept as
+        :meth:`mesh`.  Every rank must call it, in the same order: it
+        makes the axes' process groups."""
+        rank, world = cls.world()
+        shape = {str(k): int(v) for k, v in mesh_shape.items()}
+        n = 1
+        for v in shape.values():
+            n *= v
+        if n != world:
+            raise ValueError(f"mesh {shape} holds {n} ranks, the world "
+                             f"{world}")
+        groups = {}
+        names = tuple(shape)
+        for k, axis in enumerate(names):
+            stride = 1
+            for a in names[k + 1:]:
+                stride *= shape[a]
+            # one group per line along `axis`: the ranks whose other
+            # coordinates are equal (new_group is collective: every
+            # rank makes every group)
+            for r0 in range(world):
+                if (r0 // stride) % shape[axis]:
+                    continue
+                ranks = [r0 + i * stride for i in range(shape[axis])]
+                g = dist.new_group(ranks) if world > 1 else None
+                if rank in ranks:
+                    groups[axis] = g
+        mesh = Mesh(shape, rank, groups)
+        cls._state.mesh = mesh
+        return mesh
+
+    @classmethod
+    def mesh(cls):
+        """The mesh of the last :meth:`build_mesh`, or None."""
+        return cls._state.mesh
+
+    @classmethod
     def reset(cls) -> None:
         """Forget the world, destroying the process group if ``init``
-        made it, and the fault injector's fire-once counters with it."""
+        made it, the fault injector's fire-once counters, a pending
+        preemption request and the obs server with it."""
+        from bigdl_tpu_torch.obs import server as obs_server
+        from bigdl_tpu_torch.resilience.elastic import clear_preemption
         from bigdl_tpu_torch.resilience.faults import reset_injector
 
         reset_injector()
+        clear_preemption()
+        obs_server.stop_server()
         if cls._state.owns_group and dist.is_initialized():
             dist.destroy_process_group()
         cls._state = _EngineState()
 
 
-__all__ = ["Engine"]
+__all__ = ["Engine", "Mesh"]

@@ -10,7 +10,13 @@
 * :mod:`~bigdl_tpu_torch.obs.reqtrace`: request tracing with tail
   sampling (``BIGDL_TORCH_REQTRACE_SAMPLE``);
 * :mod:`~bigdl_tpu_torch.obs.server`: the live ``/metrics``,
-  ``/healthz`` and ``/trace`` endpoint (``BIGDL_TORCH_OBS_PORT``).
+  ``/healthz`` and ``/trace`` endpoint (``BIGDL_TORCH_OBS_PORT``);
+* :mod:`~bigdl_tpu_torch.obs.collectives`: the trainer's wire bytes,
+  from shapes;
+* :mod:`~bigdl_tpu_torch.obs.health`: per-layer numerics
+  (``BIGDL_TORCH_HEALTH_EVERY``);
+* :mod:`~bigdl_tpu_torch.obs.runtime`: the step-time reservoirs and the
+  memory, behind :func:`get_runtime` and :func:`publish_runtime`.
 
 Everything is off by default.  The tracer and the request collector are
 rebuilt when their knobs change (JAX ``obs/__init__.py:96-115``); a
@@ -25,7 +31,9 @@ import atexit
 import os
 import threading
 
+from bigdl_tpu_torch.obs import names
 from bigdl_tpu_torch.obs.metrics import DEFAULT_BUCKETS, MetricsRegistry
+from bigdl_tpu_torch.obs.runtime import RuntimeStats
 from bigdl_tpu_torch.obs.trace import NULL_TRACER, NullTracer, Tracer
 
 _lock = threading.Lock()
@@ -36,6 +44,7 @@ _tracer_dir = None
 _UNSET = object()
 _tracer_state = (_UNSET, NULL_TRACER)
 _registry = MetricsRegistry()
+_runtime = None
 _atexit_registered = False
 
 
@@ -88,11 +97,57 @@ def get_registry() -> MetricsRegistry:
     return _registry
 
 
+def get_runtime() -> RuntimeStats:
+    """The process's runtime profile (JAX :147), its reservoirs sized
+    by ``BIGDL_TORCH_OBS_RESERVOIR`` at first use."""
+    global _runtime
+    with _lock:
+        if _runtime is None:
+            _runtime = RuntimeStats(_obs_config().reservoir_size)
+        return _runtime
+
+
+def publish_runtime(registry: MetricsRegistry = None,
+                    runtime: RuntimeStats = None) -> dict:
+    """The runtime snapshot into registry gauges (step-time
+    percentiles, host RSS, device memory; JAX :164); returns it."""
+    registry = registry if registry is not None else _registry
+    runtime = runtime if runtime is not None else get_runtime()
+    snap = runtime.snapshot()
+    st = snap["step_time_s"]
+    g = registry.gauge(
+        names.STEP_TIME_SECONDS,
+        "Observed train-step completion time (dispatch -> resolved loss)",
+        labels=("quantile",))
+    for q in ("p50", "p95", "p99"):
+        if st[q] is not None:
+            g.labels(quantile=q).set(st[q])
+    rss = snap.get("host_rss_bytes")
+    if rss:
+        registry.gauge(names.HOST_RSS_BYTES,
+                       "Trainer-process resident set size").set(rss)
+    dm = snap.get("device_memory")
+    if dm:
+        dg = registry.gauge(names.DEVICE_MEMORY_BYTES,
+                            "Device 0 memory stats", labels=("stat",))
+        for k, v in dm.items():
+            dg.labels(stat=k).set(v)
+    dma = snap.get("device_memory_all")
+    if dma:
+        hg = registry.gauge(names.HBM_PEAK_BYTES,
+                            "Peak HBM bytes in use, per local device",
+                            labels=("device",))
+        for i, stats in dma.items():
+            hg.labels(device=i).set(stats["peak_bytes_in_use"])
+    return snap
+
+
 def reset():
-    """Close the tracer, start a new registry, stop the obs server and
-    drop the request collector; the next accessor rebuilds each from
-    the environment (the tests' hook, JAX ``obs.reset``)."""
-    global _tracer, _tracer_dir, _tracer_state, _registry
+    """Close the tracer, start a new registry and runtime profile, stop
+    the obs server, drop the request collector and the step stamp; the
+    next accessor rebuilds each from the environment (the tests' hook,
+    JAX ``obs.reset``)."""
+    global _tracer, _tracer_dir, _tracer_state, _registry, _runtime
     with _lock:
         if _tracer is not NULL_TRACER:
             try:
@@ -103,11 +158,14 @@ def reset():
         _tracer_dir = None
         _tracer_state = (_UNSET, NULL_TRACER)
         _registry = MetricsRegistry()
+        _runtime = None
     from bigdl_tpu_torch.obs import reqtrace, server
 
     server.stop_server()
+    server.clear_step()
     reqtrace.reset_collector()
 
 
 __all__ = ["DEFAULT_BUCKETS", "MetricsRegistry", "NullTracer", "Tracer",
-           "NULL_TRACER", "active", "get_tracer", "get_registry", "reset"]
+           "NULL_TRACER", "RuntimeStats", "active", "get_tracer",
+           "get_registry", "get_runtime", "publish_runtime", "reset"]

@@ -88,6 +88,81 @@ NONFINITE_SKIPS_TOTAL = _m(
     "bigdl_nonfinite_skips_total", "counter",
     doc="Weight updates skipped by the non-finite step guard")
 
+PREEMPTIONS_TOTAL = _m(
+    "bigdl_preemptions_total", "counter",
+    doc="SIGTERM/SIGINT preemptions handled by the elastic exit path")
+SLOW_STEPS_TOTAL = _m(
+    "bigdl_slow_steps_total", "counter",
+    doc="Steps slower than median * BIGDL_SLOW_STEP_FACTOR")
+OVERLAP_BUCKETS = _m(
+    "bigdl_overlap_buckets", "gauge", policy="last",
+    doc="Gradient-exchange buckets in the overlap plan")
+OVERLAP_EXPOSED_COMM_FRACTION = _m(
+    "bigdl_overlap_exposed_comm_fraction", "gauge", policy="max",
+    doc="Exposed (non-overlapped) comm seconds / step seconds")
+OVERLAP_EXPOSED_COMM_SECONDS = _m(
+    "bigdl_overlap_exposed_comm_seconds", "gauge", policy="max",
+    doc="Exposed comm seconds per step after overlap")
+
+# --------------------------------------------------------------- runtime
+# obs/runtime.py's profile, published by obs.publish_runtime
+STEP_TIME_SECONDS = _m(
+    "bigdl_step_time_seconds", "gauge", ("quantile",), 4,
+    "Observed train-step completion time percentiles", policy="max")
+HOST_RSS_BYTES = _m(
+    "bigdl_host_rss_bytes", "gauge", policy="max",
+    doc="Trainer-process resident set size")
+DEVICE_MEMORY_BYTES = _m(
+    "bigdl_device_memory_bytes", "gauge", ("stat",), 16,
+    "Device 0 memory stats, per allocator stat", policy="max")
+HBM_PEAK_BYTES = _m(
+    "bigdl_hbm_peak_bytes", "gauge", ("device",), 64,
+    "Peak HBM bytes in use, per local device", policy="max")
+
+# --------------------------------------------------------------- wire
+COLLECTIVE_BYTES_TOTAL = _m(
+    "bigdl_collective_bytes_total", "counter", ("op", "dtype"), 64,
+    "Wire bytes programmed into collectives, from static shapes")
+COLLECTIVE_BYTES_PER_STEP = _m(
+    "bigdl_collective_bytes_per_step", "gauge", ("op", "dtype"), 64,
+    "Static per-train-step wire bytes of the collective footprint",
+    policy="last")
+COLLECTIVE_WIRE_SAVINGS_RATIO = _m(
+    "bigdl_collective_wire_savings_ratio", "gauge", ("path",), 8,
+    "Uncompressed exchange bytes over what the wire actually ships",
+    policy="min")
+
+# --------------------------------------------------------------- health
+GRAD_NORM = _m(
+    "bigdl_grad_norm", "gauge", ("layer",), 4096,
+    "Per-layer gradient norm (BIGDL_HEALTH_EVERY)", policy="max")
+PARAM_NORM = _m(
+    "bigdl_param_norm", "gauge", ("layer",), 4096,
+    "Per-layer parameter norm", policy="max")
+UPDATE_RATIO = _m(
+    "bigdl_update_ratio", "gauge", ("layer",), 4096,
+    "Per-layer update-to-param norm ratio", policy="max")
+GLOBAL_GRAD_NORM = _m(
+    "bigdl_global_grad_norm", "histogram",
+    doc="Global gradient norm distribution")
+NONFINITE_LAYERS_TOTAL = _m(
+    "bigdl_nonfinite_layers_total", "counter", ("layer",), 4096,
+    "Layers whose grads went NaN/inf, by layer")
+NUMERICS_ANOMALIES_TOTAL = _m(
+    "bigdl_numerics_anomalies_total", "counter", ("kind",), 8,
+    "Loss / grad-norm spikes vs the rolling median")
+
+# --------------------------------------------------------------- resilience
+HEARTBEAT_AGE_SECONDS = _m(
+    "bigdl_heartbeat_age_seconds", "gauge", ("host",), 1024,
+    "Seconds since each peer's last heartbeat touch", policy="max")
+PEER_LOST_TOTAL = _m(
+    "bigdl_peer_lost_total", "counter",
+    doc="PeerLostError raised for silent heartbeat peers")
+RESUMES_TOTAL = _m(
+    "bigdl_resumes_total", "counter", ("resize",), 32,
+    "Checkpoint resumes, by world-size transition (e.g. 2to1)")
+
 # --------------------------------------------------------------- checkpoint
 CHECKPOINT_SNAPSHOT_SECONDS = _m(
     "bigdl_checkpoint_snapshot_seconds", "gauge", policy="max",

@@ -6,7 +6,12 @@ server a process, on a daemon thread, serving
 * ``GET /metrics``: the Prometheus text of the process registry and of
   every registry registered with :func:`register_registry` (held by
   weak reference);
-* ``GET /healthz``: JSON liveness: the server's port and uptime;
+* ``GET /healthz``: JSON liveness: the server's port and uptime, the
+  newest trained step (:func:`note_step`, stamped by both trainers
+  each resolved step) and its age, ``status`` ``"idle"`` before the
+  first step, ``"ok"`` after, ``"stalled"`` once the stamp is older
+  than ``BIGDL_TORCH_HANG_TIMEOUT`` (JAX :157-177), and the heartbeat
+  monitor's peer ages;
 * ``GET /trace?last=K``: the newest K records of the tracer's flight
   recorder (``[]`` with tracing off); ``GET /trace?request=ID``: one
   kept request trace by trace id or request id, 404 when the tail
@@ -16,13 +21,10 @@ server a process, on a daemon thread, serving
 ``BIGDL_TORCH_OBS_PORT`` turns it on through :func:`ensure_server`
 (0 binds an ephemeral port, ``.port`` has the real one); unset, the
 module holds no thread and no socket.  The JAX package's ``/healthz``
-also reads its goodput ledger, alert engine, heartbeat monitor,
-profiler and debug bundles, which the port does not have yet
-(ROADMAP.md queue 1 item 12): ``/healthz`` reports them as the JAX
-package does when each is off, and ``/profilez`` and ``/debugz``
-answer 404.  No trainer of the port stamps its steps here yet (ROADMAP
-item 6), so ``step`` and ``step_age_s`` read ``None`` and ``status``
-``"idle"``, as JAX's do with no trainer attached.
+also reads its goodput ledger, alert engine, profiler and debug
+bundles, which the port does not have yet (ROADMAP.md queue 1 item
+12): ``/healthz`` reports them as the JAX package does when each is
+off, and ``/profilez`` and ``/debugz`` answer 404.
 """
 
 from __future__ import annotations
@@ -47,8 +49,30 @@ _atexit_registered = False
 # extra /metrics providers, by weak reference
 _extras: List = []
 
+# the step stamp: (step, wall time), one tuple rebind a resolved step
+_step_stamp = (None, None)
+
 _NOT_PORTED = ("the port has no {} yet (ROADMAP.md queue 1 item 12: "
                "obs/prof.py and obs/bundle.py)")
+
+
+def note_step(step: int):
+    """Stamp one resolved training step (both trainers, and a resume
+    re-stamps the restored step so a rewound counter is no stall)."""
+    global _step_stamp
+    _step_stamp = (int(step), time.time())
+
+
+def last_step():
+    """``(step, wall time)`` of the newest stamp, ``(None, None)``
+    before the first."""
+    return _step_stamp
+
+
+def clear_step():
+    """Drop the stamp (the tests' hook)."""
+    global _step_stamp
+    _step_stamp = (None, None)
 
 
 def register_registry(registry):
@@ -97,12 +121,36 @@ def _rank() -> int:
         return 0
 
 
+def _heartbeat_census() -> Optional[dict]:
+    """Each peer's heartbeat age from the ``bigdl_heartbeat_age_seconds``
+    gauges (None when no heartbeat monitor ran)."""
+    from bigdl_tpu_torch import obs
+    from bigdl_tpu_torch.obs import names
+
+    for fam in obs.get_registry().families():
+        if fam.name == names.HEARTBEAT_AGE_SECONDS:
+            census = {}
+            for key, child in fam.child_items():
+                labels = dict(zip(fam.labelnames, key))
+                census[labels.get("host", "?")] = round(child.value, 3)
+            return census or None
+    return None
+
+
 def health_payload() -> dict:
     """The ``/healthz`` body (callable directly)."""
+    from bigdl_tpu_torch.config import TrainConfig
+
     now = time.time()
     srv = _server
+    step, stamped = _step_stamp
+    step_age = None if stamped is None else round(now - stamped, 3)
+    status = "idle" if step is None else "ok"
+    hang = TrainConfig.from_env().hang_timeout
+    if step_age is not None and hang > 0 and step_age > hang:
+        status = "stalled"
     return {
-        "status": "idle",
+        "status": status,
         "host": _rank(),
         "pid": os.getpid(),
         "attempt": 0,
@@ -110,14 +158,13 @@ def health_payload() -> dict:
         "port": srv.port if srv is not None else None,
         "uptime_s": (round(now - srv.started, 3)
                      if srv is not None else None),
-        # no trainer stamps its steps here yet (item 6)
-        "step": None,
-        "step_age_s": None,
-        # the goodput ledger, alert engine, heartbeat monitor, profiler
-        # and debug bundles are item 12's: each reads as it is when off
+        "step": step,
+        "step_age_s": step_age,
+        # the goodput ledger, alert engine, profiler and debug bundles
+        # are item 12's: each reads as it is when off
         "goodput_ratio": None,
         "alerts": [],
-        "heartbeat": None,
+        "heartbeat": _heartbeat_census(),
         "prof_overhead": None,
         "bundles": 0,
     }
@@ -275,4 +322,4 @@ def stop_server():
 
 __all__ = ["ObsServer", "ensure_server", "get_server", "stop_server",
            "register_registry", "metrics_text", "trace_tail",
-           "health_payload"]
+           "health_payload", "note_step", "last_step", "clear_step"]

@@ -12,9 +12,37 @@ order, ``ravel_pytree``'s, padded to a multiple of the world size):
     wshard, state = optim.step(gshard, wshard)   # the owner's update
     weights = all_gather(wshard)                 # "sendWeight"
 
-- **Wire.** ``wire_dtype="bfloat16"`` (the default,
-  ``BIGDL_TORCH_WIRE_DTYPE``) casts the flat gradient to bf16 before
-  the reduce-scatter; ``"float32"``/``"none"`` keep f32.
+- **Wire** (JAX :117-161, :555-600).  ``wire_dtype="bfloat16"`` (the
+  default, ``BIGDL_TORCH_WIRE_DTYPE``) casts the flat gradient to bf16
+  before the reduce-scatter; ``"float32"``/``"none"`` keep f32;
+  ``"int8"``/``"fp8_e4m3"``/``"fp8_e5m2"`` run the staged ring of
+  ``parallel/wire.py`` (blockwise scales, ``wire_block`` /
+  ``BIGDL_TORCH_WIRE_BLOCK`` elements a scale, the flat vector padded
+  to whole blocks a shard), as does any wire with error feedback
+  (``wire_ef`` / ``BIGDL_TORCH_WIRE_EF``).  The EF residual is
+  ``optim_method.state["wire_ef"]``: this rank's row of the JAX
+  package's ``(world, padded)`` f32 array (flat coordinates), gathered
+  whole into a checkpoint.  At world 1 the wire moves nothing and is
+  the identity.
+- **Buckets** (JAX :162-171, :243-262).  ``overlap_bucket_mb > 0``
+  (``BIGDL_TORCH_OVERLAP_BUCKET_MB``) cuts the padded vector into
+  buckets of about that many MiB, whole quanta each, exchanged last
+  bucket first; each rank owns its chunk of every bucket, the shard-
+  major layout the JAX package records as ``topology["buckets"]``, so
+  the state vectors are in that order.  The plain-wire buckets are
+  launched together after the backward, last first, with
+  ``async_op=True``, and waited on before the update; the results are
+  those of the one-bucket exchange laid out by buckets.
+- **Hierarchical data axes** (JAX :103-115).  ``data_axes=("dcn",
+  "data")`` over ``Engine.build_mesh({"dcn": a, "data": b})`` (or
+  ``mesh=``): a reduce-scatter inside each ``data`` group, then one
+  across each ``dcn`` group, the operand permuted from ``(a, b, c)``
+  to ``(b, a, c)`` first so that rank ``(i, j)`` owns flat chunk ``i *
+  b + j``, the JAX ``P(("dcn", "data"))`` owner; the all-gather runs
+  the other way.  The staged ring over two axes raises, as there.
+- **Byte footprint** (JAX :331-430): each step's wire bytes from
+  shapes (``obs/collectives.py``), the bucket gauge, and the exposed
+  fraction of the bytes with buckets.
 - **Clip and guard.** The clipper reads the squared norm summed over
   ranks (``all_reduce``); the non-finite guard skips the step on every
   rank when any rank's shard or loss is not finite (``all_reduce`` MIN).
@@ -47,7 +75,13 @@ order, ``ravel_pytree``'s, padded to a multiple of the world size):
 - **Checkpoints.** Every rank gathers the state's shards, then rank 0
   takes ``LocalOptimizer``'s path: a synchronous write, or a host
   snapshot handed to the background writer (``set_checkpoint(
-  background=True)``).
+  background=True)``).  A state written at another world size or
+  bucket plan is re-laid by ``elastic.ensure_shard_layout`` (the EF
+  residual reset to zeros).
+- **Health** (JAX :484-488, :712-729): with ``BIGDL_TORCH_HEALTH_EVERY``
+  set, every K-th step takes ``obs/health.flat_shard_stats`` of its
+  shard (the pre-clip gradient, the weights and the update after the
+  guard), one ``(L, 4)`` all-reduce.
 - **Retry.** ``optimize`` retries a transient failure
   (``resilience/retry.py``, an ``InjectedFault`` of the fault plan
   among them): back off, reload the newest intact checkpoint, rewind
@@ -58,12 +92,10 @@ order, ``ravel_pytree``'s, padded to a multiple of the world size):
   attempt counts in ``bigdl_retry_attempts_total`` and the summary's
   "RetryCount".
 
-Not ported yet (ROADMAP.md queue 1 item 6): the int8/fp8 wires and
-error feedback, ``overlap_bucket_mb > 0``, hierarchical ``data_axes``
-and a resume at another world size than the writer's
-(``elastic.ensure_shard_layout``), each of which raises
-``NotImplementedError``; the health monitor and the step spans (the
-checkpoint spans and the resilience events are recorded).
+What still raises: a JAX ``Mesh`` object as ``mesh=`` (pass the port's
+``Engine.build_mesh``), data axes that cover part of the world or are
+not the mesh's axes in its order, the staged ring over two data axes
+(as in the JAX package), and ``LBFGS`` at world > 1.
 """
 
 from __future__ import annotations
@@ -77,20 +109,13 @@ import torch
 import torch.distributed as dist
 
 from bigdl_tpu_torch import obs
-from bigdl_tpu_torch.config import TrainConfig
-from bigdl_tpu_torch.engine import Engine
+from bigdl_tpu_torch.config import ObsConfig, TrainConfig
+from bigdl_tpu_torch.engine import Engine, Mesh
 from bigdl_tpu_torch.obs import names
 from bigdl_tpu_torch.optim.optimizer import LocalOptimizer, _where
+from bigdl_tpu_torch.parallel import wire as W
 
 log = logging.getLogger("bigdl_tpu_torch.optim")
-
-_UNCOMPRESSED = ("float32", "none")
-_NOT_PORTED_WIRES = ("int8", "fp8_e4m3", "fp8_e5m2")
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
-                               "queue 1 item 6)")
 
 
 def _per_sample_losses(crit, out, tgt):
@@ -116,28 +141,32 @@ class DistriOptimizer(LocalOptimizer):
                  wire_dtype=None, data_axes=None, int8_block=None,
                  wire_block=None, wire_ef=None, overlap_bucket_mb=None,
                  device="cuda"):
-        if mesh is not None:
-            raise _not_ported("a device mesh (one process drives one GPU "
-                              "here)")
-        if data_axes and len(tuple(data_axes)) > 1:
-            raise _not_ported("hierarchical data_axes")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise NotImplementedError(
+                f"mesh {type(mesh).__name__}: one process drives one GPU "
+                "here; pass the port's Engine.build_mesh(...) (or none)")
+        cfg = TrainConfig.from_env()
         if wire_dtype is None:
-            wire_dtype = TrainConfig.from_env().wire_dtype
-        if wire_dtype in _NOT_PORTED_WIRES:
-            raise _not_ported(f"the {wire_dtype!r} wire")
-        if wire_dtype != "bfloat16" and wire_dtype not in _UNCOMPRESSED:
+            wire_dtype = cfg.wire_dtype
+        if wire_dtype not in W.WIRE_DTYPES and \
+                wire_dtype not in W.UNCOMPRESSED:
             raise ValueError(
                 f"wire_dtype {wire_dtype!r} not supported; choose "
-                "'bfloat16', 'float32' or 'none'")
-        if wire_ef:
-            raise _not_ported("wire error feedback")
-        if overlap_bucket_mb is not None and float(overlap_bucket_mb) > 0:
-            raise _not_ported("the bucketed gradient exchange "
-                              "(overlap_bucket_mb > 0)")
+                "'bfloat16', 'int8', 'fp8_e4m3', 'fp8_e5m2', 'float32' "
+                "or 'none'")
         block = wire_block if wire_block is not None else int8_block
         if block is not None and int(block) < 1:
             raise ValueError(
                 f"wire_block/int8_block must be positive, got {block}")
+        if wire_dtype in W.WIRE_DTYPES:
+            spec = W.WireSpec.from_config(dtype=wire_dtype, block=block,
+                                          error_feedback=wire_ef)
+        else:
+            if wire_ef:
+                raise ValueError(
+                    "error feedback needs a compressed wire dtype "
+                    f"(got {wire_dtype!r})")
+            spec = None
         if not Engine.is_initialized():
             Engine.init(device)
         if torch.device(device).type != Engine.device().type:
@@ -145,9 +174,53 @@ class DistriOptimizer(LocalOptimizer):
                              f"runs on {Engine.device()}")
         super().__init__(model, dataset, criterion, batch_size,
                          device=Engine.device())
-        self.rank, self.n_shards = Engine.world()
+        self.rank, world = Engine.world()
         self.wire_dtype = wire_dtype
-        self.int8_block = 512 if block is None else int(block)
+        self.wire = spec
+        self.int8_block = spec.block if spec is not None else \
+            int(block) if block is not None else cfg.wire_block
+        # the staged ring (scaled dtypes, or any EF wire) runs over one
+        # ring; plain bf16/f32 keep reduce_scatter_tensor
+        self._staged_ring = spec is not None and (spec.scaled
+                                                  or spec.error_feedback)
+        self._hier = None
+        if mesh is None and data_axes and len(tuple(data_axes)) > 1:
+            mesh = Engine.mesh()
+            if mesh is None:
+                raise ValueError(
+                    f"data_axes {tuple(data_axes)} name mesh axes; build "
+                    "the mesh first (Engine.build_mesh) or pass mesh=")
+        self.mesh = mesh
+        self.axes = tuple(data_axes) if data_axes else (
+            (mesh.axis_names[0],) if mesh is not None else ("data",))
+        if mesh is not None:
+            for a in self.axes:
+                if a not in mesh.axis_names:
+                    raise ValueError(f"data axis {a!r} not in mesh axes "
+                                     f"{mesh.axis_names}")
+            if self.axes != mesh.axis_names:
+                raise NotImplementedError(
+                    f"data axes {self.axes} over mesh axes "
+                    f"{mesh.axis_names}: the port shards over every mesh "
+                    "axis, in the mesh's order")
+            if len(self.axes) > 2:
+                raise NotImplementedError("more than two data axes")
+        self.n_shards = world
+        if len(self.axes) > 1:
+            if self._staged_ring:
+                raise NotImplementedError(
+                    f"the {wire_dtype!r} staged-ring wire over hierarchical "
+                    "data axes is not supported; use a single data axis or "
+                    "bfloat16")
+            outer, inner = self.axes
+            self._hier = (mesh.shape[outer], mesh.shape[inner],
+                          mesh.group(outer), mesh.group(inner))
+        if overlap_bucket_mb is None:
+            overlap_bucket_mb = cfg.overlap_bucket_mb
+        self.overlap_bucket_mb = float(overlap_bucket_mb)
+        self._buckets = None
+        self._positions = None
+        self._frozen_keep = None
         self._flat = None
         self._flat_views = None
         # merged [start, end) runs of frozen parameters in the flat vector
@@ -155,33 +228,58 @@ class DistriOptimizer(LocalOptimizer):
         self._per_param = frozenset()
         self._flat_elems = None
         self._pad = 0
+        self._boundaries = None
         self._warned_batch_sizes = set()
 
     # ---- layout and state ---------------------------------------------------
     def _topology(self) -> dict:
-        return {"world_size": self.n_shards, "shard_layout": "zero1_flat",
+        """The checkpoint's layout tag (JAX :195-220): world size, the
+        flat vector's true length and padding, the wire, and the bucket
+        plan when there is more than one bucket."""
+        topo = {"world_size": self.n_shards, "shard_layout": "zero1_flat",
                 "step": self.state["neval"],
                 "flat_elems": self._flat_elems, "pad": self._pad,
                 "wire": {"dtype": self.wire_dtype, "block": self.int8_block,
-                         "ef": False}}
+                         "ef": bool(self.wire is not None
+                                    and self.wire.error_feedback)}}
+        if self._buckets is not None and len(self._buckets) > 1:
+            topo["buckets"] = [[s, z] for s, z in self._buckets]
+        return topo
+
+    def _shard_slices(self):
+        """(start, length) in the padded flat vector of this rank's
+        chunk of each bucket, in bucket order."""
+        n, r = self.n_shards, self.rank
+        return [(s + r * (z // n), z // n) for s, z in self._buckets]
 
     def _shard(self, full: torch.Tensor) -> torch.Tensor:
-        s = full.numel() // self.n_shards
-        return full[self.rank * s:(self.rank + 1) * s]
+        """This rank's shard of a padded flat vector (its chunk of every
+        bucket, concatenated)."""
+        parts = [full[a:a + c] for a, c in self._shard_slices()]
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     def _init_opt_state(self, params, tree) -> None:
-        """The flat parameter vector (the parameters in order, padded)
-        and this rank's shard of the optimizer state: fresh, or cut from
-        a whole ``zero1_flat`` state (a checkpoint's, or the one the
-        last run left)."""
+        """The flat parameter vector (the parameters in order, padded
+        to the wire's quantum), the bucket plan, and this rank's shard
+        of the optimizer state: fresh, or cut from a whole
+        ``zero1_flat`` state (a checkpoint's, or the one the last run
+        left), re-laid first when its world or plan differ (JAX
+        :222-329)."""
+        from bigdl_tpu_torch.resilience import elastic
+
         dev = self.device
         if any(p.dtype != torch.float32 for p in params):
             raise TypeError("DistriOptimizer trains f32 parameters")
         elems = sum(p.numel() for p in params)
         n = self.n_shards
+        scaled = self.wire is not None and self.wire.scaled
+        quantum = n * self.int8_block if scaled else n
         self._flat_elems = elems
-        self._pad = (-elems) % n
+        self._pad = (-elems) % quantum
         padded = elems + self._pad
+        target = int(self.overlap_bucket_mb * (1 << 20) / 4) \
+            if self.overlap_bucket_mb > 0 else 0
+        self._buckets = W.plan_buckets(padded, quantum, target)
         with torch.no_grad():
             self._flat = torch.cat([p.detach().reshape(-1) for p in params]
                                    + [torch.zeros(self._pad, device=dev)])
@@ -190,6 +288,9 @@ class DistriOptimizer(LocalOptimizer):
             torch.split(self._flat[:elems], [p.numel() for p in params]),
             params)]
         shard_len = padded // n
+        self._positions = torch.cat([
+            torch.arange(a, a + c, device=dev, dtype=torch.int64)
+            for a, c in self._shard_slices()])
         opt = self.optim_method
         from bigdl_tpu_torch.optim.optim_method import LBFGS
 
@@ -201,33 +302,56 @@ class DistriOptimizer(LocalOptimizer):
                 "is wrong at world > 1 (ROADMAP.md queue 3)")
         self._per_param = opt.per_param_keys()
         self._frozen_intervals = self._frozen_runs(params)
+        keep = torch.ones(shard_len, dtype=torch.bool, device=dev)
+        for lo, hi in self._frozen_intervals:
+            keep &= ~((self._positions >= lo) & (self._positions < hi))
+        self._frozen_keep = None if bool(keep.all()) else keep
+        from bigdl_tpu_torch.obs import health as H
+
+        self._boundaries = torch.as_tensor(
+            np.cumsum(H.layer_sizes(self.model.params())), device=dev,
+            dtype=torch.int64)
         opt.param_tree = None
+        ef_on = self.wire is not None and self.wire.error_feedback
         if opt.state is None:
             local = opt.init_state([torch.zeros(shard_len, device=dev)])
             opt.state = {k: v[0] if isinstance(v, list) else v
                          for k, v in local.items()}
-            return
-        topo = getattr(opt, "loaded_topology", None) or {}
-        if any(isinstance(v, (dict, list, tuple)) for v in opt.state.values()):
-            raise ValueError(
-                "optim_method.state was initialised for tree parameters "
-                "(LocalOptimizer); reset it (state=None) before reusing the "
-                "method with DistriOptimizer")
-        if topo.get("world_size", n) != n:
-            raise _not_ported(
-                f"resuming a world-{topo.get('world_size')} state at world "
-                f"{n} (elastic.ensure_shard_layout)")
-        state = {}
-        for k, v in opt.state.items():
-            v = torch.as_tensor(v).to(dev)
-            if k in self._per_param and v.dim() == 1:
-                if v.numel() != padded:
-                    raise ValueError(
-                        f"optimizer state {k!r} holds {v.numel()} elements, "
-                        f"the padded flat vector {padded}")
-                v = self._shard(v).clone()
-            state[k] = v
-        opt.state = state
+        else:
+            if any(isinstance(v, (dict, list, tuple))
+                   for v in opt.state.values()):
+                raise ValueError(
+                    "optim_method.state was initialised for tree "
+                    "parameters (LocalOptimizer); reset it (state=None) "
+                    "before reusing the method with DistriOptimizer")
+            whole = elastic.ensure_shard_layout(
+                opt.state, flat_elems=elems, pad=self._pad, n_shards=n,
+                topology=getattr(opt, "loaded_topology", None),
+                buckets=self._buckets, device=dev)
+            state = {}
+            for k, v in whole.items():
+                v = torch.as_tensor(v).to(dev)
+                if k == "wire_ef":
+                    v = v[self.rank].clone()
+                elif k in self._per_param and v.dim() == 1:
+                    if v.numel() != padded:
+                        raise ValueError(
+                            f"optimizer state {k!r} holds {v.numel()} "
+                            f"elements, the padded flat vector {padded}")
+                    v = v[self.rank * shard_len:
+                          (self.rank + 1) * shard_len].clone()
+                state[k] = v
+            opt.state = state
+        # the EF residual: this rank's row, flat coordinates
+        if ef_on:
+            ef = opt.state.get("wire_ef")
+            if ef is None or tuple(ef.shape) != (padded,):
+                opt.state["wire_ef"] = torch.zeros(padded, device=dev)
+        else:
+            opt.state.pop("wire_ef", None)
+        # the layout the state is in now: a later re-init re-lays from it
+        opt.loaded_topology = self._topology()
+        self._collective_footprint = self._collective_byte_footprint()
 
     def _frozen_runs(self, params) -> list:
         """[start, end) runs of the flat vector owned by frozen modules,
@@ -245,18 +369,20 @@ class DistriOptimizer(LocalOptimizer):
         return [tuple(r) for r in runs]
 
     def _gathered_state(self) -> dict:
-        """The whole optimizer state: each shard vector gathered."""
+        """The whole optimizer state: each shard vector gathered (shard-
+        major, the JAX ``P(axis)`` array), the EF rows stacked to
+        ``(world, padded)``."""
         out = {}
         for k, v in self.optim_method.state.items():
-            if k in self._per_param and v.dim() == 1:
+            if k == "wire_ef" or (k in self._per_param and v.dim() == 1):
                 full = torch.empty(v.numel() * self.n_shards, dtype=v.dtype,
                                    device=v.device)
                 dist.all_gather_into_tensor(full, v.contiguous())
-                v = full
+                v = full.view(self.n_shards, -1) if k == "wire_ef" else full
             out[k] = v
         return out
 
-    def _checkpoint(self, method=None) -> None:
+    def _checkpoint(self, method=None, sync: bool = False) -> None:
         """Every rank gathers the state's shards; rank 0 writes the
         whole of it, and the others wait for the file."""
         if not self.checkpoint_path:
@@ -264,7 +390,7 @@ class DistriOptimizer(LocalOptimizer):
         method = copy.copy(self.optim_method)
         method.state = self._gathered_state()
         if self.rank == 0:
-            super()._checkpoint(method)
+            super()._checkpoint(method, sync=sync)
         if self.n_shards > 1:
             dist.barrier()
 
@@ -321,6 +447,72 @@ class DistriOptimizer(LocalOptimizer):
             else per_mean
         return total + self._regularization(), per_mean
 
+    # ---- the exchange ---------------------------------------------------------
+    def _reduce_scatter(self, x: torch.Tensor, async_op: bool = False):
+        """This rank's reduced chunk of ``x`` (one bucket): one
+        reduce-scatter over the world, or for two data axes one inside
+        the inner group after the ``(a, b, c) -> (b, a, c)`` permute,
+        then one across the outer group.  With ``async_op`` (one axis
+        only) returns ``(chunk, work)``."""
+        n = self.n_shards
+        out = x.new_empty(x.numel() // n)
+        if self._hier is None:
+            work = dist.reduce_scatter_tensor(out, x, async_op=async_op)
+            return (out, work) if async_op else out
+        a, b, outer, inner = self._hier
+        c = x.numel() // n
+        xp = x.view(a, b, c).transpose(0, 1).contiguous().view(-1)
+        mid = x.new_empty(a * c)
+        dist.reduce_scatter_tensor(mid, xp, group=inner)
+        dist.reduce_scatter_tensor(out, mid, group=outer)
+        return (out, None) if async_op else out
+
+    def _all_gather(self, chunk: torch.Tensor, out: torch.Tensor) -> None:
+        """The inverse of :meth:`_reduce_scatter`: every rank's chunk
+        into ``out`` (one bucket, flat order)."""
+        if self._hier is None:
+            dist.all_gather_into_tensor(out, chunk.contiguous())
+            return
+        a, b, outer, inner = self._hier
+        c = chunk.numel()
+        mid = chunk.new_empty(a * c)
+        dist.all_gather_into_tensor(mid, chunk.contiguous(), group=outer)
+        full = chunk.new_empty(b * a * c)
+        dist.all_gather_into_tensor(full, mid, group=inner)
+        out.copy_(full.view(b, a, c).transpose(0, 1).reshape(-1))
+
+    def _exchange(self, g: torch.Tensor, ef):
+        """(this rank's reduced shard in f32, the new EF row or None):
+        one exchange a bucket, last bucket first (JAX :555-600)."""
+        n = self.n_shards
+        buckets = self._buckets
+        pieces = [None] * len(buckets)
+        new_ef = None
+        if self._staged_ring:
+            ef_pieces = [None] * len(buckets)
+            for i in reversed(range(len(buckets))):
+                s, z = buckets[i]
+                ef_b = None if ef is None else ef[s:s + z].view(n, z // n)
+                pieces[i], ef_pieces[i] = W.reduce_scatter(
+                    g[s:s + z], None, n, self.wire, ef=ef_b)
+            if ef is not None:
+                new_ef = torch.cat([e.reshape(-1) for e in ef_pieces])
+        else:
+            if self.wire_dtype == "bfloat16":
+                g = g.to(torch.bfloat16)
+            works = []
+            for i in reversed(range(len(buckets))):
+                s, z = buckets[i]
+                pieces[i], work = self._reduce_scatter(g[s:s + z],
+                                                       async_op=True)
+                works.append(work)
+            for work in works:
+                if work is not None:
+                    work.wait()
+        gshard = pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+        return gshard.float(), new_ef
+
+    # ---- one step -----------------------------------------------------------
     def _train_step(self, names, params, opt_state, inp, tgt, mask, guard,
                     seed):
         n = self.n_shards
@@ -328,6 +520,7 @@ class DistriOptimizer(LocalOptimizer):
         total, loss_aux = self._local_loss(names, params, inp, tgt, seed,
                                            mask)
         grads = torch.autograd.grad(total, params, allow_unused=True)
+        ef_on = "wire_ef" in opt_state
         with torch.no_grad():
             g = torch.cat([torch.zeros(p.numel(), device=p.device)
                            if gr is None else gr.reshape(-1).float()
@@ -335,11 +528,8 @@ class DistriOptimizer(LocalOptimizer):
                           + [self._flat.new_zeros(self._pad)])
             for a, b in self._frozen_intervals:
                 g[a:b] *= 0.0
-            if self.wire_dtype == "bfloat16":
-                g = g.to(torch.bfloat16)
-            shard = g.new_empty(g.numel() // n)
-            dist.reduce_scatter_tensor(shard, g)
-            gshard = shard.float()
+            gshard, new_ef = self._exchange(
+                g, opt_state["wire_ef"] if ef_on else None)
             if mask is not None:
                 valid = mask.sum().reshape(1)
                 dist.all_reduce(valid)
@@ -350,6 +540,8 @@ class DistriOptimizer(LocalOptimizer):
             sums = torch.stack([torch.sum(gshard * gshard),
                                 loss_aux.detach().float()])
             dist.all_reduce(sums)
+            # the health stats read the pre-clip gradient
+            g_health = gshard
             gshard = self._clipper([gshard], global_sq=sums[0])[0]
             if guard:
                 ok = (torch.isfinite(gshard).all()
@@ -360,23 +552,37 @@ class DistriOptimizer(LocalOptimizer):
                 ok = torch.ones((), dtype=torch.bool, device=gshard.device)
             wshard = self._shard(self._flat)
             per_param = self._per_param
+            # the EF residual is wire state: the method never sees it
+            opt_in = {k: v for k, v in opt_state.items() if k != "wire_ef"}
             listed = {k: [v] if k in per_param else v
-                      for k, v in opt_state.items()}
+                      for k, v in opt_in.items()}
             new_w, new_opt = self.optim_method.step([gshard], [wshard],
                                                     listed)
             new_w = new_w[0]
             new_opt = {k: v[0] if k in per_param else v
                        for k, v in new_opt.items()}
+            if ef_on:
+                new_opt["wire_ef"] = new_ef if new_ef is not None \
+                    else opt_state["wire_ef"]
             if guard:
                 new_w = torch.where(ok, new_w, wshard)
                 new_opt = _where(ok, new_opt, opt_state)
             # frozen runs inside this rank's shard keep their values
-            lo = self.rank * wshard.numel()
-            for a, b in self._frozen_intervals:
-                a, b = max(a - lo, 0), min(b - lo, wshard.numel())
-                if a < b:
-                    new_w[a:b] = wshard[a:b]
-            dist.all_gather_into_tensor(self._flat, new_w.contiguous())
+            if self._frozen_keep is not None:
+                new_w = torch.where(self._frozen_keep, new_w, wshard)
+            if self._health_now:
+                from bigdl_tpu_torch.obs import health as H
+
+                self._step_health = H.flat_shard_stats(
+                    g_health, wshard, new_w, self.rank * wshard.numel(),
+                    self._boundaries,
+                    positions=(self._positions if len(self._buckets) > 1
+                               else None))
+            off = 0
+            for s, z in self._buckets:
+                c = z // n
+                self._all_gather(new_w[off:off + c], self._flat[s:s + z])
+                off += c
             torch._foreach_copy_(params, self._flat_views)
             if guard:
                 self.model.set_state(_where(ok, self.model.state(), mstate))
@@ -387,6 +593,81 @@ class DistriOptimizer(LocalOptimizer):
             else:
                 loss = sums[1] / n
         return new_opt, loss, ok
+
+    def _collective_byte_footprint(self):
+        """The wire bytes of one step from shapes (JAX :331-430): the
+        gradient exchange, the norm, guard, health and loss sums, the
+        weight gather and the BN averages.  Publishes the per-step
+        gauges, the bucket gauge, the exposed share of the bytes with
+        buckets and the savings-ratio gauge; the loop commits it once a
+        resolved step."""
+        from bigdl_tpu_torch.obs import collectives as C
+
+        n = self.n_shards
+        padded = self._flat_elems + self._pad
+        fp = C.StepFootprint()
+        if self._staged_ring:
+            ex = C.staged_ring_exchange_bytes(
+                padded, n, self.int8_block, self.wire.wire_name)
+            exchange = 0.0
+            for name, b in ex.items():
+                fp.add("ring_rs", name, b)
+                exchange += b
+        else:
+            wire = "bfloat16" if self.wire_dtype == "bfloat16" \
+                else "float32"
+            exchange = C.reduce_scatter_bytes(padded, wire, n)
+            fp.add("psum_scatter", wire, exchange)
+        fp.add("psum", "float32", C.all_reduce_bytes(1, "float32", n))
+        if TrainConfig.from_env().nonfinite_guard:
+            fp.add("pmin", "float32", C.all_reduce_bytes(1, "float32", n))
+        if self._health_monitor is not None:
+            fp.add("psum", "float32", C.all_reduce_bytes(
+                len(self._health_monitor.names) * 4, "float32", n))
+        fp.add("pmean", "float32", C.all_reduce_bytes(1, "float32", n))
+        fp.add("all_gather", "float32",
+               C.all_gather_bytes(padded, "float32", n))
+        from bigdl_tpu_torch.utils import tree as T
+
+        for leaf in T.leaves(self.model.state()):
+            if leaf.is_floating_point():
+                fp.add("pmean", leaf.dtype, C.all_reduce_bytes(
+                    leaf.numel(), leaf.dtype, n))
+        registry = obs.get_registry()
+        fp.bind(registry)
+        n_buckets = len(self._buckets)
+        registry.gauge(
+            names.OVERLAP_BUCKETS,
+            "Gradient-exchange buckets of the overlapped step "
+            "(1 = monolithic, no overlap)").set(float(n_buckets))
+        if n_buckets > 1:
+            hidden = exchange * (n_buckets - 1) / n_buckets
+            exposed = fp.total() - hidden
+            registry.gauge(
+                names.OVERLAP_EXPOSED_COMM_FRACTION,
+                "Share of the per-step collective bytes NOT hidden "
+                "under backward by the bucketed exchange").set(
+                round(exposed / fp.total(), 6) if fp.total() else 0.0)
+            gbps = ObsConfig.from_env().wire_gbps
+            if gbps > 0:
+                registry.gauge(
+                    names.OVERLAP_EXPOSED_COMM_SECONDS,
+                    "Estimated per-step collective seconds not hidden "
+                    "by backward (exposed bytes / BIGDL_WIRE_GBPS)").set(
+                    exposed / (gbps * 1e9))
+        f32_exchange = C.reduce_scatter_bytes(padded, "float32", n)
+        ratio = C.record_savings("grad", f32_exchange, exchange,
+                                 registry=registry)
+        tracer = obs.get_tracer()
+        if tracer.enabled:
+            tracer.event("collective.footprint",
+                         wire_dtype=self.wire_dtype, n_shards=n,
+                         padded_elems=padded,
+                         bytes_per_step=round(fp.total(), 1),
+                         savings_ratio=round(ratio, 4),
+                         breakdown={k: round(v, 1)
+                                    for k, v in fp.by_op().items()})
+        return fp
 
     def _average_model_state(self) -> None:
         """The floating buffers (BN running statistics) averaged over
@@ -406,22 +687,6 @@ class DistriOptimizer(LocalOptimizer):
                 v.dtype)))
             off += v.numel()
         self.model.set_state(T.unflatten(out))
-
-    # ---- validation -----------------------------------------------------------
-    def _evaluate(self):
-        """Each rank folds its own rows of a per-process validation set;
-        the results are summed over ranks before anyone reads them."""
-        results = super()._evaluate()
-        if self.n_shards == 1 or not getattr(self.validation_dataset,
-                                             "per_process", False):
-            return results
-        out = []
-        for r in results:
-            t = torch.tensor([r.total, float(r.count)], dtype=torch.float64,
-                             device=self.device)
-            dist.all_reduce(t)
-            out.append(type(r)(float(t[0]), int(t[1]), r.name))
-        return out
 
     # ---- the retry ------------------------------------------------------------
     def optimize(self):
@@ -493,6 +758,11 @@ class DistriOptimizer(LocalOptimizer):
                 # a stream seeks to the checkpoint's trained offset
                 # instead: the records past it are read and trained again
                 restore_stream(self, extra)
+                # the rewound step restarts /healthz's stall clock
+                from bigdl_tpu_torch.obs import server as _obs_server
+
+                if _obs_server.get_server() is not None:
+                    _obs_server.note_step(self.state["neval"])
 
 
 __all__ = ["DistriOptimizer"]

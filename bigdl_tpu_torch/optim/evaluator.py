@@ -9,7 +9,11 @@ evaluator.py``: ``evaluate_dataset`` (:110), ``predict`` (:163),
 its live weights, no copy); each batch's output comes to the host, where
 the validation methods fold it in numpy.  Batches go in the dataset's
 eval order, the ragged tail included (``ArrayDataSet.data(train=False)``).
-There is no mesh: every batch runs whole on the one device.
+There is no mesh: every batch runs whole on the one device.  A per-
+process dataset in a world of more than one process yields only this
+process's rows, so the results are summed over the processes before
+they are returned (``_allreduce_results``, JAX :139-159): one
+``all_gather`` of each result's ``(total, count)`` in f64.
 """
 
 from __future__ import annotations
@@ -40,7 +44,32 @@ def evaluate_dataset(model, dataset, methods: Sequence, device="cuda"):
             for i, m in enumerate(methods):
                 r = m.batch_result(out, tgt)
                 results[i] = r if results[i] is None else results[i] + r
-    return results
+    return _allreduce_results(results, dataset, dev)
+
+
+def _allreduce_results(results, dataset, dev):
+    """Each result summed over the world's processes, for a per-process
+    dataset at world > 1 (JAX :139-159); else the results as they
+    are."""
+    import torch.distributed as dist
+
+    if not getattr(dataset, "per_process", False) \
+            or not dist.is_initialized() or dist.get_world_size() == 1:
+        return results
+    n = dist.get_world_size()
+    out = []
+    for r in results:
+        if r is None:
+            out.append(r)
+            continue
+        mine = torch.tensor([r.total, float(r.count)], dtype=torch.float64,
+                            device=dev)
+        gathered = torch.empty(n * 2, dtype=torch.float64, device=dev)
+        dist.all_gather_into_tensor(gathered, mine)
+        g = gathered.view(n, 2).cpu().numpy()
+        out.append(type(r)(float(g[:, 0].sum()), int(g[:, 1].sum()),
+                           r.name))
+    return out
 
 
 def predict(model, features, batch_size: int = 32, device="cuda"):

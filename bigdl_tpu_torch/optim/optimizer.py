@@ -94,8 +94,29 @@ the "Loss" and "Throughput" scalars of each step, the resilience
 counters (``add_resilience``, where it has one) and, when its
 "Parameters" trigger fires, a histogram of each parameter tagged by its
 JAX leaf path; a validation summary gets each method's value at the
-``neval`` of its validation.  The health monitor (``obs/health.py``)
-is not ported yet (ROADMAP.md queue 1 item 6).
+``neval`` of its validation.
+
+Telemetry and resilience at ``optimize()`` (JAX :650-740, :1002-1041):
+
+- the step spans ``iteration``, ``batch_prep`` (on the feed's thread),
+  ``device_put`` and ``step_dispatch``, each with its ``step``, and
+  ``data_wait`` and ``computing`` recorded after the fact;
+- with observability on (``BIGDL_TORCH_TRACE_DIR`` or
+  ``BIGDL_TORCH_OBS_PORT``), the runtime profile (``obs/runtime.py``:
+  each step's time and its dispatch time) and the slow-step detector
+  (``_detect_slow_step``, ``BIGDL_TORCH_SLOW_STEP_FACTOR``);
+- the obs server (``BIGDL_TORCH_OBS_PORT``): the phase timers'
+  registry on ``/metrics``, and each resolved step stamped for
+  ``/healthz`` (``note_step``);
+- the health monitor (``obs/health.py``, ``BIGDL_TORCH_HEALTH_EVERY``
+  > 0): on every K-th step the per-layer ``(L, 4)`` stats of the
+  pre-clip gradient, the parameters and the update, read back when
+  that step's loss is; other steps compute none;
+- an ``ElasticSession`` (``resilience/elastic.py``): heartbeats at
+  world > 1, and a preemption request (SIGTERM) seen at the top of a
+  step resolves the steps in flight, writes a synchronous emergency
+  checkpoint and raises ``Preempted`` (exit code 170,
+  ``_elastic_shutdown``).
 """
 
 from __future__ import annotations
@@ -207,6 +228,18 @@ class LocalOptimizer:
         # per parameter (the trainer's order): does a frozen module own it
         self._frozen_mask = []
         self._regularized = False
+        # the health monitor's cadence: does this step compute its (L, 4)
+        # stats (set by the loop), and the stats the step left
+        self._health_monitor = None
+        self._health_now = False
+        self._step_health = None
+        self._obs_tracer = obs.get_tracer()
+        self._obs_runtime = None
+        self._obs_server = None
+        self._elastic_session = None
+        self._collective_footprint = None
+        # the step the feed's first batch of an epoch trains
+        self._feed_step0 = 1
         # the reference's state table; neval is the next iteration,
         # epoch_neval0 the neval of the current epoch's first batch
         self.state = {"epoch": 1, "neval": 1, "loss": None, "score": None,
@@ -336,6 +369,8 @@ class LocalOptimizer:
         frozen = self._frozen_mask
         if any(frozen):
             grads = [g * 0.0 if f else g for g, f in zip(grads, frozen)]
+        # the health stats read the pre-clip gradient
+        pre_clip = grads
         grads = self._clipper(grads)
         with torch.no_grad():
             old = [p.detach() for p in params]
@@ -350,6 +385,11 @@ class LocalOptimizer:
                 new_p = _where(ok, new_p, [p.detach() for p in params])
                 new_opt = _where(ok, new_opt, opt_state)
                 self.model.set_state(_where(ok, self.model.state(), mstate))
+            if self._health_now:
+                from bigdl_tpu_torch.obs.health import tree_layer_stats
+
+                # new_p is after the guard: a skipped step shows no update
+                self._step_health = tree_layer_stats(pre_clip, old, new_p)
             for p, q in zip(params, new_p):
                 p.copy_(q)
         return new_opt, loss.detach(), ok
@@ -421,10 +461,10 @@ class LocalOptimizer:
             extra["stream"] = stream_state()
         return extra
 
-    def _checkpoint(self, method=None) -> None:
+    def _checkpoint(self, method=None, sync: bool = False) -> None:
         """Write ``checkpoint_<epoch>_<neval>`` with ``method``'s state
         (the live optimizer method by default): now, or in the
-        background after a host snapshot."""
+        background after a host snapshot (unless ``sync``)."""
         if not self.checkpoint_path:
             return
         self._raise_pending_ckpt_error()
@@ -437,7 +477,7 @@ class LocalOptimizer:
         method = method or self.optim_method
         extra = self._checkpoint_extra()
         keep = self.checkpoint_keep_last
-        if self.checkpoint_background:
+        if self.checkpoint_background and not sync:
             if self._ckpt_executor is None:
                 from concurrent.futures import ThreadPoolExecutor
 
@@ -492,6 +532,83 @@ class LocalOptimizer:
             self.train_summary.add_histogram(
                 "/".join(path), leaf.detach().float().cpu().numpy(), step)
 
+    def _elastic_shutdown(self, step: int) -> None:
+        """Graceful preemption (JAX :344-404): the steps before ``step``
+        are resolved; write a synchronous emergency checkpoint (a
+        failure is recorded, never raised: nothing may mask the exit)
+        and raise ``Preempted`` (``EXIT_PREEMPTED``).  ``optimize``'s
+        ``finally`` still flushes a background write in flight."""
+        from bigdl_tpu_torch.resilience import elastic
+
+        signum = elastic.preemption_signal()
+        # handled now: a later optimize() in this process must not
+        # re-preempt on the old flag
+        elastic.clear_preemption()
+        log.warning("preemption requested (signal %s) at iter %d: "
+                    "emergency checkpoint, then exit %d", signum, step,
+                    elastic.EXIT_PREEMPTED)
+        tracer = obs.get_tracer()
+        prefix = None
+        if self.checkpoint_path:
+            self._flush_checkpoints(raise_errors=False)
+            tag = f"{self.state['epoch']}_{self.state['neval']}"
+            prefix = os.path.join(self.checkpoint_path, f"checkpoint_{tag}")
+            try:
+                self._checkpoint(sync=True)
+                log.info("emergency checkpoint written: %s", prefix)
+                tracer.event("elastic.emergency_checkpoint", step=step,
+                             prefix=os.path.basename(prefix))
+            except Exception as e:  # noqa: BLE001 - still exit preempted
+                log.exception("emergency checkpoint failed; exiting "
+                              "preempted without one")
+                tracer.event("elastic.emergency_checkpoint_failed",
+                             step=step, error=type(e).__name__)
+                prefix = None
+        obs.get_registry().counter(
+            names.PREEMPTIONS_TOTAL,
+            "Graceful preemption shutdowns (SIGTERM/SIGINT)").inc()
+        tracer.event("elastic.preempted", step=step, signum=signum,
+                     checkpoint=prefix and os.path.basename(prefix))
+        raise elastic.Preempted(
+            f"preempted (signal {signum}) at iter {step}; emergency "
+            f"checkpoint: {prefix or 'none'}", step=step, checkpoint=prefix)
+
+    def _detect_slow_step(self, n, dt, tracer, runtime) -> None:
+        """A step slower than the step-time median times
+        ``BIGDL_TORCH_SLOW_STEP_FACTOR`` (after 8 steps) emits a
+        ``slow_step`` event with its child spans' durations from the
+        tracer's ring and counts in ``bigdl_slow_steps_total`` (JAX
+        :406-440)."""
+        from bigdl_tpu_torch.config import ObsConfig
+
+        factor = ObsConfig.from_env().slow_step_factor
+        if factor <= 0:
+            return
+        res = runtime.step_times
+        if res.count < 8:
+            return
+        med = res.percentiles((0.5,))[0.5]
+        if med is None or med <= 0 or dt <= med * factor:
+            return
+        breakdown = {}
+        for rec in tracer.recent():
+            if rec.get("kind") != "span" or rec.get("name") in (
+                    "iteration", "computing"):
+                continue
+            if (rec.get("attrs") or {}).get("step") == n:
+                breakdown[rec["name"]] = round(
+                    breakdown.get(rec["name"], 0.0)
+                    + float(rec.get("dur_s", 0.0)), 6)
+        log.warning("slow step %d: %.4fs vs median %.4fs (> %gx); "
+                    "breakdown %s", n, dt, med, factor,
+                    breakdown or "unavailable (tracing off)")
+        tracer.event("slow_step", step=n, dur_s=round(dt, 6),
+                     median_s=round(med, 6), factor=factor,
+                     breakdown=breakdown)
+        obs.get_registry().counter(
+            names.SLOW_STEPS_TOTAL,
+            "Steps exceeding median * BIGDL_SLOW_STEP_FACTOR").inc()
+
     # ---- parameters, optimizer state and the input feed -----------------
     def _param_leaves(self):
         """(torch names, parameters, parameter tree of list positions),
@@ -524,10 +641,14 @@ class LocalOptimizer:
             return
         topo = getattr(opt, "loaded_topology", None) or {}
         if topo.get("shard_layout", "tree") != "tree":
+            # the JAX LocalOptimizer takes a loaded state as it is
+            # (bigdl_tpu/optim/optimizer.py:557-561) and its first step
+            # then fails on the flat vectors; this says why up front
             raise NotImplementedError(
                 f"the optimizer state was written by a "
                 f"{topo.get('shard_layout')!r} trainer; a LocalOptimizer "
-                "resumes only from a tree state (ROADMAP.md queue 1 item 6)")
+                "resumes only from a tree state, as the JAX package's "
+                "(resume it with a DistriOptimizer, or reset state=None)")
         paths = [path for path, _ in T.leaves_with_paths(tree)]
 
         def at(node, path):
@@ -554,10 +675,14 @@ class LocalOptimizer:
 
     def _host_batches(self, pin: bool):
         """The epoch's training batches as CPU tensors (pinned when
-        ``pin``), each with its mask and its record count."""
-        for inp, tgt in self.dataset.data(train=True):
+        ``pin``), each with its mask and its record count; each batch's
+        preparation is a ``batch_prep`` span of the step it feeds (the
+        epoch's k-th batch feeds step ``_feed_step0 + k``)."""
+        tracer, step0 = self._obs_tracer, self._feed_step0
+        for k, (inp, tgt) in enumerate(self.dataset.data(train=True)):
             n = int(np.asarray(inp).shape[0])
-            inp, tgt, mask = self._prepare_batch(inp, tgt)
+            with tracer.span("batch_prep", step=step0 + k):
+                inp, tgt, mask = self._prepare_batch(inp, tgt)
             yield (to_host_tensor(inp, pin), to_host_tensor(tgt, pin),
                    to_host_tensor(mask, pin), n)
 
@@ -576,11 +701,27 @@ class LocalOptimizer:
         self._raise_pending_ckpt_error()
         from bigdl_tpu_torch.resilience.faults import get_injector
 
+        from bigdl_tpu_torch.obs import health as _health
+        from bigdl_tpu_torch.obs import server as _obs_server
+        from bigdl_tpu_torch.resilience import elastic as _elastic
+
         inj = get_injector()
         self._fault_injector = inj if inj.active else None
+        tracer = self._obs_tracer = obs.get_tracer()
+        self._obs_runtime = obs.get_runtime() if obs.active() else None
+        self._obs_server = _obs_server.ensure_server()
+        if self._obs_server is not None:
+            _obs_server.register_registry(self.metrics.registry)
+        self._health_monitor = _health.monitor_from_config(
+            self.model.params(), tracer=tracer, summary=self.train_summary)
+        # a preemption listener (SIGTERM drains at the next step's top)
+        # and, at world > 1, the heartbeat monitor
+        self._elastic_session = _elastic.ElasticSession.from_config()
         try:
             model = self._optimize_loop()
         finally:
+            self._elastic_session.close()
+            self._elastic_session = None
             # the write in flight is durable (or its error recorded)
             # before optimize returns or the retry reads the directory;
             # no writer thread outlives the run
@@ -588,6 +729,8 @@ class LocalOptimizer:
             ex, self._ckpt_executor = self._ckpt_executor, None
             if ex is not None:
                 ex.shutdown(wait=True)
+            if self._obs_runtime is not None:
+                obs.publish_runtime(runtime=self._obs_runtime)
         # normal completion: a background write's error reaches the caller
         self._raise_pending_ckpt_error()
         return model
@@ -604,7 +747,8 @@ class LocalOptimizer:
         self._init_opt_state(params, tree)
         opt = self.optim_method
         self._nonfinite_consec = 0
-        pending = []        # (n, loss, ok, batch size, dispatch time)
+        # (n, loss, ok, batch size, dispatch time, health stats or None)
+        pending = []
         val_trigger = self.validation_trigger
         ckpt_trigger = self.checkpoint_trigger
         summary = self.train_summary
@@ -614,15 +758,34 @@ class LocalOptimizer:
                             for t in (self.end_when, val_trigger,
                                       ckpt_trigger, param_trigger)
                             if t is not None)
-        tracer = obs.get_tracer()
+        tracer = self._obs_tracer
+        runtime = self._obs_runtime
+        monitor = self._health_monitor
+        footprint = self._collective_footprint
+        note_step = None
+        if self._obs_server is not None:
+            from bigdl_tpu_torch.obs.server import note_step
         inj = self._fault_injector
         # a stream's trained frontier moves once per dispatched batch
         note_stream = getattr(self.dataset, "note_batch_trained", None)
 
-        def resolve(n, loss_dev, ok_dev, bs, t0):
+        def resolve(n, loss_dev, ok_dev, bs, t0, stats=None):
             loss_val = float(loss_dev)
-            self.metrics.add("computing time", time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            self.metrics.add("computing time", dt)
+            if footprint is not None:
+                footprint.commit()
+            if runtime is not None:
+                runtime.record_step(dt)
+                tracer.complete("computing", t0, dt, step=n)
+                self._detect_slow_step(n, dt, tracer, runtime)
+            if note_step is not None:
+                note_step(n)
             self.state["loss"] = loss_val
+            if monitor is not None:
+                # before the skip escalation below, so a
+                # NonFiniteStepError never beats the localization
+                monitor.on_step(n, stats, bool(ok_dev), loss_val)
             if summary is not None:
                 summary.add_scalar("Loss", loss_val, n)
                 summary.add_scalar(
@@ -661,8 +824,10 @@ class LocalOptimizer:
                 item = next(it, None)
                 if item is None:
                     return
-                self.metrics.add("data wait time",
-                                 time.perf_counter() - t_wait)
+                dt_wait = time.perf_counter() - t_wait
+                self.metrics.add("data wait time", dt_wait)
+                tracer.complete("data_wait", t_wait, dt_wait,
+                                step=self.state["neval"])
                 yield item
 
         pin = self.device.type == "cuda"
@@ -671,11 +836,11 @@ class LocalOptimizer:
             epoch = self.state["epoch"]
             t_epoch = time.time()
             finished = True
+            skip, self._pending_fast_forward = self._pending_fast_forward, 0
+            self._feed_step0 = self.state["neval"] - skip
             feed = PrefetchIterator(self._host_batches(pin))
             batches = iter(feed)
             try:
-                skip, self._pending_fast_forward = \
-                    self._pending_fast_forward, 0
                 if skip > 0:
                     log.info("mid-epoch resume: skipping %d batches to "
                              "iter %d", skip, self.state["neval"])
@@ -684,37 +849,56 @@ class LocalOptimizer:
                         break
                 for inp, tgt, mask, records in waited(batches):
                     n = self.state["neval"]
-                    if inj is not None and inj.on_step(n) == "nan_grad":
-                        inp = torch.from_numpy(inj.poison_batch(inp))
-                    t0 = time.perf_counter()
-                    with self.metrics.timer("put batch time"):
-                        inp_d, tgt_d, mask_d = self._put_batch(inp, tgt,
-                                                               mask)
-                    opt.state, loss, ok = self._train_step(
-                        param_names, params, opt.state, inp_d, tgt_d, mask_d,
-                        cfg.nonfinite_guard, fold_in(DROPOUT_BASE_SEED, n))
-                    if note_stream is not None:
-                        note_stream()
-                    # read the previous step's loss while this one runs
-                    flush()
-                    pending.append((n, loss, ok, records, t0))
-                    if sync_per_step:
+                    es = self._elastic_session
+                    if es is not None and es.on_iteration(n):
+                        # the steps in flight resolve, then the exit
                         flush()
-                    if param_trigger is not None and param_trigger(
-                            self.state):
-                        self._write_param_histograms(n)
-                    self.state["neval"] = n + 1
-                    if val_trigger is not None and val_trigger(self.state):
+                        self._elastic_shutdown(n)
+                    with tracer.span("iteration", step=n):
+                        if inj is not None and inj.on_step(n) == "nan_grad":
+                            inp = torch.from_numpy(inj.poison_batch(inp))
+                        t0 = time.perf_counter()
+                        with self.metrics.timer("put batch time"), \
+                                tracer.span("device_put", step=n):
+                            inp_d, tgt_d, mask_d = self._put_batch(
+                                inp, tgt, mask)
+                        self._health_now = (monitor is not None
+                                            and monitor.wants(n))
+                        t_disp = time.perf_counter()
+                        with tracer.span("step_dispatch", step=n):
+                            opt.state, loss, ok = self._train_step(
+                                param_names, params, opt.state, inp_d,
+                                tgt_d, mask_d, cfg.nonfinite_guard,
+                                fold_in(DROPOUT_BASE_SEED, n))
+                        if runtime is not None:
+                            runtime.record_dispatch(
+                                "train_step", time.perf_counter() - t_disp)
+                        stats, self._step_health = self._step_health, None
+                        if note_stream is not None:
+                            note_stream()
+                        # read the previous step's loss while this one runs
                         flush()
-                        self._run_validation()
-                        model.train()
-                    if ckpt_trigger is not None and ckpt_trigger(self.state):
-                        flush()
-                        with tracer.span("checkpoint", step=n):
-                            self._checkpoint()
-                    if self.end_when(self.state):
-                        stop, finished = True, False
-                        break
+                        pending.append((n, loss, ok, records, t0, stats))
+                        if sync_per_step:
+                            flush()
+                        if param_trigger is not None and param_trigger(
+                                self.state):
+                            self._write_param_histograms(n)
+                        self.state["neval"] = n + 1
+                        if val_trigger is not None and \
+                                val_trigger(self.state):
+                            flush()
+                            with tracer.span("validation", step=n):
+                                self._run_validation()
+                            model.train()
+                        if ckpt_trigger is not None and \
+                                ckpt_trigger(self.state):
+                            flush()
+                            with tracer.span("checkpoint", step=n):
+                                self._checkpoint()
+                        if self.end_when(self.state):
+                            stop, finished = True, False
+                            break
             finally:
                 feed.close()
                 self.feed_stats = (feed.waits, feed.wait_s, feed.items)

@@ -1,10 +1,17 @@
 """Fault tolerance of the port (counterpart of
 ``bigdl_tpu.resilience``): the trainers' retry policy and its error
 classes, the serving router's retry budget, the fault injector
-(``BIGDL_TORCH_FAULT_PLAN``) and the stream's resume
-(``elastic.restore_stream``)."""
+(``BIGDL_TORCH_FAULT_PLAN``) and the elastic layer: preemption,
+heartbeats, the world-resize resume (``elastic.ensure_shard_layout``),
+``restore_latest`` and the stream's resume."""
 
-from bigdl_tpu_torch.resilience.elastic import restore_stream
+from bigdl_tpu_torch.resilience.elastic import (EXIT_FATAL, EXIT_PREEMPTED,
+                                                EXIT_TRANSIENT,
+                                                ElasticSession,
+                                                HeartbeatMonitor, Preempted,
+                                                ensure_shard_layout,
+                                                record_resume, restore_latest,
+                                                restore_stream, run_main)
 from bigdl_tpu_torch.resilience.faults import (Fault, FaultInjector,
                                                FaultPlan, InjectedFault,
                                                get_injector, reset_injector)
@@ -17,4 +24,8 @@ from bigdl_tpu_torch.resilience.retry import (CheckpointWriteError,
 __all__ = ["CheckpointWriteError", "NonFiniteStepError", "PeerLostError",
            "RetryBudget", "RetryPolicy", "backoff_delay", "classify",
            "Fault", "FaultInjector", "FaultPlan", "InjectedFault",
-           "get_injector", "reset_injector", "restore_stream"]
+           "get_injector", "reset_injector", "restore_stream",
+           "EXIT_FATAL", "EXIT_PREEMPTED", "EXIT_TRANSIENT",
+           "ElasticSession", "HeartbeatMonitor", "Preempted",
+           "ensure_shard_layout", "record_resume", "restore_latest",
+           "run_main"]

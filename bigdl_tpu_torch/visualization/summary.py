@@ -250,9 +250,9 @@ class TrainSummary(_Summary):
     def add_health(self, step: int, layers: dict):
         """Per-layer numerics scalars from one health sample
         (``{layer: {grad_norm, param_norm, update_ratio, ...}}``): one
-        stream per (prefix, layer) of :data:`HEALTH_TAG_PREFIXES`.  A
-        plain writer: no trainer of the port calls it until the health
-        monitor is ported (ROADMAP.md queue 1 item 6)."""
+        stream per (prefix, layer) of :data:`HEALTH_TAG_PREFIXES`.  The
+        trainers' health monitor (``obs/health.py``,
+        ``BIGDL_TORCH_HEALTH_EVERY``) calls it with each sample."""
         keys = ("grad_norm", "param_norm", "update_ratio")
         for layer, row in layers.items():
             for prefix, key in zip(HEALTH_TAG_PREFIXES, keys):

@@ -317,8 +317,41 @@ it runs; any failure exits non-zero:
     offset 12 x 32, the retry replaying from the checkpoint's offset,
     weights bit-equal to an uninterrupted run, the producer pushed back
     (the depth gauge and the waits printed);
+22. what ``DistriOptimizer`` lacked (``phase_distri_resilience``,
+    callable alone after ``phase_device()`` and ``phase_build()``), at
+    world 1 on NCCL with cuDNN deterministic: (a) phase 7's fused
+    ResNet-50 (bf16, batch 32) 8 steps through ``DistriOptimizer`` with
+    SGD and momentum, first on the f32 wire in one bucket, then with
+    ``wire_dtype="int8"``, ``wire_ef=True``, ``overlap_bucket_mb=25``,
+    ``BIGDL_TORCH_HEALTH_EVERY=4``, the tracer and the obs server on an
+    ephemeral port: the weights bit-equal to the f32 run (at world 1
+    the wire is the identity and the one-rank shard-major layout the
+    flat one), 36 ``conv_bn_1x1`` and 16 ``conv_bn_kxk`` launches a
+    step (counted from 0 around this run), each health report's summed
+    grad_sq within 1e-4 relative of the step's pre-clip gradient's
+    squared norm taken in f64 in the phase, ``/healthz`` at step 8 and
+    ``"stalled"`` after 1 s idle past ``BIGDL_TORCH_HANG_TIMEOUT=0.5``,
+    the step spans of step 8 in the tracer's ring; step ms and images/s
+    with all of it on and off, the runtime profile's p50s, the health
+    report's ms, peak memory; (b) ``parallel.wire.quantize`` /
+    ``dequantize`` of the padded flat gradient in bf16, int8, fp8_e4m3
+    and fp8_e5m2 at block 512: payloads and scales bit-equal to the
+    card machine's CPU, the int8 error within each block's amax / 254,
+    their ms on the device (25 runs), each wire's bytes a rank a step
+    at worlds 2 and 8 from ``obs/collectives`` against f32; (c) the
+    tests' two-rank worker (``tests/torch_port_distri_worker.py``,
+    ``ckpt``) checkpoints the small model at world 2 over gloo on the
+    CPU (the int8 wire, EF, two buckets); the card resumes it at world
+    1 through ``restore_latest``: the re-laid velocity bit-equal to the
+    un-permuted, re-padded vector, ``wire_ef`` reset to zeros, epoch
+    2's 4 steps within 1e-5 of the CPU's resume; (d) a child process
+    trains LeNet-5 (1024 synthetic MNIST images, batch 128) on the card
+    through ``DistriOptimizer`` with checkpoints each epoch and takes a
+    SIGTERM after step 3: it exits 170 with an intact emergency
+    checkpoint, and ``restore_latest`` in a second child ends bit-equal
+    to an uninterrupted child;
 9. the kernels line, last: one JSON object listing each kernel with its
-   launches on its own path (phase 4, phase 21 (a) for the conv_bn
+   launches on its own path (phase 4, phase 22 (a) for the conv_bn
    kernels, or the kernel arm of phase 11) and its numbers from phase
    3, 6 or 10.
 
@@ -562,6 +595,21 @@ P21_SHORT_STEPS, P21_FAULT_CKPT_EVERY = 8, 2
 P21_FAULT_PLAN, P21_NAN_PLAN = "step:6:raise,ckpt:2:corrupt", "step:3:nan_grad"
 P21_PRED_TOL = 1e-5
 STREAM_STEPS, STREAM_CKPT_EVERY, STREAM_RAISE_AT, STREAM_BUFFER = 12, 5, 8, 16
+# DistriOptimizer's wires, buckets, health and resilience (phase 22):
+# (a) phase 7's fused ResNet-50 at batch 32 for 8 steps with SGD lr 0.1
+# and momentum 0.9, the int8 wire with error feedback, 25 MiB buckets and
+# a health report every 4 steps against the f32 wire in one bucket; the
+# health report's summed grad_sq within 1e-4 relative of the pre-clip
+# gradient's squared norm (f64 in the phase), /healthz stalled past a
+# hang timeout of 0.5 s after 1 s idle; (b) the wire's quantizers at
+# block 512, 25 runs a timing; (c) the tests' world-2 checkpoint (the
+# int8 wire with EF and two buckets) resumed at world 1 on the card and
+# on the CPU, epoch 2's 4 steps within 1e-5; (d) LeNet-5 on the card
+# through DistriOptimizer, 1024 synthetic MNIST images, batch 128 (8
+# steps an epoch), 2 epochs, SIGTERM after step 3's loss
+P22_STEPS, P22_LR, P22_HEALTH_EVERY, P22_BUCKET_MB = 8, 0.1, 4, 25.0
+P22_BLOCK, P22_HEALTH_REL, P22_HANG_S, P22_RESUME_TOL = 512, 1e-4, 0.5, 1e-5
+P22_LENET_N, P22_LENET_BATCH, P22_LENET_EPOCHS, P22_HOLD = 1024, 128, 2, 3
 # phase 11's kernel-arm SGD step (bf16), for phase 18 (c) to print beside
 # Adam's
 _LM_SGD_MS = {}
@@ -5477,6 +5525,500 @@ def phase_image_pipeline(smi: str) -> dict:
     return launches
 
 
+# ---- phase 22: what DistriOptimizer still lacked --------------------------
+def _p22_trainer(model, x, y, **kw):
+    """Phase 7's fused ResNet-50 recipe through ``DistriOptimizer`` at
+    world 1 (bf16 compute), SGD with momentum, one batch an epoch."""
+    from bigdl_tpu_torch.nn.criterion import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import SGD, DistriOptimizer, Trigger
+
+    opt = DistriOptimizer(model, (x, y), CrossEntropyCriterion(),
+                          TRAIN_BATCH, device=DEV, **kw)
+    opt.set_optim_method(SGD(learningrate=P22_LR, momentum=0.9))
+    opt.set_compute_dtype("bfloat16")
+    opt.set_end_when(Trigger.max_iteration(P22_STEPS))
+    return opt
+
+
+class _P22Summary(_TimedLosses):
+    """Losses with their read times, and each health sample."""
+
+    def __init__(self):
+        super().__init__()
+        self.health = {}
+
+    def add_health(self, step, layers):
+        self.health[step] = layers
+
+    def get_summary_trigger(self, name):
+        return None
+
+
+def _p22_run(x, y, **kw):
+    """One 8-step run: (model, optimizer, summary, f64 squared norm of
+    each step's pre-clip gradient, the last step's padded flat
+    gradient, steady step ms)."""
+    from bigdl_tpu_torch.common import RandomGenerator
+
+    model = _training_resnet50(True)
+    RandomGenerator.RNG.set_seed(1)
+    opt = _p22_trainer(model, x, y, **kw)
+    summary = _P22Summary()
+    opt.set_train_summary(summary)
+    sq, last = {}, {}
+    clip = opt._clipper
+
+    def recording_clip(grads, global_sq=None):
+        g = grads[0]
+        sq[opt.state["neval"]] = g.double().pow(2).sum()
+        last["g"] = g
+        return clip(grads, global_sq=global_sq)
+
+    opt._clipper = recording_clip
+    opt.optimize()
+    torch.cuda.synchronize()
+    at = summary.at
+    gaps = [at[n + 1] - at[n] for n in sorted(at) if n >= 2 and n + 1 in at]
+    step_ms = float(np.median(gaps)) * 1e3
+    return model, opt, summary, {n: float(v) for n, v in sq.items()}, \
+        last["g"].detach().clone(), step_ms
+
+
+def _phase22_main(smi: str, tmp: str):
+    """(a): the f32 monolithic run, then the int8 + EF + buckets run
+    with health, spans and the obs server; their gates.  Returns (the
+    conv_bn launches of the main run, the last flat gradient, the main
+    run's optimizer)."""
+    import urllib.request
+
+    from bigdl_tpu_torch import obs
+    from bigdl_tpu_torch.obs import health as H
+    from bigdl_tpu_torch.obs import runtime as R
+    from bigdl_tpu_torch.obs import server
+    from bigdl_tpu_torch.ops import _cuda
+    from bigdl_tpu_torch.utils import tree as T
+
+    x = np.random.RandomState(0).randn(
+        TRAIN_BATCH, 3, TRAIN_IMG, TRAIN_IMG).astype(np.float32)
+    y = (np.random.RandomState(1).randint(0, TRAIN_CLASSES, TRAIN_BATCH)
+         + 1).astype(np.float32)
+    ref, ref_opt, ref_sum, _, _, off_ms = _p22_run(x, y,
+                                                    wire_dtype="float32")
+    ref_w = [v.detach().clone() for v in T.leaves(ref.params())]
+    del ref, ref_opt
+    torch.cuda.empty_cache()
+    env = {"BIGDL_TORCH_HEALTH_EVERY": str(P22_HEALTH_EVERY),
+           "BIGDL_TORCH_OBS_PORT": "0",
+           "BIGDL_TORCH_TRACE_DIR": os.path.join(tmp, "trace"),
+           "BIGDL_TORCH_HANG_TIMEOUT": str(P22_HANG_S)}
+    os.environ.update(env)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        # the slice's main path: counts from 0 just before, read after
+        _cuda.reset_launches()
+        model, opt, summary, sq, flat_g, on_ms = _p22_run(
+            x, y, wire_dtype="int8", wire_ef=True,
+            overlap_bucket_mb=P22_BUCKET_MB, wire_block=P22_BLOCK)
+        launches = {k: _cuda.launches[k]
+                    for k in ("conv_bn_1x1", "conv_bn_kxk")}
+        srv = server.get_server()
+        with urllib.request.urlopen(srv.url("/healthz"), timeout=30) as r:
+            hz = json.loads(r.read())
+        peak = R.device_memory_stats()["peak_bytes_in_use"]
+        buckets = opt._buckets
+        say(f"phase 22 (a) losses f32 "
+            f"{['%.5f' % ref_sum.loss[n] for n in sorted(ref_sum.loss)]}, "
+            f"int8+EF+{len(buckets)} buckets "
+            f"{['%.5f' % summary.loss[n] for n in sorted(summary.loss)]}")
+        if hz["step"] != P22_STEPS or hz["status"] != "ok":
+            raise AssertionError(f"phase 22 (a): /healthz {hz}")
+        got_w = [v.detach() for v in T.leaves(model.params())]
+        bad = [i for i, (a, b) in enumerate(zip(got_w, ref_w))
+               if not torch.equal(a, b)]
+        if bad or len(buckets) < 2:
+            raise AssertionError(f"phase 22 (a): {len(bad)} parameter "
+                                 f"tensors differ from the f32 monolithic "
+                                 f"run ({len(buckets)} buckets)")
+        want = (36 * P22_STEPS, 16 * P22_STEPS)
+        if (launches["conv_bn_1x1"], launches["conv_bn_kxk"]) != want:
+            raise AssertionError(f"phase 22 (a): conv_bn launches "
+                                 f"{launches}, want {want}")
+        if "wire_ef" not in opt.optim_method.state or \
+                opt.optim_method.state["wire_ef"].abs().max().item() != 0:
+            raise AssertionError("phase 22 (a): the world-1 EF residual "
+                                 "is not the zeros the identity wire leaves")
+        # each health report against the phase's own f64 squared norm
+        reports = sorted(summary.health)
+        if reports != list(range(P22_HEALTH_EVERY, P22_STEPS + 1,
+                                 P22_HEALTH_EVERY)):
+            raise AssertionError(f"phase 22 (a): health reports at "
+                                 f"{reports}")
+        worst = 0.0
+        for n in reports:
+            got = sum(r["grad_norm"] ** 2
+                      for r in summary.health[n].values())
+            worst = max(worst, abs(got - sq[n]) / sq[n])
+        check("phase 22 (a) health grad_sq vs the gradient's norm", worst,
+              P22_HEALTH_REL)
+        # the step spans in the tracer's ring
+        spans = {}
+        for rec in obs.get_tracer().recent():
+            if rec.get("kind") == "span":
+                spans.setdefault(rec["name"], set()).add(
+                    (rec.get("attrs") or {}).get("step"))
+        for name in ("iteration", "batch_prep", "device_put",
+                     "step_dispatch", "computing"):
+            if P22_STEPS not in spans.get(name, ()):
+                raise AssertionError(f"phase 22 (a): no {name} span of "
+                                     f"step {P22_STEPS} in the ring")
+        time.sleep(2 * P22_HANG_S)
+        with urllib.request.urlopen(srv.url("/healthz"), timeout=30) as r:
+            stalled = json.loads(r.read())
+        if stalled["status"] != "stalled":
+            raise AssertionError(f"phase 22 (a): /healthz idle {stalled}")
+        # the health report's own cost at this size: the stats on the
+        # card, then the read-back and summary on the host
+        flat_w = opt._flat
+        stats_ms = time_ms(lambda: H.flat_shard_stats(
+            flat_g, flat_w, flat_w, 0, opt._boundaries,
+            positions=opt._positions), device_only=True)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            H.summarize(H.flat_shard_stats(
+                flat_g, flat_w, flat_w, 0, opt._boundaries,
+                positions=opt._positions).cpu().numpy(),
+                opt._health_monitor.names)
+        report_ms = (time.perf_counter() - t0) * 1e2
+        rt = opt._obs_runtime.snapshot(memory=False)
+        say(f"phase 22 (a) 36/16 conv_bn launches a step; bit-equal to the "
+            f"f32 monolithic run; health grad_sq within {worst:.2e}; "
+            f"/healthz step {hz['step']} then '{stalled['status']}' after "
+            f"{stalled['step_age_s']:.2f} s idle; {len(buckets)} buckets "
+            f"of {buckets[0][1] * 4 / 2 ** 20:.1f} MiB at world 1")
+        say(f"phase 22 (a) step {on_ms:.3f} ms ({TRAIN_BATCH / on_ms * 1e3:.1f}"
+            f" images/s) with the int8 wire, buckets, health every "
+            f"{P22_HEALTH_EVERY} and spans on; {off_ms:.3f} ms "
+            f"({TRAIN_BATCH / off_ms * 1e3:.1f} images/s) f32 with them off; "
+            f"runtime p50 {rt['step_time_s']['p50'] * 1e3:.3f} ms, dispatch "
+            f"p50 {rt['dispatch_time_s']['p50'] * 1e3:.3f} ms; health stats "
+            f"{stats_ms:.3f} ms on the device, a whole report "
+            f"{report_ms:.3f} ms; peak memory {peak / 2 ** 30:.2f} GiB "
+            f"(obs/runtime); {smi}")
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+        server.stop_server()
+        obs.reset()
+    return launches, flat_g, opt
+
+
+def _phase22_wire(flat_g, smi: str) -> None:
+    """(b): the quantizers on the card against the card machine's CPU,
+    their times, and each wire's bytes a step from the byte model."""
+    from bigdl_tpu_torch.obs import collectives as C
+    from bigdl_tpu_torch.parallel import wire as Wr
+
+    elems = flat_g.numel()
+    padded = Wr.padded_elems(elems, Wr.WireSpec("int8", P22_BLOCK), 1)
+    g = torch.cat([flat_g, flat_g.new_zeros(padded - elems)])
+    g_cpu = g.cpu()
+    for dtype in ("bfloat16", "int8", "fp8_e4m3", "fp8_e5m2"):
+        spec = Wr.WireSpec(dtype, P22_BLOCK)
+        payload, scales = Wr.quantize(g, spec)
+        p_cpu, s_cpu = Wr.quantize(g_cpu, spec)
+        same = torch.equal(payload.cpu().view(torch.uint8),
+                           p_cpu.view(torch.uint8)) and (
+            scales is None or torch.equal(scales.cpu(), s_cpu))
+        deq = Wr.dequantize(payload, scales, spec, shape=g.shape)
+        same = same and torch.equal(
+            deq.cpu(), Wr.dequantize(p_cpu, s_cpu, spec, shape=g.shape))
+        if not same:
+            raise AssertionError(f"phase 22 (b) {dtype}: the card's payload "
+                                 "or scales differ from the CPU's")
+        if dtype == "int8":
+            amax = g.view(-1, P22_BLOCK).abs().amax(dim=1, keepdim=True)
+            # amax / 254 is the exact bound; x / scale and q * scale
+            # each round once in f32
+            over = ((deq - g).view(-1, P22_BLOCK).abs()
+                    - amax / 254 * (1 + 1e-6) - amax * 2.0 ** -23).max().item()
+            if over > 0:
+                raise AssertionError(f"phase 22 (b): int8 error over "
+                                     f"amax/254 by {over:.3e}")
+        q_ms = time_ms(lambda: Wr.quantize(g, spec), device_only=True)
+        d_ms = time_ms(lambda: Wr.dequantize(payload, scales, spec),
+                       device_only=True)
+        per_world = []
+        for n in (2, 8):
+            pad_n = Wr.padded_elems(elems, spec, n)
+            ring = sum(C.staged_ring_exchange_bytes(
+                pad_n, n, P22_BLOCK, spec.wire_name).values()) \
+                if spec.scaled else C.reduce_scatter_bytes(pad_n, dtype, n)
+            f32 = C.reduce_scatter_bytes(pad_n, "float32", n)
+            per_world.append(f"world {n} {ring / 2 ** 20:.2f} MiB vs f32 "
+                             f"{f32 / 2 ** 20:.2f} MiB")
+        say(f"phase 22 (b) {dtype}: payload and scales bit-equal to the "
+            f"CPU's over {padded} elements; quantize {q_ms:.4f} ms, "
+            f"dequantize {d_ms:.4f} ms on the device (25 runs); a rank "
+            f"ships a step (obs/collectives model, world 1 ships 0): "
+            f"{'; '.join(per_world)}; {smi}")
+
+
+def _phase22_resume(tmp: str) -> None:
+    """(c): the tests' two-rank worker checkpoints at world 2 over gloo
+    on the CPU; the card resumes at world 1, against the CPU's
+    resume."""
+    import importlib.util
+
+    from bigdl_tpu_torch import nn as TN
+    from bigdl_tpu_torch import optim as TO
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.dataset import ArrayDataSet
+    from bigdl_tpu_torch.engine import Engine
+    from bigdl_tpu_torch.parallel import wire as Wr
+    from bigdl_tpu_torch.utils import serializer as S
+    from bigdl_tpu_torch.utils import tree as T
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    worker = os.path.join(root, "tests", "torch_port_distri_worker.py")
+    spec = importlib.util.spec_from_file_location("p22_worker", worker)
+    W = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(W)
+    ck = os.path.join(tmp, "ck_world2")
+    store = os.path.join(tmp, "store")
+    procs = [subprocess.Popen(
+        [sys.executable, worker, str(r), "2", store, ck, "ckpt"], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, log in zip(procs, logs):
+        if p.returncode:
+            raise AssertionError(f"phase 22 (c) world-2 writer: {log[-2000:]}")
+    prefix = os.path.join(ck, S.checkpoint_prefixes(ck)[-1])
+    topo = S.read_checkpoint_topology(prefix)
+    with np.load(prefix + ".optim.npz") as f:
+        saved = {k: np.array(f[k]) for k in ("velocity", "wire_ef")}
+    x, y = W.data(W.CKPT_N)
+
+    def resume(device):
+        snaps = []
+
+        class Snap(TO.DistriOptimizer):
+            def _init_opt_state(self, params, tree):
+                super()._init_opt_state(params, tree)
+                snaps.append({k: v.detach().cpu().clone()
+                              for k, v in self.optim_method.state.items()})
+
+        Engine.reset()
+        RandomGenerator.RNG.set_seed(4)
+        make = lambda m, d: Snap(  # noqa: E731
+            m, d, TN.ClassNLLCriterion(), 8, device=device, **W.CKPT_KW)
+        model, opt, losses = W.ckpt_run(
+            TN, TO, make, ArrayDataSet(x, y, 8, shuffle=False), resume=ck)
+        out = [v.detach().cpu() for v in T.leaves(model.params())]
+        return snaps[0], [losses.loss[n] for n in sorted(losses.loss)], out, \
+            opt
+
+    card_state, card_loss, card_w, opt = resume(DEV)
+    elems, pad = opt._flat_elems, opt._pad
+    # the expected re-laid vector: the writer's shard-major order undone,
+    # its padding stripped, this world's padding appended (one rank: the
+    # shard-major order of this run's buckets is the flat one)
+    flat = np.zeros_like(saved["velocity"])
+    flat[Wr.bucket_param_coords(topo["buckets"], topo["world_size"])] = \
+        saved["velocity"]
+    want = np.concatenate([flat[:elems], np.zeros(pad, np.float32)])
+    if not np.array_equal(card_state["velocity"].numpy(), want):
+        raise AssertionError("phase 22 (c): the re-laid velocity is not the "
+                             "un-permuted, re-padded writer's vector")
+    if card_state["wire_ef"].abs().max().item() != 0 or \
+            not np.abs(saved["wire_ef"]).max() > 0:
+        raise AssertionError("phase 22 (c): wire_ef not reset to zeros")
+    cpu_state, cpu_loss, cpu_w, _ = resume("cpu")
+    Engine.reset()
+    gap = max([abs(a - b) for a, b in zip(card_loss, cpu_loss)]
+              + [float((a - b).abs().max()) for a, b in zip(card_w, cpu_w)])
+    if len(card_loss) != 4 or gap > P22_RESUME_TOL or not torch.equal(
+            cpu_state["velocity"], card_state["velocity"]):
+        raise AssertionError(f"phase 22 (c): the card's resume is {gap:.3e} "
+                             f"from the CPU's ({len(card_loss)} steps)")
+    say(f"phase 22 (c) world-{topo['world_size']} checkpoint ({len(topo['buckets'])} "
+        f"buckets, int8 + EF) resumed at world 1: velocity re-laid bit-equal, "
+        f"wire_ef reset, the 4 steps of epoch 2 within {gap:.2e} of the "
+        "CPU's resume")
+
+
+_P22_CHILD = r"""
+import sys, time
+import numpy as np, torch
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from bigdl_tpu_torch.common import RandomGenerator
+from bigdl_tpu_torch.dataset import ArrayDataSet
+from bigdl_tpu_torch.dataset.mnist import load_mnist, normalize
+from bigdl_tpu_torch.engine import Engine
+from bigdl_tpu_torch.models.lenet import build_lenet5
+from bigdl_tpu_torch.nn import ClassNLLCriterion
+from bigdl_tpu_torch.optim import SGD, DistriOptimizer, Trigger
+from bigdl_tpu_torch.resilience import elastic
+from bigdl_tpu_torch.utils import tree as T
+mode, ck, out, n, batch, epochs, hold, dev = sys.argv[1:9]
+
+
+class Hold:
+    def add_scalar(self, tag, value, step):
+        if mode == "preempt" and tag == "Loss" and step == int(hold):
+            print("STEP", step, flush=True)
+            deadline = time.time() + 120
+            while not elastic.preemption_requested():
+                if time.time() > deadline:
+                    raise RuntimeError("no SIGTERM arrived")
+                time.sleep(0.01)
+
+    def get_summary_trigger(self, name):
+        return None
+
+
+def main():
+    RandomGenerator.RNG.set_seed(0)
+    model = build_lenet5(device=dev)
+    x, y = load_mnist(None, "train", synthetic_n=int(n))
+    opt = DistriOptimizer(model, ArrayDataSet(normalize(x), y, int(batch),
+                                              shuffle=False),
+                          ClassNLLCriterion(), int(batch), device=dev,
+                          wire_dtype="int8", wire_ef=True)
+    opt.set_optim_method(SGD(learningrate=0.1, momentum=0.9))
+    opt.set_end_when(Trigger.max_epoch(int(epochs)))
+    opt.set_checkpoint(ck, Trigger.every_epoch())
+    opt.set_train_summary(Hold())
+    if mode == "resume":
+        print("RESUMED", elastic.restore_latest(opt)["neval"], flush=True)
+    opt.optimize()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    np.savez(out, *[v.detach().cpu().numpy()
+                    for v in T.leaves(model.params())
+                    + T.leaves(model.state())])
+
+
+try:
+    main()
+finally:
+    Engine.reset()
+"""
+
+
+def _phase22_preempt(tmp: str) -> None:
+    """(d): SIGTERM to a LeNet-5 child after step 3; its emergency
+    checkpoint resumed by ``restore_latest`` in a second child, against
+    an uninterrupted child."""
+    import signal
+
+    from bigdl_tpu_torch.utils import serializer as S
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    args = [str(P22_LENET_N), str(P22_LENET_BATCH), str(P22_LENET_EPOCHS),
+            str(P22_HOLD), DEV]
+
+    def child(mode, ck, out):
+        return subprocess.Popen(
+            [sys.executable, "-c", _P22_CHILD, mode, ck, out] + args,
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+
+    t0 = time.perf_counter()
+    ck = os.path.join(tmp, "ck_pre")
+    ref = child("plain", os.path.join(tmp, "ck_ref"),
+                os.path.join(tmp, "ref.npz"))
+    pre = child("preempt", ck, os.path.join(tmp, "never.npz"))
+    seen = []
+    try:
+        for line in pre.stdout:
+            seen.append(line)
+            if line.startswith("STEP"):
+                t_sig = time.perf_counter()
+                pre.send_signal(signal.SIGTERM)
+                break
+        rest = pre.communicate(timeout=300)[0]
+        exit_s = time.perf_counter() - t_sig if seen and \
+            seen[-1].startswith("STEP") else float("nan")
+        ref_out = ref.communicate(timeout=300)[0]
+    finally:
+        pre.kill()
+        ref.kill()
+    if pre.returncode != 170 or os.path.exists(os.path.join(tmp,
+                                                            "never.npz")):
+        raise AssertionError(f"phase 22 (d): the preempted child exited "
+                             f"{pre.returncode}: {''.join(seen)[-1500:]}"
+                             f"{rest[-1500:]}")
+    if ref.returncode:
+        raise AssertionError(f"phase 22 (d) uninterrupted child: "
+                             f"{ref_out[-2000:]}")
+    names_ = S.checkpoint_prefixes(ck)
+    if not names_ or not S.verify_checkpoint(os.path.join(ck,
+                                                          names_[-1]))[0]:
+        raise AssertionError("phase 22 (d): no intact emergency checkpoint")
+    neval = S.read_checkpoint_topology(os.path.join(ck, names_[-1]))["step"]
+    res = child("resume", ck, os.path.join(tmp, "resumed.npz"))
+    out = res.communicate(timeout=300)[0]
+    if res.returncode or f"RESUMED {neval}" not in out:
+        raise AssertionError(f"phase 22 (d) resume: {out[-2000:]}")
+    a = np.load(os.path.join(tmp, "resumed.npz"))
+    b = np.load(os.path.join(tmp, "ref.npz"))
+    if a.files != b.files or not all(np.array_equal(a[k], b[k])
+                                     for k in a.files):
+        raise AssertionError("phase 22 (d): the resumed run is not bit-equal "
+                             "to the uninterrupted one")
+    say(f"phase 22 (d) SIGTERM after step {P22_HOLD}: exit 170 in "
+        f"{exit_s:.2f} s with the emergency checkpoint at neval {neval}; "
+        f"restore_latest ends bit-equal to the uninterrupted run "
+        f"({len(a.files)} arrays); (d) took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_distri_resilience(smi: str) -> dict:
+    """Phase 22: DistriOptimizer's int8/fp8 wires with error feedback,
+    buckets, health, spans and /healthz on the fused ResNet-50, the
+    quantizers on the card, a world-2 checkpoint resumed on the card,
+    and preemption.  Returns the conv_bn launches of (a), its main
+    path."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.engine import Engine
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase22_")
+    det = (torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark)
+    try:
+        # (a) compares two runs bit for bit
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        Engine.init(DEV)
+        launches, flat_g, opt = _phase22_main(smi, tmp)
+        del opt
+        torch.cuda.empty_cache()
+        _phase22_wire(flat_g, smi)
+        del flat_g
+        torch.cuda.empty_cache()
+        _phase22_resume(tmp)
+        _phase22_preempt(tmp)
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = det
+        Engine.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    say(f"phase 22 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _has_pillow() -> bool:
     try:
         import PIL  # noqa: F401
@@ -5524,8 +6066,10 @@ def main() -> int:
     phase_optim(smi)
     phase_text_cnn(smi)
     phase_router(smi, serve_stats["tokens_per_s"])
-    # rows 4-5's launches: this slice's main path, phase 21 (a)
-    launches.update(phase_image_pipeline(smi))
+    p21 = phase_image_pipeline(smi)
+    say(f"phase 21 (a) conv_bn launches {p21}")
+    # rows 4-5's launches: this slice's main path, phase 22 (a)
+    launches.update(phase_distri_resilience(smi))
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["launches"] <= 0:

@@ -11,8 +11,15 @@
   of epoch 2 reloads the epoch-1 checkpoint and the run ends bit-equal
   to the uninterrupted one, and within 1e-6 of JAX's weights (the
   JAX package's own retry test's limit); a fatal error reloads nothing.
-- Checkpoints of ``zero1_flat`` state load across the packages, and
-  what is not ported raises.
+- The compressed wires (int8, fp8_e4m3, int8 with error feedback, each
+  with and without buckets) at world 1 against JAX on a 1-device mesh
+  and at world 2 (one two-process run of ``WIRE_CASES``) against a
+  2-device mesh: losses, weights and the optimizer state (the EF
+  residual included) within 1e-5; hierarchical ``data_axes=("dcn",
+  "data")`` at world 4 (2 x 2) against JAX's 2 x 2 mesh, the same.
+- Checkpoints of ``zero1_flat`` state load across the packages (across
+  worlds with buckets and EF: ``test_torch_port_elastic.py``), and
+  what the port does not do raises.
 """
 
 import os
@@ -91,11 +98,12 @@ class _JBatches(JDataSet):
             off += b
 
 
-def _jax_run(ds, n, wire="float32", epochs=2, clip=1.5, lr=0.2, wd=1e-3):
+def _jax_run(ds, n, wire="float32", epochs=2, clip=1.5, lr=0.2, wd=1e-3,
+             mesh=None, **kw):
     JRandom.RNG.set_seed(4)
     model = W.small_model(JN)
-    opt = JDistri(model, ds, JN.ClassNLLCriterion(), 8, mesh=_mesh(n),
-                  wire_dtype=wire)
+    opt = JDistri(model, ds, JN.ClassNLLCriterion(), 8,
+                  mesh=mesh or _mesh(n), wire_dtype=wire, **kw)
     opt.set_optim_method(JO.SGD(learningrate=lr, momentum=0.9,
                                 weightdecay=wd))
     if clip:
@@ -108,11 +116,12 @@ def _jax_run(ds, n, wire="float32", epochs=2, clip=1.5, lr=0.2, wd=1e-3):
     return model, opt, [losses.loss[k] for k in sorted(losses.loss)]
 
 
-def _port_run(ds, wire="float32", epochs=2, clip=1.5, lr=0.2, wd=1e-3):
+def _port_run(ds, wire="float32", epochs=2, clip=1.5, lr=0.2, wd=1e-3,
+              **kw):
     TRandom.RNG.set_seed(4)
     model = W.small_model(TN)
     opt = TO.DistriOptimizer(model, ds, TN.ClassNLLCriterion(), 8,
-                             wire_dtype=wire, device="cpu")
+                             wire_dtype=wire, device="cpu", **kw)
     opt.set_optim_method(TO.SGD(learningrate=lr, momentum=0.9,
                                 weightdecay=wd))
     if clip:
@@ -303,26 +312,150 @@ def test_zero1_checkpoint_resumes_across_packages(tmp_path, writer):
         _close(a.detach().numpy(), b, TOL, "resumed weights")
 
 
+def _worker_run(tmp_path, world, case):
+    """``case`` of the worker at ``world`` ranks: each rank's npz."""
+    store = str(tmp_path / "store")
+    outs = [str(tmp_path / f"rank{r}.npz") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, WORKER, str(r), str(world), store, outs[r], case],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=180)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    return [dict(np.load(o)) for o in outs]
+
+
+def _check_wire_run(r, prefix, jm, jo, jl):
+    """One rank's arrays of a worker run (``prefix``) against JAX's:
+    losses, parameters, BN state and every optimizer-state vector (the
+    EF residual included) within TOL."""
+    t_losses = list(r[prefix + "losses"])
+    assert len(t_losses) == len(jl) > 0
+    for a, b in zip(t_losses, jl):
+        assert abs(a - b) <= TOL * max(1.0, abs(b)), (t_losses, jl)
+    for i, b in enumerate(jax.tree.leaves(jm.params())):
+        _close(r[f"{prefix}p{i}"], b, TOL, f"param {i}")
+    for i, b in enumerate(jax.tree.leaves(jm.state())):
+        _close(r[f"{prefix}s{i}"], b, TOL, f"state {i}")
+    vectors = {k: v for k, v in jo.optim_method.state.items()
+               if np.ndim(v) > 0}
+    assert set(vectors) == {k[len(prefix) + 4:] for k in r
+                            if k.startswith(prefix + "opt_")
+                            and np.ndim(r[k]) > 0}
+    for k, v in vectors.items():
+        _close(r[f"{prefix}opt_{k}"], v, TOL, f"optimizer state {k}")
+
+
+def _wire_id(kw):
+    return "-".join([kw["wire_dtype"]] + (["ef"] if kw.get("wire_ef") else [])
+                    + (["buckets"] if kw.get("overlap_bucket_mb") else []))
+
+
+@pytest.mark.parametrize("kw", W.WIRE_CASES, ids=_wire_id)
+def test_world1_wire_matches_a_one_device_mesh(kw):
+    """At world 1 every wire is the identity (JAX returns the operand
+    unquantized at n == 1): the run equals JAX's on a 1-device mesh."""
+    x, y = W.data()
+    rest = {k: v for k, v in kw.items() if k != "wire_dtype"}
+    jm, jo, jl = _jax_run(_JBatches(x, y), 1, wire=kw["wire_dtype"], **rest)
+    tm, to, tl = _port_run(W.Batches(x, y), wire=kw["wire_dtype"], **rest)
+    r = {f"p{i}": v.detach().numpy() for i, v in enumerate(
+        T.leaves(tm.params()))}
+    r.update({f"s{i}": v.detach().numpy() for i, v in enumerate(
+        T.leaves(tm.state()))})
+    r.update({f"opt_{k}": v.numpy()
+              for k, v in to.optim_method.state.items()})
+    r["losses"] = np.asarray(tl)
+    _check_wire_run(r, "", jm, jo, jl)
+    topo = to._topology()
+    assert topo["wire"] == {"dtype": kw["wire_dtype"], "block": 16,
+                            "ef": bool(kw.get("wire_ef"))}
+    assert ("buckets" in topo) == bool(kw.get("overlap_bucket_mb"))
+    assert topo.get("buckets") == jo._topology().get("buckets")
+
+
+@pytest.fixture(scope="module")
+def wire_world2(tmp_path_factory):
+    return _worker_run(tmp_path_factory.mktemp("wires"), 2, "wires")
+
+
+@pytest.mark.parametrize("i", range(len(W.WIRE_CASES)),
+                         ids=[_wire_id(kw) for kw in W.WIRE_CASES])
+def test_world2_wire_matches_a_two_device_mesh(wire_world2, i):
+    kw = dict(W.WIRE_CASES[i])
+    x, y = W.data()
+    jm, jo, jl = _jax_run(_JBatches(x, y), 2, wire=kw.pop("wire_dtype"),
+                          **kw)
+    for r in wire_world2:
+        _check_wire_run(r, f"{i}_", jm, jo, jl)
+    if kw.get("wire_ef"):
+        # the residual is live: each rank's row holds its own errors
+        ef = wire_world2[0][f"{i}_opt_wire_ef"]
+        assert ef.shape == (2, 160) and np.abs(ef).max() > 0
+
+
+@pytest.fixture(scope="module")
+def hier_world4(tmp_path_factory):
+    return _worker_run(tmp_path_factory.mktemp("hier"), 4, "hier")
+
+
+@pytest.mark.parametrize("i", range(len(W.HIER_CASES)),
+                         ids=["one-bucket", "buckets"])
+def test_hierarchical_data_axes_match_a_2x2_mesh(hier_world4, i):
+    kw = dict(W.HIER_CASES[i])
+    x, y = W.data()
+    mesh = JEngine.build_mesh({"dcn": 2, "data": 2},
+                              devices=jax.devices()[:4])
+    jm, jo, jl = _jax_run(_JBatches(x, y), 4, wire=kw.pop("wire_dtype"),
+                          mesh=mesh, data_axes=("dcn", "data"), **kw)
+    for r in hier_world4:
+        _check_wire_run(r, f"{i}_", jm, jo, jl)
+    # LBFGS still runs at world 1 only
+    assert "world 1 only" in str(hier_world4[0]["lbfgs_error"])
+
+
 def test_what_is_not_ported_raises(tmp_path):
+    """What the port still refuses: a JAX ``Mesh`` object, an unknown
+    wire dtype, the staged ring over two data axes (as JAX),
+    ``device="cuda"`` on a CPU world, and a state that is no flat ZeRO
+    layout; LBFGS at world > 1 in the hierarchical test's worker."""
     x, y = W.data(16)
     m = W.small_model(TN)
     ds = TArray(x, y, 8)
-    for kw, msg in ((dict(wire_dtype="int8"), "int8"),
-                    (dict(wire_ef=True), "error feedback"),
-                    (dict(overlap_bucket_mb=4.0), "bucketed"),
-                    (dict(data_axes=("dcn", "data")), "hierarchical")):
-        with pytest.raises(NotImplementedError, match=msg):
-            TO.DistriOptimizer(m, ds, TN.ClassNLLCriterion(), 8,
-                               device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="Engine.build_mesh"):
+        TO.DistriOptimizer(m, ds, TN.ClassNLLCriterion(), 8, mesh=_mesh(1),
+                           device="cpu")
     with pytest.raises(ValueError, match="not supported"):
         TO.DistriOptimizer(m, ds, TN.ClassNLLCriterion(), 8,
                            wire_dtype="fp16", device="cpu")
+    with pytest.raises(ValueError, match="error feedback needs"):
+        TO.DistriOptimizer(m, ds, TN.ClassNLLCriterion(), 8,
+                           wire_dtype="float32", wire_ef=True, device="cpu")
+    Engine.init("cpu")
+    Engine.build_mesh({"dcn": 1, "data": 1})
+    with pytest.raises(NotImplementedError, match="staged-ring wire over "
+                                                  "hierarchical"):
+        TO.DistriOptimizer(m, ds, TN.ClassNLLCriterion(), 8,
+                           wire_dtype="int8", data_axes=("dcn", "data"),
+                           device="cpu")
+    # the hierarchical exchange itself runs (here at 1 x 1)
+    TO.DistriOptimizer(m, ds, TN.ClassNLLCriterion(), 8,
+                       wire_dtype="float32", data_axes=("dcn", "data"),
+                       device="cpu").set_end_when(
+        TO.Trigger.max_iteration(1)).optimize()
+    Engine.reset()
     opt = TO.DistriOptimizer(m, ds, TN.ClassNLLCriterion(), 8, device="cpu")
+    opt.set_optim_method(TO.SGD(learningrate=0.1, momentum=0.9))
     opt.optim_method.load_state_arrays({"velocity": np.zeros(3),
                                         "neval": np.zeros(())})
     opt.optim_method.loaded_topology = {"world_size": 4,
                                         "shard_layout": "zero1_flat"}
-    with pytest.raises(NotImplementedError, match="world-4"):
+    with pytest.raises(ValueError, match="holds 3 elements"):
         opt.optimize()
     local = TO.Optimizer(model=m, training_set=ds,
                          criterion=TN.ClassNLLCriterion(), device="cpu")

@@ -261,7 +261,8 @@ def test_the_optimizer_factory_and_what_is_not_ported(tmp_path):
     assert o.state["neval"] == 2
     # distributed=True and checkpoints are ported now (the CPU runs of
     # both through train_lenet are in test_torch_port_imagenet_path.py);
-    # what is still not ported raises
+    # so are the compressed wires (test_torch_port_distri.py); an
+    # unknown wire still raises
     from bigdl_tpu_torch.engine import Engine
 
     Engine.reset()
@@ -270,9 +271,12 @@ def test_the_optimizer_factory_and_what_is_not_ported(tmp_path):
                          criterion=TN.ClassNLLCriterion(), distributed=True,
                          device="cpu")
         assert isinstance(d, TO.DistriOptimizer)
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            TO.DistriOptimizer(m, (x, y), TN.ClassNLLCriterion(),
+        q = TO.DistriOptimizer(m, (x, y), TN.ClassNLLCriterion(),
                                wire_dtype="int8", device="cpu")
+        assert q.wire.scaled and q._staged_ring
+        with pytest.raises(ValueError, match="not supported"):
+            TO.DistriOptimizer(m, (x, y), TN.ClassNLLCriterion(),
+                               wire_dtype="fp16", device="cpu")
     finally:
         Engine.reset()
     # background checkpoint writes are ported now

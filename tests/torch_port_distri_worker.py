@@ -10,7 +10,16 @@ parameters and BN state (JAX leaf order) and the optimizer state to
 the npz OUT.  CASE ``"array"`` feeds every rank the global batch,
 ``"per_process"`` a ``DistributedDataSet`` and ``"frame"`` a
 ``DistributedImageFrame`` of ``frame_images()`` read at the world's
-rank and size.  Imports neither JAX nor the JAX package.
+rank and size.  ``"wires"`` trains the array case once for each entry
+of ``WIRE_CASES`` (the compressed wires, error feedback, buckets),
+writing ``<i>_<name>`` arrays; ``"hier"`` does so for ``HIER_CASES``
+over ``Engine.build_mesh({"dcn": 2, "data": 2})`` at world 4, and records
+what ``LBFGS`` raises there.
+``"ckpt"`` trains ``CKPT_KW``'s run one epoch and checkpoints it into
+the directory ``OUT``; ``"resume DIR"`` resumes that run from DIR's
+checkpoint for epoch 2 and writes its arrays to OUT; ``"eval"`` folds
+``evaluate_dataset`` over each rank's rows of a per-process set and
+writes the results.  Imports neither JAX nor the JAX package.
 """
 
 import os
@@ -34,6 +43,28 @@ from bigdl_tpu_torch.utils import tree as T  # noqa: E402
 # the batch sizes of the "array" case: the last is padded to the world
 # and masked
 SIZES = (8, 8, 5)
+# 64 f32 elements a bucket: the small model's 135 parameters (160
+# padded at block 16 and world 2) in three buckets
+BUCKET_MB = 64 * 4 / 2 ** 20
+# the trainer keywords of the "wires" case, in order
+WIRE_CASES = [
+    dict(wire_dtype="int8", wire_block=16),
+    dict(wire_dtype="int8", wire_block=16, overlap_bucket_mb=BUCKET_MB),
+    dict(wire_dtype="fp8_e4m3", wire_block=16),
+    dict(wire_dtype="fp8_e4m3", wire_block=16, overlap_bucket_mb=BUCKET_MB),
+    dict(wire_dtype="int8", wire_block=16, wire_ef=True),
+    dict(wire_dtype="int8", wire_block=16, wire_ef=True,
+         overlap_bucket_mb=BUCKET_MB),
+]
+# the "hier" case: data_axes=("dcn", "data") at 2 x 2
+HIER_CASES = [
+    dict(wire_dtype="float32"),
+    dict(wire_dtype="float32", overlap_bucket_mb=BUCKET_MB),
+]
+# the checkpoint cases' run: the int8 wire with EF and two buckets
+CKPT_KW = dict(wire_dtype="int8", wire_block=16, wire_ef=True,
+               overlap_bucket_mb=96 * 4 / 2 ** 20)
+CKPT_N = 32
 
 
 def small_model(N):
@@ -89,10 +120,122 @@ class Losses:
         if tag == "Loss":
             self.loss[step] = value
 
+    def get_summary_trigger(self, name):
+        return None
 
-def run(rank, world, store, out, case):
+
+def _arrays(model, opt, losses, prefix=""):
+    arrays = {f"{prefix}p{i}": v.detach().numpy()
+              for i, v in enumerate(T.leaves(model.params()))}
+    arrays.update({f"{prefix}s{i}": v.detach().numpy()
+                   for i, v in enumerate(T.leaves(model.state()))})
+    for k, v in opt.optim_method.state.items():
+        arrays[f"{prefix}opt_{k}"] = v.numpy()
+    arrays[f"{prefix}losses"] = np.asarray([losses.loss[n]
+                                            for n in sorted(losses.loss)])
+    return arrays
+
+
+def _wire_run(ds, kw, epochs=2):
+    RandomGenerator.RNG.set_seed(4)
+    model = small_model(TN)
+    opt = TO.DistriOptimizer(model, ds, TN.ClassNLLCriterion(), 8,
+                             device="cpu", **kw)
+    opt.set_optim_method(TO.SGD(learningrate=0.2, momentum=0.9,
+                                weightdecay=1e-3))
+    opt.set_gradient_clipping_by_l2_norm(1.5)
+    opt.set_end_when(TO.Trigger.max_epoch(epochs))
+    losses = Losses()
+    opt.set_train_summary(losses)
+    RandomGenerator.RNG.set_seed(9)
+    opt.optimize()
+    return model, opt, losses
+
+
+def ckpt_run(TN_, TO_, make_opt, ds, directory=None, resume=None,
+             restore_latest=None):
+    """The checkpoint cases' run in either package: SGD with momentum,
+    one epoch checkpointed into ``directory``, or epoch 2 resumed from
+    ``resume``'s newest checkpoint through ``restore_latest`` (that
+    package's ``elastic.restore_latest``, the port's by default).
+    ``make_opt(model, ds)`` builds the trainer."""
+    model = small_model(TN_)
+    opt = make_opt(model, ds)
+    opt.set_optim_method(TO_.SGD(learningrate=0.2, momentum=0.9))
+    losses = Losses()
+    opt.set_train_summary(losses)
+    if resume is None:
+        opt.set_checkpoint(directory, TO_.Trigger.every_epoch())
+        opt.set_end_when(TO_.Trigger.max_epoch(1))
+    else:
+        if restore_latest is None:
+            from bigdl_tpu_torch.resilience.elastic import restore_latest
+        restore_latest(opt, resume)
+        opt.set_end_when(TO_.Trigger.max_epoch(2))
+    opt.optimize()
+    return model, opt, losses
+
+
+def run(rank, world, store, out, case, extra=None):
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
+    if case in ("wires", "hier"):
+        x, y = data()
+        arrays = {}
+        if case == "hier":
+            Engine.init("cpu")
+            Engine.build_mesh({"dcn": 2, "data": 2})
+        for i, kw in enumerate(WIRE_CASES if case == "wires"
+                               else HIER_CASES):
+            if case == "hier":
+                kw = dict(kw, data_axes=("dcn", "data"))
+            model, opt, losses = _wire_run(Batches(x, y), kw)
+            arrays.update(_arrays(model, opt, losses, f"{i}_"))
+        if case == "hier":
+            # LBFGS refuses a world of more than one rank
+            opt = TO.DistriOptimizer(small_model(TN), Batches(x, y),
+                                     TN.ClassNLLCriterion(), 8,
+                                     device="cpu")
+            opt.set_optim_method(TO.LBFGS())
+            try:
+                opt.optimize()
+                arrays["lbfgs_error"] = np.asarray("none")
+            except NotImplementedError as e:
+                arrays["lbfgs_error"] = np.asarray(str(e))
+        np.savez(out, **arrays)
+        Engine.reset()
+        dist.destroy_process_group()
+        return
+    if case == "eval":
+        # each rank folds its own rows of a per-process validation set
+        # (whole batches: an eval pass of it skips a ragged tail)
+        x, y = data(24)
+        RandomGenerator.RNG.set_seed(4)
+        model = small_model(TN)
+        ds = DistributedDataSet(x, y, 8, shuffle=False)
+        res = TO.evaluate_dataset(
+            model, ds, [TO.Top1Accuracy(), TO.Loss(TN.ClassNLLCriterion())],
+            device="cpu")
+        np.savez(out, total=np.asarray([r.total for r in res]),
+                 count=np.asarray([r.count for r in res]))
+        dist.destroy_process_group()
+        return
+    if case in ("ckpt", "resume"):
+        from bigdl_tpu_torch.dataset import ArrayDataSet
+
+        x, y = data(CKPT_N)
+        make = lambda m, d: TO.DistriOptimizer(  # noqa: E731
+            m, d, TN.ClassNLLCriterion(), 8, device="cpu", **CKPT_KW)
+        RandomGenerator.RNG.set_seed(4)
+        model, opt, losses = ckpt_run(
+            TN, TO, make, ArrayDataSet(x, y, 8, shuffle=False),
+            directory=out if case == "ckpt" else None,
+            resume=extra if case == "resume" else None)
+        if case == "resume" and rank == 0:
+            np.savez(out, **_arrays(model, opt, losses))
+        Engine.reset()
+        dist.destroy_process_group()
+        return
     x, y = data()
     RandomGenerator.RNG.set_seed(4)
     model = small_model(TN)
@@ -130,4 +273,4 @@ def run(rank, world, store, out, case):
 
 if __name__ == "__main__":
     run(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
-        sys.argv[5])
+        sys.argv[5], sys.argv[6] if len(sys.argv) > 6 else None)

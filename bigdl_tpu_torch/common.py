@@ -1,5 +1,5 @@
-"""Common utilities: the seedable host RNG, seed folding and device
-resolution.
+"""Common utilities: the seedable host RNG, seed folding, device
+resolution, dtype names and the 1-based ``Table``.
 
 Counterpart of ``bigdl_tpu/common.py``.  ``RandomGenerator`` is a copy
 of the JAX package's numpy host RNG, so that a model built here after
@@ -82,4 +82,47 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-__all__ = ["RandomGenerator", "fold_in", "resolve_device"]
+_DTYPES = {
+    "float32": torch.float32, "float": torch.float32,
+    "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+    "float16": torch.float16, "float64": torch.float64,
+    "double": torch.float64, "int32": torch.int32, "int8": torch.int8,
+}
+
+
+def get_dtype(dtype=None):
+    """The torch dtype of a name (JAX :60: the same names), f32 for
+    None; a dtype passes through."""
+    if dtype is None:
+        return torch.float32
+    if isinstance(dtype, str):
+        return _DTYPES[dtype]
+    return dtype
+
+
+def to_numpy(x) -> np.ndarray:
+    """A numpy array of ``x``; a tensor is detached and read to the
+    host first."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+class Table(dict):
+    """1-based-keyed table, the reference's generic container (JAX
+    :84).  Plain lists and tuples are the tables on the compute path;
+    this is for code that indexes ``output[1]``, ``output[2]``."""
+
+    @staticmethod
+    def from_seq(seq):
+        t = Table()
+        for i, v in enumerate(seq):
+            t[i + 1] = v
+        return t
+
+    def to_seq(self):
+        return [self[i + 1] for i in range(len(self))]
+
+
+__all__ = ["RandomGenerator", "Table", "fold_in", "get_dtype",
+           "resolve_device", "to_numpy"]

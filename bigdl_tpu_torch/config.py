@@ -13,7 +13,10 @@ read (``ObsConfig``), and of the router's and the rollout's knobs
 (``RouterConfig``, ``RolloutConfig``), each with the JAX package's
 defaults.  Constructor arguments win; these are the process-wide
 fallbacks a deployment sets once.  Each is read from the environment
-when it is used, so a knob exported after import counts.
+when it is used, so a knob exported after import counts, unless
+``configure(section=...)`` pinned that section (``BigDLConfig``, the
+global ``config``, ``refresh_from_env`` and ``reload_from_env``, with
+JAX's semantics).
 """
 
 from __future__ import annotations
@@ -380,6 +383,98 @@ class RolloutConfig:
         )
 
 
+@dataclasses.dataclass
+class BigDLConfig:
+    """The process-global configuration (JAX ``BigDLConfig``,
+    config.py:655): one field a section of the port's ``BIGDL_TORCH_*``
+    knobs.  ``configure(section=...)`` pins a section; from then on its
+    class's ``from_env()``, which every reader calls, returns a copy of
+    the pinned one instead of reading the environment."""
+
+    serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
+    router: RouterConfig = dataclasses.field(default_factory=RouterConfig)
+    rollout: RolloutConfig = dataclasses.field(
+        default_factory=RolloutConfig)
+
+    @classmethod
+    def from_env(cls) -> "BigDLConfig":
+        """Every section read from the environment, pins ignored."""
+        return cls(**{f.name: _SECTIONS[f.name].read_env()
+                      for f in dataclasses.fields(cls)})
+
+    def describe(self) -> str:
+        lines = [f"{f.name} = {getattr(self, f.name)!r}"
+                 for f in dataclasses.fields(self)]
+        return "BigDLConfig:\n  " + "\n  ".join(lines)
+
+
+_SECTIONS = {"serve": ServeConfig, "train": TrainConfig, "obs": ObsConfig,
+             "router": RouterConfig, "rollout": RolloutConfig}
+
+# sections pinned by configure(): env refreshes and from_env skip them
+_explicit: set = set()
+
+
+def _consult_pins(name: str, cls) -> None:
+    """Route ``cls.from_env()`` through the pins: the one place a
+    ``configure(...)`` reaches every reader.  The environment reader
+    stays as ``cls.read_env()``."""
+    read_env = cls.from_env.__func__
+
+    def from_env(klass):
+        if name in _explicit:
+            return dataclasses.replace(getattr(config, name))
+        return read_env(klass)
+
+    from_env.__doc__ = read_env.__doc__
+    cls.read_env = classmethod(read_env)
+    cls.from_env = classmethod(from_env)
+
+
+for _name, _cls in _SECTIONS.items():
+    _consult_pins(_name, _cls)
+
+# the process-global instance (resolved from the environment at import)
+config = BigDLConfig.from_env()
+
+
+def configure(**kwargs) -> BigDLConfig:
+    """Set sections programmatically (the highest-priority tier, JAX
+    :862): each value is that section's config object, pinned until
+    :func:`reload_from_env`.  Returns the global config."""
+    fields = [f.name for f in dataclasses.fields(config)]
+    for k, v in kwargs.items():
+        if k not in fields:
+            raise AttributeError(f"unknown config field {k!r}; fields: "
+                                 + ", ".join(fields))
+        if not isinstance(v, _SECTIONS[k]):
+            raise TypeError(f"config field {k!r} takes a "
+                            f"{_SECTIONS[k].__name__}, not "
+                            f"{type(v).__name__}")
+        setattr(config, k, v)
+        _explicit.add(k)
+    return config
+
+
+def refresh_from_env() -> BigDLConfig:
+    """Re-read every section not pinned by :func:`configure` from the
+    environment into the global config (JAX :876)."""
+    fresh = BigDLConfig.from_env()
+    for f in dataclasses.fields(fresh):
+        if f.name not in _explicit:
+            setattr(config, f.name, getattr(fresh, f.name))
+    return config
+
+
+def reload_from_env() -> BigDLConfig:
+    """Drop the pins and re-read everything from the environment (JAX
+    :889)."""
+    _explicit.clear()
+    return refresh_from_env()
+
+
 def build_dir() -> str:
     """Where the CUDA kernels are compiled to: ``build/bigdl_tpu_torch``
     beside the package's checkout, or ``BIGDL_TORCH_BUILD_DIR``."""
@@ -401,4 +496,5 @@ def nvcc_path() -> str:
 
 
 __all__ = ["ServeConfig", "TrainConfig", "ObsConfig", "RouterConfig",
-           "RolloutConfig", "build_dir", "nvcc_path"]
+           "RolloutConfig", "BigDLConfig", "config", "configure",
+           "refresh_from_env", "reload_from_env", "build_dir", "nvcc_path"]

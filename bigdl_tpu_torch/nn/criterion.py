@@ -29,7 +29,10 @@ class AbstractCriterion:
         raise NotImplementedError
 
     def forward(self, input, target):
-        self.output = self.loss(input, target)
+        """The loss; a ``Tensor`` facade argument is unwrapped."""
+        from bigdl_tpu_torch.tensor import unwrap
+
+        self.output = self.loss(unwrap(input), unwrap(target))
         return self.output
 
     __call__ = forward

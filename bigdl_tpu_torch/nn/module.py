@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.common import fold_in
+from bigdl_tpu_torch.tensor import unwrap
 
 
 def _as_tensor(value) -> torch.Tensor:
@@ -68,7 +69,10 @@ class AbstractModule(torch.nn.Module):
 
     def __call__(self, *args, **kwargs):
         """Forward, or with graph nodes as the arguments (or none) a new
-        ``Node`` of this module wired to them."""
+        ``Node`` of this module wired to them.  A ``Tensor`` facade
+        argument (or a table of them) is unwrapped first."""
+        if args and not isinstance(args[0], torch.Tensor):
+            args = tuple(unwrap(a) for a in args)
         if kwargs or (args and isinstance(args[0], torch.Tensor)):
             return super().__call__(*args, **kwargs)
         from bigdl_tpu_torch.nn.graph import Node, _as_nodes
@@ -138,6 +142,12 @@ class AbstractModule(torch.nn.Module):
         """Name the layer (kept in its serialized spec); returns self."""
         self._name = name
         return self
+
+    def get_name(self) -> str:
+        """The layer's name, or ``Class@id`` without one (JAX :281)."""
+        return self._name or f"{type(self).__name__}@{id(self):x}"
+
+    getName = get_name
 
     # ---- regularizers and freezing ----------------------------------------
     def _set_regularizers(self, args) -> None:
@@ -375,6 +385,81 @@ class Sequential(Container):
         return g
 
 
+# the jax.checkpoint_policies entries a JAX Remat spec may name
+REMAT_POLICIES = (
+    "checkpoint_dots", "checkpoint_dots_with_no_batch_dims",
+    "dots_saveable", "dots_with_no_batch_dims_saveable",
+    "everything_saveable", "nothing_saveable",
+    "offload_dot_with_no_batch_dims", "save_and_offload_only_these_names",
+    "save_any_names_but_these", "save_anything_except_these_names",
+    "save_from_both_policies", "save_only_these_names")
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
+class Remat(Container):
+    """Gradient checkpointing (JAX ``Remat``, module.py:523): the
+    wrapped module's activations are not kept for the backward; it runs
+    again from the wrapper's input (``torch.utils.checkpoint``,
+    ``use_reentrant=False``).  Wraps exactly one module.  The child gets
+    the wrapper's dropout seed as it is (JAX hands it ``rng``), and the
+    mask comes from a generator made inside the call, so the recomputed
+    forward draws the same one.  A recompute leaves the child's buffers
+    (BN running statistics) as the first forward left them.  ``policy``
+    names a ``jax.checkpoint_policies`` entry, kept in the spec: torch
+    recomputes every activation whatever the policy, which gives the
+    same values."""
+
+    config_names = ("policy",)
+
+    def __init__(self, module: Optional[AbstractModule] = None,
+                 policy: Optional[str] = None):
+        super().__init__()
+        if policy and policy not in REMAT_POLICIES:
+            raise ValueError(
+                f"unknown jax.checkpoint_policies entry {policy!r}")
+        self.policy = policy
+        if module is not None:
+            self.add(module)
+
+    def add(self, module: AbstractModule):
+        if self._modules:
+            raise ValueError(
+                "Remat wraps exactly one module; wrap a Sequential for "
+                "multi-layer spans")
+        return super().add(module)
+
+    def forward(self, x, rng_seed: Optional[int] = None):
+        if not self._modules:
+            raise ValueError("Remat has no wrapped module; add() one")
+        child = self._modules["0"]
+        kw = {"rng_seed": rng_seed} if child.takes_rng_seed else {}
+        if not torch.is_grad_enabled():
+            return child(x, **kw)
+        runs = []
+
+        def run(inp):
+            if not runs:
+                runs.append(1)
+                return child(inp, **kw)
+            # the recompute in the backward: its buffer writes are undone
+            kept = _clone_tree(child.state())
+            out = child(inp, **kw)
+            child.set_state(kept)
+            return out
+
+        from torch.utils.checkpoint import checkpoint
+
+        return checkpoint(run, x, use_reentrant=False)
+
+    def extra_repr(self):
+        return f"policy={self.policy}" if self.policy else ""
+
+
 class Identity(AbstractModule):
     """JAX ``Identity`` (module.py:641)."""
 
@@ -382,5 +467,15 @@ class Identity(AbstractModule):
         return x
 
 
+class Echo(AbstractModule):
+    """Prints the input's shape at each forward and passes it on (JAX
+    ``Echo``, module.py:648; a debugging aid)."""
+
+    def forward(self, x):
+        shape = tuple(x.shape) if hasattr(x, "shape") else None
+        print(f"Echo[{self.get_name()}]: shape={shape}")
+        return x
+
+
 __all__ = ["AbstractModule", "Composite", "Container", "Sequential",
-           "Identity"]
+           "Remat", "Identity", "Echo"]

@@ -33,7 +33,10 @@ import threading
 
 from bigdl_tpu_torch.obs import names
 from bigdl_tpu_torch.obs.metrics import DEFAULT_BUCKETS, MetricsRegistry
-from bigdl_tpu_torch.obs.runtime import RuntimeStats
+from bigdl_tpu_torch.obs.runtime import (Reservoir, RuntimeStats,
+                                         all_device_memory_stats,
+                                         device_memory_stats,
+                                         host_rss_bytes)
 from bigdl_tpu_torch.obs.trace import NULL_TRACER, NullTracer, Tracer
 
 _lock = threading.Lock()
@@ -168,4 +171,6 @@ def reset():
 
 __all__ = ["DEFAULT_BUCKETS", "MetricsRegistry", "NullTracer", "Tracer",
            "NULL_TRACER", "RuntimeStats", "active", "get_tracer",
-           "get_registry", "get_runtime", "publish_runtime", "reset"]
+           "get_registry", "get_runtime", "publish_runtime", "reset",
+           "Reservoir", "host_rss_bytes", "device_memory_stats",
+           "all_device_memory_stats"]

@@ -20,9 +20,13 @@ The gradient is the pre-clip one.  :class:`HealthMonitor` reads the
 stats back every ``BIGDL_TORCH_HEALTH_EVERY`` steps (and on a step the
 non-finite guard skipped, to name the offending layers), publishes the
 per-layer gauges, feeds ``TrainSummary.add_health`` and runs the
-loss/gradient-norm spike detector.  On the other steps the trainers
-compute no stats and read nothing back (JAX compiles the health-less
-step there).
+loss/gradient-norm spike detector.  A trainer decides at dispatch
+whether a step is a K-th one; every other guarded step hands the
+monitor :class:`DeferredStats`, which keep the step's pre-clip
+gradient and post-guard parameters and compute the stats only when
+the monitor reads them, that is when the guard tripped (JAX computes
+them on every step and fetches them then).  A step that did not trip
+computes no stats and reads nothing back.
 """
 
 from __future__ import annotations
@@ -169,6 +173,22 @@ def summarize(stats: np.ndarray, names: Sequence[str],
     return {"layers": layers, "global_grad_norm": global_grad}
 
 
+class DeferredStats:
+    """A step's stats, computed only if the monitor reads them: ``fn``
+    takes the tensors the step kept (fresh ones, never the live
+    parameters a later step overwrites).  At world > 1 ``fn`` runs the
+    stats' ``all_reduce``; every rank reads the same steps (the cadence
+    and the MIN-reduced guard agree), so every rank enters it."""
+
+    __slots__ = ("_fn",)
+
+    def __init__(self, fn):
+        self._fn = fn
+
+    def __call__(self) -> torch.Tensor:
+        return self._fn()
+
+
 class HealthMonitor:
     """The host half: the fetch cadence, the metric, trace and
     TensorBoard fan-out, non-finite localization and the anomaly
@@ -229,12 +249,15 @@ class HealthMonitor:
     # ------------------------------------------------------------- ingest
     def on_step(self, step: int, stats, ok: bool, loss: float):
         """Called when the step's loss is read, with its ``(L, 4)``
-        stats (a device tensor, or None on a step the trainer computed
-        none for).  Reads them back only when :meth:`wants` says so; the
-        loss-spike check is free (the loss is on the host already)."""
+        stats (a device tensor, :class:`DeferredStats`, or None on a step
+        the trainer kept none for).  Reads them back only when
+        :meth:`wants` says so; the loss-spike check is free (the loss is
+        on the host already)."""
         self._spike("loss_spike", self._loss_window, step, loss)
         if stats is None or not self.wants(step, ok):
             return None
+        if isinstance(stats, DeferredStats):
+            stats = stats()
         arr = _host(stats)        # the one device -> host health read
         self.fetches += 1
         summ = summarize(arr, self.names)

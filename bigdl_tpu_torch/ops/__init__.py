@@ -7,7 +7,9 @@ from bigdl_tpu_torch.ops.attention import (dot_product_attention,
 from bigdl_tpu_torch.ops.conv_bn import (conv1x1_bn_stats, conv_bn_stats,
                                          kernel_path)
 from bigdl_tpu_torch.ops.decode_attention import paged_decode_attention
+from bigdl_tpu_torch.ops.quantized_matmul import (int8_matmul,
+                                                  quantize_per_channel)
 
 __all__ = ["dot_product_attention", "flash_attention",
            "paged_decode_attention", "conv_bn_stats", "conv1x1_bn_stats",
-           "kernel_path"]
+           "kernel_path", "int8_matmul", "quantize_per_channel"]

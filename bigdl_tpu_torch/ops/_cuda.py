@@ -32,7 +32,7 @@ from typing import Dict, Iterable, Optional
 
 import torch
 
-from bigdl_tpu_torch import config
+from bigdl_tpu_torch.config import build_dir, nvcc_path
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
@@ -118,7 +118,7 @@ def _lib_path(name: str) -> str:
         with open(os.path.join(CSRC, header), "rb") as f:
             digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(config.build_dir(),
+    return os.path.join(build_dir(),
                         f"{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -130,14 +130,14 @@ def build(names: Optional[Iterable[str]] = None) -> float:
     names = list(SOURCES if names is None else names)
     t0 = time.perf_counter()
     with _lock:
-        os.makedirs(config.build_dir(), exist_ok=True)
+        os.makedirs(build_dir(), exist_ok=True)
         procs = {}
         for name in names:
             path = _lib_path(name)
             if os.path.exists(path):
                 continue
             tmp = f"{path}.{os.getpid()}.tmp"
-            cmd = [config.nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
                    os.path.join(CSRC, SOURCES[name])]
             procs[name] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

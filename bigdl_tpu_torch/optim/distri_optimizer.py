@@ -570,14 +570,25 @@ class DistriOptimizer(LocalOptimizer):
             # frozen runs inside this rank's shard keep their values
             if self._frozen_keep is not None:
                 new_w = torch.where(self._frozen_keep, new_w, wshard)
+            positions = (self._positions if len(self._buckets) > 1
+                         else None)
             if self._health_now:
                 from bigdl_tpu_torch.obs import health as H
 
                 self._step_health = H.flat_shard_stats(
                     g_health, wshard, new_w, self.rank * wshard.numel(),
-                    self._boundaries,
-                    positions=(self._positions if len(self._buckets) > 1
-                               else None))
+                    self._boundaries, positions=positions)
+            elif guard and self._health_monitor is not None:
+                from bigdl_tpu_torch.obs import health as H
+
+                # read only if the guard tripped (on every rank at once:
+                # ok is MIN-reduced); new_w is fresh and then holds the
+                # shard's pre-step values
+                offset = self.rank * wshard.numel()
+                self._step_health = H.DeferredStats(
+                    lambda: H.flat_shard_stats(
+                        g_health, new_w, new_w, offset, self._boundaries,
+                        positions=positions))
             off = 0
             for s, z in self._buckets:
                 c = z // n

@@ -182,17 +182,13 @@ def _where(ok, new, old):
     return torch.where(ok, new, old)
 
 
-class LocalOptimizer:
-    """Single-device trainer (JAX ``LocalOptimizer``).
+class BaseOptimizer:
+    """The trainers' shared builder (JAX ``BaseOptimizer``,
+    optimizer.py:69): the model, data, criterion and the fluent
+    setters."""
 
-    ``model`` is moved to ``device`` (default the card; raises without
-    CUDA unless ``device="cpu"``).  ``dataset`` is a ``DataSet`` or an
-    ``(x, y)`` tuple of numpy arrays."""
-
-    def __init__(self, model, dataset, criterion, batch_size: int = 32,
-                 device="cuda"):
-        self.device = resolve_device(device)
-        self.model = model.to(self.device)
+    def __init__(self, model, dataset, criterion, batch_size: int = 32):
+        self.model = model
         self.dataset = to_dataset(dataset, batch_size)
         self.criterion = criterion
         self.batch_size = batch_size
@@ -208,43 +204,7 @@ class LocalOptimizer:
         self.checkpoint_trigger = None
         self.checkpoint_keep_last = 0
         self.checkpoint_background = False
-        # background writes: one writer thread, the write in flight, and
-        # a failure recorded by the exception path's flush, raised at the
-        # next _checkpoint/optimize call
-        self.checkpoint_write_failures = 0
-        self._ckpt_write_error = None
-        self._ckpt_executor = None
-        self._ckpt_future = None
-        self._fault_injector = None
-        self.max_retry = 5
         self._clipper = _GradClipper()
-        self._nonfinite_consec = 0
-        # batches to skip at the next epoch's start: a resume from a
-        # mid-epoch checkpoint replays from the batch its neval expects
-        self._pending_fast_forward = 0
-        # (batches waited for, seconds waited, batches) of the last epoch
-        self.feed_stats = (0, 0.0, 0)
-        self.metrics = Metrics()
-        # per parameter (the trainer's order): does a frozen module own it
-        self._frozen_mask = []
-        self._regularized = False
-        # the health monitor's cadence: does this step compute its (L, 4)
-        # stats (set by the loop), and the stats the step left
-        self._health_monitor = None
-        self._health_now = False
-        self._step_health = None
-        self._obs_tracer = obs.get_tracer()
-        self._obs_runtime = None
-        self._obs_server = None
-        self._elastic_session = None
-        self._collective_footprint = None
-        # the step the feed's first batch of an epoch trains
-        self._feed_step0 = 1
-        # the reference's state table; neval is the next iteration,
-        # epoch_neval0 the neval of the current epoch's first batch
-        self.state = {"epoch": 1, "neval": 1, "loss": None, "score": None,
-                      "epoch_finished": 0, "nonfinite_skips": 0,
-                      "epoch_neval0": 1}
 
     # ---- fluent setters (reference spellings below) ---------------------
     def set_optim_method(self, method):
@@ -326,6 +286,56 @@ class LocalOptimizer:
     setGradientClippingByL2Norm = set_gradient_clipping_by_l2_norm
     setConstantGradientClipping = set_constant_gradient_clipping
 
+
+class LocalOptimizer(BaseOptimizer):
+    """Single-device trainer (JAX ``LocalOptimizer``).
+
+    ``model`` is moved to ``device`` (default the card; raises without
+    CUDA unless ``device="cpu"``).  ``dataset`` is a ``DataSet`` or an
+    ``(x, y)`` tuple of numpy arrays."""
+
+    def __init__(self, model, dataset, criterion, batch_size: int = 32,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        super().__init__(model.to(self.device), dataset, criterion,
+                         batch_size)
+        # background writes: one writer thread, the write in flight, and
+        # a failure recorded by the exception path's flush, raised at the
+        # next _checkpoint/optimize call
+        self.checkpoint_write_failures = 0
+        self._ckpt_write_error = None
+        self._ckpt_executor = None
+        self._ckpt_future = None
+        self._fault_injector = None
+        self.max_retry = 5
+        self._nonfinite_consec = 0
+        # batches to skip at the next epoch's start: a resume from a
+        # mid-epoch checkpoint replays from the batch its neval expects
+        self._pending_fast_forward = 0
+        # (batches waited for, seconds waited, batches) of the last epoch
+        self.feed_stats = (0, 0.0, 0)
+        self.metrics = Metrics()
+        # per parameter (the trainer's order): does a frozen module own it
+        self._frozen_mask = []
+        self._regularized = False
+        # the health monitor's cadence: does this step compute its (L, 4)
+        # stats (set by the loop), and the stats the step left
+        self._health_monitor = None
+        self._health_now = False
+        self._step_health = None
+        self._obs_tracer = obs.get_tracer()
+        self._obs_runtime = None
+        self._obs_server = None
+        self._elastic_session = None
+        self._collective_footprint = None
+        # the step the feed's first batch of an epoch trains
+        self._feed_step0 = 1
+        # the reference's state table; neval is the next iteration,
+        # epoch_neval0 the neval of the current epoch's first batch
+        self.state = {"epoch": 1, "neval": 1, "loss": None, "score": None,
+                      "epoch_finished": 0, "nonfinite_skips": 0,
+                      "epoch_neval0": 1}
+
     # ---- one step --------------------------------------------------------
     def _loss(self, names, params, inp, tgt, seed):
         """The f32 loss of one batch plus the model's regularization
@@ -390,6 +400,14 @@ class LocalOptimizer:
 
                 # new_p is after the guard: a skipped step shows no update
                 self._step_health = tree_layer_stats(pre_clip, old, new_p)
+            elif guard and self._health_monitor is not None:
+                from bigdl_tpu_torch.obs.health import (DeferredStats,
+                                                        tree_layer_stats)
+
+                # read only if the guard tripped: then new_p (fresh
+                # tensors) holds the pre-step values and the update is 0
+                self._step_health = DeferredStats(
+                    lambda: tree_layer_stats(pre_clip, new_p, new_p))
             for p, q in zip(params, new_p):
                 p.copy_(q)
         return new_opt, loss.detach(), ok
@@ -960,4 +978,5 @@ def Optimizer(model=None, training_set=None, criterion=None,
     return opt
 
 
-__all__ = ["LocalOptimizer", "NonFiniteStepError", "Optimizer"]
+__all__ = ["BaseOptimizer", "LocalOptimizer", "NonFiniteStepError",
+           "Optimizer"]

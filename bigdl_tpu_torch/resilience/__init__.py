@@ -9,13 +9,19 @@ from bigdl_tpu_torch.resilience.elastic import (EXIT_FATAL, EXIT_PREEMPTED,
                                                 EXIT_TRANSIENT,
                                                 ElasticSession,
                                                 HeartbeatMonitor, Preempted,
+                                                clear_preemption,
                                                 ensure_shard_layout,
-                                                record_resume, restore_latest,
+                                                install_preemption_handler,
+                                                preemption_requested,
+                                                record_resume,
+                                                request_preemption,
+                                                restore_latest,
                                                 restore_stream, run_main)
 from bigdl_tpu_torch.resilience.faults import (Fault, FaultInjector,
                                                FaultPlan, InjectedFault,
                                                get_injector, reset_injector)
-from bigdl_tpu_torch.resilience.retry import (CheckpointWriteError,
+from bigdl_tpu_torch.resilience.retry import (FATAL_TYPES,
+                                              CheckpointWriteError,
                                               NonFiniteStepError,
                                               PeerLostError, RetryBudget,
                                               RetryPolicy, backoff_delay,
@@ -28,4 +34,6 @@ __all__ = ["CheckpointWriteError", "NonFiniteStepError", "PeerLostError",
            "EXIT_FATAL", "EXIT_PREEMPTED", "EXIT_TRANSIENT",
            "ElasticSession", "HeartbeatMonitor", "Preempted",
            "ensure_shard_layout", "record_resume", "restore_latest",
-           "run_main"]
+           "run_main", "FATAL_TYPES", "preemption_requested",
+           "request_preemption", "clear_preemption",
+           "install_preemption_handler"]

@@ -11,7 +11,11 @@ port model, so that both packages compute with the same weights; a
 ``"0"``, ``"1"``, ..., as the JAX ``Container.params()`` does, and a
 ``Graph`` (NCF, Inception) by its nodes' topological index, as the
 JAX ``Graph`` does.  ``load_jax_state`` does the
-same for the BN running statistics of ``model.state()``.
+same for the BN running statistics of ``model.state()``.  Every layer
+keeps its JAX parameter names and layouts (``LocallyConnected2D``'s
+``(O, I·kh·kw, oh, ow)``, ``Maxout``'s ``(in, k·out)``,
+``VolumetricFullConvolution``'s IODHW, ...), so the trees load as they
+are, with no per-layer mapping.
 """
 
 from __future__ import annotations

@@ -82,6 +82,13 @@ def lookup_module_class(name: str) -> type:
     return reg[name]
 
 
+def register_module(cls):
+    """Register a user-defined layer for the spec loader (JAX :81);
+    returns the class, so it serves as a decorator."""
+    _build_registry()[cls.__name__] = cls
+    return cls
+
+
 def module_to_spec(module: AbstractModule) -> dict:
     """A module's JSON spec; a ``Graph``'s lists its nodes in
     topological order, each with its module's spec and the indices of
@@ -535,7 +542,8 @@ def load_latest_checkpoint(directory: str, model, optim_method=None,
         f"no intact checkpoint in {directory}: " + "; ".join(failures))
 
 
-__all__ = ["CheckpointIntegrityError", "lookup_module_class", "module_to_spec", "spec_to_module",
+__all__ = ["CheckpointIntegrityError", "lookup_module_class",
+           "register_module", "module_to_spec", "spec_to_module",
            "save_module", "load_module", "snapshot_checkpoint",
            "write_manifest", "read_checkpoint_topology",
            "read_checkpoint_stream", "verify_checkpoint",

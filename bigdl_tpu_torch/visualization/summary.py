@@ -223,7 +223,7 @@ class _Summary:
 RESILIENCE_TAGS = ("NonFiniteSkips", "RetryCount",
                    "CheckpointWriteFailures")
 
-# per-layer numerics (the health monitor, not ported yet): each layer
+# per-layer numerics (the health monitor, obs/health.py): each layer
 # gets one scalar stream a prefix, tagged "<prefix><layer-path>" (e.g.
 # "GradNorm/0/weight"); read back with read_scalar(tag)
 HEALTH_TAG_PREFIXES = ("GradNorm/", "ParamNorm/", "UpdateRatio/")

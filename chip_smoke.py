@@ -350,6 +350,30 @@ it runs; any failure exits non-zero:
     SIGTERM after step 3: it exits 170 with an intact emergency
     checkpoint, and ``restore_latest`` in a second child ends bit-equal
     to an uninterrupted child;
+23. Wide & Deep, the tree-LSTM, AlexNet and item 16's layers
+    (``phase_item16``, callable alone after ``phase_device()``; (e)
+    needs ``phase_build()``), each against the card machine's CPU: (a)
+    Wide & Deep at ``bench.py``'s ``wide_and_deep`` widths (batch 256,
+    f32) 1 + 20 steps through ``LocalOptimizer`` and through
+    ``DistriOptimizer`` (world 1, NCCL), profiled, then the example's
+    ``main --distributed -e 2``: losses within 1e-4 of the CPU's,
+    Distri within 1e-5 of Local, train-set Top1 within 0.01; (b) the
+    tree-LSTM example at its defaults: the losses every 50 steps within
+    1e-4, the root accuracy equal, ms and kernels a step; (c)
+    AlexNet-OWT at 227 px, batch 32, bf16, 1 + 5 steps, profiled, peak
+    memory; its first 3 f32 losses at batch 4 (cuDNN deterministic, no
+    dropout) within 3e-5 of the CPU's and, as the control, over that
+    with TF32 on; (d) ``ITEM16_CASES``: every class of item 16 and
+    ``Remat`` forward and backward at ~1e5 elements, card against CPU
+    and both against the CPU in f64 (3e-5 for the convs and the
+    volumetric family, 1e-5 for the rest); (e) LeNet-5 with
+    ``nan_grad`` at step 3 and health every 4 in both trainers: reports
+    at steps 3 and 4, 2 fetches, the offenders and the counter equal to
+    the CPU's; then phase 22 (a)'s "on" run with the fix's deferred
+    stats and without them in alternate blocks of 4 steps, the step
+    with them no slower than 3% or twice the difference's standard
+    error; (f) no ``csrc/`` kernel launched in (a)-(e) but in (e)'s run
+    of phase 22 (a)'s path (36 / 16 a step);
 9. the kernels line, last: one JSON object listing each kernel with its
    launches on its own path (phase 4, phase 22 (a) for the conv_bn
    kernels, or the kernel arm of phase 11) and its numbers from phase
@@ -610,6 +634,39 @@ STREAM_STEPS, STREAM_CKPT_EVERY, STREAM_RAISE_AT, STREAM_BUFFER = 12, 5, 8, 16
 P22_STEPS, P22_LR, P22_HEALTH_EVERY, P22_BUCKET_MB = 8, 0.1, 4, 25.0
 P22_BLOCK, P22_HEALTH_REL, P22_HANG_S, P22_RESUME_TOL = 512, 1e-4, 0.5, 1e-5
 P22_LENET_N, P22_LENET_BATCH, P22_LENET_EPOCHS, P22_HOLD = 1024, 128, 2, 3
+# Wide & Deep, the tree-LSTM, AlexNet and item 16's layers (phase 23):
+# (a) bench.py's wide_and_deep key (4096 rows, wide vocab 10000 with 4
+# active of 8 slots, deep vocabs 100/50/20, embed 8, hidden 32/16, batch
+# 256 of the first rows, f32, SGD lr 0.05), 1 + 20 steps through each
+# trainer, the first 20 losses within 1e-4 relative of the CPU's and
+# Distri within 1e-5 of Local; then the example's main with
+# --distributed -e 2, train-set Top1 within 0.01 of the CPU's; (b) the
+# tree-LSTM example at its defaults (batch 128, 8 leaves, embed 16,
+# hidden 32, 200 steps, lr 0.3), the losses at steps 50-200 within 1e-4
+# relative and the root accuracy equal to the CPU's; (c) AlexNet-OWT at
+# 227 px, batch 32, bf16, SGD lr 3e-4 (lr 1e-2 diverges from these
+# random weights), 1 + 5 steps, profiled; its first 3 losses at
+# batch 4 in f32 (no dropout: its masks are the device's bits) within
+# 3e-5 of the CPU's, with TF32 on over that (the control); (e) LeNet-5
+# with nan_grad at step 3 and health every 4 in both trainers, card
+# against CPU, and phase 22 (a)'s "on" run with the deferred stats and
+# without them (the code before the fix) in alternate blocks of steps
+P23_WD_N, P23_WD_BATCH, P23_WD_STEPS, P23_WD_LR = 4096, 256, 20, 0.05
+P23_WD_VOCAB, P23_WD_DEEP, P23_WD_SLOTS = 10000, (100, 50, 20), 8
+P23_WD_REL, P23_WD_DISTRI_REL, P23_WD_TOP1_TOL = 1e-4, 1e-5, 0.01
+P23_TREE_ARGS = ["-b", "128", "--n-leaves", "8", "--embed-dim", "16",
+                 "--hidden", "32", "--max-steps", "200",
+                 "--learning-rate", "0.3"]
+P23_TREE_REL = 1e-4
+P23_ALEX_BATCH, P23_ALEX_IMG, P23_ALEX_STEPS, P23_ALEX_LR = 32, 227, 5, 3e-4
+P23_ALEX_CPU_BATCH, P23_ALEX_CPU_STEPS, P23_ALEX_CPU_TOL = 4, 3, 3e-5
+P23_HEALTH_EVERY, P23_NAN_STEP, P23_LENET_STEPS = 4, 3, 6
+# the "on" step's A/B: alternate blocks of 4 steps of one 96-step run,
+# each step timed from its dispatch to the card done; the step with the
+# fix may read over the code before it by 3% or by twice the standard
+# error of the difference of the means, whichever is larger (steps of
+# one run spread by some 12%: the host)
+P23_AB_STEPS, P23_ON_SLOWER = 96, 0.03
 # phase 11's kernel-arm SGD step (bf16), for phase 18 (c) to print beside
 # Adam's
 _LM_SGD_MS = {}
@@ -714,9 +771,9 @@ def _ptxas_usage(log: str) -> dict:
 
 def _hmma_counts(lib_path: str) -> dict:
     """{(kernel, D): bf16 HMMA instructions} in a library's SASS."""
-    from bigdl_tpu_torch import config
+    from bigdl_tpu_torch.config import nvcc_path
 
-    tool = os.path.join(os.path.dirname(config.nvcc_path()), "cuobjdump")
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                           text=True, check=True, timeout=300).stdout
     counts, key = {}, None
@@ -3974,6 +4031,8 @@ def _item14_run(m, make, target, device, dtype=torch.float32):
     and targets in ``dtype``: (outputs, input gradients, parameter
     gradients), all on the host."""
     def put(a):
+        if not isinstance(a, np.ndarray):
+            return a                    # a SparseTensor stays on the host
         return torch.tensor(a, device=device, dtype=dtype,
                             requires_grad=True)
 
@@ -3999,7 +4058,8 @@ def _item14_run(m, make, target, device, dtype=torch.float32):
 
     params = list(m.parameters()) if isinstance(m, torch.nn.Module) else []
     return ([o.detach().cpu() for o in outs],
-            [host(x.grad, x) for x in _tleaves(xs)],
+            [host(x.grad, x) for x in _tleaves(xs)
+             if isinstance(x, torch.Tensor)],
             [host(p.grad, p) for p in params])
 
 
@@ -6019,6 +6079,676 @@ def phase_distri_resilience(smi: str) -> dict:
     return launches
 
 
+# ---- phase 23: Wide & Deep, the tree-LSTM, AlexNet, item 16's layers ----
+def _p23_sparse(rows, cols, per_row, seed, ids=False):
+    """A COO (rows, cols) SparseTensor with ``per_row`` entries a row:
+    values uniform in [0.5, 1.5), or 1-based ids below ``cols``."""
+    from bigdl_tpu_torch.nn import SparseTensor
+
+    rs = np.random.RandomState(seed)
+    r = np.repeat(np.arange(rows), per_row)
+    c = np.tile(np.arange(per_row), rows) if ids else \
+        rs.randint(0, cols, rows * per_row)
+    v = (rs.randint(0, cols, rows * per_row) + 1).astype(np.float32) \
+        if ids else rs.uniform(0.5, 1.5, rows * per_row).astype(np.float32)
+    return SparseTensor(np.stack([r, c], 1), v,
+                        (rows, per_row if ids else cols))
+
+
+def _p23_rois():
+    rs = np.random.RandomState(5)
+    x1, y1 = rs.uniform(0, 180, (2, 32))
+    w, h = rs.uniform(16, 70, (2, 32))
+    img = rs.randint(1, 3, 32)
+    return np.stack([img, x1, y1, x1 + w, y1 + h], 1).astype(np.float32)
+
+
+def _p23_conn():
+    return [[i + 1, i % 8 + 1] for i in range(16)] + \
+        [[i + 1, (i + 3) % 8 + 1] for i in range(16)]
+
+
+_IMG = (8, 16, 28, 28)
+_VOL = (4, 8, 8, 16, 24)
+_SEQ = (32, 100, 32)
+# Phase 23 (d)'s cases, one or more a class of item 16 (and Remat), at
+# about 1e5 elements an input, in phase 19 (d)'s form; SparseJoinTable
+# moves host arrays only and has no case
+ITEM16_CASES = [
+    ("conv", "LocallyConnected1D", lambda N: N.LocallyConnected1D(
+        100, 32, 32, 5, 2), lambda: _tc(_SEQ, 0), None, False),
+    ("conv", "LocallyConnected2D", lambda N: N.LocallyConnected2D(
+        8, 28, 24, 8, 3, 3, 2, 2, 1, 1), lambda: _tc((16, 8, 24, 28), 0),
+     None, False),
+    ("conv", "SpatialSeparableConvolution",
+     lambda N: N.SpatialSeparableConvolution(16, 32, 2, 3, 3, 1, 1, 1, 1),
+     lambda: _tc(_IMG, 0), None, False),
+    ("conv", "SpatialShareConvolution", lambda N: N.SpatialShareConvolution(
+        16, 32, 3, 3, 1, 1, 1, 1), lambda: _tc(_IMG, 0), None, False),
+    ("conv", "SpatialConvolutionMap", lambda N: N.SpatialConvolutionMap(
+        _p23_conn(), 3, 3, 1, 1, 1, 1), lambda: _tc(_IMG, 0), None, False),
+    ("conv", "SpatialSubtractiveNormalization",
+     lambda N: N.SpatialSubtractiveNormalization(16),
+     lambda: _tc(_IMG, 0), None, False),
+    ("conv", "SpatialDivisiveNormalization",
+     lambda N: N.SpatialDivisiveNormalization(16), lambda: _tc(_IMG, 0),
+     None, False),
+    ("conv", "SpatialContrastiveNormalization",
+     lambda N: N.SpatialContrastiveNormalization(16), lambda: _tc(_IMG, 0),
+     None, False),
+    ("conv", "VolumetricConvolution", lambda N: N.VolumetricConvolution(
+        8, 16, 3, 3, 3, 1, 1, 1, 1, 1, 1), lambda: _tc(_VOL, 0), None, False),
+    ("conv", "VolumetricFullConvolution",
+     lambda N: N.VolumetricFullConvolution(8, 8, 3, 3, 3, 2, 2, 2, 1, 1, 1,
+                                           1, 1, 1),
+     lambda: _tc((4, 8, 6, 12, 16), 0), None, False),
+    ("conv", "VolumetricMaxPooling", lambda N: N.VolumetricMaxPooling(2),
+     lambda: _tc(_VOL, 0), None, False),
+    ("conv", "VolumetricAveragePooling",
+     lambda N: N.VolumetricAveragePooling(3, 3, 3, 2, 2, 2, 1, 1, 1, False,
+                                          True), lambda: _tc(_VOL, 0), None,
+     False),
+    ("conv", "VolumetricBatchNormalization",
+     lambda N: N.VolumetricBatchNormalization(8), lambda: _tc(_VOL, 0),
+     None, False),
+    ("conv", "UpSampling3D", lambda N: N.UpSampling3D((2, 2, 2)),
+     lambda: _tc((4, 8, 4, 8, 12), 0), None, False),
+    ("conv", "Cropping3D", lambda N: N.Cropping3D((1, 1), (2, 2), (1, 2)),
+     lambda: _tc(_VOL, 0), None, False),
+] + [("rest", name, build, make, None, exact)
+     for name, build, make, exact in [
+    ("TemporalMaxPooling", lambda N: N.TemporalMaxPooling(3, 2),
+     lambda: _tc(_SEQ, 0), False),
+    ("TemporalAveragePooling", lambda N: N.TemporalAveragePooling(3),
+     lambda: _tc(_SEQ, 0), False),
+    ("SoftShrink", lambda N: N.SoftShrink(0.3), lambda: _tc(ITEM14_E, 0),
+     False),
+    ("HardShrink", lambda N: N.HardShrink(0.4), lambda: _tc(ITEM14_E, 0),
+     False),
+    ("TanhShrink", lambda N: N.TanhShrink(), lambda: _tc(ITEM14_E, 0),
+     False),
+    ("LogSigmoid", lambda N: N.LogSigmoid(), lambda: _tc(ITEM14_E, 0, 4.0),
+     False),
+    ("RReLU", lambda N: N.RReLU(), lambda: _tc(ITEM14_E, 0), False),
+    ("GaussianDropout", lambda N: N.GaussianDropout(0.3),
+     lambda: _tc(ITEM14_E, 0), False),
+    ("GaussianNoise", lambda N: N.GaussianNoise(0.2),
+     lambda: _tc(ITEM14_E, 0), False),
+    ("GaussianSampler", lambda N: N.GaussianSampler(),
+     lambda: (_tc(ITEM14_E, 0), _tc(ITEM14_E, 1)), False),
+    ("SpatialDropout1D", lambda N: N.SpatialDropout1D(0.4),
+     lambda: _tc(_SEQ, 0), False),
+    ("SpatialDropout2D", lambda N: N.SpatialDropout2D(0.4),
+     lambda: _tc(_IMG, 0), False),
+    ("SpatialDropout3D", lambda N: N.SpatialDropout3D(0.4),
+     lambda: _tc(_VOL, 0), False),
+    ("Cropping2D", lambda N: N.Cropping2D((2, 3), (1, 4)),
+     lambda: _tc(_IMG, 0), False),
+    ("UpSampling1D", lambda N: N.UpSampling1D(2),
+     lambda: _tc((32, 50, 32), 0), False),
+    ("UpSampling2D", lambda N: N.UpSampling2D((2, 2)),
+     lambda: _tc((8, 16, 14, 14), 0), False),
+    ("ResizeBilinear", lambda N: N.ResizeBilinear(40, 36),
+     lambda: _tc(_IMG, 0), False),
+    ("ResizeBilinear align", lambda N: N.ResizeBilinear(40, 36, True),
+     lambda: _tc(_IMG, 0), False),
+    ("ResizeBilinear half", lambda N: N.ResizeBilinear(20, 18, False, True),
+     lambda: _tc(_IMG, 0), False),
+    ("ResizeNearestNeighbor", lambda N: N.ResizeNearestNeighbor(40, 36),
+     lambda: _tc(_IMG, 0), False),
+    ("ResizeNearestNeighbor align",
+     lambda N: N.ResizeNearestNeighbor(14, 10, True), lambda: _tc(_IMG, 0),
+     False),
+    ("DepthToSpace", lambda N: N.DepthToSpace(2),
+     lambda: _tc((8, 64, 14, 14), 0), False),
+    ("SpaceToDepth", lambda N: N.SpaceToDepth(2), lambda: _tc(_IMG, 0),
+     False),
+    ("SpatialWithinChannelLRN", lambda N: N.SpatialWithinChannelLRN(5),
+     lambda: _tc(_IMG, 0), False),
+    ("ExpandSize", lambda N: N.ExpandSize([256, -1, 4]),
+     lambda: _tc((1, 100, 1), 0), False),
+    ("InferReshape", lambda N: N.InferReshape([0, -1, 4], True),
+     lambda: _tc(_IMG, 0), False),
+    ("Tile", lambda N: N.Tile(2, 3), lambda: _tc((32, 32, 32), 0), False),
+    ("SplitChunks", lambda N: N.SplitChunks(2, 4), lambda: _tc(_IMG, 0),
+     False),
+    ("GatherIndices", lambda N: N.GatherIndices(
+        2, list(range(0, 16, 2)) + [-1]), lambda: _tc(_IMG, 0), False),
+    ("Reverse", lambda N: N.Reverse(3), lambda: _tc(_IMG, 0), False),
+    ("CumSum", lambda N: N.CumSum(2), lambda: _tc(ITEM14_E, 0), False),
+    ("CumSum exclusive reverse", lambda N: N.CumSum(2, True, True),
+     lambda: _tc(ITEM14_E, 0), False),
+    ("FillLike", lambda N: N.FillLike(1.5), lambda: _tc(ITEM14_E, 0),
+     False),
+    ("MirrorPad", lambda N: N.MirrorPad([[0, 0], [0, 0], [2, 3], [1, 2]]),
+     lambda: _tc(_IMG, 0), False),
+    ("MirrorPad symmetric", lambda N: N.MirrorPad(
+        [[0, 0], [1, 0], [2, 3], [1, 2]], "SYMMETRIC"),
+     lambda: _tc(_IMG, 0), False),
+    ("CompareConstant", lambda N: N.CompareConstant("gt", 0.1),
+     lambda: _tc(ITEM14_E, 0), True),
+    ("MaskedSelect", lambda N: N.MaskedSelect(),
+     lambda: (_tc(ITEM14_E, 0), _tc_bits(ITEM14_E)), False),
+    ("PairwiseDistance", lambda N: N.PairwiseDistance(2),
+     lambda: (_tc(ITEM14_E, 0), _tc(ITEM14_E, 1)), False),
+    ("PairwiseDistance p3", lambda N: N.PairwiseDistance(3),
+     lambda: (_tc(ITEM14_E, 0), _tc(ITEM14_E, 1)), False),
+    ("Maxout", lambda N: N.Maxout(400, 64, 4), lambda: _tc(ITEM14_E, 0),
+     False),
+    ("Highway", lambda N: N.Highway(400, True, "Tanh"),
+     lambda: _tc(ITEM14_E, 0), False),
+    ("SReLU", lambda N: N.SReLU((400,)), lambda: _tc(ITEM14_E, 0, 2.0),
+     False),
+    ("RoiPooling", lambda N: N.RoiPooling(7, 7, 0.25),
+     lambda: (_tc((2, 16, 64, 64), 0), _p23_rois()), False),
+    ("NegativeEntropyPenalty", lambda N: N.NegativeEntropyPenalty(0.1),
+     lambda: _tc(ITEM14_E, 0), False),
+    ("SparseLinear", lambda N: N.SparseLinear(1000, 64),
+     lambda: _p23_sparse(256, 1000, 40, 3), False),
+    ("SparseLinear dense", lambda N: N.SparseLinear(1000, 64),
+     lambda: _tc((256, 1000), 0), False),
+    ("LookupTableSparse padded", lambda N: N.LookupTableSparse(
+        10000, 32, "mean", 1.5),
+     lambda: (_tc_ids((256, 64), 10000) * _tc_bits((256, 64)),
+              _tc((256, 64), 0, lo=0.5, hi=1.5)), False),
+    ("LookupTableSparse COO", lambda N: N.LookupTableSparse(
+        10000, 32, "sqrtn"),
+     lambda: (_p23_sparse(256, 10000, 64, 4, ids=True),
+              _p23_sparse(256, 64, 64, 5)), False),
+    ("BinaryTreeLSTM", lambda N: N.BinaryTreeLSTM(16, 32),
+     lambda: (_tc((512, 15, 16), 0),
+              __import__("bigdl_tpu_torch.nn.tree_lstm", fromlist=["x"])
+              .random_binary_trees(512, 8, 0)[0].astype(np.float32)),
+     False),
+    ("Remat", lambda N: N.Remat(N.Sequential().add(N.Linear(400, 256))
+                                .add(N.Tanh()).add(N.Linear(256, 400))),
+     lambda: _tc(ITEM14_E, 0), False),
+]]
+
+
+def _phase23_cases() -> None:
+    """(d): every class of item 16 (and Remat), forward and backward on
+    the card against the CPU (and both against the CPU in f64)."""
+    worst = {}
+    for family, name, build, make, target, exact in ITEM16_CASES:
+        limit = ITEM14_CONV_TOL if family == "conv" else ITEM14_TOL
+        gap, rows = _item14_case(build, make, target, exact)
+        for what, g, g_card, g_cpu in rows:
+            if g > 1e-6:
+                say(f"phase 23 (d) {name} {what}: card - CPU {g:.3e}; "
+                    f"against f64 card {g_card:.3e}, CPU {g_cpu:.3e}")
+        if not gap <= limit:
+            raise AssertionError(f"{name}: card off the CPU by {gap:.3e}")
+        n, w, at = worst.get(family, (0, -1.0, ""))
+        worst[family] = (n + 1, max(w, gap), name if gap > w else at)
+    for family, (n, w, at) in worst.items():
+        limit = ITEM14_CONV_TOL if family == "conv" else ITEM14_TOL
+        say(f"phase 23 (d) {family}: {n} cases, worst gap beyond an ulp "
+            f"{w:.3e} of the largest magnitude ({at}; limit {limit:g})")
+
+
+def _p23_step_ms(at: dict) -> float:
+    """The median gap between successive loss reads from step 2 on, for
+    a run of one batch an epoch (each read ends an epoch, so each gap is
+    a whole step, nothing overlapped)."""
+    gaps = [at[n + 1] - at[n] for n in sorted(at) if n >= 2 and n + 1 in at]
+    return float(np.median(gaps)) * 1e3
+
+
+def _p23_wd_data():
+    """bench.py's wide_and_deep rows: (packed x, y) of its first batch."""
+    from bigdl_tpu_torch.models import pack_batch
+    from bigdl_tpu_torch.nn import SparseTensor
+
+    rs = np.random.RandomState(0)
+    n, wv = P23_WD_N, P23_WD_VOCAB
+    cols = rs.randint(0, wv, (n, 4))
+    rows = np.repeat(np.arange(n), 4)
+    sp = SparseTensor(np.stack([rows, cols.reshape(-1)], 1),
+                      np.ones(n * 4, np.float32), (n, wv))
+    deep = np.stack([rs.randint(1, v + 1, n) for v in P23_WD_DEEP], 1)
+    y = (rs.randint(0, 2, n) + 1).astype(np.float32)
+    x = pack_batch(sp, deep, P23_WD_SLOTS)
+    return x[:P23_WD_BATCH], y[:P23_WD_BATCH]
+
+
+def _p23_wd_run(cls, device, steps, **kw):
+    """Wide & Deep at bench's widths through ``cls`` on ``device``, one
+    batch an epoch: (losses, read times, optimizer)."""
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.models import build_wide_and_deep
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, Trigger
+
+    x, y = _p23_wd_data()
+    RandomGenerator.RNG.set_seed(23)
+    model = build_wide_and_deep(P23_WD_VOCAB, P23_WD_DEEP, class_num=2,
+                                wide_slots=P23_WD_SLOTS)
+    opt = cls(model, (x, y), ClassNLLCriterion(), P23_WD_BATCH,
+              device=device, **kw)
+    opt.set_optim_method(SGD(learningrate=P23_WD_LR))
+    opt.set_end_when(Trigger.max_iteration(steps))
+    losses = _TimedLosses()
+    opt.set_train_summary(losses)
+    opt.optimize()
+    return [losses.loss[k] for k in sorted(losses.loss)], losses.at, opt
+
+
+def _phase23_wide_deep(smi: str) -> None:
+    """(a): Wide & Deep at bench's widths through both trainers on the
+    card against the CPU, then the example's distributed main."""
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.engine import Engine
+    from bigdl_tpu_torch.examples import wide_and_deep_train as X
+    from bigdl_tpu_torch.optim import DistriOptimizer, LocalOptimizer
+
+    n = P23_WD_STEPS
+    cpu, _, _ = _p23_wd_run(LocalOptimizer, "cpu", n)
+    card, at, opt = _p23_wd_run(LocalOptimizer, DEV, 1 + n)
+    step_ms = _p23_step_ms(at)
+    phase_train_profile(opt, 23, "Wide & Deep LocalOptimizer step")
+    del opt
+    Engine.reset()
+    Engine.init(DEV)
+    distri, d_at, opt = _p23_wd_run(DistriOptimizer, DEV, 1 + n,
+                                    wire_dtype="float32")
+    d_ms = _p23_step_ms(d_at)
+    phase_train_profile(opt, 23, "Wide & Deep DistriOptimizer step")
+    del opt
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card[:n], cpu))
+    d_rel = max(abs(a - b) / abs(b) for a, b in zip(distri[:n], card[:n]))
+    argv = ["--distributed", "-e", "2"]
+    RandomGenerator.RNG.set_seed(2)
+    t0 = time.perf_counter()
+    top1 = X.main(argv + ["--device", DEV])
+    main_s = time.perf_counter() - t0
+    Engine.reset()
+    RandomGenerator.RNG.set_seed(2)
+    top1_cpu = X.main(argv + ["--device", "cpu"])
+    Engine.reset()
+    say(f"phase 23 (a) Wide & Deep (bench.py's widths, batch "
+        f"{P23_WD_BATCH}, f32): LocalOptimizer step {step_ms:.3f} ms "
+        f"({P23_WD_BATCH / step_ms * 1e3:.1f} samples/s), DistriOptimizer "
+        f"(world 1, NCCL) {d_ms:.3f} ms ({P23_WD_BATCH / d_ms * 1e3:.1f} "
+        f"samples/s); losses card {['%.6f' % v for v in card[:3]]}... "
+        f"CPU {['%.6f' % v for v in cpu[:3]]}..., worst relative gap "
+        f"{rel:.3e} over {n} (limit {P23_WD_REL:g}); Distri against Local "
+        f"{d_rel:.3e} (limit {P23_WD_DISTRI_REL:g}); example main "
+        f"--distributed -e 2: train-set Top1 card {top1:.4f}, CPU "
+        f"{top1_cpu:.4f} ({main_s:.1f} s on the card); {smi}")
+    if len(card) != 1 + n or len(distri) != 1 + n or len(cpu) != n or \
+            not all(np.isfinite(card + distri)):
+        raise AssertionError("phase 23 (a): missing or non-finite losses")
+    if not rel <= P23_WD_REL or not d_rel <= P23_WD_DISTRI_REL:
+        raise AssertionError(f"phase 23 (a): losses off ({rel:.3e}, "
+                             f"{d_rel:.3e})")
+    if not abs(top1 - top1_cpu) <= P23_WD_TOP1_TOL:
+        raise AssertionError(f"phase 23 (a): Top1 {top1} vs {top1_cpu}")
+
+
+def _phase23_tree(smi: str) -> None:
+    """(b): the tree-LSTM example on the card and on the CPU, and one
+    step's launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.examples import train_tree_sentiment as X
+    from bigdl_tpu_torch.nn import BinaryTreeLSTM
+
+    steps = int(P23_TREE_ARGS[P23_TREE_ARGS.index("--max-steps") + 1])
+    RandomGenerator.RNG.set_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, acc = X.main(P23_TREE_ARGS + ["--device", DEV])
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3 / steps
+    RandomGenerator.RNG.set_seed(0)
+    t0 = time.perf_counter()
+    cpu_losses, cpu_acc = X.main(P23_TREE_ARGS + ["--device", "cpu"])
+    cpu_ms = (time.perf_counter() - t0) * 1e3 / steps
+    # one training step of the example's shapes, its kernels counted
+    emb, children, labels = X.synthetic_trees(128, 8, 16)
+    m = BinaryTreeLSTM(16, 32).to(DEV)
+    w = torch.zeros(32, 2, device=DEV, requires_grad=True)
+    e = torch.from_numpy(emb).to(DEV)
+    c = torch.from_numpy(children).to(DEV)
+    yy = torch.from_numpy(labels.astype(np.int64) - 1).to(DEV)
+
+    def step():
+        h = m((e, c))
+        loss = -torch.log_softmax(h[:, 0] @ w, -1).gather(
+            1, yy[:, None]).mean()
+        loss.backward()
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    launches = sum(ev.count for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA)
+    step_ms = time_ms(step, reps=10)
+    rel = max(abs(losses[k] - cpu_losses[k]) / abs(cpu_losses[k])
+              for k in cpu_losses)
+    say(f"phase 23 (b) tree-LSTM (batch 128, 8 leaves, embed 16, hidden "
+        f"32, {steps} SGD steps): losses card "
+        f"{['%.6f' % losses[k] for k in sorted(losses)]}, CPU "
+        f"{['%.6f' % cpu_losses[k] for k in sorted(cpu_losses)]}, worst "
+        f"relative gap {rel:.3e} (limit {P23_TREE_REL:g}); root accuracy "
+        f"card {acc:.4f}, CPU {cpu_acc:.4f}; {card_ms:.3f} ms a step on the "
+        f"card in main ({cpu_ms:.3f} on the CPU), a step alone "
+        f"{step_ms:.3f} ms with {launches} kernels (launch-bound: the "
+        f"eager loop over 15 nodes); {smi}")
+    if sorted(losses) != sorted(cpu_losses) or len(losses) != steps // 50:
+        raise AssertionError(f"phase 23 (b): losses at {sorted(losses)}")
+    if not rel <= P23_TREE_REL or acc != cpu_acc:
+        raise AssertionError(f"phase 23 (b): card off the CPU ({rel:.3e}, "
+                             f"accuracy {acc} vs {cpu_acc})")
+
+
+def _p23_alex_losses(device, x, y, steps, dropout):
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.models import build_alexnet
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+
+    RandomGenerator.RNG.set_seed(23)
+    model = build_alexnet(1000, has_dropout=dropout)
+    opt = LocalOptimizer(model, (x, y), ClassNLLCriterion(), len(x),
+                         device=device)
+    opt.set_optim_method(SGD(learningrate=P23_ALEX_LR))
+    opt.set_end_when(Trigger.max_iteration(steps))
+    losses = _TimedLosses()
+    opt.set_train_summary(losses)
+    return opt, losses
+
+
+def _phase23_alexnet(smi: str) -> None:
+    """(c): AlexNet-OWT in bf16 on the card, profiled; its first losses
+    in f32 against the CPU's, TF32 on as the control."""
+    rs = np.random.RandomState(23)
+    x = rs.randn(P23_ALEX_BATCH, 3, P23_ALEX_IMG, P23_ALEX_IMG).astype(
+        np.float32)
+    y = (rs.randint(0, 1000, P23_ALEX_BATCH) + 1).astype(np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    opt, losses = _p23_alex_losses(DEV, x, y, 1 + P23_ALEX_STEPS, True)
+    opt.set_compute_dtype("bfloat16")
+    opt.optimize()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = _p23_step_ms(losses.at)
+    bf16 = [losses.loss[k] for k in sorted(losses.loss)]
+    phase_train_profile(opt, 23, "AlexNet-OWT bf16 step")
+    del opt
+    torch.cuda.empty_cache()
+    xs, ys = x[:P23_ALEX_CPU_BATCH], y[:P23_ALEX_CPU_BATCH]
+
+    def first(device):
+        opt, ls = _p23_alex_losses(device, xs, ys, P23_ALEX_CPU_STEPS, False)
+        opt.optimize()
+        return [ls.loss[k] for k in sorted(ls.loss)]
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        card = first(DEV)
+        with _tf32():
+            tf32 = first(DEV)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    cpu = first("cpu")
+    gap = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    gap_tf32 = max(abs(a - b) / abs(b) for a, b in zip(tf32, cpu))
+    say(f"phase 23 (c) AlexNet-OWT {P23_ALEX_IMG} px, batch "
+        f"{P23_ALEX_BATCH}, bf16: losses {['%.4f' % v for v in bf16]}; step "
+        f"{step_ms:.3f} ms ({P23_ALEX_BATCH / step_ms * 1e3:.1f} images/s), "
+        f"peak memory {peak / 2 ** 30:.2f} GiB; f32 at batch "
+        f"{P23_ALEX_CPU_BATCH}, cuDNN deterministic, TF32 off: card "
+        f"{['%.6f' % v for v in card]}, CPU {['%.6f' % v for v in cpu]}, "
+        f"worst relative gap {gap:.3e} (limit {P23_ALEX_CPU_TOL:g}); TF32 "
+        f"on {gap_tf32:.3e} (the control); {smi}")
+    if len(bf16) != 1 + P23_ALEX_STEPS or not all(np.isfinite(bf16)):
+        raise AssertionError(f"phase 23 (c): losses {bf16}")
+    if not gap <= P23_ALEX_CPU_TOL:
+        raise AssertionError(f"phase 23 (c): card off the CPU by {gap:.3e}")
+    if not gap_tf32 > P23_ALEX_CPU_TOL:
+        raise AssertionError(f"phase 23 (c): the TF32 control reads "
+                             f"{gap_tf32:.3e}, inside the limit: the limit "
+                             "would not see a lower-precision conv")
+
+
+def _p23_localize(cls, device, **kw):
+    """LeNet-5 with ``nan_grad`` at step ``P23_NAN_STEP`` and the health
+    monitor every ``P23_HEALTH_EVERY`` steps through ``cls``: (health
+    steps, fetches, each report's layers with non-finite gradients, the
+    counter's per-layer counts, the run's seconds)."""
+    from bigdl_tpu_torch import obs
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.dataset.mnist import load_mnist, normalize
+    from bigdl_tpu_torch.models.lenet import build_lenet5
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.obs import names
+    from bigdl_tpu_torch.optim import SGD, Trigger
+    from bigdl_tpu_torch.resilience.faults import reset_injector
+
+    env = {"BIGDL_TORCH_HEALTH_EVERY": str(P23_HEALTH_EVERY),
+           "BIGDL_TORCH_FAULT_PLAN": f"step:{P23_NAN_STEP}:nan_grad"}
+    os.environ.update(env)
+    reset_injector()
+    obs.reset()
+    try:
+        RandomGenerator.RNG.set_seed(0)
+        model = build_lenet5(device=device)
+        x, y = load_mnist(None, "train", synthetic_n=P22_LENET_N)
+        opt = cls(model, (normalize(x), y), ClassNLLCriterion(),
+                  P22_LENET_BATCH, device=device, **kw)
+        opt.set_optim_method(SGD(learningrate=0.1))
+        opt.set_end_when(Trigger.max_iteration(P23_LENET_STEPS))
+        summary = _P22Summary()
+        opt.set_train_summary(summary)
+        RandomGenerator.RNG.set_seed(1)
+        t0 = time.perf_counter()
+        opt.optimize()
+        secs = time.perf_counter() - t0
+        counts = {}
+        for fam in obs.get_registry().families():
+            if fam.name == names.NONFINITE_LAYERS_TOTAL:
+                counts = {k[0]: c.value for k, c in fam.child_items()}
+        bad = {s: [n for n, r in rows.items() if r["nonfinite"]]
+               for s, rows in summary.health.items()}
+        return (sorted(summary.health), opt._health_monitor.fetches, bad,
+                counts, secs)
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+        reset_injector()
+        obs.reset()
+
+
+class _KeepNothing:
+    """Stands in for ``obs.health.DeferredStats`` to run the code before
+    the fix: a step off the cadence keeps no stats (None)."""
+
+    def __new__(cls, fn):
+        return None
+
+
+def _p23_on_ab():
+    """Phase 22 (a)'s "on" run (int8 + EF + buckets, health every 4,
+    spans and the obs server) for ``P23_AB_STEPS`` steps, its steps
+    alternating between the deferred stats and ``_KeepNothing`` (the
+    code before the fix) a block of K steps at a time, each step timed
+    from its dispatch to the card done with it.  Returns ({True: the
+    steps' ms with, False: without}, the run's conv_bn launches); the
+    first block is the warm-up."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch import obs
+    from bigdl_tpu_torch.obs import health as H
+    from bigdl_tpu_torch.obs import server
+    from bigdl_tpu_torch.ops import _cuda
+
+    x = np.random.RandomState(0).randn(
+        TRAIN_BATCH, 3, TRAIN_IMG, TRAIN_IMG).astype(np.float32)
+    y = (np.random.RandomState(1).randint(0, TRAIN_CLASSES, TRAIN_BATCH)
+         + 1).astype(np.float32)
+    real = H.DeferredStats
+    before = dict(_cuda.launches)
+    tmp = tempfile.mkdtemp(prefix="phase23_")
+    env = {"BIGDL_TORCH_HEALTH_EVERY": str(P22_HEALTH_EVERY),
+           "BIGDL_TORCH_OBS_PORT": "0",
+           "BIGDL_TORCH_TRACE_DIR": os.path.join(tmp, "trace"),
+           "BIGDL_TORCH_HANG_TIMEOUT": str(P22_HANG_S)}
+    os.environ.update(env)
+    ms = {True: [], False: []}
+    try:
+        from bigdl_tpu_torch.common import RandomGenerator
+        from bigdl_tpu_torch.optim import Trigger
+
+        model = _training_resnet50(True)
+        RandomGenerator.RNG.set_seed(1)
+        opt = _p22_trainer(model, x, y, wire_dtype="int8", wire_ef=True,
+                           overlap_bucket_mb=P22_BUCKET_MB,
+                           wire_block=P22_BLOCK)
+        opt.set_end_when(Trigger.max_iteration(P23_AB_STEPS))
+        step = opt._train_step
+
+        def timed(*args):
+            # blocks of K steps, one arm a block: a step's kept tensors
+            # live into the next step, so a block's first step is not
+            # counted, nor its K-th (both arms take the stats there)
+            n = opt.state["neval"]
+            block, at = divmod(n - 1, P22_HEALTH_EVERY)
+            fixed = block % 2 == 1
+            H.DeferredStats = real if fixed else _KeepNothing
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            if block > 0 and 0 < at < P22_HEALTH_EVERY - 1:
+                ms[fixed].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        opt._train_step = timed
+        opt.optimize()
+        del opt, model
+        torch.cuda.empty_cache()
+    finally:
+        H.DeferredStats = real
+        for k in env:
+            os.environ.pop(k, None)
+        server.stop_server()
+        obs.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    runs = {k: _cuda.launches[k] - before[k] for k in before}
+    return ms, runs
+
+
+def _phase23_health(smi: str):
+    """(e): a tripped step off the health cadence localized on the card
+    as on the CPU in both trainers; the "on" step before and after the
+    fix.  Returns the timing runs' conv_bn launches."""
+    from bigdl_tpu_torch.engine import Engine
+    from bigdl_tpu_torch.optim import DistriOptimizer, LocalOptimizer
+
+    got = {}
+    for name, cls, kw in (("LocalOptimizer", LocalOptimizer, {}),
+                          ("DistriOptimizer", DistriOptimizer,
+                           {"wire_dtype": "float32"})):
+        for dev in (DEV, "cpu"):
+            Engine.reset()
+            if cls is DistriOptimizer:
+                Engine.init(dev)
+            got[name, dev] = _p23_localize(cls, dev, **kw)
+        Engine.reset()
+        card, cpu = got[name, DEV], got[name, "cpu"]
+        want_steps = [P23_NAN_STEP, P23_HEALTH_EVERY]
+        bad = card[2].get(P23_NAN_STEP, [])
+        say(f"phase 23 (e) {name}: health reports at {card[0]}, {card[1]} "
+            f"fetches; step {P23_NAN_STEP}'s offenders {len(bad)} "
+            f"(first {bad[:1]}), the counter {sum(card[3].values()):.0f} "
+            f"increments; CPU {cpu[0]}, {cpu[1]} fetches, the same "
+            f"offenders: {card[2] == cpu[2] and card[3] == cpu[3]}; "
+            f"{card[4] * 1e3 / P23_LENET_STEPS:.2f} ms a step on the card "
+            f"(wall, first steps included)")
+        if card[0] != want_steps or card[1] != 2 or not bad:
+            raise AssertionError(f"phase 23 (e) {name}: {card[:3]}")
+        if card[:4] != cpu[:4]:
+            raise AssertionError(f"phase 23 (e) {name}: card {card[:4]} "
+                                 f"vs CPU {cpu[:4]}")
+    Engine.reset()
+    Engine.init(DEV)
+    try:
+        groups, runs = _p23_on_ab()
+    finally:
+        Engine.reset()
+    a, b = (np.asarray(groups[k]) for k in (True, False))
+    on_ms, pre_ms = float(a.mean()), float(b.mean())
+    se = float(np.sqrt(a.var(ddof=1) / a.size + b.var(ddof=1) / b.size))
+    slack = max(P23_ON_SLOWER * pre_ms, 2 * se)
+    say(f"phase 23 (e) phase 22 (a)'s 'on' step {on_ms:.3f} ms with the "
+        f"deferred stats, {pre_ms:.3f} ms without them (the code before the "
+        f"fix): means of {a.size} and {b.size} steps of one run in "
+        f"alternate blocks of {P22_HEALTH_EVERY}, each from its dispatch "
+        f"to the card done (medians {np.median(a):.3f} and "
+        f"{np.median(b):.3f}); difference {on_ms - pre_ms:+.3f} ms, its "
+        f"standard error {se:.3f} ms, limit +{slack:.3f} ms; {smi}")
+    want = {"conv_bn_1x1": 36 * P23_AB_STEPS,
+            "conv_bn_kxk": 16 * P23_AB_STEPS}
+    if any(runs[k] != v for k, v in want.items()) or \
+            any(v for k, v in runs.items() if k not in want):
+        raise AssertionError(f"phase 23 (e): the timing run launched "
+                             f"{runs}, want {want}")
+    if not on_ms - pre_ms <= slack:
+        raise AssertionError(f"phase 23 (e): the 'on' step got slower "
+                             f"({on_ms:.3f} vs {pre_ms:.3f} ms)")
+    return runs
+
+
+def phase_item16(smi: str) -> None:
+    """Phase 23: Wide & Deep at bench's widths, the tree-LSTM example and
+    AlexNet-OWT trained on the card against the card machine's CPU, item
+    16's layers card against CPU, and the health localization fix;
+    callable alone after ``phase_device()``.  No ``csrc/`` kernel runs
+    but in (e)'s rerun of phase 22 (a), whose launches are checked
+    there."""
+    from bigdl_tpu_torch.ops import _cuda
+
+    t_phase = time.perf_counter()
+    kernels_before = dict(_cuda.launches)
+    parts = {}
+    rerun = {}
+    det = torch.backends.cudnn.deterministic
+    for part, run in (("a", _phase23_wide_deep), ("b", _phase23_tree),
+                      ("c", _phase23_alexnet)):
+        t0 = time.perf_counter()
+        run(smi)
+        parts[part] = round(time.perf_counter() - t0, 1)
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        _phase23_cases()
+        parts["d"] = round(time.perf_counter() - t0, 1)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    t0 = time.perf_counter()
+    rerun = _phase23_health(smi)
+    parts["e"] = round(time.perf_counter() - t0, 1)
+    moved = {k: _cuda.launches[k] - kernels_before[k] - rerun.get(k, 0)
+             for k in kernels_before}
+    if any(moved.values()):
+        raise AssertionError(f"phase 23 launched a kernel of csrc/: {moved}")
+    say(f"phase 23 (f) no csrc/ kernel launched in (a)-(e) but in (e)'s "
+        f"run of phase 22 (a)'s path ({rerun})")
+    print(smi, flush=True)
+    say(f"phase 23 took {time.perf_counter() - t_phase:.1f} s (seconds by "
+        f"part {parts})")
+
+
 def _has_pillow() -> bool:
     try:
         import PIL  # noqa: F401
@@ -6070,6 +6800,7 @@ def main() -> int:
     say(f"phase 21 (a) conv_bn launches {p21}")
     # rows 4-5's launches: this slice's main path, phase 22 (a)
     launches.update(phase_distri_resilience(smi))
+    phase_item16(smi)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["launches"] <= 0:

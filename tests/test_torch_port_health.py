@@ -41,6 +41,7 @@ from bigdl_tpu.obs import runtime as JR
 from bigdl_tpu.optim.distri_optimizer import DistriOptimizer as JDistri
 from bigdl_tpu.optim.distri_optimizer import _shard_map
 from bigdl_tpu.optim.evaluator import evaluate_dataset as j_evaluate
+from bigdl_tpu.resilience import faults as JF
 from bigdl_tpu_torch import nn as TN
 from bigdl_tpu_torch import obs as tobs
 from bigdl_tpu_torch import optim as TO
@@ -52,6 +53,7 @@ from bigdl_tpu_torch.obs import names
 from bigdl_tpu_torch.obs import runtime as TR
 from bigdl_tpu_torch.obs import server
 from bigdl_tpu_torch.parallel import wire as TW
+from bigdl_tpu_torch.resilience import faults as TF
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_port_distri_worker as W  # noqa: E402
@@ -65,16 +67,21 @@ WORKER = os.path.join(REPO, "tests", "torch_port_distri_worker.py")
 def _clean(monkeypatch):
     for k in ("BIGDL_TORCH_TRACE_DIR", "BIGDL_TORCH_OBS_PORT",
               "BIGDL_TORCH_HEALTH_EVERY", "BIGDL_HEALTH_EVERY",
-              "BIGDL_TORCH_HANG_TIMEOUT"):
+              "BIGDL_TORCH_HANG_TIMEOUT", "BIGDL_TORCH_FAULT_PLAN",
+              "BIGDL_FAULT_PLAN"):
         monkeypatch.delenv(k, raising=False)
     Engine.reset()
     tobs.reset()
     jobs.reset()
+    TF.reset_injector()
+    JF.reset_injector()
     monkeypatch.setattr(JEngine._state, "mesh", _mesh(1), raising=False)
     yield
     Engine.reset()
     tobs.reset()
     jobs.reset()
+    TF.reset_injector()
+    JF.reset_injector()
 
 
 def _mesh(n):
@@ -252,10 +259,12 @@ class _Summary:
         return None
 
 
-def _train(pkg, distri, monkeypatch, steps=5):
+def _train(pkg, distri, monkeypatch, steps=5, every=2, plan=None):
     x, y = W.data(40)
     if pkg == "jax":
-        monkeypatch.setenv("BIGDL_HEALTH_EVERY", "2")
+        monkeypatch.setenv("BIGDL_HEALTH_EVERY", str(every))
+        if plan:
+            monkeypatch.setenv("BIGDL_FAULT_PLAN", plan)
         JRandom.RNG.set_seed(4)
         m = W.small_model(JN)
         opt = (JDistri(m, JArray(x, y, 8, shuffle=False),
@@ -265,7 +274,9 @@ def _train(pkg, distri, monkeypatch, steps=5):
                                  JN.ClassNLLCriterion(), 8))
         O = JO
     else:
-        monkeypatch.setenv("BIGDL_TORCH_HEALTH_EVERY", "2")
+        monkeypatch.setenv("BIGDL_TORCH_HEALTH_EVERY", str(every))
+        if plan:
+            monkeypatch.setenv("BIGDL_TORCH_FAULT_PLAN", plan)
         TRandom.RNG.set_seed(4)
         m = W.small_model(TN)
         cls = TO.DistriOptimizer if distri else TO.LocalOptimizer
@@ -307,6 +318,86 @@ def test_trainer_health_reports_match_jax(distri, monkeypatch):
     assert jopt._health_monitor.last["global_grad_norm"] > 0.1
     _rel_close(topt._health_monitor.last["global_grad_norm"],
                jopt._health_monitor.last["global_grad_norm"], "global")
+
+
+def _nonfinite_report(summary, counters):
+    """(health steps, per step the layers with non-finite gradients in
+    flat order, the first offender, the counter's per-layer counts)."""
+    steps = sorted(summary)
+    bad = {s: [n for n, row in summary[s].items() if row["nonfinite"]]
+           for s in steps}
+    return steps, bad, {k: v for k, v in counters.items()}
+
+
+def _counting(monkeypatch, name):
+    calls = []
+    orig = getattr(TH, name)
+
+    def wrapped(*a, **kw):
+        calls.append(1)
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(TH, name, wrapped)
+    return calls
+
+
+@pytest.mark.parametrize("distri", [False, True], ids=["local", "distri"])
+def test_tripped_step_off_the_cadence_is_localized_as_jax(distri,
+                                                          monkeypatch):
+    """``nan_grad`` at step 3 with K = 4: JAX fetches at steps 3 and 4
+    and names the offenders at step 3; so must the port, and the steps
+    that did not trip (1, 2, 5) compute no stats."""
+    plan = "step:3:nan_grad"
+    jopt, jsum = _train("jax", distri, monkeypatch, every=4, plan=plan)
+    calls = _counting(monkeypatch,
+                      "flat_shard_stats" if distri else "tree_layer_stats")
+    topt, tsum = _train("torch", distri, monkeypatch, every=4, plan=plan)
+    jrep = _nonfinite_report(jsum.health, _counters(
+        jobs.get_registry(), names.NONFINITE_LAYERS_TOTAL))
+    trep = _nonfinite_report(tsum.health, _counters(
+        tobs.get_registry(), names.NONFINITE_LAYERS_TOTAL))
+    assert jrep[0] == trep[0] == [3, 4]
+    assert topt._health_monitor.fetches == jopt._health_monitor.fetches == 2
+    assert trep[1] == jrep[1] and len(trep[1][3]) > 0 and trep[1][4] == []
+    assert trep[1][3][0] == jrep[1][3][0]
+    assert trep[2] == jrep[2]
+    assert len(calls) == 2          # step 3 (tripped) and step 4 (K-th)
+    for layer, row in jsum.health[3].items():
+        got = tsum.health[3][layer]
+        assert got["update_ratio"] == row["update_ratio"] == 0.0
+        assert abs(got["param_norm"] - row["param_norm"]) <= \
+            REL * max(1.0, row["param_norm"])
+
+
+def test_tripped_step_is_localized_at_world2(tmp_path, monkeypatch):
+    """The same fault through ``DistriOptimizer`` at world 2 over gloo
+    (the distri worker's ``health`` case): every rank enters the
+    deferred stats' ``all_reduce`` on the tripped step, and rank 0's
+    report equals JAX's."""
+    jopt, jsum = _train("jax", True, monkeypatch, every=4,
+                        plan="step:3:nan_grad")
+    jrep = _nonfinite_report(jsum.health, _counters(
+        jobs.get_registry(), names.NONFINITE_LAYERS_TOTAL))
+    store = str(tmp_path / "store")
+    outs = [str(tmp_path / f"r{r}.json") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, WORKER, str(r), "2", store, outs[r], "health"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=120)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    for out in outs:
+        with open(out) as f:
+            got = json.load(f)
+        assert got["steps"] == jrep[0] == [3, 4]
+        assert got["fetches"] == 2 and got["stats_calls"] == 2
+        assert {int(k): v for k, v in got["bad"].items()} == jrep[1]
+        assert {(k,): v for k, v in got["counters"].items()} == jrep[2]
 
 
 def test_step_spans_and_slow_step(tmp_path, monkeypatch):

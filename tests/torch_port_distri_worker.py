@@ -19,7 +19,10 @@ what ``LBFGS`` raises there.
 the directory ``OUT``; ``"resume DIR"`` resumes that run from DIR's
 checkpoint for epoch 2 and writes its arrays to OUT; ``"eval"`` folds
 ``evaluate_dataset`` over each rank's rows of a per-process set and
-writes the results.  Imports neither JAX nor the JAX package.
+writes the results; ``"health"`` trips the non-finite guard at step 3
+with the health monitor every 4 steps (``health_case``);
+``"wide_deep"`` trains Wide & Deep (``wide_deep_run``).  Imports
+neither JAX nor the JAX package.
 """
 
 import os
@@ -176,6 +179,120 @@ def ckpt_run(TN_, TO_, make_opt, ds, directory=None, resume=None,
     return model, opt, losses
 
 
+def health_case(out):
+    """The ``health`` case: ``nan_grad`` at step 3 with the health
+    monitor every 4 steps, 5 steps of the small model; writes the
+    health steps, the fetches, the calls of ``flat_shard_stats``, the
+    layers with non-finite gradients per step and the non-finite
+    counter, as JSON."""
+    import json
+
+    from bigdl_tpu_torch import obs
+    from bigdl_tpu_torch.dataset import ArrayDataSet
+    from bigdl_tpu_torch.obs import health as H
+    from bigdl_tpu_torch.obs import names
+
+    os.environ["BIGDL_TORCH_HEALTH_EVERY"] = "4"
+    os.environ["BIGDL_TORCH_FAULT_PLAN"] = "step:3:nan_grad"
+    calls = []
+    orig = H.flat_shard_stats
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return orig(*a, **kw)
+
+    H.flat_shard_stats = counted
+
+    class Health(Losses):
+        def __init__(self):
+            super().__init__()
+            self.health = {}
+
+        def add_health(self, step, layers):
+            self.health[step] = layers
+
+    x, y = data(40)
+    RandomGenerator.RNG.set_seed(4)
+    opt = TO.DistriOptimizer(small_model(TN),
+                             ArrayDataSet(x, y, 8, shuffle=False),
+                             TN.ClassNLLCriterion(), 8, device="cpu",
+                             wire_dtype="float32")
+    opt.set_optim_method(TO.SGD(learningrate=0.2, momentum=0.9))
+    opt.set_gradient_clipping_by_l2_norm(0.1)
+    summary = Health()
+    opt.set_train_summary(summary)
+    opt.set_end_when(TO.Trigger.max_iteration(5))
+    opt.optimize()
+    counters = {}
+    for fam in obs.get_registry().families():
+        if fam.name == names.NONFINITE_LAYERS_TOTAL:
+            counters = {k[0]: c.value for k, c in fam.child_items()}
+    with open(out, "w") as f:
+        json.dump({"steps": sorted(summary.health),
+                   "fetches": opt._health_monitor.fetches,
+                   "stats_calls": len(calls),
+                   "bad": {s: [n for n, row in rows.items()
+                               if row["nonfinite"]]
+                           for s, rows in summary.health.items()},
+                   "counters": counters}, f)
+    Engine.reset()
+
+
+# the "wide_deep" case: the example's widths, WD_STEPS fixed batches
+WD_BATCH, WD_STEPS = 16, 2
+
+
+def wide_deep_data():
+    """The Wide & Deep example's packed rows and labels, from the port's
+    copy of its synthetic set."""
+    from bigdl_tpu_torch.examples.wide_and_deep_train import \
+        synthetic_tabular
+    from bigdl_tpu_torch.models import pack_batch
+
+    sp, deep, y = synthetic_tabular(n=WD_BATCH * WD_STEPS)
+    return pack_batch(sp, deep, 8), y
+
+
+def wide_deep_batches(base):
+    """The fixed batches of ``wide_deep_data`` as a ``base`` (either
+    package's ``DataSet``) subclass instance."""
+    x, y = wide_deep_data()
+
+    class Fixed(base):
+        def size(self):
+            return len(x)
+
+        def data(self, train=True):
+            for b in range(0, len(x), WD_BATCH):
+                yield x[b:b + WD_BATCH], y[b:b + WD_BATCH]
+
+    return Fixed()
+
+
+def wide_deep_run(trainer, device="cpu"):
+    """``WD_STEPS`` SGD steps (lr 1.0) of the port's Wide & Deep at the
+    example's widths through ``trainer`` ("local", or "distri" on the
+    f32 wire); returns the losses and the parameters as arrays."""
+    from bigdl_tpu_torch.models import build_wide_and_deep
+
+    RandomGenerator.RNG.set_seed(21)
+    model = build_wide_and_deep(200, (12, 20, 8), class_num=2, wide_slots=8)
+    cls, kw = ((TO.DistriOptimizer, {"wire_dtype": "float32"})
+               if trainer == "distri" else (TO.LocalOptimizer, {}))
+    opt = cls(model, wide_deep_batches(DataSet), TN.ClassNLLCriterion(),
+              WD_BATCH, device=device, **kw)
+    opt.set_optim_method(TO.SGD(learningrate=1.0))
+    opt.set_end_when(TO.Trigger.max_iteration(WD_STEPS))
+    losses = Losses()
+    opt.set_train_summary(losses)
+    opt.optimize()
+    arrays = {f"p{i}": v.detach().cpu().numpy()
+              for i, v in enumerate(T.leaves(model.params()))}
+    arrays["losses"] = np.asarray([losses.loss[k]
+                                   for k in sorted(losses.loss)])
+    return arrays
+
+
 def run(rank, world, store, out, case, extra=None):
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
@@ -218,6 +335,15 @@ def run(rank, world, store, out, case, extra=None):
             device="cpu")
         np.savez(out, total=np.asarray([r.total for r in res]),
                  count=np.asarray([r.count for r in res]))
+        dist.destroy_process_group()
+        return
+    if case == "health":
+        health_case(out)
+        dist.destroy_process_group()
+        return
+    if case == "wide_deep":
+        np.savez(out, **wide_deep_run("distri"))
+        Engine.reset()
         dist.destroy_process_group()
         return
     if case in ("ckpt", "resume"):

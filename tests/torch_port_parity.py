@@ -54,16 +54,22 @@ def _torch_input(x):
     return torch.tensor(x, requires_grad=x.dtype.kind == "f")
 
 
-def check_module(jm, tm, xs, seed=0, training=False, exact=False):
+def check_module(jm, tm, xs, seed=0, training=False, exact=False,
+                 jit=False):
     """Forward, input gradients and parameter gradients of one module,
     JAX against port, under a random cotangent on every output leaf;
-    ``exact`` compares the outputs bit for bit (integer-valued ones).
-    Returns the JAX module's new state."""
+    ``exact`` compares the outputs bit for bit (integer-valued ones);
+    ``jit`` traces the JAX side once instead of dispatching it op by op
+    (quicker for a module of many small ops).  Returns the JAX module's
+    new state."""
     params, state = jm.params(), jm.state()
     jxs = tmap(jnp.asarray, xs)
 
     def f(p, x):
         return jm.apply(p, state, x, training=training)
+
+    if jit:
+        f = jax.jit(f)
 
     y, vjp, new_state = jax.vjp(f, params, jxs, has_aux=True)
     rs = np.random.RandomState(seed + 100)
@@ -122,3 +128,40 @@ def randomize_params(jm, tm, seed=5) -> None:
         jm.params())
     jm.set_params(jax.tree.map(jnp.asarray, tree))
     load_jax_params(tm, tree)
+
+
+def assert_trees_equal(t_tree, j_tree) -> None:
+    """A port tree and a JAX tree: the same paths, bit-equal leaves."""
+    tp = T.leaves_with_paths(t_tree)
+    jp = jax.tree_util.tree_flatten_with_path(j_tree)[0]
+    assert len(tp) == len(jp)
+    for (path, a), (jpath, b) in zip(tp, jp):
+        assert "/".join(path) == "/".join(str(k.key) for k in jpath)
+        np.testing.assert_array_equal(to_np(a), np.asarray(b))
+
+
+def check_spec_and_files(jm, tm, directory) -> None:
+    """One module in both packages: the same spec, each package's spec
+    rebuilt by both, and its ``.npz`` and ``.bigdl`` files loaded by the
+    other package with the same parameters and state."""
+    import os
+
+    from bigdl_tpu.utils import serializer as JS
+    from bigdl_tpu_torch.utils import serializer as TS
+
+    spec = TS.module_to_spec(tm)
+    assert spec == JS.module_to_spec(jm)
+    assert TS.module_to_spec(TS.spec_to_module(spec)) == spec
+    assert JS.module_to_spec(JS.spec_to_module(spec)) == spec
+    for ext in ("", ".bigdl"):
+        jpath = JS.save_module(jm, os.path.join(directory, "j" + ext))
+        t_from_j = TS.load_module(jpath)
+        assert type(t_from_j).__name__ == type(tm).__name__
+        assert_trees_equal(t_from_j.params(), jm.params())
+        tpath = TS.save_module(tm, os.path.join(directory, "t" + ext))
+        j_from_t = JS.load_module(tpath)
+        assert type(j_from_t).__name__ == type(jm).__name__
+        assert_trees_equal(tm.params(), j_from_t.params())
+        if not ext:
+            assert TS.module_to_spec(t_from_j) == spec
+            assert_trees_equal(t_from_j.state(), jm.state())

@@ -8,11 +8,12 @@ backoff, checkpoint retention and background writes, the gradient
 wire and its buckets, the fault plan, the stream's buffer, preemption,
 heartbeats and the hang timeout, read by the trainers), of the
 observability switches the tracer, the request tracer, the metrics
-registry, the obs server, the runtime profile and the health monitor
-read (``ObsConfig``), and of the router's and the rollout's knobs
-(``RouterConfig``, ``RolloutConfig``), each with the JAX package's
-defaults.  Constructor arguments win; these are the process-wide
-fallbacks a deployment sets once.  Each is read from the environment
+registry, the obs server, the runtime profile, the health monitor and
+the regression gate read (``ObsConfig``), of the router's and the
+rollout's knobs (``RouterConfig``, ``RolloutConfig``) and of the kernel
+auto-tuner's (``TunerConfig``), each with the JAX package's defaults.
+Constructor arguments win; these are the process-wide fallbacks a
+deployment sets once.  Each is read from the environment
 when it is used, so a knob exported after import counts, unless
 ``configure(section=...)`` pinned that section (``BigDLConfig``, the
 global ``config``, ``refresh_from_env`` and ``reload_from_env``, with
@@ -258,6 +259,10 @@ class ObsConfig:
     # assumed interconnect GB/s for the exposed-comm seconds gauge; 0 =
     # unknown [BIGDL_TORCH_WIRE_GBPS]
     wire_gbps: float = 0.0
+    # obs/regress.check: a step time over the baseline's times this
+    # (or a throughput under it by this factor) is a violation
+    # [BIGDL_TORCH_REGRESS_TOLERANCE]
+    regress_tolerance: float = 1.5
 
     @property
     def active(self) -> bool:
@@ -281,6 +286,8 @@ class ObsConfig:
             health_spike_factor=_env_float("BIGDL_TORCH_HEALTH_SPIKE_FACTOR",
                                            10.0),
             wire_gbps=_env_float("BIGDL_TORCH_WIRE_GBPS", 0.0),
+            regress_tolerance=_env_float("BIGDL_TORCH_REGRESS_TOLERANCE",
+                                         1.5),
         )
 
 
@@ -384,6 +391,39 @@ class RolloutConfig:
 
 
 @dataclasses.dataclass
+class TunerConfig:
+    """The kernel auto-tuner (``ops/autotune.py``), JAX ``TunerConfig``.
+
+    Off by default: every ``impl="auto"`` site then dispatches by its
+    static policy and the tuner module is never consulted.  On, the
+    attention, conv+BN, paged-decode and int8-matmul sites resolve their
+    impl from the cached search."""
+
+    # master switch [BIGDL_TORCH_TUNER]
+    enabled: bool = False
+    # JSON decision store, keyed on (site, shape, dtype, platform);
+    # unset = in memory only [BIGDL_TORCH_TUNER_CACHE]
+    cache_path: Optional[str] = None
+    # time the candidates on the caller's inputs (forward + backward
+    # where the site is differentiable), never while a CUDA graph is
+    # being captured; measured times override the cost model
+    # [BIGDL_TORCH_TUNER_MEASURE]
+    measure: bool = False
+    # timed runs per measured candidate, after one warm-up
+    # [BIGDL_TORCH_TUNER_MEASURE_ITERS]
+    measure_iters: int = 3
+
+    @classmethod
+    def from_env(cls) -> "TunerConfig":
+        return cls(
+            enabled=_env_bool("BIGDL_TORCH_TUNER", False),
+            cache_path=_env_str("BIGDL_TORCH_TUNER_CACHE", None),
+            measure=_env_bool("BIGDL_TORCH_TUNER_MEASURE", False),
+            measure_iters=_env_int("BIGDL_TORCH_TUNER_MEASURE_ITERS", 3),
+        )
+
+
+@dataclasses.dataclass
 class BigDLConfig:
     """The process-global configuration (JAX ``BigDLConfig``,
     config.py:655): one field a section of the port's ``BIGDL_TORCH_*``
@@ -397,6 +437,7 @@ class BigDLConfig:
     router: RouterConfig = dataclasses.field(default_factory=RouterConfig)
     rollout: RolloutConfig = dataclasses.field(
         default_factory=RolloutConfig)
+    tuner: TunerConfig = dataclasses.field(default_factory=TunerConfig)
 
     @classmethod
     def from_env(cls) -> "BigDLConfig":
@@ -411,7 +452,8 @@ class BigDLConfig:
 
 
 _SECTIONS = {"serve": ServeConfig, "train": TrainConfig, "obs": ObsConfig,
-             "router": RouterConfig, "rollout": RolloutConfig}
+             "router": RouterConfig, "rollout": RolloutConfig,
+             "tuner": TunerConfig}
 
 # sections pinned by configure(): env refreshes and from_env skip them
 _explicit: set = set()
@@ -475,6 +517,14 @@ def reload_from_env() -> BigDLConfig:
     return refresh_from_env()
 
 
+def tuner_enabled() -> bool:
+    """``TunerConfig.from_env().enabled`` without reading the tuner's
+    other knobs: the switch every ``impl="auto"`` call consults."""
+    if "tuner" in _explicit:
+        return config.tuner.enabled
+    return _env_bool("BIGDL_TORCH_TUNER", False)
+
+
 def build_dir() -> str:
     """Where the CUDA kernels are compiled to: ``build/bigdl_tpu_torch``
     beside the package's checkout, or ``BIGDL_TORCH_BUILD_DIR``."""
@@ -496,5 +546,6 @@ def nvcc_path() -> str:
 
 
 __all__ = ["ServeConfig", "TrainConfig", "ObsConfig", "RouterConfig",
-           "RolloutConfig", "BigDLConfig", "config", "configure",
-           "refresh_from_env", "reload_from_env", "build_dir", "nvcc_path"]
+           "RolloutConfig", "TunerConfig", "BigDLConfig", "config",
+           "configure", "refresh_from_env", "reload_from_env",
+           "tuner_enabled", "build_dir", "nvcc_path"]

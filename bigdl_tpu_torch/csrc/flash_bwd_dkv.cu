@@ -11,10 +11,12 @@
 // Shapes: q/g (BH, Tq, D), k/v/dk/dv (BH, Tk, D), lse/delta (BH, Tq) f32;
 // all contiguous, and for bf16 q, k, v and g 16-byte aligned. Any Tq and
 // Tk, D in {32, 64, 128}, f32 or bf16 inputs, dk/dv in that dtype, f32
-// accumulation. Causal keeps kpos <= qpos (query offset 0). One CTA per
+// accumulation. Causal keeps kpos <= seq_offset + qpos (query row i at
+// absolute position seq_offset + i, as in the forward). One CTA per
 // (bh, 64-row key tile); the TPU grid's sequential q axis becomes a loop
 // over 64-row Q/dO tiles inside the CTA, from the first tile whose rows
-// reach the key tile (q0 = floor(k0 / BQ) when causal). A q row at or
+// reach the key tile (q0 = floor(max(k0 - seq_offset, 0) / BQ) when
+// causal); a key tile that no query reaches writes zeros. A q row at or
 // past Tq, or a key at or past Tk, contributes exactly 0 (masked, never
 // exp of an unloaded lse). No atomics: dQ is another kernel
 // (flash_bwd_dq.cu, JAX's two-kernel split), and every sum here runs in a
@@ -73,7 +75,7 @@ flash_bwd_dkv_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, T* __restrict__ dk,
                          T* __restrict__ dv, int tq, int tk, int causal,
-                         float scale) {
+                         int qoff, float scale) {
   using L = BwdLayout<D>;
   constexpr int LD = L::LD, TPR = L::TPR, SC = L::SC, DH = L::DH;
   constexpr int NT = L::THREADS;
@@ -102,7 +104,7 @@ flash_bwd_dkv_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < DH; ++i) acc_dk[i] = acc_dv[i] = 0.f;
 
   const int n_qt = (tq + BQ - 1) / BQ;
-  const int qt_lo = causal ? k0 / BQ : 0;
+  const int qt_lo = causal ? max(k0 - qoff, 0) / BQ : 0;
   const float* krow = ks + row * LD;
   const float* vrow = vs + row * LD;
 
@@ -136,7 +138,8 @@ flash_bwd_dkv_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < SC; ++j) {
       const int c = TPR * j + sub;
       const int qpos = q0 + c;
-      const bool keep = row_ok && qpos < tq && (!causal || kpos <= qpos);
+      const bool keep =
+          row_ok && qpos < tq && (!causal || kpos <= qoff + qpos);
       const float p = keep ? expf(s[j] - lse_s[c]) : 0.f;
       s[j] = p;
       dp[j] = keep ? p * (dp[j] - dl_s[c]) : 0.f;
@@ -174,6 +177,11 @@ flash_bwd_dkv_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 constexpr int MMA_THREADS = 128;  // one warpgroup: 4 warps of 16 keys
 
+// lim = causal ? seq_offset : -1: key j attends query row i iff lim < 0 or
+// j <= lim + i. One kernel parameter (read from the constant bank) in
+// place of causal and the offset keeps the register count of the kernel
+// before the offset, with no spills at D = 128.
+
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
@@ -183,7 +191,7 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
                           bf16* __restrict__ dk, bf16* __restrict__ dv,
-                          int tq, int tk, int causal, float scale) {
+                          int tq, int tk, int lim, float scale) {
   using M = MmaTile<D>;
   constexpr int NT = MMA_THREADS;
   constexpr int KD = D / 16;             // k-steps of K Q^T and V dO^T
@@ -205,7 +213,7 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
   const size_t q_base = (size_t)bh * tq * D;
   const size_t kv_base = (size_t)bh * tk * D;
   const int n_qt = (tq + BQ - 1) / BQ;
-  const int qt_lo = causal ? k0 / BQ : 0;
+  const int qt_lo = lim >= 0 ? max(k0 - lim, 0) / BQ : 0;
 
   // Q/dO tile qt and its lse and delta into buffer buf (threads 0-63
   // copy lse, 64-127 delta); the caller commits
@@ -262,7 +270,7 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
     const float* db = dl_s + buf * BQ;
     // a warp whose 16 keys see all 64 q rows unmasked skips the tests
     const bool full = k0 + m0 + 16 <= tk && q0 + BQ <= tq &&
-                      (!causal || k0 + m0 + 15 <= q0);
+                      (lim < 0 || k0 + m0 + 15 <= lim + q0);
 
 #pragma unroll 1
     for (int c0 = 0; c0 < BQ; c0 += NC) {
@@ -305,7 +313,7 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
         for (int e = 0; e < 4; ++e) {
           const int r = e >> 1, qpos = q0 + col + (e & 1);
           const bool keep = full || (qpos < tq && kpos[r] < tk &&
-                                     (!causal || kpos[r] <= qpos));
+                                     (lim < 0 || kpos[r] <= lim + qpos));
           const float lc = (e & 1) ? l2.y : l2.x;
           const float dc = (e & 1) ? d2.y : d2.x;
           const float p = exp2f(fmaf(st[j][e], sl2, -lc * LOG2E));
@@ -359,7 +367,7 @@ template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* g, const float* lse, const float* delta,
                    void* dk, void* dv, int bh, int tq, int tk, int causal,
-                   float scale, int dtype, cudaStream_t stream) {
+                   int qoff, float scale, int dtype, cudaStream_t stream) {
   const dim3 grid((tk + BK - 1) / BK, bh);
   cudaError_t err;
   if (dtype == 0) {
@@ -374,7 +382,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
             static_cast<const float*>(q), static_cast<const float*>(k),
             static_cast<const float*>(v), static_cast<const float*>(g), lse,
             delta, static_cast<float*>(dk), static_cast<float*>(dv), tq, tk,
-            causal, scale);
+            causal, qoff, scale);
   } else {
     // K, V; Q, dO twice; lse, delta twice
     const int smem = 6 * MmaTile<D>::BYTES + 4 * BQ * (int)sizeof(float);
@@ -385,8 +393,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     flash_bwd_dkv_bf16_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<const bf16*>(g), lse, delta,
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), tq, tk, causal,
-        scale);
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), tq, tk,
+        causal ? qoff : -1, scale);
   }
   return cudaGetLastError();
 }
@@ -394,23 +402,24 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, g, dk and dv share it).
-// Returns cudaGetLastError() after the launch (0 on success).
+// seq_offset (>= 0) is the absolute position of query row 0 under causal
+// masking. Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int bigdl_flash_bwd_dkv(const void* q, const void* k,
                                    const void* v, const void* g,
                                    const void* lse, const void* delta,
                                    void* dk, void* dv, int bh, int tq,
-                                   int tk, int d, int causal, float scale,
-                                   int dtype, void* stream) {
-  if (bh <= 0 || bh > 65535 || tq <= 0 || tk <= 0 ||
+                                   int tk, int d, int causal, int seq_offset,
+                                   float scale, int dtype, void* stream) {
+  if (bh <= 0 || bh > 65535 || tq <= 0 || tk <= 0 || seq_offset < 0 ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   switch (d) {
-    case 32: return (int)launch<32>(q, k, v, g, l, dl, dk, dv, bh, tq, tk, causal, scale, dtype, s);
-    case 64: return (int)launch<64>(q, k, v, g, l, dl, dk, dv, bh, tq, tk, causal, scale, dtype, s);
-    case 128: return (int)launch<128>(q, k, v, g, l, dl, dk, dv, bh, tq, tk, causal, scale, dtype, s);
+    case 32: return (int)launch<32>(q, k, v, g, l, dl, dk, dv, bh, tq, tk, causal, seq_offset, scale, dtype, s);
+    case 64: return (int)launch<64>(q, k, v, g, l, dl, dk, dv, bh, tq, tk, causal, seq_offset, scale, dtype, s);
+    case 128: return (int)launch<128>(q, k, v, g, l, dl, dk, dv, bh, tq, tk, causal, seq_offset, scale, dtype, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

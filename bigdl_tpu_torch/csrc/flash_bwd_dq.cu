@@ -11,12 +11,14 @@
 // Shapes: q/g/dq (BH, Tq, D), k/v (BH, Tk, D), lse/delta (BH, Tq) f32; all
 // contiguous, and for bf16 q, k, v and g 16-byte aligned. Any Tq and Tk,
 // D in {32, 64, 128}, f32 or bf16 inputs and dq (the dtype of q), f32
-// accumulation. Causal keeps kpos <= qpos (query offset 0). One CTA per
+// accumulation. Causal keeps kpos <= seq_offset + qpos (query row i at
+// absolute position seq_offset + i, as in the forward). One CTA per
 // (bh, 64-row q tile); the TPU grid's sequential kv axis becomes a loop
 // over 64-row K/V tiles inside the CTA, up to the causal diagonal only
-// (_diag_kblocks). A q row at or past Tq or a key at or past Tk
-// contributes exactly 0 (masked, never exp of an unloaded lse). No
-// atomics: every sum runs in a fixed order, so dQ is bit-equal run to run.
+// (_diag_kblocks, the offset included). A q row at or past Tq or a key
+// at or past Tk contributes exactly 0 (masked, never exp of an unloaded
+// lse). No atomics: every sum runs in a fixed order, so dQ is bit-equal
+// run to run.
 //
 // What bounds it on the H100: each CTA reads its Q and dO tiles once and
 // the K/V tiles up to the causal diagonal; the function's work is 6*D
@@ -64,7 +66,7 @@ flash_bwd_dq_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ g,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dq,
-                        int tq, int tk, int causal, float scale) {
+                        int tq, int tk, int causal, int off, float scale) {
   using L = BwdLayout<D>;
   constexpr int LD = L::LD, TPR = L::TPR, SC = L::SC, DH = L::DH;
   constexpr int NT = L::THREADS;
@@ -94,7 +96,7 @@ flash_bwd_dq_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   int n_tiles = (tk + BK - 1) / BK;
   if (causal) {
-    const int last_q = min(q0 + BQ, tq) - 1;
+    const int last_q = off + min(q0 + BQ, tq) - 1;
     n_tiles = min(n_tiles, last_q / BK + 1);
   }
   const float* qrow = qs + row * LD;
@@ -124,7 +126,8 @@ flash_bwd_dq_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < SC; ++j) {
       const int kpos = k0 + TPR * j + sub;
-      const bool keep = row_ok && kpos < tk && (!causal || kpos <= qpos);
+      const bool keep =
+          row_ok && kpos < tk && (!causal || kpos <= off + qpos);
       s[j] = keep ? expf(s[j] - row_lse) * (dp[j] - row_dl) : 0.f;
     }
     // dQ[row, TPR * i + sub] += sum over the tile's 64 keys of dS * K, in
@@ -150,6 +153,11 @@ flash_bwd_dq_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 constexpr int MMA_THREADS = 128;  // one warpgroup: 4 warps of 16 q rows
 
+// lim = causal ? seq_offset : -1: key j attends query row i iff lim < 0 or
+// j <= lim + i. One kernel parameter (read from the constant bank) in
+// place of causal and the offset keeps the register count of the kernel
+// before the offset, with no spills at D = 128.
+
 // three CTAs an SM at D <= 64 (at most 168 registers, no spills); at
 // D = 128 that cap would spill, so the compiler takes what it needs
 template <int D>
@@ -160,7 +168,7 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ g,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         bf16* __restrict__ dq, int tq, int tk, int causal,
+                         bf16* __restrict__ dq, int tq, int tk, int lim,
                          float scale) {
   using M = MmaTile<D>;
   constexpr int NT = MMA_THREADS;
@@ -181,7 +189,7 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
   const size_t kv_base = (size_t)bh * tk * D;
 
   int n_tiles = (tk + BK - 1) / BK;
-  if (causal) n_tiles = min(n_tiles, (min(q0 + BQ, tq) - 1) / BK + 1);
+  if (lim >= 0) n_tiles = min(n_tiles, (lim + min(q0 + BQ, tq) - 1) / BK + 1);
 
   cp_async_tile<D, NT>(qs, q + q_base, q0, tq);
   cp_async_tile<D, NT>(gs, g + q_base, q0, tq);
@@ -265,7 +273,7 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
     // s becomes dS = P * (dP - delta), exactly 0 where masked; a warp
     // whose 16 rows see all 64 keys unmasked skips the tests
     const bool full = q0 + m0 + 16 <= tq && k0 + BK <= tk &&
-                      (!causal || k0 + BK - 1 <= q0 + m0);
+                      (lim < 0 || k0 + BK - 1 <= lim + q0 + m0);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -273,7 +281,7 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
         const int r = e >> 1;
         const int kpos = k0 + 8 * j + 2 * tc + (e & 1);
         const bool keep = full || (qpos[r] < tq && kpos < tk &&
-                                   (!causal || kpos <= qpos[r]));
+                                   (lim < 0 || kpos <= lim + qpos[r]));
         const float p = exp2f(fmaf(s[j][e], sl2, -lse2[r]));
         s[j][e] = keep ? p * (dp[j][e] - dl[r]) : 0.f;
       }
@@ -312,8 +320,8 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* g, const float* lse, const float* delta,
-                   void* dq, int bh, int tq, int tk, int causal, float scale,
-                   int dtype, cudaStream_t stream) {
+                   void* dq, int bh, int tq, int tk, int causal, int off,
+                   float scale, int dtype, cudaStream_t stream) {
   const dim3 grid((tq + BQ - 1) / BQ, bh);
   cudaError_t err;
   if (dtype == 0) {
@@ -326,7 +334,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
         <<<grid, BwdLayout<D>::THREADS, smem, stream>>>(
             static_cast<const float*>(q), static_cast<const float*>(k),
             static_cast<const float*>(v), static_cast<const float*>(g), lse,
-            delta, static_cast<float*>(dq), tq, tk, causal, scale);
+            delta, static_cast<float*>(dq), tq, tk, causal, off, scale);
   } else {
     const int smem = 6 * MmaTile<D>::BYTES;  // Q, dO; K, V twice
     err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<D>,
@@ -336,7 +344,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     flash_bwd_dq_bf16_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<const bf16*>(g), lse, delta,
-        static_cast<bf16*>(dq), tq, tk, causal, scale);
+        static_cast<bf16*>(dq), tq, tk, causal ? off : -1, scale);
   }
   return cudaGetLastError();
 }
@@ -344,23 +352,24 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, g and dq share it).
-// Returns cudaGetLastError() after the launch (0 on success).
+// seq_offset (>= 0) is the absolute position of query row 0 under causal
+// masking. Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int bigdl_flash_bwd_dq(const void* q, const void* k,
                                   const void* v, const void* g,
                                   const void* lse, const void* delta,
                                   void* dq, int bh, int tq, int tk, int d,
-                                  int causal, float scale, int dtype,
-                                  void* stream) {
-  if (bh <= 0 || bh > 65535 || tq <= 0 || tk <= 0 ||
+                                  int causal, int seq_offset, float scale,
+                                  int dtype, void* stream) {
+  if (bh <= 0 || bh > 65535 || tq <= 0 || tk <= 0 || seq_offset < 0 ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   switch (d) {
-    case 32: return (int)launch<32>(q, k, v, g, l, dl, dq, bh, tq, tk, causal, scale, dtype, s);
-    case 64: return (int)launch<64>(q, k, v, g, l, dl, dq, bh, tq, tk, causal, scale, dtype, s);
-    case 128: return (int)launch<128>(q, k, v, g, l, dl, dq, bh, tq, tk, causal, scale, dtype, s);
+    case 32: return (int)launch<32>(q, k, v, g, l, dl, dq, bh, tq, tk, causal, seq_offset, scale, dtype, s);
+    case 64: return (int)launch<64>(q, k, v, g, l, dl, dq, bh, tq, tk, causal, seq_offset, scale, dtype, s);
+    case 128: return (int)launch<128>(q, k, v, g, l, dl, dq, bh, tq, tk, causal, seq_offset, scale, dtype, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -8,10 +8,13 @@
 // Shapes: q (BH, Tq, D), k/v (BH, Tk, D), o like q, lse (BH, Tq) f32;
 // all contiguous, and for bf16 q, k and v 16-byte aligned. Any Tq and Tk
 // (ragged tiles are masked), D in {32, 64, 128}, f32 or bf16 inputs, f32
-// accumulation. Causal masking keeps kpos <= qpos (query offset 0). One
-// CTA per (bh, 64-row q tile); the TPU grid's sequential kv axis becomes
-// a loop inside the CTA over 64-row K/V tiles, up to the causal diagonal
-// only. Fully masked rows keep a shift of 0 and the denominator is
+// accumulation. Causal masking keeps kpos <= seq_offset + qpos: query
+// row i sits at absolute position seq_offset + i of the kv sequence
+// (chunked causal attention; JAX's _mask_causal). One CTA per (bh,
+// 64-row q tile); the TPU grid's sequential kv axis becomes a loop inside
+// the CTA over 64-row K/V tiles, up to the causal diagonal only
+// (_diag_kblocks: ceil((seq_offset + last row + 1) / 64) tiles, clamped
+// to Tk's). Fully masked rows keep a shift of 0 and the denominator is
 // clamped at 1e-30, as in the JAX reference.
 //
 // What bounds it on the H100: each CTA reads its Q tile once and the K/V
@@ -59,7 +62,7 @@ __global__ void __launch_bounds__(THREADS)
 flash_fwd_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, int tq, int tk, int causal,
-                     float scale) {
+                     int off, float scale) {
   constexpr int LD = D + 1;  // padded row stride of the shared tiles
   constexpr int HALF = D / 2;
   constexpr int SC = BK / 2;  // score columns per thread
@@ -91,7 +94,7 @@ flash_fwd_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   int n_tiles = (tk + BK - 1) / BK;
   if (causal) {
-    const int last_q = min(q0 + BQ, tq) - 1;
+    const int last_q = off + min(q0 + BQ, tq) - 1;
     n_tiles = min(n_tiles, last_q / BK + 1);
   }
 
@@ -119,7 +122,7 @@ flash_fwd_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < SC; ++j) {
       const int kpos = k0 + 2 * j + half;
-      const bool keep = kpos < tk && (!causal || kpos <= qpos);
+      const bool keep = kpos < tk && (!causal || kpos <= off + qpos);
       s[j] = keep ? s[j] : -INFINITY;
       mx = fmaxf(mx, s[j]);
     }
@@ -166,11 +169,15 @@ flash_fwd_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 constexpr int MMA_THREADS = 128;  // one warpgroup: 4 warps of 16 q rows
 
+// lim = causal ? seq_offset : -1: key j attends query row i iff lim < 0 or
+// j <= lim + i. One kernel parameter (read from the constant bank) in
+// place of causal and the offset, as in the backward kernels.
+
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ o,
-                      float* __restrict__ lse, int tq, int tk, int causal,
+                      float* __restrict__ lse, int tq, int tk, int lim,
                       float scale) {
   using M = MmaTile<D>;
   constexpr int NT = MMA_THREADS;
@@ -189,7 +196,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t kv_base = (size_t)bh * tk * D;
 
   int n_tiles = (tk + BK - 1) / BK;
-  if (causal) n_tiles = min(n_tiles, (min(q0 + BQ, tq) - 1) / BK + 1);
+  if (lim >= 0) n_tiles = min(n_tiles, (lim + min(q0 + BQ, tq) - 1) / BK + 1);
 
   cp_async_tile<D, NT>(qs, q + q_base, q0, tq);
   cp_async_commit();
@@ -255,7 +262,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // scaled scores in log2 units, -inf where masked; a warp whose 16
     // rows see all 64 keys unmasked skips the tests
-    const bool full = k0 + BK <= tk && (!causal || k0 + BK - 1 <= q0 + m0);
+    const bool full =
+        k0 + BK <= tk && (lim < 0 || k0 + BK - 1 <= lim + q0 + m0);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -264,7 +272,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int r = e >> 1;
         const int kpos = k0 + 8 * j + 2 * tc + (e & 1);
         const bool keep =
-            full || (kpos < tk && (!causal || kpos <= qpos[r]));
+            full || (kpos < tk && (lim < 0 || kpos <= lim + qpos[r]));
         s[j][e] = keep ? s[j][e] * sl2 : -INFINITY;
         mx[r] = fmaxf(mx[r], s[j][e]);
       }
@@ -338,7 +346,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // dtype 0: f32 inputs, the CUDA-core kernel; 1: bf16, the tensor cores.
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int bh, int tq, int tk, int causal,
+                   float* lse, int bh, int tq, int tk, int causal, int off,
                    float scale, int dtype, cudaStream_t stream) {
   const dim3 grid((tq + BQ - 1) / BQ, bh);
   cudaError_t err;
@@ -351,7 +359,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     flash_fwd_f32_kernel<D, float><<<grid, THREADS, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), lse, tq, tk,
-        causal, scale);
+        causal, off, scale);
   } else {
     const int smem = 5 * MmaTile<D>::BYTES;  // Q; K, V twice
     err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
@@ -361,28 +369,29 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     flash_fwd_bf16_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, tq, tk,
-        causal, scale);
+        causal ? off : -1, scale);
   }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it). seq_offset
+// (>= 0) is the absolute position of query row 0 under causal masking.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int bigdl_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, void* lse, int bh, int tq, int tk,
-                               int d, int causal, float scale, int dtype,
-                               void* stream) {
-  if (bh <= 0 || bh > 65535 || tq <= 0 || tk <= 0 ||
+                               int d, int causal, int seq_offset, float scale,
+                               int dtype, void* stream) {
+  if (bh <= 0 || bh > 65535 || tq <= 0 || tk <= 0 || seq_offset < 0 ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   switch (d) {
-    case 32: return (int)launch<32>(q, k, v, o, l, bh, tq, tk, causal, scale, dtype, s);
-    case 64: return (int)launch<64>(q, k, v, o, l, bh, tq, tk, causal, scale, dtype, s);
-    case 128: return (int)launch<128>(q, k, v, o, l, bh, tq, tk, causal, scale, dtype, s);
+    case 32: return (int)launch<32>(q, k, v, o, l, bh, tq, tk, causal, seq_offset, scale, dtype, s);
+    case 64: return (int)launch<64>(q, k, v, o, l, bh, tq, tk, causal, seq_offset, scale, dtype, s);
+    case 128: return (int)launch<128>(q, k, v, o, l, bh, tq, tk, causal, seq_offset, scale, dtype, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

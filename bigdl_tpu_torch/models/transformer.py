@@ -59,7 +59,9 @@ class TransformerLM(_AttnConfig, Composite):
     (batch, seq, vocab).  ``attn_impl`` is the prefill/forward
     attention: "auto", "reference" or "kernel" (``ops.attention``).
     ``forward`` takes the step's dropout seed as ``rng_seed``
-    (``takes_rng_seed``: ``LocalOptimizer`` passes one each step)."""
+    (``takes_rng_seed``: ``LocalOptimizer`` passes one each step) and,
+    as ``pos_offset``, the absolute position of the tokens' first
+    column (a sequence-parallel rank's block starts there)."""
 
     takes_rng_seed = True
     config_names = ("vocab_size", "dim", "n_head", "n_layer", "max_len",
@@ -97,9 +99,9 @@ class TransformerLM(_AttnConfig, Composite):
     def blocks(self):
         return [self.child(f"h{i}") for i in range(self.n_layer)]
 
-    def forward(self, tokens: torch.Tensor,
-                rng_seed: Optional[int] = None) -> torch.Tensor:
-        x = self.wpe(self.wte(tokens))
+    def forward(self, tokens: torch.Tensor, rng_seed: Optional[int] = None,
+                pos_offset: int = 0) -> torch.Tensor:
+        x = self.wpe(self.wte(tokens), pos_offset)
         for i, block in enumerate(self.blocks()):
             seed = None if rng_seed is None else fold_in(rng_seed, i)
             if self.remat and torch.is_grad_enabled():

@@ -215,7 +215,11 @@ class TransformerBlock(_AttnConfig, Composite):
 
 
 class PositionalEmbedding(AbstractModule):
-    """Learned absolute positional embedding added to (B, T, D) input."""
+    """Learned absolute positional embedding added to (B, T, D) input.
+    ``offset`` is the absolute position of the input's first row: a
+    rank of a sequence-parallel group holds positions
+    ``[offset, offset + T)`` of the sequence (GSPMD hands the JAX model
+    the whole sequence instead)."""
 
     param_names = ("weight",)
     config_names = ("max_len", "dim")
@@ -227,8 +231,8 @@ class PositionalEmbedding(AbstractModule):
         self._set_param("weight", RandomGenerator.RNG.normal(
             0.0, 0.02, size=(max_len, dim)).astype(np.float32))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.weight[:x.shape[1]][None, :, :]
+    def forward(self, x: torch.Tensor, offset: int = 0) -> torch.Tensor:
+        return x + self.weight[offset:offset + x.shape[1]][None, :, :]
 
 
 __all__ = ["LayerNorm", "MultiHeadAttention", "TransformerBlock",

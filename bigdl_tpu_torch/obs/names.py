@@ -7,7 +7,8 @@ a fleet aggregation policy, with the JAX package's names and values
 (the serving section :352-390, the router's :392-431, the rollout's
 :433-470, the request tracer's :472-495, the optim phase timers :133, the
 trainers' retry, background-writer and guard counters :145-160, the
-checkpoint section :316-326 and the stream's :328-349), so that one
+checkpoint section :316-326, the stream's :328-349 and the tuner's
+:166-177), so that one
 dashboard reads either package.  Mint sites use
 these constants, never string literals.  Under
 ``BIGDL_TORCH_OBS_STRICT=1`` the registry rejects a ``bigdl_*`` family
@@ -131,6 +132,21 @@ COLLECTIVE_WIRE_SAVINGS_RATIO = _m(
     "bigdl_collective_wire_savings_ratio", "gauge", ("path",), 8,
     "Uncompressed exchange bytes over what the wire actually ships",
     policy="min")
+
+# --------------------------------------------------------------- kernels
+# the kernel auto-tuner (ops/autotune.py)
+TUNER_CACHE_HITS_TOTAL = _m(
+    "bigdl_tuner_cache_hits_total", "counter",
+    doc="Tuner decisions served from the cache")
+TUNER_CACHE_MISSES_TOTAL = _m(
+    "bigdl_tuner_cache_misses_total", "counter",
+    doc="Tuner cache misses (fresh searches)")
+TUNER_MEASUREMENTS_TOTAL = _m(
+    "bigdl_tuner_measurements_total", "counter",
+    doc="Wall-clock candidate probes run by the auto-tuner")
+TUNER_DECISIONS_TOTAL = _m(
+    "bigdl_tuner_decisions_total", "counter", ("site", "impl"), 64,
+    "Auto-tuner dispatch decisions, by call site and chosen impl")
 
 # --------------------------------------------------------------- health
 GRAD_NORM = _m(

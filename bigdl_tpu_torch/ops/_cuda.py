@@ -66,17 +66,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, o, lse, bh, tq, tk, d, causal, scale, dtype, stream
+    # q, k, v, o, lse, bh, tq, tk, d, causal, seq_offset, scale, dtype,
+    # stream
     "flash_fwd": ("bigdl_flash_fwd",
-                  [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
-    # q, k, v, g, lse, delta, dq, bh, tq, tk, d, causal, scale, dtype,
-    # stream
+                  [_P] * 5 + [_I] * 6 + [_F, _I, _P]),
+    # q, k, v, g, lse, delta, dq, bh, tq, tk, d, causal, seq_offset, scale,
+    # dtype, stream
     "flash_bwd_dq": ("bigdl_flash_bwd_dq",
-                     [_P] * 7 + [_I] * 5 + [_F, _I, _P]),
-    # q, k, v, g, lse, delta, dk, dv, bh, tq, tk, d, causal, scale, dtype,
-    # stream
+                     [_P] * 7 + [_I] * 6 + [_F, _I, _P]),
+    # q, k, v, g, lse, delta, dk, dv, bh, tq, tk, d, causal, seq_offset,
+    # scale, dtype, stream
     "flash_bwd_dkv": ("bigdl_flash_bwd_dkv",
-                      [_P] * 8 + [_I] * 5 + [_F, _I, _P]),
+                      [_P] * 8 + [_I] * 6 + [_F, _I, _P]),
     # q, kp, vp, tables, lengths, out, part, b, h, d, page_size, maxp,
     # splits, scale, q_dtype, kv_dtype, stream
     "paged_decode": ("bigdl_paged_decode",
@@ -183,51 +184,54 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def launch_flash_fwd(q, k, v, o, lse, *, causal: bool, scale: float) -> None:
+def launch_flash_fwd(q, k, v, o, lse, *, causal: bool, scale: float,
+                     seq_offset: int = 0) -> None:
     """q (BH, Tq, D), k/v (BH, Tk, D), o like q, lse (BH, Tq) f32 or
-    None; all contiguous on one card, checked by the caller."""
+    None; all contiguous on one card, checked by the caller.  Under
+    ``causal`` query row i sits at absolute position ``seq_offset + i``."""
     lib = _lib("flash_fwd")
     bh, tq, d = q.shape
     with torch.cuda.device(q.device):
         code = lib.bigdl_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if lse is None else lse.data_ptr(),
-            bh, tq, k.shape[1], d, int(bool(causal)), float(scale),
-            DTYPE_CODES[q.dtype], _stream(q))
+            bh, tq, k.shape[1], d, int(bool(causal)), int(seq_offset),
+            float(scale), DTYPE_CODES[q.dtype], _stream(q))
     _check(lib, "flash_fwd", code)
     launches["flash_fwd"] += 1
 
 
 def launch_flash_bwd_dq(q, k, v, g, lse, delta, dq, *, causal: bool,
-                        scale: float) -> None:
+                        scale: float, seq_offset: int = 0) -> None:
     """q/g/dq (BH, Tq, D), k/v (BH, Tk, D), lse/delta (BH, Tq) f32; all
     contiguous on one card, q, k, v, g and dq of one dtype, checked by
-    the caller."""
+    the caller; ``seq_offset`` as in :func:`launch_flash_fwd`."""
     lib = _lib("flash_bwd_dq")
     bh, tq, d = q.shape
     with torch.cuda.device(q.device):
         code = lib.bigdl_flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, tq,
-            k.shape[1], d, int(bool(causal)), float(scale),
+            k.shape[1], d, int(bool(causal)), int(seq_offset), float(scale),
             DTYPE_CODES[q.dtype], _stream(q))
     _check(lib, "flash_bwd_dq", code)
     launches["flash_bwd_dq"] += 1
 
 
 def launch_flash_bwd_dkv(q, k, v, g, lse, delta, dk, dv, *, causal: bool,
-                         scale: float) -> None:
+                         scale: float, seq_offset: int = 0) -> None:
     """q/g (BH, Tq, D), k/v/dk/dv (BH, Tk, D), lse/delta (BH, Tq) f32;
     all contiguous on one card, the (BH, T, D) tensors of one dtype,
-    checked by the caller."""
+    checked by the caller; ``seq_offset`` as in
+    :func:`launch_flash_fwd`."""
     lib = _lib("flash_bwd_dkv")
     bh, tq, d = q.shape
     with torch.cuda.device(q.device):
         code = lib.bigdl_flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            bh, tq, k.shape[1], d, int(bool(causal)), float(scale),
-            DTYPE_CODES[q.dtype], _stream(q))
+            bh, tq, k.shape[1], d, int(bool(causal)), int(seq_offset),
+            float(scale), DTYPE_CODES[q.dtype], _stream(q))
     _check(lib, "flash_bwd_dkv", code)
     launches["flash_bwd_dkv"] += 1
 

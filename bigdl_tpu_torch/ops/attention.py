@@ -18,9 +18,11 @@ Counterpart of ``bigdl_tpu/ops/attention.py``:
   CPU tensor it runs ``flash_bwd_dq_plain`` and ``flash_bwd_dkv_plain``;
 * ``dot_product_attention`` (JAX :679) dispatches between them.
 
-``impl="auto"`` keeps the JAX package's static policy for this card:
-the reference path (JAX :673 takes the kernel only on a TPU at
-Tq·Tk >= 4096²).  No H100 measurement yet justifies another crossover.
+``impl="auto"`` follows :func:`static_dispatch`, the JAX package's
+static policy (JAX :631-676), which takes the kernel only on a TPU at
+Tq·Tk >= 4096²: on this card and on the CPU it is the reference path.
+With the auto-tuner on (``BIGDL_TORCH_TUNER=1``, ``ops/autotune.py``)
+the cached per-shape search decides instead.
 """
 
 from __future__ import annotations
@@ -63,23 +65,33 @@ def _reference_attention(q, k, v, *, causal: bool, scale: float,
     return out.to(q.dtype)
 
 
-def flash_attention_plain(q, k, v, *, causal: bool, scale: float
+def _causal_tiles(tq: int, tk: int, causal: bool, seq_offset: int) -> int:
+    """Key tiles of ``BLOCK_K`` that q rows [0, tq) reach: all of Tk's,
+    or under ``causal`` up to the diagonal of the last row, at absolute
+    position ``seq_offset + tq - 1`` (JAX ``_diag_kblocks``)."""
+    n_tiles = -(-tk // BLOCK_K)
+    if causal:
+        n_tiles = min(n_tiles, -(-(seq_offset + tq) // BLOCK_K))
+    return n_tiles
+
+
+def flash_attention_plain(q, k, v, *, causal: bool, scale: float,
+                          seq_offset: int = 0
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The flash forward in plain torch: q (BH, Tq, D) against k/v
     (BH, Tk, D), key tiles of ``BLOCK_K`` folded into a running f32
-    (m, l, acc).  Returns O in q's dtype and the per-row logsumexp
-    (BH, Tq) f32 in scaled-score units.  The arithmetic is the
-    kernel's, tile for tile."""
+    (m, l, acc).  Under ``causal`` query row i sits at absolute position
+    ``seq_offset + i`` and sees keys 0..seq_offset + i.  Returns O in
+    q's dtype and the per-row logsumexp (BH, Tq) f32 in scaled-score
+    units.  The arithmetic is the kernel's, tile for tile."""
     bh, tq, d = q.shape
     tk = k.shape[1]
     qs = q.float() * scale
     m = torch.full((bh, tq), float("-inf"), device=q.device)
     l = torch.zeros((bh, tq), device=q.device)
     acc = torch.zeros((bh, tq, d), device=q.device)
-    qpos = torch.arange(tq, device=q.device)[:, None]
-    n_tiles = -(-tk // BLOCK_K)
-    if causal:
-        n_tiles = min(n_tiles, -(-tq // BLOCK_K))
+    qpos = torch.arange(tq, device=q.device)[:, None] + seq_offset
+    n_tiles = _causal_tiles(tq, tk, causal, seq_offset)
     for kt in range(n_tiles):
         k0, k1 = kt * BLOCK_K, min((kt + 1) * BLOCK_K, tk)
         ks = k[:, k0:k1].float()
@@ -103,8 +115,8 @@ def flash_attention_plain(q, k, v, *, causal: bool, scale: float
 
 
 def _check_flash_args(q, k, v, seq_offset):
-    if seq_offset != 0:
-        raise ValueError("flash_attention takes seq_offset=0 only")
+    if not isinstance(seq_offset, int) or seq_offset < 0:
+        raise ValueError(f"seq_offset must be an int >= 0, got {seq_offset!r}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention wants (B, H, T, D) q, k and v")
     if k.shape != v.shape or q.shape[:2] != k.shape[:2] \
@@ -118,11 +130,12 @@ def _check_flash_args(q, k, v, seq_offset):
 
 
 def flash_bwd_dq_plain(q, k, v, g, lse, delta, *, causal: bool,
-                       scale: float) -> torch.Tensor:
+                       scale: float, seq_offset: int = 0) -> torch.Tensor:
     """dQ of the flash backward in plain torch (JAX
     ``_flash_bwd_dq_kernel``, :390-442): q/g (BH, Tq, D), k/v
     (BH, Tk, D), lse/delta (BH, Tq) f32.  Key tiles of ``BLOCK_K`` up to
-    the causal diagonal; per tile ``P = exp(scale·q·kᵀ − lse)``,
+    the causal diagonal (query row i at position ``seq_offset + i``); per
+    tile ``P = exp(scale·q·kᵀ − lse)``,
     ``dP = g·vᵀ``, ``dS = P∘(dP − δ)``, ``dq += dS·k``; at the end
     ``dq *= scale``.  f32 arithmetic, the result in q's dtype."""
     bh, tq, d = q.shape
@@ -130,10 +143,8 @@ def flash_bwd_dq_plain(q, k, v, g, lse, delta, *, causal: bool,
     qs = q.float() * scale
     gf = g.float()
     acc = torch.zeros((bh, tq, d), device=q.device)
-    qpos = torch.arange(tq, device=q.device)[:, None]
-    n_tiles = -(-tk // BLOCK_K)
-    if causal:
-        n_tiles = min(n_tiles, -(-tq // BLOCK_K))
+    qpos = torch.arange(tq, device=q.device)[:, None] + seq_offset
+    n_tiles = _causal_tiles(tq, tk, causal, seq_offset)
     for kt in range(n_tiles):
         k0, k1 = kt * BLOCK_K, min((kt + 1) * BLOCK_K, tk)
         ks = k[:, k0:k1].float()
@@ -150,14 +161,16 @@ def flash_bwd_dq_plain(q, k, v, g, lse, delta, *, causal: bool,
 
 
 def flash_bwd_dkv_plain(q, k, v, g, lse, delta, *, causal: bool,
-                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                        scale: float, seq_offset: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dK and dV of the flash backward in plain torch (JAX
     ``_flash_bwd_dkv_kernel``, :445-516), shapes as
     :func:`flash_bwd_dq_plain`.  For each key tile of ``BLOCK_K``, q
     tiles of ``BLOCK_Q`` from the causal lower bound
-    ``q0 = ⌊k0 / BLOCK_Q⌋`` (:499-504 at seq_offset 0); per tile
-    ``dv += Pᵀ·g`` and ``dk += dSᵀ·(scale·q)``.  f32 arithmetic, the
-    results in k's and v's dtype."""
+    ``q0 = ⌊max(k0 − seq_offset, 0) / BLOCK_Q⌋`` (:499-504); a key tile
+    that no query reaches keeps zeros.  Per tile ``dv += Pᵀ·g`` and
+    ``dk += dSᵀ·(scale·q)``.  f32 arithmetic, the results in k's and v's
+    dtype."""
     bh, tq, d = q.shape
     tk = k.shape[1]
     qs = q.float() * scale
@@ -171,11 +184,13 @@ def flash_bwd_dkv_plain(q, k, v, g, lse, delta, *, causal: bool,
         kpos = torch.arange(k0, k1, device=q.device)[None, :]
         acc_dk = torch.zeros((bh, k1 - k0, d), device=q.device)
         acc_dv = torch.zeros((bh, k1 - k0, d), device=q.device)
-        for qt in range(k0 // BLOCK_Q if causal else 0, -(-tq // BLOCK_Q)):
+        lo = max(k0 - seq_offset, 0) // BLOCK_Q if causal else 0
+        for qt in range(lo, -(-tq // BLOCK_Q)):
             q0, q1 = qt * BLOCK_Q, min((qt + 1) * BLOCK_Q, tq)
             s = torch.matmul(qs[:, q0:q1], ks.transpose(1, 2))  # (BH, bq, bk)
             if causal:
-                qpos = torch.arange(q0, q1, device=q.device)[:, None]
+                qpos = torch.arange(q0, q1, device=q.device)[:, None] \
+                    + seq_offset
                 s = s.masked_fill(~(qpos >= kpos), float("-inf"))
             p = torch.exp(s - lse[:, q0:q1, None])
             acc_dv = acc_dv + torch.matmul(p.transpose(1, 2), gf[:, q0:q1])
@@ -219,24 +234,28 @@ def _flash_fwd_operands(q, k, v):
     return q, k, v
 
 
-def _flash_forward(q, k, v, *, causal: bool, scale: float, with_lse: bool):
+def _flash_forward(q, k, v, *, causal: bool, scale: float, with_lse: bool,
+                   seq_offset: int = 0):
     """The flash forward over flat (BH, T, D) tensors: (O, lse or None).
     In bf16 the kernel runs on the tensor cores and wants q, k and v
     16-byte aligned (checked after ``contiguous``); in f32 it runs on
     the CUDA cores."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     seq_offset=seq_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     q, k, v = _flash_fwd_operands(q, k, v)
     out = torch.empty_like(q)
     lse = (torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
            if with_lse else None)
-    _cuda.launch_flash_fwd(q, k, v, out, lse, causal=causal, scale=scale)
+    _cuda.launch_flash_fwd(q, k, v, out, lse, causal=causal, scale=scale,
+                           seq_offset=seq_offset)
     return out, lse
 
 
-def flash_backward(q, k, v, out, lse, g, *, causal: bool, scale: float):
+def flash_backward(q, k, v, out, lse, g, *, causal: bool, scale: float,
+                   seq_offset: int = 0):
     """The blockwise flash backward over flat (BH, T, D) tensors (JAX
     ``_flash_backward``, :519-595): (dq, dk, dv) in the dtypes of q, k
     and v.  ``δ = rowsum(g∘out)`` in f32 is plain torch, as JAX leaves it
@@ -248,9 +267,9 @@ def flash_backward(q, k, v, out, lse, g, *, causal: bool, scale: float):
     delta = (g.float() * out.float()).sum(dim=-1)
     if q.device.type == "cpu":
         dq = flash_bwd_dq_plain(q, k, v, g, lse, delta, causal=causal,
-                                scale=scale)
+                                scale=scale, seq_offset=seq_offset)
         dk, dv = flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal=causal,
-                                     scale=scale)
+                                     scale=scale, seq_offset=seq_offset)
         return dq, dk, dv
     if q.device.type != "cuda":
         raise ValueError(f"flash_backward: unsupported device {q.device}")
@@ -263,9 +282,10 @@ def flash_backward(q, k, v, out, lse, g, *, causal: bool, scale: float):
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _cuda.launch_flash_bwd_dq(q, k, v, g, lse, delta, dq, causal=causal,
-                              scale=scale)
+                              scale=scale, seq_offset=seq_offset)
     _cuda.launch_flash_bwd_dkv(q, k, v, g, lse, delta, dk, dv,
-                               causal=causal, scale=scale)
+                               causal=causal, scale=scale,
+                               seq_offset=seq_offset)
     return dq, dk, dv
 
 
@@ -277,11 +297,11 @@ class _FlashAttention(torch.autograd.Function):
     gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
+    def forward(ctx, q, k, v, causal, scale, seq_offset):
         out, lse = _flash_forward(q, k, v, causal=causal, scale=scale,
-                                  with_lse=True)
+                                  with_lse=True, seq_offset=seq_offset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.seq_offset = causal, scale, seq_offset
         ctx.mark_non_differentiable(lse)
         return out, lse
 
@@ -290,8 +310,9 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, g, _g_lse):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_backward(q, k, v, out, lse, g, causal=ctx.causal,
-                                    scale=ctx.scale)
-        return dq, dk, dv, None, None
+                                    scale=ctx.scale,
+                                    seq_offset=ctx.seq_offset)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
@@ -299,7 +320,10 @@ def flash_attention(q, k, v, *, causal: bool = False,
                     with_lse: bool = False):
     """Flash attention over (B, H, Tq, D) q and (B, H, Tk, D) k/v; any Tq
     and Tk.  Returns O, or (O, lse) with lse (B·H, Tq) f32 when
-    ``with_lse``.
+    ``with_lse``.  ``seq_offset`` (an int >= 0, JAX's meaning) places
+    the query block at absolute positions [seq_offset, seq_offset + Tq)
+    of the kv sequence under ``causal`` (chunked causal attention); it
+    is ignored when ``causal`` is False.
 
     A CUDA tensor goes to the ``flash_fwd`` kernel (D in 32/64/128, f32
     or bf16; bf16 q, k and v 16-byte aligned after ``contiguous``), and
@@ -318,12 +342,44 @@ def flash_attention(q, k, v, *, causal: bool = False,
     vr = v.reshape(b * h, tk, d)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        out, lse = _FlashAttention.apply(qr, kr, vr, causal, scale)
+        out, lse = _FlashAttention.apply(qr, kr, vr, causal, scale,
+                                         seq_offset)
     else:
         out, lse = _flash_forward(qr, kr, vr, causal=causal, scale=scale,
-                                  with_lse=with_lse)
+                                  with_lse=with_lse, seq_offset=seq_offset)
     out = out.reshape(b, h, tq, d)
     return (out, lse) if with_lse else out
+
+
+def static_dispatch(q_shape, k_shape, v_shape, dtype, *,
+                    mask_is_none: bool = True, seq_offset=0,
+                    backend: Optional[str] = None):
+    """The ``impl="auto"`` policy as a function of static shapes (JAX
+    :631-676): ``(impl, plan)``, impl "kernel" where JAX's is "pallas"
+    (a "tpu" backend, a shape that tiles by 128 and Tq·Tk >= 4096²) and
+    "reference" everywhere else, this card (backend "gpu") and the CPU
+    included.  The plan is always None: the port's kernels take any T
+    with one 64x64 tile shape, so JAX's VMEM guard and superblock plans
+    have no counterpart.  ``backend`` defaults to the tuner's platform
+    ("gpu" where CUDA is available, else "cpu")."""
+    t = q_shape[-2]
+    tk = k_shape[-2]
+    tiles = (
+        mask_is_none
+        and tuple(k_shape) == tuple(v_shape)
+        and tuple(q_shape[:2]) == tuple(k_shape[:2])
+        and q_shape[-1] == k_shape[-1]
+        and t >= 128 and t % 128 == 0
+        and tk >= 128 and tk % 128 == 0
+        and isinstance(seq_offset, int) and seq_offset >= 0
+    )
+    if backend is None:
+        from bigdl_tpu_torch.ops import autotune
+
+        backend = autotune.platform()
+    impl = ("kernel" if backend == "tpu" and tiles and t * tk >= 4096 * 4096
+            else "reference")
+    return impl, None
 
 
 def dot_product_attention(q, k, v, *, causal: bool = False, mask=None,
@@ -331,13 +387,27 @@ def dot_product_attention(q, k, v, *, causal: bool = False, mask=None,
                           seq_offset: int = 0):
     """Attention entry point used by ``nn.MultiHeadAttention``.
 
-    q, k, v: (batch, heads, seq, head_dim).  impl: "auto" (the JAX
-    package's static policy: "reference" on this card), "reference",
-    or "kernel" (:func:`flash_attention`)."""
+    q, k, v: (batch, heads, seq, head_dim).  impl: "auto"
+    (:func:`static_dispatch`, "reference" on this card; with
+    ``BIGDL_TORCH_TUNER=1`` the cached auto-tuner decision for the shape
+    overrides it), "reference", or "kernel" (:func:`flash_attention`).
+    A masked call has one candidate, the reference, and never asks the
+    tuner."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if impl == "auto":
-        impl = "reference"
+        from bigdl_tpu_torch.ops import autotune
+
+        impl, plan = static_dispatch(
+            q.shape, k.shape, v.shape, q.dtype, mask_is_none=mask is None,
+            seq_offset=seq_offset, backend=autotune.platform(q.device))
+        if mask is None and autotune.enabled():
+            decision = autotune.decide_attention(
+                q.shape, k.shape, q.dtype, causal=causal,
+                seq_offset=seq_offset, static_impl=impl, plan=plan,
+                arrays=(q, k, v))
+            if decision is not None:
+                impl = decision["impl"]
     if impl == "kernel":
         if mask is not None:
             raise ValueError("the flash kernel has no explicit-mask support;"
@@ -350,6 +420,6 @@ def dot_product_attention(q, k, v, *, causal: bool = False, mask=None,
                                 mask=mask, seq_offset=seq_offset)
 
 
-__all__ = ["dot_product_attention", "flash_attention",
+__all__ = ["dot_product_attention", "static_dispatch", "flash_attention",
            "flash_attention_plain", "flash_backward", "flash_bwd_dq_plain",
            "flash_bwd_dkv_plain"]

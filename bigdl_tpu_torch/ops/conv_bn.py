@@ -23,6 +23,12 @@ for its statistics.
   tap-major as JAX's im2col, C zero-padded to a multiple of 8), which
   its own transpose pass writes into scratch the wrapper allocates; in
   f32 both run on the CUDA cores over NCHW x.
+* ``impl="xla"`` is the auto-tuner's other arm (JAX ``impl="xla"``,
+  ``_reference`` :101-115): ``F.conv2d`` on f32 copies of x and w (a
+  bf16 conv with an f32 output, as ``preferred_element_type=f32``),
+  then the two sums.  ``impl="auto"`` takes the kernel, or with
+  ``BIGDL_TORCH_TUNER=1`` the cached per-shape decision
+  (``ops/autotune.decide_conv_bn``).
 * The backward is ``_bwd_rule`` (JAX :465-490): with cotangents
   (gy, gs1, gs2), ``gy_eff = gy + gs1 + 2(y − shift)·gs2`` in f32 cast
   to x's dtype, then the gradients of the plain strided conv at
@@ -43,14 +49,26 @@ def _acc(dtype):
     return torch.promote_types(dtype, torch.float32)
 
 
-def conv_bn_stats_plain(x, w, shift, stride: int = 1, pad: int = 0):
-    """x (N, C, H, W), w (O, C, k, k), shift (O,) f32 -> (y in x's
-    dtype, s1, s2 f32): the conv with f32 accumulation, then the sums
-    of the centred f32 output."""
+def _conv_then_sums(x, w, shift, stride: int, pad: int):
     acc = _acc(x.dtype)
     y = F.conv2d(x.to(acc), w.to(acc), stride=stride, padding=pad)
     yc = y - shift.to(acc)[None, :, None, None]
     return y.to(x.dtype), yc.sum(dim=(0, 2, 3)), (yc * yc).sum(dim=(0, 2, 3))
+
+
+def conv_bn_stats_plain(x, w, shift, stride: int = 1, pad: int = 0):
+    """x (N, C, H, W), w (O, C, k, k), shift (O,) f32 -> (y in x's
+    dtype, s1, s2 f32): the conv with f32 accumulation, then the sums
+    of the centred f32 output.  The kernels' plain version."""
+    return _conv_then_sums(x, w, shift, stride, pad)
+
+
+def conv_bn_stats_xla(x, w, shift, stride: int = 1, pad: int = 0):
+    """The ``impl="xla"`` arm, on either device: the library conv with
+    f32 accumulation, then the sums (JAX ``_reference``).  The same
+    arithmetic as :func:`conv_bn_stats_plain`, kept apart because it
+    is a dispatch choice on the card, not the kernels' yardstick."""
+    return _conv_then_sums(x, w, shift, stride, pad)
 
 
 def _check_cuda_args(x, w, shift):
@@ -121,7 +139,9 @@ def _conv_bn_cuda(x, w, shift, stride: int, pad: int):
     return y, s1, s2
 
 
-def _forward(x, w, shift, stride: int, pad: int):
+def _forward(x, w, shift, stride: int, pad: int, impl: str = "kernel"):
+    if impl == "xla":
+        return conv_bn_stats_xla(x, w, shift, stride, pad)
     if x.device.type == "cpu":
         return conv_bn_stats_plain(x, w, shift, stride, pad)
     if x.device.type == "cuda":
@@ -133,8 +153,8 @@ class _ConvBNStats(torch.autograd.Function):
     """The custom VJP of JAX ``_conv_bn_stats_vjp`` (:444-493)."""
 
     @staticmethod
-    def forward(ctx, x, w, shift, stride, pad):
-        y, s1, s2 = _forward(x, w, shift, stride, pad)
+    def forward(ctx, x, w, shift, stride, pad, impl):
+        y, s1, s2 = _forward(x, w, shift, stride, pad, impl)
         ctx.save_for_backward(x, w, y, shift, s1)
         ctx.stride, ctx.pad = stride, pad
         return y, s1, s2
@@ -154,22 +174,38 @@ class _ConvBNStats(torch.autograd.Function):
             dw = torch.nn.grad.conv2d_weight(x, w.shape, gy_eff, stride, pad)
         n = y.shape[0] * y.shape[2] * y.shape[3]
         gshift = (-float(n) * gs1 - 2.0 * s1 * gs2).to(shift.dtype)
-        return dx, dw, gshift, None, None
+        return dx, dw, gshift, None, None, None
 
 
-def conv_bn_stats(x, w, shift, *, stride: int = 1, pad: int = 0):
+def conv_bn_stats(x, w, shift, *, stride: int = 1, pad: int = 0,
+                  impl: str = "auto"):
     """Fused conv + centred BN statistics (JAX ``conv_bn_stats``).
 
     x (N, C, H, W); w (O, C, k, k) or (O, C) for 1x1; shift (O,) f32,
     typically the BN running mean.  Returns (y, s1, s2): y in x's
-    dtype, s1/s2 (O,) f32.  Differentiable in x, w and shift.  A CUDA
-    tensor launches ``conv_bn_1x1`` or ``conv_bn_kxk`` (f32 or bf16,
-    any odd or even k, stride and pad) or raises; a CPU tensor runs
-    :func:`conv_bn_stats_plain`."""
+    dtype, s1/s2 (O,) f32.  Differentiable in x, w and shift.
+
+    ``impl``: "kernel" (a CUDA tensor launches ``conv_bn_1x1`` or
+    ``conv_bn_kxk``, f32 or bf16, any odd or even k, stride and pad, or
+    raises; a CPU tensor runs :func:`conv_bn_stats_plain`), "xla"
+    (:func:`conv_bn_stats_xla`), or "auto" ("kernel", or the cached
+    auto-tuner decision when ``BIGDL_TORCH_TUNER=1``)."""
     if w.dim() == 2:
         w = w[:, :, None, None]
+    if impl == "auto":
+        impl = "kernel"
+        from bigdl_tpu_torch.ops import autotune
+
+        if autotune.enabled():
+            decision = autotune.decide_conv_bn(
+                x.shape, w.shape, x.dtype, stride=int(stride), pad=int(pad),
+                arrays=(x, w, shift))
+            if decision is not None:
+                impl = decision["impl"]
+    if impl not in ("kernel", "xla"):
+        raise ValueError(f"impl must be auto|kernel|xla, got {impl!r}")
     return _ConvBNStats.apply(x, w, shift.to(_acc(x.dtype)), int(stride),
-                              int(pad))
+                              int(pad), impl)
 
 
 def conv1x1_bn_stats(x, w, shift, *, stride: int = 1):
@@ -192,5 +228,6 @@ def kernel_path(x_shape, w_shape, *, stride: int = 1, pad: int = 0,
     return "cuda_kxk"
 
 
-__all__ = ["conv_bn_stats", "conv_bn_stats_plain", "conv1x1_bn_stats",
+__all__ = ["conv_bn_stats", "conv_bn_stats_plain", "conv_bn_stats_xla",
+           "conv1x1_bn_stats",
            "kernel_path", "kxk_operands"]

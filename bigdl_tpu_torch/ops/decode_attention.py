@@ -255,9 +255,10 @@ def paged_decode(q, kp, vp, tables, lengths, *, page_size: int,
     return out
 
 
-def static_decode_dispatch() -> str:
-    """The ``impl="auto"`` policy: the dense path, as in JAX :301."""
-    return "dense"
+def static_decode_dispatch() -> tuple:
+    """The ``impl="auto"`` policy, ``(impl, block_pages)``: the dense
+    path, as in JAX :301, and the tuner's static choice."""
+    return "dense", 0
 
 
 def paged_decode_attention(q, kp, vp, tables, lengths, *,
@@ -268,12 +269,23 @@ def paged_decode_attention(q, kp, vp, tables, lengths, *,
     q: ``(B, H, Dh)``; kp/vp: ``(num_pages, H, P, Dh)`` (one layer's
     pool); tables: ``(B, maxp)`` int32 (maxp may be the used-page
     bucket); lengths: ``(B,)`` int32, position ``pos <= length``
-    attends.  impl: "auto" (= "dense"), "dense", "fused" (its page
-    blocks ``block_pages`` wide, 0 = one block) or "kernel"."""
+    attends.  impl: "auto" ("dense", or with ``BIGDL_TORCH_TUNER=1``
+    the cached ``decode_attn`` decision of ``ops/autotune``), "dense",
+    "fused" (its page blocks ``block_pages`` wide, 0 = one block) or
+    "kernel"."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if impl == "auto":
-        impl = static_decode_dispatch()
+        impl, block_pages = static_decode_dispatch()
+        from bigdl_tpu_torch.ops import autotune
+
+        if autotune.enabled():
+            rec = autotune.decide_decode_attn(
+                q.shape, int(page_size), int(tables.shape[1]), q.dtype,
+                kv_dtype=kp.dtype, arrays=(q, kp, vp, tables, lengths))
+            if rec is not None:
+                impl = rec.get("impl", impl)
+                block_pages = int(rec.get("block_pages") or 0)
     if impl == "kernel":
         return paged_decode(q, kp, vp, tables, lengths, page_size=page_size,
                             scale=scale)

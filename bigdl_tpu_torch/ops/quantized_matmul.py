@@ -84,17 +84,27 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     ``x``: float (..., K) activations, quantized per row on the fly
     (symmetric, absmax / 127) unless ``x_scale`` comes with an
     already-int8 ``x``.  ``w_q``: int8 (N, K); ``w_scale``: (N, 1).
-    ``impl``: None or "auto" (= "int8": the int32-accumulated product,
-    then ``acc * x_scale * w_scale`` in that order; "auto" means
-    "int8" until the tuner is ported), or "dequant" (the weight scaled
-    back to float and a float matmul, the same weight rounding).
+    ``impl``: None (= "int8": the int32-accumulated product, then
+    ``acc * x_scale * w_scale`` in that order), "auto" ("int8", or with
+    ``BIGDL_TORCH_TUNER=1`` the cached ``int8_mm`` decision of
+    ``ops/autotune``), "int8", or "dequant" (the weight scaled back to
+    float and a float matmul, the same weight rounding).
     ``x`` must lie on ``device`` (default the card; raises without CUDA
     unless ``device="cpu"``)."""
     dev = resolve_device(device)
     if x.device != dev:
         raise ValueError(f"int8_matmul: x lives on {x.device}, not {dev}")
     if impl in (None, "auto"):
-        impl = "int8"
+        chosen = "int8"
+        if impl == "auto":
+            from bigdl_tpu_torch.ops import autotune
+
+            if autotune.enabled():
+                rec = autotune.decide_int8_mm(x.shape, w_q.shape, x.dtype,
+                                              arrays=(x, w_q, w_scale))
+                if rec is not None:
+                    chosen = rec.get("impl", "int8")
+        impl = chosen
     if impl == "dequant":
         w = w_q.float() * w_scale
         xf = x.float() * x_scale if x_scale is not None else x

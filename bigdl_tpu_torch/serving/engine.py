@@ -153,7 +153,8 @@ def _pick(logits, temps, generator):
 @torch.no_grad()
 def paged_decode_math(model, page_size: int, kp, vp, tables, lengths,
                       tokens, temps, active, generator, *,
-                      attn_impl: str = "dense", qparams=None):
+                      attn_impl: str = "dense", attn_block_pages: int = 0,
+                      qparams=None):
     """One decode step over the paged cache for every slot.  Mirrors
     ``TransformerBlock.decode_step``: the slot's new K/V are written at
     position ``lengths`` BEFORE attending, so ``length + 1`` positions
@@ -194,7 +195,8 @@ def paged_decode_math(model, page_size: int, kp, vp, tables, lengths,
         vp[i, pidx, :, off] = v.reshape(bsz, heads, head_dim).to(vp.dtype)
         o = paged_decode_attention(qh, kp[i], vp[i], tables, lengths,
                                    page_size=page_size, scale=scale,
-                                   impl=attn_impl)
+                                   impl=attn_impl,
+                                   block_pages=attn_block_pages)
         o = o.reshape(bsz, 1, heads * head_dim)
         if qb is None:
             x = x + attn.out_proj(o)
@@ -227,10 +229,11 @@ class _Active:
 class LMEngine:
     """Continuous-batching decode over a :class:`PagedKVCache`.
 
-    ``decode_attn``: "auto" (= "dense"), "dense", "fused" (the online
-    softmax over page blocks in torch) or "kernel" (the paged
-    flash-decode).  The model's ``attn_impl`` decides the prefill
-    attention.  ``int8`` (default ``BIGDL_TORCH_SERVE_INT8``) runs the
+    ``decode_attn``: "auto" ("dense", or with ``BIGDL_TORCH_TUNER=1``
+    the tuner's ``decode_attn`` decision for each used-page bucket),
+    "dense", "fused" (the online softmax over page blocks in torch) or
+    "kernel" (the paged flash-decode).  The model's ``attn_impl``
+    decides the prefill attention.  ``int8`` (default ``BIGDL_TORCH_SERVE_INT8``) runs the
     decode matmuls on int8 twins.  ``weight_version`` names the weights
     served (``/healthz``, handoff records).  ``device`` defaults to the
     card; the model must already live on it."""
@@ -315,6 +318,8 @@ class LMEngine:
         self._waiters = 0
         self._waiters_lock = threading.Lock()
         self._last_bucket = self.cache.max_pages_per_slot
+        # (impl, block_pages) each used-page bucket resolves to
+        self._impl_by_bucket = {}
         self._decode_ms_sum = 0.0
         # the step thread's CPU time: wall minus it is the time the
         # thread waited (for the interpreter lock, the device or the OS)
@@ -664,6 +669,7 @@ class LMEngine:
             bucket = self.cache.max_pages_per_slot
         self._last_bucket = bucket
         tables, lengths = self.cache.device_tables(pages=bucket)
+        impl, block_pages = self._decode_impl_for(bucket)
         dev = self.device
         t0 = time.perf_counter()
         c0 = time.thread_time()
@@ -675,14 +681,12 @@ class LMEngine:
                 tables, lengths, torch.from_numpy(tokens).to(dev),
                 torch.from_numpy(temps).to(dev),
                 torch.from_numpy(active).to(dev), self._gen,
-                attn_impl=self.decode_attn,
+                attn_impl=impl, attn_block_pages=block_pages,
                 qparams=self._qparams).cpu().numpy()
         step_ms = (time.perf_counter() - t0) * 1000.0
         self._steps += 1
         self._decode_ms_sum += step_ms
         self._decode_cpu_ms_sum += (time.thread_time() - c0) * 1000.0
-        impl = ("dense" if self.decode_attn in ("auto", "dense")
-                else self.decode_attn)
         self._last_step_bytes = (self._weight_bytes + self.n_layer
                                  * decode_hbm_bytes(
                                      impl, self.max_batch, self.n_head,
@@ -703,6 +707,32 @@ class LMEngine:
             if act.remaining <= 0 or tok == self.eos_id:
                 self._complete(i)
         return True
+
+    def _decode_impl_for(self, bucket: int):
+        """(impl, block_pages) of the decode attention at this used-page
+        bucket (JAX ``_decode_impl_for``, serving/engine.py:425-449),
+        resolved once a bucket: ``decode_attn`` as given, or for "auto"
+        the static dense path, or with the tuner on its ``decode_attn``
+        decision for (max_batch, heads, head_dim, page size, bucket) on
+        the engine's device."""
+        hit = self._impl_by_bucket.get(bucket)
+        if hit is not None:
+            return hit
+        impl, block_pages = self.decode_attn, 0
+        if impl == "auto":
+            impl = "dense"
+            from bigdl_tpu_torch.ops import autotune
+
+            if autotune.enabled():
+                rec = autotune.decide_decode_attn(
+                    (self.max_batch, self.n_head, self.head_dim),
+                    self.page_size, bucket, self.model.wte.weight.dtype,
+                    kv_dtype=self.cache.kp.dtype, device=self.device)
+                if rec is not None:
+                    impl = rec.get("impl", "dense")
+                    block_pages = int(rec.get("block_pages") or 0)
+        self._impl_by_bucket[bucket] = (impl, block_pages)
+        return impl, block_pages
 
     # ---------------------------------------------------------- driving
     def _on_stream(self):

@@ -4,7 +4,7 @@ two checkouts on one card, in turns.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
-    python3 chip_ab.py OTHER_CHECKOUT [--rounds 1]
+    python3 chip_ab.py OTHER_CHECKOUT [--rounds 1] [--flash]
 
 Each round runs OTHER, this, this, OTHER, each in a process of its own
 started in that checkout, which imports that checkout's
@@ -18,7 +18,12 @@ one (their libraries are named by a hash of their sources, so two
 checkouts with different sources do not share a library).  It prints
 every run's phase-4 and warm lines, prefixed with the checkout's name,
 then each checkout's decode step ms and tokens/s, new and warm; the
-card's name and power limit come from phase 1.  Exits non-zero when a
+card's name and power limit come from phase 1.  With ``--flash`` each
+run times the flash kernels instead (rows 1-3 of ``PERF.md``'s table):
+the forward on the device (phase 3's ``_flash_fwd_times``) and dq and
+dkv (phase 10's ``_flash_bwd_times``) in bf16 at the training shape
+(B=16, H=8, T=512, D=64, causal) and at B=2, T=4096, and prints each
+checkout's ms per kernel and shape, run by run.  Exits non-zero when a
 run fails.
 """
 
@@ -62,6 +67,43 @@ for i in range({WARM_PASSES}):
 eng.close()
 """
 STEP = re.compile(r"tokens/s ([0-9.]+), decode step ([0-9.]+) ms mean")
+RUN_FLASH = """
+import json, sys
+import chip_smoke as c
+if not c.torch.cuda.is_available():
+    sys.exit(2)
+c.phase_device()
+c.phase_build()
+gen = c.torch.Generator(device="cuda")
+gen.manual_seed(0)
+bf16 = c.torch.bfloat16
+row = {}
+for tag, b, t in (("train", c.LM_BATCH, c.LM_T), ("long", c.LONG_BATCH,
+                                                   c.LONG_T)):
+    row["flash_fwd " + tag] = c._flash_fwd_times(b, 8, t, 64, bf16, gen,
+                                                 plain=False)["device_ms"]
+    bwd = c._flash_bwd_times((b, 8, t, t, 64, bf16, True), gen, plain=False)
+    row["flash_bwd_dq " + tag] = bwd["dq"]
+    row["flash_bwd_dkv " + tag] = bwd["dkv"]
+print("FLASH " + json.dumps(row), flush=True)
+"""
+
+
+def run_flash(tree: str, build_dir: str) -> dict:
+    env = dict(os.environ, BIGDL_TORCH_BUILD_DIR=build_dir)
+    out = subprocess.run([sys.executable, "-c", RUN_FLASH], cwd=tree,
+                         env=env, capture_output=True, text=True,
+                         timeout=900)
+    name = os.path.basename(os.path.abspath(tree))
+    for line in out.stdout.splitlines():
+        if "phase 1 " in line or not line.startswith("["):
+            print(f"[{name}] {line}", flush=True)
+    if out.returncode != 0:
+        sys.stderr.write(out.stdout[-4000:] + out.stderr[-4000:])
+        raise SystemExit(f"{tree}: exit {out.returncode}")
+    import json
+
+    return json.loads(out.stdout.split("FLASH ", 1)[1].splitlines()[0])
 
 
 def run_one(tree: str, build_dir: str) -> tuple:
@@ -90,6 +132,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("other", help="the other checkout's root")
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--flash", action="store_true",
+                    help="time the flash kernels instead of phase 4")
     args = ap.parse_args()
     here = os.path.dirname(os.path.abspath(__file__))
     trees = [os.path.abspath(args.other), here]
@@ -98,7 +142,14 @@ def main() -> int:
         build_dir = os.environ.get("BIGDL_TORCH_BUILD_DIR") or tmp
         for _ in range(args.rounds):
             for t in (trees[0], trees[1], trees[1], trees[0]):
-                got[t].append(run_one(t, build_dir))
+                got[t].append((run_flash if args.flash else run_one)(
+                    t, build_dir))
+    if args.flash:
+        for t in trees:
+            for key in got[t][0]:
+                ms = ", ".join(f"{r[key]:.4f}" for r in got[t])
+                print(f"{os.path.basename(t)}: {key} ms [{ms}]", flush=True)
+        return 0
     for t in trees:
         for k, what in enumerate(("phase 4 (new engine)",
                                   f"warm, mean of {WARM_PASSES - 1} "

@@ -374,10 +374,33 @@ it runs; any failure exits non-zero:
     with them no slower than 3% or twice the difference's standard
     error; (f) no ``csrc/`` kernel launched in (a)-(e) but in (e)'s run
     of phase 22 (a)'s path (36 / 16 a step);
+24. the flash kernels' ``seq_offset``, the tuner and sequence
+    parallelism (``phase_seq_tuner``, callable alone after
+    ``phase_device()``): (a) rows 1-3 at B=2, H=8, D=64, causal, f32
+    and bf16, (Tq, Tk) in (512, 512), (512, 1024), (200, 333) at
+    offsets 0, 37, 64 and Tk - Tq against their plain versions (and the
+    forward against ``_reference_attention``) at phase 3's and 10's
+    limits, each timed at (512, 1024) at offsets 0 and 512 beside its
+    bound; (b) the tuner on with measurement into a fresh cache:
+    attention at phase 3's and 10's bf16 shapes, conv_bn at three fused
+    ResNet-50 sites, the paged decode at phase 4's shape and bucket,
+    int8_mm at phase 17's shapes; every decision printed (candidates'
+    ms, static, winner, the regress verdict), each winner within the
+    static candidate's time times the tolerance; a second pass after
+    ``reset()`` all hits with no measurement; a corrupt cache file all
+    static and left as it was; (c) ``train_long_lm.main`` at the
+    flagship's width (B=2, T=4096, remat, bf16, 4 steps) plain, with
+    Ulysses and the tuner off, and with the tuner on: plain and
+    Ulysses-off losses within 1e-2, the loss falling, rows 1-3 16/8/8
+    launches a step if the tuner chose the kernel (0/0/0 if not), step
+    ms, tokens/s and peak memory; then the tuner on and off in
+    alternate blocks of one run, the ratio with two standard errors;
+    (d) ``RingMultiHeadAttention`` at world 1 against the plain module,
+    f32, T=4096, within 1e-5;
 9. the kernels line, last: one JSON object listing each kernel with its
    launches on its own path (phase 4, phase 22 (a) for the conv_bn
    kernels, or the kernel arm of phase 11) and its numbers from phase
-   3, 6 or 10.
+   3, 6 or 10 (rows 1-3 also phase 24 (a)'s offset times).
 
 The last line is ``{"ok": true, "device": {...}}``, after the card's
 name and power limit and the script's total seconds.
@@ -667,6 +690,34 @@ P23_HEALTH_EVERY, P23_NAN_STEP, P23_LENET_STEPS = 4, 3, 6
 # error of the difference of the means, whichever is larger (steps of
 # one run spread by some 12%: the host)
 P23_AB_STEPS, P23_ON_SLOWER = 96, 0.03
+# phase 24: (a) rows 1-3 at a query offset (B=2, H=8, D=64, causal),
+# each (Tq, Tk) at offsets 0, 37, 64 and Tk - Tq, timed at (512, 1024)
+# at offsets 0 and 512; (b) the tuner's measured decisions: attention at
+# phase 3's and 10's bf16 shapes, conv_bn at three fused ResNet-50 sites
+# of phase 6 (batch 32, bf16: stage 1's 1x1 and 3x3, stage 2's strided
+# 3x3), the paged decode at phase 4's shape and used-page bucket (B=8,
+# H=8, Dh=64, page 16, 32 pages, f32) and int8_mm at phase 17's shapes;
+# (c) the long-context LM through train_long_lm at the flagship's width
+# (bench.py:429-441) at phase 11's long-context point, three ways, then
+# the tuner on and off in alternate blocks of steps of one run; (d) the
+# ring module at world 1 against the plain one
+P24_B, P24_H, P24_D = 2, 8, 64
+P24_SHAPES = [(512, 512), (512, 1024), (200, 333)]
+P24_TIMED, P24_TIMED_OFFSETS = (512, 1024), (0, 512)
+P24_CONV_SITES = [((32, 64, 56, 56), (64, 64, 1, 1), 1, 0),
+                  ((32, 64, 56, 56), (64, 64, 3, 3), 1, 1),
+                  ((32, 128, 56, 56), (128, 128, 3, 3), 2, 1)]
+P24_DECODE = dict(b=8, h=8, d=64, page_size=16, maxp=32)
+# (b) under torch.no_grad, as LMEngine's prefill and an eval pass reach
+# their sites: one prompt of phase 4's lengths (B=1, T=400), and stage
+# 1's 3x3 conv at an eval batch of 8
+P24_NO_GRAD_PREFILL_T, P24_NO_GRAD_CONV_N = 400, 8
+P24_LM = ["--seq", str(LONG_T), "--batch", str(LONG_BATCH), "--dim", "512",
+          "--heads", "8", "--layers", "8", "--vocab", "8192",
+          "--dtype", "bfloat16"]
+# steps of each way (the first not timed); the A/B's blocks and steps a
+# block (a block's first step not counted)
+P24_STEPS, P24_AB_BLOCKS, P24_AB_BLOCK = 4, 8, 3
 # phase 11's kernel-arm SGD step (bf16), for phase 18 (c) to print beside
 # Adam's
 _LM_SGD_MS = {}
@@ -795,6 +846,7 @@ def phase_build() -> None:
     say(f"phase 2 build: nvcc {compile_s:.1f} s for "
         f"{', '.join(_cuda.SOURCES.values())} (in parallel), "
         f"{time.perf_counter() - t0:.1f} s with loading")
+    spilled = []
     for name, (arg, dims, f32_dims) in TENSOR_CORE_KERNELS.items():
         hmma = _hmma_counts(_cuda._lib_path(name))
         usage = _ptxas_usage(_cuda.build_logs.get(name, ""))
@@ -810,14 +862,15 @@ def phase_build() -> None:
             if not usage:                       # a build of an earlier run
                 regs = spill = "not reported"
             elif regs is None or spill:
-                raise AssertionError(f"{name} bf16 {arg}={d}: ptxas reports "
-                                     f"{regs} registers, {spill} bytes of "
-                                     "spills")
+                spilled.append(f"{name} bf16 {arg}={d}: ptxas reports "
+                               f"{regs} registers, {spill} bytes of spills")
             at = "" if d is None else f" {arg}={d}"
             say(f"phase 2 {name} bf16{at}: "
                 f"{hmma[(f'{name}_bf16_kernel', d)]} bf16 HMMA in its SASS "
                 f"(f32 kernel: 0); ptxas: {regs} registers, {spill} bytes "
                 "spilled")
+    if spilled:     # every kernel's report printed first
+        raise AssertionError("; ".join(spilled))
 
 
 def _flash_case(b, h, t, d, dtype, causal, gen):
@@ -6749,6 +6802,479 @@ def phase_item16(smi: str) -> None:
         f"part {parts})")
 
 
+# ---------------------------------------------------------------- phase 24
+def _p24_offset_case(tq, tk, off, dt, gen) -> list:
+    """Rows 1-3 at query offset ``off`` against their plain versions
+    (and the forward against ``_reference_attention``): the max abs
+    errors of o, o against the reference, dq, dk, dv."""
+    from bigdl_tpu_torch.ops.attention import (_reference_attention,
+                                               flash_attention,
+                                               flash_attention_plain,
+                                               flash_backward,
+                                               flash_bwd_dkv_plain,
+                                               flash_bwd_dq_plain)
+
+    b, h, d = P24_B, P24_H, P24_D
+    scale = d ** -0.5
+    q, g = (torch.randn((b, h, tq, d), generator=gen, device=DEV).to(dt)
+            for _ in range(2))
+    k, v = (torch.randn((b, h, tk, d), generator=gen, device=DEV).to(dt)
+            for _ in range(2))
+    out, lse = flash_attention(q, k, v, causal=True, seq_offset=off,
+                               with_lse=True)
+    flat = [x.reshape(b * h, -1, d) for x in (q, k, v, g)]
+    o = out.reshape(b * h, tq, d)
+    name = (f"Tq={tq} Tk={tk} offset={off} {str(dt)[6:]}")
+    ref, ref_lse = flash_attention_plain(*flat[:3], causal=True, scale=scale,
+                                         seq_offset=off)
+    full = _reference_attention(*flat[:3], causal=True, scale=scale,
+                                seq_offset=off)
+    tol = (F32_TOL if dt == torch.float32
+           else _bf16_ulp(ref.float().abs().max().item()))
+    errs = [(o.float() - ref.float()).abs().max().item(),
+            (o.float() - full.float()).abs().max().item()]
+    check(f"phase 24 (a) flash_fwd {name}", errs[0], tol)
+    check(f"phase 24 (a) flash_fwd {name} against the reference", errs[1],
+          tol)
+    check(f"phase 24 (a) flash_fwd {name} lse",
+          (lse - ref_lse).abs().max().item(), F32_TOL)
+    got = flash_backward(*flat[:3], o, lse, flat[3], causal=True,
+                         scale=scale, seq_offset=off)
+    delta = (flat[3].float() * o.float()).sum(dim=-1)
+    want = (flash_bwd_dq_plain(*flat, lse, delta, causal=True, scale=scale,
+                               seq_offset=off),
+            *flash_bwd_dkv_plain(*flat, lse, delta, causal=True,
+                                 scale=scale, seq_offset=off))
+    for which, x, w in zip(("dq", "dk", "dv"), got, want):
+        err = (x.float() - w.float()).abs().max().item()
+        check(f"phase 24 (a) {which} {name}", err, _bwd_limit(w))
+        errs.append(err)
+    return errs
+
+
+def _p24_offset_times(gen) -> dict:
+    """Each of rows 1-3 at (Tq, Tk) = ``P24_TIMED`` in bf16 at the offsets
+    of ``P24_TIMED_OFFSETS``: ms a call and on the device, and the bound
+    from the (q, k) pairs the causal mask keeps at that offset and the
+    keys it lets any query reach (dkv still writes every dK and dV
+    row)."""
+    from bigdl_tpu_torch.ops import _cuda
+    from bigdl_tpu_torch.ops.attention import _flash_forward
+
+    b, h, d = P24_B, P24_H, P24_D
+    tq, tk = P24_TIMED
+    dt, bh = torch.bfloat16, P24_B * P24_H
+    q, g = (torch.randn((bh, tq, d), generator=gen, device=DEV).to(dt)
+            for _ in range(2))
+    k, v = (torch.randn((bh, tk, d), generator=gen, device=DEV).to(dt)
+            for _ in range(2))
+    item, rows = q.element_size(), 2 * bh * tq * 4
+    out = {}
+    for off in P24_TIMED_OFFSETS:
+        o, lse = _flash_forward(q, k, v, causal=True, scale=d ** -0.5,
+                                with_lse=True, seq_offset=off)
+        delta = (g.float() * o.float()).sum(dim=-1)
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        kw = dict(causal=True, scale=d ** -0.5, seq_offset=off)
+        pairs = bh * sum(min(tk, off + i + 1) for i in range(tq))
+        reach = min(tk, off + tq)
+        calls = {
+            "flash_fwd": (lambda: _cuda.launch_flash_fwd(q, k, v, o, lse,
+                                                         **kw),
+                          (2 * tq + 2 * reach) * bh * d * item + bh * tq * 4,
+                          4 * d * pairs),
+            "flash_bwd_dq": (lambda: _cuda.launch_flash_bwd_dq(
+                q, k, v, g, lse, delta, dq, **kw),
+                (3 * tq + 2 * reach) * bh * d * item + rows, 6 * d * pairs),
+            "flash_bwd_dkv": (lambda: _cuda.launch_flash_bwd_dkv(
+                q, k, v, g, lse, delta, dk, dv, **kw),
+                (2 * tq + 2 * reach + 2 * tk) * bh * d * item + rows,
+                8 * d * pairs)}
+        for name, (fn, nbytes, flops) in calls.items():
+            ms, dev_ms = time_ms(fn), time_ms(fn, device_only=True)
+            bms, by = bound(nbytes, flops, dt)
+            out[name, off] = dict(ms=ms, device_ms=dev_ms, bound_ms=bms,
+                                  bound_by=by)
+            say(f"phase 24 (a) {name} B={b} H={h} Tq={tq} Tk={tk} D={d} "
+                f"bf16 offset {off}: {ms:.4f} ms a call, {dev_ms:.4f} ms on "
+                f"the device, bound {bms:.5f} ms ({by}, {pairs} causal "
+                f"pairs), {bms / dev_ms:.3f} of it")
+    return out
+
+
+def phase24_offsets(gen) -> dict:
+    """(a): every offset case in f32 and bf16, then the times; returns
+    {kernel: its kernels-line additions}."""
+    worst = {}
+    n = 0
+    for dt in (torch.float32, torch.bfloat16):
+        for tq, tk in P24_SHAPES:
+            for off in dict.fromkeys((0, 37, 64, tk - tq)):
+                errs = _p24_offset_case(tq, tk, off, dt, gen)
+                n += 1
+                for key, e in zip(("fwd", "ref", "dq", "dk", "dv"), errs):
+                    worst[key, dt] = max(worst.get((key, dt), 0.0), e)
+    for dt in (torch.float32, torch.bfloat16):
+        say(f"phase 24 (a) {str(dt)[6:]}: worst max abs err over the "
+            f"offset cases: o {worst['fwd', dt]:.3e} (against the reference "
+            f"{worst['ref', dt]:.3e}), dq {worst['dq', dt]:.3e}, dk "
+            f"{worst['dk', dt]:.3e}, dv {worst['dv', dt]:.3e}")
+    say(f"phase 24 (a) {n} offset cases within phase 3's and 10's limits")
+    times = _p24_offset_times(gen)
+    errs = {"flash_fwd": ("fwd",), "flash_bwd_dq": ("dq",),
+            "flash_bwd_dkv": ("dk", "dv")}
+    tq, tk = P24_TIMED
+    rows = {}
+    for name, keys in errs.items():
+        row = {"offset_shape": f"B={P24_B} H={P24_H} Tq={tq} Tk={tk} "
+                               f"D={P24_D} bf16 causal",
+               "offset_max_abs_err": max(worst[k, torch.float32]
+                                         for k in keys),
+               "offset_max_abs_err_bf16": max(worst[k, torch.bfloat16]
+                                              for k in keys)}
+        for off in P24_TIMED_OFFSETS:
+            t = times[name, off]
+            row[f"offset{off}_ms"] = t["ms"]
+            row[f"offset{off}_device_ms"] = t["device_ms"]
+            row[f"offset{off}_bound_ms"] = t["bound_ms"]
+        rows[name] = row
+    return rows
+
+
+_P24_TUNER_ENV = ("BIGDL_TORCH_TUNER", "BIGDL_TORCH_TUNER_MEASURE",
+                  "BIGDL_TORCH_TUNER_CACHE")
+
+
+def _no_grad(fn):
+    with torch.no_grad():
+        return fn()
+
+
+def _p24_prewarms() -> list:
+    """(site, the impl="auto" call of each shape of (b))."""
+    from bigdl_tpu_torch.ops import autotune as TT
+
+    calls = [("attn", lambda: TT.prewarm_attention(
+        LM_BATCH, 8, LM_T, LM_T, 64, "bfloat16", device=DEV)),
+        ("attn", lambda: TT.prewarm_attention(
+            LONG_BATCH, 8, LONG_T, LONG_T, 64, "bfloat16", device=DEV))]
+    for xs, ws, stride, pad in P24_CONV_SITES:
+        calls.append(("conv_bn", lambda xs=xs, ws=ws, stride=stride,
+                      pad=pad: TT.prewarm_conv_bn(
+                          *xs, ws[0], ws[2], stride=stride, pad=pad,
+                          dtype="bfloat16", device=DEV)))
+    xs, ws, stride, pad = P24_CONV_SITES[1]
+    calls += [
+        ("attn", lambda: _no_grad(lambda: TT.prewarm_attention(
+            1, 8, P24_NO_GRAD_PREFILL_T, P24_NO_GRAD_PREFILL_T, 64,
+            "bfloat16", device=DEV))),
+        ("conv_bn", lambda: _no_grad(lambda: TT.prewarm_conv_bn(
+            P24_NO_GRAD_CONV_N, *xs[1:], ws[0], ws[2], stride=stride,
+            pad=pad, dtype="bfloat16", device=DEV)))]
+    dc = P24_DECODE
+    calls.append(("decode_attn", lambda: TT.prewarm_decode_attn(
+        dc["b"], dc["h"], dc["d"], page_size=dc["page_size"],
+        maxp=dc["maxp"], dtype="float32", device=DEV)))
+    for _, (m, k, n) in INT8_MM_SHAPES:
+        calls.append(("int8_mm", lambda m=m, k=k, n=n: TT.prewarm_int8_mm(
+            m, k, n, dtype="float32", device=DEV)))
+    return calls
+
+
+def phase24_tuner(tmp: str, smi: str) -> str:
+    """(b): the tuner measures every shape into a fresh cache; a second
+    pass after ``reset()`` is all hits with no measurement; a corrupt
+    file gives the static choices and stays as it was.  Leaves the tuner
+    off; returns the cache's path."""
+    from bigdl_tpu_torch.obs import regress
+    from bigdl_tpu_torch.ops import autotune as TT
+
+    path = os.path.join(tmp, "tuner.json")
+    os.environ.update({"BIGDL_TORCH_TUNER": "1",
+                       "BIGDL_TORCH_TUNER_MEASURE": "1",
+                       "BIGDL_TORCH_TUNER_CACHE": path})
+    measure, emit = TT._measure, TT._emit
+    counts = {"measured": 0}
+    emitted = []
+
+    def counting(*a, **kw):
+        counts["measured"] += 1
+        return measure(*a, **kw)
+
+    def recording(site, rec, source):
+        emitted.append((site, rec, source))
+        return emit(site, rec, source)
+
+    TT._measure, TT._emit = counting, recording
+    try:
+        TT.reset()
+        calls = _p24_prewarms()
+        t0 = time.perf_counter()
+        for _, call in calls:
+            call()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        decisions = TT.get_cache().decisions
+        if len(decisions) != len(calls):
+            raise AssertionError(f"phase 24 (b): {len(decisions)} decisions "
+                                 f"for {len(calls)} shapes")
+        tol = regress._default_tolerance()
+        for key, rec in decisions.items():
+            ms = {c: s * 1e3 for c, s in rec["measured_s"].items()}
+            win, static = rec["label"], rec["static"]
+            gate = rec.get("gate") or {}
+            say(f"phase 24 (b) {rec['site']} {key}: measured ms "
+                f"{ {c: round(v, 4) for c, v in ms.items()} }; static "
+                f"{static}, winner {win} ({rec['source']}); regress "
+                f"{gate.get('status', 'not needed (static kept)')}"
+                f"{'' if not gate else ', ratio ' + str(gate.get('ratio'))}")
+            if rec["source"] != "measured" or static not in ms:
+                raise AssertionError(f"phase 24 (b) {key}: not measured")
+            if win != static and not ms[win] < (
+                    1 - TT._MEASURE_MARGIN) * ms[static]:
+                raise AssertionError(f"phase 24 (b) {key}: winner {win} "
+                                     f"{ms[win]:.4f} ms inside the tie "
+                                     f"margin of static {static}'s "
+                                     f"{ms[static]:.4f}")
+            if not ms[win] <= ms[static] * tol:
+                raise AssertionError(f"phase 24 (b) {key}: winner {win} "
+                                     f"{ms[win]:.4f} ms over static "
+                                     f"{static}'s {ms[static]:.4f} x {tol}")
+        say(f"phase 24 (b) first pass: {len(decisions)} decisions, "
+            f"{counts['measured']} candidates measured in {first_s:.1f} s; "
+            f"{smi}")
+        # a fresh cache object on the same file: all hits, no measurement
+        TT.reset()
+        counts["measured"] = 0
+        for _, call in calls:
+            call()
+        stats = TT.get_cache().stats()
+        say(f"phase 24 (b) second pass after reset(): {stats['hits']} hits, "
+            f"{stats['misses']} misses, {counts['measured']} measurements")
+        if stats["hits"] != len(calls) or stats["misses"] or \
+                counts["measured"]:
+            raise AssertionError(f"phase 24 (b) second pass: {stats}, "
+                                 f"{counts['measured']} measurements")
+        # a corrupt file: the static choice everywhere, the file untouched
+        bad = os.path.join(tmp, "corrupt.json")
+        with open(bad, "w") as f:
+            f.write("{torn tuner cache")
+        os.environ["BIGDL_TORCH_TUNER_CACHE"] = bad
+        TT.reset()
+        del emitted[:]
+        for _, call in calls:
+            call()
+        with open(bad) as f:
+            kept = f.read() == "{torn tuner cache"
+        wrong = [(site, rec.get("label"), rec.get("static"))
+                 for site, rec, src in emitted
+                 if src != "corrupt_cache" or rec["label"] != rec["static"]]
+        say(f"phase 24 (b) corrupt cache: {len(emitted)} decisions, all "
+            f"static: {not wrong}; the file as it was: {kept}")
+        if wrong or len(emitted) != len(calls) or not kept:
+            raise AssertionError(f"phase 24 (b) corrupt cache: {wrong}, "
+                                 f"{len(emitted)}, kept {kept}")
+    finally:
+        TT._measure, TT._emit = measure, emit
+        for k in _P24_TUNER_ENV:
+            os.environ.pop(k, None)
+        TT.reset()
+    return path
+
+
+def _p24_tuner_env(on: bool, cache: str) -> None:
+    if on:
+        os.environ.update({"BIGDL_TORCH_TUNER": "1",
+                           "BIGDL_TORCH_TUNER_CACHE": cache})
+    else:
+        for k in _P24_TUNER_ENV:
+            os.environ.pop(k, None)
+
+
+def _p24_lm_way(attention: str, tuner: bool, cache: str) -> dict:
+    """One way of (c): ``train_long_lm.main`` for ``P24_STEPS`` steps
+    from seed 0; losses, step ms (the median of steps 2 on), tokens/s,
+    peak memory and rows 1-3's launches a step."""
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.examples import train_long_lm
+    from bigdl_tpu_torch.ops import _cuda
+
+    _p24_tuner_env(tuner, cache)
+    try:
+        RandomGenerator.RNG.set_seed(0)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        hist = {}
+        train_long_lm.main(P24_LM + ["--attention", attention, "--steps",
+                                     str(P24_STEPS)], device=DEV,
+                           history=hist)
+        launches = tuple(_cuda.launches[k] // P24_STEPS for k in
+                         ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+        ms = float(np.median(hist["seconds"][1:])) * 1e3
+        out = dict(losses=hist["losses"], ms=ms,
+                   tokens=LONG_BATCH * LONG_T / ms * 1e3,
+                   peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   launches=launches)
+        del hist
+    finally:
+        _p24_tuner_env(False, cache)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _p24_lm_ab(cache: str) -> dict:
+    """The tuner on and off in alternate blocks of ``P24_AB_BLOCK`` steps
+    of one Ulysses run (the first block a warm-up, each block's first
+    step not counted): {True: on ms, False: off ms}."""
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.examples import train_long_lm
+
+    RandomGenerator.RNG.set_seed(0)
+    run = train_long_lm.LongLMRun(train_long_lm.parse_args(
+        P24_LM + ["--attention", "ulysses"]), DEV)
+    ms = {True: [], False: []}
+    try:
+        for block in range(P24_AB_BLOCKS):
+            on = block % 2 == 1
+            _p24_tuner_env(on, cache)
+            for i in range(P24_AB_BLOCK):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run.step()
+                if block > 0 and i > 0:
+                    ms[on].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        _p24_tuner_env(False, cache)
+    del run
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase24_long_lm(cache: str, smi: str) -> None:
+    """(c): the long-context LM three ways, then the on/off A/B."""
+    from bigdl_tpu_torch.ops import autotune as TT
+
+    key = TT.cache_key("attn", f"b{LONG_BATCH}h8tq{LONG_T}tk{LONG_T}d64",
+                       torch.bfloat16, TT.platform(DEV), extra="c1o0")
+    _p24_tuner_env(True, cache)
+    TT.reset()
+    arm = TT.get_cache().decisions[key]["impl"]
+    _p24_tuner_env(False, cache)
+    ways = {}
+    for label, attention, tuner in (("plain", "plain", False),
+                                    ("ulysses, tuner off", "ulysses", False),
+                                    ("ulysses, tuner on", "ulysses", True)):
+        w = _p24_lm_way(attention, tuner, cache)
+        ways[label] = w
+        say(f"phase 24 (c) {label}: losses "
+            f"{['%.5f' % x for x in w['losses']]}; step {w['ms']:.3f} ms "
+            f"(median of steps 2-{P24_STEPS}), {w['tokens']:.1f} tokens/s, "
+            f"peak memory {w['peak']:.2f} GiB; rows 1-3 a step "
+            f"{w['launches']}")
+    gaps = [abs(a - b) for a, b in zip(ways["plain"]["losses"],
+                                       ways["ulysses, tuner off"]["losses"])]
+    on_gaps = [abs(a - b) for a, b in zip(
+        ways["ulysses, tuner on"]["losses"],
+        ways["ulysses, tuner off"]["losses"])]
+    want = (16, 8, 8) if arm == "kernel" else (0, 0, 0)
+    say(f"phase 24 (c) the tuner's arm at B={LONG_BATCH} T={LONG_T}: {arm}; "
+        f"|plain - ulysses off| by step {['%.3e' % g for g in gaps]} (limit "
+        f"{LM_LOSS_TOL:g}); |on - off| {['%.3e' % g for g in on_gaps]}; "
+        f"launches a step {ways['ulysses, tuner on']['launches']} (want "
+        f"{want}); {smi}")
+    if not all(g <= LM_LOSS_TOL for g in gaps):
+        raise AssertionError("phase 24 (c): plain and Ulysses losses differ")
+    if ways["ulysses, tuner on"]["launches"] != want or \
+            ways["ulysses, tuner off"]["launches"] != (0, 0, 0):
+        raise AssertionError(f"phase 24 (c): launches {ways}")
+    ab = _p24_lm_ab(cache)
+    a, b = (np.asarray(ab[k]) for k in (True, False))
+    ratio = a.mean() / b.mean()
+    se = ratio * float(np.sqrt(a.var(ddof=1) / a.size / a.mean() ** 2
+                               + b.var(ddof=1) / b.size / b.mean() ** 2))
+    say(f"phase 24 (c) A/B in one run, alternate blocks of {P24_AB_BLOCK} "
+        f"steps: tuner on {a.mean():.3f} ms (median {np.median(a):.3f}, "
+        f"{a.size} steps), off {b.mean():.3f} ms (median {np.median(b):.3f}, "
+        f"{b.size} steps); on/off {ratio:.4f} +- {2 * se:.4f} (two standard "
+        f"errors); {smi}")
+
+
+def phase24_ring() -> None:
+    """(d): ``RingMultiHeadAttention`` at world 1 against the plain
+    module on the same weights and inputs, f32, T=``LONG_T``."""
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.engine import Engine
+    from bigdl_tpu_torch.nn.attention import MultiHeadAttention
+    from bigdl_tpu_torch.parallel import RingMultiHeadAttention
+
+    mesh = Engine.build_mesh({"seq": 1})
+    RandomGenerator.RNG.set_seed(2)
+    plain = MultiHeadAttention(512, 8, causal=True,
+                               attn_impl="reference").to(DEV)
+    ring = RingMultiHeadAttention(512, 8, mesh, causal=True).to(DEV)
+    ring.set_params(plain.params())
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(3)
+    x = torch.randn((LONG_BATCH, LONG_T, 512), generator=gen, device=DEV)
+    outs, grads = [], []
+    for m in (plain, ring):
+        xi = x.clone().requires_grad_(True)
+        y = m(xi)
+        grads.append(torch.autograd.grad(y.square().sum(), xi)[0])
+        outs.append(y.detach())
+    err = (outs[0] - outs[1]).abs().max().item()
+    gerr = ((grads[0] - grads[1]).abs().max()
+            / grads[0].abs().max()).item()
+    say(f"phase 24 (d) {ring!r} at world 1, B={LONG_BATCH} T={LONG_T} f32: "
+        f"max abs err {err:.3e} against MultiHeadAttention (limit "
+        f"{F32_TOL:g}); input gradient {gerr:.3e} of its largest (limit "
+        f"{F32_TOL:g})")
+    check("phase 24 (d) ring module", err, F32_TOL)
+    check("phase 24 (d) ring module input gradient", gerr, F32_TOL)
+
+
+def phase_seq_tuner(smi: str) -> dict:
+    """Phase 24: (a) rows 1-3 at a query offset, (b) the tuner measured,
+    (c) the long-context LM through Ulysses three ways and the tuner's
+    A/B, (d) the ring module; callable alone after ``phase_device()``
+    (the kernels build at first launch).  Returns rows 1-3's
+    kernels-line additions."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.engine import Engine
+
+    t_phase = time.perf_counter()
+    parts = {}
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(24)
+    t0 = time.perf_counter()
+    rows = phase24_offsets(gen)
+    parts["a"] = round(time.perf_counter() - t0, 1)
+    tmp = tempfile.mkdtemp(prefix="phase24_")
+    Engine.reset()
+    Engine.init(DEV)
+    try:
+        t0 = time.perf_counter()
+        cache = phase24_tuner(tmp, smi)
+        parts["b"] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+        phase24_long_lm(cache, smi)
+        parts["c"] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+        phase24_ring()
+        parts["d"] = round(time.perf_counter() - t0, 1)
+    finally:
+        Engine.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(smi, flush=True)
+    say(f"phase 24 took {time.perf_counter() - t_phase:.1f} s (seconds by "
+        f"part {parts})")
+    return rows
+
+
 def _has_pillow() -> bool:
     try:
         import PIL  # noqa: F401
@@ -6801,7 +7327,9 @@ def main() -> int:
     # rows 4-5's launches: this slice's main path, phase 22 (a)
     launches.update(phase_distri_resilience(smi))
     phase_item16(smi)
+    offsets = phase_seq_tuner(smi)
     for k in kernels:
+        k.update(offsets.get(k["name"], {}))
         k["launches"] = launches[k["name"]]
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on its path")

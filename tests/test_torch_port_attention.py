@@ -123,7 +123,7 @@ def test_dispatch_policy_and_impls():
 def test_flash_rejects_what_the_kernel_does_not_take():
     q, k, v = (torch.from_numpy(x) for x in _qkv(1, 2, 8, 8, 16, seed=4))
     with pytest.raises(ValueError, match="seq_offset"):
-        TA.flash_attention(q, k, v, causal=True, seq_offset=4)
+        TA.flash_attention(q, k, v, causal=True, seq_offset=-1)
     with pytest.raises(ValueError, match="shapes"):
         TA.flash_attention(q, k[:, :1], v, causal=True)
     with pytest.raises(ValueError, match="dtype"):

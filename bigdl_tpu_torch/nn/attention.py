@@ -58,6 +58,17 @@ class _AttnConfig:
         return cfg
 
 
+def layer_norm(x: torch.Tensor, weight, bias, eps: float = 1e-5
+               ) -> torch.Tensor:
+    """``LayerNorm``'s math on given parameters: statistics in f32, the
+    result cast back to ``x``'s dtype."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * weight + bias).to(x.dtype)
+
+
 class LayerNorm(AbstractModule):
     """Layer normalization over the last dimension: statistics in f32,
     eps 1e-5, the result cast back to the input dtype."""
@@ -73,11 +84,7 @@ class LayerNorm(AbstractModule):
         self._set_param("bias", np.zeros(n_output, np.float32))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
-        mean = x32.mean(dim=-1, keepdim=True)
-        var = (x32 - mean).square().mean(dim=-1, keepdim=True)
-        y = (x32 - mean) * torch.rsqrt(var + self.eps)
-        return (y * self.weight + self.bias).to(x.dtype)
+        return layer_norm(x, self.weight, self.bias, self.eps)
 
 
 class MultiHeadAttention(_AttnConfig, AbstractModule):
@@ -235,6 +242,6 @@ class PositionalEmbedding(AbstractModule):
         return x + self.weight[offset:offset + x.shape[1]][None, :, :]
 
 
-__all__ = ["LayerNorm", "MultiHeadAttention", "TransformerBlock",
+__all__ = ["LayerNorm", "layer_norm", "MultiHeadAttention", "TransformerBlock",
            "PositionalEmbedding", "dropout", "jax_attn_impl",
            "port_attn_impl"]

@@ -1,7 +1,6 @@
 """Continuous-batching LM decode engine.
 
-Counterpart of ``bigdl_tpu/serving/engine.py`` on one device (the JAX
-package's ``tp=1``):
+Counterpart of ``bigdl_tpu/serving/engine.py``:
 
 * **slots**: up to ``max_batch`` requests decode together in one step
   over the paged KV cache (``serving/cache.py``);
@@ -17,6 +16,23 @@ package's ``tp=1``):
   fc1, fc2, the head) run on per-output-channel int8 twins of the
   weights through ``ops.quantized_matmul.int8_matmul``; the attention
   stays on the paged decode and the prefill stays float;
+* **TP-sharded decode** (``tp=N``, ``serving/tp.py``): the decode step
+  runs on Megatron row/col-split weights, each rank of the mesh's
+  ``model`` axis on its own shard and ``n_head / N`` heads of the page
+  pools, the block reductions on ``parallel/wire``.  The JAX package
+  drives ``N`` devices from one host process; here each rank is a
+  process (``Engine.build_mesh({"model": N})`` on every rank, then an
+  ``LMEngine(tp=N)`` on every rank).  Group rank 0 is the leader: it
+  alone takes ``submit`` and owns the scheduler (queue, slots, page
+  tables, admission, preemption, drain), and before every prefill and
+  every decode step it broadcasts the step's host inputs over a gloo
+  group of the same ranks (the control plane, which also works where
+  the data group is NCCL).  The other ranks are followers: ``follow()``
+  (or ``start()``) replays those steps on their shard until the
+  leader's ``close()``.  Prefill stays replicated (every rank runs the
+  whole model over the prompt and writes its own heads' K/V); every
+  rank's generator is seeded alike and the logits agree after the
+  reductions, so every rank samples the same token;
 * **preemption**: if the page pool runs out mid-decode, the youngest
   request gives its pages back and re-queues with its generated prefix
   folded into the prompt;
@@ -61,6 +77,7 @@ import torch.nn.functional as F
 from bigdl_tpu_torch import obs
 from bigdl_tpu_torch.common import resolve_device
 from bigdl_tpu_torch.config import ServeConfig
+from bigdl_tpu_torch.nn.attention import layer_norm
 from bigdl_tpu_torch.obs import names, reqtrace
 from bigdl_tpu_torch.ops.decode_attention import (decode_hbm_bytes,
                                                   paged_decode_attention,
@@ -137,6 +154,34 @@ def _placed(target, tree, pairs, path="") -> dict:
     return out
 
 
+def _control_group(mesh):
+    """(the control plane's gloo group over this rank's line of the
+    mesh's ``model`` axis, the line leader's global rank).  The data
+    group serves where it is gloo; otherwise every rank makes a gloo
+    group for every line, in the same order (``new_group`` is
+    collective)."""
+    import torch.distributed as dist
+
+    group = mesh.group("model")
+    leader = dist.get_global_rank(group, 0)
+    if dist.get_backend(group) == "gloo":
+        return group, leader
+    ctrl = None
+    others = [a for a in mesh.axis_names if a != "model"]
+    world = dist.get_world_size()
+    for r0 in range(world):
+        c0 = mesh.coords(r0)
+        if c0["model"]:
+            continue
+        line = sorted((r for r in range(world)
+                       if all(mesh.coords(r)[a] == c0[a] for a in others)),
+                      key=lambda r: mesh.coords(r)["model"])
+        g = dist.new_group(line, backend="gloo")
+        if mesh.rank in line:
+            ctrl = g
+    return ctrl, leader
+
+
 def _pick(logits, temps, generator):
     """Greedy argmax (first maximal index) where ``temps == 0``, a
     categorical draw from ``generator`` elsewhere."""
@@ -154,7 +199,7 @@ def _pick(logits, temps, generator):
 def paged_decode_math(model, page_size: int, kp, vp, tables, lengths,
                       tokens, temps, active, generator, *,
                       attn_impl: str = "dense", attn_block_pages: int = 0,
-                      qparams=None):
+                      qparams=None, params=None, n_head=None, psum=None):
     """One decode step over the paged cache for every slot.  Mirrors
     ``TransformerBlock.decode_step``: the slot's new K/V are written at
     position ``lengths`` BEFORE attending, so ``length + 1`` positions
@@ -162,32 +207,40 @@ def paged_decode_math(model, page_size: int, kp, vp, tables, lengths,
     (L, pages, H, P, Dh) pools, updated in place; ``tables`` may be the
     used-page bucket.  With ``qparams`` (``_quantize_tree``) the
     matmuls run ``int8_matmul`` on the twins, biases and LayerNorms in
-    float (JAX :81-176).  Returns the next token of every slot (0 where
-    ``active`` is False)."""
+    float (JAX :81-176).  The weights come from ``params`` (a
+    ``params()`` tree; default the model's own).  A TP rank passes its
+    local tree (``serving/tp.py``), its LOCAL head count as ``n_head``
+    and the block reduction as ``psum``: the row-parallel products of
+    wo and fc2 are reduced, and their biases added once, after it,
+    while fc1's bias stays local (JAX :81-83, :149-163).  Returns the
+    next token of every slot (0 where ``active`` is False)."""
     blocks = model.blocks()
-    attn0 = blocks[0].attn
-    heads, head_dim = attn0.n_head, attn0.head_dim
+    if params is None:
+        params = model.params()
+    heads = blocks[0].attn.n_head if n_head is None else int(n_head)
+    head_dim = blocks[0].attn.head_dim
     bsz = tokens.shape[0]
     scale = 1.0 / math.sqrt(head_dim)
     dev = tokens.device
 
-    def mm(h, qw):
-        return int8_matmul(h, qw[0], qw[1], impl="auto", device=dev)
+    def lin(h, w, b=None, qw=None):
+        y = (torch.matmul(h, w.t()) if qw is None
+             else int8_matmul(h, qw[0], qw[1], impl="auto", device=dev))
+        return y if b is None else y + b
 
     pos = lengths.long()
-    x = (model.wte.weight[tokens.long()] + model.wpe.weight[pos])[:, None, :]
+    x = (params["wte"]["weight"][tokens.long()]
+         + params["wpe"]["weight"][pos])[:, None, :]
     pidx = tables.long().gather(1, (pos // page_size)[:, None])[:, 0]
     off = pos % page_size
     for i, block in enumerate(blocks):
-        attn = block.attn
-        qb = None if qparams is None else qparams[f"h{i}"]
-        h = block.ln1(x)
-        if qb is None:
-            q, k, v = attn.project_qkv(h)
-        else:
-            q, k, v = (mm(h, qb["attn"][w]) for w in ("wq", "wk", "wv"))
-            if attn.bq is not None:
-                q, k, v = q + attn.bq, k + attn.bk, v + attn.bv
+        p = params[f"h{i}"]
+        pa = p["attn"]
+        qb = {"attn": {}} if qparams is None else qparams[f"h{i}"]
+        h = layer_norm(x, p["ln1"]["weight"], p["ln1"]["bias"],
+                       block.ln1.eps)
+        q, k, v = (lin(h, pa[w], pa.get("b" + w[1]), qb["attn"].get(w))
+                   for w in ("wq", "wk", "wv"))
         qh = q.reshape(bsz, heads, head_dim)
         # the new token's K/V go into the pools in place (the JAX
         # package returns new pools via .at[].set with donation)
@@ -197,19 +250,23 @@ def paged_decode_math(model, page_size: int, kp, vp, tables, lengths,
                                    page_size=page_size, scale=scale,
                                    impl=attn_impl,
                                    block_pages=attn_block_pages)
-        o = o.reshape(bsz, 1, heads * head_dim)
-        if qb is None:
-            x = x + attn.out_proj(o)
-            x = block.mlp(x)
-            continue
-        y = mm(o, qb["attn"]["wo"])
-        x = x + (y + attn.bo if attn.bo is not None else y)
-        h = mm(block.ln2(x), qb["fc1"]) + block.fc1.bias
-        h = mm(F.gelu(h, approximate="tanh"), qb["fc2"])
-        x = x + (h + block.fc2.bias if block.fc2.bias is not None else h)
-    h = model.ln_f(x)
-    logits = (model.head(h) if qparams is None
-              else mm(h, qparams["head"]))[:, 0, :]
+        y = lin(o.reshape(bsz, 1, heads * head_dim), pa["wo"],
+                qw=qb["attn"].get("wo"))
+        if psum is not None:
+            y = psum(y)
+        x = x + (y if pa.get("bo") is None else y + pa["bo"])
+        h = layer_norm(x, p["ln2"]["weight"], p["ln2"]["bias"],
+                       block.ln2.eps)
+        h = lin(h, p["fc1"]["weight"], p["fc1"].get("bias"), qb.get("fc1"))
+        h = lin(F.gelu(h, approximate="tanh"), p["fc2"]["weight"],
+                qw=qb.get("fc2"))
+        if psum is not None:
+            h = psum(h)
+        x = x + (h if p["fc2"].get("bias") is None else h + p["fc2"]["bias"])
+    h = layer_norm(x, params["ln_f"]["weight"], params["ln_f"]["bias"],
+                   model.ln_f.eps)
+    logits = lin(h, params["head"]["weight"],
+                 qw=None if qparams is None else qparams["head"])[:, 0, :]
     nxt = _pick(logits, temps, generator)
     return torch.where(active, nxt, torch.zeros_like(nxt))
 
@@ -234,9 +291,14 @@ class LMEngine:
     "dense", "fused" (the online softmax over page blocks in torch) or
     "kernel" (the paged flash-decode).  The model's ``attn_impl``
     decides the prefill attention.  ``int8`` (default ``BIGDL_TORCH_SERVE_INT8``) runs the
-    decode matmuls on int8 twins.  ``weight_version`` names the weights
-    served (``/healthz``, handoff records).  ``device`` defaults to the
-    card; the model must already live on it."""
+    decode matmuls on int8 twins.  ``tp`` shards the decode step over
+    the ``model`` axis of ``Engine.mesh()``, whose size it must be, with
+    ``wire`` (a ``parallel.wire`` spec or dtype) on its reductions; each
+    rank builds its engine on the full model, group rank 0 leads and
+    the others ``follow()`` (module docstring).  ``weight_version``
+    names the weights served (``/healthz``, handoff records).
+    ``device`` defaults to the card; the model must already live on
+    it."""
 
     def __init__(self, model, *, max_batch: Optional[int] = None,
                  page_size: Optional[int] = None,
@@ -248,8 +310,8 @@ class LMEngine:
                  admission: Optional[str] = None,
                  decode_attn: Optional[str] = None,
                  decode_bucket: Optional[bool] = None,
-                 int8: Optional[bool] = None, seed: int = 0,
-                 weight_version: str = "v0", device="cuda"):
+                 int8: Optional[bool] = None, tp: int = 1, wire=None,
+                 seed: int = 0, weight_version: str = "v0", device="cuda"):
         cfg = ServeConfig.from_env()
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -277,12 +339,28 @@ class LMEngine:
         self.n_layer = model.n_layer
         self.n_head = int(model.n_head)
         self.head_dim = model.dim // self.n_head
+        self.tp = int(tp or 1)
+        if self.int8 and self.tp > 1:
+            raise ValueError("int8 decode and tp-sharded decode are "
+                             "currently exclusive")
+        self._tp_step = None
+        self._tp_rank = 0
+        if self.tp > 1:
+            from bigdl_tpu_torch.serving.tp import build_tp_decode_step
+
+            self._tp_step = build_tp_decode_step(
+                model, tp=self.tp, wire=wire, page_size=self.page_size,
+                max_batch=self.max_batch, positions=self.max_len,
+                attn_impl=self.decode_attn)
+            self._tp_rank = self._tp_step.mesh.index("model")
+            self._ctrl, self._leader = _control_group(self._tp_step.mesh)
         if cache_dtype is None:
             cache_dtype = model.wte.weight.dtype
         pages = num_pages or cfg.num_pages or (
             1 + self.max_batch * -(-self.max_len // self.page_size))
+        # a TP rank's pools hold its own n_head / tp heads
         self.cache = PagedKVCache(
-            self.n_layer, self.n_head, self.head_dim,
+            self.n_layer, self.n_head // self.tp, self.head_dim,
             page_size=self.page_size, num_pages=pages,
             max_slots=self.max_batch, max_len=self.max_len,
             dtype=cache_dtype, device=self.device)
@@ -327,6 +405,13 @@ class LMEngine:
         self._last_step_bytes: Optional[float] = None
         self._qparams = (_quantize_tree(model.params(), self.n_layer)
                          if self.int8 else None)
+        # this rank's shard of the weights; a follower's swaps, staged
+        # until the leader announces them
+        self._tp_local = (None if self._tp_step is None
+                          else self._tp_step.shard(model.params()))
+        self._staged: collections.deque = collections.deque()
+        self._staged_cv = threading.Condition()
+        self._closed = False
         self._weight_bytes = self._decode_weight_bytes()
         reg = obs.get_registry()
         self._lat = reg.histogram(*LAT_META, labels=("engine", "kind"))
@@ -375,7 +460,12 @@ class LMEngine:
         Slots, page tables and in-flight decodes survive: requests
         already decoding continue on the new weights over their
         old-weights KV prefix; requests admitted after the swap decode
-        as ``generate()`` on the new weights."""
+        as ``generate()`` on the new weights.
+
+        At ``tp > 1`` every rank calls it with the same weights (and
+        slices its shard on the caller's thread): the leader flips at
+        once and announces the flip with its next prefill or step; a
+        follower stages the weights and flips at that step."""
         pairs: list = []
         if self._stream is not None:
             self._stream.wait_stream(
@@ -384,24 +474,34 @@ class LMEngine:
             tree = _placed(self.model.params(), _nested(params), pairs)
             qparams = (_quantize_tree(tree, self.n_layer) if self.int8
                        else None)
+            local = (None if self._tp_step is None
+                     else self._tp_step.shard(tree))
         if self._stream is not None:
             # the copies read the caller's tensors, which the caller may
             # free once this returns
             self._stream.synchronize()
-        # the old weights are freed at the flip below; every step ends
-        # in a token read that syncs the engine's stream, so no kernel
-        # still reads them then
+        staged = (pairs, qparams, local, str(version), manifest_sha)
+        if self._tp_rank:
+            with self._staged_cv:
+                self._staged.append(staged)
+                self._staged_cv.notify_all()
+            return
         with self.locked():
-            for p, new in pairs:
-                p.data = new
-            self._qparams = qparams
-            self._weight_bytes = self._decode_weight_bytes()
-            self.weight_version = str(version)
-            self.manifest_sha = manifest_sha
-            self.swaps += 1
-        self._swap_counter.labels(version=str(version)).inc()
-        obs.get_tracer().event(spans.EVENT_WEIGHT_SWAP,
-                               version=str(version),
+            self._flip(*staged)
+
+    def _flip(self, pairs, qparams, local, version, manifest_sha) -> None:
+        # the old weights are freed here; every step ends in a token read
+        # that syncs the engine's stream, so no kernel still reads them
+        for p, new in pairs:
+            p.data = new
+        self._qparams = qparams
+        self._tp_local = local
+        self._weight_bytes = self._decode_weight_bytes()
+        self.weight_version = version
+        self.manifest_sha = manifest_sha
+        self.swaps += 1
+        self._swap_counter.labels(version=version).inc()
+        obs.get_tracer().event(spans.EVENT_WEIGHT_SWAP, version=version,
                                sha=manifest_sha or "", swaps=self.swaps)
 
     # ------------------------------------------------------------ prefill
@@ -410,8 +510,13 @@ class LMEngine:
                  temperature: float) -> int:
         """Prefill one prompt padded with token 0 to ``bucket``: write
         its ``bucket // P`` pages (those past the allocation point at
-        trash page 0) and return the first token, read from row t0-1."""
+        trash page 0) and return the first token, read from row t0-1.  A
+        TP rank runs the whole model and writes its own heads."""
+        self._announce("prefill", list(payload), bucket, list(pages),
+                       float(temperature))
         model, dev, p = self.model, self.device, self.page_size
+        hl = self.cache.n_head
+        h0 = self._tp_rank * hl
         t0 = len(payload)
         n_write = bucket // p
         prompt = torch.zeros((1, bucket), dtype=torch.int32)
@@ -424,11 +529,11 @@ class LMEngine:
             x, kh, vh = block.prefill(x)
             # (1, H, bucket, Dh) -> (pages, H, P, Dh), written into the
             # pools in place
-            shape = (self.n_head, n_write, p, self.head_dim)
-            self.cache.kp[i, page_arg] = kh[0].reshape(shape).transpose(
-                0, 1).to(self.cache.dtype)
-            self.cache.vp[i, page_arg] = vh[0].reshape(shape).transpose(
-                0, 1).to(self.cache.dtype)
+            shape = (hl, n_write, p, self.head_dim)
+            self.cache.kp[i, page_arg] = kh[0, h0:h0 + hl].reshape(
+                shape).transpose(0, 1).to(self.cache.dtype)
+            self.cache.vp[i, page_arg] = vh[0, h0:h0 + hl].reshape(
+                shape).transpose(0, 1).to(self.cache.dtype)
         logits = model.head(model.ln_f(x[:, t0 - 1:t0, :]))[:, 0, :]
         temps = torch.full((1,), float(temperature), device=dev)
         return int(_pick(logits, temps, self._gen)[0])
@@ -450,6 +555,9 @@ class LMEngine:
         that trace (or mints one) and records the request's spans."""
         if self.draining:
             raise RuntimeError("engine is draining — admissions closed")
+        if self._tp_rank:
+            raise RuntimeError("a tp engine takes submit on its leader "
+                               "(group rank 0); this rank follows")
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
         if not prompt:
             raise ValueError("empty prompt")
@@ -668,21 +776,16 @@ class LMEngine:
         else:
             bucket = self.cache.max_pages_per_slot
         self._last_bucket = bucket
-        tables, lengths = self.cache.device_tables(pages=bucket)
         impl, block_pages = self._decode_impl_for(bucket)
-        dev = self.device
         t0 = time.perf_counter()
         c0 = time.thread_time()
         # a live tracer span around the step, dispatch to resolved tokens
         with obs.get_tracer().span(spans.SPAN_STEP_DECODE, bucket=bucket,
                                    active=len(active_slots)):
-            nxt = paged_decode_math(
-                self.model, self.page_size, self.cache.kp, self.cache.vp,
-                tables, lengths, torch.from_numpy(tokens).to(dev),
-                torch.from_numpy(temps).to(dev),
-                torch.from_numpy(active).to(dev), self._gen,
-                attn_impl=impl, attn_block_pages=block_pages,
-                qparams=self._qparams).cpu().numpy()
+            nxt = self._decode(
+                np.ascontiguousarray(self.cache.page_tables[:, :bucket]),
+                self.cache.lengths.copy(), tokens, temps, active, impl,
+                block_pages)
         step_ms = (time.perf_counter() - t0) * 1000.0
         self._steps += 1
         self._decode_ms_sum += step_ms
@@ -708,13 +811,73 @@ class LMEngine:
                 self._complete(i)
         return True
 
+    def _decode(self, tables, lengths, tokens, temps, active, impl: str,
+                block_pages: int):
+        """One decode step from its host inputs (numpy; ``tables`` the
+        used-page bucket) on this rank's weights, the leader announcing
+        them first.  Returns the next tokens (numpy)."""
+        self._announce("step", tables, lengths, tokens, temps, active, impl,
+                       block_pages)
+        args = [torch.from_numpy(a).to(self.device)
+                for a in (tables, lengths, tokens, temps, active)]
+        if self._tp_step is None:
+            nxt = paged_decode_math(
+                self.model, self.page_size, self.cache.kp, self.cache.vp,
+                *args, self._gen, attn_impl=impl,
+                attn_block_pages=block_pages, qparams=self._qparams)
+        else:
+            nxt = self._tp_step(self._tp_local, self.cache.kp,
+                                self.cache.vp, *args, self._gen,
+                                attn_impl=impl, attn_block_pages=block_pages)
+        return nxt.cpu().numpy()
+
+    def _announce(self, kind: str, *args) -> None:
+        """The leader's broadcast of a prefill's or step's host inputs,
+        with its swap count, to its followers (nothing at tp = 1 and on
+        a follower)."""
+        if self._tp_step is not None and self._tp_rank == 0:
+            import torch.distributed as dist
+
+            dist.broadcast_object_list([(kind, self.swaps) + args],
+                                       src=self._leader, group=self._ctrl)
+
+    def follow(self) -> None:
+        """A follower's loop: replay the leader's prefills and decode
+        steps on this rank's shard, after the swaps each announces,
+        until the leader's ``close()``."""
+        if self._tp_step is None or self._tp_rank == 0:
+            raise RuntimeError("follow() runs on a follower rank of a "
+                               "tp > 1 engine")
+        import torch.distributed as dist
+
+        while True:
+            box = [None]
+            dist.broadcast_object_list(box, src=self._leader,
+                                       group=self._ctrl)
+            kind, swaps, *args = box[0]
+            if kind == "stop":
+                return
+            while self.swaps < swaps:
+                # swap_weights on this rank stages what the leader flips
+                with self._staged_cv:
+                    while not self._staged:
+                        self._staged_cv.wait()
+                    staged = self._staged.popleft()
+                self._flip(*staged)
+            with self._on_stream():
+                if kind == "prefill":
+                    self._prefill(*args)
+                else:
+                    self._decode(*args)
+                    self._steps += 1
+
     def _decode_impl_for(self, bucket: int):
         """(impl, block_pages) of the decode attention at this used-page
         bucket (JAX ``_decode_impl_for``, serving/engine.py:425-449),
         resolved once a bucket: ``decode_attn`` as given, or for "auto"
         the static dense path, or with the tuner on its ``decode_attn``
         decision for (max_batch, heads, head_dim, page size, bucket) on
-        the engine's device."""
+        the engine's device, at a TP rank's local heads (JAX :439)."""
         hit = self._impl_by_bucket.get(bucket)
         if hit is not None:
             return hit
@@ -725,7 +888,7 @@ class LMEngine:
 
             if autotune.enabled():
                 rec = autotune.decide_decode_attn(
-                    (self.max_batch, self.n_head, self.head_dim),
+                    (self.max_batch, self.n_head // self.tp, self.head_dim),
                     self.page_size, bucket, self.model.wte.weight.dtype,
                     kv_dtype=self.cache.kp.dtype, device=self.device)
                 if rec is not None:
@@ -761,10 +924,17 @@ class LMEngine:
         raise TimeoutError(f"engine not idle after {timeout_s:g}s")
 
     def start(self):
-        """Drive the engine on a background thread until close()."""
+        """Drive the engine on a background thread until close() (a
+        follower's thread runs ``follow()``)."""
         if self._thread is not None:
             return self
         self._stop = False
+        if self._tp_rank:
+            self._thread = threading.Thread(
+                target=self.follow, name="bigdl-torch-serve-lm-follow",
+                daemon=True)
+            self._thread.start()
+            return self
 
         def loop():
             while not self._stop:
@@ -804,10 +974,12 @@ class LMEngine:
     def close(self):
         """Stop the loop and the queue; requests still queued or in
         flight finish with ``HANDOFF_ERROR`` so no client waits on
-        them."""
+        them.  A TP leader then ends its followers' loops; a follower
+        waits for that end."""
         self._stop = True
         if self._thread is not None:
-            self._thread.join(timeout=5.0)
+            # a follower's loop ends only at its leader's close
+            self._thread.join(timeout=None if self._tp_rank else 5.0)
             self._thread = None
         self.queue.close()
         with self._lock:
@@ -819,6 +991,9 @@ class LMEngine:
             self._stash.clear()
             for req in pending:
                 req.finish(HANDOFF_ERROR)
+            if not self._closed:
+                self._announce("stop")
+            self._closed = True
 
     # ------------------------------------------------------------- stats
     def stats(self) -> dict:
@@ -848,6 +1023,7 @@ class LMEngine:
             "manifest_sha": self.manifest_sha,
             "weight_swaps": self.swaps,
             "int8": self.int8,
+            "tp": self.tp,
             "preemptions": self._preemptions,
             "e2e_p50_s": pct(e2e, 50), "e2e_p99_s": pct(e2e, 99),
             "ttft_p50_s": pct(ttft, 50), "ttft_p99_s": pct(ttft, 99),

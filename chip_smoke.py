@@ -397,10 +397,36 @@ it runs; any failure exits non-zero:
     alternate blocks of one run, the ratio with two standard errors;
     (d) ``RingMultiHeadAttention`` at world 1 against the plain module,
     f32, T=4096, within 1e-5;
+25. tensor parallelism, TP-sharded decode, the pipeline and MoE
+    (``phase_tp_moe``, callable alone after ``phase_device()`` and
+    ``phase_build()``): (a) the paged decode kernel at a TP rank's
+    shape (B=8, H=4, Dh=64, P=16, f32) against its plain version at
+    phase 3's limit, bit-equal run to run, timed beside its bound; then
+    the flagship (phase 4's weights) served by ``LMEngine(tp=2,
+    decode_attn="kernel")`` as two rank processes on the one card over
+    gloo (``chip_smoke.py --tp-rank``, after phase 2's build, which
+    they load), rank 0 leading and rank 1 following, phase 4's 12
+    prompts and 32 new tokens: every token within 1e-3 of the top
+    logit of a dense forward, the exact matches with phase 4's tokens,
+    the flash prefill and paged decode launches of each rank (8 decode
+    launches a step), the ``serve_tp_psum`` bytes equal to their
+    formula, tokens/s beside phase 4's; (b) ``shard_params`` and the TP
+    forward and backward of the flagship at world 1 (``attn_impl=
+    "kernel"``, f32, B=4, T=512) against the dense model: logits and
+    every parameter gradient within 1e-5 of the largest, rows 1-3 8
+    launches each; (c) ``MoE`` (D=512, hidden 2048, 8 experts, top-2,
+    capacity 1.25, B=8, T=512, f32) against tokens routed to their
+    experts by index: output and aux loss within 1e-4, the input and
+    parameter gradients within 1e-4 of their largest in f64 (printed in
+    f32 too, where the ReLU's kink lets the two orders of summation
+    differ by a token's share), forward + backward ms; and
+    ``pipelined`` at world 1 against the stages in sequence (1e-5);
 9. the kernels line, last: one JSON object listing each kernel with its
    launches on its own path (phase 4, phase 22 (a) for the conv_bn
    kernels, or the kernel arm of phase 11) and its numbers from phase
-   3, 6 or 10 (rows 1-3 also phase 24 (a)'s offset times).
+   3, 6 or 10 (rows 1-3 also phase 24 (a)'s offset times; rows 1 and 6
+   phase 25 (a)'s launches on each TP rank and row 6 its times at H=4;
+   rows 1-3 phase 25 (b)'s launches).
 
 The last line is ``{"ok": true, "device": {...}}``, after the card's
 name and power limit and the script's total seconds.
@@ -1073,10 +1099,13 @@ def phase_decode(gen) -> dict:
                       f"{splits} splits")
 
 
+# phase 4's served tokens (tp=1), for phase 25 (a)
+_P4_TOKENS: list = []
 # phase 4's prompts (100-400 tokens, seed 0) and new tokens a request
 SERVE_PROMPT_LENS = [100, 400, 127, 260, 200, 350, 256, 130, 300, 120, 390,
                      250]
 SERVE_NEW_TOKENS = 32
+SERVE_MAX_BATCH = 8
 
 
 def _serving_prompts() -> list:
@@ -1099,7 +1128,7 @@ def _flagship(seed: int):
 def _lm_engine(model, decode_attn="kernel", **kw):
     from bigdl_tpu_torch.serving.engine import LMEngine
 
-    return LMEngine(model, max_batch=8, page_size=16,
+    return LMEngine(model, max_batch=SERVE_MAX_BATCH, page_size=16,
                     decode_attn=decode_attn, device=DEV, **kw)
 
 
@@ -1141,6 +1170,7 @@ def phase_main_path() -> tuple:
     launches = dict(_cuda.launches)
     st = eng.stats()
     eng.close()
+    _P4_TOKENS[:] = [r.tokens for r in reqs]
     say(f"phase 4 served {st['requests']} requests, {st['tokens']} tokens "
         f"in {wall:.3f} s; prefill buckets {buckets}; steps {st['steps']}; "
         f"preemptions {st['preemptions']}; launches {launches}")
@@ -7274,6 +7304,411 @@ def phase_seq_tuner(smi: str) -> dict:
         f"part {parts})")
     return rows
 
+# ---- phase 25: tensor parallelism, TP decode, the pipeline and MoE ---------
+TP_WORLD = 2
+TP_LM_BATCH, TP_LM_T = 4, 512
+MOE_CFG = dict(dim=512, hidden=2048, n_experts=8, top_k=2,
+               capacity_factor=1.25)
+MOE_BATCH, MOE_T = 8, 512
+MOE_TOL = 1e-4
+PIPE_STAGE_M, PIPE_STAGE_MB = 6, 8
+
+
+def _tp_rank_main(args) -> int:
+    """One rank of phase 25 (a): ``chip_smoke.py --tp-rank RANK STORE
+    OUT``.  Joins a gloo world of ``TP_WORLD`` over the ``FileStore``
+    STORE on the one card, builds the ``{"model": TP_WORLD}`` mesh and
+    the flagship's ``LMEngine(tp=TP_WORLD)`` (the kernels phase 2
+    built are loaded, not built), then leads phase 4's traffic (rank 0)
+    or follows it; writes its tokens, stats, wire bytes and launches
+    to the JSON file OUT."""
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch import obs
+    from bigdl_tpu_torch.engine import Engine
+    from bigdl_tpu_torch.ops import _cuda
+
+    rank, store, out = int(args[0]), args[1], args[2]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, TP_WORLD),
+                            rank=rank, world_size=TP_WORLD)
+    Engine.init(DEV)
+    Engine.build_mesh({"model": TP_WORLD})
+    eng = _lm_engine(_flagship(0), tp=TP_WORLD)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    res = {}
+    if rank == 0:
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, SERVE_NEW_TOKENS) for p in _serving_prompts()]
+        eng.run_until_idle(600)
+        torch.cuda.synchronize()
+        res["wall_s"] = time.perf_counter() - t0
+        res["tokens"] = [r.tokens for r in reqs]
+        res["errors"] = [r.error for r in reqs]
+        fam = obs.get_registry().counter("bigdl_collective_bytes_total",
+                                         labels=("op", "dtype"))
+        res["psum_bytes"] = fam.labels(op="serve_tp_psum",
+                                       dtype="float32").value
+    else:
+        eng.follow()
+        torch.cuda.synchronize()
+    st = eng.stats()
+    eng.close()
+    res["stats"] = {k: st[k] for k in ("steps", "tokens", "tokens_per_s",
+                                       "decode_ms_mean", "ttft_p50_s",
+                                       "preemptions")}
+    res["launches"] = dict(_cuda.launches)
+    with open(out, "w") as f:
+        json.dump(res, f)
+    Engine.reset()
+    dist.destroy_process_group()
+    return 0
+
+
+def _phase25_decode_kernel(gen) -> dict:
+    """(a) row 6 at a TP rank's local heads: the kernel against its
+    plain version, run twice bit-equal, timed beside its bound."""
+    from bigdl_tpu_torch.ops.decode_attention import (decode_splits,
+                                                      paged_decode,
+                                                      paged_decode_plain)
+
+    h = LM["n_head"] // TP_WORLD
+    q, kp, vp, tables, lengths = _decode_state(gen, torch.float32,
+                                               torch.float32, h=h)
+    out = paged_decode(q, kp, vp, tables, lengths, page_size=16)
+    again = paged_decode(q, kp, vp, tables, lengths, page_size=16)
+    torch.cuda.synchronize()
+    b, _, d = q.shape
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    splits = decode_splits(b, h, tables.shape[1], sms)
+    label = (f"paged_decode B={b} H={h} Dh={d} P=16 f32 bucket "
+             f"{tables.shape[1]} ({splits} splits)")
+    if not torch.equal(out, again):
+        raise AssertionError(f"phase 25 (a) {label}: two runs differ")
+    ref = paged_decode_plain(q, kp, vp, tables, lengths, page_size=16,
+                             scale=d ** -0.5)
+    err = (out - ref).abs().max().item()
+    check(f"phase 25 (a) {label}", err, F32_TOL)
+
+    def kernel():
+        paged_decode(q, kp, vp, tables, lengths, page_size=16)
+
+    ms = time_ms(kernel)
+    device_ms = time_ms(kernel, device_only=True)
+    plain = time_ms(lambda: paged_decode_plain(
+        q, kp, vp, tables, lengths, page_size=16, scale=d ** -0.5))
+    positions = int((lengths + 1).sum())
+    pages = int((lengths // 16 + 1).sum())
+    nbytes = (2 * b * h * d * 4 + 2 * positions * h * d * 4
+              + pages * 4 + b * 4)
+    b_ms, b_by = bound(nbytes, 4 * h * d * positions, torch.float32)
+    say(f"phase 25 (a) {label}: max abs err {err:.3e} (limit {F32_TOL:g}), "
+        f"bit-equal run to run; kernel {ms:.4f} ms a call, {device_ms:.4f} "
+        f"ms on the device ({b_ms / device_ms:.3f} of the bound), plain "
+        f"{plain:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    return dict(tp_shape=f"B={b} H={h} Dh={d} P=16 f32, {splits} splits",
+                tp_max_abs_err=err, tp_ms=ms, tp_device_ms=device_ms,
+                tp_plain_ms=plain, tp_bound_ms=b_ms, tp_bound_by=b_by)
+
+
+def _phase25_ranks(tmp: str) -> list:
+    """(a) the two rank processes; each one's JSON record."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    store = os.path.join(tmp, "store")
+    outs = [os.path.join(tmp, f"rank{r}.json") for r in range(TP_WORLD)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+         store, outs[r]], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(TP_WORLD)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 25 (a) rank {r} exited "
+                                 f"{p.returncode}: {log[-4000:]}")
+    recs = []
+    for o in outs:
+        with open(o) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def _phase25_tp_decode(recs, p4_stats, smi) -> dict:
+    """(a) the served tokens against a dense forward and phase 4's, the
+    launches and the wire bytes; the kernels line's additions."""
+    from bigdl_tpu_torch.obs import collectives as C
+
+    lead = recs[0]
+    prompts = _serving_prompts()
+    if any(lead["errors"]) or any(len(t) != SERVE_NEW_TOKENS
+                                  for t in lead["tokens"]):
+        raise AssertionError("phase 25 (a): a request failed or came back "
+                             "short")
+    model = _flagship(0)
+    gap = _top_logit_gap(model, prompts, lead["tokens"])
+    del model
+    exact = sum(a == b for a, b in zip(lead["tokens"], _P4_TOKENS))
+    steps = [r["stats"]["steps"] for r in recs]
+    dec = [r["launches"]["paged_decode"] for r in recs]
+    pre = [r["launches"]["flash_fwd"] for r in recs]
+    want_bytes = (C.all_reduce_bytes(SERVE_MAX_BATCH * LM["dim"],
+                                     "float32", TP_WORLD)
+                  * 2 * LM["n_layer"])
+    st = lead["stats"]
+    say(f"phase 25 (a) LMEngine(tp={TP_WORLD}) over gloo, two ranks on one "
+        f"card: {st['tokens']} tokens in {lead['wall_s']:.3f} s, steps "
+        f"{steps}, preemptions {st['preemptions']}; tokens/s "
+        f"{st['tokens_per_s']:.1f} (phase 4 at tp=1: "
+        f"{p4_stats['tokens_per_s']:.1f}), decode step "
+        f"{st['decode_ms_mean']:.3f} ms mean (phase 4: "
+        f"{p4_stats['decode_ms_mean']:.3f}), ttft p50 "
+        f"{st['ttft_p50_s'] * 1e3:.2f} ms; {smi}")
+    say(f"phase 25 (a) check: worst (top logit - served token's logit) "
+        f"{gap:.3e} (limit 1e-3); exact match with phase 4's tokens "
+        f"{exact}/{len(prompts)} requests; launches by rank: paged_decode "
+        f"{dec}, flash_fwd {pre}; serve_tp_psum {lead['psum_bytes']:.0f} "
+        f"bytes a step (formula {want_bytes:.0f})")
+    if gap > 1e-3:
+        raise AssertionError(f"phase 25 (a): a served token is off the top "
+                             f"logit by {gap}")
+    if steps[0] != steps[1] or any(
+            n != LM["n_layer"] * s for n, s in zip(dec, steps)):
+        raise AssertionError(f"phase 25 (a): paged_decode launches {dec} "
+                             f"for steps {steps}")
+    if min(pre) <= 0:
+        raise AssertionError(f"phase 25 (a): flash_fwd launches {pre}")
+    if lead["psum_bytes"] != want_bytes:
+        raise AssertionError(f"phase 25 (a): serve_tp_psum "
+                             f"{lead['psum_bytes']} != {want_bytes}")
+    return {"flash_fwd": {"tp_launches": pre},
+            "paged_decode": {"tp_launches": dec}}
+
+
+def _phase25_tp_lm(smi) -> dict:
+    """(b) the flagship's TP forward and backward over ``shard_params``
+    at world 1 against the dense model; rows 1-3's launches."""
+    from bigdl_tpu_torch.engine import Engine
+    from bigdl_tpu_torch.ops import _cuda
+    from bigdl_tpu_torch.parallel import shard_params
+    from bigdl_tpu_torch.parallel.tensor_parallel import (_tree_map,
+                                                          tp_lm_forward)
+
+    mesh = Engine.build_mesh({"model": 1})
+    model = _flagship(0)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(25)
+    tokens = torch.randint(0, 8192, (TP_LM_BATCH, TP_LM_T), generator=gen,
+                           device=DEV)
+    ct = torch.randn((TP_LM_BATCH, TP_LM_T, 8192), generator=gen, device=DEV)
+    leaves = _tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                       shard_params(model.params(), mesh))
+    names = [n for n, _ in model.named_parameters()]
+
+    def flat(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, f"{prefix}{k}.") if isinstance(v, dict)
+                       else {f"{prefix}{k}": v})
+        return out
+
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    out = tp_lm_forward(model, leaves, tokens, mesh)
+    (out * ct).sum().backward()
+    torch.cuda.synchronize()
+    launches = {k: _cuda.launches[k]
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    dense = model(tokens)
+    (dense * ct).sum().backward()
+    err = ((out - dense).abs().max() / dense.abs().max()).item()
+    tp_grads = flat(_tree_map(lambda t: t.grad, leaves))
+    scale = max(p.grad.abs().max().item() for p in model.parameters())
+    gerr = max((tp_grads[n] - p.grad).abs().max().item()
+               for n, p in model.named_parameters()) / scale
+    if set(tp_grads) != set(names):
+        raise AssertionError("phase 25 (b): gradient trees differ")
+
+    def tp_step():
+        o = tp_lm_forward(model, leaves, tokens, mesh)
+        torch.autograd.grad((o * ct).sum(), list(flat(leaves).values()))
+
+    def dense_step():
+        o = model(tokens)
+        torch.autograd.grad((o * ct).sum(), list(model.parameters()))
+
+    tp_ms = time_ms(tp_step, reps=5, warmup=1)
+    dense_ms = time_ms(dense_step, reps=5, warmup=1)
+    say(f"phase 25 (b) TP forward + backward of the flagship over "
+        f"shard_params at world 1, B={TP_LM_BATCH} T={TP_LM_T} f32: logits "
+        f"{err:.3e} of the largest, parameter gradients {gerr:.3e} of the "
+        f"largest (limit {F32_TOL:g}); launches {launches}; {tp_ms:.3f} ms "
+        f"a step (dense model {dense_ms:.3f} ms); {smi}")
+    check("phase 25 (b) TP logits", err, F32_TOL)
+    check("phase 25 (b) TP gradients", gerr, F32_TOL)
+    if any(n != LM["n_layer"] for n in launches.values()):
+        raise AssertionError(f"phase 25 (b): launches {launches}")
+    return {k: {"tp_lm_launches": n} for k, n in launches.items()}
+
+
+def _moe_by_index(m, x):
+    """MoE's function with every token sent to its experts by index: the
+    routing order of ``MoE`` (argmax, then argmax of the rest), each
+    expert's kept tokens gathered, run through its FFN and added back
+    weighted by their gate, top-2 renormalized by the kept gates."""
+    s_, d = x.shape[0] * x.shape[1], x.shape[2]
+    e, k = m.n_experts, m.top_k
+    cap = max(1, int(np.ceil(m.capacity_factor * s_ * k / e)))
+    xs = x.reshape(s_, d)
+    probs = torch.softmax(xs @ m.gate, dim=-1)
+    avail = probs.detach().clone()
+    rows = torch.arange(s_, device=x.device)
+    y = torch.zeros_like(xs)
+    kept_gate = probs.new_zeros(s_)
+    taken = [0] * e
+    frac = probs.new_zeros(e)
+    for _ in range(k):
+        choice = avail.argmax(dim=-1)
+        frac = frac + torch.bincount(choice, minlength=e).float() / s_
+        for j in range(e):
+            idx = (choice == j).nonzero()[:, 0]
+            kept = idx[:max(0, cap - taken[j])]
+            taken[j] += idx.numel()
+            h = torch.relu(xs[kept] @ m.w_in[j] + m.b_in[j])
+            gate = probs[kept, j]
+            y = y.index_add(0, kept, (h @ m.w_out[j] + m.b_out[j])
+                            * gate[:, None])
+            kept_gate = kept_gate.index_add(0, kept, gate)
+        avail[rows, choice] = 0.0
+    if k > 1:
+        y = y / kept_gate.clamp_min(1e-9)[:, None]
+    aux = m.aux_loss_weight * e * torch.sum(frac / k * probs.mean(dim=0))
+    return y.reshape(x.shape), aux
+
+
+def _phase25_moe_pipe(smi) -> None:
+    """(c) MoE against routing by index, and ``pipelined`` at world 1."""
+    import copy
+
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.engine import Engine
+    from bigdl_tpu_torch.parallel import MoE, pipelined
+
+    RandomGenerator.RNG.set_seed(25)
+    m = MoE(**MOE_CFG).to(DEV)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(25)
+    x = torch.randn((MOE_BATCH, MOE_T, MOE_CFG["dim"]), generator=gen,
+                    device=DEV)
+    names = ["input"] + [n for n, _ in m.named_parameters()]
+
+    def compare(mod, xs):
+        """(output gap, aux gap, each gradient's gap over its largest)
+        of ``mod`` against routing by index, on ``xs``."""
+        res = []
+        for fn in (mod.forward_with_aux, lambda t: _moe_by_index(mod, t)):
+            xi = xs.clone().requires_grad_(True)
+            y, aux = fn(xi)
+            grads = torch.autograd.grad(y.square().sum() + aux,
+                                        [xi] + list(mod.parameters()))
+            res.append((y.detach(), aux.item(), grads))
+        (y, aux, g), (ry, raux, rg) = res
+        gaps = {n: ((a - b).abs().max() / b.abs().max()).item()
+                for n, a, b in zip(names, g, rg)}
+        return (y - ry).abs().max().item(), abs(aux - raux), gaps, y
+
+    err, aux_err, gaps32, y = compare(m, x)
+    kept = int((y.abs().sum(-1) > 0).sum())
+    # the gradients, gated in f64: in f32 the two orders of summation
+    # put a few pre-activations on either side of the ReLU's kink, and
+    # each such token moves its expert's gradient by its own share
+    _, _, gaps64, _ = compare(copy.deepcopy(m).double(), x.double())
+    params = list(m.parameters())
+
+    def step():
+        xi = x.clone().requires_grad_(True)
+        yy, aa = m.forward_with_aux(xi)
+        torch.autograd.grad(yy.square().sum() + aa, [xi] + params)
+
+    ms = time_ms(step, reps=5, warmup=1)
+    cap = int(np.ceil(MOE_CFG["capacity_factor"] * MOE_BATCH * MOE_T
+                      * MOE_CFG["top_k"] / MOE_CFG["n_experts"]))
+    fmt = lambda gaps: ", ".join(f"{n} {v:.3e}" for n, v in gaps.items())
+    say(f"phase 25 (c) {m!r} B={MOE_BATCH} T={MOE_T} f32, capacity {cap}: "
+        f"output {err:.3e} (limit {MOE_TOL:g}), aux loss {aux_err:.3e} "
+        f"against routing by index; {kept}/{MOE_BATCH * MOE_T} tokens kept; "
+        f"forward + backward {ms:.3f} ms; {smi}")
+    say(f"phase 25 (c) gradients over their largest, f32 (not gated): "
+        f"{fmt(gaps32)}; f64 (limit {MOE_TOL:g}): {fmt(gaps64)}")
+    check("phase 25 (c) MoE output", err, MOE_TOL)
+    check("phase 25 (c) MoE aux loss", aux_err, MOE_TOL)
+    check("phase 25 (c) MoE gradients (f64)", max(gaps64.values()), MOE_TOL)
+
+    mesh = Engine.build_mesh({"pipe": 1})
+    d = LM["dim"]
+    stacked = {"w": torch.randn((1, d, d), generator=gen, device=DEV)
+               * d ** -0.5,
+               "b": torch.randn((1, d), generator=gen, device=DEV) * 0.1}
+    xp = torch.randn((PIPE_STAGE_M, PIPE_STAGE_MB, d), generator=gen,
+                     device=DEV)
+    out = pipelined(lambda p, a: torch.tanh(a @ p["w"] + p["b"]), mesh,
+                    "pipe")(stacked, xp)
+    ref = torch.tanh(xp @ stacked["w"][0] + stacked["b"][0])
+    perr = (out - ref).abs().max().item()
+    say(f"phase 25 (c) pipelined at world 1, M={PIPE_STAGE_M} "
+        f"mb={PIPE_STAGE_MB} D={d}: {perr:.3e} against the stage in "
+        f"sequence (limit {F32_TOL:g})")
+    check("phase 25 (c) pipelined", perr, F32_TOL)
+
+
+def phase_tp_moe(smi: str, p4_stats: dict) -> dict:
+    """Phase 25: (a) TP decode on two ranks of the card, (b) the TP LM,
+    (c) MoE and the pipeline; callable alone after ``phase_device()``,
+    ``phase_build()`` and ``phase_main_path()``.  Returns rows 1-3's and
+    6's kernels-line additions."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.engine import Engine
+
+    t_phase = time.perf_counter()
+    parts, rows = {}, {}
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(25)
+    t0 = time.perf_counter()
+    rows["paged_decode"] = _phase25_decode_kernel(gen)
+    tmp = tempfile.mkdtemp(prefix="phase25_")
+    try:
+        recs = _phase25_ranks(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, extra in _phase25_tp_decode(recs, p4_stats, smi).items():
+        rows.setdefault(name, {}).update(extra)
+    parts["a"] = round(time.perf_counter() - t0, 1)
+    Engine.reset()
+    Engine.init(DEV)
+    try:
+        t0 = time.perf_counter()
+        for name, extra in _phase25_tp_lm(smi).items():
+            rows.setdefault(name, {}).update(extra)
+        parts["b"] = round(time.perf_counter() - t0, 1)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        _phase25_moe_pipe(smi)
+        parts["c"] = round(time.perf_counter() - t0, 1)
+    finally:
+        Engine.reset()
+    torch.cuda.empty_cache()
+    print(smi, flush=True)
+    say(f"phase 25 took {time.perf_counter() - t_phase:.1f} s (seconds by "
+        f"part {parts})")
+    return rows
+
 
 def _has_pillow() -> bool:
     try:
@@ -7289,6 +7724,8 @@ def main() -> int:
         return 2
     import bigdl_tpu_torch  # noqa: F401  (fails where the checkout is missing)
 
+    if sys.argv[1:2] == ["--tp-rank"]:
+        return _tp_rank_main(sys.argv[2:])
     t_start = time.perf_counter()
 
     smi = phase_device()
@@ -7328,8 +7765,10 @@ def main() -> int:
     launches.update(phase_distri_resilience(smi))
     phase_item16(smi)
     offsets = phase_seq_tuner(smi)
+    tp_rows = phase_tp_moe(smi, serve_stats)
     for k in kernels:
         k.update(offsets.get(k["name"], {}))
+        k.update(tp_rows.get(k["name"], {}))
         k["launches"] = launches[k["name"]]
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on its path")

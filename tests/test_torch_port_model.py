@@ -315,9 +315,7 @@ WAITING = {
                 "IfElse", "LoopCondition", "MergeOps", "NextIteration",
                 "SwitchOps", "WhileLoop",
                 "dump_flight_recorder", "flight_bundle", "gate", "main"},
-    "item 11": {"shard_params", "constrain", "param_specs", "gradient_psum",
-                "wire_psum", "TRANSFORMER_TP_RULES", "pipeline_apply",
-                "pipelined", "MoE"},
+    "item 11": set(),
 }
 
 

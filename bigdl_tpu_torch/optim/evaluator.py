@@ -28,7 +28,10 @@ from bigdl_tpu_torch.dataset import to_dataset
 
 
 def _forward(model, inp, dev) -> np.ndarray:
-    x = torch.as_tensor(np.asarray(inp), device=dev)
+    if isinstance(inp, tuple):                  # a table input
+        x = tuple(torch.as_tensor(np.asarray(p), device=dev) for p in inp)
+    else:
+        x = torch.as_tensor(np.asarray(inp), device=dev)
     return model(x).float().cpu().numpy()
 
 
@@ -74,13 +77,25 @@ def _allreduce_results(results, dataset, dev):
 
 def predict(model, features, batch_size: int = 32, device="cuda"):
     """The eval-mode outputs over ``features`` in batches, stacked on the
-    host (JAX ``predict``; array input only)."""
+    host (JAX ``predict``).  A tuple of arrays is a table input, one
+    array per graph input, batched together."""
     dev = resolve_device(device)
     model.to(dev).evaluate()
-    feats = np.asarray(features)
+    if isinstance(features, tuple):
+        parts = [np.asarray(f) for f in features]
+        n = parts[0].shape[0]
+
+        def batch(b):
+            return tuple(p[b:b + batch_size] for p in parts)
+    else:
+        feats = np.asarray(features)
+        n = feats.shape[0]
+
+        def batch(b):
+            return feats[b:b + batch_size]
     with torch.no_grad():
-        outs = [_forward(model, feats[b:b + batch_size], dev)
-                for b in range(0, feats.shape[0], batch_size)]
+        outs = [_forward(model, batch(b), dev)
+                for b in range(0, n, batch_size)]
     return np.concatenate(outs, axis=0)
 
 

@@ -391,8 +391,9 @@ def _module_to_writer(module) -> _WireWriter:
 def _write_graph(w: _WireWriter, graph) -> None:
     """Graph wiring via preModules/nextModules name lists (reference:
     StaticGraph serialization), each node named ``<name>#<topological
-    index>``.  ``DynamicGraph`` (its feedback edges and condition node)
-    is not ported yet (ROADMAP.md queue 1 item 12)."""
+    index>``.  A ``DynamicGraph``'s feedback edges and condition node
+    ride as named attrs (``feedbackFrom``, ``dynamicCondition``), as
+    JAX writes them, and ``maxIterations`` with its config."""
     names = {}
     for i, node in enumerate(graph.topo_order()):
         names[node.id] = f"{_name_of(node.module)}#{i}"
@@ -401,6 +402,11 @@ def _write_graph(w: _WireWriter, graph) -> None:
         sub.string(_M_NAMEPOSTFIX, names[node.id])
         for p in node.prev_nodes:
             sub.string(_M_PREMODULES, names[p.id])
+        if node.feedback_node is not None:
+            entry = _WireWriter()
+            entry.string(1, "feedbackFrom")
+            entry.message(2, _write_attr(names[node.feedback_node.id]))
+            sub.message(_M_ATTR, entry)
         w.message(_M_SUBMODULES, sub)
     # record input/output node names as attrs
     for key, nodes in (("graphInputs", graph.input_nodes),
@@ -416,6 +422,12 @@ def _write_graph(w: _WireWriter, graph) -> None:
             arr.string(_AR_STR, names[n.id])
         val.message(_A_ARRAY, arr)
         entry.message(2, val)
+        w.message(_M_ATTR, entry)
+    cond = getattr(graph, "_condition_node", None)
+    if cond is not None:
+        entry = _WireWriter()
+        entry.string(1, "dynamicCondition")
+        entry.message(2, _write_attr(names[cond.id]))
         w.message(_M_ATTR, entry)
 
 
@@ -498,6 +510,7 @@ def _module_from_fields(f: Dict[int, list]):
         raw_attrs[key] = _read_attr(vals[0])
         attrs[_attr_from_scala(key)] = raw_attrs[key]
 
+    attrs.pop("feedback_from", None)       # a graph node's back-edge
     subs = _w_msgs(f, _M_SUBMODULES)
     if issubclass(cls, Graph):
         module = _graph_from_fields(f, subs, raw_attrs, cls)
@@ -553,9 +566,6 @@ def _sub_attr(sub, key: str):
 def _graph_from_fields(f, subs, raw_attrs, cls=None):
     from bigdl_tpu_torch.nn.graph import DynamicGraph, Graph, Node
 
-    if cls is not None and issubclass(cls, DynamicGraph):
-        raise NotImplementedError(
-            "DynamicGraph is not ported yet (ROADMAP.md queue 1 item 12)")
     nodes = {}
     wiring = []
     for sub in subs:
@@ -564,8 +574,17 @@ def _graph_from_fields(f, subs, raw_attrs, cls=None):
         wiring.append((post, _w_strs(sub, _M_PREMODULES)))
     for post, prevs in wiring:
         nodes[post].prev_nodes.extend(nodes[p] for p in prevs)
+    for sub in subs:
+        fb = _sub_attr(sub, "feedbackFrom")
+        if fb:
+            nodes[_w_str(sub, _M_NAMEPOSTFIX, "")].feedback_from(nodes[fb])
     inputs = [nodes[n] for n in raw_attrs.get("graphInputs", [])]
     outputs = [nodes[n] for n in raw_attrs.get("graphOutputs", [])]
+    if cls is not None and issubclass(cls, DynamicGraph):
+        cond_name = raw_attrs.get("dynamicCondition")
+        return cls(inputs, outputs,
+                   max_iterations=int(raw_attrs.get("maxIterations", 32)),
+                   condition=nodes.get(cond_name) if cond_name else None)
     return Graph(inputs, outputs)
 
 

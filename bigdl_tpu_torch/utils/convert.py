@@ -10,7 +10,12 @@ port model, so that both packages compute with the same weights; a
 ``Sequential`` (ResNet, the autoencoder) nests by child index,
 ``"0"``, ``"1"``, ..., as the JAX ``Container.params()`` does, and a
 ``Graph`` (NCF, Inception) by its nodes' topological index, as the
-JAX ``Graph`` does.  ``load_jax_state`` does the
+JAX ``Graph`` does.  The control containers nest the same way:
+``IfElse`` and ``WhileLoop`` hold their two children as ``"0"`` and
+``"1"``, and a ``DynamicGraph`` nests by the topological index of its
+widened sort (the condition node and the feedback sources included).
+A keras ``Sequential`` or ``Model`` carries its weights in ``.core``
+(the JAX keras model's ``.core.params()``).  ``load_jax_state`` does the
 same for the BN running statistics of ``model.state()``.  Every layer
 keeps its JAX parameter names and layouts (``LocallyConnected2D``'s
 ``(O, I·kh·kw, oh, ow)``, ``Maxout``'s ``(in, k·out)``,
@@ -54,6 +59,7 @@ def load_jax_params(model, tree) -> None:
     place, onto the model's device and dtype.  Every parameter of the
     model must find its leaf in the tree: the transformer's names, or a
     ``Sequential``'s child indices (fused models too)."""
+    model = getattr(model, "core", model)
     params = params_from_jax(tree)
     missing = _missing(model.params(), params)
     if missing:
@@ -64,6 +70,7 @@ def load_jax_params(model, tree) -> None:
 def load_jax_state(model, tree) -> None:
     """Copy a JAX ``model.state()`` tree (BN running mean and variance,
     numpy leaves) into the model's buffers, as ``load_jax_params``."""
+    model = getattr(model, "core", model)
     state = params_from_jax(tree)
     missing = _missing(model.state(), state)
     if missing:

@@ -23,8 +23,9 @@ and its ``bigdl_checkpoint_*`` metrics, runs the fault injector's
 stream's trained frontier in the manifest (``read_checkpoint_stream``).
 ``snapshot_checkpoint(to_host=True)`` returns numpy copies finished
 before it returns, so a background writer thread holds nothing the
-trainer changes in place.  ``DynamicGraph`` specs are not ported yet
-(ROADMAP.md queue 1 item 12).
+trainer changes in place.  A ``DynamicGraph``'s spec adds its nodes'
+feedback edges, its condition node and ``max_iterations`` (JAX
+:123-140).
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch import obs
-from bigdl_tpu_torch.nn.graph import Graph, Node
+from bigdl_tpu_torch.nn.graph import DynamicGraph, Graph, Node
 from bigdl_tpu_torch.nn.module import AbstractModule, Container
 from bigdl_tpu_torch.obs import names
 from bigdl_tpu_torch.utils import tree as T
@@ -100,12 +101,20 @@ def module_to_spec(module: AbstractModule) -> dict:
     if isinstance(module, Graph):
         topo = module.topo_order()
         index = {n.id: i for i, n in enumerate(topo)}
+        nodes = []
+        for n in topo:
+            nd = {"module": module_to_spec(n.module),
+                  "prev": [index[p.id] for p in n.prev_nodes]}
+            if n.feedback_node is not None:
+                nd["feedback"] = index[n.feedback_node.id]
+            nodes.append(nd)
         spec["graph"] = {
-            "nodes": [{"module": module_to_spec(n.module),
-                       "prev": [index[p.id] for p in n.prev_nodes]}
-                      for n in topo],
+            "nodes": nodes,
             "inputs": [index[n.id] for n in module.input_nodes],
             "outputs": [index[n.id] for n in module.output_nodes]}
+        cond = getattr(module, "_condition_node", None)
+        if cond is not None:
+            spec["graph"]["condition"] = index[cond.id]
     elif isinstance(module, Container):
         spec["children"] = [module_to_spec(m) for m in module.modules]
     return spec
@@ -115,16 +124,22 @@ def spec_to_module(spec: dict) -> AbstractModule:
     cls = lookup_module_class(spec["class"])
     if "graph" in spec:
         g = spec["graph"]
-        if cls is not Graph:
-            raise NotImplementedError(
-                f"{spec['class']} specs are not ported yet (ROADMAP.md "
-                "queue 1 item 12)")
         nodes = []
         for nd in g["nodes"]:
             nodes.append(Node(spec_to_module(nd["module"]),
                               [nodes[i] for i in nd["prev"]]))
-        module = Graph([nodes[i] for i in g["inputs"]],
-                       [nodes[i] for i in g["outputs"]])
+        for nd, node in zip(g["nodes"], nodes):
+            if "feedback" in nd:
+                node.feedback_from(nodes[nd["feedback"]])
+        inputs = [nodes[i] for i in g["inputs"]]
+        outputs = [nodes[i] for i in g["outputs"]]
+        if issubclass(cls, DynamicGraph):
+            module = cls(inputs, outputs,
+                         condition=(nodes[g["condition"]]
+                                    if "condition" in g else None),
+                         **spec.get("config", {}))
+        else:
+            module = Graph(inputs, outputs)
     else:
         config = dict(spec.get("config", {}))
         # a port class that places itself (``device=``, the flagship)

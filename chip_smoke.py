@@ -421,6 +421,31 @@ it runs; any failure exits non-zero:
     f32 too, where the ReLU's kink lets the two orders of summation
     differ by a token's share), forward + backward ms; and
     ``pipelined`` at world 1 against the stages in sequence (1e-5);
+26. control flow and the model front ends (``phase_front_ends``), no
+    kernel of ``csrc/``: (a) VGG-16 at full width (seed 0, LogSoftMax
+    kept) through ``to_graph`` -> ``TensorflowSaver`` ->
+    ``TensorflowLoader`` on the card, GraphDef nodes, bytes and
+    seconds, the loaded forward at batch 8 within 1e-5 of the exported
+    graph's and at batch 2 within 3e-5 of the CPU's (TF32 on printed as
+    the control); (b) ``TFTrainingSession(...).train`` of that graph
+    through ``LocalOptimizer`` (ClassNLLCriterion, SGD 0.01 momentum
+    0.9, batch 32, 1 + 5 steps, cuDNN deterministic) beside the source
+    ``Sequential`` with its Dropout off: every loss finite and within
+    1e-5 relative of the source's, step ms, images/s and peak memory of
+    both; (c) the weights as a Torch7 ``nn.Sequential`` through
+    ``save_t7`` -> ``load_t7`` -> ``load_torch_module``, batch 8 within
+    1e-5; (d) VGG-16 as a Keras-1.2.2 JSON config through
+    ``model_from_json`` and ``set_weights``, its softmax within 1e-5 of
+    ``exp`` of the source's at batch 8, then ``compile("sgd",
+    "categorical_crossentropy")`` and ``fit`` over 6 batches of 32;
+    (e) a TF Switch/Merge conditional and a while frame imported on the
+    card and on the CPU, forward and input gradient within 1e-5 both
+    ways, ``IfElse`` and ``WhileLoop`` forward, ``WhileLoop``'s refused
+    backward, the ``DynamicGraph``'s forward at ``max_iterations`` 32
+    against a body that stops after 3, timed beside 3 plain iterations;
+    (f) ``mnist_cnn``, ``finetune_frozen_graph`` and
+    ``train_from_tf_pipeline`` in child processes at their defaults, 2
+    epochs: every loss finite, the accuracy each returns, seconds;
 9. the kernels line, last: one JSON object listing each kernel with its
    launches on its own path (phase 4, phase 22 (a) for the conv_bn
    kernels, or the kernel arm of phase 11) and its numbers from phase
@@ -7710,6 +7735,546 @@ def phase_tp_moe(smi: str, p4_stats: dict) -> dict:
     return rows
 
 
+# ---- phase 26: control flow and the model front ends -----------------------
+# (a) VGG-16 (seed 0, LogSoftMax kept) through to_graph -> TensorflowSaver
+# -> TensorflowLoader on the card: the forward at batch 8 against the
+# exported graph's and at batch 2 against the card machine's CPU, at phase
+# 16's limits; (b) TFTrainingSession fine-tunes the loaded graph through
+# LocalOptimizer (ClassNLLCriterion, SGD 0.01 momentum 0.9, batch 32, 1 + 5
+# steps, cuDNN deterministic) beside the source Sequential with its
+# Dropout off (the frozen graph exports Dropout as Identity): each loss
+# within P26_LOSS_TOL relative of the source's; (c) the weights as an
+# nn.Sequential TorchObject tree through save_t7 -> load_t7 ->
+# load_torch_module, batch 8; (d) VGG-16 as a Keras-1.2.2 JSON config,
+# eval output against exp of the source's at batch 8, then compile("sgd",
+# "categorical_crossentropy") and fit P26_KERAS_STEPS batches of 32;
+# (e) a TF while frame and a Switch/Merge conditional at (64, 512) with a
+# 512x512 weight, imported on the card and on the CPU: forward and input
+# gradient within 1e-5 (relative to the largest); the DynamicGraph's
+# forward at max_iterations 32 against a body that stops after 3, timed
+# beside 3 plain iterations; (f) the three example scripts in child
+# processes at their defaults, cut to 2 epochs
+P26_FWD_BATCH, P26_CPU_BATCH, P26_BATCH, P26_STEPS = 8, 2, 32, 5
+P26_LOSS_TOL, P26_T7_TOL, P26_KERAS_TOL, P26_FLOW_TOL = 1e-5, 1e-5, 1e-5, 1e-5
+P26_KERAS_STEPS, P26_FLOW_N, P26_FLOW_D, P26_LOOP_MAX = 6, 64, 512, 32
+P26_EXAMPLES = [("mnist_cnn", ["--nb-epoch", "2"]),
+                ("finetune_frozen_graph", ["--max-epoch", "2"]),
+                ("train_from_tf_pipeline", ["--max-epoch", "2"])]
+
+_EXAMPLE_RUNNER = r"""
+import importlib, json, math, sys
+from bigdl_tpu_torch.optim import distri_optimizer as D, optimizer as O
+losses = []
+
+
+class Rec:
+    def add_scalar(self, tag, value, step):
+        if tag == "Loss":
+            losses.append(float(value))
+
+
+for cls in (O.LocalOptimizer, D.DistriOptimizer):
+    def optimize(self, _real=cls.optimize):
+        if self.train_summary is None:
+            self.set_train_summary(Rec())
+        return _real(self)
+    cls.optimize = optimize
+out, name = sys.argv[1], sys.argv[2]
+value = importlib.import_module("bigdl_tpu_torch.examples." + name).main(
+    sys.argv[3:])
+with open(out, "w") as f:
+    json.dump({"value": value, "losses": losses}, f)
+"""
+
+
+class _P26Losses(_Losses):
+    """Each step's loss and the wall clock when it was read."""
+
+    def __init__(self):
+        super().__init__()
+        self.at = {}
+
+    def add_scalar(self, tag, value, step):
+        super().add_scalar(tag, value, step)
+        if tag == "Loss":
+            self.at[step] = time.perf_counter()
+
+
+@contextlib.contextmanager
+def _p26_recorded(rec):
+    """Every ``LocalOptimizer`` made inside reports to ``rec``."""
+    from bigdl_tpu_torch.optim import optimizer as O
+
+    real = O.LocalOptimizer.optimize
+
+    def optimize(self):
+        if self.train_summary is None:
+            self.set_train_summary(rec)
+        return real(self)
+
+    O.LocalOptimizer.optimize = optimize
+    try:
+        yield rec
+    finally:
+        O.LocalOptimizer.optimize = real
+
+
+@contextlib.contextmanager
+def _deterministic():
+    b = torch.backends.cudnn
+    was = (b.deterministic, b.benchmark)
+    b.deterministic, b.benchmark = True, False
+    try:
+        yield
+    finally:
+        b.deterministic, b.benchmark = was
+
+
+def _rel_gap(a, b) -> float:
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _p26_images(n, seed):
+    rs = np.random.RandomState(seed)
+    x = rs.randn(n, 3, CAFFE_IMG, CAFFE_IMG).astype(np.float32)
+    y = (rs.randint(0, 1000, n) + 1).astype(np.float32)
+    return x, y
+
+
+def _p26_tf(model, tmp, smi):
+    """(a): the TF round trip.  Returns the GraphDef's path."""
+    from bigdl_tpu_torch.utils.tf_interop import (TensorflowLoader,
+                                                  TensorflowSaver,
+                                                  parse_graphdef)
+
+    graph = model.to_graph().evaluate()
+    path = os.path.join(tmp, "vgg16.pb")
+    t0 = time.perf_counter()
+    TensorflowSaver.save(graph, path)
+    save_s = time.perf_counter() - t0
+    with open(path, "rb") as f:
+        n_nodes = len(parse_graphdef(f.read()))
+    t0 = time.perf_counter()
+    loaded = TensorflowLoader(path, device=DEV).load().evaluate()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    x = torch.randn(P26_FWD_BATCH, 3, CAFFE_IMG, CAFFE_IMG,
+                    generator=torch.Generator().manual_seed(26)).to(DEV)
+    with torch.no_grad():
+        ref, y = graph(x), loaded(x)
+        card = _rel_gap(y, ref)
+        cpu_graph = TensorflowLoader(path, device="cpu").load().evaluate()
+        xc = x[:P26_CPU_BATCH].cpu()
+        yc = cpu_graph(xc)
+        cpu = _rel_gap(y[:P26_CPU_BATCH], yc)
+        with _tf32():
+            tf32 = _rel_gap(loaded(x[:P26_CPU_BATCH]), yc)
+    say(f"phase 26 (a) VGG-16 to_graph ({len(graph.topo_order())} nodes) "
+        f"-> TensorflowSaver: {n_nodes} GraphDef nodes, "
+        f"{os.path.getsize(path)} bytes in {save_s:.2f} s; "
+        f"TensorflowLoader on the card {load_s:.2f} s "
+        f"({len(loaded.topo_order())} nodes); forward at batch "
+        f"{P26_FWD_BATCH} against the exported graph's, relative "
+        f"{card:.3e} (limit {CAFFE_CARD_TOL:g}); against the CPU's at "
+        f"batch {P26_CPU_BATCH} {cpu:.3e} (limit {CAFFE_CPU_TOL:g}); with "
+        f"TF32 on (the control) {tf32:.3e}, "
+        f"{'over' if tf32 > CAFFE_CPU_TOL else 'within'} the limit [{smi}]")
+    if not card <= CAFFE_CARD_TOL or not cpu <= CAFFE_CPU_TOL:
+        raise AssertionError("VGG-16: the loaded GraphDef off the exported "
+                             "graph")
+    if tuple(y.shape) != (P26_FWD_BATCH, 1000) or \
+            not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"VGG-16 GraphDef forward {tuple(y.shape)}")
+    return path
+
+
+def _p26_t7(model, tmp, smi):
+    """(c): the source's weights as a Torch7 ``nn.Sequential``."""
+    from bigdl_tpu_torch.nn import layers as L
+    from bigdl_tpu_torch.utils.torch_file import (TorchObject, load_t7,
+                                                  load_torch_module, save_t7)
+
+    def obj(m):
+        if isinstance(m, L.SpatialConvolution):
+            return TorchObject("nn.SpatialConvolution", {
+                "nInputPlane": m.n_input_plane,
+                "nOutputPlane": m.n_output_plane, "kW": m.kernel_w,
+                "kH": m.kernel_h, "dW": m.stride_w, "dH": m.stride_h,
+                "padW": m.pad_w, "padH": m.pad_h,
+                "weight": m.weight, "bias": m.bias})
+        if isinstance(m, L.SpatialMaxPooling):
+            return TorchObject("nn.SpatialMaxPooling", {
+                "kW": m.kw, "kH": m.kh, "dW": m.dw, "dH": m.dh})
+        if isinstance(m, L.Linear):
+            return TorchObject("nn.Linear", {"weight": m.weight,
+                                             "bias": m.bias})
+        if isinstance(m, L.Reshape):
+            return TorchObject("nn.Reshape", {"size": np.asarray(m.size)})
+        if isinstance(m, L.Dropout):
+            return TorchObject("nn.Dropout", {"p": m.p})
+        return TorchObject("nn." + type(m).__name__, {})
+
+    tree = TorchObject("nn.Sequential",
+                       {"modules": [obj(m) for m in model.modules]})
+    path = os.path.join(tmp, "vgg16.t7")
+    t0 = time.perf_counter()
+    save_t7(path, tree)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_torch_module(load_t7(path), device=DEV).evaluate()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    x = torch.randn(P26_FWD_BATCH, 3, CAFFE_IMG, CAFFE_IMG,
+                    generator=torch.Generator().manual_seed(27)).to(DEV)
+    model.evaluate()
+    with torch.no_grad():
+        gap = _rel_gap(loaded(x), model(x))
+    say(f"phase 26 (c) VGG-16 as a Torch7 nn.Sequential: save_t7 "
+        f"{os.path.getsize(path)} bytes in {save_s:.2f} s; load_t7 + "
+        f"load_torch_module on the card {load_s:.2f} s; forward at batch "
+        f"{P26_FWD_BATCH} against the source's, relative {gap:.3e} (limit "
+        f"{P26_T7_TOL:g}) [{smi}]")
+    if not gap <= P26_T7_TOL:
+        raise AssertionError("VGG-16 .t7 forward off the source's")
+
+
+def _p26_keras_json(model) -> str:
+    """The source ``Sequential`` as a Keras-1.2.2 ``Sequential`` config:
+    each conv + ReLU a ``Convolution2D(border_mode="same",
+    activation="relu")``, each pool a ``MaxPooling2D``, the reshape a
+    ``Flatten``, each hidden ``Linear`` + ReLU a ``Dense(activation=
+    "relu")``, each ``Dropout`` one, and the head ``Dense`` +
+    ``Activation("softmax")``."""
+    from bigdl_tpu_torch.nn import layers as L
+
+    mods, layers = list(model.modules), []
+    for i, m in enumerate(mods):
+        name = f"l{i}"
+        relu = i + 1 < len(mods) and isinstance(mods[i + 1], L.ReLU)
+        if isinstance(m, L.SpatialConvolution):
+            cfg = {"name": name, "nb_filter": m.n_output_plane,
+                   "nb_row": m.kernel_h, "nb_col": m.kernel_w,
+                   "border_mode": "same", "dim_ordering": "th"}
+            if relu:
+                cfg["activation"] = "relu"
+            if not layers:
+                cfg["batch_input_shape"] = [None, m.n_input_plane,
+                                            CAFFE_IMG, CAFFE_IMG]
+            layers.append({"class_name": "Convolution2D", "config": cfg})
+        elif isinstance(m, L.SpatialMaxPooling):
+            layers.append({"class_name": "MaxPooling2D", "config": {
+                "name": name, "pool_size": [m.kh, m.kw]}})
+        elif isinstance(m, L.Reshape):
+            layers.append({"class_name": "Flatten", "config": {
+                "name": name}})
+        elif isinstance(m, L.Linear):
+            cfg = {"name": name, "output_dim": m.output_size}
+            if relu:
+                cfg["activation"] = "relu"
+            layers.append({"class_name": "Dense", "config": cfg})
+        elif isinstance(m, L.Dropout):
+            layers.append({"class_name": "Dropout", "config": {
+                "name": name, "p": m.p}})
+        elif isinstance(m, L.LogSoftMax):
+            layers.append({"class_name": "Activation", "config": {
+                "name": name, "activation": "softmax"}})
+        elif not isinstance(m, L.ReLU):
+            raise AssertionError(f"no Keras layer for {type(m).__name__}")
+    return json.dumps({"class_name": "Sequential", "config": layers})
+
+
+def _p26_keras(model, smi):
+    """(d): VGG-16 from a Keras-1.2.2 JSON config."""
+    from bigdl_tpu_torch.keras.converter import model_from_json
+    from bigdl_tpu_torch.keras.models import get_weights
+
+    t0 = time.perf_counter()
+    km = model_from_json(_p26_keras_json(model), device=DEV)
+    km.set_weights(get_weights(model))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    x = torch.randn(P26_FWD_BATCH, 3, CAFFE_IMG, CAFFE_IMG,
+                    generator=torch.Generator().manual_seed(28)).to(DEV)
+    model.evaluate()
+    km.core.evaluate()
+    with torch.no_grad():
+        gap = _rel_gap(km.core(x), torch.exp(model(x)))
+    x, y = _p26_images(P26_KERAS_STEPS * P26_BATCH, 29)
+    onehot = np.zeros((len(y), 1000), np.float32)
+    onehot[np.arange(len(y)), y.astype(int) - 1] = 1.0
+    km.compile("sgd", "categorical_crossentropy")
+    rec = _P26Losses()
+    with _p26_recorded(rec):
+        km.fit(x, onehot, batch_size=P26_BATCH, nb_epoch=1)
+    loss = [rec.loss[k] for k in sorted(rec.loss)]
+    at = [rec.at[k] for k in sorted(rec.at)]
+    step_ms = (at[-1] - at[0]) / (len(at) - 1) * 1e3
+    say(f"phase 26 (d) VGG-16 from a Keras-1.2.2 JSON config: "
+        f"model_from_json + set_weights on the card {build_s:.2f} s; eval "
+        f"softmax at batch {P26_FWD_BATCH} against exp of the source's, "
+        f"relative {gap:.3e} (limit {P26_KERAS_TOL:g}); compile('sgd', "
+        f"'categorical_crossentropy') + fit, {len(loss)} steps of "
+        f"{P26_BATCH}: losses {['%.4f' % v for v in loss]}, step "
+        f"{step_ms:.3f} ms (mean gap between loss reads after the first) "
+        f"[{smi}]")
+    if not gap <= P26_KERAS_TOL:
+        raise AssertionError("keras VGG-16 off the source")
+    if len(loss) != P26_KERAS_STEPS or not all(np.isfinite(loss)):
+        raise AssertionError(f"keras fit losses {loss}")
+
+
+def _p26_finetune(model, path, smi):
+    """(b): ``TFTrainingSession`` on the GraphDef beside the source."""
+    from bigdl_tpu_torch.dataset import ArrayDataSet
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, Identity
+    from bigdl_tpu_torch.nn.layers import Dropout
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.utils.tf_interop import TFTrainingSession
+
+    x, y = _p26_images((1 + P26_STEPS) * P26_BATCH, 30)
+    model.modules = [Identity() if isinstance(m, Dropout) else m
+                     for m in model.modules]
+    out = {}
+    with _deterministic():
+        for arm in ("graph", "source"):
+            rec = _P26Losses()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ds = ArrayDataSet(x, y, P26_BATCH, shuffle=False)
+            end = Trigger.max_iteration(1 + P26_STEPS)
+            method = SGD(learningrate=0.01, momentum=0.9)
+            t0 = time.perf_counter()
+            if arm == "graph":
+                sess = TFTrainingSession(path, device=DEV)
+                with _p26_recorded(rec):
+                    sess.train(ds, ClassNLLCriterion(), method, P26_BATCH,
+                               end)
+            else:
+                opt = LocalOptimizer(model, ds, ClassNLLCriterion(),
+                                     P26_BATCH, device=DEV)
+                opt.set_optim_method(method).set_end_when(end)
+                opt.set_train_summary(rec)
+                opt.optimize()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            at = [rec.at[k] for k in sorted(rec.at)]
+            out[arm] = ([rec.loss[k] for k in sorted(rec.loss)],
+                        (at[-1] - at[0]) / (len(at) - 1) * 1e3,
+                        torch.cuda.max_memory_allocated(), wall)
+            if arm == "graph":
+                del sess
+                torch.cuda.empty_cache()
+    (gl, gms, gpeak, gwall), (sl, sms, speak, swall) = out["graph"], \
+        out["source"]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(gl, sl))
+    say(f"phase 26 (b) TFTrainingSession(VGG-16 GraphDef).train through "
+        f"LocalOptimizer, ClassNLLCriterion, SGD 0.01 momentum 0.9, batch "
+        f"{P26_BATCH}, cuDNN deterministic: losses "
+        f"{['%.6f' % v for v in gl]}; the source Sequential (Dropout off) "
+        f"{['%.6f' % v for v in sl]}; worst relative gap {gap:.3e} (limit "
+        f"{P26_LOSS_TOL:g}); step {gms:.3f} ms ({P26_BATCH / gms * 1e3:.1f} "
+        f"images/s), peak {gpeak / 2**30:.2f} GiB, {gwall:.1f} s with the "
+        f"import, against the source's {sms:.3f} ms "
+        f"({P26_BATCH / sms * 1e3:.1f} images/s), peak "
+        f"{speak / 2**30:.2f} GiB (steps 2-{1 + P26_STEPS}, mean gap "
+        f"between loss reads) [{smi}]")
+    if not len(gl) == len(sl) == 1 + P26_STEPS or \
+            not all(np.isfinite(gl)) or not gap <= P26_LOSS_TOL:
+        raise AssertionError("the fine-tuned GraphDef off the source")
+
+
+def _p26_flow_graphs():
+    """The conditional and the while frame of (e), as GraphDef bytes."""
+    from bigdl_tpu_torch.utils.tf_interop import GraphDefBuilder
+
+    rs = np.random.RandomState(31)
+    d = P26_FLOW_D
+    w = (rs.randn(d, d) / np.sqrt(d)).astype(np.float32)
+    c = GraphDefBuilder()
+    c.placeholder("x")
+    c.placeholder("p")
+    c.const("w", w)
+    c.op("sw", "Switch", ["x", "p"])
+    c.op("neg", "Neg", ["sw"])
+    c.op("mm", "MatMul", ["sw:1", "w"])
+    c.op("tanh", "Tanh", ["mm"])
+    c.op("out", "Merge", ["tanh", "neg"])
+    b = GraphDefBuilder()
+    b.placeholder("x")
+    b.placeholder("cnt")
+    b.op("enter_x", "Enter", ["x"])
+    b.op("enter_c", "Enter", ["cnt"])
+    b.op("merge_x", "Merge", ["enter_x", "next_x"])
+    b.op("merge_c", "Merge", ["enter_c", "next_c"])
+    b.const("three", np.asarray(3.0, np.float32))
+    b.op("less", "Less", ["merge_c", "three"])
+    b.op("cond", "LoopCond", ["less"])
+    b.op("switch_x", "Switch", ["merge_x", "cond"])
+    b.op("switch_c", "Switch", ["merge_c", "cond"])
+    b.const("w", w)
+    b.const("one", np.asarray(1.0, np.float32))
+    b.op("mm", "MatMul", ["switch_x:1", "w"])
+    b.op("body_x", "Tanh", ["mm"])
+    b.op("body_c", "Add", ["switch_c:1", "one"])
+    b.op("next_x", "NextIteration", ["body_x"])
+    b.op("next_c", "NextIteration", ["body_c"])
+    b.op("exit_x", "Exit", ["switch_x"])
+    return {"cond": (c.tobytes(), ["x", "p"], ["out"], [True, False]),
+            "while": (b.tobytes(), ["x", "cnt"], ["exit_x"], [0.0, 2.0])}
+
+
+def _p26_control(smi):
+    """(e): control flow on the card against the CPU."""
+    from bigdl_tpu_torch import nn as N
+    from bigdl_tpu_torch.utils.tf_interop import TensorflowLoader
+
+    x0 = np.random.RandomState(32).randn(P26_FLOW_N, P26_FLOW_D) \
+        .astype(np.float32)
+    gaps = {}
+    loop = None
+    for name, (data, ins, outs, seconds) in _p26_flow_graphs().items():
+        models = {dev: TensorflowLoader(data=data, device=dev).load(
+            ins, outs, loop_max_iterations=P26_LOOP_MAX)
+            for dev in (DEV, "cpu")}
+        kind = type(models[DEV]).__name__
+        for s in seconds:
+            res = {}
+            for dev, m in models.items():
+                xt = torch.from_numpy(x0).to(dev).requires_grad_(True)
+                second = torch.tensor(s, device=dev)
+                y = m((xt, second))
+                torch.sin(y).sum().backward()
+                res[dev] = (y.detach(), xt.grad)
+            gaps[f"{name} {kind} {s}"] = (_rel_gap(*[res[d][0] for d in
+                                                     (DEV, "cpu")]),
+                                          _rel_gap(*[res[d][1] for d in
+                                                     (DEV, "cpu")]))
+        if name == "while":
+            loop = models[DEV]
+    # the masked loop's cost: P26_LOOP_MAX passes of the body for a loop
+    # that stops after 3 (count from 0 to 3), against 3 plain iterations
+    xt = torch.from_numpy(x0).to(DEV)
+    zero = torch.tensor(0.0, device=DEV)
+    lin = [m for m in loop.modules if isinstance(m, N.Linear)][0]
+
+    def plain():
+        h = xt
+        for _ in range(3):
+            h = torch.tanh(lin(h))
+        return h
+
+    with torch.no_grad():
+        if _rel_gap(loop((xt, zero)), plain()) > P26_FLOW_TOL:
+            raise AssertionError("the DynamicGraph's 3 trips off plain")
+        loop_ms = time_ms(lambda: loop((xt, zero)))
+        plain_ms = time_ms(plain)
+    # IfElse and WhileLoop forward; WhileLoop refuses the backward
+    ie = N.IfElse(N.Tanh(), N.Negative()).to(DEV)
+    xg = torch.from_numpy(x0).to(DEV)
+    ie_ok = torch.equal(ie((torch.tensor(True, device=DEV), xg)),
+                        torch.tanh(xg)) and torch.equal(
+        ie((torch.tensor(False, device=DEV), xg)), -xg)
+
+    class Cond(N.AbstractModule):
+        def forward(self, carry):
+            return carry[0] < 5
+
+    class Body(N.AbstractModule):
+        def forward(self, carry):
+            return (carry[0] + 1, torch.tanh(carry[1]))
+
+    wl = N.WhileLoop(Cond(), Body())
+    xw = torch.from_numpy(x0).to(DEV).requires_grad_(True)
+    i, out = wl((torch.tensor(0, device=DEV), xw))
+    want = xw.detach()
+    for _ in range(5):
+        want = torch.tanh(want)
+    wl_ok = int(i) == 5 and _rel_gap(out, want) <= P26_FLOW_TOL
+    try:
+        out.sum().backward()
+        refused = False
+    except RuntimeError as e:
+        refused = "forward only" in str(e)
+    gap_txt = "; ".join(f"{k}: forward {a:.3e}, gradient {b:.3e}"
+                        for k, (a, b) in gaps.items())
+    say(f"phase 26 (e) control flow at ({P26_FLOW_N}, {P26_FLOW_D}), card "
+        f"against the CPU (limit {P26_FLOW_TOL:g}): {gap_txt}; IfElse "
+        f"{'right' if ie_ok else 'WRONG'} both ways; WhileLoop forward "
+        f"{'right' if wl_ok else 'WRONG'}, backward "
+        f"{'refused' if refused else 'NOT refused'}; the DynamicGraph at "
+        f"max_iterations {P26_LOOP_MAX} (3 trips) {loop_ms:.4f} ms a "
+        f"forward against 3 plain iterations {plain_ms:.4f} ms [{smi}]")
+    if not all(a <= P26_FLOW_TOL and b <= P26_FLOW_TOL
+               for a, b in gaps.values()):
+        raise AssertionError("control flow on the card off the CPU")
+    if not (ie_ok and wl_ok and refused):
+        raise AssertionError("IfElse or WhileLoop wrong on the card")
+
+
+def _p26_examples(tmp, smi):
+    """(f): the example scripts in child processes."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    for name, args in P26_EXAMPLES:
+        out = os.path.join(tmp, name + ".json")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-c", _EXAMPLE_RUNNER, out, name] + args
+            + ["--device", DEV], cwd=root, capture_output=True, text=True,
+            timeout=600)
+        secs = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"example {name} exited {res.returncode}: "
+                                 f"{res.stderr[-3000:]}")
+        with open(out) as f:
+            rec = json.load(f)
+        value = rec["value"]
+        acc = value[1] if isinstance(value, list) else value
+        losses = rec["losses"]
+        say(f"phase 26 (f) python -m bigdl_tpu_torch.examples.{name} "
+            f"{' '.join(args)}: {len(losses)} losses, first "
+            f"{losses[0]:.4f}, last {losses[-1]:.4f}; accuracy "
+            f"{acc:.4f}; {secs:.1f} s in all [{smi}]")
+        if not losses or not all(np.isfinite(losses)):
+            raise AssertionError(f"example {name}: losses {losses}")
+
+
+def phase_front_ends(smi: str) -> None:
+    """Phase 26: control flow and the model front ends, VGG-16 at full
+    width (see the constants above); no kernel of ``csrc/`` runs."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.engine import Engine
+    from bigdl_tpu_torch.models.vgg import build_vgg16
+    from bigdl_tpu_torch.ops import _cuda
+
+    t_phase = time.perf_counter()
+    _cuda.reset_launches()
+    tmp = tempfile.mkdtemp(prefix="phase26_")
+    try:
+        RandomGenerator.RNG.set_seed(0)
+        model = build_vgg16(1000, device=DEV)
+        path = _p26_tf(model, tmp, smi)
+        _p26_t7(model, tmp, smi)
+        _p26_keras(model, smi)
+        torch.cuda.empty_cache()
+        _p26_finetune(model, path, smi)
+        del model
+        torch.cuda.empty_cache()
+        _p26_control(smi)
+        _p26_examples(tmp, smi)
+        if any(_cuda.launches.values()):
+            raise AssertionError(f"phase 26 launched a kernel of csrc/: "
+                                 f"{dict(_cuda.launches)}")
+    finally:
+        Engine.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    say(f"phase 26 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def _has_pillow() -> bool:
     try:
         import PIL  # noqa: F401
@@ -7766,6 +8331,7 @@ def main() -> int:
     phase_item16(smi)
     offsets = phase_seq_tuner(smi)
     tp_rows = phase_tp_moe(smi, serve_stats)
+    phase_front_ends(smi)
     for k in kernels:
         k.update(offsets.get(k["name"], {}))
         k.update(tp_rows.get(k["name"], {}))

@@ -265,8 +265,8 @@ def test_module_call_builds_nodes_or_runs_forward():
     join = add(node, [node, src])
     assert join.prev_nodes == [node, node, src]
     assert TN.Dropout(0.5).train()(x, rng_seed=1).shape == x.shape
-    with pytest.raises(NotImplementedError, match="DynamicGraph"):
-        TN.DynamicGraph(inp, node)
+    # an acyclic DynamicGraph of these nodes runs as the Graph does
+    assert torch.equal(TN.DynamicGraph(inp, node)(x), TN.Graph(inp, node)(x))
 
 
 def _hand_graph(N):
@@ -411,10 +411,19 @@ def test_graph_module_files_load_across_packages(tmp_path, writer):
 
 
 def test_dynamic_graph_specs_raise():
+    """A ``DynamicGraph`` spec loads now; one whose node lists a later
+    node as its predecessor (a cycle outside the feedback edges; specs
+    list nodes in topological order) raises, in both packages."""
     spec = TS.module_to_spec(_small_graph(TN))
     spec["class"] = "DynamicGraph"
-    with pytest.raises(NotImplementedError, match="DynamicGraph"):
-        TS.spec_to_module(spec)
+    spec["config"] = {"max_iterations": 4}
+    g = TS.spec_to_module(spec)
+    assert type(g).__name__ == "DynamicGraph" and g.max_iterations == 4
+    nodes = spec["graph"]["nodes"]
+    nodes[1]["prev"] = nodes[1]["prev"] + [len(nodes) - 1]
+    for S in (TS, JS):
+        with pytest.raises(IndexError):
+            S.spec_to_module(spec)
 
 
 def _trained_graph(N, O, Local, Array, seed, ck=None):

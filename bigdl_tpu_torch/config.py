@@ -11,7 +11,8 @@ observability switches the tracer, the request tracer, the metrics
 registry, the obs server, the runtime profile, the health monitor and
 the regression gate read (``ObsConfig``), of the router's and the
 rollout's knobs (``RouterConfig``, ``RolloutConfig``) and of the kernel
-auto-tuner's (``TunerConfig``), each with the JAX package's defaults.
+auto-tuner's (``TunerConfig``) and of the supervisor's autoscaling
+loop (``AutoscaleConfig``), each with the JAX package's defaults.
 Constructor arguments win; these are the process-wide fallbacks a
 deployment sets once.  Each is read from the environment
 when it is used, so a knob exported after import counts, unless
@@ -176,6 +177,13 @@ class TrainConfig:
     # records in one epoch of a stream; 0 = one epoch until the source
     # ends [BIGDL_TORCH_STREAM_EPOCH_RECORDS]
     stream_epoch_records: int = 0
+    # which launch of a supervised run this process is (0 = the first);
+    # the restart supervisor exports it to every child, and the goodput
+    # ledger and /healthz key on it [BIGDL_TORCH_ELASTIC_ATTEMPT]
+    elastic_attempt: int = 0
+    # preemption restarts before this launch, exported beside the
+    # attempt [BIGDL_TORCH_ELASTIC_PREEMPTIONS]
+    elastic_preemptions: int = 0
 
     @classmethod
     def from_env(cls) -> "TrainConfig":
@@ -210,6 +218,9 @@ class TrainConfig:
             stream_buffer=_env_int("BIGDL_TORCH_STREAM_BUFFER", 1024),
             stream_epoch_records=_env_int(
                 "BIGDL_TORCH_STREAM_EPOCH_RECORDS", 0),
+            elastic_attempt=_env_int("BIGDL_TORCH_ELASTIC_ATTEMPT", 0),
+            elastic_preemptions=_env_int("BIGDL_TORCH_ELASTIC_PREEMPTIONS",
+                                         0),
         )
 
 
@@ -263,10 +274,62 @@ class ObsConfig:
     # (or a throughput under it by this factor) is a violation
     # [BIGDL_TORCH_REGRESS_TOLERANCE]
     regress_tolerance: float = 1.5
+    # the Prometheus text and the JSONL metric snapshots, the goodput
+    # ledger's shards and the folded profile are written here (falls
+    # back to trace_dir) [BIGDL_TORCH_METRICS_DIR]
+    metrics_dir: Optional[str] = None
+    # the goodput ledger's bottleneck classifier (and the alert engine
+    # riding it) runs once every N productive steps; <= 0 disables
+    # [BIGDL_TORCH_GOODPUT_WINDOW]
+    goodput_window: int = 32
+    # a host whose step-time p50 exceeds the cross-host median by this
+    # factor is a straggler (obs/aggregate.py); <= 1 disables
+    # [BIGDL_TORCH_STRAGGLER_FACTOR]
+    straggler_factor: float = 1.5
+    # comma-separated host:port endpoints the fleet aggregator scrapes
+    # [BIGDL_TORCH_OBS_PEERS]
+    obs_peers: Optional[str] = None
+    # alert rule pack (obs/alerts.py): inline JSON list or a JSON file;
+    # unset = the default pack [BIGDL_TORCH_ALERT_RULES]
+    alert_rules: Optional[str] = None
+    # firing/resolved transitions append to this JSONL file, or POST to
+    # it when it is an http(s):// webhook [BIGDL_TORCH_ALERT_SINK]
+    alert_sink: Optional[str] = None
+    # connect/read timeout of one webhook POST (one retry)
+    # [BIGDL_TORCH_ALERT_SINK_TIMEOUT]
+    alert_sink_timeout: float = 1.0
+    # hosts report --watch lists, worst first [BIGDL_TORCH_WATCH_HOSTS]
+    watch_hosts: int = 16
+    # hosts a leaf rollup scrapes [BIGDL_TORCH_ROLLUP_SHARD]
+    rollup_shard: int = 32
+    # label sets kept a family by a rollup before the rest fold into
+    # "other" [BIGDL_TORCH_ROLLUP_TOP_K]
+    rollup_top_k: int = 64
+    # points a retention ring holds [BIGDL_TORCH_RETAIN_POINTS]
+    retain_points: int = 240
+    # series the retention store tracks [BIGDL_TORCH_RETAIN_SERIES]
+    retain_series: int = 512
+    # the sampling profiler (obs/prof.py): samples a second; <= 0 = off,
+    # no thread [BIGDL_TORCH_PROF_HZ]
+    prof_hz: float = 0.0
+    # the profiler's work share of wall time past which it skips
+    # samples [BIGDL_TORCH_PROF_BUDGET]
+    prof_budget: float = 0.01
+    # debug bundles (obs/bundle.py) on alert firings, supervisor
+    # restarts and GET /debugz go here; unset disables the automatic
+    # triggers [BIGDL_TORCH_BUNDLE_DIR]
+    bundle_dir: Optional[str] = None
+    # least seconds between two alert bundles of one rule; 0 = no limit
+    # [BIGDL_TORCH_BUNDLE_RATE_LIMIT]
+    bundle_rate_limit: float = 300.0
+    # the BENCH_r*.json directory a bench run's regression gate reads
+    # [BIGDL_TORCH_REGRESS_TRAJECTORY]
+    regress_trajectory: Optional[str] = None
 
     @property
     def active(self) -> bool:
-        return bool(self.trace_dir or self.obs_port is not None)
+        return bool(self.trace_dir or self.metrics_dir
+                    or self.obs_port is not None)
 
     @classmethod
     def from_env(cls) -> "ObsConfig":
@@ -288,6 +351,26 @@ class ObsConfig:
             wire_gbps=_env_float("BIGDL_TORCH_WIRE_GBPS", 0.0),
             regress_tolerance=_env_float("BIGDL_TORCH_REGRESS_TOLERANCE",
                                          1.5),
+            metrics_dir=_env_str("BIGDL_TORCH_METRICS_DIR", None),
+            goodput_window=_env_int("BIGDL_TORCH_GOODPUT_WINDOW", 32),
+            straggler_factor=_env_float("BIGDL_TORCH_STRAGGLER_FACTOR", 1.5),
+            obs_peers=_env_str("BIGDL_TORCH_OBS_PEERS", None),
+            alert_rules=_env_str("BIGDL_TORCH_ALERT_RULES", None),
+            alert_sink=_env_str("BIGDL_TORCH_ALERT_SINK", None),
+            alert_sink_timeout=_env_float("BIGDL_TORCH_ALERT_SINK_TIMEOUT",
+                                          1.0),
+            watch_hosts=_env_int("BIGDL_TORCH_WATCH_HOSTS", 16),
+            rollup_shard=_env_int("BIGDL_TORCH_ROLLUP_SHARD", 32),
+            rollup_top_k=_env_int("BIGDL_TORCH_ROLLUP_TOP_K", 64),
+            retain_points=_env_int("BIGDL_TORCH_RETAIN_POINTS", 240),
+            retain_series=_env_int("BIGDL_TORCH_RETAIN_SERIES", 512),
+            prof_hz=_env_float("BIGDL_TORCH_PROF_HZ", 0.0),
+            prof_budget=_env_float("BIGDL_TORCH_PROF_BUDGET", 0.01),
+            bundle_dir=_env_str("BIGDL_TORCH_BUNDLE_DIR", None),
+            bundle_rate_limit=_env_float("BIGDL_TORCH_BUNDLE_RATE_LIMIT",
+                                         300.0),
+            regress_trajectory=_env_str("BIGDL_TORCH_REGRESS_TRAJECTORY",
+                                        None),
         )
 
 
@@ -424,6 +507,90 @@ class TunerConfig:
 
 
 @dataclasses.dataclass
+class AutoscaleConfig:
+    """The autoscaling policy loop inside the restart supervisor
+    (``resilience/autoscale.py``), JAX ``AutoscaleConfig``.
+
+    Off by default: the supervisor then only restarts.  On, the loop
+    scrapes the children's ``/healthz`` and ``/metrics``, evaluates the
+    scale rules and executes a decision as a checkpoint, stop and
+    relaunch at the new world size (``dry_run`` logs and executes
+    none).  A world of N is N processes, one GPU each."""
+
+    # master switch [BIGDL_TORCH_AUTOSCALE]
+    enabled: bool = False
+    # the world sizes a decision may not leave
+    # [BIGDL_TORCH_AUTOSCALE_MIN_WORLD / BIGDL_TORCH_AUTOSCALE_MAX_WORLD]
+    min_world: int = 1
+    max_world: int = 8
+    # up multiplies the world by this, down divides
+    # [BIGDL_TORCH_AUTOSCALE_FACTOR]
+    factor: int = 2
+    # seconds between evaluations [BIGDL_TORCH_AUTOSCALE_INTERVAL]
+    interval_s: float = 10.0
+    # no signal is trusted this long after a launch
+    # [BIGDL_TORCH_AUTOSCALE_WARMUP]
+    warmup_s: float = 30.0
+    # no decision this long after one [BIGDL_TORCH_AUTOSCALE_COOLDOWN]
+    cooldown_s: float = 120.0
+    # consecutive breached evaluations before a rule decides
+    # [BIGDL_TORCH_AUTOSCALE_HYSTERESIS]
+    hysteresis: int = 2
+    # the step-time band; 0 disables an edge
+    # [BIGDL_TORCH_AUTOSCALE_STEP_TIME_HIGH / _LOW]
+    step_time_high: float = 0.0
+    step_time_low: float = 0.0
+    # the queue-depth band [BIGDL_TORCH_AUTOSCALE_QUEUE_HIGH / _LOW]
+    queue_high: float = 0.0
+    queue_low: float = 0.0
+    # a live goodput ratio under this scales down; 0 disables
+    # [BIGDL_TORCH_AUTOSCALE_GOODPUT_FLOOR]
+    goodput_floor: float = 0.0
+    # a stalled host scales down [BIGDL_TORCH_AUTOSCALE_EVICT_STRAGGLERS]
+    evict_stragglers: bool = False
+    # the serving p99 band, seconds [BIGDL_TORCH_AUTOSCALE_P99_HIGH / _LOW]
+    p99_high: float = 0.0
+    p99_low: float = 0.0
+    # the world the supervisor exports to its children; 0 = min_world
+    # [BIGDL_TORCH_AUTOSCALE_WORLD]
+    world: int = 0
+    # evaluate, count and trace every decision, execute none
+    # [BIGDL_TORCH_AUTOSCALE_DRY_RUN]
+    dry_run: bool = False
+    # rule pack: inline JSON list or a JSON file; unset = the rules of
+    # the band knobs [BIGDL_TORCH_AUTOSCALE_RULES]
+    rules: Optional[str] = None
+
+    @classmethod
+    def from_env(cls) -> "AutoscaleConfig":
+        return cls(
+            enabled=_env_bool("BIGDL_TORCH_AUTOSCALE", False),
+            min_world=_env_int("BIGDL_TORCH_AUTOSCALE_MIN_WORLD", 1),
+            max_world=_env_int("BIGDL_TORCH_AUTOSCALE_MAX_WORLD", 8),
+            factor=_env_int("BIGDL_TORCH_AUTOSCALE_FACTOR", 2),
+            interval_s=_env_float("BIGDL_TORCH_AUTOSCALE_INTERVAL", 10.0),
+            warmup_s=_env_float("BIGDL_TORCH_AUTOSCALE_WARMUP", 30.0),
+            cooldown_s=_env_float("BIGDL_TORCH_AUTOSCALE_COOLDOWN", 120.0),
+            hysteresis=_env_int("BIGDL_TORCH_AUTOSCALE_HYSTERESIS", 2),
+            step_time_high=_env_float(
+                "BIGDL_TORCH_AUTOSCALE_STEP_TIME_HIGH", 0.0),
+            step_time_low=_env_float("BIGDL_TORCH_AUTOSCALE_STEP_TIME_LOW",
+                                     0.0),
+            queue_high=_env_float("BIGDL_TORCH_AUTOSCALE_QUEUE_HIGH", 0.0),
+            queue_low=_env_float("BIGDL_TORCH_AUTOSCALE_QUEUE_LOW", 0.0),
+            goodput_floor=_env_float("BIGDL_TORCH_AUTOSCALE_GOODPUT_FLOOR",
+                                     0.0),
+            evict_stragglers=_env_bool(
+                "BIGDL_TORCH_AUTOSCALE_EVICT_STRAGGLERS", False),
+            p99_high=_env_float("BIGDL_TORCH_AUTOSCALE_P99_HIGH", 0.0),
+            p99_low=_env_float("BIGDL_TORCH_AUTOSCALE_P99_LOW", 0.0),
+            world=_env_int("BIGDL_TORCH_AUTOSCALE_WORLD", 0),
+            dry_run=_env_bool("BIGDL_TORCH_AUTOSCALE_DRY_RUN", False),
+            rules=_env_str("BIGDL_TORCH_AUTOSCALE_RULES", None),
+        )
+
+
+@dataclasses.dataclass
 class BigDLConfig:
     """The process-global configuration (JAX ``BigDLConfig``,
     config.py:655): one field a section of the port's ``BIGDL_TORCH_*``
@@ -438,6 +605,8 @@ class BigDLConfig:
     rollout: RolloutConfig = dataclasses.field(
         default_factory=RolloutConfig)
     tuner: TunerConfig = dataclasses.field(default_factory=TunerConfig)
+    autoscale: AutoscaleConfig = dataclasses.field(
+        default_factory=AutoscaleConfig)
 
     @classmethod
     def from_env(cls) -> "BigDLConfig":
@@ -453,7 +622,7 @@ class BigDLConfig:
 
 _SECTIONS = {"serve": ServeConfig, "train": TrainConfig, "obs": ObsConfig,
              "router": RouterConfig, "rollout": RolloutConfig,
-             "tuner": TunerConfig}
+             "tuner": TunerConfig, "autoscale": AutoscaleConfig}
 
 # sections pinned by configure(): env refreshes and from_env skip them
 _explicit: set = set()
@@ -546,6 +715,6 @@ def nvcc_path() -> str:
 
 
 __all__ = ["ServeConfig", "TrainConfig", "ObsConfig", "RouterConfig",
-           "RolloutConfig", "TunerConfig", "BigDLConfig", "config",
+           "RolloutConfig", "TunerConfig", "AutoscaleConfig", "BigDLConfig", "config",
            "configure", "refresh_from_env", "reload_from_env",
            "tuner_enabled", "build_dir", "nvcc_path"]

@@ -17,7 +17,9 @@ The backend is NCCL on the card and gloo on the CPU.  ``init`` builds
 the fault injector from ``BIGDL_TORCH_FAULT_PLAN`` (JAX :77-79) and
 installs the preemption handler (``resilience/elastic.py``: SIGTERM or
 SIGINT finishes the step in flight, writes an emergency checkpoint and
-exits 170) unless ``BIGDL_TORCH_PREEMPTION_HANDLER=0`` (JAX :80-89);
+exits 170) unless ``BIGDL_TORCH_PREEMPTION_HANDLER=0`` (JAX :80-89), and
+once the process group is joined emits the ``engine.init_barrier``
+event the trace merge aligns the ranks' clocks on (JAX :127-133);
 ``reset`` drops the injector, a pending preemption request and the
 obs server (JAX :175-182), so a test's state does not leak into the
 next.
@@ -126,6 +128,16 @@ class Engine:
         st.rank = dist.get_rank()
         st.world_size = dist.get_world_size()
         cls._state = st
+        # the trace merge's alignment anchor (obs/aggregate.py, JAX
+        # :127-133): every rank returns from joining the group only once
+        # all have joined, so the ranks' clocks align on this event
+        from bigdl_tpu_torch import obs
+        from bigdl_tpu_torch.obs import names
+
+        obs.get_tracer().event("engine.init_barrier", host=st.rank,
+                               processes=st.world_size, devices=1)
+        obs.get_registry().counter(names.ENGINE_INITS_TOTAL,
+                                   "Engine.init calls").inc()
         return cls
 
     @classmethod

@@ -266,7 +266,10 @@ class AbstractModule(torch.nn.Module):
 
 class _Children(list):
     """A container's children in order (the JAX package's ``modules``
-    list).  Calling it still gives torch's ``Module.modules()``."""
+    list).  Calling it still gives torch's ``Module.modules()``.  An
+    item assigned, deleted, appended or inserted re-registers the
+    children by index, as a change to JAX's list changes the model
+    (``model.modules[1] = new_head``)."""
 
     def __init__(self, owner: torch.nn.Module):
         super().__init__(owner._modules.values())
@@ -274,6 +277,25 @@ class _Children(list):
 
     def __call__(self):
         return torch.nn.Module.modules(self._owner)
+
+    def _sync(self):
+        self._owner.modules = list(self)
+
+    def __setitem__(self, index, value):
+        super().__setitem__(index, value)
+        self._sync()
+
+    def __delitem__(self, index):
+        super().__delitem__(index)
+        self._sync()
+
+    def append(self, module):
+        super().append(module)
+        self._sync()
+
+    def insert(self, index, module):
+        super().insert(index, module)
+        self._sync()
 
 
 class Composite(AbstractModule):

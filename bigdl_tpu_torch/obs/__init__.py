@@ -16,7 +16,26 @@
 * :mod:`~bigdl_tpu_torch.obs.health`: per-layer numerics
   (``BIGDL_TORCH_HEALTH_EVERY``);
 * :mod:`~bigdl_tpu_torch.obs.runtime`: the step-time reservoirs and the
-  memory, behind :func:`get_runtime` and :func:`publish_runtime`.
+  memory, behind :func:`get_runtime` and :func:`publish_runtime`;
+* :mod:`~bigdl_tpu_torch.obs.goodput`: the wall-clock goodput ledger
+  (productive steps against the badput causes), per-attempt JSONL
+  shards and the window bottleneck classifier, behind
+  :func:`get_ledger`;
+* :mod:`~bigdl_tpu_torch.obs.alerts`: the rule pack evaluated on the
+  goodput window tick; :mod:`~bigdl_tpu_torch.obs.bundle`: the debug
+  bundles; :mod:`~bigdl_tpu_torch.obs.prof`: the sampling profiler
+  (``BIGDL_TORCH_PROF_HZ``);
+* :mod:`~bigdl_tpu_torch.obs.aggregate` (the shard merge, the fleet
+  scrape), :mod:`~bigdl_tpu_torch.obs.rollup`,
+  :mod:`~bigdl_tpu_torch.obs.retain`, :mod:`~bigdl_tpu_torch.obs.report`
+  and :mod:`~bigdl_tpu_torch.obs.regress`: the offline and fleet
+  readers, each with a ``python -m`` entry point.
+
+:func:`flush` writes the run's shards (the metrics snapshot, the kept
+request traces, the folded profile, the Chrome trace, the goodput
+ledger) under ``BIGDL_TORCH_METRICS_DIR`` (else the trace directory);
+it runs at the end of ``optimize`` and at interpreter exit, so a
+preempted or crashed attempt still leaves its shards.
 
 Everything is off by default.  The tracer and the request collector are
 rebuilt when their knobs change (JAX ``obs/__init__.py:96-115``); a
@@ -28,6 +47,7 @@ every decode step.
 from __future__ import annotations
 
 import atexit
+import json
 import os
 import threading
 
@@ -95,6 +115,22 @@ def _atexit_close():
         pass
 
 
+def _atexit_flush():
+    """The last flush (JAX :129-146): a run that ends on an unhandled
+    exception or a ``SystemExit`` (the preemption exit, a crashed
+    attempt) still writes its metrics snapshot, trace and goodput shard.
+    Registered at import, so it runs after the tracer's close hook
+    (atexit is LIFO); a no-op with observability off."""
+    try:
+        if _obs_config().active:
+            flush()
+    except Exception:  # noqa: BLE001 — interpreter teardown
+        pass
+
+
+atexit.register(_atexit_flush)
+
+
 def get_registry() -> MetricsRegistry:
     """The process-wide metrics registry."""
     return _registry
@@ -108,6 +144,14 @@ def get_runtime() -> RuntimeStats:
         if _runtime is None:
             _runtime = RuntimeStats(_obs_config().reservoir_size)
         return _runtime
+
+
+def get_ledger():
+    """The process goodput ledger (``obs/goodput.py``): recording when
+    observability is on, the shared no-op otherwise."""
+    from bigdl_tpu_torch.obs import goodput
+
+    return goodput.get_ledger()
 
 
 def publish_runtime(registry: MetricsRegistry = None,
@@ -145,11 +189,56 @@ def publish_runtime(registry: MetricsRegistry = None,
     return snap
 
 
+def flush(extra_registries=()) -> dict:
+    """The end-of-run export (JAX :245): publish the runtime and the
+    goodput ledger into the registry, write the Prometheus and JSONL
+    metric snapshot, the kept request traces and the folded profile
+    under ``metrics_dir`` (else ``trace_dir``), flush the Chrome trace
+    and append the ledger's shard.  Returns the paths; a no-op with
+    observability off."""
+    cfg = _obs_config()
+    if not cfg.active:
+        return {}
+    publish_runtime()
+    ledger = get_ledger()
+    ledger.publish(_registry)
+    paths = {}
+    out_dir = cfg.metrics_dir or cfg.trace_dir
+    if out_dir:
+        paths = _registry.write_snapshot(out_dir,
+                                         extra_registries=extra_registries)
+        from bigdl_tpu_torch.obs import prof, reqtrace
+        from bigdl_tpu_torch.obs.trace import _host_id
+
+        stem = f"h{_host_id()}.{os.getpid()}"
+        kept = reqtrace.get_collector().completed()
+        if kept:
+            rt = os.path.join(out_dir, f"reqtraces.{stem}.json")
+            tmp = rt + ".tmp"
+            with open(tmp, "w", encoding="utf-8") as fh:
+                json.dump(kept, fh, default=str)
+            os.replace(tmp, rt)
+            paths["reqtraces"] = rt
+        pp = prof.write_profile(out_dir, f"prof.{stem}")
+        if pp:
+            paths["profile"] = pp
+    tracer = get_tracer()
+    tracer.flush()
+    if tracer is not NULL_TRACER:
+        paths["trace"] = tracer.trace_path
+        paths["events"] = tracer.jsonl_path
+    gp = ledger.flush()
+    if gp:
+        paths["goodput"] = gp
+    return paths
+
+
 def reset():
     """Close the tracer, start a new registry and runtime profile, stop
-    the obs server, drop the request collector and the step stamp; the
-    next accessor rebuilds each from the environment (the tests' hook,
-    JAX ``obs.reset``)."""
+    the obs server, drop the request collector, the step stamp, the
+    goodput ledger, the alert engine, the profiler and the bundles'
+    dedupe state; the next accessor rebuilds each from the environment
+    (the tests' hook, JAX ``obs.reset``)."""
     global _tracer, _tracer_dir, _tracer_state, _registry, _runtime
     with _lock:
         if _tracer is not NULL_TRACER:
@@ -162,15 +251,21 @@ def reset():
         _tracer_state = (_UNSET, NULL_TRACER)
         _registry = MetricsRegistry()
         _runtime = None
-    from bigdl_tpu_torch.obs import reqtrace, server
+    from bigdl_tpu_torch.obs import (alerts, bundle, goodput, prof,
+                                     reqtrace, server)
 
+    goodput.reset_ledger()
     server.stop_server()
     server.clear_step()
+    alerts.reset_engine()
     reqtrace.reset_collector()
+    prof.reset_profiler()
+    bundle.reset()
 
 
 __all__ = ["DEFAULT_BUCKETS", "MetricsRegistry", "NullTracer", "Tracer",
            "NULL_TRACER", "RuntimeStats", "active", "get_tracer",
-           "get_registry", "get_runtime", "publish_runtime", "reset",
+           "get_registry", "get_runtime", "get_ledger", "publish_runtime",
+           "flush", "reset",
            "Reservoir", "host_rss_bytes", "device_memory_stats",
            "all_device_memory_stats"]

@@ -1,6 +1,6 @@
 """Labelled Counter / Gauge / Histogram registry.
 
-Counterpart of ``bigdl_tpu/obs/metrics.py`` (:38-330, :383-470):
+Counterpart of ``bigdl_tpu/obs/metrics.py`` (:38-587):
 monotonic :class:`Counter`, settable :class:`Gauge` and bucketed
 :class:`Histogram` children, each family optionally labelled (children
 made lazily per label combination), thread-safe (engine loops, HTTP
@@ -11,8 +11,12 @@ idempotent for the same kind and label names and raises for another.
   the newest per bucket, exported in OpenMetrics syntax so that a
   latency bucket links to a kept request trace;
 * :meth:`MetricsRegistry.to_prometheus` is the text exposition format
-  0.0.4 the obs server's ``/metrics`` serves, and
-  :func:`parse_prometheus` its reader;
+  0.0.4 the obs server's ``/metrics`` serves, :func:`parse_prometheus`
+  its reader and :func:`render_exposition` the writer of what that
+  reader gives (the rollup tier's merged body);
+* :meth:`MetricsRegistry.snapshot` / :meth:`write_snapshot` are the
+  JSONL and ``.prom`` shards ``obs.flush`` writes under the metrics
+  directory;
 * under ``BIGDL_TORCH_OBS_STRICT=1`` a ``bigdl_*`` family must be
   declared in ``obs/names.py`` with the kind and labels it is minted
   with, and a family may not grow past its declared label cardinality.
@@ -21,6 +25,8 @@ idempotent for the same kind and label names and raises for another.
 from __future__ import annotations
 
 import bisect
+import json
+import os
 import re
 import threading
 import time
@@ -318,6 +324,63 @@ class MetricsRegistry:
                 lines.append(f"{fam.name}_count{base} {count}")
         return "\n".join(lines) + ("\n" if lines else "")
 
+    def snapshot(self) -> dict:
+        """Every family as JSON-able samples (JAX :369): a histogram's
+        count, sum and cumulative buckets from one locked read."""
+        metrics = {}
+        for fam in self.families():
+            samples = []
+            for key, child in sorted(fam.child_items()):
+                labels = dict(zip(fam.labelnames, key))
+                if fam.kind == "histogram":
+                    counts, count, total = child.snapshot_state()
+                    samples.append(
+                        {"labels": labels, "count": count, "sum": total,
+                         "buckets": [
+                             ["+Inf" if b == float("inf") else b, c]
+                             for b, c in child._cumulative_from(counts)]})
+                else:
+                    samples.append({"labels": labels, "value": child.value})
+            metrics[fam.name] = {"type": fam.kind, "help": fam.help,
+                                 "samples": samples}
+        return {"ts": time.time(), "metrics": metrics}
+
+    def write_snapshot(self, directory: str, extra_registries=(),
+                       host_id: int = None):
+        """Write ``metrics.h<host>.<pid>.prom`` (atomic replace) and
+        append one JSON line to ``metrics.h<host>.<pid>.jsonl`` (JAX
+        :390): the shards the run report, the fleet aggregator's shard
+        tailer and the regression gate read.  ``extra_registries`` join
+        both (a trainer's phase-timer registry)."""
+        if host_id is None:
+            from bigdl_tpu_torch.obs.trace import _host_id
+
+            host_id = _host_id()
+        os.makedirs(directory, exist_ok=True)
+        pid = os.getpid()
+        stem = f"metrics.h{host_id}.{pid}"
+        prom_path = os.path.join(directory, stem + ".prom")
+        text = self.to_prometheus() + "".join(
+            r.to_prometheus() for r in extra_registries)
+        tmp = prom_path + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as fh:
+            fh.write(text)
+        os.replace(tmp, prom_path)
+        jsonl_path = os.path.join(directory, stem + ".jsonl")
+        snap = self.snapshot()
+        for r in extra_registries:
+            snap["metrics"].update(r.snapshot()["metrics"])
+        snap["host"] = host_id
+        snap["pid"] = pid
+        with open(jsonl_path, "a", encoding="utf-8") as fh:
+            fh.write(json.dumps(snap, default=str) + "\n")
+        return {"prom": prom_path, "jsonl": jsonl_path}
+
+    def reset(self):
+        """Drop every family (the tests' hook)."""
+        with self._lock:
+            self._families.clear()
+
 
 # ------------------------------------------------------------------ reader
 # one exposition sample line: name, optional {labels}, value
@@ -396,6 +459,59 @@ def parse_prometheus(text: str) -> dict:
     return {"families": families, "samples": samples}
 
 
+def _base_family(name: str, families: dict) -> str:
+    """The family a sample line belongs to (JAX :520): a histogram's
+    ``_bucket`` / ``_sum`` / ``_count`` samples group under the
+    declared histogram, everything else under itself."""
+    for suffix in ("_bucket", "_sum", "_count"):
+        if name.endswith(suffix):
+            base = name[: -len(suffix)]
+            if families.get(base, {}).get("type") == "histogram":
+                return base
+    return name
+
+
+def render_exposition(parsed: dict) -> str:
+    """:func:`parse_prometheus` output (or anything of its shape) back
+    to text exposition (JAX :532): the rollup tier re-exposes a merged
+    fleet through it.  ``parse_prometheus(render_exposition(p))`` keeps
+    every family's type and help, every sample and every exemplar."""
+    families = parsed.get("families") or {}
+    by_family: Dict[str, list] = {}
+    order: list = []
+    for s in parsed.get("samples") or []:
+        base = _base_family(s["name"], families)
+        if base not in by_family:
+            by_family[base] = []
+            order.append(base)
+        by_family[base].append(s)
+    # a family with a type and help but no sample still shows its header
+    for name in families:
+        if name not in by_family:
+            by_family[name] = []
+            order.append(name)
+    lines = []
+    for base in sorted(order):
+        meta = families.get(base) or {}
+        lines.append(
+            f"# HELP {base} {_escape_help(meta.get('help') or base)}")
+        lines.append(f"# TYPE {base} {meta.get('type') or 'untyped'}")
+        for s in by_family[base]:
+            pairs = [f'{k}="{_escape(v)}"'
+                     for k, v in (s.get("labels") or {}).items()]
+            body = "{" + ",".join(pairs) + "}" if pairs else ""
+            line = f"{s['name']}{body} {_fmt(s['value'])}"
+            ex = s.get("exemplar")
+            if ex is not None:
+                exl = ",".join(f'{k}="{_escape(v)}"'
+                               for k, v in (ex.get("labels") or {}).items())
+                line += f" # {{{exl}}} {_fmt(ex['value'])}"
+                if ex.get("ts") is not None:
+                    line += f" {float(ex['ts']):.3f}"
+            lines.append(line)
+    return "\n".join(lines) + ("\n" if lines else "")
+
+
 def sample_value(parsed: dict, name: str, **labels) -> Optional[float]:
     """The first sample named ``name`` whose labels contain ``labels``."""
     for s in parsed["samples"]:
@@ -406,4 +522,5 @@ def sample_value(parsed: dict, name: str, **labels) -> Optional[float]:
 
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
-           "DEFAULT_BUCKETS", "parse_prometheus", "sample_value"]
+           "DEFAULT_BUCKETS", "parse_prometheus", "render_exposition",
+           "sample_value"]

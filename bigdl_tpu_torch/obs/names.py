@@ -7,14 +7,19 @@ a fleet aggregation policy, with the JAX package's names and values
 (the serving section :352-390, the router's :392-431, the rollout's
 :433-470, the request tracer's :472-495, the optim phase timers :133, the
 trainers' retry, background-writer and guard counters :145-160, the
-checkpoint section :316-326, the stream's :328-349 and the tuner's
-:166-177), so that one
+checkpoint section :316-326, the stream's :328-349, the tuner's
+:166-177, and the fleet families :194-315 and :496-524 of the goodput
+ledger, the alerts, the supervisor and autoscaler, the fleet scrape,
+the rollup, the retention store, the profiler and the debug bundles),
+with :func:`fleet_policy` (:545), so that one
 dashboard reads either package.  Mint sites use
 these constants, never string literals.  Under
 ``BIGDL_TORCH_OBS_STRICT=1`` the registry rejects a ``bigdl_*`` family
 that is not declared here, or whose kind or labels differ, and caps
-each family at its ceiling (``obs/metrics.py``).  The JAX package's
-families of modules the port does not have yet are left out.
+each family at its ceiling (``obs/metrics.py``).  A few JAX families
+the port never mints (jit compiles, HLO FLOPs, the JAX engine's serving
+gauges) are declared too, so that the alert pack and the run report
+read a JAX run's snapshots by the same constants.
 """
 
 from __future__ import annotations
@@ -323,6 +328,195 @@ REQTRACE_ACTIVE_TRACES = _m(
         "tail sampler)")
 
 
+# --------------------------------------------------------------- goodput
+# (JAX :194-215) the ledger (obs/goodput.py) and the trace merge's
+# straggler detector (obs/aggregate.py)
+GOODPUT_RATIO = _m(
+    "bigdl_goodput_ratio", "gauge", policy="min",
+    doc="Productive step seconds over total accounted wall seconds")
+GOODPUT_WINDOW_RATIO = _m(
+    "bigdl_goodput_window_ratio", "gauge", policy="min",
+    doc="Good share of the last classifier window's wall clock")
+BADPUT_SECONDS_TOTAL = _m(
+    "bigdl_badput_seconds_total", "counter", ("cause",), 16,
+    "Non-productive wall seconds, by cause (goodput ledger)")
+BOTTLENECK = _m(
+    "bigdl_bottleneck", "gauge", ("class",), 8,
+    "One-hot per-window bottleneck classification", policy="max")
+REWORK_STEPS_TOTAL = _m(
+    "bigdl_rework_steps_total", "counter",
+    doc="Steps re-executed after a restart")
+STRAGGLER_STEPS_TOTAL = _m(
+    "bigdl_straggler_steps_total", "counter", ("host",), 1024,
+    "Cross-host straggler detections, by slow host")
+
+# --------------------------------------------------------------- alerts
+# (JAX :234-246) obs/alerts.py
+ALERTS_TOTAL = _m(
+    "bigdl_alerts_total", "counter", ("rule", "severity"), 64,
+    "Alert firing transitions, by rule and severity")
+ALERTS_RESOLVED_TOTAL = _m(
+    "bigdl_alerts_resolved_total", "counter", ("rule",), 64,
+    "Alert resolved transitions, by rule")
+ALERT_ACTIVE = _m(
+    "bigdl_alert_active", "gauge", ("rule",), 64,
+    "1 while the rule is firing, 0 otherwise", policy="max")
+ALERT_SINK_FAILURES_TOTAL = _m(
+    "bigdl_alert_sink_failures_total", "counter",
+    doc="Alert sink deliveries that failed after retry")
+
+# ---------------------------------------------------- supervisor, autoscale
+# (JAX :258-264) resilience/supervisor.py and resilience/autoscale.py
+SUPERVISOR_RESTARTS_TOTAL = _m(
+    "bigdl_supervisor_restarts_total", "counter", ("kind",), 8,
+    "Supervisor child restarts, by failure kind")
+AUTOSCALE_DECISIONS_TOTAL = _m(
+    "bigdl_autoscale_decisions_total", "counter",
+    ("direction", "reason"), 32,
+    "Autoscale policy decisions, by direction and firing rule")
+ENGINE_INITS_TOTAL = _m(
+    "bigdl_engine_inits_total", "counter",
+    doc="Engine.init calls in this process")
+
+# --------------------------------------------------------------- fleet
+# (JAX :266-288) obs/aggregate.FleetAggregator
+FLEET_SCRAPE_SECONDS = _m(
+    "bigdl_fleet_scrape_seconds", "gauge", policy="max",
+    doc="Wall seconds of the last full fleet peer-scrape cycle "
+        "(bounded-pool concurrent scrape, FleetAggregator.scrape_peers)")
+FLEET_SCRAPE_LATENCY_SECONDS = _m(
+    "bigdl_fleet_scrape_latency_seconds", "gauge", ("host",), 1024,
+    "Per-host wall seconds of the last scrape round trip "
+    "(/healthz + /metrics, including the retry when one was spent)",
+    policy="max")
+FLEET_HOST_STALENESS_SECONDS = _m(
+    "bigdl_fleet_host_staleness_seconds", "gauge", ("host",), 1024,
+    "Per-host |scraper clock - host /healthz clock| skew; hosts past "
+    "BIGDL_TORCH_STALE_AFTER_S are excluded from fleet merges",
+    policy="max")
+# additive level across the fleet tiers: an explicit sum gauge
+FLEET_STALE_HOSTS = _m(
+    "bigdl_fleet_stale_hosts", "gauge", policy="sum",
+    doc="Hosts excluded from the last fleet merge as stale "
+        "(skewed clock or a failed scrape)")
+FLEET_SCRAPE_ERRORS_TOTAL = _m(
+    "bigdl_fleet_scrape_errors_total", "counter", ("reason",), 8,
+    "Failed per-host scrapes by reason (timeout/refused/protocol), "
+    "surfaced without failing the round")
+
+# --------------------------------------------------------------- rollup
+# (JAX :290-303) obs/rollup.py; tracked series sum across tiers
+ROLLUP_SERIES_TRACKED = _m(
+    "bigdl_rollup_series_tracked", "gauge", policy="sum",
+    doc="Distinct (family, label-set) series the rollup tier is "
+        "currently carrying in its merged exposition")
+ROLLUP_SERIES_DROPPED_TOTAL = _m(
+    "bigdl_rollup_series_dropped_total", "counter", ("family",), 128,
+    "Series folded into the 'other' bucket by the top-K cardinality "
+    "bound, by family")
+ROLLUP_MEMORY_BYTES = _m(
+    "bigdl_rollup_memory_bytes", "gauge", policy="max",
+    doc="Approximate bytes the rollup tier holds for its merged "
+        "series state")
+
+# --------------------------------------------------------------- retain
+# (JAX :305-315) obs/retain.py
+RETAIN_POINTS_TOTAL = _m(
+    "bigdl_retain_points_total", "counter",
+    doc="Samples ingested by the downsampling retention store")
+RETAIN_EVICTIONS_TOTAL = _m(
+    "bigdl_retain_evictions_total", "counter", ("ring",), 4,
+    "Points evicted from a retention ring (raw/10s/1m) at capacity")
+RETAIN_SERIES = _m(
+    "bigdl_retain_series", "gauge", policy="max",
+    doc="Distinct series the retention store currently tracks "
+        "(bounded by BIGDL_TORCH_RETAIN_SERIES)")
+
+# ---------------------------------------------- profiling / debug bundles
+# (JAX :500-524) obs/prof.py and obs/bundle.py
+PROF_SAMPLES_TOTAL = _m(
+    "bigdl_prof_samples_total", "counter", policy="sum",
+    doc="Stack samples the continuous profiler folded into the "
+        "collapsed-stack table (BIGDL_TORCH_PROF_HZ)")
+PROF_SKIPPED_TOTAL = _m(
+    "bigdl_prof_skipped_total", "counter", policy="sum",
+    doc="Profiler samples skipped because the self-overhead ratio "
+        "exceeded BIGDL_TORCH_PROF_BUDGET (the hard overhead cap)")
+PROF_OVERHEAD_RATIO = _m(
+    "bigdl_prof_overhead_ratio", "gauge", policy="max",
+    doc="Profiler self-overhead: cumulative sampling-work seconds / "
+        "wall seconds since the profiler started")
+PROF_STACKS = _m(
+    "bigdl_prof_stacks", "gauge", policy="max",
+    doc="Distinct collapsed stacks held in the profiler's bounded "
+        "fold table (overflow folds into the 'other' stack)")
+BUNDLE_WRITES_TOTAL = _m(
+    "bigdl_bundle_writes_total", "counter", ("trigger",), 6,
+    "Debug bundles written, by trigger (alert / supervisor / http / "
+    "manual)", policy="sum")
+BUNDLE_ERRORS_TOTAL = _m(
+    "bigdl_bundle_errors_total", "counter", policy="sum",
+    doc="Debug-bundle builds that failed (the trigger path never "
+        "propagates: a bundle failure must not kill training)")
+BUNDLE_LAST_WRITE_SECONDS = _m(
+    "bigdl_bundle_last_write_seconds", "gauge", policy="max",
+    doc="Wall-clock timestamp of the newest debug bundle this host "
+        "wrote (0 until the first bundle)")
+
+# ------------------------------------------- read from JAX shards only
+# families the port never mints (no jit, no HLO cost analysis, no kernel
+# fallback, serving gauges of the JAX engine) that the alert pack and
+# the run report read when they look at a JAX run's snapshots
+JIT_COMPILE_COUNT = _m(
+    "bigdl_jit_compile_count", "gauge", policy="max",
+    doc="Distinct jit compile events (the JAX package)")
+JIT_COMPILE_SECONDS_TOTAL = _m(
+    "bigdl_jit_compile_seconds_total", "gauge", policy="max",
+    doc="Wall seconds blocked on jit trace+compile (the JAX package)")
+STEP_FLOPS = _m(
+    "bigdl_step_flops", "gauge", policy="last",
+    doc="HLO cost-analysis FLOPs of one compiled train step (the JAX "
+        "package)")
+MFU = _m(
+    "bigdl_mfu", "gauge", policy="min",
+    doc="Model FLOPs utilization (the JAX package)")
+KERNEL_FALLBACKS_TOTAL = _m(
+    "bigdl_kernel_fallbacks_total", "counter", ("site",), 16,
+    "Kernel dispatches that fell back to the reference path (the JAX "
+    "package)")
+SERVE_TOKENS_PER_SECOND = _m(
+    "bigdl_serve_tokens_per_second", "gauge", policy="sum",
+    doc="Rolling decode throughput (the JAX engine)")
+SERVE_KV_PAGES_IN_USE = _m(
+    "bigdl_serve_kv_pages_in_use", "gauge", policy="max",
+    doc="Pages allocated from the paged KV cache pool (the JAX engine)")
+SERVE_ADMISSION_WAITS_TOTAL = _m(
+    "bigdl_serve_admission_waits_total", "counter",
+    doc="Client submits that blocked on a full request queue (the JAX "
+        "engine)")
+SERVE_LATENCY_SLO_RATIO = _m(
+    "bigdl_serve_latency_slo_ratio", "gauge", policy="min",
+    doc="Share of recent requests inside the e2e latency SLO (the JAX "
+        "engine)")
+SERVE_DECODE_ATTN_MS = _m(
+    "bigdl_serve_decode_attn_ms", "gauge", policy="max",
+    doc="Mean decode-attention kernel milliseconds per step (the JAX "
+        "engine)")
+SERVE_DECODE_HBM_BYTES_PER_TOKEN = _m(
+    "bigdl_serve_decode_hbm_bytes_per_token", "gauge", policy="max",
+    doc="Modeled HBM traffic per decoded token (the JAX engine)")
+
+#: legal gauge policies (JAX :73)
+GAUGE_POLICIES = ("max", "min", "last")
+
+#: ``bigdl_``-prefixed spellings that are not metric families (JAX :526)
+KNOWN_STRINGS = frozenset({
+    "bigdl_tpu_torch",        # tracer process name / root logger name
+    "bigdl_torch_obs_span",   # the tracer's context variable
+    "bigdl_flight_recorder",  # postmortem bundle kind
+})
+
+
 def spec(name: str) -> MetricSpec:
     """The declared spec of ``name`` (KeyError when undeclared)."""
     return REGISTRY[name]
@@ -339,6 +533,23 @@ def is_declared(name: str) -> bool:
             if s is not None and s.kind == "histogram":
                 return True
     return False
+
+
+def fleet_policy(name: str) -> Optional[str]:
+    """The fleet aggregation policy of a sample name as it appears on
+    the wire (JAX :545): a histogram's ``_bucket`` / ``_sum`` /
+    ``_count`` samples merge by ``sum`` like their family; ``None`` for
+    an undeclared name (the rollup passes those through with ``last``
+    semantics)."""
+    s = REGISTRY.get(name)
+    if s is not None:
+        return s.policy
+    for suffix in ("_bucket", "_sum", "_count"):
+        if name.endswith(suffix):
+            base = REGISTRY.get(name[: -len(suffix)])
+            if base is not None and base.kind == "histogram":
+                return "sum"
+    return None
 
 
 # the families the engines, the classifier and ServingServer mint in the

@@ -1,15 +1,23 @@
 """Perf-regression verdict: "is this step time slower than the best?".
 
-Counterpart of the verdict half of ``bigdl_tpu/obs/regress.py``
-(:38-157): :func:`check` compares a fresh result against a trajectory
-of earlier ones on the same platform and says ``pass``, ``violation``
+Counterpart of ``bigdl_tpu/obs/regress.py``: :func:`check` compares a
+fresh result against a trajectory of earlier ones on the same platform
+and says ``pass``, ``violation``
 or ``no_baseline``; a violation is ``fresh_step_time > best *
 tolerance`` (or the throughput mirror), with ``tolerance`` from
 ``BIGDL_TORCH_REGRESS_TOLERANCE`` (default 1.5).  The kernel
 auto-tuner gates every measured winner through it
 (``ops/autotune._gate_measured``).  :func:`load_trajectory` reads
-``BENCH_r*.json`` files as the JAX package writes them.  The flight
-bundle, the bench gate and the CLI of that file are not ported.
+``BENCH_r*.json`` files as the JAX package writes them.  On a violation
+:func:`gate` dumps a flight-recorder bundle (:func:`flight_bundle`: the
+tracer's span ring or the newest events shard's tail, the metrics
+snapshot, the runtime profile, the health columns, JAX :160-270); the
+CLI (JAX :276-318)::
+
+    python -m bigdl_tpu_torch.obs.regress --fresh BENCH.json \
+        --trajectory DIR [--tolerance 1.5] [--flight-dir DIR] [--json]
+
+exits 1 on a violation, 0 on a pass or with no comparable baseline.
 """
 
 from __future__ import annotations
@@ -18,7 +26,10 @@ import glob
 import json
 import os
 import re
+import time
 from typing import List, Optional
+
+from bigdl_tpu_torch.obs import names
 
 _ROUND_RE = re.compile(r"BENCH_r(\d+)\.json$")
 
@@ -135,4 +146,177 @@ def check(fresh, trajectory: Optional[List[dict]],
     return verdict
 
 
-__all__ = ["check", "load_trajectory"]
+# ------------------------------------------------------------ flight recorder
+def _tail_shard_records(trace_dir: str, k: int) -> list:
+    """Offline fallback: the last ``k`` records of the newest events
+    shard under ``trace_dir``."""
+    from bigdl_tpu_torch.obs.aggregate import read_shards
+
+    try:
+        shards = read_shards(trace_dir)
+    except OSError:
+        return []
+    if not shards:
+        return []
+    newest = max(shards, key=lambda s: os.path.getmtime(s.path))
+    return newest.records[-k:]
+
+
+def flight_bundle(reason: str = "", trace_dir: Optional[str] = None,
+                  metrics_dir: Optional[str] = None) -> dict:
+    """The postmortem bundle: last-K spans (live ring buffer first,
+    newest on-disk shard as the offline fallback), metrics snapshot
+    (live registry first, newest on-disk ``metrics.*.jsonl`` snapshot
+    offline), runtime profile."""
+    from bigdl_tpu_torch import obs
+
+    spans = obs.get_tracer().recent()
+    source = "ring_buffer"
+    if not spans and trace_dir:
+        from bigdl_tpu_torch.config import refresh_from_env
+
+        k = refresh_from_env().obs.flight_spans
+        spans = _tail_shard_records(trace_dir, k)
+        source = "shard_tail"
+    metrics = obs.get_registry().snapshot()
+    metrics_source = "registry"
+    if not metrics.get("metrics") and (metrics_dir or trace_dir):
+        from bigdl_tpu_torch.obs.report import load_metric_snapshots
+
+        snaps = load_metric_snapshots(metrics_dir or trace_dir)
+        if snaps:
+            metrics = max(snaps, key=lambda s: s.get("ts", 0))
+            metrics_source = "disk_snapshot"
+    from bigdl_tpu_torch.obs.runtime import host_rss_bytes
+
+    return {
+        "kind": "bigdl_flight_recorder",
+        "ts": time.time(),
+        "reason": reason,
+        "spans_source": source if spans else "none",
+        "spans": spans,
+        "metrics": metrics,
+        "metrics_source": metrics_source,
+        # memory=False: a postmortem dump must never block on a wedged
+        # device
+        "runtime": obs.get_runtime().snapshot(memory=False),
+        "host_rss_bytes": host_rss_bytes(),
+        # training-health columns (obs/health.py): the postmortem's
+        # first numerics questions — which layer's norms moved, which
+        # went non-finite, what anomalies fired — pre-extracted from
+        # the same metrics snapshot + span ring
+        "health": _health_columns(metrics, spans),
+    }
+
+
+_HEALTH_FAMILIES = (names.GRAD_NORM, names.PARAM_NORM,
+                    names.UPDATE_RATIO, names.GLOBAL_GRAD_NORM,
+                    names.NONFINITE_LAYERS_TOTAL,
+                    names.NUMERICS_ANOMALIES_TOTAL, names.STEP_FLOPS,
+                    names.MFU)
+
+
+def _health_columns(metrics: dict, spans: list) -> dict:
+    fams = (metrics or {}).get("metrics") or {}
+    out = {"metrics": {name: fams[name]["samples"]
+                       for name in _HEALTH_FAMILIES if name in fams}}
+    out["events"] = [r for r in (spans or [])
+                     if str(r.get("name", "")).startswith("health.")]
+    return out
+
+
+def dump_flight_recorder(out_dir: str, verdict: dict,
+                         trace_dir: Optional[str] = None,
+                         metrics_dir: Optional[str] = None) -> str:
+    """Write ``flight.<pid>.<ts>.json`` with the bundle + verdict."""
+    os.makedirs(out_dir, exist_ok=True)
+    bundle = flight_bundle(
+        reason="; ".join(verdict.get("violations", [])) or "manual",
+        trace_dir=trace_dir, metrics_dir=metrics_dir)
+    bundle["verdict"] = verdict
+    path = os.path.join(
+        out_dir, f"flight.{os.getpid()}.{int(time.time())}.json")
+    tmp = path + ".tmp"
+    with open(tmp, "w", encoding="utf-8") as fh:
+        json.dump(bundle, fh, default=str)
+    os.replace(tmp, path)
+    return path
+
+
+def gate(fresh, trajectory_dir: Optional[str],
+         tolerance: Optional[float] = None,
+         flight_dir: Optional[str] = None,
+         trace_dir: Optional[str] = None,
+         metrics_dir: Optional[str] = None) -> dict:
+    """check() against the dir's BENCH_r*.json; on violation, dump the
+    flight-recorder bundle (when ``flight_dir`` is given) and record its
+    path in the verdict.  A ``trajectory_dir`` of None reads
+    ``BIGDL_TORCH_REGRESS_TRAJECTORY``."""
+    if trajectory_dir is None:
+        from bigdl_tpu_torch.config import ObsConfig
+
+        trajectory_dir = ObsConfig.from_env().regress_trajectory
+    verdict = check(fresh, load_trajectory(trajectory_dir),
+                    tolerance=tolerance)
+    if verdict["status"] == "violation" and flight_dir:
+        try:
+            verdict["flight_recorder"] = dump_flight_recorder(
+                flight_dir, verdict, trace_dir=trace_dir,
+                metrics_dir=metrics_dir)
+        except OSError as e:
+            verdict["flight_recorder_error"] = str(e)
+    return verdict
+
+
+def main(argv=None) -> int:
+    import argparse
+    import sys
+
+    ap = argparse.ArgumentParser(
+        prog="python -m bigdl_tpu_torch.obs.regress",
+        description="Gate a fresh bench result against the BENCH_r*.json "
+                    "trajectory; exit 1 on regression.")
+    ap.add_argument("--fresh", required=True,
+                    help="fresh bench JSON file ('-' reads stdin)")
+    ap.add_argument("--trajectory", default=".",
+                    help="dir holding BENCH_r*.json (default: cwd)")
+    ap.add_argument("--tolerance", type=float, default=None,
+                    help="slowdown factor that trips the gate "
+                         "(default BIGDL_TORCH_REGRESS_TOLERANCE=1.5)")
+    ap.add_argument("--flight-dir", default=None,
+                    help="dump a flight-recorder bundle here on violation")
+    ap.add_argument("--trace-dir", default=None,
+                    help="trace dir whose newest shard seeds the bundle's "
+                         "span tail when no live tracer exists")
+    ap.add_argument("--metrics-dir", default=None,
+                    help="metrics dir whose newest snapshot seeds the "
+                         "bundle offline (default: trace dir)")
+    ap.add_argument("--json", action="store_true",
+                    help="print the full verdict JSON (default: summary)")
+    args = ap.parse_args(argv)
+    raw = (sys.stdin.read() if args.fresh == "-"
+           else open(args.fresh, encoding="utf-8").read())
+    doc = json.loads(raw)
+    fresh = doc.get("parsed") if isinstance(doc, dict) and "parsed" in doc \
+        else doc
+    verdict = gate(fresh, args.trajectory, tolerance=args.tolerance,
+                   flight_dir=args.flight_dir, trace_dir=args.trace_dir,
+                   metrics_dir=args.metrics_dir)
+    if args.json:
+        print(json.dumps(verdict, default=str))
+    else:
+        print(f"regression gate: {verdict['status']} "
+              f"(tolerance {verdict['tolerance']}x)")
+        for v in verdict["violations"]:
+            print(f"  VIOLATION: {v}")
+        if verdict.get("flight_recorder"):
+            print(f"  flight recorder: {verdict['flight_recorder']}")
+    return 1 if verdict["status"] == "violation" else 0
+
+
+__all__ = ["check", "load_trajectory", "flight_bundle",
+           "dump_flight_recorder", "gate", "main"]
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -101,11 +101,13 @@ def _cuda_stats(index: int) -> Optional[dict]:
 def device_memory_stats(device=None) -> Optional[dict]:
     """``{bytes_in_use, peak_bytes_in_use, bytes_limit}`` of the current
     CUDA device (or ``device``) from the caching allocator; None
-    without a card."""
+    without a card, and None in a process that has not initialized CUDA
+    (reading would initialize it: the restart supervisor flushes its
+    telemetry this way and must leave the card to its children)."""
     try:
         import torch
 
-        if not torch.cuda.is_available():
+        if not torch.cuda.is_available() or not torch.cuda.is_initialized():
             return None
         index = torch.cuda.current_device() if device is None \
             else torch.device(device).index or 0
@@ -116,11 +118,11 @@ def device_memory_stats(device=None) -> Optional[dict]:
 
 def all_device_memory_stats() -> Optional[dict]:
     """:func:`device_memory_stats` of every visible card, ``{index:
-    stats}``; None without a card."""
+    stats}``; None without a card or before CUDA is initialized."""
     try:
         import torch
 
-        if not torch.cuda.is_available():
+        if not torch.cuda.is_available() or not torch.cuda.is_initialized():
             return None
         out = {}
         for i in range(torch.cuda.device_count()):

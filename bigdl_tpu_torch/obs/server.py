@@ -1,4 +1,5 @@
-"""Live telemetry endpoint: ``/metrics``, ``/healthz`` and ``/trace``.
+"""Live telemetry endpoint: ``/metrics``, ``/healthz``, ``/trace``,
+``/profilez`` and ``/debugz``.
 
 Counterpart of ``bigdl_tpu/obs/server.py`` (:62-386): one stdlib HTTP
 server a process, on a daemon thread, serving
@@ -10,21 +11,24 @@ server a process, on a daemon thread, serving
   newest trained step (:func:`note_step`, stamped by both trainers
   each resolved step) and its age, ``status`` ``"idle"`` before the
   first step, ``"ok"`` after, ``"stalled"`` once the stamp is older
-  than ``BIGDL_TORCH_HANG_TIMEOUT`` (JAX :157-177), and the heartbeat
-  monitor's peer ages;
+  than ``BIGDL_TORCH_HANG_TIMEOUT`` (JAX :157-200), the launch's
+  ``attempt`` (``BIGDL_TORCH_ELASTIC_ATTEMPT``, exported by the restart
+  supervisor), the goodput ledger's live ratio, the firing alerts, the
+  heartbeat monitor's peer ages, the profiler's overhead ratio and the
+  debug bundles written;
 * ``GET /trace?last=K``: the newest K records of the tracer's flight
   recorder (``[]`` with tracing off); ``GET /trace?request=ID``: one
   kept request trace by trace id or request id, 404 when the tail
   sampler dropped it;
+* ``GET /profilez``: the sampling profiler's snapshot
+  (``?format=collapsed`` for the folded-stack text);
+* ``GET /debugz``: write one debug bundle now (``BIGDL_TORCH_BUNDLE_DIR``)
+  and answer it with the bundle inventory, 503 without a directory;
 * ``GET /``: the endpoint list.
 
 ``BIGDL_TORCH_OBS_PORT`` turns it on through :func:`ensure_server`
 (0 binds an ephemeral port, ``.port`` has the real one); unset, the
-module holds no thread and no socket.  The JAX package's ``/healthz``
-also reads its goodput ledger, alert engine, profiler and debug
-bundles, which the port does not have yet (ROADMAP.md queue 1 item
-12): ``/healthz`` reports them as the JAX package does when each is
-off, and ``/profilez`` and ``/debugz`` answer 404.
+module holds no thread and no socket.
 """
 
 from __future__ import annotations
@@ -51,9 +55,6 @@ _extras: List = []
 
 # the step stamp: (step, wall time), one tuple rebind a resolved step
 _step_stamp = (None, None)
-
-_NOT_PORTED = ("the port has no {} yet (ROADMAP.md queue 1 item 12: "
-               "obs/prof.py and obs/bundle.py)")
 
 
 def note_step(step: int):
@@ -137,36 +138,58 @@ def _heartbeat_census() -> Optional[dict]:
     return None
 
 
+def _bundle_writes() -> int:
+    """Debug bundles this process has written (JAX :144), summed over
+    triggers; 0 before the first."""
+    from bigdl_tpu_torch import obs
+    from bigdl_tpu_torch.obs import names
+
+    total = 0.0
+    for fam in obs.get_registry().families():
+        if fam.name == names.BUNDLE_WRITES_TOTAL:
+            for _key, child in fam.child_items():
+                total += child.value
+    return int(total)
+
+
 def health_payload() -> dict:
     """The ``/healthz`` body (callable directly)."""
+    from bigdl_tpu_torch import obs
     from bigdl_tpu_torch.config import TrainConfig
+    from bigdl_tpu_torch.obs import alerts, prof
 
     now = time.time()
     srv = _server
     step, stamped = _step_stamp
+    ledger = obs.get_ledger()
+    ratio = ledger.live_ratio() if ledger.enabled else None
+    active_alerts = alerts.get_engine().active()
+    prof_obj = prof.current()
     step_age = None if stamped is None else round(now - stamped, 3)
     status = "idle" if step is None else "ok"
-    hang = TrainConfig.from_env().hang_timeout
-    if step_age is not None and hang > 0 and step_age > hang:
+    train = TrainConfig.from_env()
+    if step_age is not None and train.hang_timeout > 0 \
+            and step_age > train.hang_timeout:
         status = "stalled"
     return {
         "status": status,
         "host": _rank(),
         "pid": os.getpid(),
-        "attempt": 0,
+        "attempt": int(train.elastic_attempt),
         "time": now,
         "port": srv.port if srv is not None else None,
         "uptime_s": (round(now - srv.started, 3)
                      if srv is not None else None),
         "step": step,
         "step_age_s": step_age,
-        # the goodput ledger, alert engine, profiler and debug bundles
-        # are item 12's: each reads as it is when off
-        "goodput_ratio": None,
-        "alerts": [],
+        "goodput_ratio": (None if ratio is None
+                          else round(min(1.0, ratio), 6)),
+        "alerts": active_alerts,
         "heartbeat": _heartbeat_census(),
-        "prof_overhead": None,
-        "bundles": 0,
+        # None with the profiler off
+        "prof_overhead": (round(prof_obj.overhead_ratio(), 6)
+                          if prof_obj.enabled else None),
+        "bundles": _bundle_writes(),
     }
 
 
@@ -214,15 +237,34 @@ class _Handler(http.server.BaseHTTPRequestHandler):
                 else:
                     self._send_json(entry)
             elif url.path == "/profilez":
-                self._send_json({"error": _NOT_PORTED.format(
-                    "continuous profiler")}, 404)
+                from bigdl_tpu_torch.obs import prof
+
+                if q.get("format", [None])[0] == "collapsed":
+                    self._send(200, prof.current().render_collapsed()
+                               .encode("utf-8"),
+                               "text/plain; charset=utf-8")
+                else:
+                    self._send_json(prof.current().snapshot())
             elif url.path == "/debugz":
-                self._send_json({"error": _NOT_PORTED.format(
-                    "debug bundles")}, 404)
+                # one bundle now, and the inventory; without a bundle
+                # directory the build fails and the (empty) inventory
+                # still answers
+                from bigdl_tpu_torch.obs import bundle
+
+                body = {"bundle": None, "error": None}
+                try:
+                    body["bundle"] = bundle.build_bundle(
+                        reason="GET /debugz", trigger="http")
+                except Exception as e:  # noqa: BLE001 — report, don't 500
+                    body["error"] = f"{type(e).__name__}: {e}"
+                body["inventory"] = bundle.inventory()
+                self._send_json(body,
+                                200 if body["error"] is None else 503)
             elif url.path == "/":
                 self._send_json({"endpoints": ["/metrics", "/healthz",
                                                "/trace?last=K",
-                                               "/trace?request=ID"]})
+                                               "/trace?request=ID",
+                                               "/profilez", "/debugz"]})
             else:
                 self._send_json({"error": f"no route {url.path}"}, 404)
         except (BrokenPipeError, ConnectionResetError):

@@ -4,7 +4,9 @@ Counterpart of ``bigdl_tpu/obs/trace.py`` (:86-297).  ``Tracer`` nests
 spans per thread through a context variable (deterministic ids from a
 per-tracer counter), writes one Chrome trace (Perfetto-viewable) and
 one JSONL stream a run, and keeps the newest records in memory (the
-flight recorder ``recent()``, read by ``/trace?last=K``).  It is
+flight recorder ``recent()``, read by ``/trace?last=K``) and each thread's
+stack of live span names (:func:`current_phase`, what the sampling
+profiler attributes its stacks to).  It is
 thread-safe: the engines' step loops, the HTTP handler threads and the
 rollout's watcher record into one tracer.
 
@@ -27,6 +29,39 @@ import time
 # the active span id of the current thread or task (None at top level)
 _CURRENT: contextvars.ContextVar = contextvars.ContextVar(
     "bigdl_torch_obs_span", default=None)
+
+# the live span names of each thread, innermost last: what the sampling
+# profiler (obs/prof.py) prefixes its stacks with (JAX :44-85).  One
+# list a thread ident; a push or a pop is one list operation under the
+# GIL, and the profiler reads without a lock (a sample that lands in a
+# push or pop counts to the neighbouring span)
+_PHASES: dict = {}
+
+
+def current_phase(ident: int):
+    """The innermost live span name of thread ``ident``, None outside
+    every recorded span.  Never raises: the stack may go between the
+    lookup and the index."""
+    try:
+        return _PHASES[ident][-1]
+    except (KeyError, IndexError):
+        return None
+
+
+def _push_phase(name: str) -> int:
+    ident = threading.get_ident()
+    _PHASES.setdefault(ident, []).append(name)
+    return ident
+
+
+def _pop_phase(ident: int):
+    try:
+        stack = _PHASES[ident]
+        stack.pop()
+        if not stack:
+            del _PHASES[ident]
+    except (KeyError, IndexError):  # torn by a concurrent reset
+        pass
 
 
 def _host_id() -> int:
@@ -164,12 +199,14 @@ class Tracer:
         sid = next(self._ids)
         parent = _CURRENT.get()
         token = _CURRENT.set(sid)
+        ident = _push_phase(name)
         tid = self._tid()
         t0 = time.perf_counter()
         try:
             yield sid
         finally:
             _CURRENT.reset(token)
+            _pop_phase(ident)
             dur = time.perf_counter() - t0
             self._record(
                 {"name": name, "ph": "X", "ts": self._ts_us(t0),
@@ -236,4 +273,4 @@ class Tracer:
                 self._jsonl.close()
 
 
-__all__ = ["NullTracer", "NULL_TRACER", "Tracer"]
+__all__ = ["NullTracer", "NULL_TRACER", "Tracer", "current_phase"]

@@ -87,10 +87,13 @@ order, ``ravel_pytree``'s, padded to a multiple of the world size):
   among them): back off, reload the newest intact checkpoint, rewind
   ``epoch``/``neval``/``epoch_neval0`` and skip to the checkpoint's
   batch, or for a stream seek it back to the checkpoint's trained
-  offset (``elastic.restore_stream``); a fatal one
-  (``CheckpointWriteError`` among them) is raised at once.  Each
+  offset (``elastic.restore_stream``), and stamp the goodput ledger's
+  rework mark (the replayed steps are ``rework``, JAX :991-994); a fatal
+  one (``CheckpointWriteError`` among them) is raised at once.  Each
   attempt counts in ``bigdl_retry_attempts_total`` and the summary's
-  "RetryCount".
+  "RetryCount".  The step's static collective bytes (and, with
+  buckets, the exposed share) feed the goodput window classifier's
+  comm estimate (JAX :383-415).
 
 What still raises: a JAX ``Mesh`` object as ``mesh=`` (pass the port's
 ``Engine.build_mesh``), data axes that cover part of the world or are
@@ -646,14 +649,20 @@ class DistriOptimizer(LocalOptimizer):
                     leaf.numel(), leaf.dtype, n))
         registry = obs.get_registry()
         fp.bind(registry)
+        # the goodput window classifier's comm seconds come from the
+        # same static bytes (BIGDL_TORCH_WIRE_GBPS)
+        ledger = self._obs_ledger
+        ledger.set_comm_bytes_per_step(fp.total())
         n_buckets = len(self._buckets)
         registry.gauge(
             names.OVERLAP_BUCKETS,
             "Gradient-exchange buckets of the overlapped step "
             "(1 = monolithic, no overlap)").set(float(n_buckets))
+        ledger.set_exposed_comm_bytes_per_step(None)
         if n_buckets > 1:
             hidden = exchange * (n_buckets - 1) / n_buckets
             exposed = fp.total() - hidden
+            ledger.set_exposed_comm_bytes_per_step(exposed)
             registry.gauge(
                 names.OVERLAP_EXPOSED_COMM_FRACTION,
                 "Share of the per-step collective bytes NOT hidden "
@@ -769,6 +778,9 @@ class DistriOptimizer(LocalOptimizer):
                 # a stream seeks to the checkpoint's trained offset
                 # instead: the records past it are read and trained again
                 restore_stream(self, extra)
+                # goodput: the steps between the checkpoint and the
+                # failure run again, as rework
+                obs.get_ledger().stamp_resume(self.state["neval"])
                 # the rewound step restarts /healthz's stall clock
                 from bigdl_tpu_torch.obs import server as _obs_server
 

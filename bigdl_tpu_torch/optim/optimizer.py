@@ -108,6 +108,13 @@ Telemetry and resilience at ``optimize()`` (JAX :650-740, :1002-1041):
 - the obs server (``BIGDL_TORCH_OBS_PORT``): the phase timers'
   registry on ``/metrics``, and each resolved step stamped for
   ``/healthz`` (``note_step``);
+- the goodput ledger (``obs/goodput.py``, on with observability): a
+  ``step`` interval where the step's loss resolves (the interval the
+  ``computing`` span covers: its batch copy and dispatch to its loss,
+  re-tagged ``rework`` under a resume's high-water mark), each
+  ``data_wait``, the batch copy's host seconds, each ``eval``; the
+  sampling profiler (``BIGDL_TORCH_PROF_HZ``) starts with the loop, and
+  ``obs.flush`` writes the run's shards when ``optimize`` ends;
 - the health monitor (``obs/health.py``, ``BIGDL_TORCH_HEALTH_EVERY``
   > 0): on every K-th step the per-layer ``(L, 4)`` stats of the
   pre-clip gradient, the parameters and the update, read back when
@@ -135,6 +142,7 @@ from bigdl_tpu_torch.config import TrainConfig
 from bigdl_tpu_torch.dataset import to_dataset
 from bigdl_tpu_torch.dataset.prefetch import PrefetchIterator, to_host_tensor
 from bigdl_tpu_torch.obs import names
+from bigdl_tpu_torch.obs.goodput import NULL_LEDGER
 from bigdl_tpu_torch.optim.evaluator import evaluate_dataset
 from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.optim_method import SGD, Plateau
@@ -326,6 +334,7 @@ class LocalOptimizer(BaseOptimizer):
         self._obs_tracer = obs.get_tracer()
         self._obs_runtime = None
         self._obs_server = None
+        self._obs_ledger = NULL_LEDGER
         self._elastic_session = None
         self._collective_footprint = None
         # the step the feed's first batch of an epoch trains
@@ -720,6 +729,7 @@ class LocalOptimizer(BaseOptimizer):
         from bigdl_tpu_torch.resilience.faults import get_injector
 
         from bigdl_tpu_torch.obs import health as _health
+        from bigdl_tpu_torch.obs import prof as _obs_prof
         from bigdl_tpu_torch.obs import server as _obs_server
         from bigdl_tpu_torch.resilience import elastic as _elastic
 
@@ -727,7 +737,11 @@ class LocalOptimizer(BaseOptimizer):
         self._fault_injector = inj if inj.active else None
         tracer = self._obs_tracer = obs.get_tracer()
         self._obs_runtime = obs.get_runtime() if obs.active() else None
+        # the goodput ledger: the shared no-op with observability off
+        self._obs_ledger = obs.get_ledger()
         self._obs_server = _obs_server.ensure_server()
+        # the sampling profiler starts with the loop (off: no thread)
+        _obs_prof.get_profiler()
         if self._obs_server is not None:
             _obs_server.register_registry(self.metrics.registry)
         self._health_monitor = _health.monitor_from_config(
@@ -747,8 +761,10 @@ class LocalOptimizer(BaseOptimizer):
             ex, self._ckpt_executor = self._ckpt_executor, None
             if ex is not None:
                 ex.shutdown(wait=True)
-            if self._obs_runtime is not None:
-                obs.publish_runtime(runtime=self._obs_runtime)
+            # the run's shards last, so the snapshot holds the final
+            # counters (a failure the flush above recorded included)
+            if obs.active():
+                obs.flush(extra_registries=[self.metrics.registry])
         # normal completion: a background write's error reaches the caller
         self._raise_pending_ckpt_error()
         return model
@@ -778,6 +794,7 @@ class LocalOptimizer(BaseOptimizer):
                             if t is not None)
         tracer = self._obs_tracer
         runtime = self._obs_runtime
+        ledger = self._obs_ledger
         monitor = self._health_monitor
         footprint = self._collective_footprint
         note_step = None
@@ -797,6 +814,8 @@ class LocalOptimizer(BaseOptimizer):
                 runtime.record_step(dt)
                 tracer.complete("computing", t0, dt, step=n)
                 self._detect_slow_step(n, dt, tracer, runtime)
+            # one productive interval, `rework` under the resume mark
+            ledger.record("step", t0, dt, step=n)
             if note_step is not None:
                 note_step(n)
             self.state["loss"] = loss_val
@@ -846,6 +865,8 @@ class LocalOptimizer(BaseOptimizer):
                 self.metrics.add("data wait time", dt_wait)
                 tracer.complete("data_wait", t_wait, dt_wait,
                                 step=self.state["neval"])
+                ledger.record("data_wait", t_wait, dt_wait,
+                              step=self.state["neval"])
                 yield item
 
         pin = self.device.type == "cuda"
@@ -883,6 +904,9 @@ class LocalOptimizer(BaseOptimizer):
                         self._health_now = (monitor is not None
                                             and monitor.wants(n))
                         t_disp = time.perf_counter()
+                        # the batch copy: the host share of the window
+                        # classifier, not a cause of its own
+                        ledger.note_host_seconds(t_disp - t0)
                         with tracer.span("step_dispatch", step=n):
                             opt.state, loss, ok = self._train_step(
                                 param_names, params, opt.state, inp_d,
@@ -906,8 +930,12 @@ class LocalOptimizer(BaseOptimizer):
                         if val_trigger is not None and \
                                 val_trigger(self.state):
                             flush()
+                            t_eval = time.perf_counter()
                             with tracer.span("validation", step=n):
                                 self._run_validation()
+                            ledger.record("eval", t_eval,
+                                          time.perf_counter() - t_eval,
+                                          step=n)
                             model.train()
                         if ckpt_trigger is not None and \
                                 ckpt_trigger(self.state):
@@ -931,7 +959,10 @@ class LocalOptimizer(BaseOptimizer):
                          time.time() - t_epoch)
                 log.info("Metrics: %s", self.metrics.summary())
                 if val_trigger is not None and val_trigger(self.state):
+                    t_eval = time.perf_counter()
                     self._run_validation()
+                    ledger.record("eval", t_eval,
+                                  time.perf_counter() - t_eval)
                     model.train()
                 if ckpt_trigger is not None and ckpt_trigger(self.state):
                     with tracer.span("checkpoint", epoch=epoch):

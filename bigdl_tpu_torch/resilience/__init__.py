@@ -3,8 +3,12 @@
 classes, the serving router's retry budget, the fault injector
 (``BIGDL_TORCH_FAULT_PLAN``) and the elastic layer: preemption,
 heartbeats, the world-resize resume (``elastic.ensure_shard_layout``),
-``restore_latest`` and the stream's resume."""
+``restore_latest`` and the stream's resume; the restart supervisor
+(``python -m bigdl_tpu_torch.resilience.supervisor -- CMD``) and its
+autoscaling policy loop (``resilience/autoscale.py``)."""
 
+from bigdl_tpu_torch.resilience.autoscale import (AutoscaleController,
+                                                  Decision)
 from bigdl_tpu_torch.resilience.elastic import (EXIT_FATAL, EXIT_PREEMPTED,
                                                 EXIT_TRANSIENT,
                                                 ElasticSession,
@@ -26,6 +30,7 @@ from bigdl_tpu_torch.resilience.retry import (FATAL_TYPES,
                                               PeerLostError, RetryBudget,
                                               RetryPolicy, backoff_delay,
                                               classify)
+from bigdl_tpu_torch.resilience.supervisor import HangWatchdog, Supervisor
 
 __all__ = ["CheckpointWriteError", "NonFiniteStepError", "PeerLostError",
            "RetryBudget", "RetryPolicy", "backoff_delay", "classify",
@@ -36,4 +41,5 @@ __all__ = ["CheckpointWriteError", "NonFiniteStepError", "PeerLostError",
            "ensure_shard_layout", "record_resume", "restore_latest",
            "run_main", "FATAL_TYPES", "preemption_requested",
            "request_preemption", "clear_preemption",
-           "install_preemption_handler"]
+           "install_preemption_handler", "AutoscaleController", "Decision",
+           "HangWatchdog", "Supervisor"]

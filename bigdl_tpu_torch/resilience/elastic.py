@@ -507,11 +507,10 @@ def restore_latest(optimizer, directory: Optional[str] = None):
     triggers, LR schedule, RNG folding, and the mid-epoch fast-forward
     all resume exactly, and account the resume.  Returns the
     checkpoint's extra dict, or None when the directory holds no
-    checkpoint yet (a first boot is not an error).  The JAX function
-    also stamps its goodput ledger's rework mark
-    (``obs.get_ledger().stamp_resume``); the port has no goodput ledger
-    yet (``obs/goodput.py``, ROADMAP.md queue 1 item 12), so that stamp
-    is left out."""
+    checkpoint yet (a first boot is not an error).  Stamps the goodput
+    ledger's rework mark (JAX :571): the earlier attempts' highest step,
+    from their ledger shards, so the steps replayed up to it count as
+    ``rework``."""
     from bigdl_tpu_torch.utils.serializer import load_latest_checkpoint
 
     d = directory or optimizer.checkpoint_path
@@ -539,8 +538,10 @@ def restore_latest(optimizer, directory: Optional[str] = None):
     record_resume(topo.get("world_size"),
                   getattr(optimizer, "n_shards", 1),
                   step=optimizer.state.get("neval"))
+    from bigdl_tpu_torch import obs
     from bigdl_tpu_torch.obs import server as _obs_server
 
+    obs.get_ledger().stamp_resume(optimizer.state.get("neval"))
     # re-stamp /healthz with the restored step: a resume that rewinds
     # neval must restart the hang watchdog's stall clock, not inherit
     # the dead attempt's stamp age

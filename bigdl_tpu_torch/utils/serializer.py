@@ -18,7 +18,9 @@ interchange format instead (``utils/bigdl_proto.py``, JAX :157-205).
 The checkpoint layer records the JAX package's spans on the port's
 tracer (``checkpoint.snapshot``, ``checkpoint.write`` or
 ``checkpoint.write_async``, ``checkpoint.verify``, ``checkpoint.load``)
-and its ``bigdl_checkpoint_*`` metrics, runs the fault injector's
+and its ``bigdl_checkpoint_*`` metrics, charges the goodput ledger's
+``checkpoint_save`` (a synchronous write, or a background write's
+snapshot) and ``checkpoint_restore`` (a load), runs the fault injector's
 ``ckpt`` site after each write (``resilience/faults.py``), and keeps a
 stream's trained frontier in the manifest (``read_checkpoint_stream``).
 ``snapshot_checkpoint(to_host=True)`` returns numpy copies finished
@@ -258,12 +260,25 @@ def snapshot_checkpoint(model, optim_method=None, extra: dict = None,
                 "arrays": {k: own(v) for k, v in
                            optim_method.get_state_arrays().items()},
                 "extra": extra or {}}
+    dt = time.perf_counter() - t0
     obs.get_registry().gauge(
         names.CHECKPOINT_SNAPSHOT_SECONDS,
         "Blocking snapshot span of the newest checkpoint (the only "
-        "critical-path cost of a background checkpoint)").set(
-        round(time.perf_counter() - t0, 6))
+        "critical-path cost of a background checkpoint)").set(round(dt, 6))
+    if to_host:
+        # goodput (JAX :282): a background checkpoint's only badput is
+        # this snapshot; its write off the loop is traced, not charged
+        obs.get_ledger().record("checkpoint_save", t0, dt,
+                                step=_snap_step(snap))
     return snap
+
+
+def _snap_step(snap: dict):
+    """The step a snapshot's topology records (None without one)."""
+    if snap["optim"] is None:
+        return None
+    return ((snap["optim"]["extra"] or {}).get("topology")
+            or {}).get("step")
 
 
 def _fsync_dir(directory: str) -> None:
@@ -484,10 +499,15 @@ def write_checkpoint(snap: dict, path_prefix: str, keep_last: int = 0,
         if keep_last:
             gc_checkpoints(os.path.dirname(path_prefix) or ".", keep_last)
     reg = obs.get_registry()
+    dt = time.perf_counter() - t0
     reg.gauge(names.CHECKPOINT_WRITE_SECONDS,
               "Serialize+fsync+manifest span of the newest checkpoint "
               "(off the critical path when written in the background)"
-              ).set(round(time.perf_counter() - t0, 6))
+              ).set(round(dt, 6))
+    if not background:
+        # a synchronous write stalls the step it lands on (JAX :586)
+        obs.get_ledger().record("checkpoint_save", t0, dt,
+                                step=_snap_step(snap))
     reg.counter(names.CHECKPOINT_WRITES_TOTAL,
                 "Checkpoint pairs written (model + optim + manifest)").inc()
     return path_prefix
@@ -505,9 +525,16 @@ def load_checkpoint(path_prefix: str, model, optim_method=None) -> dict:
     """Load the weights into ``model`` (in place, on its device) and
     the state into ``optim_method``; returns the ``extra`` dict.
     Traced as ``checkpoint.load``."""
+    # goodput: restoring is badput (JAX :612); the ledger is made first,
+    # so a resume's restore lies inside its span
+    ledger = obs.get_ledger()
+    t_load = time.perf_counter()
     with obs.get_tracer().span("checkpoint.load",
                                prefix=os.path.basename(path_prefix)):
-        return _load_checkpoint_impl(path_prefix, model, optim_method)
+        extra = _load_checkpoint_impl(path_prefix, model, optim_method)
+    ledger.record("checkpoint_restore", t_load,
+                  time.perf_counter() - t_load, step=extra.get("neval"))
+    return extra
 
 
 def _load_checkpoint_impl(path_prefix, model, optim_method) -> dict:

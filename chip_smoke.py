@@ -446,9 +446,44 @@ it runs; any failure exits non-zero:
     (f) ``mnist_cnn``, ``finetune_frozen_graph`` and
     ``train_from_tf_pipeline`` in child processes at their defaults, 2
     epochs: every loss finite, the accuracy each returns, seconds;
+27. the fleet observability and control plane (``phase_fleet``): (a)
+    phase 22's fused ResNet-50 (bf16, batch 32, 224x224, 4 batches an
+    epoch, SGD momentum 0.9, f32 wire, cuDNN deterministic, TF32 off,
+    each loss read before the next step) through ``DistriOptimizer`` at
+    world 1, 14 steps with a checkpoint every 8,
+    in a ``python -c`` child under ``python -m
+    bigdl_tpu_torch.resilience.supervisor --autoscale``: attempt 0
+    sends itself SIGTERM at step 5 and exits 170 with its emergency
+    checkpoint, attempt 1 resumes through ``restore_latest`` and exits
+    1 after step 10, attempt 2 resumes from step 8's checkpoint and
+    ends; the supervisor exits 0 with 1 preempted and 1 transient
+    restart, the weights, BN state and momentum bit-equal to an
+    uninterrupted child's (run beside it; it also times the step with
+    the profiler at 100 Hz and off, alternate 4-step blocks), 36/16 conv_bn launches
+    a step in every child; (b) attempt 2 holds at its last step while
+    ``/healthz`` (attempt 2, goodput in (0, 1], the profiler's overhead
+    within its budget, or back within it in 5 s of skipped samples, the
+    alert firing, a bundle), ``/profilez`` (the
+    heaviest span-attributed stack under a training span), the alert's
+    one bundle (verified, the card's memory in ``runtime.json``),
+    ``/debugz`` (a second bundle) and the fleet scrape into the
+    retention store are read; (c) the goodput ledger over the attempts'
+    shards (rework steps 9-10, the ratio, the unknown seconds), the
+    supervisor's backoff record against its policy's delay (50 ms), the
+    checkpoints' save and restore seconds, the report CLI (goodput,
+    alerts, resilience) and the trace merge (three barrier-aligned child
+    shards); (d) the dry-run autoscaler's evaluations (all at the world
+    bound, none executed; their median ``step_time_s`` within 20% of
+    the children's median step period, the gap between two loss reads,
+    beside their runtime p50, the dispatch-to-loss interval, which ends
+    before the step's backward and update do on the card; their
+    ``goodput_ratio`` within 0.02 of ``/healthz``'s) and a two-tier rollup whose quantiles are
+    bit-identical to the flat merge; (e) the four example scripts ported
+    with the fleet plane at their defaults, at once, in child processes;
 9. the kernels line, last: one JSON object listing each kernel with its
-   launches on its own path (phase 4, phase 22 (a) for the conv_bn
-   kernels, or the kernel arm of phase 11) and its numbers from phase
+   launches on its own path (phase 4, phase 27 (a)'s supervised children
+   for the conv_bn kernels, or the kernel arm of phase 11) and its
+   numbers from phase
    3, 6 or 10 (rows 1-3 also phase 24 (a)'s offset times; rows 1 and 6
    phase 25 (a)'s launches on each TP rank and row 6 its times at H=4;
    rows 1-3 phase 25 (b)'s launches).
@@ -460,6 +495,7 @@ name and power limit and the script's total seconds.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import re
@@ -8275,6 +8311,671 @@ def phase_front_ends(smi: str) -> None:
     say(f"phase 26 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---- phase 27: the fleet observability and control plane ----------------
+# (a) the fused ResNet-50 at bench.py's widths (TRAIN_BATCH, TRAIN_IMG,
+# TRAIN_CLASSES, bf16, SGD with momentum 0.9, P27_BATCHES batches an
+# epoch) through DistriOptimizer at
+# world 1 in a child of the restart supervisor: attempt 0 is SIGTERM'd at
+# step P27_PREEMPT_AT, attempt 1 checkpoints every P27_CKPT_EVERY steps and
+# exits 1 after step P27_CRASH_AT, attempt 2 ends at step P27_STEPS
+P27_STEPS, P27_PREEMPT_AT, P27_CKPT_EVERY, P27_CRASH_AT = 14, 5, 8, 10
+# batches an epoch (each of TRAIN_BATCH images from seed 0, no shuffle)
+P27_BATCHES = 4
+# (b) attempt 2 holds at its last step while the endpoints are read (a
+# hold before a later step would put its seconds into the autoscaler's
+# next step-time sample)
+P27_HOLD_AT, P27_LR = P27_STEPS, 0.1
+P27_PROF_HZ, P27_PROF_BUDGET, P27_GOODPUT_WINDOW = 100.0, 0.01, 2
+# a sample's own work may take the overhead ratio past the budget once
+# before the next check skips (at most this much at the first read), and
+# the skipping brings it back within this many seconds
+P27_PROF_SLACK, P27_PROF_SETTLE_S = 1e-3, 5.0
+# the uninterrupted child's profiler A/B: steps from 3 on, in blocks
+P27_AB_BLOCK = 4
+# (d) the autoscaler's poll, and the gates
+P27_AUTOSCALE_INTERVAL, P27_STEP_TIME_TOL, P27_RATIO_TOL = 0.1, 0.2, 0.02
+P27_BACKOFF_TOL, P27_TIMEOUT = 0.05, 600
+# (b) the rule that fires once on attempt 2: the window goodput is at
+# most 1, so it breaches at every window tick and fires at the second
+P27_RULE = {"name": "p27_window_goodput", "type": "threshold",
+            "metric": "bigdl_goodput_window_ratio", "op": "<",
+            "value": 1.01, "for": 2, "severity": "warning"}
+# the spans a training step runs in (the profiler's attribution)
+P27_TRAIN_SPANS = ("iteration", "step_dispatch", "device_put", "computing",
+                   "batch_prep", "checkpoint", "checkpoint.snapshot",
+                   "checkpoint.write")
+# (e) the four example scripts at their defaults
+P27_EXAMPLES = [("train_ptb_lstm", []), ("train_cifar_resnet", []),
+                ("finetune_frozen_backbone", []),
+                ("dl_classifier_example", [])]
+
+_P27_CHILD = r"""
+import json, os, signal, sys, time
+import numpy as np, torch
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import chip_smoke as C
+mode, ck, out, tmp, dev = sys.argv[1:6]
+C.DEV = dev
+C.TRAIN_BATCH, C.TRAIN_IMG, C.TRAIN_CLASSES = map(int, sys.argv[6:9])
+attempt = int(os.environ.get("BIGDL_TORCH_ELASTIC_ATTEMPT", "0"))
+# only attempt 2 bundles, under the one rule (b) reads
+if mode == "supervised" and attempt == 2:
+    os.environ["BIGDL_TORCH_BUNDLE_DIR"] = os.path.join(tmp, "bundles")
+    os.environ["BIGDL_TORCH_ALERT_RULES"] = json.dumps([C.P27_RULE])
+else:
+    os.environ.pop("BIGDL_TORCH_BUNDLE_DIR", None)
+from bigdl_tpu_torch.common import RandomGenerator
+from bigdl_tpu_torch.dataset import ArrayDataSet
+from bigdl_tpu_torch.engine import Engine
+from bigdl_tpu_torch.nn.criterion import CrossEntropyCriterion
+from bigdl_tpu_torch.obs import prof
+from bigdl_tpu_torch.ops import _cuda
+from bigdl_tpu_torch.optim import SGD, DistriOptimizer, Trigger
+from bigdl_tpu_torch.resilience import elastic
+from bigdl_tpu_torch.utils import tree as T
+if dev == "cpu":
+    # the CPU rehearsal runs the plain versions: count their calls
+    from bigdl_tpu_torch.nn import fused
+    _real = fused.conv_bn_stats
+
+    def _counted(x, w, *a, **k):
+        _cuda.launches["conv_bn_1x1" if w.dim() == 2 else
+                       "conv_bn_kxk"] += 1
+        return _real(x, w, *a, **k)
+    fused.conv_bn_stats = _counted
+rec = {"mode": mode, "attempt": attempt, "pid": os.getpid(), "losses": {},
+       "at": {}, "calls": 0, "prof": {}}
+
+
+def _prof(on):
+    os.environ["BIGDL_TORCH_PROF_HZ"] = str(C.P27_PROF_HZ if on else 0)
+    prof.get_profiler()
+
+
+class Hook:
+    def add_scalar(self, tag, value, step):
+        if tag != "Loss":
+            return
+        rec["losses"][step] = float(value)
+        rec["at"][step] = time.perf_counter()
+        if mode == "plain":
+            # the A/B: blocks of P27_AB_BLOCK steps from step 3, on first
+            if step >= 2:
+                on = ((step - 2) // C.P27_AB_BLOCK) % 2 == 0
+                rec["prof"][step + 1] = on
+                _prof(on)
+        elif attempt == 0 and step == C.P27_PREEMPT_AT:
+            os.kill(os.getpid(), signal.SIGTERM)
+            deadline = time.time() + 60
+            while not elastic.preemption_requested():
+                if time.time() > deadline:
+                    raise RuntimeError("the SIGTERM never arrived")
+                time.sleep(0.01)
+        elif attempt == 1 and step == C.P27_CRASH_AT:
+            sys.exit(1)
+        elif attempt == 2 and step == C.P27_HOLD_AT:
+            with open(os.path.join(tmp, "ready"), "w") as f:
+                f.write(str(os.getpid()))
+            deadline = time.time() + 300
+            while not os.path.exists(os.path.join(tmp, "release")):
+                if time.time() > deadline:
+                    raise RuntimeError("never released")
+                time.sleep(0.02)
+
+    def get_summary_trigger(self, name):
+        return None
+
+
+def main():
+    Engine.init(dev)
+    model = C._training_resnet50(True)
+    n = C.P27_BATCHES * C.TRAIN_BATCH
+    x = np.random.RandomState(0).randn(
+        n, 3, C.TRAIN_IMG, C.TRAIN_IMG).astype(np.float32)
+    y = (np.random.RandomState(1).randint(0, C.TRAIN_CLASSES, n)
+         + 1).astype(np.float32)
+    RandomGenerator.RNG.set_seed(1)
+    # no shuffle: a resumed run sees each batch's rows in the same order
+    opt = DistriOptimizer(model, ArrayDataSet(x, y, C.TRAIN_BATCH,
+                                              shuffle=False),
+                          CrossEntropyCriterion(), C.TRAIN_BATCH,
+                          device=dev, wire_dtype="float32")
+    opt.set_optim_method(SGD(learningrate=C.P27_LR, momentum=0.9))
+    opt.set_compute_dtype("bfloat16")
+    # a trigger on the loss reads each step's loss before the next step
+    # (no pipelining), so a step's dispatch-to-loss is its period, the
+    # interval the autoscaler's stamps measure
+    opt.set_end_when(Trigger.or_(Trigger.max_iteration(C.P27_STEPS),
+                                 Trigger.min_loss(-1.0)))
+    if mode == "supervised":
+        opt.set_checkpoint(ck, Trigger.several_iteration(C.P27_CKPT_EVERY))
+    opt.set_train_summary(Hook())
+    real = opt._train_step
+
+    def counted(*a, **k):
+        rec["calls"] += 1
+        return real(*a, **k)
+    opt._train_step = counted
+    if mode == "supervised":
+        extra = elastic.restore_latest(opt)
+        rec["resumed_at"] = None if extra is None else opt.state["neval"]
+    else:
+        _prof(False)
+    opt.optimize()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    np.savez(out, *[v.detach().cpu().numpy() for v in
+                    T.leaves(model.params()) + T.leaves(model.state())],
+             velocity=opt.optim_method.state["velocity"].cpu().numpy())
+
+
+try:
+    main()
+finally:
+    rec["launches"] = {k: _cuda.launches[k]
+                       for k in ("conv_bn_1x1", "conv_bn_kxk")}
+    print("P27CHILD " + json.dumps(rec), flush=True)
+    Engine.reset()
+"""
+
+
+def _p27_env(extra: dict) -> dict:
+    """The children's environment: this process's, without its own
+    BIGDL_TORCH_* knobs (the kernels' build place and compiler stay),
+    plus ``extra``."""
+    keep = ("BIGDL_TORCH_BUILD_DIR", "BIGDL_TORCH_NVCC")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("BIGDL_TORCH_") or k in keep}
+    env.update({k: str(v) for k, v in extra.items()})
+    return env
+
+
+def _p27_records(log: str) -> list:
+    return [json.loads(line[len("P27CHILD "):])
+            for line in log.splitlines() if line.startswith("P27CHILD ")]
+
+
+def _p27_child_argv(mode, ck, out, tmp) -> list:
+    return [sys.executable, "-c", _P27_CHILD, mode, ck, out, tmp, DEV,
+            str(TRAIN_BATCH), str(TRAIN_IMG), str(TRAIN_CLASSES)]
+
+
+def _p27_launch_check(rec) -> None:
+    calls = rec["calls"]
+    want = {"conv_bn_1x1": 36 * calls, "conv_bn_kxk": 16 * calls}
+    if calls <= 0 or rec["launches"] != want:
+        raise AssertionError(f"phase 27: the {rec['mode']} child (attempt "
+                             f"{rec['attempt']}) launched {rec['launches']} "
+                             f"in {calls} steps, not 36/16 a step")
+
+
+def _p27_plain_start(tmp):
+    """Start the uninterrupted child (it runs beside the supervised
+    one); returns (process, its log file, start time)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    log = open(os.path.join(tmp, "plain.log"), "w")
+    proc = subprocess.Popen(
+        _p27_child_argv("plain", os.path.join(tmp, "ck_plain"),
+                        os.path.join(tmp, "plain.npz"), tmp),
+        cwd=root, env=_p27_env({}), stdout=log, stderr=subprocess.STDOUT)
+    return proc, log, time.perf_counter()
+
+
+def _p27_plain(started, smi) -> dict:
+    """The uninterrupted child's end, and its profiler A/B."""
+    proc, log, t0 = started
+    try:
+        rc = proc.wait(timeout=P27_TIMEOUT)
+    finally:
+        proc.kill()
+        log.close()
+    with open(log.name) as f:
+        out = f.read()
+    if rc != 0:
+        raise AssertionError(f"phase 27 uninterrupted child exited {rc}: "
+                             f"{out[-4000:]}")
+    (rec,) = _p27_records(out)
+    _p27_launch_check(rec)
+    at = {int(k): v for k, v in rec["at"].items()}
+    on = {int(k): v for k, v in rec["prof"].items()}
+    gaps = {n: (at[n] - at[n - 1]) * 1e3 for n in at if n - 1 in at
+            and n in on}
+    ms_on = [g for n, g in gaps.items() if on[n]]
+    ms_off = [g for n, g in gaps.items() if not on[n]]
+    rec["ms_on"] = float(np.mean(ms_on)) if ms_on else float("nan")
+    rec["ms_off"] = float(np.mean(ms_off)) if ms_off else float("nan")
+    say(f"phase 27 (a) uninterrupted child (beside the supervised run): "
+        f"{len(at)} steps in {time.perf_counter() - t0:.1f} s, "
+        f"{rec['launches']} launches in "
+        f"{rec['calls']} steps; fused step {rec['ms_on']:.2f} ms with the "
+        f"profiler at {P27_PROF_HZ:g} Hz ({len(ms_on)} steps) and "
+        f"{rec['ms_off']:.2f} ms off ({len(ms_off)} steps), alternate "
+        f"{P27_AB_BLOCK}-step blocks, no gate [{smi}]")
+    return rec
+
+
+def _p27_get(port, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=30) as r:
+        return r.status, json.loads(r.read())
+
+
+def _p27_hold(tmp, smi) -> dict:
+    """(b), while attempt 2 holds at step P27_HOLD_AT."""
+    from bigdl_tpu_torch.obs import bundle, prof
+
+    with open(os.path.join(tmp, "port")) as f:
+        port = int(f.read().strip())
+    import urllib.request
+
+    from bigdl_tpu_torch.obs.aggregate import FleetAggregator
+    from bigdl_tpu_torch.obs.retain import RetentionStore
+
+    _, hz = _p27_get(port, "/healthz")
+    _, pz = _p27_get(port, "/profilez")
+    # the cap: a ratio read past the budget (one sample's work over the
+    # check that allowed it) comes back under it, with samples skipped
+    first_oh, settle = hz["prof_overhead"], 0.0
+    t_read = time.perf_counter()
+    while hz["prof_overhead"] is not None and \
+            hz["prof_overhead"] > P27_PROF_BUDGET + P27_PROF_SLACK and \
+            time.perf_counter() - t_read < P27_PROF_SETTLE_S:
+        time.sleep(0.1)
+        _, hz = _p27_get(port, "/healthz")
+        settle = time.perf_counter() - t_read
+    if settle:
+        _, pz2 = _p27_get(port, "/profilez")
+        if pz2["skipped"] <= pz["skipped"]:
+            raise AssertionError(f"phase 27 (b) the profiler read "
+                                 f"{first_oh} and skipped no sample")
+        pz = pz2
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=30) as r:
+        metrics_text = r.read().decode("utf-8")
+    # (d) the fleet scrape of the live child into the retention store
+    agg = FleetAggregator(peers=[f"127.0.0.1:{port}"])
+    store = RetentionStore(directory=os.path.join(tmp, "retain"))
+    for _ in range(2):
+        fleet = agg.snapshot()
+        store.ingest_snapshot(time.time(), fleet)
+    kept = RetentionStore(directory=os.path.join(tmp, "retain"))
+    replayed = kept.load()
+    if not store.summary() or not replayed or \
+            fleet["hosts"].get("0", {}).get("step") != P27_HOLD_AT:
+        raise AssertionError(f"phase 27 (d) fleet scrape {fleet}, "
+                             f"retention {store.summary()}")
+    bdir = os.path.join(tmp, "bundles")
+    inv = bundle.inventory(bdir)
+    code, dz = _p27_get(port, "/debugz")
+    _, hz2 = _p27_get(port, "/healthz")
+    inv2 = bundle.inventory(bdir)
+    ratio = hz["goodput_ratio"]
+    if hz["attempt"] != 2 or ratio is None or not 0 < ratio <= 1:
+        raise AssertionError(f"phase 27 (b) /healthz: {hz}")
+    if hz["prof_overhead"] is None or \
+            hz["prof_overhead"] > P27_PROF_BUDGET + P27_PROF_SLACK:
+        raise AssertionError(f"phase 27 (b) profiler overhead "
+                             f"{hz['prof_overhead']} past the budget "
+                             f"{P27_PROF_BUDGET}")
+    if [a["rule"] for a in hz["alerts"]] != [P27_RULE["name"]] or \
+            hz["bundles"] < 1:
+        raise AssertionError(f"phase 27 (b) alerts {hz['alerts']}, "
+                             f"bundles {hz['bundles']}")
+    if len(inv) != 1 or not inv[0]["ok"] or inv[0]["trigger"] != "alert":
+        raise AssertionError(f"phase 27 (b) the alert's bundles: {inv}")
+    ok, why = bundle.verify_bundle(inv[0]["path"])
+    with open(os.path.join(inv[0]["path"], "runtime.json")) as f:
+        runtime = json.load(f)
+    mem = runtime.get("device_memory") or {}
+    if not ok or DEV == "cuda" and not mem.get("peak_bytes_in_use"):
+        raise AssertionError(f"phase 27 (b) bundle {inv[0]['name']}: "
+                             f"{why}, runtime {runtime}")
+    spanned = [line for line in pz["collapsed"]
+               if not line.startswith(prof.NO_SPAN + ";")]
+    top = spanned[0].split(";", 1)[0] if spanned else None
+    if not pz["enabled"] or top not in P27_TRAIN_SPANS:
+        raise AssertionError(f"phase 27 (b) /profilez: the heaviest "
+                             f"span-attributed stack is under {top!r}")
+    if code != 200 or not dz.get("bundle") or len(inv2) != 2 or \
+            not all(b["ok"] for b in inv2) or hz2["bundles"] != 2:
+        raise AssertionError(f"phase 27 (b) /debugz: {code} {dz}")
+    say(f"phase 27 (b) attempt 2 at step {hz['step']}: /healthz attempt "
+        f"{hz['attempt']}, goodput {ratio:.4f}, profiler overhead "
+        f"{hz['prof_overhead']:.5f} (budget {P27_PROF_BUDGET}; first read "
+        f"{first_oh:.5f}, {settle:.1f} s to come back) over "
+        f"{pz['samples']} samples ({pz['skipped']} skipped), heaviest "
+        f"span-attributed stack under {top!r}; rule {P27_RULE['name']} "
+        f"fired once: 1 alert bundle ({why}; runtime.json peak "
+        f"{mem.get('peak_bytes_in_use')} B), /debugz wrote a second; "
+        f"the fleet scrape of the child into the retention store: "
+        f"{len(store.summary())} series, {replayed} points replayed from "
+        f"its JSONL [{smi}]")
+    return {"health": hz, "metrics_text": metrics_text}
+
+
+def _p27_supervised(tmp, smi) -> dict:
+    """(a)-(b): the supervisor's run; returns the children's records,
+    the supervisor's output and the hold's reads."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = _p27_env({
+        "BIGDL_TORCH_TRACE_DIR": os.path.join(tmp, "trace"),
+        "BIGDL_TORCH_METRICS_DIR": os.path.join(tmp, "metrics"),
+        "BIGDL_TORCH_OBS_PORT": "0",
+        "BIGDL_TORCH_OBS_PORT_FILE": os.path.join(tmp, "port"),
+        "BIGDL_TORCH_GOODPUT_WINDOW": P27_GOODPUT_WINDOW,
+        "BIGDL_TORCH_PROF_HZ": P27_PROF_HZ,
+        "BIGDL_TORCH_PROF_BUDGET": P27_PROF_BUDGET,
+        "BIGDL_TORCH_BUNDLE_DIR": os.path.join(tmp, "sup_bundles"),
+        "BIGDL_TORCH_AUTOSCALE_DRY_RUN": 1,
+        "BIGDL_TORCH_AUTOSCALE_MIN_WORLD": 1,
+        "BIGDL_TORCH_AUTOSCALE_MAX_WORLD": 1,
+        "BIGDL_TORCH_AUTOSCALE_INTERVAL": P27_AUTOSCALE_INTERVAL,
+        "BIGDL_TORCH_AUTOSCALE_WARMUP": 0,
+        "BIGDL_TORCH_AUTOSCALE_HYSTERESIS": 1,
+        # always breached: every evaluation is logged with its signals
+        "BIGDL_TORCH_AUTOSCALE_STEP_TIME_HIGH": 1e-6,
+        "BIGDL_TORCH_AUTOSCALE_GOODPUT_FLOOR": 1.01})
+    cmd = [sys.executable, "-m", "bigdl_tpu_torch.resilience.supervisor",
+           "--autoscale", "--max-retries", "3", "--"] + _p27_child_argv(
+        "supervised", os.path.join(tmp, "ck"),
+        os.path.join(tmp, "supervised.npz"), tmp)
+    log_path = os.path.join(tmp, "supervisor.log")
+    t0 = time.perf_counter()
+    hold = None
+    with open(log_path, "w") as logf:
+        sup = subprocess.Popen(cmd, cwd=root, env=env, stdout=logf,
+                               stderr=subprocess.STDOUT, text=True)
+        try:
+            deadline = time.time() + P27_TIMEOUT
+            while not os.path.exists(os.path.join(tmp, "ready")):
+                if sup.poll() is not None or time.time() > deadline:
+                    break
+                time.sleep(0.05)
+            else:
+                try:
+                    hold = _p27_hold(tmp, smi)
+                finally:
+                    with open(os.path.join(tmp, "release"), "w") as f:
+                        f.write("go")
+            rc = sup.wait(timeout=P27_TIMEOUT)
+        finally:
+            sup.kill()
+    with open(log_path) as f:
+        log = f.read()
+    if rc != 0 or hold is None:
+        raise AssertionError(f"phase 27 (a) the supervisor exited {rc} "
+                             f"(held: {hold is not None}): {log[-5000:]}")
+    recs = _p27_records(log)
+    if [r["attempt"] for r in recs] != [0, 1, 2]:
+        raise AssertionError(f"phase 27 (a) attempts "
+                             f"{[r['attempt'] for r in recs]}: {log[-4000:]}")
+    for r in recs:
+        _p27_launch_check(r)
+    return {"recs": recs, "log": log, "hold": hold,
+            "seconds": time.perf_counter() - t0}
+
+
+def _p27_after(tmp, run, plain, smi) -> dict:
+    """(a)'s gates on the finished run, (c) and (d)."""
+    from bigdl_tpu_torch.obs import aggregate, goodput, report
+    from bigdl_tpu_torch.obs import names as N
+
+    recs = run["recs"]
+    mdir, tdir = os.path.join(tmp, "metrics"), os.path.join(tmp, "trace")
+    # (a) bit-equal to the uninterrupted child
+    a = np.load(os.path.join(tmp, "supervised.npz"))
+    b = np.load(os.path.join(tmp, "plain.npz"))
+    if sorted(a.files) != sorted(b.files) or not all(
+            np.array_equal(a[k], b[k]) for k in a.files):
+        diff = max(float(np.abs(a[k] - b[k]).max()) for k in a.files)
+        raise AssertionError(f"phase 27 (a) the supervised run ended "
+                             f"{diff:.3e} from the uninterrupted one")
+    losses = {}
+    for r in recs:
+        losses.update({int(k): v for k, v in r["losses"].items()})
+    plain_l = {int(k): v for k, v in plain["losses"].items()}
+    if any(losses[n] != plain_l[n] for n in losses):
+        raise AssertionError("phase 27 (a) a loss differs from the "
+                             "uninterrupted child's")
+    resumed = [r.get("resumed_at") for r in recs]
+    snaps = report.load_metric_snapshots(mdir)
+    restarts = {}
+    for snap in snaps:
+        fam = (snap.get("metrics") or {}).get(N.SUPERVISOR_RESTARTS_TOTAL)
+        for s in (fam or {}).get("samples", []):
+            restarts[s["labels"]["kind"]] = int(s["value"])
+    # attempt 1 resumes right after attempt 0's last step (the emergency
+    # checkpoint), attempt 2 at the periodic checkpoint's
+    last0 = max(int(k) for k in recs[0]["losses"])
+    if restarts != {"preempted": 1, "transient": 1} or \
+            resumed != [None, last0 + 1, P27_CKPT_EVERY + 1]:
+        raise AssertionError(f"phase 27 (a) restarts {restarts}, resumed "
+                             f"at {resumed}")
+    calls = sum(r["calls"] for r in recs)
+    launches = {k: sum(r["launches"][k] for r in recs)
+                for k in ("conv_bn_1x1", "conv_bn_kxk")}
+    say(f"phase 27 (a) supervisor exit 0 after 3 attempts (resumed at "
+        f"{resumed[1:]}), restarts {restarts}; weights, BN state and "
+        f"momentum bit-equal to the uninterrupted child, every loss "
+        f"equal; {launches} launches in {calls} dispatched steps (36/16 a "
+        f"step in each child); {run['seconds']:.1f} s [{smi}]")
+    # (c) the goodput ledger across the attempts
+    gp = goodput.aggregate_goodput(mdir)
+    shards = goodput.read_ledger_shards(mdir)
+    rework = sorted(rec["step"] for sh in shards for rec in sh["records"]
+                    if rec.get("kind") == "rework")
+    want = list(range(P27_CKPT_EVERY + 1, P27_CRASH_AT + 1))
+    if gp is None or gp["rework_steps"] != len(want) or rework != want \
+            or not 0 < gp["goodput_ratio"] <= 1:
+        raise AssertionError(f"phase 27 (c) goodput {gp}, rework steps "
+                             f"{rework}")
+    backoff = [rec for sh in shards for rec in sh["records"]
+               if rec.get("kind") == "supervisor_backoff"]
+    shards_t = aggregate.read_shards(tdir)
+    events = [(sh, rec) for sh in shards_t for rec in sh.records]
+    delays = [rec["attrs"]["delay_s"] for _, rec in events
+              if rec.get("name") == "supervisor.backoff"]
+    if len(backoff) != 1 or len(delays) != 1 or \
+            abs(backoff[0]["dur_s"] - delays[0]) > P27_BACKOFF_TOL:
+        raise AssertionError(f"phase 27 (c) supervisor_backoff {backoff} "
+                             f"against the policy's delays {delays}")
+    saves = [(rec.get("attempt"), rec["dur_s"]) for sh in shards
+             for rec in sh["records"] if rec.get("kind") == "checkpoint_save"]
+    loads = [(rec.get("attempt"), rec["dur_s"]) for sh in shards
+             for rec in sh["records"]
+             if rec.get("kind") == "checkpoint_restore"]
+    say(f"phase 27 (c) goodput over {gp['attempts']} shards (3 children, "
+        f"the supervisor): ratio {gp['goodput_ratio']:.4f}, "
+        f"{gp['steps']} productive steps, rework steps {rework}, "
+        f"total {gp['total_s']:.2f} s, unknown {gp['unknown_s']:.2f} s, "
+        f"badput {gp['badput_s']}; supervisor_backoff "
+        f"{backoff[0]['dur_s']:.4f} s against the policy's "
+        f"{delays[0]:.4f} s; checkpoint saves (attempt, s) {saves}, "
+        f"restores {loads} [{smi}]")
+    # (c) the report CLI and the trace merge
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = report.main([tdir, "--metrics-dir", mdir])
+    text = out.getvalue()
+    for head in ("-- goodput --", "-- alerts --", "-- resilience events --"):
+        if code != 0 or head not in text:
+            raise AssertionError(f"phase 27 (c) the report lacks {head}: "
+                                 f"{text[-3000:]}")
+    if P27_RULE["name"] not in text or "rework" not in text:
+        raise AssertionError(f"phase 27 (c) report: {text[-3000:]}")
+    merged = aggregate.merge_trace_dir(tdir, os.path.join(tmp,
+                                                          "merged.json"))
+    aligned = merged["shards"] - len(merged["unaligned"])
+    if aligned != 3 or merged["shards"] != 4:
+        raise AssertionError(f"phase 27 (c) trace merge: {merged}")
+    say(f"phase 27 (c) report CLI (its main, in this process): "
+        f"{len(text.splitlines())} lines with "
+        f"the goodput, alerts and resilience sections; trace merge: "
+        f"{merged['shards']} shards, {aligned} barrier-aligned (the "
+        f"children; the supervisor's has no barrier), offsets "
+        f"{merged['offsets_s']}, {merged['events']} events")
+    # (d) the autoscaler's evaluations in dry run
+    evals = [rec for _, rec in events if rec.get("name") ==
+             "elastic.autoscale"]
+    sig = [e["attrs"].get("signals") or {} for e in evals]
+    steps_t = [s["step_time_s"] for s in sig if "step_time_s" in s]
+    p50s = []
+    for snap in snaps:
+        fam = (snap.get("metrics") or {}).get(N.STEP_TIME_SECONDS)
+        for s in (fam or {}).get("samples", []):
+            if s["labels"].get("quantile") == "p50":
+                p50s.append(s["value"])
+    # the children's own step period: the gaps between their loss reads
+    # (the hold's gap left out), the interval the stamps measure
+    gaps = []
+    for r in recs:
+        at = {int(k): v for k, v in r["at"].items()}
+        gaps += [at[n] - at[n - 1] for n in at if n - 1 in at
+                 and not (r["attempt"] == 2 and n - 1 == P27_HOLD_AT)]
+    executed = [e for e in evals if not e["attrs"].get("suppressed")
+                and not e["attrs"].get("dry_run")]
+    if not steps_t or len(p50s) != 3 or not gaps or executed or any(
+            e["attrs"].get("suppressed") != "at_bound" for e in evals):
+        raise AssertionError(f"phase 27 (d) autoscale events {evals[:4]}, "
+                             f"p50s {p50s}")
+    st, p50 = float(np.median(steps_t)), float(np.median(p50s))
+    period = float(np.median(gaps))
+    hz = run["hold"]["health"]
+    near = min((e for e in evals if "goodput_ratio" in
+                (e["attrs"].get("signals") or {})),
+               key=lambda e: abs(e["wall_time"] - hz["time"]))
+    gap = abs(near["attrs"]["signals"]["goodput_ratio"] - hz["goodput_ratio"])
+    if abs(st - period) > P27_STEP_TIME_TOL * period or gap > P27_RATIO_TOL:
+        raise AssertionError(f"phase 27 (d) step_time_s {st:.4f} against "
+                             f"the children's step period {period:.4f} "
+                             f"(runtime p50 {p50:.4f}); goodput "
+                             f"{near['attrs']['signals']} against /healthz "
+                             f"{hz['goodput_ratio']}")
+    return {"evals": len(evals), "step_time_s": st, "p50": p50,
+            "period": period, "samples": len(steps_t), "ratio_gap": gap,
+            "launches": launches}
+
+
+def _p27_rollup(child_text: str, smi) -> None:
+    """(d): a two-tier rollup over the held child's ``/metrics`` and this
+    process's exposition, against the flat merge of the same two."""
+    from bigdl_tpu_torch import obs
+    from bigdl_tpu_torch.obs import metrics as M
+    from bigdl_tpu_torch.obs import names as N
+    from bigdl_tpu_torch.obs import rollup
+
+    bodies = {"child:9100": child_text,
+              "parent:9100": obs.get_registry().to_prometheus()}
+    addrs = sorted(bodies)
+
+    def fetch(url):
+        host, _, path = url.split("//", 1)[1].partition("/")
+        if path.startswith("healthz"):
+            return json.dumps({"time": time.time(), "host": host})
+        return bodies[host]
+
+    root, leaves = rollup.build_tiers(addrs, fetch, shard_size=1)
+    tiered = root.refresh()
+    flat = rollup.merge_parsed([M.parse_prometheus(bodies[a])
+                                for a in addrs])
+    fam = N.PHASE_SECONDS
+    qs = [(q, rollup.fleet_quantile(tiered, fam, q),
+           rollup.fleet_quantile(flat, fam, q)) for q in (0.5, 0.9, 0.99)]
+    if not all(t is not None and t == f for _, t, f in qs):
+        raise AssertionError(f"phase 27 (d) rollup quantiles {qs}")
+    say(f"phase 27 (d) two-tier rollup ({len(leaves)} leaves) over the "
+        f"child's /metrics and this process's exposition: {fam} "
+        f"p50/p90/p99 {[t for _, t, _ in qs]} bit-identical to the flat "
+        f"merge [{smi}]")
+
+
+def _p27_examples(tmp, smi) -> None:
+    """(e): the four example scripts at their defaults, at once, each in
+    a child process timed to its own exit."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    running = {}
+    for name, args in P27_EXAMPLES:
+        out = os.path.join(tmp, name + ".json")
+        log = open(os.path.join(tmp, name + ".log"), "w")
+        running[name] = (subprocess.Popen(
+            [sys.executable, "-c", _EXAMPLE_RUNNER, out, name] + args
+            + ["--device", DEV], cwd=root, env=_p27_env({}), stdout=log,
+            stderr=subprocess.STDOUT), out, log, time.perf_counter())
+    done, deadline = {}, time.time() + P27_TIMEOUT
+    try:
+        while len(done) < len(running):
+            for name, (proc, _, log, t0) in running.items():
+                if name not in done and proc.poll() is not None:
+                    done[name] = time.perf_counter() - t0
+                    log.close()
+            if time.time() > deadline:
+                raise AssertionError(f"phase 27 (e) examples still running "
+                                     f"after {P27_TIMEOUT} s: "
+                                     f"{sorted(set(running) - set(done))}")
+            time.sleep(0.05)
+    finally:
+        for proc, _, log, _ in running.values():
+            proc.kill()
+            log.close()
+    for name, (proc, out, _, _) in running.items():
+        if proc.returncode != 0:
+            with open(os.path.join(tmp, name + ".log")) as f:
+                raise AssertionError(f"phase 27 (e) {name} exited "
+                                     f"{proc.returncode}: {f.read()[-3000:]}")
+        with open(out) as f:
+            rec = json.load(f)
+        value, losses = rec["value"], rec["losses"]
+        if not losses or not all(np.isfinite(losses)):
+            raise AssertionError(f"phase 27 (e) {name}: losses {losses}")
+        if name == "finetune_frozen_backbone" and not value > 0.9:
+            raise AssertionError(f"phase 27 (e) {name}: accuracy {value}")
+        what = "perplexity" if name == "train_ptb_lstm" else "accuracy"
+        frozen = ", backbone bit-identical" if "backbone" in name else ""
+        say(f"phase 27 (e) {name} at its defaults: {len(losses)} steps, "
+            f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, {what} "
+            f"{value:.4f}{frozen}; {done[name]:.1f} s (the four at once) "
+            f"[{smi}]")
+
+
+def phase_fleet(smi: str) -> dict:
+    """Phase 27: the fleet observability and control plane around a
+    supervised, preempted and crashed fused ResNet-50 (see the constants
+    above).  Returns the conv_bn launches of the supervised children,
+    this slice's main path (each child counts from 0: a fresh
+    process)."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase27_")
+    try:
+        started = _p27_plain_start(tmp)
+        try:
+            run = _p27_supervised(tmp, smi)
+        finally:
+            plain = _p27_plain(started, smi)
+        after = _p27_after(tmp, run, plain, smi)
+        say(f"phase 27 (d) autoscaler (dry run, world 1..1): "
+            f"{after['evals']} evaluations, all suppressed at the bound, "
+            f"none executed; median step_time_s {after['step_time_s']:.4f} "
+            f"s over {after['samples']} evaluations against the children's "
+            f"step period {after['period']:.4f} s (their loss reads; their "
+            f"runtime p50, dispatch to loss, {after['p50']:.4f} s); "
+            f"goodput_ratio {after['ratio_gap']:.4f} from /healthz's "
+            f"[{smi}]")
+        _p27_rollup(run["hold"]["metrics_text"], smi)
+        _p27_examples(tmp, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"phase 27 took {time.perf_counter() - t_phase:.1f} s")
+    return after["launches"]
+
+
 def _has_pillow() -> bool:
     try:
         import PIL  # noqa: F401
@@ -8332,6 +9033,8 @@ def main() -> int:
     offsets = phase_seq_tuner(smi)
     tp_rows = phase_tp_moe(smi, serve_stats)
     phase_front_ends(smi)
+    # rows 4-5's launches: this slice's main path, phase 27 (a)
+    launches.update(phase_fleet(smi))
     for k in kernels:
         k.update(offsets.get(k["name"], {}))
         k.update(tp_rows.get(k["name"], {}))

@@ -314,10 +314,7 @@ LEFT_OUT = {
 }
 # JAX names that wait on a later ROADMAP item
 WAITING = {
-    "item 12": {"get_ledger", "flush", "current_phase", "render_exposition",
-                "fleet_policy", "AutoscaleController", "Decision",
-                "AutoscaleConfig", "FleetSimConfig",
-                "dump_flight_recorder", "flight_bundle", "gate", "main"},
+    "item 12": {"FleetSimConfig"},
     "item 11": set(),
 }
 

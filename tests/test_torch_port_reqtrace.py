@@ -454,10 +454,12 @@ def test_tracer_files_ring_and_null(tmp_path, monkeypatch):
 
 def test_obs_server_routes(tmp_path, monkeypatch, lms):
     """``/metrics`` parses and carries the engine's families and an
-    exemplar; ``/healthz`` has JAX's keys, with item 12's fields as JAX
-    reports them off; ``/trace?last=K`` reads the flight recorder;
-    ``/trace?request=ID`` finds a kept trace or answers 404;
-    ``/profilez`` and ``/debugz`` answer 404 naming the item."""
+    exemplar; ``/healthz`` has JAX's keys, with the goodput ledger on
+    (tracing is) and the alerts, profiler and bundles off;
+    ``/trace?last=K`` reads the flight recorder; ``/trace?request=ID``
+    finds a kept trace or answers 404; ``/profilez`` answers the off
+    profiler's snapshot and ``/debugz`` 503 without a bundle
+    directory."""
     _, tm = lms
     assert tserver.ensure_server() is None
     monkeypatch.setenv("BIGDL_TORCH_OBS_PORT", "0")
@@ -489,7 +491,7 @@ def test_obs_server_routes(tmp_path, monkeypatch, lms):
     assert set(health) == set(jserver.health_payload())
     assert (health["goodput_ratio"], health["alerts"], health["heartbeat"],
             health["prof_overhead"], health["bundles"]) == (
-        None, [], None, None, 0)
+        0.0, [], None, None, 0)
     code, text = _get(srv.url("/trace?last=2"))
     tail = json.loads(text)
     assert code == 200 and len(tail) == 2
@@ -498,9 +500,12 @@ def test_obs_server_routes(tmp_path, monkeypatch, lms):
     code, text = _get(srv.url(f"/trace?request={req.trace.trace_id}"))
     assert code == 200 and json.loads(text)["request"] == str(req.id)
     assert _get(srv.url("/trace?request=nope"))[0] == 404
-    for path in ("/profilez", "/debugz"):
-        code, text = _get(srv.url(path))
-        assert code == 404 and "item 12" in json.loads(text)["error"]
+    code, text = _get(srv.url("/profilez"))
+    assert code == 200 and json.loads(text)["enabled"] is False
+    code, text = _get(srv.url("/debugz"))
+    body = json.loads(text)
+    assert code == 503 and "BUNDLE_DIR" in body["error"]
+    assert body["inventory"] == []
     code, text = _get(srv.url("/"))
     assert json.loads(text)["endpoints"][0] == "/metrics"
     assert _get(srv.url("/nope"))[0] == 404

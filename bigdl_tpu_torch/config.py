@@ -11,8 +11,11 @@ observability switches the tracer, the request tracer, the metrics
 registry, the obs server, the runtime profile, the health monitor and
 the regression gate read (``ObsConfig``), of the router's and the
 rollout's knobs (``RouterConfig``, ``RolloutConfig``) and of the kernel
-auto-tuner's (``TunerConfig``) and of the supervisor's autoscaling
-loop (``AutoscaleConfig``), each with the JAX package's defaults.
+auto-tuner's (``TunerConfig``), of the supervisor's autoscaling
+loop (``AutoscaleConfig``), of the process-level switches JAX keeps at
+the top of its config (``HostConfig``: the singleton check, the native
+host library, the logger filter, the step profiler) and of the fleet
+simulator (``FleetSimConfig``), each with the JAX package's defaults.
 Constructor arguments win; these are the process-wide fallbacks a
 deployment sets once.  Each is read from the environment
 when it is used, so a knob exported after import counts, unless
@@ -591,6 +594,69 @@ class AutoscaleConfig:
 
 
 @dataclasses.dataclass
+class HostConfig:
+    """The process-level knobs JAX's ``BigDLConfig`` keeps at its top
+    level (config.py:664-688): ``Engine.init``'s singleton check, the
+    native host library, the logger filter and the step profiler."""
+
+    # refuse a second Engine.init in one process
+    # [BIGDL_TORCH_CHECK_SINGLETON]
+    check_singleton: bool = False
+    # skip the C++ host library (bigdl_tpu_torch/native): every function
+    # takes its numpy fallback [BIGDL_TORCH_NO_NATIVE]
+    no_native: bool = False
+    # utils/logger_filter: skip the redirect entirely, and the file the
+    # chatty loggers write to (default: a per-user file in the temp dir)
+    # [BIGDL_TORCH_DISABLE_LOGGER / BIGDL_TORCH_LOG_PATH]
+    disable_logger: bool = False
+    log_path: Optional[str] = None
+    # a directory: the trainers trace their first steps there with
+    # torch.profiler (utils/profiler.StepProfiler) [BIGDL_TORCH_PROFILE]
+    profile_dir: Optional[str] = None
+
+    @classmethod
+    def from_env(cls) -> "HostConfig":
+        return cls(
+            check_singleton=_env_bool("BIGDL_TORCH_CHECK_SINGLETON", False),
+            no_native=_env_bool("BIGDL_TORCH_NO_NATIVE", False),
+            disable_logger=_env_bool("BIGDL_TORCH_DISABLE_LOGGER", False),
+            log_path=_env_str("BIGDL_TORCH_LOG_PATH", None),
+            profile_dir=_env_str("BIGDL_TORCH_PROFILE", None),
+        )
+
+
+@dataclasses.dataclass
+class FleetSimConfig:
+    """The fleet simulator (``bigdl_tpu_torch/sim``), JAX
+    ``FleetSimConfig``: synthetic hosts in one process driving the real
+    autoscaler, alert engines and fleet aggregator through chaos
+    scenarios on a virtual clock.  Changes nothing in a training or
+    serving process."""
+
+    # synthetic hosts a scenario runs at [BIGDL_TORCH_FLEET_HOSTS]
+    hosts: int = 200
+    # a builtin name, a comma-separated list of names, inline JSON or a
+    # JSON file; unset = the whole builtin matrix
+    # [BIGDL_TORCH_FLEET_SCENARIO]
+    scenario: Optional[str] = None
+    # divide every virtual duration (not the tick) by this
+    # [BIGDL_TORCH_FLEET_TIME_COMPRESSION]
+    time_compression: float = 1.0
+    # host selection and per-host jitter [BIGDL_TORCH_FLEET_SEED]
+    seed: int = 0
+
+    @classmethod
+    def from_env(cls) -> "FleetSimConfig":
+        return cls(
+            hosts=_env_int("BIGDL_TORCH_FLEET_HOSTS", 200),
+            scenario=_env_str("BIGDL_TORCH_FLEET_SCENARIO", None),
+            time_compression=_env_float(
+                "BIGDL_TORCH_FLEET_TIME_COMPRESSION", 1.0),
+            seed=_env_int("BIGDL_TORCH_FLEET_SEED", 0),
+        )
+
+
+@dataclasses.dataclass
 class BigDLConfig:
     """The process-global configuration (JAX ``BigDLConfig``,
     config.py:655): one field a section of the port's ``BIGDL_TORCH_*``
@@ -607,6 +673,8 @@ class BigDLConfig:
     tuner: TunerConfig = dataclasses.field(default_factory=TunerConfig)
     autoscale: AutoscaleConfig = dataclasses.field(
         default_factory=AutoscaleConfig)
+    host: HostConfig = dataclasses.field(default_factory=HostConfig)
+    fleet: FleetSimConfig = dataclasses.field(default_factory=FleetSimConfig)
 
     @classmethod
     def from_env(cls) -> "BigDLConfig":
@@ -622,7 +690,8 @@ class BigDLConfig:
 
 _SECTIONS = {"serve": ServeConfig, "train": TrainConfig, "obs": ObsConfig,
              "router": RouterConfig, "rollout": RolloutConfig,
-             "tuner": TunerConfig, "autoscale": AutoscaleConfig}
+             "tuner": TunerConfig, "autoscale": AutoscaleConfig,
+             "host": HostConfig, "fleet": FleetSimConfig}
 
 # sections pinned by configure(): env refreshes and from_env skip them
 _explicit: set = set()
@@ -715,6 +784,7 @@ def nvcc_path() -> str:
 
 
 __all__ = ["ServeConfig", "TrainConfig", "ObsConfig", "RouterConfig",
-           "RolloutConfig", "TunerConfig", "AutoscaleConfig", "BigDLConfig", "config",
+           "RolloutConfig", "TunerConfig", "AutoscaleConfig", "HostConfig",
+           "FleetSimConfig", "BigDLConfig", "config",
            "configure", "refresh_from_env", "reload_from_env",
            "tuner_enabled", "build_dir", "nvcc_path"]

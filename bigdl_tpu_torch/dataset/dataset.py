@@ -82,12 +82,20 @@ class ArrayDataSet(LocalDataSet):
             idx = RandomGenerator.RNG.randperm(self._n)
         bs = self.batch_size
         n_full = self._n // bs
+        # f32 features assemble through the host library's threaded row
+        # gather (bigdl_tpu_torch/native, JAX :85-99)
+        take = self.features.__getitem__
+        if self.features.dtype == np.float32:
+            from bigdl_tpu_torch import native
+
+            def take(sel):
+                return native.gather_rows(self.features, sel)
         for b in range(n_full):
             sel = idx[b * bs:(b + 1) * bs]
-            yield self.features[sel], self.labels[sel]
+            yield take(sel), self.labels[sel]
         if self._n > n_full * bs and not train:
             sel = idx[n_full * bs:]
-            yield self.features[sel], self.labels[sel]
+            yield take(sel), self.labels[sel]
 
 
 class SampleDataSet(LocalDataSet):

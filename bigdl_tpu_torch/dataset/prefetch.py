@@ -1,7 +1,8 @@
 """The trainers' input feed: a producer thread and pinned batches.
 
 Counterpart of ``bigdl_tpu/native/__init__.py``'s ``PrefetchIterator``
-(:233), kept here because the port has no C library.  A daemon thread
+(:233); the port's ``bigdl_tpu_torch.native`` re-exports this one, as
+JAX's exports its own.  A daemon thread
 pulls batches from an iterable (decoding an image folder, slicing a
 rank's rows) while the card runs the current step, and, for a CUDA
 trainer, copies each batch into page-locked memory (``pin_memory()``),

@@ -18,8 +18,13 @@ the fault injector from ``BIGDL_TORCH_FAULT_PLAN`` (JAX :77-79) and
 installs the preemption handler (``resilience/elastic.py``: SIGTERM or
 SIGINT finishes the step in flight, writes an emergency checkpoint and
 exits 170) unless ``BIGDL_TORCH_PREEMPTION_HANDLER=0`` (JAX :80-89), and
-once the process group is joined emits the ``engine.init_barrier``
-event the trace merge aligns the ranks' clocks on (JAX :127-133);
+once the process group is joined records the ``engine.init`` span
+(devices, platform, processes) and emits the ``engine.init_barrier``
+event the trace merge aligns the ranks' clocks on (JAX :119-133), then
+brings up the obs server (``BIGDL_TORCH_OBS_PORT``) and the sampling
+profiler (``BIGDL_TORCH_PROF_HZ``) as JAX does (:135-149).  A second
+``init`` returns at once, or raises when
+``BIGDL_TORCH_CHECK_SINGLETON`` is set (JAX :90-95);
 ``reset`` drops the injector, a pending preemption request and the
 obs server (JAX :175-182), so a test's state does not leak into the
 next.
@@ -36,6 +41,7 @@ exchange over those groups.
 from __future__ import annotations
 
 import os
+import time
 
 import torch
 import torch.distributed as dist
@@ -91,11 +97,18 @@ class Engine:
         """Join (or make) the process group and pick this process's
         device: ``cuda:{LOCAL_RANK}`` under ``torchrun``, else
         ``device`` (the card unless ``"cpu"``; raises without CUDA)."""
+        from bigdl_tpu_torch.config import HostConfig, TrainConfig
+
         if cls._state.initialized:
+            if HostConfig.from_env().check_singleton:
+                raise RuntimeError(
+                    "Engine.init called twice with "
+                    "BIGDL_TORCH_CHECK_SINGLETON set; the reference forbids "
+                    "two BigDL contexts in one process.")
             return cls
+        t_init = time.perf_counter()
         dev = resolve_device(device)
         # a plan exported before init is live before the first trainer
-        from bigdl_tpu_torch.config import TrainConfig
         from bigdl_tpu_torch.resilience.faults import get_injector
 
         get_injector()
@@ -133,11 +146,23 @@ class Engine:
         # all have joined, so the ranks' clocks align on this event
         from bigdl_tpu_torch import obs
         from bigdl_tpu_torch.obs import names
+        from bigdl_tpu_torch.obs import prof as obs_prof
+        from bigdl_tpu_torch.obs import server as obs_server
 
-        obs.get_tracer().event("engine.init_barrier", host=st.rank,
-                               processes=st.world_size, devices=1)
+        tracer = obs.get_tracer()
+        tracer.complete("engine.init", t_init, time.perf_counter() - t_init,
+                        devices=1, platform=dev.type,
+                        processes=st.world_size)
+        tracer.event("engine.init_barrier", host=st.rank,
+                     processes=st.world_size, devices=1)
         obs.get_registry().counter(names.ENGINE_INITS_TOTAL,
                                    "Engine.init calls").inc()
+        # the /metrics + /healthz endpoint (BIGDL_TORCH_OBS_PORT) and the
+        # sampling profiler (BIGDL_TORCH_PROF_HZ) come up with the engine,
+        # before any model or step exists (JAX :135-149); unset, each is
+        # one config read and no thread
+        obs_server.ensure_server()
+        obs_prof.get_profiler()
         return cls
 
     @classmethod

@@ -359,7 +359,7 @@ def build_report(trace_dir: str, metrics_dir: Optional[str] = None,
         },
     }
 
-    # ---- fleet simulation (the JAX package's sim/; the port has none) --
+    # ---- fleet simulation (sim/, python -m bigdl_tpu_torch.sim) ------
     # scenario verdicts ride fleet.scenario trace events; the scrape
     # latency gauge (names.FLEET_SCRAPE_SECONDS) comes from the
     # bounded-pool concurrent peer scrape

@@ -100,7 +100,13 @@ Telemetry and resilience at ``optimize()`` (JAX :650-740, :1002-1041):
 
 - the step spans ``iteration``, ``batch_prep`` (on the feed's thread),
   ``device_put`` and ``step_dispatch``, each with its ``step``, and
-  ``data_wait`` and ``computing`` recorded after the fact;
+  ``data_wait`` and ``computing`` recorded after the fact; ``iteration``,
+  ``device_put`` and ``step_dispatch`` are ``utils.profiler.annotate``
+  regions, so a ``torch.profiler`` trace shows them too;
+- ``BIGDL_TORCH_PROFILE=DIR``: a ``torch.profiler`` trace of iterations
+  1-20 of each ``optimize`` into DIR (``utils.profiler.StepProfiler``,
+  JAX :721-733), stopped in the ``finally`` so a retry never finds one
+  running;
 - with observability on (``BIGDL_TORCH_TRACE_DIR`` or
   ``BIGDL_TORCH_OBS_PORT``), the runtime profile (``obs/runtime.py``:
   each step's time and its dispatch time) and the slow-step detector
@@ -150,6 +156,7 @@ from bigdl_tpu_torch.optim.triggers import Trigger
 # the error moved to resilience/retry.py; this name stays importable
 from bigdl_tpu_torch.resilience.retry import NonFiniteStepError
 from bigdl_tpu_torch.utils import tree as T
+from bigdl_tpu_torch.utils.profiler import StepProfiler, annotate
 
 log = logging.getLogger("bigdl_tpu_torch.optim")
 # the base of the per-step dropout seeds (JAX ``jax.random.key(1234)``)
@@ -740,8 +747,10 @@ class LocalOptimizer(BaseOptimizer):
         # the goodput ledger: the shared no-op with observability off
         self._obs_ledger = obs.get_ledger()
         self._obs_server = _obs_server.ensure_server()
-        # the sampling profiler starts with the loop (off: no thread)
+        # the sampling profiler starts with the loop (off: no thread);
+        # BIGDL_TORCH_PROFILE traces iterations [1, 21) with torch.profiler
         _obs_prof.get_profiler()
+        self._step_profiler = StepProfiler()
         if self._obs_server is not None:
             _obs_server.register_registry(self.metrics.registry)
         self._health_monitor = _health.monitor_from_config(
@@ -752,6 +761,9 @@ class LocalOptimizer(BaseOptimizer):
         try:
             model = self._optimize_loop()
         finally:
+            # a trace still recording ends here: an exception mid-epoch
+            # must not leave one running for DistriOptimizer's retry
+            self._step_profiler.stop()
             self._elastic_session.close()
             self._elastic_session = None
             # the write in flight is durable (or its error recorded)
@@ -796,6 +808,7 @@ class LocalOptimizer(BaseOptimizer):
         runtime = self._obs_runtime
         ledger = self._obs_ledger
         monitor = self._health_monitor
+        step_profiler = self._step_profiler
         footprint = self._collective_footprint
         note_step = None
         if self._obs_server is not None:
@@ -893,21 +906,22 @@ class LocalOptimizer(BaseOptimizer):
                         # the steps in flight resolve, then the exit
                         flush()
                         self._elastic_shutdown(n)
-                    with tracer.span("iteration", step=n):
+                    with annotate("iteration", step=n):
                         if inj is not None and inj.on_step(n) == "nan_grad":
                             inp = torch.from_numpy(inj.poison_batch(inp))
                         t0 = time.perf_counter()
                         with self.metrics.timer("put batch time"), \
-                                tracer.span("device_put", step=n):
+                                annotate("device_put", step=n):
                             inp_d, tgt_d, mask_d = self._put_batch(
                                 inp, tgt, mask)
+                        step_profiler.step()
                         self._health_now = (monitor is not None
                                             and monitor.wants(n))
                         t_disp = time.perf_counter()
                         # the batch copy: the host share of the window
                         # classifier, not a cause of its own
                         ledger.note_host_seconds(t_disp - t0)
-                        with tracer.span("step_dispatch", step=n):
+                        with annotate("step_dispatch", step=n):
                             opt.state, loss, ok = self._train_step(
                                 param_names, params, opt.state, inp_d,
                                 tgt_d, mask_d, cfg.nonfinite_guard,

@@ -19,9 +19,10 @@ The pieces:
   unit-tests without sockets.
 * :func:`derive_signals` — one scrape cycle -> the policy signal dict:
   ``step_time_s`` (from step-stamp deltas between successive scrapes,
-  each stamp dated by ``/healthz``'s ``time - step_age_s`` — no
-  histogram parsing, works on any child; JAX dates it by the scrape,
-  the one difference), ``queue_depth`` (the
+  each stamp dated by ``/healthz``'s ``time - step_age_s``, a step
+  stamped again by its newest stamp — no histogram parsing, works on
+  any child; JAX dates it by the scrape, the one difference),
+  ``queue_depth`` (the
   streaming tier's buffer depth / consumer lag gauges),
   ``goodput_ratio`` (worst host), ``alerts`` (active rule names),
   ``stragglers`` (hosts whose ``/healthz`` reads stalled),
@@ -295,7 +296,11 @@ def derive_signals(scraped: List[dict], prev_steps: dict,
             else float(now) - float(age)
         if step is not None and stamp is not None:
             last = prev_steps.get(addr)
-            if last is None or int(step) != last[0] or age is None:
+            # a step stamped again dates from its newest stamp: a resume
+            # stamps the restored step before it trains that step, and
+            # the restore's seconds are no step's
+            if last is None or int(step) != last[0] or age is None \
+                    or float(stamp) > last[1]:
                 prev_steps[addr] = (int(step), float(stamp))
             if last is not None and int(step) > last[0]:
                 step_times.append(

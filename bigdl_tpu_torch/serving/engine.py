@@ -413,6 +413,11 @@ class LMEngine:
         self._staged_cv = threading.Condition()
         self._closed = False
         self._weight_bytes = self._decode_weight_bytes()
+        from bigdl_tpu_torch.obs import prof as _obs_prof
+
+        # the sampling profiler starts with the engine when
+        # BIGDL_TORCH_PROF_HZ > 0 (unset: one config read, no thread)
+        _obs_prof.get_profiler()
         reg = obs.get_registry()
         self._lat = reg.histogram(*LAT_META, labels=("engine", "kind"))
         self._tokens_counter = reg.counter(

@@ -145,9 +145,9 @@ def read_image(path: str) -> np.ndarray:
 def _resize_bilinear(img: np.ndarray, oh: int, ow: int) -> np.ndarray:
     """Bilinear resize of an HWC array: Pillow's filter when Pillow is
     installed (uint8 in, uint8 out; float per channel in mode "F"),
-    else corner-aligned bilinear in numpy (f32), as the JAX package's
-    last fallback computes it.  The JAX package has a C library in
-    between; the port has none."""
+    else the host library's half-pixel bilinear (``native``, f32) when
+    it is available, else corner-aligned bilinear in numpy (f32), in
+    the JAX package's order (vision.py:150-185)."""
     try:
         from PIL import Image
     except ImportError:
@@ -161,6 +161,11 @@ def _resize_bilinear(img: np.ndarray, oh: int, ow: int) -> np.ndarray:
             return np.stack(chans, axis=-1)
         return np.asarray(Image.fromarray(img).resize((ow, oh),
                                                       Image.BILINEAR))
+    from bigdl_tpu_torch import native
+
+    if img.ndim == 3 and native.available():
+        chw = np.ascontiguousarray(img.astype(np.float32).transpose(2, 0, 1))
+        return native.resize_bilinear(chw, oh, ow).transpose(1, 2, 0)
     h, w = img.shape[:2]
     ys = np.linspace(0, h - 1, oh)
     xs = np.linspace(0, w - 1, ow)

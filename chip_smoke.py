@@ -473,16 +473,43 @@ it runs; any failure exits non-zero:
     checkpoints' save and restore seconds, the report CLI (goodput,
     alerts, resilience) and the trace merge (three barrier-aligned child
     shards); (d) the dry-run autoscaler's evaluations (all at the world
-    bound, none executed; their median ``step_time_s`` within 20% of
-    the children's median step period, the gap between two loss reads,
-    beside their runtime p50, the dispatch-to-loss interval, which ends
+    bound, none executed; each ``step_time_s`` sample within 50%, and
+    their median within 20%, of the children's step period over the
+    steps that sample spans, from their loss reads, printed beside
+    their runtime p50, the dispatch-to-loss interval, which ends
     before the step's backward and update do on the card; their
     ``goodput_ratio`` within 0.02 of ``/healthz``'s) and a two-tier rollup whose quantiles are
     bit-identical to the flat merge; (e) the four example scripts ported
     with the fleet plane at their defaults, at once, in child processes;
+28. the obs plane at bring-up, the host library, the step profiler and
+    the fleet simulator (``phase_obs_native_sim``; (b) runs first, then
+    (c) beside (a)): (a) ``Engine.init``
+    under ``BIGDL_TORCH_OBS_PORT=0`` and ``BIGDL_TORCH_PROF_HZ=50``:
+    ``/healthz`` and ``/metrics`` answer before any model exists; the
+    flagship ``LMEngine`` (built with the profiler stopped) leaves a
+    ``SamplingProfiler`` running and serves phase 4's 12 requests, the
+    tokens equal to phase 4's (served with the plane off), the flash
+    forward and paged decode launched as often as in phase 4; a second
+    ``init`` under ``BIGDL_TORCH_CHECK_SINGLETON=1`` raises; (b) phase
+    27's fused ResNet-50 (bf16, batch 32, 224x224, SGD momentum 0.9,
+    cuDNN deterministic, TF32 off, each loss read before the next step)
+    through ``LocalOptimizer`` over an f32 ``ArrayDataSet`` of 128
+    images (77 MB), 8 steps three ways: with the host library (its
+    conv_bn launches count for the kernels line), with
+    ``BIGDL_TORCH_NO_NATIVE=1``, and with the library under
+    ``BIGDL_TORCH_PROFILE``: batches and losses bit-equal, the batch
+    gather timed (in the feed and alone) and the step timed each way,
+    36/16 conv_bn launches a step, and the trace file holding 36
+    ``conv_bn_1x1`` and 16 ``conv_bn_kxk`` kernels and one
+    ``step_dispatch`` region a traced step (steps 2-8); (c) ``python -m
+    bigdl_tpu_torch.sim`` in a child process started after (b) and
+    run beside (a): the seven builtin scenarios at 200 hosts (seed 0, a
+    10 ms partition stall) in seven worker processes, then the 200-host
+    aggregation budget and the four serve scenarios, every invariant
+    passing; its JSON in the phase's temporary directory;
 9. the kernels line, last: one JSON object listing each kernel with its
-   launches on its own path (phase 4, phase 27 (a)'s supervised children
-   for the conv_bn kernels, or the kernel arm of phase 11) and its
+   launches on its own path (phase 4, phase 28 (b)'s library arm for
+   the conv_bn kernels, or the kernel arm of phase 11) and its
    numbers from phase
    3, 6 or 10 (rows 1-3 also phase 24 (a)'s offset times; rows 1 and 6
    phase 25 (a)'s launches on each TP rank and row 6 its times at H=4;
@@ -8334,6 +8361,10 @@ P27_PROF_SLACK, P27_PROF_SETTLE_S = 1e-3, 5.0
 P27_AB_BLOCK = 4
 # (d) the autoscaler's poll, and the gates
 P27_AUTOSCALE_INTERVAL, P27_STEP_TIME_TOL, P27_RATIO_TOL = 0.1, 0.2, 0.02
+# each step-time sample against the loss reads of the steps it spans: a
+# restore's seconds in a sample put it several times past (the stamps and
+# the reads are a few statements apart on the child's main thread)
+P27_SAMPLE_TOL = 0.5
 P27_BACKOFF_TOL, P27_TIMEOUT = 0.05, 600
 # (b) the rule that fires once on attempt 2: the window goodput is at
 # most 1, so it breaches at every window tick and fires at the second
@@ -8822,16 +8853,16 @@ def _p27_after(tmp, run, plain, smi) -> dict:
     # (d) the autoscaler's evaluations in dry run
     evals = [rec for _, rec in events if rec.get("name") ==
              "elastic.autoscale"]
-    sig = [e["attrs"].get("signals") or {} for e in evals]
-    steps_t = [s["step_time_s"] for s in sig if "step_time_s" in s]
+    steps_t, due, spans = _p27_due_step_times(evals, events, recs)
     p50s = []
     for snap in snaps:
         fam = (snap.get("metrics") or {}).get(N.STEP_TIME_SECONDS)
         for s in (fam or {}).get("samples", []):
             if s["labels"].get("quantile") == "p50":
                 p50s.append(s["value"])
-    # the children's own step period: the gaps between their loss reads
-    # (the hold's gap left out), the interval the stamps measure
+    # the children's per-step period, the gaps between their loss reads
+    # (the hold's gap left out): printed beside the gate, which holds the
+    # samples to the loss reads of the steps each spans
     gaps = []
     for r in recs:
         at = {int(k): v for k, v in r["at"].items()}
@@ -8844,21 +8875,65 @@ def _p27_after(tmp, run, plain, smi) -> dict:
         raise AssertionError(f"phase 27 (d) autoscale events {evals[:4]}, "
                              f"p50s {p50s}")
     st, p50 = float(np.median(steps_t)), float(np.median(p50s))
-    period = float(np.median(gaps))
+    want, period = float(np.median(due)), float(np.median(gaps))
+    worst = max(abs(s - d) / d for s, d in zip(steps_t, due))
     hz = run["hold"]["health"]
     near = min((e for e in evals if "goodput_ratio" in
                 (e["attrs"].get("signals") or {})),
                key=lambda e: abs(e["wall_time"] - hz["time"]))
     gap = abs(near["attrs"]["signals"]["goodput_ratio"] - hz["goodput_ratio"])
-    if abs(st - period) > P27_STEP_TIME_TOL * period or gap > P27_RATIO_TOL:
+    if abs(st - want) > P27_STEP_TIME_TOL * want or \
+            worst > P27_SAMPLE_TOL or gap > P27_RATIO_TOL:
         raise AssertionError(f"phase 27 (d) step_time_s {st:.4f} against "
-                             f"the children's step period {period:.4f} "
-                             f"(runtime p50 {p50:.4f}); goodput "
+                             f"the children's step period {want:.4f} over "
+                             f"the same steps (samples {steps_t}, due "
+                             f"{due}, steps a sample {spans}; per-step "
+                             f"median {period:.4f}, runtime p50 "
+                             f"{p50:.4f}); goodput "
                              f"{near['attrs']['signals']} against /healthz "
                              f"{hz['goodput_ratio']}")
     return {"evals": len(evals), "step_time_s": st, "p50": p50,
-            "period": period, "samples": len(steps_t), "ratio_gap": gap,
-            "launches": launches}
+            "due": want, "period": period, "samples": len(steps_t),
+            "spans": spans, "worst": worst,
+            "ratio_gap": gap, "launches": launches}
+
+
+def _p27_due_step_times(evals, events, recs):
+    """What each of the autoscaler's step-time samples should read: a
+    sample is the step-stamp delta between two scrapes of one child over
+    the steps between them, so its due value is that child's own
+    loss-read period over those same steps.  (A median of per-step gaps
+    is another statistic: a scrape that spans a slow step and a fast one
+    averages them.)  Returns the due values in the samples' order and
+    the samples, their due values and the steps each spans, in the
+    order of the evaluations."""
+    import bisect
+
+    # the supervisor's restarts split its evaluations by child; like
+    # the autoscaler (on_launch), a new child starts with no memory
+    bounds = sorted(rec["wall_time"] for _, rec in events
+                    if rec.get("name") == "elastic.restart")
+    ats = [{int(k): v for k, v in r["at"].items()} for r in recs]
+    got, due, spans, last = [], [], [], {}
+    for e in sorted(evals, key=lambda e: e["wall_time"]):
+        sig = e["attrs"].get("signals") or {}
+        if "step" not in sig:
+            continue
+        child = bisect.bisect(bounds, e["wall_time"])
+        step, prev = int(sig["step"]), last.get(child)
+        last[child] = step
+        if "step_time_s" not in sig:
+            continue
+        at = ats[child] if child < len(ats) else {}
+        if prev is None or step <= prev or prev not in at or step not in at:
+            raise AssertionError(
+                f"phase 27 (d) a step-time sample at step {step} of child "
+                f"{child} follows step {prev}: not a span of its loss reads "
+                f"{sorted(at)}")
+        got.append(sig["step_time_s"])
+        due.append((at[step] - at[prev]) / (step - prev))
+        spans.append(step - prev)
+    return got, due, spans
 
 
 def _p27_rollup(child_text: str, smi) -> None:
@@ -8945,9 +9020,8 @@ def _p27_examples(tmp, smi) -> None:
 def phase_fleet(smi: str) -> dict:
     """Phase 27: the fleet observability and control plane around a
     supervised, preempted and crashed fused ResNet-50 (see the constants
-    above).  Returns the conv_bn launches of the supervised children,
-    this slice's main path (each child counts from 0: a fresh
-    process)."""
+    above).  Returns the conv_bn launches of the supervised children
+    (each child counts from 0: a fresh process)."""
     import shutil
     import tempfile
 
@@ -8963,9 +9037,12 @@ def phase_fleet(smi: str) -> dict:
         say(f"phase 27 (d) autoscaler (dry run, world 1..1): "
             f"{after['evals']} evaluations, all suppressed at the bound, "
             f"none executed; median step_time_s {after['step_time_s']:.4f} "
-            f"s over {after['samples']} evaluations against the children's "
-            f"step period {after['period']:.4f} s (their loss reads; their "
-            f"runtime p50, dispatch to loss, {after['p50']:.4f} s); "
+            f"s over {after['samples']} evaluations (steps a sample "
+            f"{after['spans']}) against the children's step period "
+            f"{after['due']:.4f} s over the same steps (their loss reads; "
+            f"worst sample {after['worst']:.4f} off; per step "
+            f"{after['period']:.4f} s; their runtime p50, dispatch to loss, "
+            f"{after['p50']:.4f} s); "
             f"goodput_ratio {after['ratio_gap']:.4f} from /healthz's "
             f"[{smi}]")
         _p27_rollup(run["hold"]["metrics_text"], smi)
@@ -8974,6 +9051,394 @@ def phase_fleet(smi: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     say(f"phase 27 took {time.perf_counter() - t_phase:.1f} s")
     return after["launches"]
+
+
+# phase 28: (b)'s images (128 x 3 x 224 x 224 f32: 77 MB), steps a run
+# (two epochs of 4 batches), and (c)'s simulator: hosts, seed, the real
+# seconds a partitioned fetch stalls, and its time limit
+P28_IMAGES, P28_STEPS = 128, 8
+P28_SIM_HOSTS, P28_SIM_SEED, P28_SIM_STALL = 200, 0, 0.01
+P28_SIM_JOBS, P28_SIM_TIMEOUT = 7, 600
+P28_OBS_ENV = {"BIGDL_TORCH_OBS_PORT": "0", "BIGDL_TORCH_PROF_HZ": "50"}
+
+
+@contextlib.contextmanager
+def _env(values: dict):
+    """``values`` in the environment for the block (None: unset), the
+    previous values back after it."""
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _p28_get(srv, path):
+    import urllib.request
+
+    with urllib.request.urlopen(srv.url(path), timeout=30) as r:
+        return r.status, r.read().decode()
+
+
+def _p28_sim_start(tmp):
+    out = os.path.join(tmp, "sim.json")
+    log = open(os.path.join(tmp, "sim.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "bigdl_tpu_torch.sim", "--hosts",
+         str(P28_SIM_HOSTS), "--seed", str(P28_SIM_SEED),
+         "--partition-stall-s", str(P28_SIM_STALL), "--jobs",
+         str(P28_SIM_JOBS), "--out", out],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=_p27_env({}), stdout=log, stderr=subprocess.STDOUT)
+    return proc, out, log, time.perf_counter()
+
+
+def _p28_served(smi, p4_launches) -> None:
+    """(a): the obs plane up at Engine.init, the flagship served under it."""
+    from bigdl_tpu_torch.engine import Engine
+    from bigdl_tpu_torch.obs import prof, server
+    from bigdl_tpu_torch.ops import _cuda
+
+    Engine.reset()
+    server.stop_server()
+    prof.reset_profiler()
+    with _env(dict(P28_OBS_ENV, BIGDL_TORCH_CHECK_SINGLETON=None)):
+        try:
+            Engine.init(DEV)
+            srv = server.get_server()
+            if srv is None:
+                raise AssertionError("phase 28 (a): Engine.init left no obs "
+                                     "server")
+            hz_code, hz = _p28_get(srv, "/healthz")
+            m_code, metrics = _p28_get(srv, "/metrics")
+            status = json.loads(hz)["status"]
+            if hz_code != 200 or m_code != 200 or \
+                    "bigdl_engine_inits_total" not in metrics:
+                raise AssertionError(f"phase 28 (a): /healthz {hz_code}, "
+                                     f"/metrics {m_code}")
+            if not isinstance(prof.current(), prof.SamplingProfiler):
+                raise AssertionError("phase 28 (a): Engine.init started no "
+                                     "sampling profiler")
+            say(f"phase 28 (a) Engine.init on {DEV}: /healthz 200 "
+                f"(status {status}) and /metrics 200 on port {srv.port} "
+                f"before any model; {type(prof.current()).__name__} at "
+                f"{P28_OBS_ENV['BIGDL_TORCH_PROF_HZ']} Hz")
+            prof.reset_profiler()
+            model = _flagship(0)
+            eng = _lm_engine(model)
+            live = prof.current()
+            if not isinstance(live, prof.SamplingProfiler):
+                raise AssertionError("phase 28 (a): LMEngine started no "
+                                     "sampling profiler")
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            reqs = [eng.submit(p, SERVE_NEW_TOKENS)
+                    for p in _serving_prompts()]
+            eng.run_until_idle(600)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(_cuda.launches)
+            st = eng.stats()
+            eng.close()
+            samples = live.snapshot()["samples"]
+            del model, eng
+            toks = [r.tokens for r in reqs]
+            if any(r.error for r in reqs) or toks != _P4_TOKENS:
+                raise AssertionError("phase 28 (a): the tokens served under "
+                                     "the obs plane differ from phase 4's")
+            for k in ("flash_fwd", "paged_decode"):
+                if not 0 < launches[k] == p4_launches[k]:
+                    raise AssertionError(f"phase 28 (a): {k} launched "
+                                         f"{launches[k]}, phase 4 "
+                                         f"{p4_launches[k]}")
+            say(f"phase 28 (a) the flagship LMEngine under the obs plane: "
+                f"{st['requests']} requests, {st['tokens']} tokens in "
+                f"{wall:.3f} s (tokens/s {st['tokens_per_s']:.1f}, ttft p50 "
+                f"{st['ttft_p50_s'] * 1e3:.2f} ms), tokens equal to phase "
+                f"4's; flash_fwd {launches['flash_fwd']}, paged_decode "
+                f"{launches['paged_decode']} launches as in phase 4; the "
+                f"profiler took {samples} samples [{smi}]")
+            with _env({"BIGDL_TORCH_CHECK_SINGLETON": "1"}):
+                try:
+                    Engine.init(DEV)
+                except RuntimeError as e:
+                    say(f"phase 28 (a) a second init under "
+                        f"BIGDL_TORCH_CHECK_SINGLETON=1 raises: {e}")
+                else:
+                    raise AssertionError("phase 28 (a): a second init under "
+                                         "BIGDL_TORCH_CHECK_SINGLETON passed")
+        finally:
+            server.stop_server()
+            prof.reset_profiler()
+            Engine.reset()
+            torch.cuda.empty_cache()
+
+
+def _p28_arm(x, y, env: dict) -> dict:
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.dataset import ArrayDataSet
+    from bigdl_tpu_torch.nn.criterion import CrossEntropyCriterion
+    from bigdl_tpu_torch.ops import _cuda
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+
+    class Feed(ArrayDataSet):
+        """The batches, each kept and its gather (the dataset's next)
+        timed."""
+
+        batches, gather_s = [], []
+
+        def data(self, train=True):
+            it = super().data(train)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    inp, tgt = next(it)
+                except StopIteration:
+                    return
+                self.gather_s.append(time.perf_counter() - t0)
+                self.batches.append((inp, tgt))
+                yield inp, tgt
+
+    with _env(env):
+        model = _training_resnet50(True)
+        RandomGenerator.RNG.set_seed(1)
+        feed = Feed(x, y, TRAIN_BATCH)
+        losses = _TimedLosses()
+        opt = LocalOptimizer(model, feed, CrossEntropyCriterion(),
+                             batch_size=TRAIN_BATCH, device=DEV)
+        opt.set_optim_method(SGD(learningrate=0.1, momentum=0.9))
+        opt.set_compute_dtype("bfloat16")
+        opt.set_train_summary(losses)
+        # a trigger on the loss reads each step's loss before the next
+        opt.set_end_when(Trigger.or_(Trigger.max_iteration(P28_STEPS),
+                                     Trigger.min_loss(-1.0)))
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        opt.optimize()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: _cuda.launches[k]
+                    for k in ("conv_bn_1x1", "conv_bn_kxk")}
+    del opt, model
+    torch.cuda.empty_cache()
+    at = losses.at
+    gaps = [(at[n + 1] - at[n]) * 1e3 for n in range(2, P28_STEPS)]
+    loss = [losses.loss[n] for n in sorted(losses.loss)]
+    if len(loss) != P28_STEPS or not all(np.isfinite(loss)):
+        raise AssertionError(f"phase 28 (b): losses {loss}")
+    want = {"conv_bn_1x1": 36 * P28_STEPS, "conv_bn_kxk": 16 * P28_STEPS}
+    if launches != want:
+        raise AssertionError(f"phase 28 (b): conv_bn launches {launches}, "
+                             f"want {want}")
+    return {"loss": loss, "batches": feed.batches, "launches": launches,
+            "gather_ms": float(np.median(feed.gather_s)) * 1e3,
+            "step_ms": float(np.median(gaps)), "wall_s": wall}
+
+
+def _p28_trace_counts(trace_dir: str) -> dict:
+    """Kernel and annotation counts of the step profiler's one trace."""
+    import glob
+
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"phase 28 (b): trace files {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    counts = {"conv_bn_1x1": 0, "conv_bn_kxk": 0}
+    for e in events:
+        name = e.get("name", "")
+        if e.get("cat") == "kernel" and PORT_KERNEL.match(name):
+            for k in counts:
+                if f"{k}_" in name:
+                    counts[k] += 1
+        elif e.get("cat") == "user_annotation" and name in (
+                "iteration", "device_put", "step_dispatch"):
+            counts[name] = counts.get(name, 0) + 1
+    counts["bytes"] = os.path.getsize(files[0])
+    return counts
+
+
+def _p28_gather_alone(x, reps: int = 16) -> dict:
+    """The row gather of one batch alone, library and numpy, on the
+    same index draws."""
+    from bigdl_tpu_torch import native
+
+    rs = np.random.RandomState(5)
+    sels = [rs.permutation(len(x))[:TRAIN_BATCH] for _ in range(reps)]
+    out = {}
+    for way, env in (("library", {"BIGDL_TORCH_NO_NATIVE": None}),
+                     ("numpy", {"BIGDL_TORCH_NO_NATIVE": "1"})):
+        with _env(env):
+            ts = []
+            for sel in sels:
+                t0 = time.perf_counter()
+                native.gather_rows(x, sel)
+                ts.append(time.perf_counter() - t0)
+        out[way] = float(np.median(ts)) * 1e3
+    return out
+
+
+def _p28_native_feed(tmp, smi) -> dict:
+    """(b): the fused ResNet-50 fed by the host library, by numpy, and
+    by the library under the step profiler.  Returns the library arm's
+    conv_bn launches."""
+    from bigdl_tpu_torch import native
+
+    if not native.available():
+        raise AssertionError(f"phase 28 (b): the host library is not "
+                             f"available: {native.unavailable_reason()}")
+    say(f"phase 28 (b) host library {native.lib_path(native._compiler())} "
+        f"loaded")
+    n = P28_IMAGES
+    x = np.random.RandomState(0).randn(n, 3, TRAIN_IMG,
+                                       TRAIN_IMG).astype(np.float32)
+    y = (np.random.RandomState(1).randint(0, TRAIN_CLASSES, n)
+         + 1).astype(np.float32)
+    trace_dir = os.path.join(tmp, "trace")
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        alone = _p28_gather_alone(x)
+        off = {"BIGDL_TORCH_NO_NATIVE": None, "BIGDL_TORCH_PROFILE": None}
+        lib = _p28_arm(x, y, off)
+        plain = _p28_arm(x, y, dict(off, BIGDL_TORCH_NO_NATIVE="1"))
+        traced = _p28_arm(x, y, dict(off, BIGDL_TORCH_PROFILE=trace_dir))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            det
+    for other, what in ((plain, "numpy"), (traced, "traced")):
+        if other["loss"] != lib["loss"]:
+            raise AssertionError(f"phase 28 (b): {what} losses "
+                                 f"{other['loss']} != {lib['loss']}")
+        if len(other["batches"]) != len(lib["batches"]) or not all(
+                np.array_equal(a, b) and np.array_equal(ta, tb)
+                for (a, ta), (b, tb) in zip(other["batches"],
+                                            lib["batches"])):
+            raise AssertionError(f"phase 28 (b): the {what} feed's batches "
+                                 "differ from the library's")
+    traced_steps = P28_STEPS - 1
+    counts = _p28_trace_counts(trace_dir)
+    if DEV == "cuda":
+        want = {"conv_bn_1x1": 36 * traced_steps,
+                "conv_bn_kxk": 16 * traced_steps,
+                "step_dispatch": traced_steps}
+        got = {k: counts.get(k, 0) for k in want}
+        if got != want:
+            raise AssertionError(f"phase 28 (b): the trace holds {got}, "
+                                 f"want {want}")
+    else:
+        say("phase 28 (b) the trace's kernels: not checked on the CPU")
+    if counts.get("iteration", 0) < traced_steps - 1 or \
+            counts.get("device_put", 0) < traced_steps - 1:
+        raise AssertionError(f"phase 28 (b): the trace's step regions "
+                             f"{counts}")
+    say(f"phase 28 (b) {P28_STEPS} steps of the fused ResNet-50 (bf16, "
+        f"batch {TRAIN_BATCH}) over a {x.nbytes / 1e6:.0f} MB f32 "
+        f"ArrayDataSet: losses {['%.5f' % v for v in lib['loss']]} "
+        f"bit-equal with the library, with BIGDL_TORCH_NO_NATIVE=1 and "
+        f"traced; {len(lib['batches'])} batches bit-equal; conv_bn "
+        f"launches {lib['launches']} each way [{smi}]")
+    say(f"phase 28 (b) batch gather, ms a batch of {TRAIN_BATCH}: in the "
+        f"feed (median of {len(lib['batches'])}) library "
+        f"{lib['gather_ms']:.3f}, numpy {plain['gather_ms']:.3f}, "
+        f"library traced {traced['gather_ms']:.3f}; alone (median of 16) "
+        f"library {alone['library']:.3f}, numpy {alone['numpy']:.3f} "
+        f"[{smi}]")
+    say(f"phase 28 (b) step ms (median gap between loss reads, steps "
+        f"3-{P28_STEPS}): library {lib['step_ms']:.3f}, numpy "
+        f"{plain['step_ms']:.3f}, library traced {traced['step_ms']:.3f} "
+        f"(traced/untraced {traced['step_ms'] / lib['step_ms']:.3f}); "
+        f"wall of optimize() {lib['wall_s']:.2f} / {plain['wall_s']:.2f} / "
+        f"{traced['wall_s']:.2f} s [{smi}]")
+    say(f"phase 28 (b) the step profiler's trace ({counts['bytes'] / 1e6:.1f}"
+        f" MB) over steps 2-{P28_STEPS}: conv_bn_1x1 {counts['conv_bn_1x1']}"
+        f", conv_bn_kxk {counts['conv_bn_kxk']} kernels ({traced_steps} "
+        f"steps x 36 / 16); annotate regions step_dispatch "
+        f"{counts.get('step_dispatch', 0)}, iteration "
+        f"{counts.get('iteration', 0)}, device_put "
+        f"{counts.get('device_put', 0)} (the first traced step's began "
+        f"before the trace)")
+    return lib["launches"]
+
+
+def _p28_sim_wait(started, smi) -> None:
+    """(c): the simulator child's verdicts."""
+    proc, out, log, t0 = started
+    proc.wait(timeout=P28_SIM_TIMEOUT)
+    log.close()
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or not os.path.exists(out):
+        with open(log.name) as f:
+            raise AssertionError(f"phase 28 (c): the simulator exited "
+                                 f"{proc.returncode}: {f.read()[-3000:]}")
+    with open(out) as f:
+        doc = json.load(f)
+    bad = [(s["name"], [i["name"] for i in s["invariants"] if not i["ok"]])
+           for s in doc["scenarios"] + doc["serve"] if not s["ok"]]
+    if not doc["ok"] or bad or not doc["aggregation"]["ok"] or \
+            len(doc["scenarios"]) != 7 or len(doc["serve"]) != 4 or \
+            doc["hosts"] != P28_SIM_HOSTS:
+        raise AssertionError(f"phase 28 (c): failed {bad}, aggregation "
+                             f"{doc['aggregation']}")
+    for sc in doc["scenarios"]:
+        say(f"phase 28 (c) {sc['name']:12s} PASS at {sc['hosts']} hosts: "
+            f"{sc['ticks']} ticks in {sc['wall_s']:.3f} s, world -> "
+            f"{sc['final_world']}, {len(sc['decisions'])} decisions, "
+            f"{sc['episodes']} episodes, {len(sc['invariants'])} invariants"
+            f"; scrape worst {sc['scrape_worst_s'] * 1e3:.1f} ms")
+    for sc in doc["serve"]:
+        say(f"phase 28 (c) serve {sc['name']:16s} PASS: {sc['requests']} "
+            f"requests, {sc['completed']} completed, {sc['shed']} shed, 0 "
+            f"lost, amplification {sc['amplification']:.3f}, "
+            f"{sc['wall_s']:.3f} s")
+    say(f"phase 28 (c) python -m bigdl_tpu_torch.sim: 7 scenarios at "
+        f"{doc['hosts']} hosts in {doc['total_wall_s']:.1f} s "
+        f"({doc['jobs']} workers; "
+        f"{sum(sc['wall_s'] for sc in doc['scenarios']):.1f} s summed), "
+        f"{doc['decisions']} decisions, {doc['episodes']} episodes, "
+        f"{doc['bundles']} bundles; {doc['aggregation']['detail']}; 4 serve "
+        f"scenarios; its run {doc['run_wall_s']:.1f} s, collected {wall:.1f} s "
+        f"after its start [{smi}]")
+
+
+def phase_obs_native_sim(smi: str, p4_launches: dict) -> dict:
+    """Phase 28 (see the docstring): needs phase 4's tokens and
+    launches.  Returns (b)'s library arm's conv_bn launches."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase28_")
+    sim = None
+    try:
+        # (b)'s timings first, on a quiet host; then the simulator's
+        # workers beside (a), whose check is exact
+        launches = _p28_native_feed(tmp, smi)
+        sim = _p28_sim_start(tmp)
+        _p28_served(smi, p4_launches)
+        _p28_sim_wait(sim, smi)
+    finally:
+        if sim is not None:
+            proc, _, log, _ = sim
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"phase 28 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def _has_pillow() -> bool:
@@ -9000,6 +9465,7 @@ def main() -> int:
     gen.manual_seed(0)
     kernels = [phase_flash(gen), phase_decode(gen)]
     model, launches, serve_stats = phase_main_path()
+    p4_launches = dict(launches)
     phase_profile(model)
     del model
     torch.cuda.empty_cache()
@@ -9033,8 +9499,9 @@ def main() -> int:
     offsets = phase_seq_tuner(smi)
     tp_rows = phase_tp_moe(smi, serve_stats)
     phase_front_ends(smi)
-    # rows 4-5's launches: this slice's main path, phase 27 (a)
-    launches.update(phase_fleet(smi))
+    phase_fleet(smi)
+    # rows 4-5's launches: this slice's main path, phase 28 (b)
+    launches.update(phase_obs_native_sim(smi, p4_launches))
     for k in kernels:
         k.update(offsets.get(k["name"], {}))
         k.update(tp_rows.get(k["name"], {}))

@@ -314,7 +314,7 @@ LEFT_OUT = {
 }
 # JAX names that wait on a later ROADMAP item
 WAITING = {
-    "item 12": {"FleetSimConfig"},
+    "item 12": set(),
     "item 11": set(),
 }
 

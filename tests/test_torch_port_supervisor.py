@@ -286,6 +286,23 @@ def test_a_step_stamp_is_dated_by_its_age():
             assert st == pytest.approx(0.3) and sj == pytest.approx(0.2)
 
 
+def test_a_restamped_step_is_dated_by_its_newest_stamp():
+    """A resumed child stamps its restored step 6 at the restore (t=100)
+    and again when step 6 trains (t=102.5): the next step's sample is
+    the trained interval, not the restore's seconds with it."""
+    prev = {}
+    got = []
+    for step, now, age in [(6, 100.0, 0.0), (6, 101.0, 1.0),
+                           (6, 102.6, 0.1), (7, 103.4, 0.0),
+                           (7, 103.6, 0.2), (8, 104.5, 0.1)]:
+        peer = [{"addr": "a", "ok": True, "metrics": {"samples": []},
+                 "health": {"step": step, "time": now, "step_age_s": age}}]
+        st = TAs.derive_signals(peer, prev, 1).get("step_time_s")
+        if st is not None:
+            got.append(st)
+    assert got == [pytest.approx(0.9), pytest.approx(1.0)]
+
+
 def _jax_resume_at_2(ck):
     x, y = W.data(W.CKPT_N)
     JRandom.RNG.set_seed(4)

@@ -4,11 +4,11 @@ codec, the image-folder decode chain, ``ImageFolderDataSet``,
 thread.
 
 The same BMP files go through both packages' decode from the same
-seeds: the arrays agree within 1e-6 (the two run the same numpy or
-Pillow code; the limit allows a reordered f32 sum), ``read_bmp`` and
-``write_bmp`` are bit-equal, and batches, labels and their order are
-equal for one process and for each of two (``process_id`` /
-``num_processes``)."""
+seeds: the arrays agree within 1e-6 (the two run the same numpy,
+Pillow or host-library code; the limit allows a reordered f32 sum),
+``read_bmp`` and ``write_bmp`` are bit-equal, and batches, labels and
+their order are equal for one process and for each of two
+(``process_id`` / ``num_processes``)."""
 
 import sys
 import threading
@@ -57,13 +57,21 @@ def write_folder(root, classes=3, per_class=5, val=2, seed=0,
     return str(root)
 
 
-@pytest.fixture(params=["pillow", "numpy"])
+@pytest.fixture(params=["pillow", "numpy", "native"])
 def backend(request, monkeypatch):
-    """Both packages' resize through Pillow, or both through their
-    numpy fallback (Pillow hidden, the JAX package's C library off)."""
-    if request.param == "numpy":
+    """Both packages' resize through Pillow, through their host C
+    libraries (Pillow hidden), or through their numpy fallback (Pillow
+    hidden, both libraries off)."""
+    monkeypatch.delenv("BIGDL_TORCH_NO_NATIVE", raising=False)
+    if request.param != "pillow":
         monkeypatch.setitem(sys.modules, "PIL", None)
+    if request.param == "numpy":
         monkeypatch.setattr(j_native, "available", lambda: False)
+        monkeypatch.setenv("BIGDL_TORCH_NO_NATIVE", "1")
+    if request.param == "native":
+        from bigdl_tpu_torch import native as t_native
+
+        assert j_native.available() and t_native.available()
     return request.param
 
 

@@ -763,6 +763,17 @@ def tuner_enabled() -> bool:
     return _env_bool("BIGDL_TORCH_TUNER", False)
 
 
+def obs_knob_key(*names: str) -> tuple:
+    """A cheap change key of the obs knobs ``names``: their raw values
+    in the environment, or, while :func:`configure` pins the obs
+    section, the pinned section itself.  The tracer and the request
+    collector, which the engine asks for at every decode step, rebuild
+    from ``ObsConfig.from_env()`` only when the key moves."""
+    if "obs" in _explicit:
+        return ("pinned", config.obs)
+    return tuple(os.environ.get(n) for n in names)
+
+
 def build_dir() -> str:
     """Where the CUDA kernels are compiled to: ``build/bigdl_tpu_torch``
     beside the package's checkout, or ``BIGDL_TORCH_BUILD_DIR``."""
@@ -787,4 +798,4 @@ __all__ = ["ServeConfig", "TrainConfig", "ObsConfig", "RouterConfig",
            "RolloutConfig", "TunerConfig", "AutoscaleConfig", "HostConfig",
            "FleetSimConfig", "BigDLConfig", "config",
            "configure", "refresh_from_env", "reload_from_env",
-           "tuner_enabled", "build_dir", "nvcc_path"]
+           "tuner_enabled", "obs_knob_key", "build_dir", "nvcc_path"]

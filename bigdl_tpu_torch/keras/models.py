@@ -17,7 +17,6 @@ port copies that for parity (``ROADMAP.md``, the differences).
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from bigdl_tpu_torch.common import resolve_device
 from bigdl_tpu_torch.keras.layers import KerasLayer
@@ -81,42 +80,6 @@ def _resolve_optimizer(opt):
         "adamax": Adamax,
         "rmsprop": RMSprop,
     }[opt.lower()]()
-
-
-def ordered_weights(module) -> list:
-    """(module, name) of every parameter in declaration order, children
-    in ``add`` order (JAX ``_ordered_params``: the reference's
-    ``parameters()`` order)."""
-    if isinstance(module, M.Container):
-        out = []
-        for m in module.modules:
-            out.extend(ordered_weights(m))
-        return out
-    return [(module, n) for n in module.param_names
-            if getattr(module, n, None) is not None]
-
-
-def get_weights(module) -> list:
-    """The parameters as numpy arrays, in ``ordered_weights`` order."""
-    return [getattr(m, n).detach().cpu().numpy()
-            for m, n in ordered_weights(module)]
-
-
-@torch.no_grad()
-def set_weights(module, weights) -> None:
-    """Copy arrays into the parameters, in ``ordered_weights`` order,
-    keeping each one's device and dtype; shapes must agree."""
-    slots = ordered_weights(module)
-    if len(weights) != len(slots):
-        raise ValueError(
-            f"expected {len(slots)} weight arrays, got {len(weights)}")
-    for (m, n), new in zip(slots, weights):
-        old = getattr(m, n)
-        new = torch.as_tensor(np.asarray(new))
-        if tuple(new.shape) != tuple(old.shape):
-            raise ValueError(f"shape mismatch: {tuple(new.shape)} vs "
-                             f"{tuple(old.shape)}")
-        old.copy_(new.to(device=old.device, dtype=old.dtype))
 
 
 class Sequential:
@@ -240,10 +203,10 @@ class Sequential:
         return save_module(self.core, path)
 
     def get_weights(self):
-        return get_weights(self.core)
+        return self.core.get_weights()
 
     def set_weights(self, weights):
-        set_weights(self.core, weights)
+        self.core.set_weights(weights)
         return self
 
 

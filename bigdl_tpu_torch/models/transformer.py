@@ -43,8 +43,13 @@ class TokenEmbedding(AbstractModule):
         super().__init__()
         self.vocab_size = vocab_size
         self.dim = dim
+        self.reset()
+
+    def reset(self):
+        """JAX :43: N(0, 0.02)."""
         self._set_param("weight", RandomGenerator.RNG.normal(
-            0.0, 0.02, size=(vocab_size, dim)).astype(np.float32))
+            0.0, 0.02, size=(self.vocab_size, self.dim)).astype(np.float32))
+        return self
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.weight[tokens.long()]

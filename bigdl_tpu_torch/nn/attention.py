@@ -80,8 +80,13 @@ class LayerNorm(AbstractModule):
         super().__init__()
         self.n_output = n_output
         self.eps = eps
-        self._set_param("weight", np.ones(n_output, np.float32))
-        self._set_param("bias", np.zeros(n_output, np.float32))
+        self.reset()
+
+    def reset(self):
+        """JAX :53: ones and zeros."""
+        self._set_param("weight", np.ones(self.n_output, np.float32))
+        self._set_param("bias", np.zeros(self.n_output, np.float32))
+        return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layer_norm(x, self.weight, self.bias, self.eps)
@@ -110,12 +115,17 @@ class MultiHeadAttention(_AttnConfig, AbstractModule):
         self.with_bias = with_bias
         self.attn_impl = port_attn_impl(attn_impl)
         self.dropout = dropout
-        init = Xavier()
+        self.reset()
+
+    def reset(self):
+        """JAX :103: the four projections by ``Xavier``, zero biases."""
+        d, init = self.dim, Xavier()
         for name in ("wq", "wk", "wv", "wo"):
-            self._set_param(name, init.init((dim, dim), dim, dim))
+            self._set_param(name, init.init((d, d), d, d))
         for name in ("bq", "bk", "bv", "bo"):
-            self._set_param(name, np.zeros(dim, np.float32)
-                            if with_bias else None)
+            self._set_param(name, np.zeros(d, np.float32)
+                            if self.with_bias else None)
+        return self
 
     def _split(self, x):
         b, t, _ = x.shape
@@ -235,8 +245,13 @@ class PositionalEmbedding(AbstractModule):
         super().__init__()
         self.max_len = max_len
         self.dim = dim
+        self.reset()
+
+    def reset(self):
+        """JAX :328: N(0, 0.02)."""
         self._set_param("weight", RandomGenerator.RNG.normal(
-            0.0, 0.02, size=(max_len, dim)).astype(np.float32))
+            0.0, 0.02, size=(self.max_len, self.dim)).astype(np.float32))
+        return self
 
     def forward(self, x: torch.Tensor, offset: int = 0) -> torch.Tensor:
         return x + self.weight[offset:offset + x.shape[1]][None, :, :]

@@ -21,9 +21,26 @@ import numpy as np
 import torch
 
 
+def _input_tensors(x):
+    """The input with its numpy arrays as tensors, a table kept a table."""
+    from bigdl_tpu_torch.nn.module import _map_input
+    from bigdl_tpu_torch.tensor import unwrap
+
+    return _map_input(lambda t: torch.as_tensor(t) if isinstance(
+        t, np.ndarray) else t, unwrap(x))
+
+
+def _grad_leaf(t):
+    if not isinstance(t, torch.Tensor):
+        return t
+    t = t.detach()
+    return t.requires_grad_(True) if t.is_floating_point() else t
+
+
 class AbstractCriterion:
     def __init__(self):
         self.output = None
+        self.grad_input = None
 
     def loss(self, input, target):
         raise NotImplementedError
@@ -32,10 +49,40 @@ class AbstractCriterion:
         """The loss; a ``Tensor`` facade argument is unwrapped."""
         from bigdl_tpu_torch.tensor import unwrap
 
-        self.output = self.loss(unwrap(input), unwrap(target))
+        self.output = self.loss(_input_tensors(input), unwrap(target))
         return self.output
 
     __call__ = forward
+    updateOutput = forward
+
+    def backward(self, input, target):
+        """The loss's gradient in its input (JAX ``backward``, the
+        ``jax.grad`` of ``loss``), as ``self.grad_input``: a table input
+        gives a table, an integer tensor's entry is ``None``.  The
+        gradient is taken on a detached copy of the input, so no graph
+        that made the input is touched."""
+        from bigdl_tpu_torch.nn.module import _input_leaves, _map_input
+        from bigdl_tpu_torch.tensor import unwrap
+
+        x = _map_input(_grad_leaf, _input_tensors(input))
+        wrt = [t for t in _input_leaves(x)
+               if isinstance(t, torch.Tensor) and t.requires_grad]
+        with torch.enable_grad():
+            loss = self.loss(x, unwrap(target))
+        got = torch.autograd.grad(loss, wrt, allow_unused=True) \
+            if wrt and loss.requires_grad else [None] * len(wrt)
+        by_id = {id(t): g for t, g in zip(wrt, got)}
+
+        def grad_of(t):
+            if not (isinstance(t, torch.Tensor) and t.requires_grad):
+                return None
+            g = by_id.get(id(t))
+            return torch.zeros_like(t) if g is None else g
+
+        self.grad_input = _map_input(grad_of, x)
+        return self.grad_input
+
+    updateGradInput = backward
 
     def __repr__(self):
         return type(self).__name__

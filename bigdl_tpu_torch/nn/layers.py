@@ -153,11 +153,18 @@ class Linear(AbstractModule):
         self.with_bias = with_bias
         self._set_regularizers((("w_regularizer", w_regularizer, ("weight",)),
                                 ("b_regularizer", b_regularizer, ("bias",))))
-        init = init_method or Xavier()
-        self._set_param("weight", init.init(
-            (output_size, input_size), input_size, output_size))
-        self._set_param("bias", np.zeros(output_size, np.float32)
-                        if with_bias else None)
+        self._init_method = init_method or Xavier()
+        self.reset()
+
+    def reset(self):
+        """The weight drawn again by the init method, the bias zeroed
+        (JAX :167)."""
+        self._set_param("weight", self._init_method.init(
+            (self.output_size, self.input_size), self.input_size,
+            self.output_size))
+        self._set_param("bias", np.zeros(self.output_size, np.float32)
+                        if self.with_bias else None)
+        return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.matmul(x, self.weight.t())
@@ -289,14 +296,19 @@ class SpatialConvolution(AbstractModule):
         self.with_bias = with_bias
         self._set_regularizers((("w_regularizer", w_regularizer, ("weight",)),
                                 ("b_regularizer", b_regularizer, ("bias",))))
-        init = init_method or MsraFiller(False)
-        fan_in = n_input_plane // n_group * kernel_h * kernel_w
-        fan_out = n_output_plane // n_group * kernel_h * kernel_w
-        self._set_param("weight", init.init(
-            (n_output_plane, n_input_plane // n_group, kernel_h, kernel_w),
-            fan_in, fan_out))
-        self._set_param("bias", np.zeros(n_output_plane, np.float32)
-                        if with_bias else None)
+        self._init_method = init_method or MsraFiller(False)
+        self.reset()
+
+    def reset(self):
+        """JAX :318."""
+        g, kh, kw = self.n_group, self.kernel_h, self.kernel_w
+        self._set_param("weight", self._init_method.init(
+            (self.n_output_plane, self.n_input_plane // g, kh, kw),
+            self.n_input_plane // g * kh * kw,
+            self.n_output_plane // g * kh * kw))
+        self._set_param("bias", np.zeros(self.n_output_plane, np.float32)
+                        if self.with_bias else None)
+        return self
 
     def forward(self, x):
         x, squeezed = _auto_batch(x, 4)
@@ -368,13 +380,19 @@ class SpatialFullConvolution(AbstractModule):
         self.adj_w, self.adj_h = adj_w, adj_h
         self.n_group = n_group
         self.with_bias = with_bias
-        init = init_method or MsraFiller(False)
-        self._set_param("weight", init.init(
-            (n_output_plane, n_input_plane // n_group, kernel_h, kernel_w),
-            n_input_plane * kernel_h * kernel_w,
-            n_output_plane * kernel_h * kernel_w))
-        self._set_param("bias", np.zeros(n_output_plane, np.float32)
-                        if with_bias else None)
+        self._init_method = init_method or MsraFiller(False)
+        self.reset()
+
+    def reset(self):
+        """JAX :466."""
+        kh, kw = self.kernel_h, self.kernel_w
+        self._set_param("weight", self._init_method.init(
+            (self.n_output_plane, self.n_input_plane // self.n_group, kh,
+             kw), self.n_input_plane * kh * kw,
+            self.n_output_plane * kh * kw))
+        self._set_param("bias", np.zeros(self.n_output_plane, np.float32)
+                        if self.with_bias else None)
+        return self
 
     def _transposed_weight(self):
         g = self.n_group
@@ -422,12 +440,18 @@ class TemporalConvolution(AbstractModule):
         self.kernel_w = kernel_w
         self.stride_w = stride_w
         self.with_bias = with_bias
-        init = init_method or Xavier()
-        self._set_param("weight", init.init(
-            (output_frame_size, input_frame_size, kernel_w),
-            input_frame_size * kernel_w, output_frame_size * kernel_w))
-        self._set_param("bias", np.zeros(output_frame_size, np.float32)
-                        if with_bias else None)
+        self._init_method = init_method or Xavier()
+        self.reset()
+
+    def reset(self):
+        """JAX :548."""
+        n_in, n_out, kw = (self.input_frame_size, self.output_frame_size,
+                           self.kernel_w)
+        self._set_param("weight", self._init_method.init(
+            (n_out, n_in, kw), n_in * kw, n_out * kw))
+        self._set_param("bias", np.zeros(n_out, np.float32)
+                        if self.with_bias else None)
+        return self
 
     def get_config(self):
         out = super().get_config()

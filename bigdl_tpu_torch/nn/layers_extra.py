@@ -86,14 +86,19 @@ class LocallyConnected1D(AbstractModule):
         self.stride_w = stride_w
         self.with_bias = with_bias
         self.n_output_frame = (n_input_frame - kernel_w) // stride_w + 1
-        init = init_method or Xavier()
-        self._set_param("weight", init.init(
-            (self.n_output_frame, kernel_w * input_frame_size,
-             output_frame_size),
-            input_frame_size * kernel_w, output_frame_size * kernel_w))
+        self._init_method = init_method or Xavier()
+        self.reset()
+
+    def reset(self):
+        """JAX :92."""
+        n_in, n_out, kw = (self.input_frame_size, self.output_frame_size,
+                           self.kernel_w)
+        self._set_param("weight", self._init_method.init(
+            (self.n_output_frame, kw * n_in, n_out), n_in * kw, n_out * kw))
         self._set_param("bias", np.zeros(
-            (self.n_output_frame, output_frame_size), np.float32)
-            if with_bias else None)
+            (self.n_output_frame, n_out), np.float32)
+            if self.with_bias else None)
+        return self
 
     def forward(self, x):
         x, squeezed = _auto_batch(x, 3)
@@ -134,14 +139,20 @@ class LocallyConnected2D(AbstractModule):
         self.with_bias = with_bias
         self.out_h = (input_height + 2 * pad_h - kernel_h) // stride_h + 1
         self.out_w = (input_width + 2 * pad_w - kernel_w) // stride_w + 1
-        init = init_method or Xavier()
-        k = n_input_plane * kernel_h * kernel_w
-        self._set_param("weight", init.init(
-            (n_output_plane, k, self.out_h, self.out_w),
-            k, n_output_plane * kernel_h * kernel_w))
+        self._init_method = init_method or Xavier()
+        self.reset()
+
+    def reset(self):
+        """JAX :177."""
+        area = self.kernel_h * self.kernel_w
+        k = self.n_input_plane * area
+        self._set_param("weight", self._init_method.init(
+            (self.n_output_plane, k, self.out_h, self.out_w),
+            k, self.n_output_plane * area))
         self._set_param("bias", np.zeros(
-            (n_output_plane, self.out_h, self.out_w), np.float32)
-            if with_bias else None)
+            (self.n_output_plane, self.out_h, self.out_w), np.float32)
+            if self.with_bias else None)
+        return self
 
     def forward(self, x):
         x, squeezed = _auto_batch(x, 4)
@@ -181,16 +192,22 @@ class SpatialSeparableConvolution(AbstractModule):
         self.stride_w, self.stride_h = stride_w, stride_h
         self.pad_w, self.pad_h = pad_w, pad_h
         self.with_bias = with_bias
-        init = init_method or MsraFiller(False)
-        mid = n_input_channel * depth_multiplier
-        k = kernel_h * kernel_w
+        self._init_method = init_method or MsraFiller(False)
+        self.reset()
+
+    def reset(self):
+        """JAX :263."""
+        init = self._init_method
+        mid = self.n_input_channel * self.depth_multiplier
+        k = self.kernel_h * self.kernel_w
         self._set_param("depth_weight", init.init(
-            (mid, 1, kernel_h, kernel_w), depth_multiplier * k,
-            depth_multiplier * k))
+            (mid, 1, self.kernel_h, self.kernel_w),
+            self.depth_multiplier * k, self.depth_multiplier * k))
         self._set_param("point_weight", init.init(
-            (n_output_channel, mid, 1, 1), mid, n_output_channel))
-        self._set_param("bias", np.zeros(n_output_channel, np.float32)
-                        if with_bias else None)
+            (self.n_output_channel, mid, 1, 1), mid, self.n_output_channel))
+        self._set_param("bias", np.zeros(self.n_output_channel, np.float32)
+                        if self.with_bias else None)
+        return self
 
     def forward(self, x):
         x, squeezed = _auto_batch(x, 4)
@@ -240,13 +257,22 @@ class SpatialConvolutionMap(AbstractModule):
         mask[conn[:, 1] - 1, conn[:, 0] - 1, 0, 0] = 1.0
         self.register_buffer("_mask", torch.from_numpy(mask),
                              persistent=False)
+        self._init_method = init_method or MsraFiller(False)
+        self.reset()
+
+    def reset(self):
+        """JAX :377: fan-in is an output plane's connections times the
+        kernel area."""
+        conn = np.asarray(self.conn_table, dtype=np.int64)
         per_out = np.bincount(conn[:, 1] - 1, minlength=self.n_output_plane)
-        fan_in = int(per_out.max()) * kernel_h * kernel_w
-        init = init_method or MsraFiller(False)
-        w = init.init((self.n_output_plane, self.n_input_plane, kernel_h,
-                       kernel_w), fan_in, fan_in)
+        fan_in = int(per_out.max()) * self.kernel_h * self.kernel_w
+        w = self._init_method.init(
+            (self.n_output_plane, self.n_input_plane, self.kernel_h,
+             self.kernel_w), fan_in, fan_in)
+        mask = self._mask.cpu().numpy()
         self._set_param("weight", (w * mask).astype(np.float32))
         self._set_param("bias", np.zeros(self.n_output_plane, np.float32))
+        return self
 
     @staticmethod
     def full(n_in: int, n_out: int):
@@ -996,13 +1022,18 @@ class Maxout(AbstractModule):
         self.output_size = output_size
         self.maxout_number = maxout_number
         self.with_bias = with_bias
-        n_out = maxout_number * output_size
-        bound = 1.0 / math.sqrt(input_size)
+        self.reset()
+
+    def reset(self):
+        """JAX :1214: weight and bias U(±1/√in)."""
+        n_out = self.maxout_number * self.output_size
+        bound = 1.0 / math.sqrt(self.input_size)
         rng = RandomGenerator.RNG
         self._set_param("weight", rng.uniform(
-            -bound, bound, (input_size, n_out)).astype(np.float32))
+            -bound, bound, (self.input_size, n_out)).astype(np.float32))
         self._set_param("bias", rng.uniform(-bound, bound, n_out).astype(
-            np.float32) if with_bias else None)
+            np.float32) if self.with_bias else None)
+        return self
 
     def forward(self, x):
         x, squeezed = _auto_batch(x, 2)
@@ -1036,6 +1067,11 @@ class Highway(AbstractModule):
                            if activation is not None else None)
         # the activation runs inside this layer: no child, no spec
         object.__setattr__(self, "_act", activation)
+        self.reset()
+
+    def reset(self):
+        """JAX :1270: both weights U(±1/√size), the carry bias at −2."""
+        size = self.size
         bound = 1.0 / math.sqrt(size)
         rng = RandomGenerator.RNG
         w = rng.uniform(-bound, bound, (size, size)).astype(np.float32)
@@ -1043,9 +1079,10 @@ class Highway(AbstractModule):
         self._set_param("weight", w)
         self._set_param("carry_weight", wc)
         self._set_param("bias", np.zeros(size, np.float32)
-                        if with_bias else None)
+                        if self.with_bias else None)
         self._set_param("carry_bias", np.full(size, -2.0, np.float32)
-                        if with_bias else None)
+                        if self.with_bias else None)
+        return self
 
     def forward(self, x):
         h = x @ self.weight.t()
@@ -1072,6 +1109,10 @@ class SReLU(AbstractModule):
     def __init__(self, shape: Sequence[int]):
         super().__init__()
         self.shape = tuple(int(s) for s in shape)
+        self.reset()
+
+    def reset(self):
+        """JAX :1322."""
         if len(self.shape) == 2:
             fan_in, fan_out = float(self.shape[0]), float(self.shape[1])
         else:
@@ -1084,6 +1125,7 @@ class SReLU(AbstractModule):
         self._set_param("t_right", rng.uniform(-limit, limit, self.shape)
                         .astype(np.float32))
         self._set_param("a_right", np.ones(self.shape, np.float32))
+        return self
 
     def forward(self, x):
         tl, al, tr, ar = self.t_left, self.a_left, self.t_right, self.a_right

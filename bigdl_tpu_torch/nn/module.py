@@ -12,6 +12,20 @@ Mode switches: torch's ``train()`` is the JAX package's ``training()``
 (torch keeps its mode flag in the ``training`` attribute, so the name
 cannot be a method here), and ``evaluate()`` is ``eval()``.
 
+The stateful BigDL API (JAX :100-200) rides on autograd.
+``update_output(input)`` runs the module with the graph kept and sets
+``output`` (detached); ``update_grad_input``/``acc_grad_parameters``/
+``backward`` take the gradient of that output through the kept graph
+(``torch.autograd.grad`` over the parameters and the input), so a BN
+layer's running statistics move once a step.  A ``backward`` on another
+input than the last ``update_output``'s runs the forward again, with
+the buffers saved and restored around it and the same dropout seed.
+Parameter gradients accumulate in each parameter's ``.grad``;
+``grad_params()`` reads them as a tree shaped like ``params()``.  An
+integer input's gradient is ``None`` (JAX gives a ``float0`` array).
+torch owns ``parameters()``: the BigDL ``(weights, gradients)`` pair is
+``parameters_and_grads()`` (``ROADMAP.md`` queue 3).
+
 Calling a module on graph nodes (``conv(input_node)``) wires it into a
 ``Graph`` (``nn/graph.py``) and returns its ``Node``, as the JAX
 ``AbstractModule.__call__`` does; a call on anything else is torch's
@@ -32,18 +46,78 @@ here every child is (``ROADMAP.md`` queue 3).
 from __future__ import annotations
 
 import inspect
+import os
+import weakref
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.common import fold_in
+from bigdl_tpu_torch.common import RandomGenerator, fold_in
 from bigdl_tpu_torch.tensor import unwrap
 
 
 def _as_tensor(value) -> torch.Tensor:
     return value if isinstance(value, torch.Tensor) else torch.as_tensor(
         np.asarray(value))
+
+
+# the graph each module's last ``update_output`` kept: module ->
+# (the input as given, its leaves, the output).  Held beside the module,
+# not on it, so that a deep copy or a pickle of the module never meets a
+# non-leaf tensor
+_GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _map_input(fn, x):
+    """``fn`` over each tensor of an input (a tensor, or a table: a
+    tuple or list of them, nested), the structure kept."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(_map_input(fn, v) for v in x)
+    return fn(x)
+
+
+def _input_leaves(x) -> list:
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _input_leaves(v)]
+    return [x]
+
+
+def _same_input(a, b) -> bool:
+    """Is ``b`` the input ``a`` was: the same object, or a table of the
+    same objects."""
+    if a is b:
+        return True
+    if isinstance(a, (tuple, list)) and isinstance(b, (tuple, list)):
+        return len(a) == len(b) and all(_same_input(u, v)
+                                        for u, v in zip(a, b))
+    return False
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _tree_leaves(tree) -> list:
+    """A tree's tensors in ``jax.tree.leaves`` order."""
+    from bigdl_tpu_torch.utils.tree import leaves
+
+    return leaves(tree)
+
+
+def _unique(tensors) -> list:
+    seen, out = set(), []
+    for t in tensors:
+        if id(t) not in seen:
+            seen.add(id(t))
+            out.append(t)
+    return out
+
+
+def _trainable(t) -> bool:
+    return isinstance(t, torch.Tensor) and t.is_floating_point()
 
 
 class AbstractModule(torch.nn.Module):
@@ -89,7 +163,17 @@ class AbstractModule(torch.nn.Module):
         if value is None:
             self.register_parameter(name, None)
             return
-        self.register_parameter(name, torch.nn.Parameter(_as_tensor(value)))
+        value = _as_tensor(value)
+        cur = self._parameters.get(name)
+        if cur is not None:
+            # a reset: draw into the live tensor, so that its device,
+            # dtype and every reference to it are kept
+            if tuple(cur.shape) == tuple(value.shape):
+                with torch.no_grad():
+                    cur.copy_(value.to(device=cur.device, dtype=cur.dtype))
+                return
+            value = value.to(device=cur.device, dtype=cur.dtype)
+        self.register_parameter(name, torch.nn.Parameter(value))
 
     def params(self) -> Dict[str, Any]:
         """Nested dict of this module's parameters (None ones left out)."""
@@ -133,15 +217,348 @@ class AbstractModule(torch.nn.Module):
         """Copy tensors into the existing buffers, as ``set_params``."""
         self._copy_into(self.state_names, state)
 
-    def evaluate(self):
-        """Eval mode (the JAX package's ``evaluate()``); returns self."""
-        self.eval()
+    # ---- the stateful API (JAX :100-200) -----------------------------------
+    # the last update_output's output (detached) and the last input
+    # gradient, as the JAX package keeps them
+    output = None
+    grad_input = None
+    _forward_count: int = 0
+    _last_rng_seed: Optional[int] = None
+
+    def _device(self) -> torch.device:
+        for t in self.parameters():
+            return t.device
+        for t in self.buffers():
+            return t.device
+        return torch.device("cpu")
+
+    def _next_rng_seed(self) -> Optional[int]:
+        """A model that takes a dropout seed gets one per call, from a
+        per-module counter (the JAX ``_next_rng`` fold-in; other bits,
+        ``ROADMAP.md`` queue 3)."""
+        if not self.takes_rng_seed:
+            return None
+        self._forward_count += 1
+        return fold_in(RandomGenerator.RNG.seed + 1013904223,
+                       self._forward_count)
+
+    def _forward_kept(self, input, rng_seed):
+        """(the input's leaves, the output) of a forward with the graph
+        kept: floating tensors of the input become fresh leaves that
+        require a gradient, numpy arrays go to the module's device."""
+        dev = self._device()
+
+        def leaf(x):
+            x = unwrap(x)
+            if not isinstance(x, torch.Tensor):
+                x = torch.as_tensor(np.asarray(x), device=dev)
+            x = x.detach()
+            return x.requires_grad_(True) if x.is_floating_point() else x
+
+        x = _map_input(leaf, unwrap(input))
+        kw = {} if rng_seed is None else {"rng_seed": rng_seed}
+        with torch.enable_grad():
+            out = self(x, **kw)
+        return x, out
+
+    def update_output(self, input):
+        """The forward of the stateful API (JAX ``forward``/
+        ``update_output``): runs the module (BN statistics move, as in a
+        training step), keeps the graph for the backward and sets
+        ``self.output`` (detached)."""
+        self._last_rng_seed = self._next_rng_seed()
+        x, out = self._forward_kept(input, self._last_rng_seed)
+        _GRAPHS[self] = (input, x, out)
+        self.output = _map_input(lambda t: t.detach(), out)
+        return self.output
+
+    updateOutput = update_output
+
+    def _param_list(self) -> list:
+        return _unique(_tree_leaves(self.params()))
+
+    def _grads(self, input, grad_output, want_params: bool,
+               want_input: bool):
+        """(the parameters in ``_param_list`` order, their gradients, the
+        input's gradient) of ``grad_output`` through the graph of
+        ``input``."""
+        kept = _GRAPHS.get(self)
+        if kept is None or not _same_input(kept[0], input):
+            # another input: run it again, the buffers and the dropout
+            # seed as the last update_output had them
+            saved = _clone_tree(self.state())
+            try:
+                x, out = self._forward_kept(input, self._last_rng_seed)
+            finally:
+                self.set_state(saved)
+        else:
+            _, x, out = kept
+        params = self._param_list() if want_params else []
+        wrt = [p for p in params if _trainable(p) and p.requires_grad]
+        if want_input:
+            wrt += [t for t in _input_leaves(x) if t.requires_grad]
+        outs, gouts = [], []
+        for o, g in zip(_input_leaves(out), _input_leaves(unwrap(
+                grad_output))):
+            if g is not None and isinstance(o, torch.Tensor) \
+                    and o.requires_grad:
+                outs.append(o)
+                gouts.append(torch.as_tensor(g, device=o.device,
+                                             dtype=o.dtype))
+        got = torch.autograd.grad(outs, wrt, gouts, retain_graph=True,
+                                  allow_unused=True) if outs and wrt \
+            else [None] * len(wrt)
+        by_id = {id(t): g for t, g in zip(wrt, got)}
+
+        def grad_of(t):
+            if not (isinstance(t, torch.Tensor) and t.is_floating_point()):
+                return None
+            g = by_id.get(id(t))
+            return torch.zeros_like(t) if g is None else g.detach()
+
+        grad_p = [grad_of(p) for p in params]
+        grad_x = _map_input(grad_of, x) if want_input else None
+        return params, grad_p, grad_x
+
+    @torch.no_grad()
+    def _accumulate(self, params, grads) -> None:
+        for p, g in zip(params, grads):
+            if g is None:
+                continue
+            if p.grad is None:
+                p.grad = g.clone()
+            else:
+                p.grad.add_(g)
+
+    def update_grad_input(self, input, grad_output):
+        """The input's gradient (JAX ``update_grad_input``): sets and
+        returns ``self.grad_input`` and adds nothing to the parameters'
+        gradients.  A table input gives a table; an integer tensor's
+        entry is ``None``."""
+        _, _, gx = self._grads(input, grad_output, False, True)
+        self.grad_input = gx
+        return gx
+
+    updateGradInput = update_grad_input
+
+    def acc_grad_parameters(self, input, grad_output) -> None:
+        """Add the parameters' gradients of ``grad_output`` into their
+        ``.grad`` (JAX ``acc_grad_parameters``)."""
+        params, gp, _ = self._grads(input, grad_output, True, False)
+        self._accumulate(params, gp)
+
+    accGradParameters = acc_grad_parameters
+
+    def backward(self, input, grad_output):
+        """``update_grad_input`` and ``acc_grad_parameters`` in one pass
+        through the graph; returns the input's gradient."""
+        params, gp, gx = self._grads(input, grad_output, True, True)
+        self._accumulate(params, gp)
+        self.grad_input = gx
+        return gx
+
+    @torch.no_grad()
+    def zero_grad_parameters(self) -> None:
+        """Every parameter's gradient to zeros (torch's ``zero_grad``
+        drops them instead)."""
+        for p in self._param_list():
+            if not _trainable(p):
+                continue
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            else:
+                p.grad.zero_()
+
+    zeroGradParameters = zero_grad_parameters
+
+    def grad_params(self):
+        """The accumulated gradients, a tree shaped like ``params()``
+        (zeros where none has been accumulated; an integer tensor's
+        leaf is a zero tensor of its own)."""
+        def grad(p):
+            if not _trainable(p):
+                return torch.zeros_like(p)
+            if p.grad is None:
+                with torch.no_grad():
+                    p.grad = torch.zeros_like(p)
+            return p.grad
+
+        return _tree_map(grad, self.params())
+
+    @torch.no_grad()
+    def update_parameters(self, learning_rate: float) -> None:
+        """Plain SGD in place: ``w -= learning_rate * g`` (JAX
+        ``update_parameters``)."""
+        for p in self._param_list():
+            if _trainable(p) and p.grad is not None:
+                p.sub_(learning_rate * p.grad)
+
+    updateParameters = update_parameters
+
+    def parameters_and_grads(self):
+        """The BigDL ``parameters()``: (weights, gradients), flat lists in
+        ``jax.tree.leaves`` order, so index i names the same tensor in
+        both packages."""
+        grads = self.grad_params()
+        return _tree_leaves(self.params()), _tree_leaves(grads)
+
+    # ---- weights I/O ---------------------------------------------------------
+    def _ordered_params(self) -> list:
+        """(module, name) of each parameter in declaration order, weight
+        before bias, children in ``add`` order: the reference's
+        ``parameters()`` order, which the npz weight files keep (JAX
+        :202)."""
+        return [(self, n) for n in self.param_names
+                if getattr(self, n, None) is not None]
+
+    def get_weights(self) -> list:
+        """The parameters as host numpy arrays, in ``_ordered_params``
+        order."""
+        return [getattr(m, n).detach().cpu().numpy()
+                for m, n in self._ordered_params()]
+
+    @torch.no_grad()
+    def set_weights(self, weights):
+        """Copy arrays into the parameters in ``get_weights`` order,
+        keeping each one's device and dtype; counts and shapes must
+        agree."""
+        slots = self._ordered_params()
+        if len(weights) != len(slots):
+            raise ValueError(
+                f"expected {len(slots)} weight arrays, got {len(weights)}")
+        for (m, n), new in zip(slots, weights):
+            old = getattr(m, n)
+            # a copy: a JAX array reads as a read-only numpy array
+            new = new if isinstance(new, torch.Tensor) else torch.from_numpy(
+                np.array(new))
+            if tuple(new.shape) != tuple(old.shape):
+                raise ValueError(f"shape mismatch: {tuple(new.shape)} vs "
+                                 f"{tuple(old.shape)}")
+            old.copy_(new.to(device=old.device, dtype=old.dtype))
         return self
+
+    def save_weights(self, path: str, over_write: bool = False) -> str:
+        """The weights as an npz of keys ``"0"`` .. ``"n-1"`` in
+        ``get_weights`` order, the JAX package's file (JAX :323)."""
+        if not path.endswith(".npz"):
+            path += ".npz"
+        if not over_write and os.path.exists(path):
+            raise FileExistsError(f"{path} exists; pass over_write=True")
+        np.savez(path, **{str(i): w
+                          for i, w in enumerate(self.get_weights())})
+        return path
+
+    def load_weights(self, path: str):
+        """Restore ``save_weights``'s (or the JAX package's) npz."""
+        with np.load(path) as data:
+            weights = [data[str(i)] for i in range(len(data.files))]
+        return self.set_weights(weights)
+
+    saveWeights = save_weights
+    loadWeights = load_weights
+
+    def save(self, path: str, over_write: bool = False) -> str:
+        """The module through the serializer (``save_module``: an npz
+        spec, or the protobuf format for a ``.bigdl`` path); an
+        existing file is refused without ``over_write``."""
+        from bigdl_tpu_torch.utils.serializer import save_module
+
+        if not over_write and os.path.exists(path):
+            raise FileExistsError(
+                f"{path} exists; pass over_write=True (reference "
+                "overWrite semantics)")
+        return save_module(self, path)
+
+    saveModule = save
+
+    # ---- evaluation, prediction, quantization --------------------------------
+    def evaluate(self, dataset=None, methods=None, batch_size: int = 32,
+                 device="cuda"):
+        """No dataset: eval mode (the JAX package's ``evaluate()``),
+        returns self.  With a dataset (a ``DataSet``, an ``(x, y)``
+        tuple or ``Sample``s) and validation methods: their results
+        over it on ``device`` (``evaluate_dataset``)."""
+        self.eval()
+        if dataset is None:
+            return self
+        if not methods:
+            raise ValueError(
+                "evaluate(dataset, methods): pass validation methods, "
+                "e.g. [Top1Accuracy()]")
+        from bigdl_tpu_torch.dataset import to_dataset
+        from bigdl_tpu_torch.optim.evaluator import evaluate_dataset
+
+        return evaluate_dataset(self, to_dataset(dataset, batch_size),
+                                methods, device=device)
+
+    def test(self, dataset, methods, batch_size: int = 32, device="cuda"):
+        """The reference's ``model.test(dataset, methods)``."""
+        return self.evaluate(dataset, methods, batch_size, device)
+
+    def predict(self, features, batch_size: int = 32, device="cuda"):
+        """Eval-mode outputs over ``features`` in batches, on the host."""
+        from bigdl_tpu_torch.optim.evaluator import predict as _predict
+
+        return _predict(self, features, batch_size, device)
+
+    def predict_class(self, features, batch_size: int = 32, device="cuda"):
+        """The 1-based class of each sample (argmax + 1)."""
+        from bigdl_tpu_torch.optim.evaluator import predict_class as _pc
+
+        return _pc(self, features, batch_size, device)
+
+    predictClass = predict_class
+
+    def quantize(self):
+        """A copy with every Linear and conv swapped for its int8 twin
+        (``nn/quantized.quantize``)."""
+        from bigdl_tpu_torch.nn.quantized import quantize as _q
+
+        return _q(self)
+
+    def reset(self):
+        """Draw the initial parameters again from ``RandomGenerator.RNG``;
+        a layer without parameters has nothing to draw."""
+        return self
+
+    def grad_mask(self):
+        """A tree shaped like ``params()``: 0.0 at a frozen module's
+        parameters, 1.0 elsewhere (JAX :402)."""
+        scale = 0.0 if self._frozen else 1.0
+        return {n: scale for n in self.params()}
+
+    def get_parameters_table(self) -> dict:
+        """Each parameterised module's tensors by module name, children
+        before their parents (the reference's ``getParametersTable()``)."""
+        table = {}
+
+        def walk(m):
+            for child in m.children():
+                if isinstance(child, AbstractModule):
+                    walk(child)
+            p = {n: getattr(m, n) for n in m.param_names
+                 if getattr(m, n, None) is not None}
+            if p:
+                table[m.get_name()] = p
+
+        walk(self)
+        return table
+
+    getParametersTable = get_parameters_table
+
+    def inputs(self, *nodes):
+        """This module as a graph ``Node`` wired to ``nodes`` (the
+        reference's ``module.inputs(n1, n2)``)."""
+        from bigdl_tpu_torch.nn.graph import Node, _as_nodes
+
+        return Node(self, _as_nodes(nodes))
 
     def set_name(self, name: str):
         """Name the layer (kept in its serialized spec); returns self."""
         self._name = name
         return self
+
+    setName = set_name
 
     def get_name(self) -> str:
         """The layer's name, or ``Class@id`` without one (JAX :281)."""
@@ -322,6 +739,21 @@ class Composite(AbstractModule):
     def set_state(self, state):
         for n, m in self._modules.items():
             m.set_state(state.get(n, {}))
+
+    def _ordered_params(self) -> list:
+        return [slot for m in self._modules.values()
+                for slot in m._ordered_params()]
+
+    def reset(self):
+        """Each child's ``reset``, in order (JAX ``Container.reset``)."""
+        for m in self._modules.values():
+            m.reset()
+        return self
+
+    def grad_mask(self):
+        if self._frozen:
+            return _tree_map(lambda _: 0.0, self.params())
+        return {n: m.grad_mask() for n, m in self._modules.items()}
 
 
 class Container(Composite):

@@ -37,7 +37,11 @@ class BinaryTreeLSTM(AbstractModule):
         super().__init__()
         self.input_size = input_size
         self.hidden_size = hidden_size
-        h, d = hidden_size, input_size
+        self.reset()
+
+    def reset(self):
+        """JAX :52."""
+        h, d = self.hidden_size, self.input_size
         s_leaf = 1.0 / np.sqrt(max(1, d))
         s_comp = 1.0 / np.sqrt(max(1, 2 * h))
         rng = RandomGenerator.RNG
@@ -48,6 +52,7 @@ class BinaryTreeLSTM(AbstractModule):
                                               (2 * h, 5 * h))
                         .astype(np.float32))
         self._set_param("comp_b", np.zeros(5 * h, np.float32))
+        return self
 
     def forward(self, x):
         emb, children = x

@@ -55,12 +55,17 @@ class VolumetricConvolution(AbstractModule):
         self.d_t, self.d_w, self.d_h = d_t, d_w, d_h
         self.pad_t, self.pad_w, self.pad_h = pad_t, pad_w, pad_h
         self.with_bias = with_bias
-        init = init_method or MsraFiller(False)
-        self._set_param("weight", init.init(
-            self._weight_shape(), n_input_plane * self._k_vol(),
-            n_output_plane * self._k_vol()))
-        self._set_param("bias", np.zeros(n_output_plane, np.float32)
-                        if with_bias else None)
+        self._init_method = init_method or MsraFiller(False)
+        self.reset()
+
+    def reset(self):
+        """JAX :92 and, through ``_weight_shape``, :170."""
+        self._set_param("weight", self._init_method.init(
+            self._weight_shape(), self.n_input_plane * self._k_vol(),
+            self.n_output_plane * self._k_vol()))
+        self._set_param("bias", np.zeros(self.n_output_plane, np.float32)
+                        if self.with_bias else None)
+        return self
 
     def _k_vol(self):
         return self.k_t * self.k_h * self.k_w

@@ -38,10 +38,11 @@ it runs at the end of ``optimize`` and at interpreter exit, so a
 preempted or crashed attempt still leaves its shards.
 
 Everything is off by default.  The tracer and the request collector are
-rebuilt when their knobs change (JAX ``obs/__init__.py:96-115``); a
-call whose knobs read as the last one's returns the cached object after
-one environment lookup a knob, with no lock, since the engine asks at
-every decode step.
+rebuilt when their knobs change, a ``configure(obs=...)`` pin included
+(JAX ``obs/__init__.py:96-115``); a call whose knobs read as the last
+one's returns the cached object after one environment lookup a knob
+(``config.obs_knob_key``), with no lock, since the engine asks at every
+decode step.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ import json
 import os
 import threading
 
+from bigdl_tpu_torch.config import obs_knob_key
 from bigdl_tpu_torch.obs import names
 from bigdl_tpu_torch.obs.metrics import DEFAULT_BUCKETS, MetricsRegistry
 from bigdl_tpu_torch.obs.runtime import (Reservoir, RuntimeStats,
@@ -62,8 +64,8 @@ from bigdl_tpu_torch.obs.trace import NULL_TRACER, NullTracer, Tracer
 _lock = threading.Lock()
 _tracer = NULL_TRACER
 _tracer_dir = None
-# (raw BIGDL_TORCH_TRACE_DIR, tracer): one tuple rebind, so the lock-free
-# read in get_tracer sees a matched pair
+# (the trace directory's knob key, tracer): one tuple rebind, so the
+# lock-free read in get_tracer sees a matched pair
 _UNSET = object()
 _tracer_state = (_UNSET, NULL_TRACER)
 _registry = MetricsRegistry()
@@ -88,7 +90,7 @@ def get_tracer():
     ``BIGDL_TORCH_TRACE_DIR``, or the shared :data:`NULL_TRACER` when it
     is unset; rebuilt when the directory changes."""
     global _tracer, _tracer_dir, _tracer_state, _atexit_registered
-    raw = os.environ.get("BIGDL_TORCH_TRACE_DIR")
+    raw = obs_knob_key("BIGDL_TORCH_TRACE_DIR")
     seen, tracer = _tracer_state
     if raw == seen:
         return tracer

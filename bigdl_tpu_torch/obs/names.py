@@ -200,7 +200,7 @@ CHECKPOINT_VERIFY_FAILURES_TOTAL = _m(
 
 # --------------------------------------------------------------- streaming
 # the buffered records of a fleet add up
-STREAM_BUFFER_DEPTH = _m(
+STREAM_BUFFER_DEPTH = _m(  # graftlint: disable=RD007
     "bigdl_stream_buffer_depth", "gauge", policy="sum",
     doc="Records buffered between the stream producer and the trainer")
 STREAM_BACKPRESSURE_WAITS_TOTAL = _m(
@@ -233,7 +233,7 @@ SERVE_BATCH_OCCUPANCY = _m(
     "bigdl_serve_batch_occupancy", "gauge", policy="max",
     doc="Fraction of decode slots / micro-batch rows in use")
 # fleet queue pressure is additive across replicas
-SERVE_QUEUE_DEPTH = _m(
+SERVE_QUEUE_DEPTH = _m(  # graftlint: disable=RD007
     "bigdl_serve_queue_depth", "gauge", policy="sum",
     doc="Requests waiting in the bounded admission queue")
 SERVE_PREEMPTIONS_TOTAL = _m(
@@ -268,7 +268,7 @@ ROUTER_AFFINITY_HITS_TOTAL = _m(
     doc="Placements that landed on the session's bound replica (the "
         "multi-turn KV prefix stayed resident)")
 # replica counts sum across routers in a multi-router fleet
-ROUTER_REPLICAS = _m(
+ROUTER_REPLICAS = _m(  # graftlint: disable=RD007
     "bigdl_router_replicas", "gauge", ("state",), 4,
     "Replicas by router-observed state (up / draining / down)",
     policy="sum")
@@ -395,7 +395,7 @@ FLEET_HOST_STALENESS_SECONDS = _m(
     "BIGDL_TORCH_STALE_AFTER_S are excluded from fleet merges",
     policy="max")
 # additive level across the fleet tiers: an explicit sum gauge
-FLEET_STALE_HOSTS = _m(
+FLEET_STALE_HOSTS = _m(  # graftlint: disable=RD007
     "bigdl_fleet_stale_hosts", "gauge", policy="sum",
     doc="Hosts excluded from the last fleet merge as stale "
         "(skewed clock or a failed scrape)")
@@ -406,7 +406,7 @@ FLEET_SCRAPE_ERRORS_TOTAL = _m(
 
 # --------------------------------------------------------------- rollup
 # (JAX :290-303) obs/rollup.py; tracked series sum across tiers
-ROLLUP_SERIES_TRACKED = _m(
+ROLLUP_SERIES_TRACKED = _m(  # graftlint: disable=RD007
     "bigdl_rollup_series_tracked", "gauge", policy="sum",
     doc="Distinct (family, label-set) series the rollup tier is "
         "currently carrying in its merged exposition")
@@ -484,7 +484,8 @@ KERNEL_FALLBACKS_TOTAL = _m(
     "bigdl_kernel_fallbacks_total", "counter", ("site",), 16,
     "Kernel dispatches that fell back to the reference path (the JAX "
     "package)")
-SERVE_TOKENS_PER_SECOND = _m(
+# fleet decode throughput is additive across engines
+SERVE_TOKENS_PER_SECOND = _m(  # graftlint: disable=RD007
     "bigdl_serve_tokens_per_second", "gauge", policy="sum",
     doc="Rolling decode throughput (the JAX engine)")
 SERVE_KV_PAGES_IN_USE = _m(
@@ -514,6 +515,10 @@ KNOWN_STRINGS = frozenset({
     "bigdl_tpu_torch",        # tracer process name / root logger name
     "bigdl_torch_obs_span",   # the tracer's context variable
     "bigdl_flight_recorder",  # postmortem bundle kind
+    "bigdl_tpu_net",          # caffe export net name
+    # the C entry points of the kernels' libraries (ops/_cuda.py)
+    "bigdl_flash_fwd", "bigdl_flash_bwd_dq", "bigdl_flash_bwd_dkv",
+    "bigdl_paged_decode", "bigdl_conv_bn_1x1", "bigdl_conv_bn_kxk",
 })
 
 

@@ -25,11 +25,12 @@ from __future__ import annotations
 
 import collections
 import hashlib
-import os
 import threading
 import time
 import uuid
 from typing import Dict, List, Optional, Tuple
+
+from bigdl_tpu_torch.config import obs_knob_key
 
 #: the HTTP propagation header: ``<trace_id>:<parent_span>:<flags>``
 TRACE_HEADER = "X-Bigdl-Trace"
@@ -328,20 +329,21 @@ NULL_COLLECTOR = _NullCollector()
 _lock = threading.Lock()
 _collector = NULL_COLLECTOR
 _collector_key = None
-# ((raw SAMPLE, raw RING), collector): one tuple rebind, read without the
-# lock on the fast path of get_collector
+# (the knobs' key, collector): one tuple rebind, read without the lock on
+# the fast path of get_collector
 _UNSET = object()
 _collector_state = (_UNSET, NULL_COLLECTOR)
 
 
 def get_collector():
     """The process collector, rebuilt when ``BIGDL_TORCH_REQTRACE_SAMPLE``
-    or ``BIGDL_TORCH_REQTRACE_RING`` change; the shared
+    or ``BIGDL_TORCH_REQTRACE_RING`` change (or a ``configure`` pin of
+    the obs section does); the shared
     :data:`NULL_COLLECTOR` while sampling is off.  While both knobs read
     as at the last call it is two environment lookups and no lock."""
     global _collector, _collector_key, _collector_state
-    raw = (os.environ.get("BIGDL_TORCH_REQTRACE_SAMPLE"),
-           os.environ.get("BIGDL_TORCH_REQTRACE_RING"))
+    raw = obs_knob_key("BIGDL_TORCH_REQTRACE_SAMPLE",
+                       "BIGDL_TORCH_REQTRACE_RING")
     seen, col = _collector_state
     if raw == seen:
         return col

@@ -862,14 +862,18 @@ class LMEngine:
             kind, swaps, *args = box[0]
             if kind == "stop":
                 return
-            while self.swaps < swaps:
+            staged = []
+            while self.swaps + len(staged) < swaps:
                 # swap_weights on this rank stages what the leader flips
                 with self._staged_cv:
                     while not self._staged:
                         self._staged_cv.wait()
-                    staged = self._staged.popleft()
-                self._flip(*staged)
-            with self._on_stream():
+                    staged.append(self._staged.popleft())
+            # the flips and the step under the engine lock, as the
+            # leader's swap_weights and pump take them
+            with self._lock, self._on_stream():
+                for one in staged:
+                    self._flip(*one)
                 if kind == "prefill":
                     self._prefill(*args)
                 else:

@@ -507,9 +507,29 @@ it runs; any failure exits non-zero:
     10 ms partition stall) in seven worker processes, then the 200-host
     aggregation budget and the four serve scenarios, every invariant
     passing; its JSON in the phase's temporary directory;
+29. the classic BigDL loop (``phase_classic``): (a) the flagship
+    (f32, B=16, T=512, dropout 0) trained 5 steps by hand,
+    ``update_output`` -> ``CrossEntropyCriterion`` ``forward``/
+    ``backward`` -> ``zero_grad_parameters`` -> ``backward`` ->
+    ``update_parameters(1e-3)``, against ``LocalOptimizer`` + ``SGD`` on
+    the same weights and batches (each loss and the final weights within
+    1e-5 relative), the flash kernels launched 8/8/8 a step (the
+    backward runs on the graph the forward kept); its first step's
+    gradients against the reference arm's (``LM_GRAD_REL_TOL``), and one
+    step with both arms cast to bf16 (``LM_LOSS_TOL``); (b) the fused
+    ResNet-50 (f32, batch 32, 224x224, cuDNN deterministic) 3 steps by
+    hand against ``LocalOptimizer`` + ``SGD``: 36/16 conv_bn launches a
+    step, losses, weights and BN running statistics within 1e-5 (the
+    statistics move once a step); (c) ``save_weights`` ->
+    ``load_weights`` into a flagship of another seed, logits bit-equal;
+    (d) ``tests/test_bigdl_shim.py``'s classic program through
+    ``bigdl_torch`` on the card, its losses equal to the same program
+    through ``bigdl_tpu_torch``; (e) ``python -m
+    bigdl_tpu_torch.analysis.lint`` exits 0, its seconds printed;
 9. the kernels line, last: one JSON object listing each kernel with its
-   launches on its own path (phase 4, phase 28 (b)'s library arm for
-   the conv_bn kernels, or the kernel arm of phase 11) and its
+   launches on its own path (phase 4 for the paged decode, phase 29 for
+   rows 1-5: (a)'s classic loop for the flash kernels and (b)'s for the
+   conv_bn kernels) and its
    numbers from phase
    3, 6 or 10 (rows 1-3 also phase 24 (a)'s offset times; rows 1 and 6
    phase 25 (a)'s launches on each TP rank and row 6 its times at H=4;
@@ -8050,11 +8070,10 @@ def _p26_keras_json(model) -> str:
 def _p26_keras(model, smi):
     """(d): VGG-16 from a Keras-1.2.2 JSON config."""
     from bigdl_tpu_torch.keras.converter import model_from_json
-    from bigdl_tpu_torch.keras.models import get_weights
 
     t0 = time.perf_counter()
     km = model_from_json(_p26_keras_json(model), device=DEV)
-    km.set_weights(get_weights(model))
+    km.set_weights(model.get_weights())
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     x = torch.randn(P26_FWD_BATCH, 3, CAFFE_IMG, CAFFE_IMG,
@@ -9441,6 +9460,342 @@ def phase_obs_native_sim(smi: str, p4_launches: dict) -> dict:
     return launches
 
 
+# phase 29: the classic BigDL loop (update_output -> criterion forward /
+# backward -> zero_grad_parameters -> backward -> update_parameters) on
+# the flagship (5 f32 steps, lr) and on the fused ResNet-50 (3 f32
+# steps, lr), each held to LocalOptimizer + SGD at f32 on the same
+# weights and batches: losses and weights (relative L2) within
+# P29_F32_TOL; the flagship's first step against the reference arm's
+# gradients (LM_GRAD_REL_TOL) and, cast to bf16, its loss (LM_LOSS_TOL)
+P29_LM_STEPS, P29_LM_LR = 5, 1e-3
+P29_RESNET_STEPS, P29_RESNET_LR = 3, 0.1
+P29_F32_TOL = 1e-5
+
+
+def _p29_classic_step(model, crit, x, y, lr=None):
+    """One step of the classic loop; returns the loss (host float)."""
+    out = model.update_output(x)
+    loss = crit.forward(out.float(), y)
+    g = crit.backward(out.float(), y)
+    model.zero_grad_parameters()
+    model.backward(x, g)
+    if lr is not None:
+        model.update_parameters(lr)
+    return float(loss)
+
+
+def _p29_rel_l2(a: list, b: list) -> float:
+    """Relative L2 of two lists of tensors taken as one vector."""
+    num = sum(float((u.double() - v.double()).pow(2).sum())
+              for u, v in zip(a, b))
+    den = sum(float(v.double().pow(2).sum()) for v in b)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def _p29_weights(model) -> list:
+    return [p.detach().clone() for p in model.parameters()]
+
+
+def _p29_optimizer_arm(model, x, y, batch, steps, lr):
+    """LocalOptimizer + SGD(lr) at f32 over (x, y) in order, one batch a
+    step; returns the losses."""
+    from bigdl_tpu_torch.dataset import ArrayDataSet
+    from bigdl_tpu_torch.nn.criterion import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+
+    losses = _Losses()
+    opt = LocalOptimizer(model, ArrayDataSet(x, y, batch, shuffle=False),
+                         CrossEntropyCriterion(), batch_size=batch,
+                         device=DEV)
+    opt.set_optim_method(SGD(learningrate=lr)).set_train_summary(losses)
+    opt.set_end_when(Trigger.max_iteration(steps)).optimize()
+    torch.cuda.synchronize()
+    return [losses.loss[n] for n in sorted(losses.loss)]
+
+
+def _p29_flagship(smi) -> dict:
+    """(a) the flagship by hand; returns its launches."""
+    from bigdl_tpu_torch.nn.criterion import CrossEntropyCriterion
+    from bigdl_tpu_torch.ops import _cuda
+
+    n = P29_LM_STEPS * LM_BATCH
+    x, y = _lm_data(n, LM_T)
+    crit = CrossEntropyCriterion()
+    model = _flagship(0)
+    model.train()
+    losses, per_step, grads0 = [], [], None
+    _cuda.reset_launches()
+    for i in range(P29_LM_STEPS):
+        if i == 1:                      # steps 2-5 timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        xb, yb = x[i * LM_BATCH:(i + 1) * LM_BATCH], \
+            y[i * LM_BATCH:(i + 1) * LM_BATCH]
+        before = dict(_cuda.launches)
+        out = model.update_output(xb)
+        loss = crit.forward(out.float(), yb)
+        g = crit.backward(out.float(), yb)
+        model.zero_grad_parameters()
+        model.backward(xb, g)
+        if i == 0:
+            grads0 = {k: p.grad.detach().clone()
+                      for k, p in model.named_parameters()}
+        model.update_parameters(P29_LM_LR)
+        losses.append(float(loss))
+        per_step.append(tuple(_cuda.launches[k] - before[k] for k in
+                              ("flash_fwd", "flash_bwd_dq",
+                               "flash_bwd_dkv")))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / (P29_LM_STEPS - 1) * 1e3
+    launches = {k: _cuda.launches[k] for k in
+                ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    w_classic = _p29_weights(model)
+    del model, out, g
+    torch.cuda.empty_cache()
+    if set(per_step) != {(8, 8, 8)}:
+        raise AssertionError(f"phase 29 (a): rows 1-3 launched {per_step} "
+                             "a step, want (8, 8, 8): the backward runs on "
+                             "the kept graph")
+
+    ref_model = _flagship(0)
+    opt_losses = _p29_optimizer_arm(ref_model, x, y, LM_BATCH,
+                                    P29_LM_STEPS, P29_LM_LR)
+    w_opt = _p29_weights(ref_model)
+    del ref_model
+    torch.cuda.empty_cache()
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses, opt_losses))
+    w_gap = _p29_rel_l2(w_classic, w_opt)
+    bit_equal = all(torch.equal(a, b) for a, b in zip(w_classic, w_opt))
+    say(f"phase 29 (a) flagship classic loop, f32, {P29_LM_STEPS} steps of "
+        f"B={LM_BATCH} T={LM_T} at lr {P29_LM_LR:g}: losses "
+        f"{['%.6f' % v for v in losses]}; LocalOptimizer + SGD "
+        f"{['%.6f' % v for v in opt_losses]}; worst relative loss gap "
+        f"{loss_gap:.3e}, final weights relative L2 {w_gap:.3e} (limit "
+        f"{P29_F32_TOL:g}; bit-equal {bit_equal}); rows 1-3 launches "
+        f"{per_step[0]} a step, {launches} in all; {step_ms:.1f} ms a "
+        f"step over steps 2-{P29_LM_STEPS} [{smi}]")
+    if len(opt_losses) != P29_LM_STEPS or not all(np.isfinite(losses)) \
+            or not loss_gap <= P29_F32_TOL or not w_gap <= P29_F32_TOL:
+        raise AssertionError("phase 29 (a): the classic loop left "
+                             "LocalOptimizer's trajectory")
+    del w_classic, w_opt
+    torch.cuda.empty_cache()
+
+    # one step against the reference arm's gradients
+    ref = _lm("reference", LM_T)
+    ref.train()
+    xb, yb = x[:LM_BATCH], y[:LM_BATCH]
+    ref_loss = _p29_classic_step(ref, crit, xb, yb)
+    rg = {k: p.grad for k, p in ref.named_parameters()}
+    rel = {k: ((grads0[k] - rg[k]).norm() / rg[
+        k[:-2] + "bq" if k.endswith(".bk") else k].norm()).item()
+        for k in rg}
+    worst = max(rel, key=rel.get)
+    say(f"phase 29 (a) first step against the reference arm: loss "
+        f"{losses[0]:.6f} / {ref_loss:.6f}; gradients of {len(rel)} "
+        f"tensors, worst relative L2 {rel[worst]:.3e} at {worst} (limit "
+        f"{LM_GRAD_REL_TOL:g})")
+    if not rel[worst] <= LM_GRAD_REL_TOL:
+        raise AssertionError(f"phase 29 (a): gradient {worst} off the "
+                             f"reference arm by {rel[worst]:.3e}")
+    del grads0, rg
+    ref.to(torch.bfloat16)
+    ref_bf16 = _p29_classic_step(ref, crit, xb, yb)
+    del ref
+    torch.cuda.empty_cache()
+    ker = _flagship(0).to(torch.bfloat16)
+    ker.train()
+    before = dict(_cuda.launches)
+    ker_bf16 = _p29_classic_step(ker, crit, xb, yb, P29_LM_LR)
+    bf16_launches = tuple(_cuda.launches[k] - before[k] for k in
+                          ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    del ker
+    torch.cuda.empty_cache()
+    say(f"phase 29 (a) bf16 step: loss kernel {ker_bf16:.6f}, reference "
+        f"{ref_bf16:.6f}, |gap| {abs(ker_bf16 - ref_bf16):.3e} (limit "
+        f"{LM_LOSS_TOL:g}); rows 1-3 launches {bf16_launches}")
+    if not abs(ker_bf16 - ref_bf16) <= LM_LOSS_TOL \
+            or bf16_launches != (8, 8, 8):
+        raise AssertionError("phase 29 (a): the bf16 step")
+    return launches
+
+
+def _p29_resnet(smi) -> dict:
+    """(b) the fused ResNet-50 by hand; returns its launches."""
+    from bigdl_tpu_torch.nn.criterion import CrossEntropyCriterion
+    from bigdl_tpu_torch.ops import _cuda
+
+    n = P29_RESNET_STEPS * TRAIN_BATCH
+    rs = np.random.RandomState(3)
+    x = rs.randn(n, 3, TRAIN_IMG, TRAIN_IMG).astype(np.float32)
+    y = (rs.randint(0, TRAIN_CLASSES, n) + 1).astype(np.float32)
+    crit = CrossEntropyCriterion()
+    with _deterministic():
+        model = _training_resnet50(fused=True)
+        model.train()
+        losses, per_step = [], []
+        _cuda.reset_launches()
+        for i in range(P29_RESNET_STEPS):
+            if i == 1:                  # steps 2-3 timed
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            sl = slice(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
+            before = dict(_cuda.launches)
+            losses.append(_p29_classic_step(model, crit, x[sl], y[sl],
+                                            P29_RESNET_LR))
+            per_step.append((_cuda.launches["conv_bn_1x1"]
+                             - before["conv_bn_1x1"],
+                             _cuda.launches["conv_bn_kxk"]
+                             - before["conv_bn_kxk"]))
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / (P29_RESNET_STEPS - 1) * 1e3
+        launches = {k: _cuda.launches[k]
+                    for k in ("conv_bn_1x1", "conv_bn_kxk")}
+        w_classic = _p29_weights(model)
+        s_classic = [b.detach().clone() for b in model.buffers()]
+        del model
+        torch.cuda.empty_cache()
+        opt_model = _training_resnet50(fused=True)
+        s_init = [b.detach().clone() for b in opt_model.buffers()]
+        opt_losses = _p29_optimizer_arm(opt_model, x, y, TRAIN_BATCH,
+                                        P29_RESNET_STEPS, P29_RESNET_LR)
+        w_opt = _p29_weights(opt_model)
+        s_opt = [b.detach().clone() for b in opt_model.buffers()]
+        del opt_model
+        torch.cuda.empty_cache()
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses, opt_losses))
+    w_gap = _p29_rel_l2(w_classic, w_opt)
+    bn_gap = _p29_rel_l2(s_classic, s_opt)
+    bn_moved = _p29_rel_l2(s_opt, s_init)
+    say(f"phase 29 (b) fused ResNet-50 classic loop, f32, "
+        f"{P29_RESNET_STEPS} steps of B={TRAIN_BATCH} {TRAIN_IMG}x"
+        f"{TRAIN_IMG} at lr {P29_RESNET_LR:g}, cuDNN deterministic: losses "
+        f"{['%.6f' % v for v in losses]}; LocalOptimizer + SGD "
+        f"{['%.6f' % v for v in opt_losses]}; worst relative loss gap "
+        f"{loss_gap:.3e}, weights relative L2 {w_gap:.3e}, BN running "
+        f"statistics relative L2 {bn_gap:.3e} (limit {P29_F32_TOL:g}; they "
+        f"moved {bn_moved:.3e} from their start); conv_bn launches "
+        f"{per_step[0]} a step, {launches} in all; {step_ms:.1f} ms a "
+        f"step over steps 2-{P29_RESNET_STEPS} [{smi}]")
+    if set(per_step) != {(36, 16)}:
+        raise AssertionError(f"phase 29 (b): conv_bn launched {per_step} "
+                             "a step, want (36, 16)")
+    if len(opt_losses) != P29_RESNET_STEPS \
+            or not all(np.isfinite(losses)) or not loss_gap <= P29_F32_TOL \
+            or not w_gap <= P29_F32_TOL or not bn_gap <= P29_F32_TOL \
+            or not bn_moved > 100 * P29_F32_TOL:
+        raise AssertionError("phase 29 (b): the classic loop left "
+                             "LocalOptimizer's trajectory or its BN "
+                             "statistics")
+    return launches
+
+
+def _p29_weights_io(tmp) -> None:
+    """(c) save_weights of a flagship, load_weights into another built
+    from another seed: bit-equal logits."""
+    from bigdl_tpu_torch.ops import _cuda
+
+    a = _flagship(0)
+    path = a.save_weights(os.path.join(tmp, "flagship"))
+    b = _flagship(1)
+    b.load_weights(path)
+    x = torch.as_tensor(_lm_data(2, LM_T)[0], device=DEV)
+    was = dict(_cuda.launches)
+    with torch.no_grad():
+        la, lb = a.evaluate()(x), b.evaluate()(x)
+    torch.cuda.synchronize()
+    _cuda.launches.update(was)          # a check, not the path
+    same = torch.equal(la, lb)
+    say(f"phase 29 (c) save_weights -> load_weights: "
+        f"{len(a.get_weights())} tensors, "
+        f"{os.path.getsize(path) / 2 ** 20:.1f} MiB; logits bit-equal "
+        f"{same}")
+    if not same:
+        raise AssertionError("phase 29 (c): loaded weights give other "
+                             "logits")
+
+
+def _p29_shim() -> None:
+    """(d) the classic Python-BigDL program through ``bigdl_torch`` on the
+    card, against the same program written against the port."""
+    import bigdl_torch.nn.criterion as SC
+    import bigdl_torch.nn.layer as SL
+    import bigdl_torch.optim.optimizer as SO
+    import bigdl_torch.util.common as SU
+    import bigdl_tpu_torch.nn as TN
+    import bigdl_tpu_torch.optim as TO
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.engine import Engine
+    from bigdl_tpu_torch.optim.evaluator import predict_class
+
+    rs = np.random.RandomState(0)
+    x = rs.randn(256, 4).astype(np.float32)
+    y = (1 + (x[:, 0] > 0)).astype(np.float32)
+
+    def run(layer, criterion, optimizer, max_epoch, init):
+        init()
+        RandomGenerator.RNG.set_seed(0)
+        model = layer.Sequential().add(layer.Linear(4, 16)) \
+            .add(layer.ReLU()).add(layer.Linear(16, 2)) \
+            .add(layer.LogSoftMax())
+        opt = optimizer.Optimizer(
+            model=model, training_set=(x, y),
+            criterion=criterion.ClassNLLCriterion(),
+            optim_method=optimizer.SGD(learningrate=0.5),
+            end_trigger=max_epoch(5), batch_size=64, distributed=False)
+        losses = _Losses()
+        opt.set_train_summary(losses)
+        trained = opt.optimize()
+        return trained, [losses.loss[k] for k in sorted(losses.loss)]
+
+    trained, shim = run(SL, SC, SO, SO.MaxEpoch, SU.init_engine)
+    acc = float((predict_class(trained, x) == y.astype(int)).mean())
+    _, direct = run(TN, TN, TO, TO.Trigger.max_epoch, Engine.init)
+    say(f"phase 29 (d) the classic program through bigdl_torch on "
+        f"{DEV}: {len(shim)} losses, first {shim[0]:.6f}, last "
+        f"{shim[-1]:.6f}, Top1 {acc:.4f}; equal to bigdl_tpu_torch's "
+        f"{shim == direct}")
+    if shim != direct or not acc > 0.95 or len(shim) != 20:
+        raise AssertionError("phase 29 (d): the shim's program")
+
+
+def _p29_lint() -> None:
+    """(e) the port's static analysis over ``bigdl_tpu_torch``."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           "bigdl_tpu_torch.analysis.lint"],
+                          capture_output=True, text=True, timeout=120,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    secs = time.perf_counter() - t0
+    tail = proc.stdout.strip().splitlines()[-1:] or [""]
+    say(f"phase 29 (e) python -m bigdl_tpu_torch.analysis.lint: exit "
+        f"{proc.returncode} in {secs:.2f} s ({tail[0]})")
+    if proc.returncode != 0:
+        raise AssertionError("phase 29 (e): lint findings\n"
+                             + proc.stdout + proc.stderr)
+
+
+def phase_classic(smi: str) -> dict:
+    """Phase 29 (see the docstring); returns the launches of rows 1-5 on
+    the classic loop, (a)'s and (b)'s."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    launches = _p29_flagship(smi)
+    launches.update(_p29_resnet(smi))
+    tmp = tempfile.mkdtemp(prefix="phase29_")
+    try:
+        _p29_weights_io(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    _p29_shim()
+    _p29_lint()
+    say(f"phase 29 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _has_pillow() -> bool:
     try:
         import PIL  # noqa: F401
@@ -9500,8 +9855,10 @@ def main() -> int:
     tp_rows = phase_tp_moe(smi, serve_stats)
     phase_front_ends(smi)
     phase_fleet(smi)
-    # rows 4-5's launches: this slice's main path, phase 28 (b)
+    # rows 4-5's launches: phase 28 (b), then this slice's main path,
+    # phase 29 (with rows 1-3's)
     launches.update(phase_obs_native_sim(smi, p4_launches))
+    launches.update(phase_classic(smi))
     for k in kernels:
         k.update(offsets.get(k["name"], {}))
         k.update(tp_rows.get(k["name"], {}))

@@ -203,8 +203,17 @@ def test_import_loads_neither_jax_nor_bigdl_tpu():
         "bigdl_tpu_torch.examples.train_from_tf_pipeline\n"
         "from bigdl_tpu_torch import (Engine, RandomGenerator, config, "
         "configure, Tensor, obs)\n"
+        "import bigdl_tpu_torch.analysis.lint, bigdl_torch, "
+        "bigdl_torch.nn.layer, bigdl_torch.nn.criterion, "
+        "bigdl_torch.nn.keras.layer, bigdl_torch.nn.keras.topology, "
+        "bigdl_torch.optim.optimizer, bigdl_torch.util.common, "
+        "bigdl_torch.util.tf_utils, bigdl_torch.dataset, "
+        "bigdl_torch.dlframes.dl_classifier, bigdl_torch.keras.converter, "
+        "bigdl_torch.transform.vision.image, "
+        "bigdl_torch.models.lenet.lenet5\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'bigdl_tpu' or m.startswith('bigdl_tpu.')]\n"
+        " or m == 'bigdl_tpu' or m.startswith('bigdl_tpu.')"
+        " or m == 'bigdl' or m.startswith('bigdl.')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -213,9 +222,15 @@ def test_import_loads_neither_jax_nor_bigdl_tpu():
 
 
 def test_no_port_source_imports_jax_or_bigdl_tpu():
+    """Nor the JAX package's shim ``bigdl``: the port and its own shim
+    ``bigdl_torch`` import ``bigdl_tpu_torch`` only."""
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|jaxlib|bigdl_tpu)(\s|\.|$|,)", re.M)
+        r"^\s*(import|from)\s+(jax|jaxlib|bigdl_tpu|bigdl)(\s|\.|$|,)",
+        re.M)
     files = sorted((REPO / "bigdl_tpu_torch").rglob("*.py"))
+    shim = sorted((REPO / "bigdl_torch").rglob("*.py"))
+    assert len(shim) == 23
+    files += shim
     files += [REPO / "chip_smoke.py", REPO / "chip_mutants.py",
               REPO / "chip_ab.py",
               REPO / "tests" / "torch_port_distri_worker.py"]
@@ -314,7 +329,6 @@ LEFT_OUT = {
 }
 # JAX names that wait on a later ROADMAP item
 WAITING = {
-    "item 12": set(),
     "item 11": set(),
 }
 

@@ -117,6 +117,7 @@ from bigdl_tpu_torch.engine import Engine, Mesh
 from bigdl_tpu_torch.obs import names
 from bigdl_tpu_torch.optim.optimizer import LocalOptimizer, _where
 from bigdl_tpu_torch.parallel import wire as W
+from bigdl_tpu_torch.utils.profiler import annotate
 
 log = logging.getLogger("bigdl_tpu_torch.optim")
 
@@ -518,90 +519,106 @@ class DistriOptimizer(LocalOptimizer):
     # ---- one step -----------------------------------------------------------
     def _train_step(self, names, params, opt_state, inp, tgt, mask, guard,
                     seed):
+        """One step, in ``LocalOptimizer._train_step``'s regions with
+        ``step.exchange`` (the reduce-scatter, the divide and the norm
+        and loss ``all_reduce``) after ``step.backward``; the guard's
+        decision and its ``all_reduce`` fall in ``step.guard``, after
+        the update, and the weight gather and the BN averages in
+        ``step.write``."""
         n = self.n_shards
-        mstate = self.model.state()
-        total, loss_aux = self._local_loss(names, params, inp, tgt, seed,
-                                           mask)
-        grads = torch.autograd.grad(total, params, allow_unused=True)
+        tensors = len(params)
+        with annotate("step.forward"):
+            mstate = self.model.state()
+            total, loss_aux = self._local_loss(names, params, inp, tgt, seed,
+                                               mask)
         ef_on = "wire_ef" in opt_state
+        with annotate("step.backward"):
+            grads = torch.autograd.grad(total, params, allow_unused=True)
+            with torch.no_grad():
+                g = torch.cat([torch.zeros(p.numel(), device=p.device)
+                               if gr is None else gr.reshape(-1).float()
+                               for gr, p in zip(grads, params)]
+                              + [self._flat.new_zeros(self._pad)])
+                for a, b in self._frozen_intervals:
+                    g[a:b] *= 0.0
         with torch.no_grad():
-            g = torch.cat([torch.zeros(p.numel(), device=p.device)
-                           if gr is None else gr.reshape(-1).float()
-                           for gr, p in zip(grads, params)]
-                          + [self._flat.new_zeros(self._pad)])
-            for a, b in self._frozen_intervals:
-                g[a:b] *= 0.0
-            gshard, new_ef = self._exchange(
-                g, opt_state["wire_ef"] if ef_on else None)
-            if mask is not None:
-                valid = mask.sum().reshape(1)
-                dist.all_reduce(valid)
-                valid = valid[0]
-                gshard = gshard / valid
-            else:
-                gshard = gshard / self.batch_size
-            sums = torch.stack([torch.sum(gshard * gshard),
-                                loss_aux.detach().float()])
-            dist.all_reduce(sums)
+            with annotate("step.exchange", tensors=tensors):
+                gshard, new_ef = self._exchange(
+                    g, opt_state["wire_ef"] if ef_on else None)
+                if mask is not None:
+                    valid = mask.sum().reshape(1)
+                    dist.all_reduce(valid)
+                    valid = valid[0]
+                    gshard = gshard / valid
+                else:
+                    gshard = gshard / self.batch_size
+                sums = torch.stack([torch.sum(gshard * gshard),
+                                    loss_aux.detach().float()])
+                dist.all_reduce(sums)
             # the health stats read the pre-clip gradient
             g_health = gshard
-            gshard = self._clipper([gshard], global_sq=sums[0])[0]
+            if self._clipper.active:
+                with annotate("step.clip", tensors=tensors):
+                    gshard = self._clipper([gshard], global_sq=sums[0])[0]
+            wshard = self._shard(self._flat)
+            with annotate("step.update", tensors=tensors):
+                per_param = self._per_param
+                # the EF residual is wire state: the method never sees it
+                opt_in = {k: v for k, v in opt_state.items()
+                          if k != "wire_ef"}
+                listed = {k: [v] if k in per_param else v
+                          for k, v in opt_in.items()}
+                new_w, new_opt = self.optim_method.step([gshard], [wshard],
+                                                        listed)
+                new_w = new_w[0]
+                new_opt = {k: v[0] if k in per_param else v
+                           for k, v in new_opt.items()}
+                if ef_on:
+                    new_opt["wire_ef"] = new_ef if new_ef is not None \
+                        else opt_state["wire_ef"]
+                # frozen runs inside this rank's shard keep their values
+                if self._frozen_keep is not None:
+                    new_w = torch.where(self._frozen_keep, new_w, wshard)
             if guard:
-                ok = (torch.isfinite(gshard).all()
-                      & torch.isfinite(loss_aux.detach())).float()
-                dist.all_reduce(ok, op=dist.ReduceOp.MIN)
-                ok = ok > 0
+                with annotate("step.guard", tensors=tensors):
+                    ok = (torch.isfinite(gshard).all()
+                          & torch.isfinite(loss_aux.detach())).float()
+                    dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+                    ok = ok > 0
+                    new_w = torch.where(ok, new_w, wshard)
+                    new_opt = _where(ok, new_opt, opt_state)
+                    self.model.set_state(
+                        _where(ok, self.model.state(), mstate))
             else:
                 ok = torch.ones((), dtype=torch.bool, device=gshard.device)
-            wshard = self._shard(self._flat)
-            per_param = self._per_param
-            # the EF residual is wire state: the method never sees it
-            opt_in = {k: v for k, v in opt_state.items() if k != "wire_ef"}
-            listed = {k: [v] if k in per_param else v
-                      for k, v in opt_in.items()}
-            new_w, new_opt = self.optim_method.step([gshard], [wshard],
-                                                    listed)
-            new_w = new_w[0]
-            new_opt = {k: v[0] if k in per_param else v
-                       for k, v in new_opt.items()}
-            if ef_on:
-                new_opt["wire_ef"] = new_ef if new_ef is not None \
-                    else opt_state["wire_ef"]
-            if guard:
-                new_w = torch.where(ok, new_w, wshard)
-                new_opt = _where(ok, new_opt, opt_state)
-            # frozen runs inside this rank's shard keep their values
-            if self._frozen_keep is not None:
-                new_w = torch.where(self._frozen_keep, new_w, wshard)
-            positions = (self._positions if len(self._buckets) > 1
-                         else None)
-            if self._health_now:
-                from bigdl_tpu_torch.obs import health as H
+            with annotate("step.write", tensors=tensors):
+                positions = (self._positions if len(self._buckets) > 1
+                             else None)
+                if self._health_now:
+                    from bigdl_tpu_torch.obs import health as H
 
-                self._step_health = H.flat_shard_stats(
-                    g_health, wshard, new_w, self.rank * wshard.numel(),
-                    self._boundaries, positions=positions)
-            elif guard and self._health_monitor is not None:
-                from bigdl_tpu_torch.obs import health as H
+                    self._step_health = H.flat_shard_stats(
+                        g_health, wshard, new_w, self.rank * wshard.numel(),
+                        self._boundaries, positions=positions)
+                elif guard and self._health_monitor is not None:
+                    from bigdl_tpu_torch.obs import health as H
 
-                # read only if the guard tripped (on every rank at once:
-                # ok is MIN-reduced); new_w is fresh and then holds the
-                # shard's pre-step values
-                offset = self.rank * wshard.numel()
-                self._step_health = H.DeferredStats(
-                    lambda: H.flat_shard_stats(
-                        g_health, new_w, new_w, offset, self._boundaries,
-                        positions=positions))
-            off = 0
-            for s, z in self._buckets:
-                c = z // n
-                self._all_gather(new_w[off:off + c], self._flat[s:s + z])
-                off += c
-            torch._foreach_copy_(params, self._flat_views)
-            if guard:
-                self.model.set_state(_where(ok, self.model.state(), mstate))
-            if n > 1:
-                self._average_model_state()
+                    # read only if the guard tripped (on every rank at
+                    # once: ok is MIN-reduced); new_w is fresh and then
+                    # holds the shard's pre-step values
+                    offset = self.rank * wshard.numel()
+                    self._step_health = H.DeferredStats(
+                        lambda: H.flat_shard_stats(
+                            g_health, new_w, new_w, offset,
+                            self._boundaries, positions=positions))
+                off = 0
+                for s, z in self._buckets:
+                    c = z // n
+                    self._all_gather(new_w[off:off + c], self._flat[s:s + z])
+                    off += c
+                torch._foreach_copy_(params, self._flat_views)
+                if n > 1:
+                    self._average_model_state()
             if mask is not None:
                 loss = sums[1] / valid
             else:

@@ -103,6 +103,16 @@ Telemetry and resilience at ``optimize()`` (JAX :650-740, :1002-1041):
   ``data_wait`` and ``computing`` recorded after the fact; ``iteration``,
   ``device_put`` and ``step_dispatch`` are ``utils.profiler.annotate``
   regions, so a ``torch.profiler`` trace shows them too;
+- inside ``step_dispatch``, one ``annotate`` region a phase of the step,
+  in order and without overlap: ``step.forward`` (the BN state read,
+  the casts, the forward and the loss), ``step.backward`` (autograd,
+  the zero-fill of unused gradients, the frozen mask), ``step.clip``
+  (only with a clip set), ``step.update`` (the method and the frozen
+  keep), ``step.guard`` (only with the guard on) and ``step.write``
+  (the health stats, the write-back); all but the first two carry
+  ``tensors``, the number of parameter tensors.  ``loss_read`` (with
+  its ``step``) covers the loop's one wait on the device, a loss read
+  back;
 - ``BIGDL_TORCH_PROFILE=DIR``: a ``torch.profiler`` trace of iterations
   1-20 of each ``optimize`` into DIR (``utils.profiler.StepProfiler``,
   JAX :721-733), stopped in the ``finally`` so a retry never finds one
@@ -170,6 +180,12 @@ class _GradClipper:
     def __init__(self):
         self.l2_norm_clip: Optional[float] = None
         self.const_clip: Optional[tuple] = None
+
+    @property
+    def active(self) -> bool:
+        """Does a clip change anything (else the gradients pass as they
+        are)."""
+        return self.l2_norm_clip is not None or self.const_clip is not None
 
     def __call__(self, grads, global_sq=None):
         """``global_sq``: the squared norm over every rank's shard
@@ -386,46 +402,66 @@ class LocalOptimizer(BaseOptimizer):
                     seed):
         """One step; returns (new opt_state, loss, ok), both device
         tensors, after writing params and BN state in place.  ``mask``
-        is ``_prepare_batch``'s, ``None`` for this trainer."""
-        mstate = self.model.state()
-        loss = self._loss(names, params, inp, tgt, seed)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, params)]
-        frozen = self._frozen_mask
-        if any(frozen):
-            grads = [g * 0.0 if f else g for g, f in zip(grads, frozen)]
+        is ``_prepare_batch``'s, ``None`` for this trainer.  Its phases
+        are the regions ``step.forward``, ``step.backward``,
+        ``step.clip`` (with a clip set), ``step.update``, ``step.guard``
+        (with ``guard``) and ``step.write``, in that order."""
+        tensors = len(params)
+        with annotate("step.forward"):
+            mstate = self.model.state()
+            loss = self._loss(names, params, inp, tgt, seed)
+        with annotate("step.backward"):
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for g, p in zip(grads, params)]
+            frozen = self._frozen_mask
+            if any(frozen):
+                grads = [g * 0.0 if f else g for g, f in zip(grads, frozen)]
         # the health stats read the pre-clip gradient
         pre_clip = grads
-        grads = self._clipper(grads)
+        if self._clipper.active:
+            with annotate("step.clip", tensors=tensors):
+                grads = self._clipper(grads)
         with torch.no_grad():
-            old = [p.detach() for p in params]
-            new_p, new_opt = self.optim_method.step(grads, old, opt_state)
-            if any(frozen):
-                new_p = [o if f else q for q, o, f in zip(new_p, old, frozen)]
-            ok = torch.ones((), dtype=torch.bool, device=loss.device)
+            with annotate("step.update", tensors=tensors):
+                old = [p.detach() for p in params]
+                new_p, new_opt = self.optim_method.step(grads, old, opt_state)
+                if any(frozen):
+                    new_p = [o if f else q
+                             for q, o, f in zip(new_p, old, frozen)]
             if guard:
-                ok = torch.isfinite(loss.detach())
-                for g in grads:
-                    ok = ok & torch.isfinite(g).all()
-                new_p = _where(ok, new_p, [p.detach() for p in params])
-                new_opt = _where(ok, new_opt, opt_state)
-                self.model.set_state(_where(ok, self.model.state(), mstate))
-            if self._health_now:
-                from bigdl_tpu_torch.obs.health import tree_layer_stats
+                with annotate("step.guard", tensors=tensors):
+                    ok = torch.isfinite(loss.detach())
+                    for g in grads:
+                        ok = ok & torch.isfinite(g).all()
+                    new_p = _where(ok, new_p, [p.detach() for p in params])
+                    new_opt = _where(ok, new_opt, opt_state)
+                    self.model.set_state(
+                        _where(ok, self.model.state(), mstate))
+            else:
+                ok = torch.ones((), dtype=torch.bool, device=loss.device)
+            with annotate("step.write", tensors=tensors):
+                if self._health_now:
+                    from bigdl_tpu_torch.obs.health import tree_layer_stats
 
-                # new_p is after the guard: a skipped step shows no update
-                self._step_health = tree_layer_stats(pre_clip, old, new_p)
-            elif guard and self._health_monitor is not None:
-                from bigdl_tpu_torch.obs.health import (DeferredStats,
-                                                        tree_layer_stats)
+                    # new_p is after the guard: a skipped step shows no
+                    # update
+                    self._step_health = tree_layer_stats(pre_clip, old,
+                                                         new_p)
+                elif guard and self._health_monitor is not None:
+                    from bigdl_tpu_torch.obs.health import (
+                        DeferredStats, tree_layer_stats)
 
-                # read only if the guard tripped: then new_p (fresh
-                # tensors) holds the pre-step values and the update is 0
-                self._step_health = DeferredStats(
-                    lambda: tree_layer_stats(pre_clip, new_p, new_p))
-            for p, q in zip(params, new_p):
-                p.copy_(q)
+                    # read only if the guard tripped: then new_p (fresh
+                    # tensors) holds the pre-step values and the update
+                    # is 0
+                    self._step_health = DeferredStats(
+                        lambda g=pre_clip, q=new_p: tree_layer_stats(g, q, q))
+                for p, q in zip(params, new_p):
+                    p.copy_(q)
+                # the step's per-tensor temporaries are freed here, so
+                # their host time falls in this region, not after it
+                del grads, pre_clip, old, new_p
         return new_opt, loss.detach(), ok
 
     def _run_validation(self):
@@ -818,7 +854,9 @@ class LocalOptimizer(BaseOptimizer):
         note_stream = getattr(self.dataset, "note_batch_trained", None)
 
         def resolve(n, loss_dev, ok_dev, bs, t0, stats=None):
-            loss_val = float(loss_dev)
+            # the loop's one wait on the device
+            with annotate("loss_read", step=n):
+                loss_val = float(loss_dev)
             dt = time.perf_counter() - t0
             self.metrics.add("computing time", dt)
             if footprint is not None:

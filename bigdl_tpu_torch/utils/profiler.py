@@ -26,11 +26,16 @@ import contextlib
 import functools
 from typing import Optional
 
+import torch
+
+from bigdl_tpu_torch import obs
+
 PROFILE_STEPS = 20
+# is a torch.profiler recording on this thread (one C call)
+_profiler_enabled = torch.autograd._profiler_enabled
 
 
 def _activities():
-    import torch
     from torch.profiler import ProfilerActivity
 
     acts = [ProfilerActivity.CPU]
@@ -65,7 +70,9 @@ class _AnnotatedRegion:
     ``torch.profiler.record_function`` (the trace's timeline) while a
     profiler is recording, and an obs tracer span (the JSONL and Chrome
     export) while ``BIGDL_TORCH_TRACE_DIR`` is set.  Neither: nothing
-    is opened."""
+    is opened, after one tracer check and one profiler check."""
+
+    __slots__ = ("name", "attrs", "_rf", "_span")
 
     def __init__(self, name: str, attrs: dict):
         self.name = name
@@ -74,15 +81,11 @@ class _AnnotatedRegion:
         self._span = None
 
     def __enter__(self):
-        import torch
-
-        from bigdl_tpu_torch import obs
-
         tracer = obs.get_tracer()
         if tracer.enabled:
             self._span = tracer.span(self.name, **self.attrs)
             self._span.__enter__()
-        if torch.autograd._profiler_enabled():
+        if _profiler_enabled():
             self._rf = torch.profiler.record_function(self.name)
             self._rf.__enter__()
         return self
@@ -149,8 +152,6 @@ class StepProfiler:
 
     def stop(self):
         if self._prof is not None:
-            import torch
-
             prof, self._prof = self._prof, None
             if torch.cuda.is_available():
                 # the traced steps' kernels finish inside the trace

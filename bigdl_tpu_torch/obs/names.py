@@ -519,6 +519,7 @@ KNOWN_STRINGS = frozenset({
     # the C entry points of the kernels' libraries (ops/_cuda.py)
     "bigdl_flash_fwd", "bigdl_flash_bwd_dq", "bigdl_flash_bwd_dkv",
     "bigdl_paged_decode", "bigdl_conv_bn_1x1", "bigdl_conv_bn_kxk",
+    "bigdl_fused_adam",
 })
 
 

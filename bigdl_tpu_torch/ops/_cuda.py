@@ -40,7 +40,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_decode": "paged_decode.cu",
            "conv_bn_1x1": "conv_bn_1x1.cu", "conv_bn_kxk": "conv_bn_kxk.cu",
            "flash_bwd_dq": "flash_bwd_dq.cu",
-           "flash_bwd_dkv": "flash_bwd_dkv.cu"}
+           "flash_bwd_dkv": "flash_bwd_dkv.cu",
+           "fused_adam": "fused_adam.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -66,6 +67,7 @@ _lock = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # q, k, v, o, lse, bh, tq, tk, d, causal, seq_offset, scale, dtype,
     # stream
@@ -90,6 +92,10 @@ _SIGNATURES = {
     # ho, wo, dtype, stream
     "conv_bn_kxk": ("bigdl_conv_bn_kxk",
                     [_P] * 9 + [_I] * 11 + [_P]),
+    # pass, buf, n_tensors, n_chunks, grid, loss, lr, bc1, bc2, b1, c1,
+    # b2, c2, eps, clip, lo, hi, flags, stream
+    "fused_adam": ("bigdl_fused_adam",
+                   [_I, _P, _I, _L, _I] + [_P] * 4 + [_F] * 8 + [_I, _P]),
 }
 
 
@@ -322,8 +328,31 @@ def launch_conv_bn_kxk(x, w, shift, y, part, s1, s2, *, stride: int,
     launches["conv_bn_kxk"] += 1
 
 
+def launch_fused_adam(pass_: int, buf, n_tensors: int, n_chunks: int,
+                      grid: int, loss, lr, bc1, bc2, b1: float, c1: float,
+                      b2: float, c2: float, eps: float, clip: float,
+                      lo: float, hi: float, flags: int) -> None:
+    """Pass 1 (``loss``) or 2 (``lr``, ``bc1``, ``bc2``: 0-d f32) of the
+    fused Adam update over ``buf`` (int64, on one card: the header, the
+    table of ``n_tensors`` entries and ``grid`` partials, laid out by
+    ``ops.fused_update.KernelAdamUpdate``, which checks the tensors)."""
+    lib = _lib("fused_adam")
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(buf.device):
+        code = lib.bigdl_fused_adam(
+            int(pass_), buf.data_ptr(), int(n_tensors), int(n_chunks),
+            int(grid), ptr(loss), ptr(lr), ptr(bc1), ptr(bc2), float(b1),
+            float(c1), float(b2), float(c2), float(eps), float(clip),
+            float(lo), float(hi), int(flags), _stream(buf))
+    _check(lib, "fused_adam", code)
+    launches["fused_adam"] += 1
+
+
 __all__ = ["build", "build_logs", "launches", "reset_launches",
-           "launch_flash_fwd",
+           "launch_flash_fwd", "launch_fused_adam",
            "launch_flash_bwd_dq", "launch_flash_bwd_dkv",
            "launch_paged_decode", "launch_conv_bn_1x1", "launch_conv_bn_kxk",
            "conv_bn_tiles", "conv_mma_tiles", "SOURCES", "CSRC"]

@@ -15,8 +15,14 @@ is
     grads -> freeze mask -> clipper -> optim_method.step
           -> frozen parameters kept -> non-finite guard
 
-with f32 master parameters.  Under ``set_compute_dtype("bfloat16")``
-every floating parameter and the input are cast to bf16 *inside* the
+with f32 master parameters.  With ``Adam`` itself over f32 contiguous
+parameters, on a step that wants no health stats, everything after the
+freeze mask runs as ``ops.fused_update`` (on the card two launches of
+``csrc/fused_adam.cu`` over all the tensors, m, v and the parameters
+updated in place; per element the same operations); every other method
+and step takes the per-tensor path.  Under
+``set_compute_dtype("bfloat16")`` every floating parameter and the
+input are cast to bf16 *inside* the
 differentiated function (``torch.func.functional_call`` with cast
 copies, JAX ``_cast_for_compute`` :515), so the gradients land in f32;
 the loss is taken in f32 (JAX ``_loss_fn`` :532).  A model with
@@ -110,9 +116,10 @@ Telemetry and resilience at ``optimize()`` (JAX :650-740, :1002-1041):
   (only with a clip set), ``step.update`` (the method and the frozen
   keep), ``step.guard`` (only with the guard on) and ``step.write``
   (the health stats, the write-back); all but the first two carry
-  ``tensors``, the number of parameter tensors.  ``loss_read`` (with
-  its ``step``) covers the loop's one wait on the device, a loss read
-  back;
+  ``tensors``, the number of parameter tensors, and ``step.update``
+  carries ``fused``, whether the step took ``ops.fused_update``.
+  ``loss_read`` (with its ``step``) covers the loop's one wait on the
+  device, a loss read back;
 - ``BIGDL_TORCH_PROFILE=DIR``: a ``torch.profiler`` trace of iterations
   1-20 of each ``optimize`` into DIR (``utils.profiler.StepProfiler``,
   JAX :721-733), stopped in the ``finally`` so a retry never finds one
@@ -161,7 +168,8 @@ from bigdl_tpu_torch.obs import names
 from bigdl_tpu_torch.obs.goodput import NULL_LEDGER
 from bigdl_tpu_torch.optim.evaluator import evaluate_dataset
 from bigdl_tpu_torch.optim.metrics import Metrics
-from bigdl_tpu_torch.optim.optim_method import SGD, Plateau
+from bigdl_tpu_torch.ops import fused_update
+from bigdl_tpu_torch.optim.optim_method import SGD, Adam, Plateau
 from bigdl_tpu_torch.optim.triggers import Trigger
 # the error moved to resilience/retry.py; this name stays importable
 from bigdl_tpu_torch.resilience.retry import NonFiniteStepError
@@ -417,13 +425,16 @@ class LocalOptimizer(BaseOptimizer):
             frozen = self._frozen_mask
             if any(frozen):
                 grads = [g * 0.0 if f else g for g, f in zip(grads, frozen)]
+        if self._fused_adam_now(params, guard):
+            return self._fused_update(params, grads, opt_state,
+                                      loss.detach(), mstate, guard)
         # the health stats read the pre-clip gradient
         pre_clip = grads
         if self._clipper.active:
             with annotate("step.clip", tensors=tensors):
                 grads = self._clipper(grads)
         with torch.no_grad():
-            with annotate("step.update", tensors=tensors):
+            with annotate("step.update", tensors=tensors, fused=False):
                 old = [p.detach() for p in params]
                 new_p, new_opt = self.optim_method.step(grads, old, opt_state)
                 if any(frozen):
@@ -463,6 +474,64 @@ class LocalOptimizer(BaseOptimizer):
                 # their host time falls in this region, not after it
                 del grads, pre_clip, old, new_p
         return new_opt, loss.detach(), ok
+
+    def _fused_adam_now(self, params, guard) -> bool:
+        """Does this step take ``ops.fused_update``: the method is
+        ``Adam`` itself, every parameter an f32 contiguous tensor, and no
+        health stats are wanted (they need the old and the new
+        parameters side by side)."""
+        if type(self.optim_method) is not Adam or self._health_now or (
+                guard and self._health_monitor is not None):
+            return False
+        return fused_update.takes(params)
+
+    def _fused_update(self, params, grads, opt_state, loss, mstate, guard):
+        """``_train_step``'s clip, Adam, guard and write-back through
+        ``ops.fused_update`` (two kernel launches on the card), in the
+        same regions: pass 1 in ``step.clip`` (with a clip set; else,
+        with ``guard``, in ``step.update``), pass 2 in ``step.update``,
+        ``neval`` and the model state's ``where`` in ``step.guard``.  m,
+        v and the parameters are updated in place, so the returned state
+        holds the same m and v lists."""
+        tensors = len(params)
+        method, clipper = self.optim_method, self._clipper
+        upd = ok = None
+
+        def update():
+            return fused_update.adam_update(
+                grads, params, opt_state["m"], opt_state["v"],
+                self._frozen_mask, clipper.l2_norm_clip, clipper.const_clip)
+
+        if clipper.active:
+            with annotate("step.clip", tensors=tensors):
+                upd = update()
+                ok = upd.stats(loss)
+        with torch.no_grad():
+            with annotate("step.update", tensors=tensors, fused=True):
+                if upd is None:
+                    upd = update()
+                    if guard:
+                        ok = upd.stats(loss)
+                lr = method.current_rate(opt_state)
+                t = opt_state["neval"] + 1.0
+                b1, b2 = method.beta1, method.beta2
+                upd.apply(lr, 1 - b1 ** t, 1 - b2 ** t, beta1=b1, beta2=b2,
+                          eps=method.epsilon, gate=guard)
+            if guard:
+                with annotate("step.guard", tensors=tensors):
+                    new_opt = {**opt_state, "neval": torch.where(
+                        ok, t, opt_state["neval"])}
+                    self.model.set_state(
+                        _where(ok, self.model.state(), mstate))
+            else:
+                new_opt = {**opt_state, "neval": t}
+                ok = torch.ones((), dtype=torch.bool, device=loss.device)
+            with annotate("step.write", tensors=tensors):
+                # the step's gradients are freed here (the caller's list
+                # is this one)
+                grads.clear()
+                del upd
+        return new_opt, loss, ok
 
     def _run_validation(self):
         """Validate on the live parameters; returns the results."""

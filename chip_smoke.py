@@ -526,6 +526,19 @@ it runs; any failure exits non-zero:
     ``bigdl_torch`` on the card, its losses equal to the same program
     through ``bigdl_tpu_torch``; (e) ``python -m
     bigdl_tpu_torch.analysis.lint`` exits 0, its seconds printed;
+30. the fused optimizer update (``phase_fused_update``, callable alone
+    after ``phase_device()``): (a) at GPT-2-medium's 389 tensors
+    (406,286,336 f32 values), Adam with an L2 clip of 1.0 and the
+    guard, each of the kernel's two passes on the device, both with
+    their table a call, the plain version's and the
+    per-tensor chain's (``_GradClipper``, ``Adam.step``, the guard's
+    ``where``, the write-back) a call, beside the 13.0 GB bound; the
+    kernel against the plain version (the norm's order of summation
+    aside: 1e-5 of each value's step); (b) a ``LocalOptimizer`` with
+    Adam on the card: 2 launches a step, each ``step.update`` obs span
+    ``fused`` (the tracer on), its 4 losses and weights against the
+    per-tensor path's within 1e-5 relative, and a NaN batch skipped with
+    p, m, v and ``neval`` kept bit for bit;
 9. the kernels line, last: one JSON object listing each kernel with its
    launches on its own path (phase 4 for the paged decode, phase 29 for
    rows 1-5: (a)'s classic loop for the flash kernels and (b)'s for the
@@ -533,7 +546,7 @@ it runs; any failure exits non-zero:
    numbers from phase
    3, 6 or 10 (rows 1-3 also phase 24 (a)'s offset times; rows 1 and 6
    phase 25 (a)'s launches on each TP rank and row 6 its times at H=4;
-   rows 1-3 phase 25 (b)'s launches).
+   rows 1-3 phase 25 (b)'s launches; the fused update phase 30 (b)'s).
 
 The last line is ``{"ok": true, "device": {...}}``, after the card's
 name and power limit and the script's total seconds.
@@ -865,6 +878,15 @@ SLEEP_CYCLES = 4_000_000
 
 def say(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
+
+
+def _model_launches() -> dict:
+    """``_cuda.launches`` without the optimizer update's kernel: a phase
+    that trains a model with no kernel site checks that these stay put,
+    while its Adam goes through ``fused_adam`` (phase 30)."""
+    from bigdl_tpu_torch.ops import _cuda
+
+    return {k: n for k, n in _cuda.launches.items() if k != "fused_adam"}
 
 
 def time_ms(fn, reps: int = 25, warmup: int = 3,
@@ -2139,7 +2161,7 @@ def phase_ptb() -> None:
 
     t_phase = time.perf_counter()
     x, y = _ptb_data()
-    kernels_before = dict(_cuda.launches)
+    kernels_before = _model_launches()
     torch.cuda.synchronize()
     opt, losses, ppl0, ppl1 = _ptb_run(DEV, x, y)
     torch.cuda.synchronize()
@@ -2166,7 +2188,7 @@ def phase_ptb() -> None:
         raise AssertionError(f"PTB LM losses off the CPU run's: {rel}")
     if not ppl1 < ppl0:
         raise AssertionError(f"perplexity did not fall: {ppl0} -> {ppl1}")
-    if dict(_cuda.launches) != kernels_before:
+    if _model_launches() != kernels_before:
         raise AssertionError("the PTB LM launched a kernel of csrc/")
     gru = _gru_gap()
     say(f"phase 13 Recurrent(GRU({PTB_EMBED}, {PTB_HIDDEN})) card against "
@@ -2933,7 +2955,7 @@ def phase_caffe(smi: str) -> None:
     from bigdl_tpu_torch.utils import tree as T
 
     t_phase = time.perf_counter()
-    kernels_before = dict(_cuda.launches)
+    kernels_before = _model_launches()
     tmp = tempfile.mkdtemp(prefix="phase16_")
     try:
         # (a) the entry point, in a child process
@@ -3044,7 +3066,7 @@ def phase_caffe(smi: str) -> None:
                                          "CPU's")
             del loaded, seq
             torch.cuda.empty_cache()
-        if dict(_cuda.launches) != kernels_before:
+        if _model_launches() != kernels_before:
             raise AssertionError("phase 16 launched a kernel of csrc/")
     finally:
         Engine.reset()
@@ -4310,7 +4332,7 @@ def _phase_text_cnn_main():
     argv = ["-b", str(TC_BATCH), "-e", str(TC_EPOCHS), "--learning-rate",
             str(TC_LR), "--doc-len", str(TC_DOC_LEN)]
     runs = {}
-    kernels_before = dict(_cuda.launches)
+    kernels_before = _model_launches()
     threads = torch.get_num_threads()
     # the CPU run, then the same run on one thread (another f32 summation
     # order): the control that shows how far the recipe itself carries
@@ -4362,7 +4384,7 @@ def _phase_text_cnn_main():
     if len(top1) != TC_EPOCHS or not top1[-1] >= TC_TOP1_MIN or not (
             abs(top1[-1] - cpu_top1[-1]) <= TC_TOP1_GAP):
         raise AssertionError(f"text CNN Top1 card {top1}, CPU {cpu_top1}")
-    if dict(_cuda.launches) != kernels_before:
+    if _model_launches() != kernels_before:
         raise AssertionError("the text CNN launched a kernel of csrc/")
     return opt
 
@@ -4483,7 +4505,7 @@ def phase_text_cnn(smi: str) -> None:
     t_phase = time.perf_counter()
     det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
-    kernels_before = dict(_cuda.launches)
+    kernels_before = _model_launches()
     parts = {}
     try:
         t0 = time.perf_counter()
@@ -4497,7 +4519,7 @@ def phase_text_cnn(smi: str) -> None:
             parts[part] = round(time.perf_counter() - t0, 1)
     finally:
         torch.backends.cudnn.deterministic = det
-    if dict(_cuda.launches) != kernels_before:
+    if _model_launches() != kernels_before:
         raise AssertionError("phase 19 launched a kernel of csrc/")
     print(smi, flush=True)
     say(f"phase 19 took {time.perf_counter() - t_phase:.1f} s (seconds by "
@@ -5825,6 +5847,10 @@ def _p22_run(x, y, **kw):
         last["g"] = g
         return clip(grads, global_sq=global_sq)
 
+    # the trainer calls its clipper only when it says a clip is set;
+    # this one records every step's gradient (with no clip set it
+    # passes the gradient through as it is)
+    recording_clip.active = True
     opt._clipper = recording_clip
     opt.optimize()
     torch.cuda.synchronize()
@@ -6909,7 +6935,7 @@ def phase_item16(smi: str) -> None:
     from bigdl_tpu_torch.ops import _cuda
 
     t_phase = time.perf_counter()
-    kernels_before = dict(_cuda.launches)
+    kernels_before = _model_launches()
     parts = {}
     rerun = {}
     det = torch.backends.cudnn.deterministic
@@ -8347,9 +8373,9 @@ def phase_front_ends(smi: str) -> None:
         torch.cuda.empty_cache()
         _p26_control(smi)
         _p26_examples(tmp, smi)
-        if any(_cuda.launches.values()):
+        if any(_model_launches().values()):
             raise AssertionError(f"phase 26 launched a kernel of csrc/: "
-                                 f"{dict(_cuda.launches)}")
+                                 f"{_model_launches()}")
     finally:
         Engine.reset()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -8393,7 +8419,12 @@ P27_RULE = {"name": "p27_window_goodput", "type": "threshold",
 # the spans a training step runs in (the profiler's attribution)
 P27_TRAIN_SPANS = ("iteration", "step_dispatch", "device_put", "computing",
                    "batch_prep", "checkpoint", "checkpoint.snapshot",
-                   "checkpoint.write")
+                   "checkpoint.write",
+                   # the step's regions inside step_dispatch, and the
+                   # loop's loss read
+                   "step.forward", "step.backward", "step.exchange",
+                   "step.clip", "step.update", "step.guard", "step.write",
+                   "loss_read")
 # (e) the four example scripts at their defaults
 P27_EXAMPLES = [("train_ptb_lstm", []), ("train_cifar_resnet", []),
                 ("finetune_frozen_backbone", []),
@@ -9804,6 +9835,221 @@ def _has_pillow() -> bool:
     return True
 
 
+
+# the fused update's L2 clip at GPT-2-medium's shapes (the benchmark's)
+FUSED_CLIP = 1.0
+
+
+def _gpt2_medium_shapes() -> list:
+    """GPT-2-medium's 389 parameter shapes as the benchmark builds it:
+    token and position tables, 24 blocks (two LayerNorms, q/k/v/out
+    projections, the MLP), the final LayerNorm and an untied head."""
+    d, ff, vocab, pos = 1024, 4096, 50257, 1024
+    shapes = [(vocab, d), (pos, d)]
+    for _ in range(24):
+        shapes += [(d,), (d,)] + [(d, d), (d,)] * 4 + [(d,), (d,)]
+        shapes += [(ff, d), (ff,), (d, ff), (d,)]
+    return shapes + [(d,), (d,), (vocab, d)]
+
+
+def _fused_gap(got, want, start) -> float:
+    """Largest |got - want| beyond one f32 eps of max|want|, over the
+    largest step |want - start|, across tensors."""
+    eps = float(torch.finfo(torch.float32).eps)
+    worst = 0.0
+    for a, b, a0 in zip(got, want, start):
+        over = (a - b).abs().max().item() - eps * b.abs().max().item()
+        step = (b - a0).abs().max().item()
+        worst = max(worst, max(over, 0.0) / max(step, 1e-30))
+    return worst
+
+
+def _p30_gpt2_medium() -> dict:
+    """(a): times and the plain comparison at GPT-2-medium's shapes."""
+    from bigdl_tpu_torch.ops import fused_update as F
+    from bigdl_tpu_torch.optim import Adam
+    from bigdl_tpu_torch.optim.optimizer import _GradClipper, _where
+
+    shapes = _gpt2_medium_shapes()
+    n = sum(int(np.prod(sh)) for sh in shapes)
+    gen = torch.Generator(device=DEV).manual_seed(30)
+
+    def make(scale):
+        return [torch.randn(sh, generator=gen, device=DEV) * scale
+                for sh in shapes]
+
+    g, p, m = make(1e-3), make(0.02), make(1e-3)
+    v = [(a * a).mul_(0.1) for a in make(1e-3)]
+    method = Adam(learningrate=3e-4)
+    st = method.init_state(p[:1])
+    st.update(m=m, v=v, neval=torch.full((), 5.0, device=DEV))
+    loss = torch.tensor(2.5, device=DEV)
+    frozen = [False] * len(shapes)
+    t = st["neval"] + 1.0
+    lr, bc1, bc2 = (method.current_rate(st), 1 - method.beta1 ** t,
+                    1 - method.beta2 ** t)
+    kw = dict(beta1=method.beta1, beta2=method.beta2, eps=method.epsilon,
+              gate=True)
+
+    def both(cls=F.adam_update, pp=p, mm=m, vv=v):
+        upd = cls(g, pp, mm, vv, frozen, FUSED_CLIP, None)
+        upd.stats(loss)
+        upd.apply(lr, bc1, bc2, **kw)
+
+    clipper = _GradClipper()
+    clipper.l2_norm_clip = FUSED_CLIP
+
+    def chain():
+        gg = clipper(g)
+        new_p, new_opt = method.step(gg, p, st)
+        ok = torch.isfinite(loss)
+        for a in gg:
+            ok = ok & torch.isfinite(a).all()
+        new_p = _where(ok, new_p, p)
+        _where(ok, new_opt, st)
+        for a, b in zip(p, new_p):
+            a.copy_(b)
+
+    upd = F.adam_update(g, p, m, v, frozen, FUSED_CLIP, None)
+    # each pass on the device alone; a call with its table (built on
+    # the host each step) back to back, where the card waits for the
+    # host only if the table takes longer than the two passes
+    row = dict(
+        stats_device_ms=time_ms(lambda: upd.stats(loss), device_only=True),
+        apply_device_ms=time_ms(lambda: upd.apply(lr, bc1, bc2, **kw),
+                                device_only=True),
+        ms=time_ms(both),
+        plain_ms=time_ms(lambda: both(F.PlainAdamUpdate), reps=5, warmup=1),
+        per_tensor_ms=time_ms(chain, reps=5, warmup=1))
+    del upd
+    torch.cuda.empty_cache()
+    nbytes = 32 * n
+    row.update(device_ms=row["stats_device_ms"] + row["apply_device_ms"],
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               values=n, tensors=len(shapes))
+    row["share"] = row["bound_ms"] / row["device_ms"]
+    # the kernel against the plain version from one start
+    start = [[a.clone() for a in x] for x in (p, m, v)]
+    k_out = [[a.clone() for a in x] for x in start]
+    both(F.KernelAdamUpdate, *k_out)
+    both(F.PlainAdamUpdate, p, m, v)
+    torch.cuda.synchronize()
+    row["plain_gap"] = max(_fused_gap(a, b, c) for a, b, c in
+                           zip(k_out, (p, m, v), start))
+    say(f"phase 30 (a) fused Adam, GPT-2-medium's {len(shapes)} tensors "
+        f"({n} f32), L2 clip {FUSED_CLIP:g}, guard: pass 1 "
+        f"{row['stats_device_ms']:.4f} ms and pass 2 "
+        f"{row['apply_device_ms']:.4f} ms on the device, together "
+        f"{row['device_ms']:.4f}; with the table {row['ms']:.4f} a call; "
+        f"bound {row['bound_ms']:.4f} ms (bytes), share "
+        f"{row['share']:.3f}; plain {row['plain_ms']:.2f} ms, per-tensor "
+        f"chain {row['per_tensor_ms']:.2f} ms a call; kernel off plain "
+        f"{row['plain_gap']:.2e} of the largest step (limit 1e-5)")
+    if not row["plain_gap"] <= 1e-5:
+        raise AssertionError(f"fused Adam off its plain version: "
+                             f"{row['plain_gap']:.3e}")
+    return row
+
+
+def _p30_trainer_arm(fused: bool, x, y, steps: int):
+    import shutil
+    import tempfile
+
+    import bigdl_tpu_torch.nn as N
+    from bigdl_tpu_torch import obs
+    from bigdl_tpu_torch.common import RandomGenerator
+    from bigdl_tpu_torch.dataset import ArrayDataSet
+    from bigdl_tpu_torch.ops import _cuda
+    from bigdl_tpu_torch.optim import Adam, LocalOptimizer, Trigger
+
+    RandomGenerator.RNG.set_seed(30)
+    model = (N.Sequential().add(N.Linear(256, 512)).add(N.Tanh())
+             .add(N.Linear(512, 10)).add(N.LogSoftMax()))
+    opt = LocalOptimizer(model, ArrayDataSet(x, y, 64, shuffle=False),
+                         N.ClassNLLCriterion(), batch_size=64, device=DEV)
+    opt.set_optim_method(Adam(learningrate=1e-3))
+    opt.set_gradient_clipping_by_l2_norm(FUSED_CLIP)
+    if not fused:
+        opt._fused_adam_now = lambda *a: False
+    rec = {}
+
+    class Losses:
+        def add_scalar(self, tag, value, step):
+            if tag == "Loss":
+                rec[step] = value
+
+    opt.set_train_summary(Losses())
+    _cuda.reset_launches()
+    # the obs tracer on: each step's step.update span says its path
+    tmp = tempfile.mkdtemp(prefix="phase30_")
+    os.environ["BIGDL_TORCH_TRACE_DIR"] = tmp
+    obs.reset()
+    try:
+        opt.set_end_when(Trigger.max_iteration(steps)).optimize()
+        torch.cuda.synchronize()
+        paths = [r["attrs"].get("fused") for r in obs.get_tracer().recent()
+                 if r.get("kind") == "span" and r["name"] == "step.update"]
+    finally:
+        os.environ.pop("BIGDL_TORCH_TRACE_DIR", None)
+        obs.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ([rec[k] for k in sorted(rec)],
+            [q.detach().clone() for q in opt._param_leaves()[1]],
+            _cuda.launches["fused_adam"], opt, paths)
+
+
+def phase_fused_update(smi: str) -> dict:
+    """Phase 30 (see the docstring); returns the kernels line's row."""
+    t_phase = time.perf_counter()
+    row = _p30_gpt2_medium()
+    steps = 4
+    rs = np.random.RandomState(30)
+    x = rs.randn(steps * 64, 256).astype(np.float32)
+    y = (rs.randint(0, 10, steps * 64) + 1).astype(np.float32)
+    losses, params, launches, opt, paths = _p30_trainer_arm(True, x, y,
+                                                            steps)
+    p_losses, p_params, p_launches, _, p_paths = _p30_trainer_arm(
+        False, x, y, steps)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, p_losses))
+    num = sum(float(torch.sum((a - b) ** 2))
+              for a, b in zip(params, p_params))
+    p_rel = (num / sum(float(torch.sum(b ** 2)) for b in p_params)) ** 0.5
+    # a NaN batch through the fused step: everything kept
+    names, live, _ = opt._param_leaves()
+    st = opt.optim_method.state
+    before = [a.detach().clone() for a in live + st["m"] + st["v"]]
+    nan_x = torch.full((64, 256), float("nan"), device=DEV)
+    new, _, ok = opt._train_step(names, live, st, nan_x,
+                                 torch.ones(64, device=DEV), None, True, 0)
+    kept = (not bool(ok) and float(new["neval"]) == float(st["neval"])
+            and all(torch.equal(a, b.detach()) for a, b in
+                    zip(before, live + st["m"] + st["v"])))
+    say(f"phase 30 (b) LocalOptimizer, Adam, L2 clip, {steps} steps: "
+        f"fused_adam launches {launches} (per-tensor arm {p_launches}); "
+        f"losses {['%.5f' % v for v in losses]}, against the per-tensor "
+        f"path {loss_rel:.3e}, weights L2 {p_rel:.3e} (limit {F32_TOL:g}); "
+        f"step.update spans' fused {paths} / {p_paths}; a NaN batch kept "
+        f"p, m, v and neval: {kept}")
+    if launches != 2 * steps or p_launches != 0:
+        raise AssertionError(f"fused_adam launched {launches} / "
+                             f"{p_launches}, want {2 * steps} / 0")
+    if paths != [True] * steps or p_paths != [False] * steps:
+        raise AssertionError(f"step.update spans' fused: {paths} / "
+                             f"{p_paths}")
+    if not (loss_rel <= F32_TOL and p_rel <= F32_TOL and kept):
+        raise AssertionError("the fused trainer path is off the per-tensor "
+                             "one")
+    print(smi, flush=True)
+    say(f"phase 30 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(name="fused_adam", route="cuda",
+                source="bigdl_tpu_torch/csrc/fused_adam.cu",
+                replaces="none: XLA fused the JAX package's jitted update",
+                shape=f"GPT-2-medium, {row['tensors']} tensors, "
+                      f"{row['values']} f32, Adam + L2 clip + guard",
+                launches_per_step=launches // steps, **row,
+                trainer_launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -9859,6 +10105,9 @@ def main() -> int:
     # phase 29 (with rows 1-3's)
     launches.update(phase_obs_native_sim(smi, p4_launches))
     launches.update(phase_classic(smi))
+    fused = phase_fused_update(smi)
+    kernels.append(fused)
+    launches["fused_adam"] = fused["trainer_launches"]
     for k in kernels:
         k.update(offsets.get(k["name"], {}))
         k.update(tp_rows.get(k["name"], {}))

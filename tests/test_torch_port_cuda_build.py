@@ -19,6 +19,7 @@ int bigdl_conv_bn_1x1(void) { return 0; }
 int bigdl_conv_bn_kxk(void) { return 0; }
 int bigdl_flash_bwd_dq(void) { return 0; }
 int bigdl_flash_bwd_dkv(void) { return 0; }
+int bigdl_fused_adam(void) { return 0; }
 const char* bigdl_error_string(int code) { return "stub error"; }
 """
 
@@ -54,27 +55,27 @@ def isolated(tmp_path, monkeypatch):
 def test_build_compiles_each_source_once_and_loads(isolated):
     assert _cuda.build() > 0.0
     calls = (isolated / "nvcc.log").read_text().splitlines()
-    assert len(calls) == 6
+    assert len(calls) == 7
     for call in calls:
         assert "arch=compute_90a,code=sm_90a" in call and "-O3" in call
     assert sorted(c.split()[-1].rsplit("/", 1)[-1] for c in calls) == [
         "conv_bn_1x1.cu", "conv_bn_kxk.cu", "flash_bwd_dkv.cu",
-        "flash_bwd_dq.cu", "flash_fwd.cu", "paged_decode.cu"]
+        "flash_bwd_dq.cu", "flash_fwd.cu", "fused_adam.cu", "paged_decode.cu"]
     built = sorted(os.listdir(isolated / "build"))
     assert [b.split("-")[0] for b in built] == [
         "conv_bn_1x1", "conv_bn_kxk", "flash_bwd_dkv", "flash_bwd_dq",
-        "flash_fwd", "paged_decode"]
+        "flash_fwd", "fused_adam", "paged_decode"]
     assert all(b.endswith(".so") for b in built)
     assert set(_cuda._libs) == {"flash_fwd", "paged_decode", "conv_bn_1x1",
                                 "conv_bn_kxk", "flash_bwd_dq",
-                                "flash_bwd_dkv"}
+                                "flash_bwd_dkv", "fused_adam"}
     for name in ("conv_bn_1x1", "conv_bn_kxk", "flash_bwd_dq",
-                 "flash_bwd_dkv"):
+                 "flash_bwd_dkv", "fused_adam"):
         sym, argtypes = _cuda._SIGNATURES[name]
         assert getattr(_cuda._libs[name], sym).argtypes == argtypes
     # a second build finds every library and compiles nothing
     assert _cuda.build() == 0.0
-    assert len((isolated / "nvcc.log").read_text().splitlines()) == 6
+    assert len((isolated / "nvcc.log").read_text().splitlines()) == 7
 
 
 def test_edited_source_gets_a_new_library(isolated):

@@ -7,8 +7,9 @@
   step's ``step_dispatch``; each loss read back is a ``loss_read``
   outside every ``step_dispatch``.
 - With ``BIGDL_TORCH_TRACE_DIR`` set, the obs tracer records the same
-  names, each span's parent the step's ``step_dispatch`` span, and
-  ``tensors`` the number of parameter tensors.
+  names, each span's parent the step's ``step_dispatch`` span,
+  ``tensors`` the number of parameter tensors and, on ``step.update``,
+  ``fused``.
 - No clip set: no ``step.clip``; the guard off: no ``step.guard``;
   neither sink on: no region opens.
 - One clock: a region's obs span (``wall_epoch + ts`` of the Chrome
@@ -16,6 +17,9 @@
   (``start_ns``) start within 1 ms of each other on the Unix clock.
 - ``DistriOptimizer`` at world 1 (gloo over an in-process store) opens
   the same regions and ``step.exchange`` once a step.
+- The fused update (Adam; ``ops/fused_update.py``) and the per-tensor
+  one open the same update regions, once a step each, in order;
+  ``step.update``'s ``fused`` says which path the step took.
 """
 
 import glob
@@ -136,9 +140,40 @@ def test_the_obs_tracer_records_the_same_names_under_step_dispatch(
             assert a["wall_time"] + a["dur_s"] <= b["wall_time"] + 1e-6
         for s in kids:
             want = {"tensors": n_params} if s["name"] in COUNTED else {}
+            if s["name"] == "step.update":
+                want["fused"] = True        # Adam on f32 parameters
             assert s["attrs"] == want, s
     reads = [s for s in spans if s["name"] == "loss_read"]
     assert sorted(s["attrs"]["step"] for s in reads) == [1, 2, 3]
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_both_update_paths_open_the_update_regions_once_a_step_in_order(
+        fused, tmp_path, monkeypatch):
+    """The fused update (``ops.fused_update``) and the per-tensor one
+    open ``step.clip``, ``step.update``, ``step.guard`` and
+    ``step.write`` once a step each, in order, inside ``step_dispatch``;
+    ``step.update`` says which path the step took."""
+    monkeypatch.setenv("BIGDL_TORCH_TRACE_DIR", str(tmp_path))
+    opt = _trainer()
+    if not fused:
+        opt._fused_adam_now = lambda *a: False
+    events = _profiled(opt)
+    dispatches = [e for e in events if e[0] == "step_dispatch"]
+    assert len(dispatches) == STEPS
+    for d in dispatches:
+        inner = [r for r in _inside(events, d) if r[0] in COUNTED]
+        assert [r[0] for r in inner] == PHASES[2:]
+        for a, b in zip(inner, inner[1:]):
+            assert a[2] <= b[1], (a, b)
+    spans = _spans()
+    updates = [s for s in spans if s["name"] == "step.update"]
+    assert [s["attrs"]["fused"] for s in updates] == [fused] * STEPS
+    for d in (s for s in spans if s["name"] == "step_dispatch"):
+        kids = [s["name"] for s in sorted(
+            (s for s in spans if s["parent"] == d["id"]),
+            key=lambda s: s["wall_time"])]
+        assert kids == PHASES
 
 
 @pytest.mark.parametrize("case", ["no_clip", "no_guard"])

@@ -5,9 +5,11 @@
 // with an online softmax, and optionally the per-row logsumexp in
 // scaled-score units for a later blockwise backward.
 //
-// Shapes: q (BH, Tq, D), k/v (BH, Tk, D), o like q, lse (BH, Tq) f32;
-// all contiguous, and for bf16 q, k and v 16-byte aligned. Any Tq and Tk
-// (ragged tiles are masked), D in {32, 64, 128}, f32 or bf16 inputs, f32
+// Shapes: q (BH, Tq, Dqk), k (BH, Tk, Dqk), v (BH, Tk, Dv), o (BH, Tq,
+// Dv), lse (BH, Tq) f32; all contiguous, and for bf16 q, k and v 16-byte
+// aligned. Any Tq and Tk (ragged tiles are masked); (Dqk, Dv) one of
+// (32, 32), (64, 64), (128, 128) in f32 or bf16, or (192, 128) in bf16
+// (latent attention: 128 + 64 rotary dims of q.k, values of 128); f32
 // accumulation. Causal masking keeps kpos <= seq_offset + qpos: query
 // row i sits at absolute position seq_offset + i of the kv sequence
 // (chunked causal attention; JAX's _mask_causal). One CTA per (bh,
@@ -37,7 +39,11 @@
 // accumulator, V by ldmatrix.trans): one rounding of P to bf16 would
 // compute another function. O / l is rounded to bf16 once, at the store;
 // lse = m + log(l) goes back to natural units. The causal tiles run
-// heaviest first.
+// heaviest first. The kernel is a template over (DQK, DV): the Q and K
+// tiles are DQK wide, the V tile and O DV wide. Q's A fragments stay in
+// registers up to DQK = 128; at DQK = 192 they would take 48 more
+// registers beside O's 64, so they are read from shared memory again
+// for each K tile.
 //
 // f32 (flash_fwd_f32_kernel): the CUDA cores. Q (pre-scaled), K and V
 // tiles sit in shared memory as f32 with rows padded to D+1 floats, so
@@ -173,35 +179,39 @@ constexpr int MMA_THREADS = 128;  // one warpgroup: 4 warps of 16 q rows
 // j <= lim + i. One kernel parameter (read from the constant bank) in
 // place of causal and the offset, as in the backward kernels.
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ o,
                       float* __restrict__ lse, int tq, int tk, int lim,
                       float scale) {
-  using M = MmaTile<D>;
+  using MQ = MmaTile<DQK>;
+  using MV = MmaTile<DV>;
   constexpr int NT = MMA_THREADS;
-  constexpr int KD = D / 16;  // k-steps of Q K^T
+  constexpr int KD = DQK / 16;       // k-steps of Q K^T
+  constexpr bool HOLD = DQK <= 128;  // Q's A fragments in registers
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + M::ELEMS;      // two buffers
-  bf16* vs = ks + 2 * M::ELEMS;  // two buffers
+  bf16* ks = qs + MQ::ELEMS;      // two buffers
+  bf16* vs = ks + 2 * MQ::ELEMS;  // two buffers
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gr = lane >> 2, tc = lane & 3;  // fragment row, column pair
   const int m0 = 16 * warp;                 // the warp's first tile row
   const int bh = blockIdx.y;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest first
-  const size_t q_base = (size_t)bh * tq * D;
-  const size_t kv_base = (size_t)bh * tk * D;
+  const size_t q_base = (size_t)bh * tq * DQK;
+  const size_t k_base = (size_t)bh * tk * DQK;
+  const size_t v_base = (size_t)bh * tk * DV;
+  const size_t o_base = (size_t)bh * tq * DV;
 
   int n_tiles = (tk + BK - 1) / BK;
   if (lim >= 0) n_tiles = min(n_tiles, (lim + min(q0 + BQ, tq) - 1) / BK + 1);
 
-  cp_async_tile<D, NT>(qs, q + q_base, q0, tq);
+  cp_async_tile<DQK, NT>(qs, q + q_base, q0, tq);
   cp_async_commit();
-  cp_async_tile<D, NT>(ks, k + kv_base, 0, tk);
-  cp_async_tile<D, NT>(vs, v + kv_base, 0, tk);
+  cp_async_tile<DQK, NT>(ks, k + k_base, 0, tk);
+  cp_async_tile<DV, NT>(vs, v + v_base, 0, tk);
   cp_async_commit();
 
   // the thread's two q rows, m0 + gr and m0 + gr + 8; (m, l) of each in
@@ -216,28 +226,32 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   const float sl2 = scale * LOG2E;
 
-  uint32_t qf[KD][4];
-  cp_async_wait<1>();  // Q is in
-  __syncthreads();
+  // without HOLD, the first tile's wait below finds Q in as well
+  uint32_t qf[HOLD ? KD : 1][4];
+  if constexpr (HOLD) {
+    cp_async_wait<1>();  // Q is in
+    __syncthreads();
 #pragma unroll
-  for (int kd = 0; kd < KD; ++kd) ldsm_a<D>(qf[kd], qs, m0, 16 * kd, lane);
+    for (int kd = 0; kd < KD; ++kd)
+      ldsm_a<DQK>(qf[kd], qs, m0, 16 * kd, lane);
+  }
 
   // O of rows m0 + gr (+ 8), columns 8 j + 2 tc (+ 1)
-  float acc[D / 8][4];
+  float acc[DV / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * BK;
-    const bf16* kb = ks + (kt & 1) * M::ELEMS;
-    const bf16* vb = vs + (kt & 1) * M::ELEMS;
+    const bf16* kb = ks + (kt & 1) * MQ::ELEMS;
+    const bf16* vb = vs + (kt & 1) * MV::ELEMS;
     if (kt + 1 < n_tiles) {  // into the buffer the last tile left
-      cp_async_tile<D, NT>(ks + ((kt + 1) & 1) * M::ELEMS, k + kv_base,
-                           k0 + BK, tk);
-      cp_async_tile<D, NT>(vs + ((kt + 1) & 1) * M::ELEMS, v + kv_base,
-                           k0 + BK, tk);
+      cp_async_tile<DQK, NT>(ks + ((kt + 1) & 1) * MQ::ELEMS, k + k_base,
+                             k0 + BK, tk);
+      cp_async_tile<DV, NT>(vs + ((kt + 1) & 1) * MV::ELEMS, v + v_base,
+                            k0 + BK, tk);
     }
     cp_async_commit();  // empty on the last tile, so the count stays even
     cp_async_wait<1>();
@@ -251,12 +265,15 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
     for (int kd = 0; kd < KD; ++kd) {
+      uint32_t fresh[4];
+      if constexpr (!HOLD) ldsm_a<DQK>(fresh, qs, m0, 16 * kd, lane);
+      const uint32_t(&aq)[4] = HOLD ? qf[kd] : fresh;
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
         uint32_t b[4];
-        ldsm_b<D>(b, kb, 16 * n, 16 * kd, lane);
-        mma_bf16(s[2 * n], qf[kd], b[0], b[1]);
-        mma_bf16(s[2 * n + 1], qf[kd], b[2], b[3]);
+        ldsm_b<DQK>(b, kb, 16 * n, 16 * kd, lane);
+        mma_bf16(s[2 * n], aq, b[0], b[1]);
+        mma_bf16(s[2 * n + 1], aq, b[2], b[3]);
       }
     }
 
@@ -304,7 +321,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       l[r] = l[r] * alpha[r] + rsum[r];
     }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       acc[j][0] *= alpha[0];
       acc[j][1] *= alpha[0];
       acc[j][2] *= alpha[1];
@@ -317,9 +334,9 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       uint32_t hi[4], lo[4];
       to_a_split(s[2 * kk], s[2 * kk + 1], hi, lo);
 #pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
+      for (int n = 0; n < DV / 16; ++n) {
         uint32_t b[4];
-        ldsm_bt<D>(b, vb, 16 * kk, 16 * n, lane);
+        ldsm_bt<DV>(b, vb, 16 * kk, 16 * n, lane);
         mma_bf16(acc[2 * n], hi, b[0], b[1]);
         mma_bf16(acc[2 * n], lo, b[0], b[1]);
         mma_bf16(acc[2 * n + 1], hi, b[2], b[3]);
@@ -334,39 +351,46 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     if (qpos[r] >= tq) continue;
     const float lc = fmaxf(l[r], 1e-30f);
-    bf16* out = o + q_base + (size_t)qpos[r] * D + 2 * tc;
+    bf16* out = o + o_base + (size_t)qpos[r] * DV + 2 * tc;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
       store2(out + 8 * j, acc[j][2 * r] / lc, acc[j][2 * r + 1] / lc);
     if (lse != nullptr && tc == 0)
       lse[(size_t)bh * tq + qpos[r]] = m[r] / LOG2E + logf(lc);
   }
 }
 
-// dtype 0: f32 inputs, the CUDA-core kernel; 1: bf16, the tensor cores.
-template <int D>
+// dtype 0: f32 inputs, the CUDA-core kernel (DQK = DV only); 1: bf16,
+// the tensor cores.
+template <int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int bh, int tq, int tk, int causal, int off,
                    float scale, int dtype, cudaStream_t stream) {
   const dim3 grid((tq + BQ - 1) / BQ, bh);
   cudaError_t err;
   if (dtype == 0) {
-    const int smem = 3 * BQ * (D + 1) * (int)sizeof(float);
-    err = cudaFuncSetAttribute(flash_fwd_f32_kernel<D, float>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return err;
-    flash_fwd_f32_kernel<D, float><<<grid, THREADS, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, tq, tk,
-        causal, off, scale);
+    if constexpr (DQK != DV) {
+      return cudaErrorInvalidValue;
+    } else {
+      constexpr int D = DQK;
+      const int smem = 3 * BQ * (D + 1) * (int)sizeof(float);
+      err = cudaFuncSetAttribute(flash_fwd_f32_kernel<D, float>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess) return err;
+      flash_fwd_f32_kernel<D, float><<<grid, THREADS, smem, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(o), lse, tq, tk,
+          causal, off, scale);
+    }
   } else {
-    const int smem = 5 * MmaTile<D>::BYTES;  // Q; K, V twice
-    err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
+    // Q; K, V twice
+    const int smem = 3 * MmaTile<DQK>::BYTES + 2 * MmaTile<DV>::BYTES;
+    err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<DQK, DV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return err;
-    flash_fwd_bf16_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
+    flash_fwd_bf16_kernel<DQK, DV><<<grid, MMA_THREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, tq, tk,
         causal ? off : -1, scale);
@@ -376,22 +400,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it). seq_offset
-// (>= 0) is the absolute position of query row 0 under causal masking.
-// Returns cudaGetLastError() after the launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it). d is the
+// width of q and k, dv that of v and o. seq_offset (>= 0) is the absolute
+// position of query row 0 under causal masking. Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int bigdl_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, void* lse, int bh, int tq, int tk,
-                               int d, int causal, int seq_offset, float scale,
-                               int dtype, void* stream) {
+                               int d, int dv, int causal, int seq_offset,
+                               float scale, int dtype, void* stream) {
   if (bh <= 0 || bh > 65535 || tq <= 0 || tk <= 0 || seq_offset < 0 ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  if (d == 192 && dv == 128)
+    return (int)launch<192, 128>(q, k, v, o, l, bh, tq, tk, causal, seq_offset, scale, dtype, s);
+  if (d != dv) return (int)cudaErrorInvalidValue;
   switch (d) {
-    case 32: return (int)launch<32>(q, k, v, o, l, bh, tq, tk, causal, seq_offset, scale, dtype, s);
-    case 64: return (int)launch<64>(q, k, v, o, l, bh, tq, tk, causal, seq_offset, scale, dtype, s);
-    case 128: return (int)launch<128>(q, k, v, o, l, bh, tq, tk, causal, seq_offset, scale, dtype, s);
+    case 32: return (int)launch<32, 32>(q, k, v, o, l, bh, tq, tk, causal, seq_offset, scale, dtype, s);
+    case 64: return (int)launch<64, 64>(q, k, v, o, l, bh, tq, tk, causal, seq_offset, scale, dtype, s);
+    case 128: return (int)launch<128, 128>(q, k, v, o, l, bh, tq, tk, causal, seq_offset, scale, dtype, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -21,8 +21,8 @@ namespace {
 
 // Shared tiles hold 64 rows of D bf16 padded by 16 bytes (8 bf16): the
 // eight 16-byte row pieces one ldmatrix phase reads then fall on eight
-// distinct bank quads at every D in {32, 64, 128}, and each row stays
-// 16-byte aligned for cp.async.
+// distinct bank quads at every D in {32, 64, 128, 192}, and each row
+// stays 16-byte aligned for cp.async.
 template <int D>
 struct MmaTile {
   static constexpr int LD = D + 8;        // row stride, bf16

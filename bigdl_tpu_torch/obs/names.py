@@ -507,6 +507,20 @@ SERVE_DECODE_HBM_BYTES_PER_TOKEN = _m(
     "bigdl_serve_decode_hbm_bytes_per_token", "gauge", policy="max",
     doc="Modeled HBM traffic per decoded token (the JAX engine)")
 
+# ------------------------------------------------------------------ MoE
+# the port's own: a SigmoidMoE's held experts (parallel/moe.py
+# MoEStats), summed on the device while a profiler or the tracer records
+MOE_HELD_ASSIGNMENTS_TOTAL = _m(
+    "bigdl_moe_held_assignments_total", "counter", ("layer",), 256,
+    "Routed assignments to the experts this rank holds, by MoE layer")
+MOE_MAX_LOAD_RATIO = _m(
+    "bigdl_moe_max_load_ratio", "gauge", ("layer",), 256,
+    "The largest held expert's load over the held experts' mean, by MoE "
+    "layer", policy="max")
+
+#: families the port declares and the JAX package does not
+PORT_ONLY = frozenset({MOE_HELD_ASSIGNMENTS_TOTAL, MOE_MAX_LOAD_RATIO})
+
 #: legal gauge policies (JAX :73)
 GAUGE_POLICIES = ("max", "min", "last")
 

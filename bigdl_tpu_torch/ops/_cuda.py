@@ -69,18 +69,18 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # q, k, v, o, lse, bh, tq, tk, d, causal, seq_offset, scale, dtype,
-    # stream
-    "flash_fwd": ("bigdl_flash_fwd",
-                  [_P] * 5 + [_I] * 6 + [_F, _I, _P]),
-    # q, k, v, g, lse, delta, dq, bh, tq, tk, d, causal, seq_offset, scale,
+    # q, k, v, o, lse, bh, tq, tk, d, dv, causal, seq_offset, scale,
     # dtype, stream
-    "flash_bwd_dq": ("bigdl_flash_bwd_dq",
-                     [_P] * 7 + [_I] * 6 + [_F, _I, _P]),
-    # q, k, v, g, lse, delta, dk, dv, bh, tq, tk, d, causal, seq_offset,
+    "flash_fwd": ("bigdl_flash_fwd",
+                  [_P] * 5 + [_I] * 7 + [_F, _I, _P]),
+    # q, k, v, g, lse, delta, dq, bh, tq, tk, d, dv, causal, seq_offset,
     # scale, dtype, stream
+    "flash_bwd_dq": ("bigdl_flash_bwd_dq",
+                     [_P] * 7 + [_I] * 7 + [_F, _I, _P]),
+    # q, k, v, g, lse, delta, dk, dv, bh, tq, tk, d, dv, causal,
+    # seq_offset, scale, dtype, stream
     "flash_bwd_dkv": ("bigdl_flash_bwd_dkv",
-                      [_P] * 8 + [_I] * 6 + [_F, _I, _P]),
+                      [_P] * 8 + [_I] * 7 + [_F, _I, _P]),
     # q, kp, vp, tables, lengths, out, part, b, h, d, page_size, maxp,
     # splits, scale, q_dtype, kv_dtype, stream
     "paged_decode": ("bigdl_paged_decode",
@@ -202,16 +202,18 @@ def _stream(t: torch.Tensor) -> int:
 
 def launch_flash_fwd(q, k, v, o, lse, *, causal: bool, scale: float,
                      seq_offset: int = 0) -> None:
-    """q (BH, Tq, D), k/v (BH, Tk, D), o like q, lse (BH, Tq) f32 or
-    None; all contiguous on one card, checked by the caller.  Under
-    ``causal`` query row i sits at absolute position ``seq_offset + i``."""
+    """q (BH, Tq, Dqk), k (BH, Tk, Dqk), v (BH, Tk, Dv), o (BH, Tq, Dv),
+    lse (BH, Tq) f32 or None; all contiguous on one card, checked by the
+    caller.  Under ``causal`` query row i sits at absolute position
+    ``seq_offset + i``."""
     lib = _lib("flash_fwd")
     bh, tq, d = q.shape
     with torch.cuda.device(q.device):
         code = lib.bigdl_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if lse is None else lse.data_ptr(),
-            bh, tq, k.shape[1], d, int(bool(causal)), int(seq_offset),
+            bh, tq, k.shape[1], d, v.shape[2], int(bool(causal)),
+            int(seq_offset),
             float(scale), DTYPE_CODES[q.dtype], _stream(q))
     _check(lib, "flash_fwd", code)
     launches["flash_fwd"] += 1
@@ -219,16 +221,18 @@ def launch_flash_fwd(q, k, v, o, lse, *, causal: bool, scale: float,
 
 def launch_flash_bwd_dq(q, k, v, g, lse, delta, dq, *, causal: bool,
                         scale: float, seq_offset: int = 0) -> None:
-    """q/g/dq (BH, Tq, D), k/v (BH, Tk, D), lse/delta (BH, Tq) f32; all
-    contiguous on one card, q, k, v, g and dq of one dtype, checked by
-    the caller; ``seq_offset`` as in :func:`launch_flash_fwd`."""
+    """q/dq (BH, Tq, Dqk), k (BH, Tk, Dqk), v (BH, Tk, Dv), g (BH, Tq,
+    Dv), lse/delta (BH, Tq) f32; all contiguous on one card, q, k, v, g
+    and dq of one dtype, checked by the caller; ``seq_offset`` as in
+    :func:`launch_flash_fwd`."""
     lib = _lib("flash_bwd_dq")
     bh, tq, d = q.shape
     with torch.cuda.device(q.device):
         code = lib.bigdl_flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, tq,
-            k.shape[1], d, int(bool(causal)), int(seq_offset), float(scale),
+            k.shape[1], d, v.shape[2], int(bool(causal)), int(seq_offset),
+            float(scale),
             DTYPE_CODES[q.dtype], _stream(q))
     _check(lib, "flash_bwd_dq", code)
     launches["flash_bwd_dq"] += 1
@@ -236,17 +240,18 @@ def launch_flash_bwd_dq(q, k, v, g, lse, delta, dq, *, causal: bool,
 
 def launch_flash_bwd_dkv(q, k, v, g, lse, delta, dk, dv, *, causal: bool,
                          scale: float, seq_offset: int = 0) -> None:
-    """q/g (BH, Tq, D), k/v/dk/dv (BH, Tk, D), lse/delta (BH, Tq) f32;
-    all contiguous on one card, the (BH, T, D) tensors of one dtype,
-    checked by the caller; ``seq_offset`` as in
-    :func:`launch_flash_fwd`."""
+    """q (BH, Tq, Dqk), g (BH, Tq, Dv), k/dk (BH, Tk, Dqk), v/dv (BH, Tk,
+    Dv), lse/delta (BH, Tq) f32; all contiguous on one card, the
+    (BH, T, D) tensors of one dtype, checked by the caller;
+    ``seq_offset`` as in :func:`launch_flash_fwd`."""
     lib = _lib("flash_bwd_dkv")
     bh, tq, d = q.shape
     with torch.cuda.device(q.device):
         code = lib.bigdl_flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            bh, tq, k.shape[1], d, int(bool(causal)), int(seq_offset),
+            bh, tq, k.shape[1], d, v.shape[2], int(bool(causal)),
+            int(seq_offset),
             float(scale), DTYPE_CODES[q.dtype], _stream(q))
     _check(lib, "flash_bwd_dkv", code)
     launches["flash_bwd_dkv"] += 1

@@ -40,6 +40,9 @@ from bigdl_tpu_torch.ops import _cuda
 BLOCK_Q = 64
 BLOCK_K = 64
 HEAD_DIMS = (32, 64, 128)
+# (q·k width, v width) pairs the kernels take: every D of HEAD_DIMS, and
+# latent attention's 128 + 64 rotary dims against values of 128 (bf16)
+HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 
 
 def _reference_attention(q, k, v, *, causal: bool, scale: float,
@@ -78,18 +81,19 @@ def _causal_tiles(tq: int, tk: int, causal: bool, seq_offset: int) -> int:
 def flash_attention_plain(q, k, v, *, causal: bool, scale: float,
                           seq_offset: int = 0
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The flash forward in plain torch: q (BH, Tq, D) against k/v
-    (BH, Tk, D), key tiles of ``BLOCK_K`` folded into a running f32
-    (m, l, acc).  Under ``causal`` query row i sits at absolute position
-    ``seq_offset + i`` and sees keys 0..seq_offset + i.  Returns O in
-    q's dtype and the per-row logsumexp (BH, Tq) f32 in scaled-score
-    units.  The arithmetic is the kernel's, tile for tile."""
-    bh, tq, d = q.shape
+    """The flash forward in plain torch: q (BH, Tq, D) against k
+    (BH, Tk, D) and v (BH, Tk, Dv), key tiles of ``BLOCK_K`` folded into
+    a running f32 (m, l, acc).  Under ``causal`` query row i sits at
+    absolute position ``seq_offset + i`` and sees keys 0..seq_offset + i.
+    Returns O in q's dtype and the per-row logsumexp (BH, Tq) f32 in
+    scaled-score units.  The arithmetic is the kernel's, tile for
+    tile."""
+    bh, tq, _ = q.shape
     tk = k.shape[1]
     qs = q.float() * scale
     m = torch.full((bh, tq), float("-inf"), device=q.device)
     l = torch.zeros((bh, tq), device=q.device)
-    acc = torch.zeros((bh, tq, d), device=q.device)
+    acc = torch.zeros((bh, tq, v.shape[-1]), device=q.device)
     qpos = torch.arange(tq, device=q.device)[:, None] + seq_offset
     n_tiles = _causal_tiles(tq, tk, causal, seq_offset)
     for kt in range(n_tiles):
@@ -119,7 +123,7 @@ def _check_flash_args(q, k, v, seq_offset):
         raise ValueError(f"seq_offset must be an int >= 0, got {seq_offset!r}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention wants (B, H, T, D) q, k and v")
-    if k.shape != v.shape or q.shape[:2] != k.shape[:2] \
+    if k.shape[:-1] != v.shape[:-1] or q.shape[:2] != k.shape[:2] \
             or q.shape[-1] != k.shape[-1]:
         raise ValueError(f"flash_attention shapes disagree: q {tuple(q.shape)}"
                          f" k {tuple(k.shape)} v {tuple(v.shape)}")
@@ -132,10 +136,10 @@ def _check_flash_args(q, k, v, seq_offset):
 def flash_bwd_dq_plain(q, k, v, g, lse, delta, *, causal: bool,
                        scale: float, seq_offset: int = 0) -> torch.Tensor:
     """dQ of the flash backward in plain torch (JAX
-    ``_flash_bwd_dq_kernel``, :390-442): q/g (BH, Tq, D), k/v
-    (BH, Tk, D), lse/delta (BH, Tq) f32.  Key tiles of ``BLOCK_K`` up to
-    the causal diagonal (query row i at position ``seq_offset + i``); per
-    tile ``P = exp(scale·q·kᵀ − lse)``,
+    ``_flash_bwd_dq_kernel``, :390-442): q (BH, Tq, D), g (BH, Tq, Dv),
+    k (BH, Tk, D), v (BH, Tk, Dv), lse/delta (BH, Tq) f32.  Key tiles of
+    ``BLOCK_K`` up to the causal diagonal (query row i at position
+    ``seq_offset + i``); per tile ``P = exp(scale·q·kᵀ − lse)``,
     ``dP = g·vᵀ``, ``dS = P∘(dP − δ)``, ``dq += dS·k``; at the end
     ``dq *= scale``.  f32 arithmetic, the result in q's dtype."""
     bh, tq, d = q.shape
@@ -172,18 +176,18 @@ def flash_bwd_dkv_plain(q, k, v, g, lse, delta, *, causal: bool,
     ``dk += dSᵀ·(scale·q)``.  f32 arithmetic, the results in k's and v's
     dtype."""
     bh, tq, d = q.shape
-    tk = k.shape[1]
+    tk, dvw = k.shape[1], v.shape[-1]
     qs = q.float() * scale
     gf = g.float()
     dk = torch.zeros((bh, tk, d), device=q.device)
-    dv = torch.zeros((bh, tk, d), device=q.device)
+    dv = torch.zeros((bh, tk, dvw), device=q.device)
     for kt in range(-(-tk // BLOCK_K)):
         k0, k1 = kt * BLOCK_K, min((kt + 1) * BLOCK_K, tk)
         ks = k[:, k0:k1].float()
         vs = v[:, k0:k1].float()
         kpos = torch.arange(k0, k1, device=q.device)[None, :]
         acc_dk = torch.zeros((bh, k1 - k0, d), device=q.device)
-        acc_dv = torch.zeros((bh, k1 - k0, d), device=q.device)
+        acc_dv = torch.zeros((bh, k1 - k0, dvw), device=q.device)
         lo = max(k0 - seq_offset, 0) // BLOCK_Q if causal else 0
         for qt in range(lo, -(-tq // BLOCK_Q)):
             q0, q1 = qt * BLOCK_Q, min((qt + 1) * BLOCK_Q, tq)
@@ -202,12 +206,16 @@ def flash_bwd_dkv_plain(q, k, v, g, lse, delta, *, causal: bool,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_kernel_args(q):
-    d = q.shape[-1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the flash kernels take D in {HEAD_DIMS}, got {d}")
+def _check_kernel_args(q, v):
+    dims = (q.shape[-1], v.shape[-1])
+    if dims not in HEAD_DIM_PAIRS:
+        raise ValueError(f"the flash kernels take (D, Dv) in "
+                         f"{HEAD_DIM_PAIRS}, got {dims}")
     if q.dtype not in _cuda.DTYPE_CODES:
         raise ValueError(f"the flash kernels take f32 or bf16, got {q.dtype}")
+    if dims[0] != dims[1] and q.dtype != torch.bfloat16:
+        raise ValueError(f"the flash kernels take (D, Dv) = {dims} in bf16 "
+                         f"only, got {q.dtype}")
 
 
 def _check_cp_async_aligned(who: str = "flash_backward", **tensors) -> None:
@@ -227,7 +235,7 @@ def _flash_fwd_operands(q, k, v):
     """q, k and v as the ``flash_fwd`` kernel takes them: checked,
     contiguous and, in bf16 (the tensor-core kernel), 16-byte aligned,
     or a ValueError."""
-    _check_kernel_args(q)
+    _check_kernel_args(q, v)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if q.dtype == torch.bfloat16:
         _check_cp_async_aligned("flash_attention", q=q, k=k, v=v)
@@ -246,7 +254,7 @@ def _flash_forward(q, k, v, *, causal: bool, scale: float, with_lse: bool,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     q, k, v = _flash_fwd_operands(q, k, v)
-    out = torch.empty_like(q)
+    out = q.new_empty(q.shape[:2] + v.shape[2:])
     lse = (torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
            if with_lse else None)
     _cuda.launch_flash_fwd(q, k, v, out, lse, causal=causal, scale=scale,
@@ -273,7 +281,7 @@ def flash_backward(q, k, v, out, lse, g, *, causal: bool, scale: float,
         return dq, dk, dv
     if q.device.type != "cuda":
         raise ValueError(f"flash_backward: unsupported device {q.device}")
-    _check_kernel_args(q)
+    _check_kernel_args(q, v)
     q, k, v, lse = q.contiguous(), k.contiguous(), v.contiguous(), \
         lse.contiguous()
     g = g.to(q.dtype).contiguous()
@@ -318,15 +326,17 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, *, causal: bool = False,
                     scale: Optional[float] = None, seq_offset: int = 0,
                     with_lse: bool = False):
-    """Flash attention over (B, H, Tq, D) q and (B, H, Tk, D) k/v; any Tq
-    and Tk.  Returns O, or (O, lse) with lse (B·H, Tq) f32 when
-    ``with_lse``.  ``seq_offset`` (an int >= 0, JAX's meaning) places
-    the query block at absolute positions [seq_offset, seq_offset + Tq)
-    of the kv sequence under ``causal`` (chunked causal attention); it
-    is ignored when ``causal`` is False.
+    """Flash attention over (B, H, Tq, D) q, (B, H, Tk, D) k and
+    (B, H, Tk, Dv) v; any Tq and Tk.  Returns O (B, H, Tq, Dv), or
+    (O, lse) with lse (B·H, Tq) f32 when ``with_lse``.  ``seq_offset``
+    (an int >= 0, JAX's meaning) places the query block at absolute
+    positions [seq_offset, seq_offset + Tq) of the kv sequence under
+    ``causal`` (chunked causal attention); it is ignored when ``causal``
+    is False.
 
-    A CUDA tensor goes to the ``flash_fwd`` kernel (D in 32/64/128, f32
-    or bf16; bf16 q, k and v 16-byte aligned after ``contiguous``), and
+    A CUDA tensor goes to the ``flash_fwd`` kernel ((D, Dv) in
+    ``HEAD_DIM_PAIRS``: D = Dv in 32/64/128, f32 or bf16, or (192, 128) in
+    bf16; bf16 q, k and v 16-byte aligned after ``contiguous``), and
     anything that kernel does not take raises; a CPU
     tensor goes to :func:`flash_attention_plain`.  Where grad is enabled
     and an input requires it, the call goes through ``_FlashAttention``,
@@ -336,10 +346,10 @@ def flash_attention(q, k, v, *, causal: bool = False,
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     b, h, tq, d = q.shape
-    tk = k.shape[2]
+    tk, dv = k.shape[2], v.shape[-1]
     qr = q.reshape(b * h, tq, d)
     kr = k.reshape(b * h, tk, d)
-    vr = v.reshape(b * h, tk, d)
+    vr = v.reshape(b * h, tk, dv)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         out, lse = _FlashAttention.apply(qr, kr, vr, causal, scale,
@@ -347,7 +357,7 @@ def flash_attention(q, k, v, *, causal: bool = False,
     else:
         out, lse = _flash_forward(qr, kr, vr, causal=causal, scale=scale,
                                   with_lse=with_lse, seq_offset=seq_offset)
-    out = out.reshape(b, h, tq, d)
+    out = out.reshape(b, h, tq, dv)
     return (out, lse) if with_lse else out
 
 

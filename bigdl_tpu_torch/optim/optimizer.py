@@ -21,8 +21,9 @@ freeze mask runs as ``ops.fused_update`` (on the card two launches of
 ``csrc/fused_adam.cu`` over all the tensors, m, v and the parameters
 updated in place; per element the same operations); every other method
 and step takes the per-tensor path.  Under
-``set_compute_dtype("bfloat16")`` every floating parameter and the
-input are cast to bf16 *inside* the
+``set_compute_dtype("bfloat16")`` every floating parameter (but one
+marked ``keep_f32``, as an MoE router's weight) and the input are cast
+to bf16 *inside* the
 differentiated function (``torch.func.functional_call`` with cast
 copies, JAX ``_cast_for_compute`` :515), so the gradients land in f32;
 the loss is taken in f32 (JAX ``_loss_fn`` :532).  A model with
@@ -399,7 +400,8 @@ class LocalOptimizer(BaseOptimizer):
         if ct is None:
             out = self.model(inp, **kw)
         else:
-            cast = {n: p.to(ct) if p.is_floating_point() else p
+            cast = {n: p.to(ct) if p.is_floating_point()
+                    and not getattr(p, "keep_f32", False) else p
                     for n, p in zip(names, params)}
             out = torch.func.functional_call(
                 self.model, cast, (inp.to(ct) if inp.is_floating_point()

@@ -34,6 +34,27 @@ experts get their own gradient, and the dispatch path's input gradient
 is summed over the ranks.  The ``all_to_all`` and
 ``sharding_constraint`` counters and the ``path="moe"`` savings gauge
 record what JAX's :125-156 records.
+
+Beside it, with no JAX counterpart, :class:`SigmoidMoE`: the dropless,
+sigmoid-routed layer with shared experts of DeepSeek-V3 (the published
+``deepseek_v3`` modeling code), told which experts it holds:
+
+* s = sigmoid(x·W_rᵀ) in f32 over all ``n_experts``; the top ``top_k``
+  of s + b, where b (``router.bias``, a buffer that is neither trained
+  nor cast) serves the selection only; gates w_k = ``scaling`` ·
+  s_k / Σ s over the chosen (one expert group: the group-limited
+  selection is the identity);
+* y = Σ over the chosen experts this rank holds (experts [first, first
+  + count)) of w_k·E_k(x), plus the shared experts S(x); E and S are
+  SwiGLUs.  No capacity: no token is dropped.  What the absent experts
+  add is left out, as on one rank of an expert-parallel deployment
+  without its exchange;
+* the held assignments are permuted by expert into one (M, d) buffer of
+  static size (every assignment, each group padded to 8 rows), the
+  group ends kept on the device; each projection of the held experts
+  is one grouped GEMM (``torch._grouped_mm``) over it, and the rows go
+  back weighted by a gather and sum a token.  Nothing in the forward or
+  the backward reads a count on the host.
 """
 
 from __future__ import annotations
@@ -45,8 +66,10 @@ import torch
 import torch.nn.functional as F
 
 from bigdl_tpu_torch.common import RandomGenerator
-from bigdl_tpu_torch.nn.module import AbstractModule
+from bigdl_tpu_torch.nn.mla import SwiGLU, draw
+from bigdl_tpu_torch.nn.module import AbstractModule, Composite
 from bigdl_tpu_torch.parallel.tensor_parallel import _CopyToGroup, constrain
+from bigdl_tpu_torch.utils.profiler import _profiler_enabled, annotate
 
 _EXPERT_PARAMS = ("w_in", "b_in", "w_out", "b_out")
 
@@ -264,4 +287,242 @@ class MoE(AbstractModule):
                 f"experts={self.n_experts}, top_k={self.top_k})")
 
 
-__all__ = ["MoE"]
+# rows a group of the permuted buffer is padded to: the grouped GEMM's
+# weight gradient wants each group's rows a multiple of 16 bytes
+GROUP_ROWS = 8
+# the regions a SigmoidMoE forward opens, in order
+MOE_REGIONS = ("moe.route", "moe.dispatch", "moe.experts", "moe.shared",
+               "moe.combine")
+
+
+def _pad_row(x: torch.Tensor) -> torch.Tensor:
+    """x with one more row of zeros, the row that unused indices read."""
+    return F.pad(x, (0, 0, 0, 1))
+
+
+def dispatch_plan(idx: torch.Tensor, first: int, count: int):
+    """Where each routed assignment goes, all on the device.  ``idx``
+    (S, k) are the chosen experts; experts [first, first + count) are
+    held.  Returns (src, pos, offs, loads): the buffer has M = S·k +
+    GROUP_ROWS·count rows, held expert g's rows (padded to GROUP_ROWS)
+    before g + 1's; ``src`` (M,) is each row's token (S for a padding or
+    unused row), ``pos`` (S, k) each assignment's row (M when the expert
+    is not held), ``offs`` (count,) int32 the groups' row ends, ``loads``
+    (count,) the assignments each held expert got."""
+    s, k = idx.shape
+    n = s * k
+    m = n + GROUP_ROWS * count
+    dev = idx.device
+    local = idx.reshape(-1) - first
+    key = torch.where((local >= 0) & (local < count), local,
+                      torch.full_like(local, count))
+    counts = torch.zeros(count + 1, dtype=torch.int64, device=dev) \
+        .scatter_add_(0, key, torch.ones_like(key))
+    order = torch.argsort(key, stable=True)
+    skey = key[order]
+    rank = torch.arange(n, device=dev) - (torch.cumsum(counts, 0)
+                                          - counts)[skey]
+    padded = (counts[:count] + GROUP_ROWS - 1) // GROUP_ROWS * GROUP_ROWS
+    ends = torch.cumsum(padded, 0)
+    held = skey < count
+    row = torch.where(held, (ends - padded)[skey.clamp(max=count - 1)] + rank,
+                      torch.full_like(skey, m))
+    src = torch.full((m + 1,), s, dtype=torch.int64, device=dev) \
+        .scatter_(0, row, order // k)[:m]
+    pos = torch.empty(n, dtype=torch.int64, device=dev) \
+        .scatter_(0, order, row).view(s, k)
+    return src, pos, ends.to(torch.int32), counts[:count]
+
+
+def _dsilu(x: torch.Tensor) -> torch.Tensor:
+    sig = torch.sigmoid(x)
+    return sig * (1.0 + x * (1.0 - sig))
+
+
+class _RoutedExperts(torch.autograd.Function):
+    """The held experts' part of a SigmoidMoE: x (S, d), w_gate_up
+    (G, d, 2F), w_down (G, F, d), the gates w (S, k) f32 and the plan of
+    :func:`dispatch_plan`; returns Σ_k w·E_k(x) over held experts, (S, d)
+    f32.  Two grouped GEMMs forward and four backward
+    (``torch._grouped_mm``: (M, K) rows in groups ending at ``offs`` by
+    (G, K, N), or (K, M) by (M, N) to (G, K, N) for a weight's
+    gradient; rows past ``offs[-1]`` come out unspecified, and no index
+    reads them).  The backward forms dL/dw from (g·W_downᵀ)·a, so it
+    keeps neither the rows' outputs nor their inputs, only the gate/up
+    product h."""
+
+    @staticmethod
+    def forward(ctx, x, w_gu, w_down, w, src, pos, offs):
+        with annotate("moe.dispatch"):
+            xs = _pad_row(x)[src]
+        with annotate("moe.experts"):
+            h = torch._grouped_mm(xs, w_gu, offs=offs)
+            gate, up = h.chunk(2, dim=-1)
+            y = torch._grouped_mm(F.silu(gate) * up, w_down, offs=offs)
+        with annotate("moe.combine"):
+            out = (_pad_row(y)[pos].float() * w[..., None]).sum(1)
+        ctx.save_for_backward(x, w_gu, w_down, w, src, pos, offs, h)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, w_gu, w_down, w, src, pos, offs, h = ctx.saved_tensors
+        dt, m = x.dtype, src.shape[0]
+        g_rows = _pad_row(g.to(dt))[src]
+        w_rows = torch.zeros(m + 1, dtype=w.dtype, device=w.device) \
+            .scatter_(0, pos.reshape(-1), w.reshape(-1))[:m, None]
+        gate, up = (t.float() for t in h.chunk(2, dim=-1))
+        act = F.silu(gate)
+        a = (act * up).to(dt)
+        e = torch._grouped_mm(g_rows, w_down.transpose(-2, -1),
+                              offs=offs).float()
+        dw = _pad_row((e * a.float()).sum(-1, keepdim=True))[pos][..., 0]
+        dw_down = torch._grouped_mm(a.t(), (g_rows.float() * w_rows).to(dt),
+                                    offs=offs)
+        da = e * w_rows
+        dh = torch.cat((da * up * _dsilu(gate), da * act), dim=-1).to(dt)
+        dw_gu = torch._grouped_mm(_pad_row(x)[src].t(), dh, offs=offs)
+        dxs = torch._grouped_mm(dh, w_gu.transpose(-2, -1), offs=offs)
+        dx = _pad_row(dxs)[pos].float().sum(1).to(dt)
+        return dx, dw_gu, dw_down, dw, None, None, None
+
+
+class MoEStats:
+    """The held experts' loads by layer, (layers, count) on the device:
+    each SigmoidMoE forward that runs while a profiler or the obs tracer
+    records adds its loads there, with no read of its own; :meth:`read`
+    reads them once, after the run."""
+
+    def __init__(self, n_layers: int, count: int, device):
+        self.loads = torch.zeros((n_layers, count), dtype=torch.int64,
+                                 device=device)
+
+    def add(self, layer: int, loads: torch.Tensor) -> None:
+        self.loads[layer].add_(loads)
+
+    def read(self) -> dict:
+        """{"held": routed assignments to held experts by layer,
+        "max_over_mean": the largest held expert's load over the mean,
+        by layer (0 for a layer that saw nothing)}."""
+        loads = self.loads.double().cpu()
+        mean = loads.mean(1)
+        return {"held": loads.sum(1).long().tolist(),
+                "max_over_mean": torch.where(
+                    mean > 0, loads.max(1).values / mean.clamp_min(1e-30),
+                    torch.zeros_like(mean)).tolist()}
+
+    def publish(self, registry=None) -> dict:
+        """:meth:`read`, also into the obs registry (by default the
+        process's) under ``MOE_HELD_ASSIGNMENTS_TOTAL`` and
+        ``MOE_MAX_LOAD_RATIO``, one label a layer; returns the read."""
+        from bigdl_tpu_torch import obs
+        from bigdl_tpu_torch.obs import names
+
+        out = self.read()
+        reg = registry if registry is not None else obs.get_registry()
+        held = reg.counter(names.MOE_HELD_ASSIGNMENTS_TOTAL,
+                           "Routed assignments to held experts",
+                           labels=("layer",))
+        ratio = reg.gauge(names.MOE_MAX_LOAD_RATIO,
+                          "Largest held expert's load over the mean",
+                          labels=("layer",))
+        for layer, (n, r) in enumerate(zip(out["held"],
+                                           out["max_over_mean"])):
+            held.labels(layer=str(layer)).inc(n)
+            ratio.labels(layer=str(layer)).set(r)
+        return out
+
+
+class Router(AbstractModule):
+    """The gate: ``weight`` (n_experts, dim), run in f32 (``keep_f32``:
+    the trainer's compute-dtype cast leaves it alone), and ``bias``
+    (n_experts,), the selection bias, a state buffer."""
+
+    param_names = ("weight",)
+    state_names = ("bias",)
+
+    def __init__(self, dim: int, n_experts: int, std: float,
+                 generator: torch.Generator):
+        super().__init__()
+        self._set_param("weight", draw((n_experts, dim), std, generator))
+        self.weight.keep_f32 = True
+        self.register_buffer("bias", torch.zeros(n_experts,
+                                                 device=generator.device))
+
+
+class HeldExperts(AbstractModule):
+    """The SwiGLU experts this rank holds, stacked for the grouped GEMM:
+    ``w_gate_up`` (count, dim, 2·hidden), gate's columns first, and
+    ``w_down`` (count, hidden, dim)."""
+
+    param_names = ("w_gate_up", "w_down")
+
+    def __init__(self, dim: int, hidden: int, count: int, std: float,
+                 generator: torch.Generator):
+        super().__init__()
+        self._set_param("w_gate_up", draw((count, dim, 2 * hidden), std,
+                                          generator))
+        self._set_param("w_down", draw((count, hidden, dim), std, generator))
+
+
+class SigmoidMoE(Composite):
+    """The dropless, sigmoid-routed MoE with shared experts (the module
+    docstring): (B, T, dim) -> (B, T, dim).  Children ``router``,
+    ``experts`` (the held ``count`` of ``n_experts``, from ``first``) and
+    ``shared`` (a SwiGLU of width ``n_shared · hidden``).  ``stats``
+    (a :class:`MoEStats`) takes this layer's loads as row ``layer``."""
+
+    def __init__(self, dim: int, hidden: int, n_experts: int, top_k: int,
+                 n_shared: int, scaling: float, first: int, count: int,
+                 std: float, generator: torch.Generator,
+                 stats: "MoEStats" = None, layer: int = 0):
+        super().__init__()
+        if first < 0 or first + count > n_experts:
+            raise ValueError(f"held experts [{first}, {first + count}) "
+                             f"outside the {n_experts} routed")
+        self.n_experts, self.top_k, self.scaling = n_experts, top_k, scaling
+        self.first, self.count = first, count
+        self.stats, self.layer = stats, layer
+        self._add_child("router", Router(dim, n_experts, std, generator))
+        self._add_child("experts", HeldExperts(dim, hidden, count, std,
+                                               generator))
+        self._add_child("shared", SwiGLU(dim, n_shared * hidden, std,
+                                         generator))
+
+    def route(self, x: torch.Tensor):
+        """(idx, w): the chosen experts (S, k) of x (S, dim) and their
+        gates, f32."""
+        router = self.router
+        s = torch.sigmoid(F.linear(x.float(), router.weight.float()))
+        idx = torch.topk(s + router.bias, self.top_k, dim=-1).indices
+        g = s.gather(1, idx)
+        return idx, g / (g.sum(-1, keepdim=True) + 1e-20) * self.scaling
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, d = x.shape
+        xs = x.reshape(b * t, d)
+        with annotate("moe.route"):
+            idx, w = self.route(xs)
+        with annotate("moe.dispatch"):
+            src, pos, offs, loads = dispatch_plan(idx, self.first,
+                                                  self.count)
+            if self.stats is not None and (
+                    _profiler_enabled() or _tracer_enabled()):
+                self.stats.add(self.layer, loads)
+        routed = _RoutedExperts.apply(xs, self.experts.w_gate_up,
+                                      self.experts.w_down, w, src, pos, offs)
+        with annotate("moe.shared"):
+            shared = self.shared(xs)
+        with annotate("moe.combine"):
+            return (routed.to(x.dtype) + shared).view(b, t, d)
+
+
+def _tracer_enabled() -> bool:
+    from bigdl_tpu_torch import obs
+
+    return obs.get_tracer().enabled
+
+
+__all__ = ["MoE", "SigmoidMoE", "MoEStats", "Router", "HeldExperts",
+           "dispatch_plan", "GROUP_ROWS", "MOE_REGIONS"]

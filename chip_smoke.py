@@ -539,6 +539,28 @@ it runs; any failure exits non-zero:
     ``fused`` (the tracer on), its 4 losses and weights against the
     per-tensor path's within 1e-5 relative, and a NaN batch skipped with
     p, m, v and ``neval`` kept bit for bit;
+31. latent attention and the sigmoid MoE (``phase_mla``, callable
+    alone after ``phase_device()``; it returns its kernels-line rows):
+    (a) rows 1-3's (192, 128) instantiation at the
+    shape of the ``moonlight-16b-a3b.train.t8192`` cell (bf16, B=1,
+    H=16, T=8192, causal, scale 1/sqrt(192)) against the plain versions,
+    each output within one bf16 ulp of its largest |value| (phases 3
+    and 10's limit), bit-equal run to run; each kernel's time on the
+    device, TFLOP/s and share of the bound (2(Dqk + Dv), 2(2·Dqk + Dv)
+    and 4(Dqk + Dv) FLOPs a causal pair), and the plain versions' times;
+    (b) one ``SigmoidMoE`` at Moonlight-16B-A3B's widths (2048, experts
+    of 1408, top-6 of 64, 2 shared, experts 8-15 held) on 8192 bf16
+    tokens: forward and backward under
+    ``torch.cuda.set_sync_debug_mode("error")``, the output within
+    ``MOE_REL_TOL`` of ``tests/plain_deepseek_v3.py``'s ``moe`` in f32 on
+    the same bf16 values, and every gradient finite; (c)
+    ``DeepseekV3LM`` at those widths, a dense layer and 2 MoE layers,
+    vocabulary 20,480, trained ``MLA_STEPS`` steps by ``LocalOptimizer``
+    (bf16, Adam 3e-4, L2 clip 1.0) on 1 x 8192 tokens with
+    ``attn_impl="reference"`` and then ``"kernel"`` from the same
+    weights: the launches, reset before the kernel arm, one of each of
+    rows 1-3 a layer and step (and two ``fused_adam``), none in the
+    reference arm, the two arms' losses within ``LM_LOSS_TOL``;
 9. the kernels line, last: one JSON object listing each kernel with its
    launches on its own path (phase 4 for the paged decode, phase 29 for
    rows 1-5: (a)'s classic loop for the flash kernels and (b)'s for the
@@ -546,7 +568,8 @@ it runs; any failure exits non-zero:
    numbers from phase
    3, 6 or 10 (rows 1-3 also phase 24 (a)'s offset times; rows 1 and 6
    phase 25 (a)'s launches on each TP rank and row 6 its times at H=4;
-   rows 1-3 phase 25 (b)'s launches; the fused update phase 30 (b)'s).
+   rows 1-3 phase 25 (b)'s launches; the fused update phase 30 (b)'s;
+   rows 1-3 at (192, 128) phase 31 (a)'s numbers and (c)'s launches).
 
 The last line is ``{"ok": true, "device": {...}}``, after the card's
 name and power limit and the script's total seconds.
@@ -588,11 +611,14 @@ DKV_REPLACES = "bigdl_tpu/ops/attention.py:445"
 # the kernels phase 2 reads in the SASS, by source: each has a bf16
 # kernel on the tensor cores and an f32 one on the CUDA cores, with the
 # integer template arguments each is instantiated at (the flash kernels'
-# head dim D, the 1x1 conv's pixels per B copy VEC; None: not templated
-# on an integer)
-TENSOR_CORE_KERNELS = {"flash_fwd": ("D", (32, 64, 128), (32, 64, 128)),
-                       "flash_bwd_dq": ("D", (32, 64, 128), (32, 64, 128)),
-                       "flash_bwd_dkv": ("D", (32, 64, 128), (32, 64, 128)),
+# head dim D, 192 standing for (D_qk, D_v) = (192, 128), bf16 only; the
+# 1x1 conv's pixels per B copy VEC; None: not templated on an integer)
+TENSOR_CORE_KERNELS = {"flash_fwd": ("D", (32, 64, 128, 192),
+                                     (32, 64, 128)),
+                       "flash_bwd_dq": ("D", (32, 64, 128, 192),
+                                        (32, 64, 128)),
+                       "flash_bwd_dkv": ("D", (32, 64, 128, 192),
+                                         (32, 64, 128)),
                        "conv_bn_kxk": ("", (None,), (None,)),
                        "conv_bn_1x1": ("VEC", (8, 4, 2, 1), (None,))}
 # a profiler key of one of csrc/'s kernels (all in anonymous namespaces;
@@ -663,6 +689,20 @@ LM = dict(dim=512, n_head=8, n_layer=8)
 LM_VOCAB, LM_BATCH, LM_T, LM_STEPS = 8192, 16, 512, 5
 LONG_BATCH, LONG_T = 2, 4096
 LM_GRAD_REL_TOL, LM_LOSS_TOL = 1e-4, 1e-2
+# phase 31: Moonlight-16B-A3B's widths (the benchmark's
+# configs/moonlight-16b-a3b.json), the (192, 128) kernels' shape (the
+# cell's: B=1, H=16, T=8192), the LM's layers and steps, and the MoE
+# layer's limit against its plain f32 version: 3e-2 of the largest |y|
+# (the grouped GEMMs round x, h and the products to bf16; the routing
+# is the same f32 product of the same bf16 x on both sides, so no
+# choice differs, and one expert's rows at a wrong group offset err by
+# the size of y itself)
+MLA = dict(vocab=20480, dim=2048, dense=11264, heads=16, nope=128, rope=64,
+           dv=128, rank=512, hidden=1408, experts=64, top_k=6, shared=2,
+           scaling=2.446, held=8, theta=50000.0)
+MLA_B, MLA_H, MLA_T = 1, 16, 8192
+MLA_LAYERS, MLA_STEPS = 3, 3
+MOE_REL_TOL = 3e-2
 # the PTB LM (phase 13): bench.py:414-426's model on synthetic_ptb_stream's
 # tokens in BPTT windows (15 windows of 64 x 20: one epoch is 15 steps);
 # the limits on each card loss against the CPU run's (relative) and on
@@ -10050,6 +10090,244 @@ def phase_fused_update(smi: str) -> dict:
                 trainer_launches=launches)
 
 
+def _p31_flash() -> list:
+    """Phase 31 (a): rows 1-3 at (192, 128) and the cell's shape against
+    the plain versions, timed; returns their three kernels-line rows."""
+    from bigdl_tpu_torch.ops import _cuda
+    from bigdl_tpu_torch.ops.attention import (flash_attention,
+                                               flash_attention_plain,
+                                               flash_backward,
+                                               flash_bwd_dkv_plain,
+                                               flash_bwd_dq_plain)
+
+    b, h, t = MLA_B, MLA_H, MLA_T
+    dqk, dv = MLA["nope"] + MLA["rope"], MLA["dv"]
+    bh, scale, kw = b * h, dqk ** -0.5, dict(causal=True)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(31)
+    q, k = (torch.randn((b, h, t, dqk), generator=gen, device=DEV)
+            .bfloat16() for _ in range(2))
+    v, g = (torch.randn((b, h, t, dv), generator=gen, device=DEV)
+            .bfloat16() for _ in range(2))
+    out, lse = flash_attention(q, k, v, scale=scale, with_lse=True, **kw)
+    out2, lse2 = flash_attention(q, k, v, scale=scale, with_lse=True, **kw)
+    fq, fk, fv, fg = (x.reshape(bh, t, -1) for x in (q, k, v, g))
+    fo = out.reshape(bh, t, dv)
+    got = flash_backward(fq, fk, fv, fo, lse, fg, scale=scale, **kw)
+    again = flash_backward(fq, fk, fv, fo, lse, fg, scale=scale, **kw)
+    torch.cuda.synchronize()
+    name = f"(192, 128) B={b} H={h} T={t} bf16 causal"
+    if not (torch.equal(out, out2) and torch.equal(lse, lse2)
+            and all(torch.equal(x, y) for x, y in zip(got, again))):
+        raise AssertionError(f"{name}: two runs on one input differ")
+    del out2, lse2, again
+    ref, ref_lse = flash_attention_plain(fq, fk, fv, scale=scale, **kw)
+    delta = (fg.float() * fo.float()).sum(dim=-1)
+    want = (flash_bwd_dq_plain(fq, fk, fv, fg, lse, delta, scale=scale, **kw),
+            *flash_bwd_dkv_plain(fq, fk, fv, fg, lse, delta, scale=scale,
+                                 **kw))
+    errs = {}
+    for which, x, w in (("o", fo, ref), ("dq", got[0], want[0]),
+                        ("dk", got[1], want[1]), ("dv", got[2], want[2])):
+        if x.dtype != torch.bfloat16 or x.shape != w.shape:
+            raise AssertionError(f"{name} {which}: {x.dtype} {x.shape}")
+        errs[which] = (x.float() - w.float()).abs().max().item()
+        check(f"phase 31 {name} {which}", errs[which],
+              _bf16_ulp(w.float().abs().max().item()))
+    lse_err = (lse - ref_lse).abs().max().item()
+    check(f"phase 31 {name} lse", lse_err, F32_TOL)
+    say(f"phase 31 (a) {name}: max abs err o {errs['o']:.3e}, dq "
+        f"{errs['dq']:.3e}, dk {errs['dk']:.3e}, dv {errs['dv']:.3e} (each "
+        f"within one bf16 ulp of its largest |value|), lse {lse_err:.3e}; "
+        "bit-equal run to run")
+    del ref, ref_lse, want, got
+    torch.cuda.empty_cache()
+
+    dq, dk, dvv = (torch.empty_like(x) for x in (fq, fk, fv))
+    launch = dict(
+        flash_fwd=lambda: _cuda.launch_flash_fwd(
+            fq, fk, fv, fo, lse, scale=scale, **kw),
+        flash_bwd_dq=lambda: _cuda.launch_flash_bwd_dq(
+            fq, fk, fv, fg, lse, delta, dq, scale=scale, **kw),
+        flash_bwd_dkv=lambda: _cuda.launch_flash_bwd_dkv(
+            fq, fk, fv, fg, lse, delta, dk, dvv, scale=scale, **kw))
+    plain = dict(
+        flash_fwd=lambda: flash_attention_plain(fq, fk, fv, scale=scale,
+                                                **kw),
+        flash_bwd_dq=lambda: flash_bwd_dq_plain(fq, fk, fv, fg, lse, delta,
+                                                scale=scale, **kw),
+        flash_bwd_dkv=lambda: flash_bwd_dkv_plain(fq, fk, fv, fg, lse, delta,
+                                                  scale=scale, **kw))
+    pairs = bh * t * (t + 1) / 2
+    rows_b = 2 * bh * t * 4                     # lse and delta read
+    cost = {  # (FLOPs a causal pair, bytes: inputs read, outputs written)
+        "flash_fwd": (2 * (dqk + dv),
+                      bh * t * (2 * dqk + 2 * dv) * 2 + bh * t * 4),
+        "flash_bwd_dq": (2 * (2 * dqk + dv),
+                         bh * t * (3 * dqk + 2 * dv) * 2 + rows_b),
+        "flash_bwd_dkv": (4 * (dqk + dv),
+                          bh * t * (3 * dqk + 3 * dv) * 2 + rows_b)}
+    err_of = {"flash_fwd": errs["o"], "flash_bwd_dq": errs["dq"],
+              "flash_bwd_dkv": max(errs["dk"], errs["dv"])}
+    rows = []
+    for kern, (per_pair, nbytes) in cost.items():
+        flops = per_pair * pairs
+        dev_ms = time_ms(launch[kern], reps=10, device_only=True)
+        plain_ms = time_ms(plain[kern], reps=2, warmup=1)
+        bound_ms, by = bound(nbytes, flops, torch.bfloat16)
+        row = dict(name=f"{kern}_192x128", route="cuda",
+                   source=f"bigdl_tpu_torch/csrc/{kern}.cu <192, 128>",
+                   replaces="none: the JAX package has no latent attention",
+                   shape=f"B={b} H={h} T={t} (192, 128) bf16 causal",
+                   max_abs_err_bf16=err_of[kern],
+                   device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=by, tflops=flops / (dev_ms * 1e-3) / 1e12,
+                   share=bound_ms / dev_ms)
+        say(f"phase 31 (a) {kern} (192, 128): {dev_ms:.4f} ms on the "
+            f"device ({row['tflops']:.1f} TFLOP/s, {row['share']:.3f} of "
+            f"the bound {bound_ms:.4f} ms by {by}); plain {plain_ms:.2f} ms")
+        rows.append(row)
+    return rows
+
+
+def _p31_moe() -> None:
+    """Phase 31 (b): one SigmoidMoE layer at the cell's widths, with no
+    host sync, against its plain f32 version."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import plain_deepseek_v3 as P
+    from bigdl_tpu_torch.parallel.moe import SigmoidMoE
+
+    d, first = MLA["dim"], MLA["held"]
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(312)
+    layer = SigmoidMoE(d, MLA["hidden"], MLA["experts"], MLA["top_k"],
+                       MLA["shared"], MLA["scaling"], first, MLA["held"],
+                       0.02, gen)
+    layer.to(DEV)
+    with torch.no_grad():
+        layer.router.bias.copy_(torch.randn(MLA["experts"], generator=gen,
+                                            device=DEV) * 0.1)
+    x = torch.randn(1, MLA_T, d, generator=gen, device=DEV).bfloat16() \
+        .requires_grad_(True)
+    params = {n: p if getattr(p, "keep_f32", False) else p.bfloat16()
+              for n, p in layer.named_parameters()}
+    torch.func.functional_call(layer, params, (x,)).float().sum()  # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = torch.func.functional_call(layer, params, (x,))
+        grads = torch.autograd.grad(out.float().square().mean(),
+                                    [x] + list(params.values()))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(gr).all()) for gr in grads)
+    cfg = {"router_experts": MLA["experts"], "num_experts_per_tok":
+           MLA["top_k"], "routed_scaling_factor": MLA["scaling"],
+           "first_held_expert": first, "n_routed_experts": MLA["held"]}
+    w = {"h1.mlp." + n: p.detach().float() for n, p in params.items()}
+    with torch.no_grad():
+        ref = P.moe(x.detach().float(), w, "h1.", layer.router.bias, cfg)
+    err = (out.detach().float() - ref).abs().max().item()
+    mag = ref.abs().max().item()
+    with torch.no_grad():
+        idx = layer.route(x.detach().reshape(-1, d))[0]
+    held = int(((idx >= first) & (idx < first + MLA["held"])).sum())
+    say(f"phase 31 (b) SigmoidMoE at Moonlight's widths, {MLA_T} bf16 "
+        f"tokens, experts {first}-{first + MLA['held'] - 1} held "
+        f"({held} of {MLA_T * MLA['top_k']} assignments): forward and "
+        f"backward with no host sync; max abs err {err:.3e} against the "
+        f"plain f32 layer, largest |y| {mag:.3e} (limit {MOE_REL_TOL:g} of "
+        f"it); gradients finite: {finite}")
+    if not (err <= MOE_REL_TOL * mag and finite and held > 0):
+        raise AssertionError("phase 31 (b): the MoE layer is off its plain "
+                             "version")
+
+
+def _p31_arm(impl: str, x, y):
+    """Phase 31 (c): ``DeepseekV3LM`` trained by ``LocalOptimizer``;
+    returns (losses, launches)."""
+    from bigdl_tpu_torch.dataset.dataset import ArrayDataSet
+    from bigdl_tpu_torch.models.deepseek_v3 import DeepseekV3LM
+    from bigdl_tpu_torch.nn.criterion import CrossEntropyCriterion
+    from bigdl_tpu_torch.ops import _cuda
+    from bigdl_tpu_torch.optim import Adam, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.parallel.moe import SigmoidMoE
+
+    m = MLA
+    model = DeepseekV3LM(
+        m["vocab"], m["dim"], MLA_LAYERS, 1, m["heads"], m["nope"],
+        m["rope"], m["dv"], m["rank"], m["dense"], m["hidden"],
+        m["experts"], m["top_k"], m["shared"], m["scaling"], 0, m["held"],
+        m["theta"], 1e-5, 1e-6, attn_impl=impl, seed=31, device=DEV)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(313)
+    with torch.no_grad():
+        for i in range(MLA_LAYERS):
+            mlp = model.child(f"h{i}").mlp
+            if isinstance(mlp, SigmoidMoE):
+                mlp.router.bias.copy_(torch.randn(
+                    m["experts"], generator=gen, device=DEV) * 0.1)
+    losses = _Losses()
+    opt = LocalOptimizer(model, ArrayDataSet(x, y, MLA_B, shuffle=False),
+                         CrossEntropyCriterion(), batch_size=MLA_B,
+                         device=DEV)
+    opt.set_optim_method(Adam(learningrate=3e-4))
+    opt.set_compute_dtype("bfloat16")
+    opt.set_gradient_clipping_by_l2_norm(1.0)
+    opt.set_train_summary(losses)
+    _cuda.reset_launches()
+    opt.set_end_when(Trigger.max_iteration(MLA_STEPS)).optimize()
+    torch.cuda.synchronize()
+    loss = [losses.loss[n] for n in sorted(losses.loss)]
+    if len(loss) != MLA_STEPS or not all(np.isfinite(loss)):
+        raise AssertionError(f"phase 31 (c) {impl} arm: losses {loss}")
+    return loss, dict(_cuda.launches)
+
+
+def phase_mla(smi: str) -> list:
+    """Phase 31 (see the docstring); returns the kernels line's rows of
+    rows 1-3 at (192, 128), each with its launches in (c)."""
+    t_phase = time.perf_counter()
+    rows = _p31_flash()
+    torch.cuda.empty_cache()
+    _p31_moe()
+    torch.cuda.empty_cache()
+    rs = np.random.RandomState(31)
+    x = rs.randint(0, MLA["vocab"], (MLA_STEPS, MLA_T)).astype(np.int64)
+    y = (rs.randint(0, MLA["vocab"], (MLA_STEPS, MLA_T)) + 1) \
+        .astype(np.float32)
+    arms = {}
+    for impl in ("reference", "kernel"):
+        arms[impl] = _p31_arm(impl, x, y)
+        torch.cuda.empty_cache()
+    (r_loss, r_launch), (k_loss, k_launch) = arms["reference"], arms["kernel"]
+    gaps = [abs(a - b) for a, b in zip(k_loss, r_loss)]
+    flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    say(f"phase 31 (c) DeepseekV3LM, {MLA_LAYERS} layers (1 dense), "
+        f"1 x {MLA_T} tokens, bf16 Adam, {MLA_STEPS} steps: losses kernel "
+        f"{['%.5f' % v for v in k_loss]}, reference "
+        f"{['%.5f' % v for v in r_loss]}, gaps {['%.2e' % v for v in gaps]} "
+        f"(limit {LM_LOSS_TOL:g}); launches kernel arm "
+        f"{[k_launch[k] for k in flash]} + fused_adam "
+        f"{k_launch['fused_adam']}, reference arm "
+        f"{[r_launch[k] for k in flash]}")
+    want = MLA_LAYERS * MLA_STEPS
+    if [k_launch[k] for k in flash] != [want] * 3 \
+            or any(r_launch[k] for k in flash) \
+            or k_launch["fused_adam"] != 2 * MLA_STEPS:
+        raise AssertionError(f"phase 31 (c) launches {k_launch} / "
+                             f"{r_launch}, want {want} of each flash kernel")
+    if not all(gp <= LM_LOSS_TOL for gp in gaps):
+        raise AssertionError("phase 31 (c): the arms' losses differ")
+    for row in rows:
+        row["launches"] = k_launch[row["name"][:-len("_192x128")]]
+    print(smi, flush=True)
+    say(f"phase 31 took {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -10108,6 +10386,9 @@ def main() -> int:
     fused = phase_fused_update(smi)
     kernels.append(fused)
     launches["fused_adam"] = fused["trainer_launches"]
+    mla = phase_mla(smi)
+    kernels += mla
+    launches.update({k["name"]: k["launches"] for k in mla})
     for k in kernels:
         k.update(offsets.get(k["name"], {}))
         k.update(tp_rows.get(k["name"], {}))
